@@ -1,0 +1,49 @@
+"""Parameters across the boundary between the two packages, through numpy.
+
+The reference's parameter pytree (nested dicts and lists of arrays, main
+group leaves stacked on a leading axis) maps one to one onto the port's:
+same keys, same shapes, same axis orders.  Nothing here imports JAX; any
+leaf that ``numpy.asarray`` takes will do.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+
+
+def map_params(fn, tree, key=None):
+    """Apply ``fn(key, leaf)`` to every leaf of a nested dict/list tree;
+    ``key`` is the dict key the leaf sits under."""
+    if isinstance(tree, dict):
+        return {k: map_params(fn, v, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_params(fn, v, key) for v in tree)
+    return fn(key, tree)
+
+
+def cast_params(params, dtype: torch.dtype, device=None):
+    """Matrices and the embedding table in ``dtype``; norm scales stay f32,
+    because the layers apply them as ``scale.astype(f32)`` and a narrower
+    copy would change the numbers."""
+    def cast(key, leaf):
+        return leaf.to(device=device, dtype=torch.float32 if key == "scale"
+                       else dtype)
+    return map_params(cast, params)
+
+
+def params_from_numpy(tree, device=None, dtype: torch.dtype = torch.float32):
+    """The reference's parameters (arrays, as numpy takes them) as the
+    port's tensors on ``device`` (CUDA unless the caller asks for the CPU),
+    cast as ``cast_params`` does."""
+    dev = resolve_device(device)
+    tensors = map_params(
+        lambda _k, a: torch.from_numpy(np.array(a, dtype=np.float32)), tree)
+    return cast_params(tensors, dtype, dev)
+
+
+def params_to_numpy(params):
+    """The port's parameters as f32 numpy arrays, in the same tree."""
+    return map_params(lambda _k, t: t.detach().float().cpu().numpy(), params)

@@ -1,0 +1,24 @@
+"""Kernels written by hand for Hopper (sm_90a), in CUDA C++.
+
+Each kernel: a source under ``csrc/``, a wrapper module that checks its
+inputs and launches it on PyTorch's current stream (and counts launches),
+and a plain PyTorch version in ``ref.py`` that the wrapper runs for CPU
+tensors and that tests hold the kernel against.  ``_build`` compiles the
+sources with ``nvcc`` at first use.
+"""
+
+from . import ref
+from .decode_attention import paged_decode_attention
+from .rmsnorm import rmsnorm
+
+KERNELS = (rmsnorm, paged_decode_attention)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+__all__ = ["KERNELS", "paged_decode_attention", "ref", "reset_launch_counts",
+           "rmsnorm"]

@@ -1,0 +1,139 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (all sources at
+once, one process each) and linked into one shared library with a plain C
+interface.  The library lands in ``build/kernels/<hash>/`` at the root of
+the checkout, keyed by a hash of the sources and the flags, so an edit
+rebuilds and an unchanged tree reuses the last build.  Nothing is built
+when the module is imported.  A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # as in csrc/common.cuh
+# every entry point returns the cudaError_t of its launch
+_SIGNATURES = {
+    "repro_rmsnorm": ([_int, _int, _vp, _vp, _vp, _int, _int, _float, _vp],
+                      ctypes.c_int),
+    "repro_paged_decode_attention": (
+        [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
+         _int, _int, _float, _vp], ctypes.c_int),
+    "repro_paged_decode_smem_bytes": ([_int, _int], ctypes.c_longlong),
+    "repro_error_string": ([_int], ctypes.c_char_p),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / source_hash() / "librepro_kernels.so"
+
+
+def build() -> Path:
+    """Compile and link the kernels unless this source hash is built."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+                   "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for src, _obj, proc in procs:
+            text, _ = proc.communicate()
+            log.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                               + "\n".join(log))
+        staged = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(staged),
+             *(str(obj) for _src, obj, _proc in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+        (out.parent / "build.log").write_text("\n".join(log))
+        os.replace(staged, out)  # atomic: a concurrent build sees all or nothing
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if err != 0:
+        text = library().repro_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({text}) at launch")
+
+
+def check_inputs(name: str, device: torch.device, **tensors) -> None:
+    """The wrappers' common checks: every tensor on ``device`` (a CUDA
+    device) and contiguous.  Raises on anything the kernels do not take."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {device}; the kernel takes "
+                         "CUDA tensors and the plain version CPU tensors")
+    for arg, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def stream(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the handle C takes."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,38 @@
+"""RMSNorm: the wrapper of the CUDA kernel ``csrc/rmsnorm.cu``.
+
+Replaces the Pallas TPU kernel ``repro/kernels/rmsnorm.py::rmsnorm``.  A
+tensor on the CPU takes the plain version (``ref.rmsnorm_ref``); a CUDA
+tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .ref import rmsnorm_ref
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x (..., d) f32 or bf16; scale (d,) f32 -> same shape and dtype as x."""
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, scale, eps)
+    _build.check_inputs("rmsnorm", x.device, x=x, scale=scale)
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"rmsnorm: x dtype {x.dtype} is not float32/bfloat16")
+    d = x.shape[-1]
+    if d == 0 or scale.shape != (d,) or scale.dtype != torch.float32:
+        raise ValueError(f"rmsnorm: scale must be float32 of shape ({d},), "
+                         f"got {scale.dtype} {tuple(scale.shape)}")
+    out = torch.empty_like(x)
+    err = _build.library().repro_rmsnorm(
+        x.device.index, _build.DTYPE_CODES[x.dtype], x.data_ptr(),
+        scale.data_ptr(), out.data_ptr(), x.numel() // d, d, eps,
+        _build.stream(x.device))
+    _build.check(err, "rmsnorm")
+    rmsnorm.launches += 1
+    return out
+
+
+rmsnorm.launches = 0  # kernel launches since the count was last reset

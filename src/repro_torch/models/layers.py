@@ -1,0 +1,136 @@
+"""Shared model layers: norms, RoPE, decode attention, MLPs.
+
+Ported from ``repro/models/layers.py``.  Parameters are plain nested dicts
+of tensors; compute runs in the compute dtype with f32 accumulation where
+the reference asks for it (``preferred_element_type=float32``).  The
+reference's sharding annotations have no counterpart here.  Full-sequence
+attention (``blockwise_causal_attention`` and friends) comes with
+``forward``, in a later slice.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import partial
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import rmsnorm as rmsnorm_kernel
+
+NEG_INF = -1e30
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for 2-D ``b``, accumulated and returned in f32: the
+    reference's ``preferred_element_type=jnp.float32``.  bf16 operands on the
+    card keep their width (no f32 copy of a weight); on the CPU they are
+    widened first."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        lead = a.shape[:-1]
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*lead, b.shape[-1])
+    return a.float() @ b.float()
+
+
+# --------------------------------------------------------------------- norms
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """The RMSNorm kernel at a norm site: f32 statistics, ``(1 + scale)``."""
+    return rmsnorm_kernel(x.contiguous(), scale.float(), eps)
+
+
+def init_rmsnorm(d: int, device) -> dict:
+    # stored as deltas from 1.0 (gemma convention); init 0 == unit scale
+    return {"scale": torch.zeros(d, dtype=torch.float32, device=device)}
+
+
+# ---------------------------------------------------------------------- rope
+
+
+def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions (...,) int -> (sin, cos) each (..., head_dim/2) f32."""
+    half = head_dim // 2
+    exps = -torch.arange(half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=positions.device), exps)
+    angles = positions.float()[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor,
+               cos: torch.Tensor) -> torch.Tensor:
+    """x (..., H, D); sin/cos (..., D/2): rotate the two halves in f32."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    sin = sin[..., None, :].float()
+    cos = cos[..., None, :].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- attention
+
+
+def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
+    """Single-token attention against a dense cache, the plain path.
+
+    q (B,H,D); caches (B,Smax,KV,D); lengths (B,) = #valid positions.  The
+    reference's ring-buffer mode (``window``) comes with local attention.
+    """
+    B, H, D = q.shape
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) / math.sqrt(D)
+    valid = torch.arange(Smax, device=q.device)[None, :] < lengths[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.full((), NEG_INF,
+                                                           device=q.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+# ----------------------------------------------------------------------- mlp
+
+
+def act_fn(name: str):
+    return {"silu": F.silu, "gelu": partial(F.gelu, approximate="tanh")}[name]
+
+
+def mlp_apply(params: dict, x: torch.Tensor, act: str,
+              gated: bool) -> torch.Tensor:
+    dt = x.dtype
+    u = matmul_f32(x, params["w_up"].to(dt))
+    if gated:
+        g = matmul_f32(x, params["w_gate"].to(dt))
+        h = (act_fn(act)(g) * u).to(dt)
+    else:
+        h = act_fn(act)(u).to(dt)
+    return h @ params["w_down"].to(dt)
+
+
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, gated: bool,
+             out_scale: float = 1.0) -> dict:
+    p = {
+        "w_up": dense_init(gen, (d, d_ff)),
+        "w_down": dense_init(gen, (d_ff, d), scale=out_scale),
+    }
+    if gated:
+        p["w_gate"] = dense_init(gen, (d, d_ff))
+    return p
+
+
+def dense_init(gen: torch.Generator, shape, scale: float = 1.0) -> torch.Tensor:
+    """Normal weights with std ``scale / sqrt(shape[-2])``, as the reference
+    draws them, on the generator's device."""
+    fan_in = max(shape[-2] if len(shape) >= 2 else 1, 1)
+    std = scale / math.sqrt(fan_in)
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device) * std
