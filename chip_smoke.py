@@ -9,14 +9,24 @@ tolerance miss:
 1. device: the card's name, count and power limit;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels: hold each kernel against its plain PyTorch version at the
-   serving path's shapes, and time kernel, plain version and a PyTorch
-   library call beside the least time the card could take;
-4. serve: full-width gemma-2b in bf16 through ``PagedServeEngine`` (random
-   weights from ``--seed``), 16 requests with prefix sharing and
-   copy-on-write, with the kernels' launch counts read around the run;
-   then the kernel path against the plain gather path: the first tick's
-   logits in bf16, and the greedy tokens of an f32 run at reduced depth;
-5. the kernels line (JSON), the card's name and power limit, and the
+   serving and prefill paths' shapes, and time kernel, plain version and a
+   PyTorch library call beside the least time the card could take;
+4. paged serve: full-width gemma-2b in bf16 through ``PagedServeEngine``
+   (random weights from ``--seed``), 16 requests with prefix sharing and
+   copy-on-write, with the kernels' launch counts read around the run and
+   one prefill and one decode tick profiled;
+5. fixed-slot serve: the same model through ``ServeEngine``, 8 requests of
+   about 48 tokens on 4 slots, with the launch counts read around the run;
+6. prefill: ``make_prefill_step`` over 1024 tokens, then 16 decode steps
+   from that cache, timed on the host and profiled on the device;
+7. checks at full width and 2 layers: the paged kernel path against its
+   gather path (first-tick logits in bf16, greedy tokens in f32); the
+   flash path of ``forward`` (bf16: each layer's attention on forward's
+   own inputs against f64, and the 1-layer logits against the plain
+   path); prefill
+   plus decode against ``forward`` (f32); the fixed-slot engine against
+   the paged engine (greedy tokens, f32);
+8. the kernels line (JSON), the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -43,17 +53,46 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import cast_params  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.models import ModelOptions, init_params  # noqa: E402
-from repro_torch.serve import PagedServeEngine, Request, paged_model  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    ModelOptions,
+    decode_step,
+    forward,
+    forward_with_cache,
+    init_params,
+    layers,
+)
+from repro_torch.serve import (  # noqa: E402
+    PagedServeEngine,
+    Request,
+    ServeEngine,
+    make_decode_step,
+    make_prefill_step,
+    paged_model,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}  # as tests/test_kernels.py
-# bf16 logits, kernel path vs gather path over one tick at 2 layers: the two
-# attention outputs differ by summation order, which moves a bf16 rounding
-# (2^-8 relative) now and then; held relative to the largest logit
+# bf16 logits, kernel path vs plain path (the paged first tick at 2 layers,
+# forward at 1 layer): the two attention outputs differ by summation order,
+# which moves a bf16 rounding (2^-8 relative) now and then; held relative
+# to the largest logit
 LOGITS_BF16_RTOL = 2e-2
+# prefill + decode against the full forward, f32, relative to the largest
+# logit: the bound of tests/test_models.py::test_prefill_decode_equivalence
+PREFILL_DECODE_RTOL = 5e-3
 L2_BYTES = 50 * 2**20
+WHERE = {  # kernel -> (CUDA source, the TPU kernel it replaces)
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:28"),
+    "paged_decode_attention": (
+        "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:176"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:82"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:78"),
+}
 
 
 def log(*args) -> None:
@@ -109,6 +148,11 @@ def bound(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[str(dtype)] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return ((got - want).abs().max() / want.abs().max()).item()
 
 
 # ------------------------------------------------------------------ kernels
@@ -192,6 +236,73 @@ def check_paged(gen, B, H, KV, D, bs, max_len, dtype) -> dict:
     }
 
 
+def check_decode(gen, B, H, KV, D, Smax, dtype) -> dict:
+    """Dense decode over a (B, Smax, KV, D) cache, ragged lengths with one
+    above Smax (it attends to the whole cache)."""
+    lens = [Smax + 1] + [max(1, Smax - (Smax * i) // B) for i in range(1, B)]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(B, Smax, KV, D, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(B, Smax, KV, D, generator=gen, device="cuda").to(dtype)
+    got = kernels.decode_attention(q, kc, vc, lengths)
+    want = kernels.ref.decode_attention_ref(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    what = f"decode_attention B={B} H={H} KV={KV} D={D} Smax={Smax} {dtype}"
+    err = max_err_within(got, want, TOL[str(dtype)], what)
+    # time on copies of the caches that together exceed L2: in the serving
+    # path a layer's cache was last touched a whole decode step earlier
+    es = q.element_size()
+    copies = max(1, min(16, math.ceil(2 * L2_BYTES / (2 * kc.numel() * es))))
+    caches = [(kc.clone(), vc.clone()) for _ in range(copies)]
+    ms = time_ms(lambda i: kernels.decode_attention(q, *caches[i % copies], lengths))
+    plain_ms = time_ms(lambda i: kernels.ref.decode_attention_ref(
+        q, *caches[i % copies], lengths))
+    # yardstick: SDPA with a length mask on pre-transposed caches
+    kt, vt = (c.transpose(1, 2).contiguous() for c in (kc, vc))
+    mask = (torch.arange(Smax, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    library_ms = time_ms(lambda i: F.scaled_dot_product_attention(
+        q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True))
+    valid = sum(min(n, Smax) for n in lens)  # only the rows the lengths need
+    nbytes = 2 * q.numel() * es + 2 * valid * KV * D * es + 4 * B
+    b_ms, b_by = bound(nbytes, 4 * valid * H * D, dtype)
+    del caches
+    return {
+        "shape": {"B": B, "H": H, "KV": KV, "D": D, "Smax": Smax},
+        "dtype": str(dtype), "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+
+
+def check_flash(gen, B, S, H, KV, D, dtype) -> dict:
+    """Causal flash attention forward, output and LSE, over (B, S, H, D)."""
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+    got, lse = kernels.flash_attention(q, k, v, return_lse=True)
+    want = kernels.ref.causal_attention_ref(q, k, v)
+    want_lse = kernels.ref.attention_lse_ref(q, k)
+    torch.cuda.synchronize()
+    what = f"flash_attention B={B} S={S} H={H} KV={KV} D={D} {dtype}"
+    tol = TOL[str(dtype)]
+    err = max(max_err_within(got, want, tol, what),
+              max_err_within(lse, want_lse, tol, what + " lse"))
+    del got, lse, want, want_lse
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    b_ms, b_by = bound(nbytes, 2 * B * H * S * S * D, dtype)  # causal flops
+    return {
+        "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D},
+        "dtype": str(dtype), "max_abs_err": err,
+        "ms": time_ms(lambda i: kernels.flash_attention(q, k, v), iters=5),
+        "plain_ms": time_ms(lambda i: kernels.ref.causal_attention_ref(q, k, v),
+                            iters=5),
+        "library_ms": time_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
 # -------------------------------------------------------------------- serve
 
 
@@ -208,6 +319,13 @@ def serve_trace(vocab: int, seed: int, prefix_len=128, unique_len=20,
     disjoint = [rng.integers(0, vocab, disjoint_len).tolist() for _ in range(8)]
     order = [shared[0]] + disjoint[:7] + shared[1:] + disjoint[7:]
     return [(rid, p, max_new) for rid, p in enumerate(order)]
+
+
+def fixed_trace(vocab: int, seed: int, n=8, prompt_len=48, max_new=32) -> list:
+    """``n`` requests of about ``prompt_len`` random tokens (47 to 49)."""
+    rng = np.random.default_rng(seed + 1)
+    return [(rid, rng.integers(0, vocab, prompt_len - 1 + rid % 3).tolist(),
+             max_new) for rid in range(n)]
 
 
 def drive(eng, trace) -> dict:
@@ -239,6 +357,25 @@ def drive(eng, trace) -> dict:
             "peak_concurrency": peak, "ticks": eng.ticks}
 
 
+def check_finished(eng, trace, vocab: int) -> None:
+    done = {r.rid: r for r in eng.finished}
+    assert len(done) == len(trace), f"{len(done)} of {len(trace)} finished"
+    for rid, _p, max_new in trace:
+        toks = done[rid].generated
+        assert len(toks) == max_new and all(0 <= t < vocab for t in toks), rid
+
+
+def log_serve(m: dict, smi: str) -> None:
+    log(f"   {m['generated']} tokens in {m['wall_s']:.3f} s: "
+        f"{m['tokens_per_s']:.2f} tokens/s, TTFT p50 {m['ttft_p50_s']:.4f} s "
+        f"p99 {m['ttft_p99_s']:.4f} s, peak concurrency "
+        f"{m['peak_concurrency']}, {m['ticks']} ticks ({smi})")
+
+
+def counts() -> dict:
+    return {fn.__name__: fn.launches for fn in kernels.KERNELS}
+
+
 def tick_inputs(cfg, opts, trace, C: int):
     """A fresh pool and one tick's inputs: 8 slots, each advancing through
     the first ``C`` tokens of its prompt."""
@@ -259,20 +396,16 @@ def first_tick_logits(cfg, params, opts, trace, C, attn_impl):
     return logits
 
 
-def profile_tick(cfg, params, opts, trace, C) -> dict:
-    """Wall time of one tick (host clock, synchronized) and its device time
+def profiled(fn) -> dict:
+    """Wall time of ``fn()`` (host clock, synchronized) and its device time
     by kernel (torch.profiler; kernels on one stream do not overlap)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    tick = paged_model.make_paged_tick(cfg, opts)
-    state, *inputs = tick_inputs(cfg, opts, trace, C)
-    tick(params, state, *inputs)  # warm
-    state, *inputs = tick_inputs(cfg, opts, trace, C)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tick(params, state, *inputs)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies); a CPU op's device time is
@@ -286,6 +419,124 @@ def profile_tick(cfg, params, opts, trace, C) -> dict:
         raise AssertionError("the profiler recorded no device time")
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms, "top": rows[:10]}
+
+
+def log_profile(label: str, p: dict, smi: str) -> None:
+    log(f"   {label}: wall {p['wall_ms']:.3f} ms, device busy "
+        f"{p['device_ms']:.3f} ms ({p['busy_share']:.3f} of wall) ({smi})")
+    for name, ms, calls in p["top"]:
+        log(f"      {ms:9.3f} ms  {calls:6d} calls  {name[:90]}")
+
+
+def profile_tick(cfg, params, opts, trace, C) -> dict:
+    """One paged tick of ``C`` micro-steps on a fresh pool, profiled."""
+    tick = paged_model.make_paged_tick(cfg, opts)
+    state, *inputs = tick_inputs(cfg, opts, trace, C)
+    tick(params, state, *inputs)  # warm
+    state, *inputs = tick_inputs(cfg, opts, trace, C)
+    return profiled(lambda: tick(params, state, *inputs))
+
+
+def prefill_then_decode(cfg, params, opts, tokens, n_decode: int):
+    """``make_prefill_step`` over ``tokens`` (1, S), then ``n_decode``
+    greedy decode steps from its cache.  Returns the prefill's last logits
+    row and the host wall times of the prefill and of the decode steps."""
+    prefill = make_prefill_step(cfg, opts, max_len=tokens.shape[1] + n_decode)
+    step = make_decode_step(cfg, opts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens})
+    last = logits[:, -1]
+    del logits
+    nxt = torch.argmax(last, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n_decode):
+        lg, cache = step(params, cache, nxt)
+        nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return last, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def take_layers(params, n: int):
+    """The first ``n`` main-group layers of ``params`` (views, no copy)."""
+    def cut(tree):
+        return ({k: cut(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree[:n])
+    return {**params, "main": [cut(g) for g in params["main"]]}
+
+
+def check_forward_flash(cfg2, params16, tokens, opts) -> None:
+    """``forward``'s flash path against its plain path, bf16, full width.
+
+    At 2 layers the logits of two correct attention paths part ways: the
+    reference's init makes attention nearly hard (scores in the
+    thousands) and v large (about 45 times unit scale), so a one-ulp
+    difference in a few layer-1 outputs moves layer-2 scores by about a
+    unit and changes which key wins in rows whose best two scores are that
+    close.  In such rows any f32 implementation is off the exact result by
+    up to about half a unit, so the kernel cannot be held to the plain
+    version element by element either.  This holds each layer's kernel
+    output, on the q, k, v that ``forward`` hands it, to the correctly
+    rounded f64 result: it may leave no more elements off it than the
+    plain version does.  It holds the 1-layer logits to the plain path's,
+    and prints the 2-layer logits' difference without holding it."""
+    plain = ModelOptions(compute_dtype="bfloat16", attn_impl="plain")
+    seen = []
+    real = layers.flash_attention
+
+    def capture(q, k, v, **kw):
+        seen.append((q, k, v))
+        return real(q, k, v, **kw)
+
+    layers.flash_attention = capture
+    try:
+        lk, _ = forward(params16, cfg2, tokens, opts=opts)
+    finally:
+        layers.flash_attention = real
+    lp, _ = forward(params16, cfg2, tokens, opts=plain)
+    assert torch.isfinite(lk).all() and len(seen) == cfg2.num_layers
+    per_pos = ((lk - lp).abs().amax(-1) / lp.abs().max())[0]
+    log(f"   forward logits {tuple(tokens.shape)}, bf16, {cfg2.num_layers} layers, "
+        f"flash vs plain attention: max |diff| / max |logit| = {rel_err(lk, lp):.3g}; "
+        f"positions over {LOGITS_BF16_RTOL}: {(per_pos > LOGITS_BF16_RTOL).sum().item()} "
+        f"of {per_pos.numel()}; argmax agrees on "
+        f"{(lk.argmax(-1) == lp.argmax(-1)).float().mean().item():.4f} (not held: see "
+        "check_forward_flash)")
+    del lk, lp
+    for i, (q, k, v) in enumerate(seen):
+        got = kernels.flash_attention(q, k, v)
+        want = kernels.ref.causal_attention_ref(q, k, v)
+        G, D = q.shape[2] // k.shape[2], q.shape[3]
+        s = torch.einsum("bqhd,bkhd->bhqk", q.double(),
+                         k.repeat_interleave(G, 2).double()) / math.sqrt(D)
+        causal = torch.ones(s.shape[-2:], dtype=torch.bool, device="cuda").tril()
+        s = s.masked_fill(~causal, float("-inf"))
+        top2 = s.topk(2, dim=-1).values
+        close = ((top2[..., 0] - top2[..., 1]) < 1).sum().item()
+        p = torch.softmax(s, dim=-1)
+        exact = torch.einsum("bhqk,bkhd->bqhd", p, v.repeat_interleave(G, 2).double())
+        off = {name: (x != exact.to(q.dtype)).sum().item()
+               for name, x in (("kernel", got), ("plain", want))}
+        err = {name: (x.double() - exact).abs().max().item()
+               for name, x in (("kernel", got), ("plain", want))}
+        log(f"   layer {i} attention on forward's inputs, against f64: elements off "
+            f"the rounded result: kernel {off['kernel']}, plain {off['plain']} of "
+            f"{got.numel()}; max abs error: kernel {err['kernel']:.3g}, plain "
+            f"{err['plain']:.3g}; kernel vs plain {(got.float() - want.float()).abs().max().item():.3g}; "
+            f"rows whose best two scores are within 1: {close} of {top2.shape[:-1].numel()}")
+        assert torch.isfinite(got).all() and off["kernel"] <= off["plain"], (i, off)
+        del s, top2, p, exact
+    del seen
+    cfg1 = cfg2.with_(num_layers=1)
+    params1 = take_layers(params16, 1)
+    lk, _ = forward(params1, cfg1, tokens, opts=opts)
+    lp, _ = forward(params1, cfg1, tokens, opts=plain)
+    rel = rel_err(lk, lp)
+    log(f"   forward logits {tuple(tokens.shape)}, bf16, 1 layer, flash vs plain "
+        f"attention: max |diff| / max |logit| = {rel:.3g} (tolerance {LOGITS_BF16_RTOL})")
+    assert rel <= LOGITS_BF16_RTOL, rel
 
 
 def main() -> int:
@@ -313,17 +564,24 @@ def main() -> int:
         if "registers" in line or line.startswith("=="):
             log("   ", line.strip())
 
-    # 3. kernels at the serving path's shapes
+    # 3. kernels at the serving and prefill paths' shapes (gemma-2b first:
+    # its bf16 row is the one in the kernels line)
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    results = {"rmsnorm": [], "paged_decode_attention": []}
+    results = {name: [] for name in WHERE}
     for dtype in (torch.bfloat16, torch.float32):
         for shape in ((8, 2048), (64, 8, 128)):
-            results["rmsnorm"].append(
-                check_rmsnorm(gen, shape, dtype))
+            results["rmsnorm"].append(check_rmsnorm(gen, shape, dtype))
         for B, H, KV, D in ((8, 8, 1, 256), (8, 40, 8, 128)):
             results["paged_decode_attention"].append(check_paged(
                 gen, B, H, KV, D, 16, 1024, dtype))
-    log(f"== kernels ({smi})")
+            results["decode_attention"].append(check_decode(
+                gen, B, H, KV, D, 1024, dtype))
+        for B, S, H, KV, D in ((1, 1024, 8, 1, 256), (1, 2048, 40, 8, 128),
+                               (1, 1000, 8, 1, 256)):
+            results["flash_attention"].append(check_flash(
+                gen, B, S, H, KV, D, dtype))
+    log(f"== kernels ({smi}; {time.perf_counter() - t0:.1f} s)")
     for name, rows in results.items():
         for r in rows:
             log(f"   {name} {r['shape']} {r['dtype']}: max_abs_err "
@@ -331,19 +589,20 @@ def main() -> int:
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
-    # 4. serve full-width gemma-2b in bf16
+    # 4. paged serve: full-width gemma-2b in bf16
     cfg = get_config("gemma-2b")
     opts = ModelOptions(compute_dtype="bfloat16")
     t0 = time.perf_counter()
     eng = PagedServeEngine(cfg, init_params(cfg, seed=args.seed, device="cuda"),
                            num_blocks=256, block_size=16, max_active=8,
                            prefill_chunk=16, opts=opts)
+    params = eng.params  # bf16 matrices, f32 norm scales: shared below
     torch.cuda.synchronize()
-    log(f"== serve: gemma-2b bf16, {cfg.param_count() / 1e9:.3f} B params, "
+    log(f"== paged serve: gemma-2b bf16, {cfg.param_count() / 1e9:.3f} B params, "
         f"weights and engine ready in {time.perf_counter() - t0:.1f} s")
     trace = serve_trace(cfg.vocab_size, args.seed)
     # warm-up (CUDA context, cuBLAS handles) on a small engine, same weights
-    warm = PagedServeEngine(cfg, eng.params, num_blocks=8, block_size=16,
+    warm = PagedServeEngine(cfg, params, num_blocks=8, block_size=16,
                             max_active=2, prefill_chunk=16, opts=opts)
     drive(warm, [(0, trace[0][1][:20], 2)])
     del warm
@@ -351,24 +610,17 @@ def main() -> int:
 
     kernels.reset_launch_counts()
     m = drive(eng, trace)
-    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    paged_launches = counts()
     metrics = eng.metrics()
-    log(f"   {m['generated']} tokens in {m['wall_s']:.3f} s: "
-        f"{m['tokens_per_s']:.2f} tokens/s, TTFT p50 {m['ttft_p50_s']:.4f} s "
-        f"p99 {m['ttft_p99_s']:.4f} s, peak concurrency "
-        f"{m['peak_concurrency']}, {m['ticks']} ticks ({smi})")
-    log(f"   launches {launches}; peak memory "
+    log_serve(m, smi)
+    log(f"   launches {paged_launches}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; metrics {metrics}")
-    done = {r.rid: r for r in eng.finished}
-    assert len(done) == len(trace), f"{len(done)} of {len(trace)} finished"
-    for rid, _p, max_new in trace:
-        toks = done[rid].generated
-        assert len(toks) == max_new and all(0 <= t < cfg.vocab_size for t in toks), rid
-    assert all(n > 0 for n in launches.values()), launches
+    check_finished(eng, trace, cfg.vocab_size)
+    assert paged_launches["rmsnorm"] > 0 and paged_launches["paged_decode_attention"] > 0
     # 2 norms per layer + the final norm, one attention per layer, per micro-step
     per_step = 2 * cfg.num_layers + 1
-    assert launches["rmsnorm"] * cfg.num_layers == \
-        launches["paged_decode_attention"] * per_step, launches
+    assert paged_launches["rmsnorm"] * cfg.num_layers == \
+        paged_launches["paged_decode_attention"] * per_step, paged_launches
     assert metrics["prefixHitRate"] > 0, metrics
     assert metrics["cowCopies"] >= 1, metrics
     assert metrics["prefillBacklog"] == 0, metrics
@@ -376,61 +628,139 @@ def main() -> int:
     eng.cache.evict(eng.alloc.capacity)
     eng.alloc.check()
     assert eng.alloc.blocks_free == eng.alloc.capacity, "blocks leaked"
+    del eng
 
     # where one tick's time goes, at full depth: a prefill tick (16
     # micro-steps) and a decode tick (1), each on a fresh pool
     for label, C in (("prefill tick", 16), ("decode tick", 1)):
-        p = profile_tick(cfg, eng.params, opts, trace, C)
-        log(f"   {label} ({C} micro-steps x {cfg.num_layers} layers, 8 slots): "
-            f"wall {p['wall_ms']:.3f} ms, device busy {p['device_ms']:.3f} ms "
-            f"({p['busy_share']:.3f} of wall) ({smi})")
-        for name, ms, calls in p["top"]:
-            log(f"      {ms:9.3f} ms  {calls:6d} calls  {name[:90]}")
-    del eng
+        p = profile_tick(cfg, params, opts, trace, C)
+        log_profile(f"{label} ({C} micro-steps x {cfg.num_layers} layers, "
+                    f"8 slots)", p, smi)
 
-    # kernel path vs the plain gather path at full width and 2 layers.  The
-    # random network is chaotic with depth (the reference's init gives
-    # nearly hard attention), so at 18 layers two correct attention
-    # implementations part ways; 2 layers keeps the comparison about them
+    # 5. fixed-slot serve: 8 requests on 4 slots (admission queues)
+    ftrace = fixed_trace(cfg.vocab_size, args.seed)
+    warm = ServeEngine(cfg, params, num_slots=1, max_len=16, opts=opts)
+    drive(warm, [(0, ftrace[0][1][:4], 2)])
+    del warm
+    fixed = ServeEngine(cfg, params, num_slots=4, max_len=256, opts=opts)
+    kernels.reset_launch_counts()
+    m = drive(fixed, ftrace)
+    fixed_launches = counts()
+    log("== fixed-slot serve: gemma-2b bf16, 4 slots, max_len 256, "
+        f"{len(ftrace)} requests of {min(len(p) for _r, p, _n in ftrace)}-"
+        f"{max(len(p) for _r, p, _n in ftrace)} prompt tokens")
+    log_serve(m, smi)
+    # one decode step per admitted prompt token and one per tick; every
+    # step runs the dense decode kernel once per layer, and no prefill runs
+    steps = sum(len(p) for _r, p, _n in ftrace) + fixed.ticks
+    log(f"   launches {fixed_launches}; {steps} decode steps; metrics "
+        f"{fixed.metrics()}")
+    check_finished(fixed, ftrace, cfg.vocab_size)
+    assert fixed_launches["decode_attention"] == cfg.num_layers * steps, \
+        (fixed_launches, steps)
+    assert fixed_launches["flash_attention"] == 0, fixed_launches
+    assert fixed_launches["rmsnorm"] == (2 * cfg.num_layers + 1) * steps
+    del fixed
+
+    # 6. prefill 1024 tokens through make_prefill_step, then 16 decode steps
+    S, n_decode = 1024, 16
+    rng = np.random.default_rng(args.seed + 2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S))).to("cuda")
+    prefill_then_decode(cfg, params, opts, tokens[:, :64], 1)  # warm
+    kernels.reset_launch_counts()
+    last, prefill_ms, decode_ms = prefill_then_decode(cfg, params, opts,
+                                                      tokens, n_decode)
+    prefill_launches = counts()
+    assert last.shape == (1, cfg.padded_vocab) and torch.isfinite(last).all()
+    log(f"== prefill: gemma-2b bf16, (1, {S}) tokens through make_prefill_step: "
+        f"wall {prefill_ms:.3f} ms; then {n_decode} decode steps: wall "
+        f"{decode_ms:.3f} ms ({decode_ms / n_decode:.3f} ms a step) ({smi})")
+    log(f"   launches {prefill_launches}")
+    assert prefill_launches["flash_attention"] == cfg.num_layers, prefill_launches
+    assert prefill_launches["decode_attention"] == cfg.num_layers * n_decode, \
+        prefill_launches
+    prefill = make_prefill_step(cfg, opts, max_len=S)
+    log_profile(f"prefill ({S} tokens x {cfg.num_layers} layers)",
+                profiled(lambda: prefill(params, {"tokens": tokens})), smi)
+    _, cache = prefill(params, {"tokens": tokens[:, :S - 1]})
+    step = make_decode_step(cfg, opts)
+    log_profile(f"decode step (context {S - 1})",
+                profiled(lambda: step(params, cache, tokens[:, S - 1].to(torch.int32))),
+                smi)
+    del cache, params
+
+    # 7. checks at full width and 2 layers.  The random network is chaotic
+    # with depth (the reference's init gives nearly hard attention), so at
+    # 18 layers two correct attention implementations part ways; 2 layers
+    # keeps the comparison about them
     cfg2 = cfg.with_(num_layers=2)
     params32 = init_params(cfg2, seed=args.seed, device="cuda")
     params16 = cast_params(params32, opts.dtype)
     lk = first_tick_logits(cfg2, params16, opts, trace, 16, "kernel")
     lg = first_tick_logits(cfg2, params16, opts, trace, 16, "gather")
     assert lk.shape == (8, cfg.padded_vocab) and torch.isfinite(lk).all()
-    rel = ((lk - lg).abs().max() / lg.abs().max()).item()
-    log(f"   first-tick logits, 2 layers, bf16, kernel vs gather: max |diff| / "
-        f"max |logit| = {rel:.3g} (tolerance {LOGITS_BF16_RTOL}); argmax "
-        f"agrees on {(lk.argmax(-1) == lg.argmax(-1)).sum().item()}/8 rows")
+    rel = rel_err(lk, lg)
+    log(f"== checks at 2 layers, full width\n   paged first-tick logits, bf16, "
+        f"kernel vs gather: max |diff| / max |logit| = {rel:.3g} (tolerance "
+        f"{LOGITS_BF16_RTOL}); argmax agrees on "
+        f"{(lk.argmax(-1) == lg.argmax(-1)).sum().item()}/8 rows")
     assert rel <= LOGITS_BF16_RTOL, rel
-    del params16, lk, lg
+    del lk, lg
+
+    check_forward_flash(cfg2, params16, tokens, opts)
+    del params16
+
+    # prefill + decode against forward over the whole sequence, f32
     opts32 = ModelOptions(compute_dtype="float32")
-    tokens = {}
+    n0, n1 = 256, 320
+    full, _ = forward(params32, cfg2, tokens[:, :n1], opts=opts32)
+    pre, cache = forward_with_cache(params32, cfg2, tokens[:, :n0], max_len=n1,
+                                    opts=opts32)
+    errs = [(pre[:, -1] - full[:, n0 - 1]).abs().max().item()]
+    del pre
+    for t in range(n0, n1):
+        lg, cache = decode_step(params32, cfg2, cache, tokens[:, t], opts32)
+        errs.append((lg - full[:, t]).abs().max().item())
+    rel = max(errs) / full.abs().max().item()
+    log(f"   prefill {n0} + decode {n1 - n0} vs forward, f32: max |diff| / "
+        f"max |logit| = {rel:.3g} (tolerance {PREFILL_DECODE_RTOL})")
+    assert rel <= PREFILL_DECODE_RTOL, rel
+    del full, cache
+
+    # greedy tokens, f32: paged kernel path, paged gather path, fixed slot
+    tokens_by = {}
     for impl in ("kernel", "gather"):
         e = PagedServeEngine(cfg2, params32, num_blocks=256, block_size=16,
                              max_active=8, prefill_chunk=16, opts=opts32,
                              attn_impl=impl)
         drive(e, [(r, p, 8) for r, p, _n in trace])
-        tokens[impl] = {r.rid: r.generated for r in e.finished}
-    assert tokens["kernel"] == tokens["gather"], "f32 greedy tokens differ"
-    log(f"   f32, 2 layers at full width: kernel and gather paths give the "
-        f"same {sum(map(len, tokens['kernel'].values()))} greedy tokens")
-    del params32
+        tokens_by[impl] = {r.rid: r.generated for r in e.finished}
+    e = ServeEngine(cfg2, params32, num_slots=8, max_len=256, opts=opts32)
+    drive(e, [(r, p, 8) for r, p, _n in trace])
+    tokens_by["fixed"] = {r.rid: r.generated for r in e.finished}
+    assert tokens_by["kernel"] == tokens_by["gather"], "f32 paged tokens differ"
+    assert tokens_by["fixed"] == tokens_by["kernel"], \
+        "f32 fixed-slot and paged tokens differ"
+    log(f"   f32 greedy tokens: paged kernel path, paged gather path and the "
+        f"fixed-slot engine give the same "
+        f"{sum(map(len, tokens_by['kernel'].values()))} tokens")
+    del params32, e
 
-    # 5. the kernels line, the card, the result
-    main_rows = {"rmsnorm": results["rmsnorm"][0],
-                 "paged_decode_attention": results["paged_decode_attention"][0]}
-    where = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
-                         "src/repro/kernels/rmsnorm.py:28"),
-             "paged_decode_attention": (
-                 "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-                 "src/repro/kernels/decode_attention.py:176")}
+    # 8. the kernels line, the card, the result.  Each kernel's launches are
+    # those of the path that runs it: the paged serve run (RMSNorm, paged
+    # decode), the fixed-slot serve run (dense decode), the prefill (flash)
+    launches = {"rmsnorm": paged_launches["rmsnorm"],
+                "paged_decode_attention": paged_launches["paged_decode_attention"],
+                "decode_attention": fixed_launches["decode_attention"],
+                "flash_attention": prefill_launches["flash_attention"]}
+    assert all(n > 0 for n in launches.values()), launches
     line = {"kernels": [
-        {"name": name, "route": "cuda", "source": where[name][0],
-         "replaces": where[name][1], "launches": launches[name],
-         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                              "bound_by", "library_ms")}}
-        for name, r in main_rows.items()]}
+        {"name": name, "route": "cuda", "source": WHERE[name][0],
+         "replaces": WHERE[name][1], "launches": launches[name],
+         **{k: results[name][0][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}}
+        for name in WHERE]}
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

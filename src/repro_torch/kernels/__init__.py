@@ -8,10 +8,11 @@ sources with ``nvcc`` at first use.
 """
 
 from . import ref
-from .decode_attention import paged_decode_attention
+from .decode_attention import decode_attention, paged_decode_attention
+from .flash_attention import flash_attention
 from .rmsnorm import rmsnorm
 
-KERNELS = (rmsnorm, paged_decode_attention)
+KERNELS = (rmsnorm, paged_decode_attention, decode_attention, flash_attention)
 
 
 def reset_launch_counts() -> None:
@@ -20,5 +21,5 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "paged_decode_attention", "ref", "reset_launch_counts",
-           "rmsnorm"]
+__all__ = ["KERNELS", "decode_attention", "flash_attention",
+           "paged_decode_attention", "ref", "reset_launch_counts", "rmsnorm"]

@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # as in csrc/common.cuh
+MAX_SMEM_BYTES = 232448  # dynamic shared memory one block may opt into on sm_90
 # every entry point returns the cudaError_t of its launch
 _SIGNATURES = {
     "repro_rmsnorm": ([_int, _int, _vp, _vp, _vp, _int, _int, _float, _vp],
@@ -36,6 +37,15 @@ _SIGNATURES = {
         [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
          _int, _int, _float, _vp], ctypes.c_int),
     "repro_paged_decode_smem_bytes": ([_int, _int], ctypes.c_longlong),
+    "repro_decode_attention": (
+        [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
+         _int, _int, _int, _int, _float, _vp], ctypes.c_int),
+    "repro_decode_attention_smem_bytes": ([_int, _int], ctypes.c_longlong),
+    "repro_decode_attention_tile": ([], ctypes.c_int),
+    "repro_flash_attention": (
+        [_int, _int, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
+         _int, _float, _vp], ctypes.c_int),
+    "repro_flash_attention_max_head_dim": ([], ctypes.c_int),
     "repro_error_string": ([_int], ctypes.c_char_p),
 }
 
@@ -119,6 +129,20 @@ def check(err: int, name: str) -> None:
     if err != 0:
         text = library().repro_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({text}) at launch")
+
+
+def on_cpu(name: str, **tensors) -> bool:
+    """True when every tensor lies on the CPU (the wrapper then runs the
+    plain version), False when none does; raises on a mix."""
+    where = {arg: t.device.type == "cpu" for arg, t in tensors.items()}
+    if all(where.values()):
+        return True
+    if any(where.values()):
+        cpu = [arg for arg, here in where.items() if here]
+        raise ValueError(f"{name}: {', '.join(cpu)} on the CPU and the rest "
+                         "not; the kernel takes CUDA tensors and the plain "
+                         "version CPU tensors")
+    return False
 
 
 def check_inputs(name: str, device: torch.device, **tensors) -> None:

@@ -1,27 +1,102 @@
-"""Paged GQA decode attention: the wrapper of the CUDA kernel
-``csrc/paged_decode_attention.cu``.
+"""GQA decode attention, dense and paged: the wrappers of the CUDA kernels
+``csrc/decode_attention.cu`` and ``csrc/paged_decode_attention.cu``.
 
-Replaces the Pallas TPU kernel
+``decode_attention`` replaces the Pallas TPU kernel
+``repro/kernels/decode_attention.py::decode_attention``: one token per
+sequence against a dense cache ``(B, Smax, KV, D)``, split along the cache
+axis across thread blocks and combined in a second pass.
+
+``paged_decode_attention`` replaces
 ``repro/kernels/decode_attention.py::paged_decode_attention``.  K/V live in
 a block pool ``(num_blocks, block_size, KV, D)``; each sequence names its
 blocks through a row of ``block_tables``.  Block 0 is the engine's scratch
 block: unused table entries point at it, and ``lengths`` masks whatever it
-holds.  A tensor on the CPU takes the plain version
-(``ref.paged_decode_attention_ref``); a CUDA tensor launches the kernel or
-raises.  The dense ``decode_attention`` kernel comes with the fixed-slot
-engine.
+holds.
+
+A tensor on the CPU takes the plain version (``ref.decode_attention_ref``,
+``ref.paged_decode_attention_ref``); a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from . import _build
-from .ref import paged_decode_attention_ref
+from .ref import decode_attention_ref, paged_decode_attention_ref
 
-MAX_SMEM_BYTES = 232448  # dynamic shared memory one block may opt into on sm_90
+BLOCKS_PER_SM = 2  # split the cache axis until the grid holds this many blocks per SM
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _splits(B: int, KV: int, Smax: int, tile: int, sms: int) -> tuple:
+    """``(chunk, nsplit)``: cut the cache axis into ``nsplit`` chunks of
+    ``chunk`` positions (a multiple of the kernel's tile) so that the grid
+    of ``nsplit * KV * B`` blocks holds about ``BLOCKS_PER_SM`` per SM."""
+    tiles = max(1, -(-Smax // tile))
+    want = max(1, -(-BLOCKS_PER_SM * sms // max(1, B * KV)))
+    chunk = -(-tiles // min(tiles, want)) * tile
+    return chunk, max(1, -(-Smax // chunk))
+
+
+def decode_attention(q, k_cache, v_cache, lengths):
+    """q (B,H,D); caches (B,Smax,KV,D) in q's dtype; lengths (B,) int32 ->
+    (B,H,D) in q's dtype.
+
+    Positions below ``min(length, Smax)`` are valid, as in the model's plain
+    decode layer: a length above Smax attends to the whole cache, and a
+    length of 0 gives 0."""
+    name = "decode_attention"
+    if _build.on_cpu(name, q=q, k_cache=k_cache, v_cache=v_cache,
+                     lengths=lengths):
+        return decode_attention_ref(q, k_cache, v_cache, lengths)
+    _build.check_inputs(name, q.device, q=q, k_cache=k_cache, v_cache=v_cache,
+                        lengths=lengths)
+    if q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{name}: q dtype {q.dtype} is not float32/bfloat16")
+    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise TypeError(f"{name}: caches must have q's dtype {q.dtype}")
+    if lengths.dtype != torch.int32:
+        raise TypeError(f"{name}: lengths must be int32")
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError(f"{name}: q must be (B,H,D) and caches (B,Smax,KV,D)")
+    B, H, D = q.shape
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    if (k_cache.shape != (B, Smax, KV, D) or v_cache.shape != k_cache.shape
+            or KV == 0 or H % KV or lengths.shape != (B,)):
+        raise ValueError(
+            f"{name}: shapes do not fit: q {tuple(q.shape)}, caches "
+            f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, lengths "
+            f"{tuple(lengths.shape)}")
+    lib = _build.library()
+    if lib.repro_decode_attention_smem_bytes(H // KV, D) > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: G={H // KV}, D={D} needs more shared "
+                         "memory than one block has")
+    chunk, nsplit = _splits(B, KV, Smax, lib.repro_decode_attention_tile(),
+                            _sm_count(q.device.index))
+    part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty_like(q)
+    err = lib.repro_decode_attention(
+        q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, H, KV, D,
+        Smax, chunk, nsplit, 1.0 / math.sqrt(D), _build.stream(q.device))
+    _build.check(err, name)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0  # kernel launches since the last reset
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
@@ -31,10 +106,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     Lengths above ``T * block_size`` attend to the whole table, as the TPU
     kernel does; every table entry below ``ceil(length / block_size)`` must
     name a block of the pool."""
-    if q.device.type == "cpu":
+    name = "paged_decode_attention"
+    if _build.on_cpu(name, q=q, k_pool=k_pool, v_pool=v_pool,
+                     block_tables=block_tables, lengths=lengths):
         return paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
                                           lengths)
-    name = "paged_decode_attention"
     _build.check_inputs(name, q.device, q=q, k_pool=k_pool, v_pool=v_pool,
                         block_tables=block_tables, lengths=lengths)
     if q.dtype not in _build.DTYPE_CODES:
@@ -53,7 +129,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, tables "
             f"{tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
     lib = _build.library()
-    if lib.repro_paged_decode_smem_bytes(H // KV, D) > MAX_SMEM_BYTES:
+    if lib.repro_paged_decode_smem_bytes(H // KV, D) > _build.MAX_SMEM_BYTES:
         raise ValueError(f"{name}: G={H // KV}, D={D} needs more shared "
                          "memory than one block has")
     out = torch.empty_like(q)

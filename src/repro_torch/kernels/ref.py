@@ -24,6 +24,38 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
+def _attention_scores(q, k, causal: bool):
+    """q (B,S,H,D); k (B,S,KV,D) -> f32 scores (B,H,S,S), scaled by
+    1/sqrt(D), with the masked entries at -inf."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    kf = k.repeat_interleave(G, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(D)
+    i = torch.arange(S, device=q.device)
+    mask = (i[None, :] <= i[:, None]) if causal else torch.ones(
+        S, S, dtype=torch.bool, device=q.device)
+    return s.masked_fill(~mask, float("-inf"))
+
+
+def causal_attention_ref(q, k, v, causal: bool = True):
+    """q (B,S,H,D); k,v (B,S,KV,D) -> (B,S,H,D).  Plain masked softmax
+    attention with KV head h // G for query head h.  The reference's
+    sliding-window mode comes with local attention."""
+    s = _attention_scores(q, k, causal)
+    G = q.shape[2] // k.shape[2]
+    vf = v.repeat_interleave(G, dim=2).float()
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def attention_lse_ref(q, k, causal: bool = True):
+    """The log-sum-exp of each query row's scaled, masked scores: (B,S,H)
+    f32, what ``flash_attention(..., return_lse=True)`` returns beside its
+    output."""
+    s = _attention_scores(q, k, causal)
+    return torch.logsumexp(s, dim=-1).transpose(1, 2).contiguous()
+
+
 def decode_attention_ref(q, k_cache, v_cache, lengths):
     """q (B,H,D); caches (B,Smax,KV,D); lengths (B,) -> (B,H,D).
 

@@ -16,7 +16,7 @@ from .ref import rmsnorm_ref
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x (..., d) f32 or bf16; scale (d,) f32 -> same shape and dtype as x."""
-    if x.device.type == "cpu":
+    if _build.on_cpu("rmsnorm", x=x, scale=scale):
         return rmsnorm_ref(x, scale, eps)
     _build.check_inputs("rmsnorm", x.device, x=x, scale=scale)
     if x.dtype not in _build.DTYPE_CODES:

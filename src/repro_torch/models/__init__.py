@@ -1,3 +1,12 @@
-from .lm import ModelOptions, init_params, stack_plan
+from .lm import (
+    ModelOptions,
+    decode_step,
+    forward,
+    forward_with_cache,
+    init_cache,
+    init_params,
+    stack_plan,
+)
 
-__all__ = ["ModelOptions", "init_params", "stack_plan"]
+__all__ = ["ModelOptions", "decode_step", "forward", "forward_with_cache",
+           "init_cache", "init_params", "stack_plan"]

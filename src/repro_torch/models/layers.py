@@ -1,11 +1,20 @@
-"""Shared model layers: norms, RoPE, decode attention, MLPs.
+"""Shared model layers: norms, RoPE, attention, MLPs.
 
 Ported from ``repro/models/layers.py``.  Parameters are plain nested dicts
 of tensors; compute runs in the compute dtype with f32 accumulation where
 the reference asks for it (``preferred_element_type=float32``).  The
-reference's sharding annotations have no counterpart here.  Full-sequence
-attention (``blockwise_causal_attention`` and friends) comes with
-``forward``, in a later slice.
+reference's sharding annotations have no counterpart here.
+
+Attention goes to the CUDA kernels: full-sequence causal attention to
+``kernels.flash_attention`` and decode over a dense cache to
+``kernels.decode_attention`` (``causal_attention`` and
+``cached_decode_attention`` below; ``impl="plain"`` picks their plain
+versions on any device).  The reference's ``blockwise_causal_attention``
+and ``tree_causal_attention`` are XLA formulations of the same function,
+chunked so that XLA never builds an S x S score matrix; they are not
+ported, because the kernel and its plain version take their place.
+``decode_attention`` here is the plain decode layer, which the paged
+engine's gather path and ``impl="plain"`` run.
 """
 
 from __future__ import annotations
@@ -16,9 +25,13 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 
+from ..kernels import decode_attention as decode_attention_kernel
+from ..kernels import flash_attention
 from ..kernels import rmsnorm as rmsnorm_kernel
+from ..kernels.ref import causal_attention_ref
 
 NEG_INF = -1e30
+ATTN_IMPLS = ("kernel", "plain")
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -95,6 +108,26 @@ def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
     p = p / p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def causal_attention(q, k, v, impl: str = "kernel") -> torch.Tensor:
+    """Causal attention over a full sequence: q (B,S,H,D), compact k, v
+    (B,S,KV,D) -> (B,S,H,D), through the flash kernel (``impl="kernel"``)
+    or its plain version (``"plain"``)."""
+    if impl == "plain":
+        return causal_attention_ref(q, k, v)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+
+
+def cached_decode_attention(q, k_cache, v_cache, lengths,
+                            impl: str = "kernel") -> torch.Tensor:
+    """One token per row against a dense cache, positions below
+    ``min(lengths, Smax)`` valid: the dense decode kernel
+    (``impl="kernel"``) or the plain layer ``decode_attention``."""
+    if impl == "plain":
+        return decode_attention(q, k_cache, v_cache, lengths)
+    return decode_attention_kernel(q.contiguous(), k_cache, v_cache,
+                                   lengths.to(torch.int32))
 
 
 # ----------------------------------------------------------------------- mlp

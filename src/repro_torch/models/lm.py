@@ -6,10 +6,21 @@ leading group axis, and an unrolled tail.  The port keeps the same dict
 keys, shapes and axis orders (``wq (d,H,hd)``, ``wo (H,hd,d)``), so the
 reference's weights carry across unchanged (``repro_torch.convert``).
 
-This slice serves attention-only stacks through the paged engine
-(``repro_torch.serve.paged_model``).  ``forward``, ``forward_with_cache``
-and ``decode_step`` come with the fixed-slot engine in the next slice;
-recurrent layers and MoE come in their own slices.
+Entry points, for stacks of global-attention layers with dense MLPs:
+
+- ``init_params``        -- parameters drawn from a torch generator;
+- ``forward``            -- full-sequence logits (+ a zero aux loss);
+- ``forward_with_cache`` -- prefill: ``forward`` that also builds the cache;
+- ``init_cache``         -- an empty dense decode cache;
+- ``decode_step``        -- one token per row against the cache.
+
+Full-sequence attention runs the flash kernel and decode the dense decode
+kernel (``ModelOptions.attn_impl``).  The reference's ``lax.scan`` over the
+main groups is a loop over the stacked leading axis, and the decode cache
+is written in place where the reference returns a new one.  The paged
+engine's tick lives in ``repro_torch.serve.paged_model``.  Recurrent and
+local-attention layers, MoE, frontends and ``loss_fn`` come in their own
+slices.
 """
 
 from __future__ import annotations
@@ -17,19 +28,39 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from .layers import dense_init, init_mlp, init_rmsnorm
+from .layers import (
+    ATTN_IMPLS,
+    apply_rope,
+    cached_decode_attention,
+    causal_attention,
+    dense_init,
+    init_mlp,
+    init_rmsnorm,
+    matmul_f32,
+    mlp_apply,
+    rmsnorm,
+    rope_table,
+)
 
 
 @dataclass(frozen=True)
 class ModelOptions:
-    """Implementation knobs that do not change semantics.  The reference's
-    other knobs (attention chunking, MoE dispatch, Pallas hooks) come with
-    the code paths that read them."""
+    """Implementation knobs that do not change semantics.  ``attn_impl``
+    picks the attention kernels (``"kernel"``) or their plain versions
+    (``"plain"``, which tests and ``chip_smoke.py`` compare against).  The
+    reference's other knobs (attention chunking, MoE dispatch, Pallas
+    hooks) come with the code paths that read them."""
 
     compute_dtype: str = "bfloat16"
+    attn_impl: str = "kernel"
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -163,3 +194,255 @@ def _mask_padded_vocab(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         return logits
     col = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
     return torch.where(col, logits, torch.full((), -1e30, device=logits.device))
+
+
+def _group(tree, g: int):
+    """Group ``g``'s slice of a stacked main-group tree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: _group(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+def _layers(tree, plan: StackPlan):
+    """``(spec, where, entry)`` for every layer in stack order, where
+    ``tree`` is the parameters or a cache (same skeleton): ``where`` is
+    ``(segment, index)`` and main-group entries are views into the stacked
+    leaves.  The reference's ``lax.scan`` over groups, as a loop."""
+    for i, spec in enumerate(plan.prefix):
+        yield spec, ("prefix", i), tree["prefix"][i]
+    for g in range(plan.num_groups):
+        for i, spec in enumerate(plan.pattern):
+            yield spec, ("main", i), _group(tree["main"][i], g)
+    for i, spec in enumerate(plan.tail):
+        yield spec, ("tail", i), tree["tail"][i]
+
+
+def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm, the (tied) head accumulated in f32, softcap, vocab mask."""
+    x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    head = (params["embed"]["table"].T if cfg.tie_embeddings
+            else params["head"]["w"])
+    logits = matmul_f32(x, head.to(x.dtype))
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return _mask_padded_vocab(logits, cfg)
+
+
+# ------------------------------------------------------------------ forward
+
+
+def embed_inputs(params, cfg: ArchConfig, tokens, frontend_embeds,
+                 dtype) -> torch.Tensor:
+    """tokens (B,S) int -> (B,S,d) in ``dtype``.  The scale is rounded to
+    ``dtype`` first (45.25 in bf16 for d_model 2048), as in the
+    reference."""
+    if cfg.frontend or frontend_embeds is not None:
+        raise NotImplementedError(
+            "frontend embeddings come with the frontends slice of the port")
+    x = params["embed"]["table"][tokens.long()].to(dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=x.device)
+    return x
+
+
+def _attention_block(aparams, cfg: ArchConfig, x, sin, cos,
+                     opts: ModelOptions):
+    """Self-attention over the sequence.  x (B,S,d) in the compute dtype.
+    Returns the output projection and the compact (B,S,KV,hd) K/V for the
+    cache.  q/k/v are accumulated in f32 and rounded to the compute dtype;
+    the output projection comes out in the compute dtype, as in the
+    reference."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = matmul_f32(x, aparams["wq"].flatten(1).to(dt)).to(dt).view(B, S, H, hd)
+    k = matmul_f32(x, aparams["wk"].flatten(1).to(dt)).to(dt).view(B, S, KV, hd)
+    v = matmul_f32(x, aparams["wv"].flatten(1).to(dt)).to(dt).view(B, S, KV, hd)
+    if "bq" in aparams:
+        q = q + aparams["bq"].to(dt)
+        k = k + aparams["bk"].to(dt)
+        v = v + aparams["bv"].to(dt)
+    if "q_norm" in aparams:
+        q = rmsnorm(q, aparams["q_norm"]["scale"], cfg.norm_eps)
+        k = rmsnorm(k, aparams["k_norm"]["scale"], cfg.norm_eps)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    # the kernel reads the compact K/V through h // G: no GQA repeat
+    out = causal_attention(q, k, v, opts.attn_impl)
+    proj = out.reshape(B, S, H * hd) @ aparams["wo"].flatten(0, 1).to(dt)
+    return proj, (k, v)
+
+
+def _pack_kv_cache(k, v, max_len: int) -> dict:
+    """Full-sequence K/V (B,S,KV,hd) as the decode cache: zero-padded to
+    (B, max_len, KV, hd).  (The reference's ring buffer for local
+    attention comes with that layer kind.)"""
+    pad = max_len - k.shape[1]
+    if pad < 0:
+        raise ValueError(f"max_len {max_len} is shorter than the sequence "
+                         f"{k.shape[1]}")
+    return {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+            "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+
+
+def _apply_layer_seq(lparams, cfg: ArchConfig, spec: LayerSpec, x, sin, cos,
+                     opts: ModelOptions, want_state: bool = False,
+                     max_len: int = 0):
+    """One layer over a full sequence.  Returns (x, aux[, state])."""
+    check_supported(spec)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rmsnorm(x, lparams["norm1"]["scale"], cfg.norm_eps)
+    mix, (k, v) = _attention_block(lparams["attn"], cfg, h, sin, cos, opts)
+    x = x + mix
+    if spec.d_ff > 0:
+        h2 = rmsnorm(x, lparams["norm2"]["scale"], cfg.norm_eps)
+        x = x + mlp_apply(lparams["mlp"], h2, cfg.act, cfg.gated_mlp)
+    if want_state:
+        return x, aux, _pack_kv_cache(k, v, max_len)
+    return x, aux
+
+
+def _run_seq(params, cfg: ArchConfig, tokens, frontend_embeds,
+             opts: ModelOptions, want_state: bool, max_len: int):
+    plan = stack_plan(cfg)
+    x = embed_inputs(params, cfg, tokens, frontend_embeds, opts.dtype)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    sin, cos = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    states = {"prefix": [], "main": [[] for _ in plan.pattern], "tail": []}
+    for spec, (seg, i), lp in _layers(params, plan):
+        out = _apply_layer_seq(lp, cfg, spec, x, sin, cos, opts,
+                               want_state=want_state, max_len=max_len)
+        x, aux = out[0], out[1]
+        aux_total = aux_total + aux
+        if want_state:
+            (states[seg][i] if seg == "main" else states[seg]).append(out[2])
+    return _logits(params, cfg, x), aux_total, states
+
+
+def forward(params, cfg: ArchConfig, tokens, frontend_embeds=None,
+            opts: ModelOptions = ModelOptions()):
+    """Full-sequence forward.  tokens (B,S) -> (logits (B,S,V) f32, aux),
+    with ``aux`` the f32 zero the reference's MoE loss is added to."""
+    logits, aux, _ = _run_seq(params, cfg, tokens, frontend_embeds, opts,
+                              want_state=False, max_len=0)
+    return logits, aux
+
+
+def forward_with_cache(params, cfg: ArchConfig, tokens, frontend_embeds=None,
+                       max_len: int = 0, opts: ModelOptions = ModelOptions()):
+    """Prefill: full-sequence forward that also builds the decode cache.
+
+    Returns (logits (B,S,V) f32, cache) with the cache padded to
+    ``max(max_len, S)`` positions and ``cache['len']`` set to S."""
+    B, S = tokens.shape
+    max_len = max(max_len, S)
+    logits, _, states = _run_seq(params, cfg, tokens, frontend_embeds, opts,
+                                 want_state=True, max_len=max_len)
+    cache = {
+        "prefix": states["prefix"],
+        "main": [{key: torch.stack([st[key] for st in per_group])
+                  for key in ("k", "v")} for per_group in states["main"]],
+        "tail": states["tail"],
+        "len": torch.full((B,), S, dtype=torch.int32, device=logits.device),
+    }
+    return logits, cache
+
+
+# -------------------------------------------------------------------- decode
+
+
+def _init_layer_state(cfg: ArchConfig, spec: LayerSpec, batch: int,
+                      max_len: int, dtype, device, groups=()) -> dict:
+    check_supported(spec)
+    shape = (*groups, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """An empty dense decode cache on ``device`` (CUDA unless the caller
+    asks for the CPU): per global-attention layer, K and V of shape
+    (batch, max_len, KV, hd), with the group axis first for main-group
+    layers, and ``len`` (batch,) int32."""
+    dev = resolve_device(device)
+    plan = stack_plan(cfg)
+    layer = (batch, max_len, dtype, dev)
+    return {
+        "prefix": [_init_layer_state(cfg, s, *layer) for s in plan.prefix],
+        "main": [_init_layer_state(cfg, s, *layer, groups=(plan.num_groups,))
+                 for s in plan.pattern],
+        "tail": [_init_layer_state(cfg, s, *layer) for s in plan.tail],
+        "len": torch.zeros((batch,), dtype=torch.int32, device=dev),
+    }
+
+
+def _decode_layer(lparams, cfg: ArchConfig, spec: LayerSpec, state, x, sin,
+                  cos, lengths, advance, opts: ModelOptions):
+    """One layer, one token per row.  x (B,d).  Writes this token's K/V
+    into ``state`` in place (rows where ``advance`` is False keep their
+    cache) and returns the new x."""
+    check_supported(spec)
+    dt = x.dtype
+    B = x.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h = rmsnorm(x, lparams["norm1"]["scale"], cfg.norm_eps)
+    ap = lparams["attn"]
+    # the reference's einsums name no accumulation type here: the
+    # projections come out in the compute dtype
+    q = (h @ ap["wq"].flatten(1).to(dt)).view(B, H, hd)
+    k = (h @ ap["wk"].flatten(1).to(dt)).view(B, KV, hd)
+    v = (h @ ap["wv"].flatten(1).to(dt)).view(B, KV, hd)
+    if "bq" in ap:
+        q, k, v = (q + ap["bq"].to(dt), k + ap["bk"].to(dt),
+                   v + ap["bv"].to(dt))
+    if "q_norm" in ap:
+        q = rmsnorm(q, ap["q_norm"]["scale"], cfg.norm_eps)
+        k = rmsnorm(k, ap["k_norm"]["scale"], cfg.norm_eps)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    Smax = state["k"].shape[1]
+    # a row past the end writes the last slot (the reference clamps too)
+    slot = torch.clamp(lengths, max=Smax - 1).long()
+    rows = torch.arange(B, device=x.device)
+    if advance is not None:
+        keep = ~advance[:, None, None]
+        k = torch.where(keep, state["k"][rows, slot], k)
+        v = torch.where(keep, state["v"][rows, slot], v)
+    state["k"][rows, slot] = k
+    state["v"][rows, slot] = v
+    out = cached_decode_attention(q, state["k"], state["v"], lengths + 1,
+                                  opts.attn_impl)
+    x = x + out.reshape(B, H * hd) @ ap["wo"].flatten(0, 1).to(dt)
+    if spec.d_ff > 0:
+        h2 = rmsnorm(x, lparams["norm2"]["scale"], cfg.norm_eps)
+        x = x + mlp_apply(lparams["mlp"], h2, cfg.act, cfg.gated_mlp)
+    return x
+
+
+def decode_step(params, cfg: ArchConfig, cache, tokens,
+                opts: ModelOptions = ModelOptions(), advance=None):
+    """One serving step: tokens (B,) -> (logits (B,V) f32, cache).
+
+    ``cache['len']`` (B,) is the number of tokens already in context.  The
+    cache is updated in place and returned.  ``advance`` (B,) bool, if
+    given, limits the step to those rows: the others keep their K/V and
+    their length bit for bit (their logits are computed and meaningless).
+    That is the reference's batched step followed by ``_merge_slot``,
+    without a second copy of the cache."""
+    plan = stack_plan(cfg)
+    dt = opts.dtype
+    lengths = cache["len"]
+    x = params["embed"]["table"][tokens.long()].to(dt)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
+    sin, cos = rope_table(lengths, cfg.head_dim, cfg.rope_theta)
+    for (spec, _, lp), (_, _, state) in zip(_layers(params, plan),
+                                            _layers(cache, plan)):
+        x = _decode_layer(lp, cfg, spec, state, x, sin, cos, lengths, advance,
+                          opts)
+    cache["len"] = (lengths + 1 if advance is None
+                    else torch.where(advance, lengths + 1, lengths))
+    return _logits(params, cfg, x), cache

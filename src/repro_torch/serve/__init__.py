@@ -1,4 +1,10 @@
-from .engine import PagedServeEngine, Request
+from .engine import (
+    PagedServeEngine,
+    Request,
+    ServeEngine,
+    make_decode_step,
+    make_prefill_step,
+)
 from .paging import BlockAllocator, OutOfBlocks, PrefixCache, SequenceBlocks
 
 __all__ = [
@@ -8,4 +14,7 @@ __all__ = [
     "PrefixCache",
     "Request",
     "SequenceBlocks",
+    "ServeEngine",
+    "make_decode_step",
+    "make_prefill_step",
 ]

@@ -1,12 +1,18 @@
-"""Continuous batching over a paged KV cache, ported from
-``repro/serve/engine.py`` (``Request`` and ``PagedServeEngine``).
+"""Serving: prefill and decode steps and the continuous-batching engines,
+ported from ``repro/serve/engine.py``.
 
-KV lives in fixed-size blocks handed out by a free-list allocator
-(``paging.py``), so admission capacity scales with tokens actually held;
-prompts prefill in chunks inside the regular mixed tick
-(``paged_model.py``); committed prompt blocks are shared across requests
-through a refcounted prefix cache with copy-on-write on divergence.  The
-fixed-slot ``ServeEngine`` comes in the next slice.
+``make_prefill_step`` / ``make_decode_step`` wrap ``forward_with_cache``
+and ``decode_step``.  ``ServeEngine`` is the fixed-slot driver: every slot
+owns a dense cache row of ``max_len`` positions, and a prompt is admitted
+token by token through the batched decode step with only the admitted row
+advancing (the reference's ``_merge_slot``, without copying the cache).
+
+``PagedServeEngine``: KV lives in fixed-size blocks handed out by a
+free-list allocator (``paging.py``), so admission capacity scales with
+tokens actually held; prompts prefill in chunks inside the regular mixed
+tick (``paged_model.py``); committed prompt blocks are shared across
+requests through a refcounted prefix cache with copy-on-write on
+divergence.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..convert import cast_params
 from ..device import resolve_device
-from ..models.lm import ModelOptions
+from ..models.lm import ModelOptions, decode_step, forward_with_cache, init_cache
 from .paged_model import (
     all_attention,
     init_paged_state,
@@ -39,6 +45,149 @@ class Request:
     max_new_tokens: int
     generated: list = field(default_factory=list)
     done: bool = False
+
+
+def make_prefill_step(cfg: ArchConfig, opts: ModelOptions = ModelOptions(),
+                      max_len: int = 0):
+    """``prefill(params, batch) -> (logits, cache)``: ``forward_with_cache``
+    over ``batch["tokens"]`` (B,S), the cache padded to ``max(max_len, S)``."""
+    def prefill(params, batch):
+        return forward_with_cache(params, cfg, batch["tokens"],
+                                  batch.get("frontend_embeds"),
+                                  max_len=max_len, opts=opts)
+
+    return prefill
+
+
+def make_decode_step(cfg: ArchConfig, opts: ModelOptions = ModelOptions()):
+    """``step(params, cache, tokens, advance=None) -> (logits, cache)``:
+    ``decode_step``, the cache updated in place."""
+    def step(params, cache, tokens, advance=None):
+        return decode_step(params, cfg, cache, tokens, opts, advance)
+
+    return step
+
+
+class ServeEngine:
+    """Continuous batching over a fixed slot count (single-device driver).
+
+    Each slot is a batch row of one dense cache padded to ``max_len``.
+    Admission zeroes the row and feeds the prompt one token at a time
+    through the batched decode step, with only that row advancing; then
+    every tick decodes one token for all slots (empty ones too, as in the
+    reference).  Greedy decoding; per-slot lengths.
+
+    ``params`` are the port's parameters; the engine casts matrices and the
+    embedding table to the compute dtype once, here, and keeps norm scales
+    in f32.  The cache is kept in the compute dtype.  It runs on CUDA
+    unless ``device="cpu"`` is passed.
+    """
+
+    def __init__(self, cfg: ArchConfig, params, num_slots: int, max_len: int,
+                 opts: ModelOptions = ModelOptions(), device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.opts = opts
+        self.params = cast_params(params, opts.dtype, self.device)
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.cache = init_cache(cfg, num_slots, max_len, opts.dtype,
+                                self.device)
+        self.slots: list = [None] * num_slots
+        self.queue: deque = deque()
+        self.finished: list = []
+        self._decode = make_decode_step(cfg, opts)
+        self._next_token = torch.zeros((num_slots,), dtype=torch.int32,
+                                       device=self.device)
+        self.ticks = 0
+        self.tokens_generated = 0
+        self.slots_busy = 0
+        self._busy_ticks = 0
+        self.on_metrics: Optional[Callable[[dict], None]] = None
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _admit(self) -> None:
+        for slot in range(self.num_slots):
+            if self.slots[slot] is None and self.queue:
+                req = self.queue.popleft()
+                self.slots[slot] = req
+                self.slots_busy += 1
+                _reset_slot(self.cache, slot)
+                only = torch.zeros((self.num_slots,), dtype=torch.bool,
+                                   device=self.device)
+                only[slot] = True
+                tok = self._next_token.clone()
+                for t in req.prompt:
+                    tok[slot] = t
+                    logits, self.cache = self._decode(self.params, self.cache,
+                                                      tok, only)
+                self._next_token[slot] = torch.argmax(logits[slot])
+
+    def metrics(self) -> dict:
+        """Slot occupancy + queue state: the engine's scaling signals."""
+        busy = self.slots_busy
+        return {
+            "numSlots": self.num_slots, "slotsBusy": busy,
+            "occupancy": busy / self.num_slots,
+            "meanOccupancy": (self._busy_ticks / (self.ticks * self.num_slots)
+                              if self.ticks else 0.0),
+            "queueDepth": len(self.queue),
+            "backpressure": min(1.0, len(self.queue) / self.num_slots),
+            "ticks": self.ticks, "tokensGenerated": self.tokens_generated,
+            "finished": len(self.finished),
+        }
+
+    def step(self) -> list:
+        """One engine tick: admit, decode one token for all slots."""
+        self._admit()
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        self.ticks += 1
+        self._busy_ticks += len(active)
+        if self.on_metrics is not None:
+            self.on_metrics(self.metrics())
+        if not active:
+            return []
+        logits, self.cache = self._decode(self.params, self.cache,
+                                          self._next_token)
+        # greedy on the device (first maximum, as np.argmax); B ints cross
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        host = nxt.cpu().tolist()
+        out = []
+        for i in active:
+            req = self.slots[i]
+            tok = host[i]
+            req.generated.append(tok)
+            if len(req.generated) >= req.max_new_tokens:
+                req.done = True
+                self.finished.append(req)
+                self.slots[i] = None
+                self.slots_busy -= 1
+            out.append((req.rid, tok))
+        self.tokens_generated += len(out)
+        self._next_token = nxt
+        return out
+
+    def run_until_drained(self, max_ticks: int = 10000) -> list:
+        ticks = 0
+        while (self.queue or self.slots_busy) and ticks < max_ticks:
+            self.step()
+            ticks += 1
+        return self.finished
+
+
+def _reset_slot(cache, slot: int) -> None:
+    """Zero one slot's cache row and length, in place (main-group leaves
+    carry the group axis first, so their batch axis is 1)."""
+    for seg in ("prefix", "tail"):
+        for entry in cache[seg]:
+            for t in entry.values():
+                t[slot] = 0
+    for entry in cache["main"]:
+        for t in entry.values():
+            t[:, slot] = 0
+    cache["len"][slot] = 0
 
 
 @dataclass

@@ -6,12 +6,15 @@ numpy inputs go through both.  ``test_torch_gpu.py`` holds the CUDA kernels
 against the plain versions on the card.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro import kernels as jk
+from repro.kernels import ref as jref
+from repro.models import layers as jlayers
 from repro_torch import kernels as tk
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # as tests/test_kernels.py
@@ -105,3 +108,129 @@ def test_wrappers_refuse_other_devices():
     idx = torch.zeros(1, 1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         tk.paged_decode_attention(q, pool, pool, idx, idx[0])
+    cache = torch.empty(1, 4, 1, 8, device="meta")
+    with pytest.raises(ValueError):
+        tk.decode_attention(q, cache, cache, idx[0])
+    seq = torch.empty(1, 4, 2, 8, device="meta")
+    with pytest.raises(ValueError):
+        tk.flash_attention(seq, seq[:, :, :1], seq[:, :, :1])
+    # a CPU tensor beside one elsewhere takes neither path
+    with pytest.raises(ValueError):
+        tk.rmsnorm(torch.zeros(2, 8), torch.zeros(8, device="meta"))
+    with pytest.raises(ValueError):
+        tk.decode_attention(torch.zeros(1, 2, 8), cache, cache, idx[0])
+    with pytest.raises(ValueError):
+        tk.flash_attention(torch.zeros(1, 4, 2, 8), seq, seq)
+    with pytest.raises(ValueError):
+        tk.paged_decode_attention(torch.zeros(1, 2, 8), pool, pool, idx, idx[0])
+
+
+# ---------------------------------------------------------- flash attention
+
+# the sweep of tests/test_kernels.py::test_flash_attention_sweep
+FLASH_CASES = [
+    (1, 128, 4, 4, 64),   # MHA
+    (2, 256, 8, 2, 64),   # GQA
+    (1, 256, 4, 1, 128),  # MQA
+    (2, 128, 4, 4, 32),
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,D", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_pallas(B, S, H, KV, D, dtype, causal):
+    """Output and LSE against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(B * S + H * KV + D)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
+    want, want_lse = jk.flash_attention(qj, kj, vj, block_q=64, block_k=64,
+                                        causal=causal, interpret=True,
+                                        return_lse=True)
+    got, lse = tk.flash_attention(qt, kt, vt, causal=causal, return_lse=True)
+    assert got.dtype == TDT[dtype] and got.shape == (B, S, H, D)
+    assert lse.dtype == torch.float32 and lse.shape == (B, S, H)
+    _close(got, want, TOL[dtype])
+    _close(lse, want_lse, TOL[dtype])
+    assert torch.equal(tk.flash_attention(qt, kt, vt, causal=causal), got)
+
+
+@pytest.mark.parametrize("block_q,block_k", [(32, 128), (128, 32), (64, 64)])
+def test_flash_attention_matches_pallas_block_shapes(block_q, block_k):
+    """The cases of tests/test_kernels.py::test_flash_attention_block_shapes:
+    the port has one tiling, the Pallas kernel three."""
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((2, 256, 4, 64), (2, 256, 2, 64), (2, 256, 2, 64)))
+    want = jk.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                              block_q=block_q, block_k=block_k, interpret=True)
+    got = tk.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("S,H,KV,D", [(100, 4, 2, 32), (37, 8, 1, 64),
+                                      (1, 5, 1, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_ragged_matches_reference(S, H, KV, D, dtype):
+    """Sequence lengths the Pallas kernel's ``S % block`` assert refuses,
+    against the JAX oracle ``ref.causal_attention_ref``; the LSE against
+    a log-sum-exp of JAX's masked scores."""
+    rng = np.random.default_rng(S + H + D)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((2, S, H, D), (2, S, KV, D), (2, S, KV, D)))
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
+    got, lse = tk.flash_attention(qt, kt, vt, return_lse=True)
+    _close(got, jref.causal_attention_ref(qj, kj, vj), TOL[dtype])
+    kf = jnp.repeat(kj, H // KV, axis=2).astype(jnp.float32)
+    s = jnp.einsum("bqhd,bkhd->bqhk", qj.astype(jnp.float32), kf) / np.sqrt(D)
+    s = jnp.where(jnp.tril(jnp.ones((S, S), bool))[None, :, None, :], s, -jnp.inf)
+    _close(lse, jax.scipy.special.logsumexp(s, axis=-1), TOL[dtype])
+
+
+# ------------------------------------------------------------- dense decode
+
+
+@pytest.mark.parametrize("B,H,KV,D,Smax,block_k,lengths", [
+    # tests/test_kernels.py::test_decode_attention_sweep
+    (2, 8, 2, 64, 512, 128, None),
+    (3, 4, 1, 128, 1024, 128, None),
+    (1, 4, 4, 64, 256, 128, None),
+    # ::test_decode_attention_unaligned_cache (Smax off block_k)
+    (2, 4, 2, 64, 384, 256, "unaligned"),
+    (1, 4, 4, 64, 100, 128, "unaligned"),
+    (2, 8, 2, 64, 260, 128, "unaligned"),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_matches_pallas(B, H, KV, D, Smax, block_k, lengths,
+                                         dtype):
+    rng = np.random.default_rng(B * H + D + Smax)
+    q, kc, vc = (rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, H, D), (B, Smax, KV, D), (B, Smax, KV, D)))
+    if lengths is None:
+        lens = np.asarray([Smax // (i + 1) for i in range(B)], np.int32)
+    else:
+        lens = np.asarray([Smax - 7 * i for i in range(B)], np.int32)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, kc, vc))
+    want = jk.decode_attention(qj, kj, vj, jnp.asarray(lens), block_k=block_k,
+                               interpret=True)
+    got = tk.decode_attention(qt, kt, vt, torch.from_numpy(lens))
+    assert got.dtype == TDT[dtype] and got.shape == (B, H, D)
+    _close(got, want, TOL[dtype])
+
+
+def test_decode_attention_lengths_past_the_cache_match_the_model_layer():
+    """A length above Smax attends to the whole cache, as JAX's plain
+    ``layers.decode_attention`` (what its ``decode_step`` runs) reads it;
+    ragged lengths below Smax too."""
+    rng = np.random.default_rng(9)
+    B, H, KV, D, Smax = 4, 8, 2, 32, 48
+    q, kc, vc = (rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, H, D), (B, Smax, KV, D), (B, Smax, KV, D)))
+    lens = np.asarray([Smax + 1, 300, 17, 1], np.int32)
+    want = jlayers.decode_attention(*(jnp.asarray(a) for a in (q, kc, vc, lens)))
+    got = tk.decode_attention(*(torch.from_numpy(a) for a in (q, kc, vc, lens)))
+    _close(got, want, 2e-5)
+    zero = tk.decode_attention(*(torch.from_numpy(a) for a in (q, kc, vc)),
+                               torch.zeros(B, dtype=torch.int32))
+    assert not zero.any()  # an empty row attends to nothing: 0

@@ -1,0 +1,224 @@
+"""The port's full-sequence ``forward``, prefill (``forward_with_cache``)
+and dense ``decode_step`` against the JAX package's, on the same numpy
+tokens and the same weights (through ``repro_torch.convert``), in f32 on
+the CPU.  The port's attention wrappers run their plain versions here;
+JAX's model runs its XLA blockwise attention and plain decode layer."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import reduced_config as jax_reduced_config
+from repro.models import ModelOptions as JaxModelOptions
+from repro.models import decode_step as jax_decode_step
+from repro.models import forward as jax_forward
+from repro.models import forward_with_cache as jax_forward_with_cache
+from repro.models import init_cache as jax_init_cache
+from repro.models import init_params as jax_init_params
+from repro_torch import kernels
+from repro_torch.configs import reduced_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.models import (
+    ModelOptions,
+    decode_step,
+    forward,
+    forward_with_cache,
+    init_cache,
+    init_params,
+)
+from repro_torch.models.lm import embed_inputs
+
+ARCHS = ["gemma-2b", "qwen3-14b", "qwen1.5-4b"]  # MQA + GeGLU + tied, qk-norm, qkv bias
+JOPTS = JaxModelOptions(compute_dtype="float32")
+TOPTS = ModelOptions(compute_dtype="float32")
+# logits and cached K/V after the reduced stack, in f32, held relative to
+# the largest element: the same arithmetic summed in another order (a plain
+# softmax against JAX's blockwise online softmax, matmuls of width <= 512).
+# The reference's near-hard attention (ROADMAP Queue 3) amplifies that: JAX
+# against itself with q_chunk = kv_chunk = 16 instead of the defaults parts
+# by 3.5e-5 of the largest logit at reduced gemma-2b, 1.7e-5 at qwen1.5-4b
+LOGITS_TOL = 1e-4
+# the prefill/decode equivalence bound of tests/test_models.py
+EQUIV_TOL = 5e-3
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def _close(a, b, tol=LOGITS_TOL):
+    """|a - b| <= tol * max |b|, elementwise."""
+    a, b = _np(a), _np(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    np.testing.assert_allclose(a, b, rtol=0, atol=tol * max(np.abs(b).max(), 1.0))
+
+
+def _models(arch, seed=0):
+    jcfg, tcfg = jax_reduced_config(arch), reduced_config(arch)
+    jp = jax_init_params(jax.random.key(seed), jcfg)
+    return jcfg, tcfg, jp, params_from_numpy(jp, device="cpu")
+
+
+def _tokens(cfg, B, S, seed=1):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _caches_close(tcache, jcache, tol=LOGITS_TOL):
+    np.testing.assert_array_equal(tcache["len"].numpy(), np.asarray(jcache["len"]))
+    for seg in ("prefix", "main", "tail"):
+        assert len(tcache[seg]) == len(jcache[seg]), seg
+        for t, j in zip(tcache[seg], jcache[seg]):
+            for name in ("k", "v"):
+                assert tuple(t[name].shape) == np.shape(j[name]), (seg, name)
+                _close(t[name], j[name], tol)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("S", [64, 100])  # 100: off every kernel tile
+def test_forward_matches_jax(arch, S):
+    jcfg, tcfg, jp, tp = _models(arch)
+    toks = _tokens(tcfg, 2, S)
+    want, jaux = jax_forward(jp, jcfg, jnp.asarray(toks), None, JOPTS)
+    got, aux = forward(tp, tcfg, torch.from_numpy(toks), opts=TOPTS)
+    assert got.dtype == torch.float32 and got.shape == (2, S, tcfg.padded_vocab)
+    assert aux.dtype == torch.float32 and aux.shape == () and float(aux) == float(jaux)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_with_cache_matches_jax(arch):
+    """Prefill logits AND the packed cache (compact K/V, zero-padded to
+    max_len, len = S)."""
+    jcfg, tcfg, jp, tp = _models(arch)
+    toks = _tokens(tcfg, 2, 40)
+    want, jcache = jax_forward_with_cache(jp, jcfg, jnp.asarray(toks), None,
+                                          max_len=64, opts=JOPTS)
+    got, cache = forward_with_cache(tp, tcfg, torch.from_numpy(toks),
+                                    max_len=64, opts=TOPTS)
+    _close(got, want)
+    _caches_close(cache, jcache)
+    assert not cache["main"][0]["k"][:, :, 40:].any()  # the padding is zero
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_step_matches_jax(arch):
+    """Three decode steps from a prefilled cache, then from an empty one:
+    logits and cache agree with JAX's after every step."""
+    jcfg, tcfg, jp, tp = _models(arch)
+    toks = _tokens(tcfg, 3, 24)
+    _, jcache = jax_forward_with_cache(jp, jcfg, jnp.asarray(toks[:, :20]), None,
+                                       max_len=24, opts=JOPTS)
+    _, cache = forward_with_cache(tp, tcfg, torch.from_numpy(toks[:, :20]),
+                                  max_len=24, opts=TOPTS)
+    for t in range(20, 23):
+        jl_, jcache = jax_decode_step(jp, jcfg, jcache, jnp.asarray(toks[:, t]), JOPTS)
+        tl_, cache = decode_step(tp, tcfg, cache, torch.from_numpy(toks[:, t]), TOPTS)
+        _close(tl_, jl_)
+        _caches_close(cache, jcache)
+    jcache = jax_init_cache(jcfg, 3, 8, jnp.float32)
+    cache = init_cache(tcfg, 3, 8, torch.float32, "cpu")
+    for t in range(3):
+        jl_, jcache = jax_decode_step(jp, jcfg, jcache, jnp.asarray(toks[:, t]), JOPTS)
+        tl_, cache = decode_step(tp, tcfg, cache, torch.from_numpy(toks[:, t]), TOPTS)
+        _close(tl_, jl_)
+    _caches_close(cache, jcache)
+
+
+def test_decode_step_past_the_cache_matches_jax():
+    """Rows at or past max_len write the last slot and attend to the whole
+    cache (lengths above Smax), as the reference's clamp does."""
+    jcfg, tcfg, jp, tp = _models("qwen3-14b")
+    toks = _tokens(tcfg, 2, 12)
+    jcache = jax_init_cache(jcfg, 2, 4, jnp.float32)
+    cache = init_cache(tcfg, 2, 4, torch.float32, "cpu")
+    for t in range(7):
+        jl_, jcache = jax_decode_step(jp, jcfg, jcache, jnp.asarray(toks[:, t]), JOPTS)
+        tl_, cache = decode_step(tp, tcfg, cache, torch.from_numpy(toks[:, t]), TOPTS)
+        _close(tl_, jl_)
+        _caches_close(cache, jcache)
+    assert cache["len"].tolist() == [7, 7]
+
+
+def test_decode_step_advance_leaves_other_rows_alone():
+    """With ``advance``, only the chosen rows write K/V and move on: every
+    other row's cache and length stay bit for bit, including a row past
+    the end of its cache (whose clamped write slot lies inside its valid
+    range)."""
+    _, tcfg, _, tp = _models("gemma-2b")
+    toks = torch.from_numpy(_tokens(tcfg, 3, 8))
+    cache = init_cache(tcfg, 3, 4, torch.float32, "cpu")
+    for t in range(6):  # every row runs past max_len = 4
+        _, cache = decode_step(tp, tcfg, cache, toks[:, t], TOPTS)
+    before = {n: cache["main"][0][n].clone() for n in ("k", "v")}
+    lens = cache["len"].clone()
+    adv = torch.tensor([False, True, False])
+    _, cache = decode_step(tp, tcfg, cache, toks[:, 6], TOPTS, advance=adv)
+    assert cache["len"].tolist() == [lens[0], lens[1] + 1, lens[2]]
+    for n in ("k", "v"):
+        after = cache["main"][0][n]
+        assert torch.equal(after[:, [0, 2]], before[n][:, [0, 2]])
+        assert not torch.equal(after[:, 1], before[n][:, 1])
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-14b"])
+def test_prefill_decode_equivalence(arch):
+    """The port's decode_step from a prefilled cache == its full forward
+    (as ``tests/test_models.py::test_prefill_decode_equivalence``)."""
+    cfg = reduced_config(arch)
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, 2, 96))
+    full, _ = forward(params, cfg, toks, opts=TOPTS)
+    n0 = 48
+    pre, cache = forward_with_cache(params, cfg, toks[:, :n0], max_len=96, opts=TOPTS)
+    errs = [float((pre[:, -1] - full[:, n0 - 1]).abs().max())]
+    for t in range(n0, 96):
+        lg, cache = decode_step(params, cfg, cache, toks[:, t], TOPTS)
+        errs.append(float((lg - full[:, t]).abs().max()))
+    assert max(errs) < EQUIV_TOL, errs
+
+
+def test_model_path_reaches_the_attention_wrappers(monkeypatch):
+    """forward goes through ``flash_attention`` and decode_step through the
+    dense ``decode_attention`` wrapper, once per layer and call (on the CPU
+    the wrappers run their plain versions and count nothing, so count the
+    calls)."""
+    from repro_torch.models import layers
+
+    calls = {"flash": 0, "decode": 0}
+    real_flash, real_decode = layers.flash_attention, layers.decode_attention_kernel
+
+    def flash(*a, **k):
+        calls["flash"] += 1
+        return real_flash(*a, **k)
+
+    def decode(*a, **k):
+        calls["decode"] += 1
+        return real_decode(*a, **k)
+
+    monkeypatch.setattr(layers, "flash_attention", flash)
+    monkeypatch.setattr(layers, "decode_attention_kernel", decode)
+    cfg = reduced_config("qwen3-14b")
+    params = init_params(cfg, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, 1, 16))
+    _, cache = forward_with_cache(params, cfg, toks, max_len=20, opts=TOPTS)
+    decode_step(params, cfg, cache, toks[:, 0], TOPTS)
+    assert calls == {"flash": cfg.num_layers, "decode": cfg.num_layers}
+    plain = ModelOptions(compute_dtype="float32", attn_impl="plain")
+    forward(params, cfg, toks, opts=plain)
+    assert calls["flash"] == cfg.num_layers
+    assert kernels.flash_attention.launches == 0  # nothing launched on the CPU
+
+
+def test_unported_inputs_raise():
+    cfg = reduced_config("musicgen-large")
+    with pytest.raises(NotImplementedError):  # the frontends slice
+        embed_inputs({"embed": {"table": torch.zeros(4, 2)}}, cfg,
+                     torch.zeros(1, 2, dtype=torch.int64), None, torch.float32)
+    with pytest.raises(ValueError):
+        ModelOptions(attn_impl="sdpa")
+    with pytest.raises(NotImplementedError):  # recurrent layers: their slice
+        init_cache(reduced_config("recurrentgemma-9b"), 1, 8, torch.float32, "cpu")

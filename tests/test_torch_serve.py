@@ -1,6 +1,7 @@
-"""The port's paged serving engine against the JAX package's, greedy token
-for token, on converted weights; plus the port's import hygiene and its
-refusal to fall back to the CPU."""
+"""The port's serving engines (paged and fixed-slot) against the JAX
+package's, greedy token for token and metric for metric, on converted
+weights; plus the port's import hygiene and its refusal to fall back to the
+CPU."""
 
 import ast
 from pathlib import Path
@@ -14,10 +15,11 @@ from repro.models import ModelOptions as JaxModelOptions
 from repro.models import init_params as jax_init_params
 from repro.serve import PagedServeEngine as JaxPagedServeEngine
 from repro.serve import Request as JaxRequest
+from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch.configs import reduced_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import ModelOptions, init_params
-from repro_torch.serve import PagedServeEngine, Request
+from repro_torch.serve import PagedServeEngine, Request, ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 # the request mix of tests/test_serve.py: three prompts share a prefix, so
@@ -96,6 +98,109 @@ def test_engine_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         PagedServeEngine(cfg, params, num_blocks=8)
+
+
+# ------------------------------------------------------------- fixed slot
+
+# the cases of tests/test_serve.py: more requests than slots (queueing), and
+# one request alone against the same request beside another
+FIXED_CASES = {
+    "queueing": ("gemma-2b", dict(num_slots=2, max_len=64),
+                 [[1 + rid, 2, 3] for rid in range(4)], 5),
+    "alone": ("qwen3-14b", dict(num_slots=1, max_len=32), [[5, 6, 7]], 4),
+    "together": ("qwen3-14b", dict(num_slots=2, max_len=32),
+                 [[5, 6, 7], [9, 10]], 4),
+    "qkv_bias": ("qwen1.5-4b", dict(num_slots=2, max_len=16),
+                 [[1, 5, 9, 2], [4, 4, 8], [3]], 6),
+    # rows run past max_len: the clamped writes and the full-cache reads
+    "past_max_len": ("gemma-2b", dict(num_slots=2, max_len=6),
+                     [[1, 5, 9, 2], [4, 4, 8], [7, 7]], 6),
+}
+
+
+def _fixed(engine_cls, request_cls, cfg, params, opts, prompts, max_new, **kw):
+    eng = engine_cls(cfg, params, opts=opts, **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(request_cls(rid=i, prompt=list(p), max_new_tokens=max_new))
+    done = eng.run_until_drained(max_ticks=200)
+    return {r.rid: r.generated for r in done}, eng
+
+
+@pytest.mark.parametrize("case", sorted(FIXED_CASES))
+def test_fixed_slot_engine_matches_jax(case):
+    arch, kw, prompts, max_new = FIXED_CASES[case]
+    jp = jax_init_params(jax.random.key(0), jax_reduced_config(arch))
+    want, jeng = _fixed(JaxServeEngine, JaxRequest, jax_reduced_config(arch), jp,
+                        JaxModelOptions(compute_dtype="float32"), prompts,
+                        max_new, **kw)
+    got, teng = _fixed(ServeEngine, Request, reduced_config(arch),
+                       params_from_numpy(jp, device="cpu"),
+                       ModelOptions(compute_dtype="float32"), prompts, max_new,
+                       device="cpu", **kw)
+    assert got == want and len(got) == len(prompts)
+    assert all(len(t) == max_new for t in got.values())
+    assert teng.metrics() == jeng.metrics()
+
+
+def test_batched_decode_matches_single():
+    """The port alone: a request decoded beside another equals it alone."""
+    cfg = reduced_config("qwen3-14b")
+    params = init_params(cfg, seed=0, device="cpu")
+    opts = ModelOptions(compute_dtype="float32")
+    alone, _ = _fixed(ServeEngine, Request, cfg, params, opts, [[5, 6, 7]], 4,
+                      num_slots=1, max_len=32, device="cpu")
+    together, _ = _fixed(ServeEngine, Request, cfg, params, opts,
+                         [[5, 6, 7], [9, 10]], 4, num_slots=2, max_len=32,
+                         device="cpu")
+    assert together[0] == alone[0]
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-14b"])
+def test_paged_engine_matches_fixed_slot(arch):
+    """The port's paged engine (chunked prefill, prefix reuse, CoW) gives
+    the port's fixed-slot engine's greedy tokens (tests/test_serve.py)."""
+    cfg = reduced_config(arch)
+    params = init_params(cfg, seed=0, device="cpu")
+    opts = ModelOptions(compute_dtype="float32")
+    want, _ = _fixed(ServeEngine, Request, cfg, params, opts, PROMPTS, 5,
+                     num_slots=2, max_len=16, device="cpu")
+    got, eng = _serve(PagedServeEngine, Request, cfg, params, opts,
+                      num_blocks=24, block_size=4, max_active=3,
+                      prefill_chunk=3, device="cpu")
+    assert got == want
+    m = eng.metrics()
+    assert m["prefixHitRate"] > 0 and m["cowCopies"] >= 1
+    assert m["prefillBacklog"] == 0
+
+
+def test_admission_leaves_a_row_past_max_len_alone():
+    """Admitting a prompt runs the batched decode step once per prompt
+    token; a row that sits at len >= max_len (whose clamped write slot lies
+    inside its valid range) keeps its K/V and its len bit for bit."""
+    cfg = reduced_config("gemma-2b")
+    eng = ServeEngine(cfg, init_params(cfg, seed=1, device="cpu"), num_slots=2,
+                      max_len=4, opts=ModelOptions(compute_dtype="float32"),
+                      device="cpu")
+    eng.submit(Request(rid=0, prompt=[3, 1, 4], max_new_tokens=12))
+    for _ in range(4):
+        eng.step()
+    assert int(eng.cache["len"][0]) >= eng.max_len
+    row = {n: eng.cache["main"][0][n][:, 0].clone() for n in ("k", "v")}
+    length = int(eng.cache["len"][0])
+    eng.submit(Request(rid=1, prompt=[1, 5, 9, 2, 6], max_new_tokens=2))
+    eng._admit()
+    assert int(eng.cache["len"][1]) == 5
+    assert int(eng.cache["len"][0]) == length
+    for n in ("k", "v"):
+        assert torch.equal(eng.cache["main"][0][n][:, 0], row[n])
+
+
+def test_fixed_slot_engine_without_card_raises(monkeypatch):
+    cfg = reduced_config("gemma-2b")
+    params = init_params(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        ServeEngine(cfg, params, num_slots=2, max_len=8)
 
 
 def _port_files():
