@@ -19,14 +19,22 @@ tolerance miss:
    about 48 tokens on 4 slots, with the launch counts read around the run;
 6. prefill: ``make_prefill_step`` over 1024 tokens, then 16 decode steps
    from that cache, timed on the host and profiled on the device;
-7. checks at full width and 2 layers: the paged kernel path against its
+7. train: full-width, full-depth gemma-2b through
+   ``repro_torch.launch.train.main`` (batch 2 x 1024 tokens of the lcg
+   stream, f32 parameters and AdamW moments, bf16 compute, remat; 2
+   warm-up and 6 timed steps) with exact launch counts per step, then one
+   step of a fresh state built with ``init_train_state`` and
+   ``make_train_step`` profiled on the device;
+8. checks at full width and 2 layers: the paged kernel path against its
    gather path (first-tick logits in bf16, greedy tokens in f32); the
    flash path of ``forward`` (bf16: each layer's attention on forward's
    own inputs against f64, and the 1-layer logits against the plain
    path); prefill
    plus decode against ``forward`` (f32); the fixed-slot engine against
-   the paged engine (greedy tokens, f32);
-8. the kernels line (JSON), the card's name and power limit, and the
+   the paged engine (greedy tokens, f32); one train step, kernels against
+   the plain path (loss, gradients, updated parameters: f32 at 2 layers,
+   bf16 at 1), and two kernel-path steps from one state bit for bit;
+9. the kernels line (JSON), the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -36,6 +44,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -51,8 +60,10 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.convert import cast_params  # noqa: E402
+from repro_torch.convert import cast_params, map_params  # noqa: E402
+from repro_torch.data import StreamSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     ModelOptions,
     decode_step,
@@ -60,6 +71,7 @@ from repro_torch.models import (  # noqa: E402
     forward_with_cache,
     init_params,
     layers,
+    loss_fn,
 )
 from repro_torch.serve import (  # noqa: E402
     PagedServeEngine,
@@ -69,6 +81,15 @@ from repro_torch.serve import (  # noqa: E402
     make_prefill_step,
     paged_model,
 )
+from repro_torch.train import (  # noqa: E402
+    OptimizerConfig,
+    TrainConfig,
+    global_norm,
+    init_train_state,
+    lr_schedule,
+    make_train_step,
+)
+from repro_torch.train.optim import leaves  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
@@ -92,7 +113,25 @@ WHERE = {  # kernel -> (CUDA source, the TPU kernel it replaces)
                          "src/repro/kernels/decode_attention.py:82"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:214"),
 }
+# flash backward against its plain version: f32 as
+# tests/test_kernels.py::test_flash_attention_backward_kernels (5e-5 abs +
+# 5e-4 rel); bf16 within 2e-2 of each output's largest entry (one bf16
+# rounding of f32 sums)
+BWD_F32_ATOL, BWD_F32_RTOL, BWD_BF16_REL = 5e-5, 5e-4, 2e-2
+# one train step: the loss (relative) and each gradient leaf (relative to
+# its largest entry), kernel path against plain path; the step's clipped
+# gradient and each leaf's change, against the first AdamW step in closed
+# form.  f32 at 2 layers; bf16 at 1 (the 2-layer bf16 forward already parts
+# by 0.1 with the reference's init: PERF.md, Findings)
+TRAIN_F32 = {"loss": 1e-5, "leaf": 1e-3}
+TRAIN_BF16 = {"loss": 2e-2, "leaf": 2e-2}
+# the optimizer of that step: lr 2.5e-3 at step 0, a change that f32
+# parameters resolve (at the default 3e-6 it lies within a few ulps of
+# the parameter)
+TRAIN_CHECK_OPT = OptimizerConfig(lr=1e-2, warmup_steps=4)
 
 
 def log(*args) -> None:
@@ -294,13 +333,95 @@ def check_flash(gen, B, S, H, KV, D, dtype) -> dict:
     return {
         "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D},
         "dtype": str(dtype), "max_abs_err": err,
-        "ms": time_ms(lambda i: kernels.flash_attention(q, k, v), iters=5),
+        # with the LSE, as the prefill and train paths launch it (through
+        # flash_attention_train)
+        "ms": time_ms(lambda i: kernels.flash_attention(q, k, v, return_lse=True),
+                      iters=5),
         "plain_ms": time_ms(lambda i: kernels.ref.causal_attention_ref(q, k, v),
                             iters=5),
         "library_ms": time_ms(lambda i: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters=5),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+
+
+def check_flash_bwd(gen, B, S, H, KV, D, dtype) -> dict:
+    """Causal flash attention backward on the forward kernel's (out, lse):
+    dq, dk, dv against the plain version, and two launches bit for bit."""
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    out, lse = kernels.flash_attention(q, k, v, return_lse=True)
+    args = (q, k, v, out, lse, do)
+    got = kernels.flash_attention_bwd(*args)
+    again = kernels.flash_attention_bwd(*args)
+    want = kernels.ref.flash_attention_bwd_ref(*args)
+    torch.cuda.synchronize()
+    what = f"flash_attention_bwd B={B} S={S} H={H} KV={KV} D={D} {dtype}"
+    err = 0.0
+    for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+        if not torch.equal(g, g2):
+            raise AssertionError(f"{what} {name}: two launches differ")
+        if dtype == torch.float32:
+            err = max(err, _bwd_f32_err(g, w, what + " " + name))
+        else:
+            e = (g.float() - w.float()).abs().max().item()
+            if not torch.isfinite(g).all() or e > BWD_BF16_REL * w.float().abs().max().item():
+                raise AssertionError(f"{what} {name}: max abs error {e} over "
+                                     f"{BWD_BF16_REL} of the largest entry")
+            err = max(err, e)
+    del got, again, want
+    # yardstick: SDPA on K/V expanded to H heads (outside the timing), its
+    # flash backend in bf16 (it takes no f32: there SDPA picks its backend);
+    # backward time taken as (forward + backward) - forward, both replayed
+    # from CUDA graphs
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def backend():
+        return (sdpa_kernel(SDPBackend.FLASH_ATTENTION) if dtype == torch.bfloat16
+                else contextlib.nullcontext())
+
+    G = H // KV
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (x.repeat_interleave(G, 2).transpose(1, 2).contiguous().requires_grad_()
+              for x in (k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd(i):
+        with backend(), torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd(i):
+        with backend():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    fwd_ms = time_ms(sdpa_fwd, iters=5)
+    library_ms = time_ms(sdpa_fwd_bwd, iters=5) - fwd_ms
+    del qt, kt, vt, dot
+    es = q.element_size()
+    nbytes = ((3 * q.numel() + 2 * k.numel()) * es + lse.numel() * 4  # read
+              + (q.numel() + 2 * k.numel()) * es)  # dq, dk, dv written
+    b_ms, b_by = bound(nbytes, 5 * 2 * B * H * (S * S / 2) * D, dtype)
+    return {
+        "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D},
+        "dtype": str(dtype), "max_abs_err": err,
+        "ms": time_ms(lambda i: kernels.flash_attention_bwd(*args), iters=5),
+        "plain_ms": time_ms(lambda i: kernels.ref.flash_attention_bwd_ref(*args),
+                            iters=5),
+        "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def _bwd_f32_err(got, want, what: str) -> float:
+    err = (got - want).abs()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite output")
+    if (err > BWD_F32_ATOL + BWD_F32_RTOL * want.abs()).any():
+        raise AssertionError(f"{what}: max abs error {err.max().item()} exceeds "
+                             f"{BWD_F32_ATOL} + {BWD_F32_RTOL} rel")
+    return err.max().item()
 
 
 # -------------------------------------------------------------------- serve
@@ -396,14 +517,17 @@ def first_tick_logits(cfg, params, opts, trace, C, attn_impl):
     return logits
 
 
-def profiled(fn) -> dict:
+def profiled(fn, by_op: bool = False) -> dict:
     """Wall time of ``fn()`` (host clock, synchronized) and its device time
-    by kernel (torch.profiler; kernels on one stream do not overlap)."""
+    by kernel (torch.profiler; kernels on one stream do not overlap).  With
+    ``by_op``, also the host ops whose kernels took the most device time,
+    with their input shapes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=by_op) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -417,8 +541,20 @@ def profiled(fn) -> dict:
     device_ms = sum(r[1] for r in rows)
     if device_ms == 0:
         raise AssertionError("the profiler recorded no device time")
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "busy_share": device_ms / wall_ms, "top": rows[:10]}
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "busy_share": device_ms / wall_ms, "top": rows[:10]}
+    if by_op:
+        def host_ops(events, label):
+            ops = [(label(e), e.device_time_total / 1e3, e.count) for e in events
+                   if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+                   and e.device_time_total > 0]
+            return sorted(ops, key=lambda r: -r[1])
+
+        out["top_ops"] = host_ops(prof.key_averages(), lambda e: e.key)[:10]
+        out["top_ops_by_shape"] = host_ops(
+            prof.key_averages(group_by_input_shape=True),
+            lambda e: f"{e.key} {e.input_shapes}")[:12]
+    return out
 
 
 def log_profile(label: str, p: dict, smi: str) -> None:
@@ -426,6 +562,11 @@ def log_profile(label: str, p: dict, smi: str) -> None:
         f"{p['device_ms']:.3f} ms ({p['busy_share']:.3f} of wall) ({smi})")
     for name, ms, calls in p["top"]:
         log(f"      {ms:9.3f} ms  {calls:6d} calls  {name[:90]}")
+    for key, what in (("top_ops", "host ops"), ("top_ops_by_shape", "host ops by input shape")):
+        if key in p:
+            log(f"   {what}, by the device time of their kernels (children included):")
+            for name, ms, calls in p[key]:
+                log(f"      {ms:9.3f} ms  {calls:6d} calls  {name[:150]}")
 
 
 def profile_tick(cfg, params, opts, trace, C) -> dict:
@@ -484,17 +625,17 @@ def check_forward_flash(cfg2, params16, tokens, opts) -> None:
     and prints the 2-layer logits' difference without holding it."""
     plain = ModelOptions(compute_dtype="bfloat16", attn_impl="plain")
     seen = []
-    real = layers.flash_attention
+    real = layers.flash_attention_train
 
-    def capture(q, k, v, **kw):
+    def capture(q, k, v, *args):
         seen.append((q, k, v))
-        return real(q, k, v, **kw)
+        return real(q, k, v, *args)
 
-    layers.flash_attention = capture
+    layers.flash_attention_train = capture
     try:
         lk, _ = forward(params16, cfg2, tokens, opts=opts)
     finally:
-        layers.flash_attention = real
+        layers.flash_attention_train = real
     lp, _ = forward(params16, cfg2, tokens, opts=plain)
     assert torch.isfinite(lk).all() and len(seen) == cfg2.num_layers
     per_pos = ((lk - lp).abs().amax(-1) / lp.abs().max())[0]
@@ -539,6 +680,110 @@ def check_forward_flash(cfg2, params16, tokens, opts) -> None:
     assert rel <= LOGITS_BF16_RTOL, rel
 
 
+# -------------------------------------------------------------------- train
+
+
+def leaf_names(tree) -> list:
+    """A label for each leaf, in ``leaves`` order: its index and dict key."""
+    keys = []
+    map_params(lambda k, _t: keys.append(k), tree)
+    return [f"{i}:{k}" for i, k in enumerate(keys)]
+
+
+def clone_params(params):
+    return map_params(lambda _k, p: p.detach().clone(), params)
+
+
+def train_grads(params, cfg, batch, opts) -> tuple:
+    """Loss and every parameter's gradient of ``loss_fn`` (remat on), as the
+    train step computes them."""
+    params = clone_params(params)
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    loss, _ = loss_fn(params, cfg, batch, opts, remat=True)
+    loss.backward()
+    missing = [i for i, p in enumerate(flat) if p.grad is None]
+    assert not missing, f"leaves {missing} got no gradient ({opts.attn_impl})"
+    return loss.item(), [p.grad for p in flat]
+
+
+def leaf_rel(got: list, want: list, names: list) -> tuple:
+    """The largest over leaves of max |got - want| / max |want|, and that
+    leaf's name."""
+    rel = [((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+           for g, w in zip(got, want)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    return rel[worst], names[worst]
+
+
+def clip_factor(grads: list, ocfg: OptimizerConfig) -> torch.Tensor:
+    """The factor ``clip_by_global_norm`` scales ``grads`` by."""
+    return torch.clamp(ocfg.clip_norm / torch.clamp(global_norm(grads), min=1e-12),
+                       max=1.0)
+
+
+def adam_dir(g, ocfg: OptimizerConfig):
+    """The first AdamW step's direction, before decay, for the clipped
+    gradient ``g``: from zero moments the bias-corrected m and v are g and
+    g squared."""
+    return g / (g.abs() + ocfg.eps)
+
+
+def check_train_step(cfg_n, params32, batch, dtype, tol: dict, smi: str) -> None:
+    """One train step from the same state and batch.  The loss and each
+    gradient leaf: kernel path against the plain path.  The kernel path's
+    ``make_train_step``: its clipped gradient (its first moment over 1 -
+    b1) against the kernel gradients clipped, and each leaf's change
+    against the first AdamW step in closed form, -lr * (g / (|g| + eps) +
+    decay * p).  The same closed form from the two paths' gradients is
+    logged, not held: it parts wherever |g| is near eps."""
+    opts = {impl: ModelOptions(compute_dtype=dtype, attn_impl=impl)
+            for impl in ("kernel", "plain")}
+    ocfg, tcfg = TRAIN_CHECK_OPT, TrainConfig(optimizer=TRAIN_CHECK_OPT)
+    names = leaf_names(params32)
+    p0 = leaves(params32)
+    kernels.reset_launch_counts()
+    loss_k, grads_k = train_grads(params32, cfg_n, batch, opts["kernel"])
+    assert kernels.flash_attention_bwd.launches == cfg_n.num_layers
+    loss_p, grads_p = train_grads(params32, cfg_n, batch, opts["plain"])
+    g_rel, g_at = leaf_rel(grads_k, grads_p, names)
+    fk, fp = clip_factor(grads_k, ocfg), clip_factor(grads_p, ocfg)
+    u_rel, u_at = leaf_rel([adam_dir(g * fk, ocfg) for g in grads_k],
+                           [adam_dir(g * fp, ocfg) for g in grads_p], names)
+    near = [((g * fp).abs() < 100 * ocfg.eps).sum().item() for g in grads_p]
+    zero_start = [i for i, p in enumerate(p0) if not p.any()]
+    del grads_p
+
+    state = init_train_state(cfg_n, tcfg, params=clone_params(params32))
+    state, _ = make_train_step(cfg_n, tcfg, opts["kernel"])(state, batch)
+    g_step = [m / (1 - ocfg.b1) for m in leaves(state["opt"]["m"])]
+    s_rel, s_at = leaf_rel(g_step, [g * fk for g in grads_k], names)
+    del grads_k
+    lr = lr_schedule(ocfg, 0)
+    d_rel, d_at = leaf_rel(
+        [p1.detach() - p for p, p1 in zip(p0, leaves(state["params"]))],
+        [-lr * (adam_dir(g, ocfg) + ocfg.weight_decay * p) for g, p in zip(g_step, p0)],
+        names)
+    del state, g_step
+    l_rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"   train step, {dtype}, {cfg_n.num_layers} layer(s), {tuple(batch['tokens'].shape)} "
+        f"tokens, kernels vs plain: loss {loss_k:.6f} vs {loss_p:.6f} (rel {l_rel:.3g}, "
+        f"tolerance {tol['loss']}); gradients {g_rel:.3g} of the leaf's largest entry "
+        f"(worst {g_at}; tolerance {tol['leaf']}) ({smi})")
+    log(f"   the kernel path's step (lr {lr:g}) against the first AdamW step in closed "
+        f"form: clipped gradient {s_rel:.3g} (worst {s_at}), each leaf's change "
+        f"{d_rel:.3g} (worst {d_at}) of the leaf's largest (tolerance {tol['leaf']})")
+    log(f"   not held: that closed form's direction from the kernel and the plain "
+        f"gradients parts by {u_rel:.3g} of the leaf's largest (worst {u_at}); "
+        f"entries with |clipped g| < 100 eps: {sum(near)} of "
+        f"{sum(p.numel() for p in p0)}, {sum(near[i] for i in zero_start)} of them in "
+        f"the {len(zero_start)} leaves that start at zero "
+        f"({', '.join(names[i] for i in zero_start)})")
+    assert l_rel <= tol["loss"] and g_rel <= tol["leaf"], (l_rel, g_rel)
+    assert s_rel <= tol["leaf"] and d_rel <= tol["leaf"], (s_rel, d_rel)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -580,6 +825,8 @@ def main() -> int:
         for B, S, H, KV, D in ((1, 1024, 8, 1, 256), (1, 2048, 40, 8, 128),
                                (1, 1000, 8, 1, 256)):
             results["flash_attention"].append(check_flash(
+                gen, B, S, H, KV, D, dtype))
+            results["flash_attention_bwd"].append(check_flash_bwd(
                 gen, B, S, H, KV, D, dtype))
     log(f"== kernels ({smi}; {time.perf_counter() - t0:.1f} s)")
     for name, rows in results.items():
@@ -689,7 +936,56 @@ def main() -> int:
                 smi)
     del cache, params
 
-    # 7. checks at full width and 2 layers.  The random network is chaotic
+    # 7. train: full-width, full-depth gemma-2b through the launcher
+    steps, warmup, batch, seq = 8, 2, 2, 1024
+    t_train = time.perf_counter()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"== train: gemma-2b through repro_torch.launch.train.main, {steps} steps "
+        f"({warmup} warm-up) of {batch} x {seq} tokens, f32 params and moments, "
+        "bf16 compute, remat")
+    records = train_launcher.main(["--arch", "gemma-2b", "--steps", str(steps),
+                                   "--batch", str(batch), "--seq", str(seq)])
+    train_launches = counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    assert len(records) == steps
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in records), records
+    timed = [r["wall_s"] for r in records[warmup:]]
+    wall = sum(timed) / len(timed)
+    log(f"   step wall {wall * 1e3:.3f} ms (mean of {len(timed)}; min "
+        f"{min(timed) * 1e3:.3f}, max {max(timed) * 1e3:.3f}), "
+        f"{batch * seq / wall:.1f} training tokens/s, peak memory {peak_gib:.2f} GiB "
+        f"({smi})")
+    log("   per step (loss, grad norm, wall s): " + "; ".join(
+        f"{r['loss']:.4f} {r['grad_norm']:.4f} {r['wall_s']:.3f}" for r in records))
+    log(f"   launches {train_launches}")
+    # under remat every layer's forward runs twice (forward, recompute in
+    # backward): flash forward 2 per layer, RMSNorm 2 per layer twice plus
+    # the final norm once; the backward kernel once per layer
+    L = cfg.num_layers
+    assert train_launches["flash_attention"] == 2 * L * steps, train_launches
+    assert train_launches["flash_attention_bwd"] == L * steps, train_launches
+    assert train_launches["rmsnorm"] == (4 * L + 1) * steps, train_launches
+
+    # one step of a fresh state, profiled; every parameter leaf must move
+    tcfg = TrainConfig(remat=True)
+    state = init_train_state(cfg, tcfg, seed=args.seed, device="cuda")
+    step = make_train_step(cfg, tcfg, opts)
+    src = StreamSource(vocab_size=cfg.vocab_size, batch=batch, seq_len=seq,
+                       seed=args.seed)
+    before = [p.detach().flatten()[:4096].clone() for p in leaves(state["params"])]
+    state, _ = step(state, src.batch_at(0))
+    still = [i for i, (p, b) in enumerate(zip(leaves(state["params"]), before))
+             if torch.equal(p.detach().flatten()[:4096], b)]
+    assert not still, f"parameter leaves {still} did not move"
+    del before
+    log_profile(f"train step ({batch} x {seq} tokens x {L} layers, remat)",
+                profiled(lambda: step(state, src.batch_at(1)), by_op=True), smi)
+    del state, step
+    log(f"   train phase: {time.perf_counter() - t_train:.1f} s")
+
+    # 8. checks at full width and 2 layers.  The random network is chaotic
     # with depth (the reference's init gives nearly hard attention), so at
     # 18 layers two correct attention implementations part ways; 2 layers
     # keeps the comparison about them
@@ -744,15 +1040,38 @@ def main() -> int:
     log(f"   f32 greedy tokens: paged kernel path, paged gather path and the "
         f"fixed-slot engine give the same "
         f"{sum(map(len, tokens_by['kernel'].values()))} tokens")
-    del params32, e
+    del e
 
-    # 8. the kernels line, the card, the result.  Each kernel's launches are
+    # one train step, kernels vs plain: f32 at 2 layers, bf16 at 1; then two
+    # kernel-path steps from one state, bit for bit (bf16, 2 layers)
+    tb = StreamSource(vocab_size=cfg.vocab_size, batch=batch, seq_len=seq,
+                      seed=args.seed).batch_at(7)
+    tb = {k: v.to("cuda") for k, v in tb.items()}
+    check_train_step(cfg2, params32, tb, "float32", TRAIN_F32, smi)
+    cfg1 = cfg2.with_(num_layers=1)
+    check_train_step(cfg1, take_layers(params32, 1), tb, "bfloat16", TRAIN_BF16, smi)
+    runs = []
+    for _ in range(2):
+        state = init_train_state(cfg2, params=clone_params(params32))
+        state, m = make_train_step(cfg2, TrainConfig(), opts)(state, tb)
+        runs.append((m["loss"].item(), leaves(state["params"])))
+        del state
+    same = runs[0][0] == runs[1][0] and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    log(f"   two bf16 train steps from one state, 2 layers: parameters "
+        f"{'identical' if same else 'DIFFER'} bit for bit")
+    assert same, "train step is not deterministic"
+    del runs, params32
+
+    # 9. the kernels line, the card, the result.  Each kernel's launches are
     # those of the path that runs it: the paged serve run (RMSNorm, paged
-    # decode), the fixed-slot serve run (dense decode), the prefill (flash)
+    # decode), the fixed-slot serve run (dense decode), the prefill (flash),
+    # the train run (flash backward)
     launches = {"rmsnorm": paged_launches["rmsnorm"],
                 "paged_decode_attention": paged_launches["paged_decode_attention"],
                 "decode_attention": fixed_launches["decode_attention"],
-                "flash_attention": prefill_launches["flash_attention"]}
+                "flash_attention": prefill_launches["flash_attention"],
+                "flash_attention_bwd": train_launches["flash_attention_bwd"]}
     assert all(n > 0 for n in launches.values()), launches
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": WHERE[name][0],

@@ -47,3 +47,28 @@ def params_from_numpy(tree, device=None, dtype: torch.dtype = torch.float32):
 def params_to_numpy(params):
     """The port's parameters as f32 numpy arrays, in the same tree."""
     return map_params(lambda _k, t: t.detach().float().cpu().numpy(), params)
+
+
+def train_state_from_numpy(state, device=None) -> dict:
+    """The reference's train state (``params``, ``opt.m``, ``opt.v``,
+    ``step``; arrays as numpy takes them) as the port's: f32 tensors on
+    ``device`` (CUDA unless the caller asks for the CPU), parameters that
+    require grad, and ``step`` a 0-dim int32 tensor on the CPU."""
+    params = params_from_numpy(state["params"], device)
+    map_params(lambda _k, p: p.requires_grad_(True), params)
+    return {
+        "params": params,
+        "opt": {name: params_from_numpy(state["opt"][name], device)
+                for name in ("m", "v")},
+        "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32),
+    }
+
+
+def train_state_to_numpy(state) -> dict:
+    """The port's train state as f32 numpy arrays (``step`` int32), in the
+    reference's tree."""
+    return {
+        "params": params_to_numpy(state["params"]),
+        "opt": {name: params_to_numpy(state["opt"][name]) for name in ("m", "v")},
+        "step": np.asarray(int(state["step"]), dtype=np.int32),
+    }

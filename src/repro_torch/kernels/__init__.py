@@ -9,10 +9,11 @@ sources with ``nvcc`` at first use.
 
 from . import ref
 from .decode_attention import decode_attention, paged_decode_attention
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd, flash_attention_train
 from .rmsnorm import rmsnorm
 
-KERNELS = (rmsnorm, paged_decode_attention, decode_attention, flash_attention)
+KERNELS = (rmsnorm, paged_decode_attention, decode_attention, flash_attention,
+           flash_attention_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -22,4 +23,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "decode_attention", "flash_attention",
+           "flash_attention_bwd", "flash_attention_train",
            "paged_decode_attention", "ref", "reset_launch_counts", "rmsnorm"]

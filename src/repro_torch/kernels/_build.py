@@ -46,6 +46,9 @@ _SIGNATURES = {
         [_int, _int, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
          _int, _float, _vp], ctypes.c_int),
     "repro_flash_attention_max_head_dim": ([], ctypes.c_int),
+    "repro_flash_attention_bwd": (
+        [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
+         _int, _int, _int, _int, _float, _vp], ctypes.c_int),
     "repro_error_string": ([_int], ctypes.c_char_p),
 }
 
@@ -143,6 +146,18 @@ def on_cpu(name: str, **tensors) -> bool:
                          "not; the kernel takes CUDA tensors and the plain "
                          "version CPU tensors")
     return False
+
+
+def refuse_grad(name: str, **tensors) -> None:
+    """Raise under grad mode when any tensor requires grad: for a wrapper
+    whose kernel has no backward (in either package), whose output would
+    otherwise come back cut off from autograd."""
+    if torch.is_grad_enabled():
+        needs = [arg for arg, t in tensors.items() if t.requires_grad]
+        if needs:
+            raise RuntimeError(
+                f"{name} has no backward, and {', '.join(needs)} require "
+                "grad; call it under torch.no_grad()")
 
 
 def check_inputs(name: str, device: torch.device, **tensors) -> None:

@@ -15,7 +15,8 @@ holds.
 
 A tensor on the CPU takes the plain version (``ref.decode_attention_ref``,
 ``ref.paged_decode_attention_ref``); a CUDA tensor launches the kernel or
-raises.
+raises.  Neither kernel has a backward, here or in the reference: under
+grad mode both wrappers refuse inputs that require grad, on either device.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ def decode_attention(q, k_cache, v_cache, lengths):
     decode layer: a length above Smax attends to the whole cache, and a
     length of 0 gives 0."""
     name = "decode_attention"
+    _build.refuse_grad(name, q=q, k_cache=k_cache, v_cache=v_cache)
     if _build.on_cpu(name, q=q, k_cache=k_cache, v_cache=v_cache,
                      lengths=lengths):
         return decode_attention_ref(q, k_cache, v_cache, lengths)
@@ -107,6 +109,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     kernel does; every table entry below ``ceil(length / block_size)`` must
     name a block of the pool."""
     name = "paged_decode_attention"
+    _build.refuse_grad(name, q=q, k_pool=k_pool, v_pool=v_pool)
     if _build.on_cpu(name, q=q, k_pool=k_pool, v_pool=v_pool,
                      block_tables=block_tables, lengths=lengths):
         return paged_decode_attention_ref(q, k_pool, v_pool, block_tables,

@@ -1,12 +1,16 @@
-"""Causal GQA flash attention (forward): the wrapper of the CUDA kernel
-``csrc/flash_attention.cu``.
+"""Causal GQA flash attention: the wrappers of the CUDA kernels
+``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
+(backward), and ``flash_attention_train``, the differentiable function made
+of the two.
 
-Replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py::flash_attention``.  K/V stay compact
-(``KV`` heads, read through ``h // G``), any sequence length is taken (the
-kernel masks the ragged last tile itself), and head dims up to 256.  A
-tensor on the CPU takes the plain version (``ref.causal_attention_ref`` and
-``ref.attention_lse_ref``); a CUDA tensor launches the kernel or raises.
+They replace the Pallas TPU kernels ``flash_attention``,
+``flash_attention_bwd`` and the custom VJP ``flash_attention_train`` of
+``repro/kernels/flash_attention.py``.  K/V stay compact (``KV`` heads, read
+through ``h // G``), any sequence length is taken (the kernels mask the
+ragged last tile themselves), and head dims up to 256.  A tensor on the CPU
+takes the plain version (``ref.causal_attention_ref``,
+``ref.attention_lse_ref``, ``ref.flash_attention_bwd_ref``); a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -16,17 +20,11 @@ import math
 import torch
 
 from . import _build
-from .ref import attention_lse_ref, causal_attention_ref
+from .ref import attention_lse_ref, causal_attention_ref, flash_attention_bwd_ref
 
 
-def flash_attention(q, k, v, *, causal: bool = True, return_lse: bool = False):
-    """q (B,S,H,D); k, v (B,S,KV,D), all in one dtype -> out (B,S,H,D) in
-    that dtype [, lse (B,S,H) f32]."""
-    name = "flash_attention"
-    if _build.on_cpu(name, q=q, k=k, v=v):
-        out = causal_attention_ref(q, k, v, causal)
-        return (out, attention_lse_ref(q, k, causal)) if return_lse else out
-    _build.check_inputs(name, q.device, q=q, k=k, v=v)
+def _check_shapes(name: str, q, k, v) -> tuple:
+    """(B, S, H, KV, D) of CUDA inputs the kernels take; raises otherwise."""
     if q.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{name}: q dtype {q.dtype} is not float32/bfloat16")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -39,14 +37,25 @@ def flash_attention(q, k, v, *, causal: bool = True, return_lse: bool = False):
             or H % KV):
         raise ValueError(f"{name}: shapes do not fit: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    lib = _build.library()
-    if not 0 < D <= lib.repro_flash_attention_max_head_dim():
-        raise ValueError(f"{name}: head dim {D} is outside 1.."
-                         f"{lib.repro_flash_attention_max_head_dim()}")
+    limit = _build.library().repro_flash_attention_max_head_dim()
+    if not 0 < D <= limit:
+        raise ValueError(f"{name}: head dim {D} is outside 1..{limit}")
+    return B, S, H, KV, D
+
+
+def flash_attention(q, k, v, *, causal: bool = True, return_lse: bool = False):
+    """q (B,S,H,D); k, v (B,S,KV,D), all in one dtype -> out (B,S,H,D) in
+    that dtype [, lse (B,S,H) f32]."""
+    name = "flash_attention"
+    if _build.on_cpu(name, q=q, k=k, v=v):
+        out = causal_attention_ref(q, k, v, causal)
+        return (out, attention_lse_ref(q, k, causal)) if return_lse else out
+    _build.check_inputs(name, q.device, q=q, k=k, v=v)
+    B, S, H, KV, D = _check_shapes(name, q, k, v)
     out = torch.empty_like(q)
     lse = (torch.empty((B, S, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    err = lib.repro_flash_attention(
+    err = _build.library().repro_flash_attention(
         q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
         B, S, H, KV, D, int(causal), 1.0 / math.sqrt(D),
@@ -57,3 +66,63 @@ def flash_attention(q, k, v, *, causal: bool = True, return_lse: bool = False):
 
 
 flash_attention.launches = 0  # kernel launches since the count was last reset
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True):
+    """The backward of ``flash_attention``: q, out, do (B,S,H,D) and k, v
+    (B,S,KV,D) in one dtype, lse (B,S,H) f32 from the forward -> (dq in q's
+    dtype, dk, dv in k's).  ``delta = rowsum(do * out)`` is taken in f32
+    here, as the reference takes it outside its kernels; the kernel's two
+    passes then write dq and the group-summed dk, dv, deterministically."""
+    name = "flash_attention_bwd"
+    if _build.on_cpu(name, q=q, k=k, v=v, out=out, lse=lse, do=do):
+        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+    _build.check_inputs(name, q.device, q=q, k=k, v=v, out=out, lse=lse, do=do)
+    B, S, H, KV, D = _check_shapes(name, q, k, v)
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"{name}: out {tuple(out.shape)} and do "
+                         f"{tuple(do.shape)} must have q's shape {tuple(q.shape)}")
+    if out.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError(f"{name}: out and do must have q's dtype {q.dtype}")
+    if lse.shape != (B, S, H) or lse.dtype != torch.float32:
+        raise ValueError(f"{name}: lse must be float32 of shape {(B, S, H)}, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    delta = (do.float() * out.float()).sum(dim=-1)  # (B,S,H) f32
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = _build.library().repro_flash_attention_bwd(
+        q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, KV, D,
+        int(causal), 1.0 / math.sqrt(D), _build.stream(q.device))
+    _build.check(err, name)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0  # calls that launched the kernel's two passes
+
+
+class _FlashAttentionTrain(torch.autograd.Function):
+    """Forward: the flash kernel with its LSE; backward: the flash backward
+    kernel on the saved (q, k, v, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_train(q, k, v, causal: bool = True):
+    """Differentiable flash attention: ``flash_attention`` forward, the
+    backward kernel in backward.  q (B,S,H,D); k, v (B,S,KV,D) ->
+    (B,S,H,D)."""
+    return _FlashAttentionTrain.apply(q, k, v, causal)

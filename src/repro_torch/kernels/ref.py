@@ -24,6 +24,22 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-6):
+    """The gradients of ``rmsnorm_ref`` given the output's gradient ``dy``:
+    (dx in x's dtype, dscale f32), in f32 statistics.  The reference's
+    training path differentiates its plain RMSNorm and has no backward
+    kernel; this is that derivative written out."""
+    d = x.shape[-1]
+    x32, g32 = x.float(), dy.float()
+    r = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = x32 * r
+    dscale = (g32 * xhat).reshape(-1, d).sum(dim=0)
+    gw = g32 * (1.0 + scale.float())
+    dx = r * (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
+    return dx.to(x.dtype), dscale
+
+
 def _attention_scores(q, k, causal: bool):
     """q (B,S,H,D); k (B,S,KV,D) -> f32 scores (B,H,S,S), scaled by
     1/sqrt(D), with the masked entries at -inf."""
@@ -54,6 +70,32 @@ def attention_lse_ref(q, k, causal: bool = True):
     output."""
     s = _attention_scores(q, k, causal)
     return torch.logsumexp(s, dim=-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = True):
+    """The gradients of causal GQA attention from the forward's ``out`` and
+    ``lse`` (B,S,H) and the output's gradient ``do``: (dq (B,S,H,D) in q's
+    dtype, dk, dv (B,S,KV,D) in k's and v's).  Quadratic, in f32: with
+    ``p = exp(s - lse)`` and ``delta = rowsum(do * out)``, ``ds = p * (do
+    v^T - delta) * scale``, ``dq = ds k`` and dk, dv summed over each KV
+    head's G query heads.  What the reference's two backward passes
+    compute (``repro/kernels/flash_attention.py::flash_attention_bwd``)."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    kf = k.repeat_interleave(G, dim=2).float()
+    vf = v.repeat_interleave(G, dim=2).float()
+    qf, dof = q.float(), do.float()
+    delta = (dof * out.float()).sum(dim=-1).transpose(1, 2)  # (B,H,S)
+    s = _attention_scores(q, k, causal)  # masked entries -inf: p = 0 there
+    p = torch.exp(s - lse.transpose(1, 2)[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).reshape(B, S, KV, G, D).sum(3)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(B, S, KV, G, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q, k_cache, v_cache, lengths):

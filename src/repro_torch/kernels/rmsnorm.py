@@ -2,7 +2,10 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/rmsnorm.py::rmsnorm``.  A
 tensor on the CPU takes the plain version (``ref.rmsnorm_ref``); a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises.  On the card the call is
+differentiable: its backward is ``ref.rmsnorm_bwd_ref`` in plain torch ops,
+since the reference trains through its plain RMSNorm and has no backward
+kernel.
 """
 
 from __future__ import annotations
@@ -10,14 +13,10 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .ref import rmsnorm_ref
+from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
-    """x (..., d) f32 or bf16; scale (d,) f32 -> same shape and dtype as x."""
-    if _build.on_cpu("rmsnorm", x=x, scale=scale):
-        return rmsnorm_ref(x, scale, eps)
+def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     _build.check_inputs("rmsnorm", x.device, x=x, scale=scale)
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"rmsnorm: x dtype {x.dtype} is not float32/bfloat16")
@@ -33,6 +32,28 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     _build.check(err, "rmsnorm")
     rmsnorm.launches += 1
     return out
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _launch(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd_ref(x, scale, dy, ctx.eps)
+        return dx, dscale, None
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x (..., d) f32 or bf16; scale (d,) f32 -> same shape and dtype as x."""
+    if _build.on_cpu("rmsnorm", x=x, scale=scale):
+        return rmsnorm_ref(x, scale, eps)
+    return _RMSNorm.apply(x, scale, eps)
 
 
 rmsnorm.launches = 0  # kernel launches since the count was last reset

@@ -5,8 +5,9 @@ from .lm import (
     forward_with_cache,
     init_cache,
     init_params,
+    loss_fn,
     stack_plan,
 )
 
 __all__ = ["ModelOptions", "decode_step", "forward", "forward_with_cache",
-           "init_cache", "init_params", "stack_plan"]
+           "init_cache", "init_params", "loss_fn", "stack_plan"]

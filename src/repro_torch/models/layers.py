@@ -6,7 +6,8 @@ the reference asks for it (``preferred_element_type=float32``).  The
 reference's sharding annotations have no counterpart here.
 
 Attention goes to the CUDA kernels: full-sequence causal attention to
-``kernels.flash_attention`` and decode over a dense cache to
+``kernels.flash_attention_train`` (the flash forward kernel, and its
+backward kernel under autograd) and decode over a dense cache to
 ``kernels.decode_attention`` (``causal_attention`` and
 ``cached_decode_attention`` below; ``impl="plain"`` picks their plain
 versions on any device).  The reference's ``blockwise_causal_attention``
@@ -26,12 +27,31 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import decode_attention as decode_attention_kernel
-from ..kernels import flash_attention
+from ..kernels import flash_attention_train
 from ..kernels import rmsnorm as rmsnorm_kernel
 from ..kernels.ref import causal_attention_ref
 
 NEG_INF = -1e30
 ATTN_IMPLS = ("kernel", "plain")
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``torch.mm(a, b, out_dtype=float32)`` with a backward: that call has
+    no derivative of its own.  The gradients are two products in the
+    operands' dtype, as the reference's transposed dots come out."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = torch.mm(g, b.t()) if ctx.needs_input_grad[0] else None
+        db = torch.mm(a.t(), g) if ctx.needs_input_grad[1] else None
+        return da, db
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -43,7 +63,7 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return a @ b
     if a.is_cuda:
         lead = a.shape[:-1]
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*lead, b.shape[-1])
     return a.float() @ b.float()
 
@@ -112,11 +132,12 @@ def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
 
 def causal_attention(q, k, v, impl: str = "kernel") -> torch.Tensor:
     """Causal attention over a full sequence: q (B,S,H,D), compact k, v
-    (B,S,KV,D) -> (B,S,H,D), through the flash kernel (``impl="kernel"``)
-    or its plain version (``"plain"``)."""
+    (B,S,KV,D) -> (B,S,H,D), through the flash kernels (``impl="kernel"``:
+    the forward kernel, and the backward kernel when differentiated) or
+    their plain version (``"plain"``)."""
     if impl == "plain":
         return causal_attention_ref(q, k, v)
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    return flash_attention_train(q.contiguous(), k.contiguous(), v.contiguous())
 
 
 def cached_decode_attention(q, k_cache, v_cache, lengths,

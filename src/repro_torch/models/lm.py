@@ -9,7 +9,9 @@ reference's weights carry across unchanged (``repro_torch.convert``).
 Entry points, for stacks of global-attention layers with dense MLPs:
 
 - ``init_params``        -- parameters drawn from a torch generator;
-- ``forward``            -- full-sequence logits (+ a zero aux loss);
+- ``forward``            -- full-sequence logits (+ a zero aux loss),
+                            optionally rematerialised per main group;
+- ``loss_fn``            -- masked f32 cross-entropy over ``forward``;
 - ``forward_with_cache`` -- prefill: ``forward`` that also builds the cache;
 - ``init_cache``         -- an empty dense decode cache;
 - ``decode_step``        -- one token per row against the cache.
@@ -19,8 +21,7 @@ kernel (``ModelOptions.attn_impl``).  The reference's ``lax.scan`` over the
 main groups is a loop over the stacked leading axis, and the decode cache
 is written in place where the reference returns a new one.  The paged
 engine's tick lives in ``repro_torch.serve.paged_model``.  Recurrent and
-local-attention layers, MoE, frontends and ``loss_fn`` come in their own
-slices.
+local-attention layers, MoE and frontends come in their own slices.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -239,7 +241,10 @@ def embed_inputs(params, cfg: ArchConfig, tokens, frontend_embeds,
     if cfg.frontend or frontend_embeds is not None:
         raise NotImplementedError(
             "frontend embeddings come with the frontends slice of the port")
-    x = params["embed"]["table"][tokens.long()].to(dtype)
+    # F.embedding, not indexing: on the CPU the backward of indexing adds
+    # rows in an order that depends on threads, so two equal train steps
+    # could part in the last bits
+    x = F.embedding(tokens.long(), params["embed"]["table"]).to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=x.device)
     return x
@@ -302,8 +307,23 @@ def _apply_layer_seq(lparams, cfg: ArchConfig, spec: LayerSpec, x, sin, cos,
     return x, aux
 
 
+def _unstack(main: list, num_groups: int) -> list:
+    """The main groups' parameters, one list of per-layer trees per group,
+    as views of the stacked leaves.  One ``unbind`` per leaf: its backward
+    stacks the groups' gradients once, where indexing each group would
+    write every group's gradient into a zeroed copy of the whole leaf."""
+    def unbind(tree):
+        if isinstance(tree, dict):
+            parts = {k: unbind(v) for k, v in tree.items()}
+            return [{k: p[g] for k, p in parts.items()} for g in range(num_groups)]
+        return tree.unbind(0)
+    per_layer = [unbind(tree) for tree in main]
+    return [[layer[g] for layer in per_layer] for g in range(num_groups)]
+
+
 def _run_seq(params, cfg: ArchConfig, tokens, frontend_embeds,
-             opts: ModelOptions, want_state: bool, max_len: int):
+             opts: ModelOptions, want_state: bool, max_len: int,
+             remat: bool = False):
     plan = stack_plan(cfg)
     x = embed_inputs(params, cfg, tokens, frontend_embeds, opts.dtype)
     S = x.shape[1]
@@ -311,22 +331,38 @@ def _run_seq(params, cfg: ArchConfig, tokens, frontend_embeds,
     sin, cos = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     states = {"prefix": [], "main": [[] for _ in plan.pattern], "tail": []}
-    for spec, (seg, i), lp in _layers(params, plan):
-        out = _apply_layer_seq(lp, cfg, spec, x, sin, cos, opts,
-                               want_state=want_state, max_len=max_len)
-        x, aux = out[0], out[1]
-        aux_total = aux_total + aux
-        if want_state:
-            (states[seg][i] if seg == "main" else states[seg]).append(out[2])
+
+    def run(layers, specs, seg, x, aux_total):
+        for i, (spec, lp) in enumerate(zip(specs, layers)):
+            out = _apply_layer_seq(lp, cfg, spec, x, sin, cos, opts,
+                                   want_state=want_state, max_len=max_len)
+            x, aux_total = out[0], aux_total + out[1]
+            if want_state:
+                (states[seg][i] if seg == "main" else states[seg]).append(out[2])
+        return x, aux_total
+
+    x, aux_total = run(params["prefix"], plan.prefix, "prefix", x, aux_total)
+    for group in _unstack(params["main"], plan.num_groups):
+        if remat:  # the reference's jax.checkpoint around its scan body
+            x, aux_total = checkpoint(run, group, plan.pattern, "main", x,
+                                      aux_total, use_reentrant=False)
+        else:
+            x, aux_total = run(group, plan.pattern, "main", x, aux_total)
+    x, aux_total = run(params["tail"], plan.tail, "tail", x, aux_total)
     return _logits(params, cfg, x), aux_total, states
 
 
 def forward(params, cfg: ArchConfig, tokens, frontend_embeds=None,
-            opts: ModelOptions = ModelOptions()):
+            opts: ModelOptions = ModelOptions(), remat: bool = False):
     """Full-sequence forward.  tokens (B,S) -> (logits (B,S,V) f32, aux),
-    with ``aux`` the f32 zero the reference's MoE loss is added to."""
+    with ``aux`` the f32 zero the reference's MoE loss is added to.
+
+    ``remat`` recomputes each main group's activations in backward instead
+    of keeping them (``torch.utils.checkpoint``): the same numbers, less
+    memory.  The reference's save-the-dots policy, a memory trade of XLA's,
+    is not copied."""
     logits, aux, _ = _run_seq(params, cfg, tokens, frontend_embeds, opts,
-                              want_state=False, max_len=0)
+                              want_state=False, max_len=0, remat=remat)
     return logits, aux
 
 
@@ -446,3 +482,31 @@ def decode_step(params, cfg: ArchConfig, cache, tokens,
     cache["len"] = (lengths + 1 if advance is None
                     else torch.where(advance, lengths + 1, lengths))
     return _logits(params, cfg, x), cache
+
+
+# --------------------------------------------------------------------- loss
+
+
+def loss_fn(params, cfg: ArchConfig, batch: dict,
+            opts: ModelOptions = ModelOptions(), remat: bool = True):
+    """batch: tokens (B,S), labels (B,S) with negative labels masked.
+    Returns (loss, metrics): the mean f32 cross-entropy over unmasked
+    tokens (over at least one) plus the MoE aux loss times its weight, and
+    ``ce_loss``, ``aux_loss``, ``tokens``."""
+    if cfg.frontend:
+        raise NotImplementedError(
+            "frontend label slicing comes with the frontends slice of the port")
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          batch.get("frontend_embeds"), opts, remat=remat)
+    labels = batch["labels"].long()
+    mask = labels >= 0
+    # log-softmax and the label's entry in one call, summed over unmasked
+    # tokens (the ignored ones give exactly 0 and no gradient)
+    nll = F.cross_entropy(logits.flatten(0, 1),
+                          labels.masked_fill(~mask, -100).flatten(),
+                          ignore_index=-100, reduction="sum")
+    count = mask.sum().float()
+    loss = nll / torch.clamp(count, min=1.0)
+    aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
+    return loss + aux_w * aux, {"ce_loss": loss, "aux_loss": aux,
+                                "tokens": count}

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and serving engines on the card.
+"""The port's CUDA kernels, serving engines and train step on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 module imports neither JAX nor the JAX package, so it runs on a machine
@@ -12,8 +12,17 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs import reduced_config
-from repro_torch.models import ModelOptions, init_params
+from repro_torch.convert import map_params
+from repro_torch.models import ModelOptions, init_params, loss_fn
+from repro_torch.models.layers import matmul_f32
 from repro_torch.serve import PagedServeEngine, Request, ServeEngine
+from repro_torch.train import (
+    OptimizerConfig,
+    TrainConfig,
+    init_train_state,
+    lr_schedule,
+    make_train_step,
+)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # as tests/test_kernels.py
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -248,3 +257,215 @@ def test_fixed_slot_engine_kernel_path_matches_plain_path(cuda):
         assert (kernels.decode_attention.launches > 0) == (impl == "kernel")
     assert outs["kernel"] == outs["plain"]
     assert all(len(t) == 6 for t in outs["kernel"].values())
+
+
+# ------------------------------------------------------------- training
+
+
+def _bwd_inputs(rng, B, S, H, KV, D, cuda, dtype):
+    q = _randn(rng, (B, S, H, D), cuda, dtype)
+    k, v = (_randn(rng, (B, S, KV, D), cuda, dtype) for _ in range(2))
+    do = _randn(rng, (B, S, H, D), cuda, dtype)
+    out, lse = kernels.flash_attention(q, k, v, return_lse=True)
+    return q, k, v, out, lse, do
+
+
+def _bwd_close(got, want, dtype):
+    """f32: 5e-5 abs + 5e-4 rel (tests/test_kernels.py::
+    test_flash_attention_backward_kernels); bf16: 2e-2 of the output's
+    largest entry (one bf16 rounding of a sum of f32 products)."""
+    torch.cuda.synchronize()
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-4)
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (8, 1)])  # MHA, GQA, MQA
+@pytest.mark.parametrize("S", [128, 200])  # on the tiles, and ragged
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_backward_kernel(cuda, D, H, KV, S, dtype):
+    """dq, dk, dv against ``flash_attention_bwd_ref`` on the forward
+    kernel's own (out, lse)."""
+    rng = np.random.default_rng(D + H + KV + S)
+    inputs = _bwd_inputs(rng, 2, S, H, KV, D, cuda, dtype)
+    before = kernels.flash_attention_bwd.launches
+    got = kernels.flash_attention_bwd(*inputs)
+    assert kernels.flash_attention_bwd.launches == before + 1
+    want = kernels.ref.flash_attention_bwd_ref(*inputs)
+    for g, w, like in zip(got, want, inputs[:3]):
+        assert g.dtype == like.dtype and g.shape == like.shape
+        _bwd_close(g, w, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_backward_kernel_full_and_wide_groups(cuda, causal):
+    """Non-causal, and G = 80 (two head chunks of one KV head)."""
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (1, 77, 80, 64), cuda, "float32")
+    k, v = (_randn(rng, (1, 77, 1, 64), cuda, "float32") for _ in range(2))
+    do = _randn(rng, (1, 77, 80, 64), cuda, "float32")
+    out, lse = kernels.flash_attention(q, k, v, causal=causal, return_lse=True)
+    got = kernels.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    want = kernels.ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+    for g, w in zip(got, want):
+        _bwd_close(g, w, "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_backward_kernel_is_deterministic(cuda, dtype):
+    rng = np.random.default_rng(12)
+    inputs = _bwd_inputs(rng, 1, 1000, 8, 1, 256, cuda, dtype)
+    a = kernels.flash_attention_bwd(*inputs)
+    b = kernels.flash_attention_bwd(*inputs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_flash_attention_train_gradients(cuda):
+    """Autograd through ``flash_attention_train`` (both kernels) against
+    autograd through the plain attention."""
+    rng = np.random.default_rng(13)
+    q = _randn(rng, (2, 150, 8, 64), cuda, "float32")
+    k, v = (_randn(rng, (2, 150, 2, 64), cuda, "float32") for _ in range(2))
+    w = _randn(rng, (2, 150, 8, 64), cuda, "float32")
+    grads = {}
+    kernels.reset_launch_counts()
+    for name, fn in (("kernel", kernels.flash_attention_train),
+                     ("plain", kernels.ref.causal_attention_ref)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fn(*leaves) * w).sum().backward()
+        grads[name] = [t.grad for t in leaves]
+    assert kernels.flash_attention.launches == 1
+    assert kernels.flash_attention_bwd.launches == 1
+    for g, w_ in zip(grads["kernel"], grads["plain"]):
+        _bwd_close(g, w_, "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_gradients(cuda, dtype):
+    rng = np.random.default_rng(14)
+    x = _randn(rng, (4, 33, 256), cuda, dtype)
+    scale = _randn(rng, (256,), cuda, "float32") * 0.1
+    dy = _randn(rng, (4, 33, 256), cuda, dtype)
+    grads = {}
+    for name, fn in (("kernel", kernels.rmsnorm), ("plain", kernels.ref.rmsnorm_ref)):
+        xl, sl = x.clone().requires_grad_(), scale.clone().requires_grad_()
+        fn(xl, sl).backward(dy)
+        grads[name] = (xl.grad, sl.grad)
+    assert grads["kernel"][0].dtype == x.dtype
+    _close(grads["kernel"][0], grads["plain"][0], dtype)
+    ds_k, ds_p = grads["kernel"][1], grads["plain"][1]
+    assert (ds_k - ds_p).abs().max() <= TOL[dtype] * ds_p.abs().max()
+
+
+@pytest.mark.gpu
+def test_matmul_f32_gradients(cuda):
+    """bf16 operands, f32 product: the incoming f32 gradient is rounded to
+    the operands' dtype and the gradients are its products with them, held
+    to f32 products of the same bf16 values within 2e-2 of the largest
+    entry (one bf16 rounding of the result)."""
+    rng = np.random.default_rng(15)
+    a = _randn(rng, (3, 40, 64), cuda, "bfloat16").requires_grad_()
+    b = _randn(rng, (64, 96), cuda, "bfloat16").requires_grad_()
+    g = _randn(rng, (3, 40, 96), cuda, "float32")
+    out = matmul_f32(a, b)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, a.float() @ b.float(), atol=1e-3, rtol=1e-3)
+    out.backward(g)
+    g16 = g.bfloat16().float()
+    want_a = g16 @ b.float().t()
+    want_b = torch.einsum("bmk,bmn->kn", a.float(), g16)
+    assert a.grad.dtype == b.grad.dtype == torch.bfloat16
+    for got, want in ((a.grad, want_a), (b.grad, want_b)):
+        assert (got.float() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+def _leaves(tree) -> list:
+    out = []
+    map_params(lambda _k, t: out.append(t), tree)
+    return out
+
+
+def _batch(cfg, B, S, seed, device):
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1))).to(device)
+    return {"tokens": toks[:, :-1].int(), "labels": toks[:, 1:].int()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+def test_kernel_path_gives_every_parameter_its_gradient(cuda, remat):
+    """``loss.backward()`` through ``forward`` with the kernels reaches
+    every parameter, and each gradient is within 1e-4 of the largest entry
+    of that leaf's gradient from the plain path (reduced gemma-2b, f32)."""
+    cfg = reduced_config("gemma-2b")
+    base = init_params(cfg, seed=0, device=cuda)
+    batch = _batch(cfg, 2, 64, 3, cuda)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        params = _clone(base)
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_()
+        kernels.reset_launch_counts()
+        loss, _ = loss_fn(params, cfg, batch,
+                          ModelOptions(compute_dtype="float32", attn_impl=impl),
+                          remat=remat)
+        loss.backward()
+        assert (kernels.flash_attention_bwd.launches > 0) == (impl == "kernel")
+        missing = [i for i, p in enumerate(leaves) if p.grad is None]
+        assert not missing, f"{impl}: leaves {missing} have grad None"
+        grads[impl] = [p.grad for p in leaves]
+    for gk, gp in zip(grads["kernel"], grads["plain"]):
+        assert (gk - gp).abs().max() <= 1e-4 * gp.abs().max(), (gk - gp).abs().max()
+
+
+@pytest.mark.gpu
+def test_train_step_kernel_path_matches_plain_path(cuda):
+    """One train step of reduced gemma-2b in f32 from the same state,
+    kernels against plain: loss, grad norm, and the step's clipped gradient
+    (its first moment over 1 - b1) within 1e-4 of each leaf's largest
+    entry.  Each path's change to every leaf within 1e-3 of its largest
+    against the first AdamW step in closed form from that gradient, -lr *
+    (g / (|g| + eps) + decay * p), at an lr (2.5e-3) whose change f32
+    parameters resolve to that bound.  The parameters
+    themselves are not compared across the paths: that direction turns
+    any part between two correct gradients into a sign flip where an
+    entry is near eps.  Two runs of the kernel path agree bit for bit."""
+    cfg = reduced_config("gemma-2b")
+    ocfg = OptimizerConfig(lr=1e-2, warmup_steps=4)
+    tcfg = TrainConfig(optimizer=ocfg, remat=True)
+    base = init_params(cfg, seed=0, device=cuda)
+    p0 = _leaves(base)
+    batch = _batch(cfg, 2, 64, 4, cuda)
+    lr = lr_schedule(ocfg, 0)
+    results = []
+    for impl in ("kernel", "plain", "kernel"):
+        state = init_train_state(cfg, tcfg, params=_clone(base))
+        step = make_train_step(cfg, tcfg,
+                               ModelOptions(compute_dtype="float32", attn_impl=impl))
+        state, m = step(state, batch)
+        g = [x / (1 - ocfg.b1) for x in _leaves(state["opt"]["m"])]
+        for a, b, gi in zip(p0, _leaves(state["params"]), g):
+            want = -lr * (gi / (gi.abs() + ocfg.eps) + ocfg.weight_decay * a)
+            assert ((b.detach() - a) - want).abs().max() <= 1e-3 * want.abs().max()
+        results.append((m, g, _leaves(state["params"])))
+    (mk, gk, pk), (mp, gp, _), (mk2, _, pk2) = results
+    assert abs(mk["loss"].item() - mp["loss"].item()) <= 1e-5 * abs(mp["loss"].item())
+    assert abs(mk["grad_norm"].item() - mp["grad_norm"].item()) <= 1e-4 * mp["grad_norm"].item()
+    for a, b in zip(gk, gp):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    assert mk["loss"].item() == mk2["loss"].item()
+    assert all(torch.equal(a, b) for a, b in zip(pk, pk2))
+
+
+def _clone(params):
+    return map_params(lambda _k, p: p.detach().clone(), params)

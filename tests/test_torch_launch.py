@@ -1,7 +1,9 @@
-"""The port's serving launcher, ``python -m repro_torch.launch.serve``: it
-serves end to end on the CPU when asked to, refuses to start without a
-card otherwise, and says that ``--platform`` is not ported yet."""
+"""The port's launchers, ``python -m repro_torch.launch.serve`` and
+``python -m repro_torch.launch.train``: each runs end to end on the CPU when
+asked to, refuses to start without a card otherwise, and says what is not
+ported yet (``--platform``, ``--mesh``)."""
 
+import math
 import os
 import subprocess
 import sys
@@ -10,7 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -45,3 +47,36 @@ def test_platform_flag_is_not_ported_yet():
     with pytest.raises(NotImplementedError):
         serve.main(["--arch", "gemma-2b", "--smoke", "--platform",
                     "--device", "cpu"])
+
+
+def test_train_module_runs_as_a_script():
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "gemma-2b", "--smoke", "--steps", "2", "--device", "cpu"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("step ")]
+    assert len(lines) == 2 and "loss" in lines[0] and "gnorm" in lines[0]
+
+
+def test_train_main_returns_the_step_records(capsys):
+    records = train.main(["--arch", "qwen3-14b", "--smoke", "--steps", "3",
+                          "--batch", "4", "--seq", "16", "--accum", "2",
+                          "--device", "cpu"])
+    assert [r["step"] for r in records] == [0, 1, 2]
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               and r["wall_s"] > 0 for r in records)
+    assert "on cpu" in capsys.readouterr().out
+
+
+def test_train_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        train.main(["--arch", "gemma-2b", "--smoke", "--steps", "1"])
+
+
+@pytest.mark.parametrize("flag", [["--platform"], ["--mesh", "2,2,2"]])
+def test_train_mesh_and_platform_are_not_ported_yet(flag):
+    with pytest.raises(NotImplementedError):
+        train.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu", *flag])

@@ -182,14 +182,14 @@ def test_prefill_decode_equivalence(arch):
 
 
 def test_model_path_reaches_the_attention_wrappers(monkeypatch):
-    """forward goes through ``flash_attention`` and decode_step through the
-    dense ``decode_attention`` wrapper, once per layer and call (on the CPU
-    the wrappers run their plain versions and count nothing, so count the
-    calls)."""
+    """forward goes through ``flash_attention_train`` (the flash kernels)
+    and decode_step through the dense ``decode_attention`` wrapper, once per
+    layer and call (on the CPU the wrappers run their plain versions and
+    count nothing, so count the calls)."""
     from repro_torch.models import layers
 
     calls = {"flash": 0, "decode": 0}
-    real_flash, real_decode = layers.flash_attention, layers.decode_attention_kernel
+    real_flash, real_decode = layers.flash_attention_train, layers.decode_attention_kernel
 
     def flash(*a, **k):
         calls["flash"] += 1
@@ -199,7 +199,7 @@ def test_model_path_reaches_the_attention_wrappers(monkeypatch):
         calls["decode"] += 1
         return real_decode(*a, **k)
 
-    monkeypatch.setattr(layers, "flash_attention", flash)
+    monkeypatch.setattr(layers, "flash_attention_train", flash)
     monkeypatch.setattr(layers, "decode_attention_kernel", decode)
     cfg = reduced_config("qwen3-14b")
     params = init_params(cfg, device="cpu")
