@@ -34,7 +34,20 @@ tolerance miss:
    the paged engine (greedy tokens, f32); one train step, kernels against
    the plain path (loss, gradients, updated parameters: f32 at 2 layers,
    bf16 at 1), and two kernel-path steps from one state bit for bit;
-9. the kernels line (JSON), the card's name and power limit, and the
+9. recurrentgemma-9b (RG-LRU + local attention) at full width and depth in
+   bf16: ``make_prefill_step`` over 4096 tokens (past its 2048 window) and
+   16 decode steps with exact launch counts, one profiled prefill, then
+   ``PagedServeEngine`` over 8 requests of 160 + 32 tokens;
+10. xlstm-125m (mLSTM + sLSTM) at full width and depth in bf16: a prefill
+   of 2048 tokens and 16 decode steps with exact launch counts, one
+   profiled prefill, then ``ServeEngine`` over 8 requests on 4 slots;
+11. checks of both families at full width and one pattern group (3 and 4
+   layers): in f32 the kernel path's logits against the plain path's,
+   prefill plus decode against ``forward`` past the window, the paged
+   engine's greedy tokens against the fixed-slot engine's; in bf16 each
+   recurrent and windowed kernel on its own layer's inputs against its
+   plain version;
+12. the kernels line (JSON), the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -45,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import os
@@ -73,6 +87,7 @@ from repro_torch.models import (  # noqa: E402
     layers,
     loss_fn,
 )
+from repro_torch.models.lm import layer_specs  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     PagedServeEngine,
     Request,
@@ -115,7 +130,23 @@ WHERE = {  # kernel -> (CUDA source, the TPU kernel it replaces)
                         "src/repro/kernels/flash_attention.py:78"),
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                             "src/repro/kernels/flash_attention.py:214"),
+    "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru_scan.py:45"),
+    "mlstm_chunk": ("src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+                    "src/repro/kernels/mlstm_chunk.py:83"),
 }
+# the recurrent kernels against their plain versions: RG-LRU f32 1e-5 abs +
+# rel and mLSTM 5e-5 abs + 5e-4 rel, as tests/test_kernels.py; the windowed
+# flash on a layer's own bf16 inputs within 2e-2 of the largest entry (one
+# bf16 rounding)
+RGLRU_TOL = 1e-5
+MLSTM_ATOL, MLSTM_RTOL = 5e-5, 5e-4
+WINDOW_BF16_REL = 2e-2
+# the recurrent families' f32 logits at one pattern group and full width,
+# kernel path against plain path, relative to the largest logit: f32 sums
+# in another order (flash against a plain band softmax, the chunkwise mLSTM
+# kernel against its plain loop), carried through 3-4 layers
+RECURRENT_F32_RTOL = 1e-3
 # flash backward against its plain version: f32 as
 # tests/test_kernels.py::test_flash_attention_backward_kernels (5e-5 abs +
 # 5e-4 rel); bf16 within 2e-2 of each output's largest entry (one bf16
@@ -173,13 +204,18 @@ def time_ms(fn, iters: int = 20, replays: int = 5) -> float:
 
 
 def max_err_within(got, want, tol: float, what: str) -> float:
+    """max |got - want|, which must stay within tol + tol * |want|."""
+    return abs_rel_err(got, want, tol, tol, what)
+
+
+def abs_rel_err(got, want, atol: float, rtol: float, what: str) -> float:
+    """max |got - want|, which must stay within atol + rtol * |want|."""
     err = (got.float() - want.float()).abs()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: non-finite output")
-    bad = err > tol + tol * want.float().abs()
-    if bad.any():
-        raise AssertionError(f"{what}: max abs error {err.max().item()} "
-                             f"exceeds tolerance {tol}")
+    if (err > atol + rtol * want.float().abs()).any():
+        raise AssertionError(f"{what}: max abs error {err.max().item()} exceeds "
+                             f"{atol} + {rtol} rel")
     return err.max().item()
 
 
@@ -313,34 +349,46 @@ def check_decode(gen, B, H, KV, D, Smax, dtype) -> dict:
     }
 
 
-def check_flash(gen, B, S, H, KV, D, dtype) -> dict:
-    """Causal flash attention forward, output and LSE, over (B, S, H, D)."""
+def band_pairs(S: int, window: int) -> int:
+    """(query, key) pairs of causal attention, within ``window`` if > 0."""
+    w = min(window, S) if window else S
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def check_flash(gen, B, S, H, KV, D, dtype, window: int = 0) -> dict:
+    """Causal flash attention forward (windowed with ``window`` > 0, as
+    local layers run it), output and LSE, over (B, S, H, D)."""
     q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
-    got, lse = kernels.flash_attention(q, k, v, return_lse=True)
-    want = kernels.ref.causal_attention_ref(q, k, v)
-    want_lse = kernels.ref.attention_lse_ref(q, k)
+    got, lse = kernels.flash_attention(q, k, v, return_lse=True, window=window)
+    want = kernels.ref.causal_attention_ref(q, k, v, window=window)
+    want_lse = kernels.ref.attention_lse_ref(q, k, window=window)
     torch.cuda.synchronize()
-    what = f"flash_attention B={B} S={S} H={H} KV={KV} D={D} {dtype}"
+    what = f"flash_attention B={B} S={S} H={H} KV={KV} D={D} window={window} {dtype}"
     tol = TOL[str(dtype)]
     err = max(max_err_within(got, want, tol, what),
               max_err_within(lse, want_lse, tol, what + " lse"))
     del got, lse, want, want_lse
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    i = torch.arange(S, device="cuda")
+    # yardstick: SDPA, causal, or with a boolean band mask
+    band = ((i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            if window else None)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    b_ms, b_by = bound(nbytes, 2 * B * H * S * S * D, dtype)  # causal flops
+    b_ms, b_by = bound(nbytes, 4 * B * H * D * band_pairs(S, window), dtype)
     return {
-        "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D},
+        "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "window": window},
         "dtype": str(dtype), "max_abs_err": err,
         # with the LSE, as the prefill and train paths launch it (through
         # flash_attention_train)
-        "ms": time_ms(lambda i: kernels.flash_attention(q, k, v, return_lse=True),
-                      iters=5),
-        "plain_ms": time_ms(lambda i: kernels.ref.causal_attention_ref(q, k, v),
-                            iters=5),
+        "ms": time_ms(lambda i: kernels.flash_attention(q, k, v, return_lse=True,
+                                                        window=window), iters=5),
+        "plain_ms": time_ms(lambda i: kernels.ref.causal_attention_ref(
+            q, k, v, window=window), iters=5),
         "library_ms": time_ms(lambda i: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), iters=5),
+            qt, kt, vt, attn_mask=band, is_causal=not window, enable_gqa=True),
+            iters=5),
         "bound_ms": b_ms, "bound_by": b_by,
     }
 
@@ -364,7 +412,8 @@ def check_flash_bwd(gen, B, S, H, KV, D, dtype) -> dict:
         if not torch.equal(g, g2):
             raise AssertionError(f"{what} {name}: two launches differ")
         if dtype == torch.float32:
-            err = max(err, _bwd_f32_err(g, w, what + " " + name))
+            err = max(err, abs_rel_err(g, w, BWD_F32_ATOL, BWD_F32_RTOL,
+                                       what + " " + name))
         else:
             e = (g.float() - w.float()).abs().max().item()
             if not torch.isfinite(g).all() or e > BWD_BF16_REL * w.float().abs().max().item():
@@ -414,14 +463,66 @@ def check_flash_bwd(gen, B, S, H, KV, D, dtype) -> dict:
     }
 
 
-def _bwd_f32_err(got, want, what: str) -> float:
-    err = (got - want).abs()
-    if not torch.isfinite(got).all():
-        raise AssertionError(f"{what}: non-finite output")
-    if (err > BWD_F32_ATOL + BWD_F32_RTOL * want.abs()).any():
-        raise AssertionError(f"{what}: max abs error {err.max().item()} exceeds "
-                             f"{BWD_F32_ATOL} + {BWD_F32_RTOL} rel")
-    return err.max().item()
+def check_rglru(gen, B, S, C) -> dict:
+    """The RG-LRU scan over (B, S, C) f32 on the inputs of
+    test_rglru_scan_sweep: log_a = -0.2 |N|, b ~ N."""
+    log_a = -(torch.randn(B, S, C, generator=gen, device="cuda").abs() * 0.2)
+    b = torch.randn(B, S, C, generator=gen, device="cuda")
+    got = kernels.rglru_scan(log_a, b)
+    want = kernels.ref.rglru_scan_ref(log_a, b)
+    torch.cuda.synchronize()
+    err = max_err_within(got, want, RGLRU_TOL, f"rglru_scan ({B}, {S}, {C})")
+    del got, want
+    # each input read once, h written once; exp, multiply, add per element
+    b_ms, b_by = bound(3 * log_a.numel() * 4, 3 * log_a.numel(), torch.float32)
+    return {
+        "shape": [B, S, C], "dtype": "torch.float32", "max_abs_err": err,
+        "ms": time_ms(lambda i: kernels.rglru_scan(log_a, b), iters=10),
+        # S small kernels a call: one call a graph
+        "plain_ms": time_ms(lambda i: kernels.ref.rglru_scan_ref(log_a, b),
+                            iters=1, replays=2),
+        "library_ms": None,  # no PyTorch call computes a linear recurrence
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def mlstm_flops(B, S, H, dk, chunk) -> float:
+    """The mLSTM's operations that the data needs: per chunk and (batch,
+    head), q k^T and W v over the lower triangle (2 c (c + 1) dk), q C and
+    the C update (4 c dk^2)."""
+    c = min(chunk, S)
+    return (S // c) * B * H * (2 * c * (c + 1) * dk + 4 * c * dk * dk)
+
+
+def check_mlstm(gen, B, S, H, dk, chunk, dtype) -> dict:
+    """The chunkwise mLSTM with its final carry, as the prefill launches it,
+    on the inputs of test_mlstm_chunk_sweep: i_pre ~ N - 2, f_pre ~ N + 3."""
+    q, k, v = (torch.randn(B, S, H, dk, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    i_pre = torch.randn(B, S, H, generator=gen, device="cuda") - 2.0
+    f_pre = torch.randn(B, S, H, generator=gen, device="cuda") + 3.0
+    args = (q, k, v, i_pre, f_pre)
+    got, final = kernels.mlstm_chunk(*args, chunk=chunk, return_final=True)
+    want, wfinal = kernels.ref.mlstm_chunk_ref(*args, chunk=chunk, return_final=True)
+    torch.cuda.synchronize()
+    what = f"mlstm_chunk B={B} S={S} H={H} dk={dk} chunk={chunk} {dtype}"
+    err = max(abs_rel_err(g, w, MLSTM_ATOL, MLSTM_RTOL, f"{what} {name}")
+              for name, g, w in zip(("h", "C", "n", "m"), (got, *final), (want, *wfinal)))
+    del got, final, want, wfinal
+    nbytes = (3 * q.numel() * q.element_size() + 2 * i_pre.numel() * 4
+              + q.numel() * 4 + B * H * (dk * dk + dk + 1) * 4)
+    # the products run in f32 on the CUDA cores whatever the input type
+    b_ms, b_by = bound(nbytes, mlstm_flops(B, S, H, dk, chunk), torch.float32)
+    return {
+        "shape": {"B": B, "S": S, "H": H, "dk": dk, "chunk": chunk},
+        "dtype": str(dtype), "max_abs_err": err,
+        "ms": time_ms(lambda i: kernels.mlstm_chunk(*args, chunk=chunk,
+                                                    return_final=True), iters=5),
+        "plain_ms": time_ms(lambda i: kernels.ref.mlstm_chunk_ref(
+            *args, chunk=chunk, return_final=True), iters=5),
+        "library_ms": None,  # no PyTorch call computes it
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
 
 
 # -------------------------------------------------------------------- serve
@@ -608,6 +709,19 @@ def take_layers(params, n: int):
     return {**params, "main": [cut(g) for g in params["main"]]}
 
 
+def capture(module, name: str, seen: list):
+    """Replace ``module.name`` with a wrapper that records its inputs;
+    returns a function that puts the original back."""
+    real = getattr(module, name)
+
+    def wrap(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(module, name, wrap)
+    return lambda: setattr(module, name, real)
+
+
 def check_forward_flash(cfg2, params16, tokens, opts) -> None:
     """``forward``'s flash path against its plain path, bf16, full width.
 
@@ -625,17 +739,11 @@ def check_forward_flash(cfg2, params16, tokens, opts) -> None:
     and prints the 2-layer logits' difference without holding it."""
     plain = ModelOptions(compute_dtype="bfloat16", attn_impl="plain")
     seen = []
-    real = layers.flash_attention_train
-
-    def capture(q, k, v, *args):
-        seen.append((q, k, v))
-        return real(q, k, v, *args)
-
-    layers.flash_attention_train = capture
+    undo = capture(layers, "flash_attention_train", seen)
     try:
         lk, _ = forward(params16, cfg2, tokens, opts=opts)
     finally:
-        layers.flash_attention_train = real
+        undo()
     lp, _ = forward(params16, cfg2, tokens, opts=plain)
     assert torch.isfinite(lk).all() and len(seen) == cfg2.num_layers
     per_pos = ((lk - lp).abs().amax(-1) / lp.abs().max())[0]
@@ -646,7 +754,7 @@ def check_forward_flash(cfg2, params16, tokens, opts) -> None:
         f"{(lk.argmax(-1) == lp.argmax(-1)).float().mean().item():.4f} (not held: see "
         "check_forward_flash)")
     del lk, lp
-    for i, (q, k, v) in enumerate(seen):
+    for i, ((q, k, v), _kw) in enumerate(seen):
         got = kernels.flash_attention(q, k, v)
         want = kernels.ref.causal_attention_ref(q, k, v)
         G, D = q.shape[2] // k.shape[2], q.shape[3]
@@ -678,6 +786,214 @@ def check_forward_flash(cfg2, params16, tokens, opts) -> None:
     log(f"   forward logits {tuple(tokens.shape)}, bf16, 1 layer, flash vs plain "
         f"attention: max |diff| / max |logit| = {rel:.3g} (tolerance {LOGITS_BF16_RTOL})")
     assert rel <= LOGITS_BF16_RTOL, rel
+
+
+# ---------------------------------------------------------------- recurrent
+
+
+def norm_sites(cfg) -> int:
+    """RMSNorm launches of one forward or decode step: each layer's pre-norm
+    and, with an MLP, its second norm; mLSTM's group norm; sLSTM's group and
+    FFN norms; the final norm."""
+    return 1 + sum(1 + (spec.d_ff > 0) + {"mlstm": 1, "slstm": 2}.get(spec.kind, 0)
+                   for spec in layer_specs(cfg))
+
+
+def recurrent_phase(arch: str, S: int, seed: int, smi: str) -> dict:
+    """Full-width, full-depth ``arch`` in bf16: random f32 weights cast to
+    bf16 (the f32 copy dropped), ``make_prefill_step`` over (1, S) tokens
+    and 16 decode steps with exact launch counts, one profiled prefill and
+    one profiled decode step, then serving: recurrentgemma-9b through
+    ``PagedServeEngine`` (8 requests of 160 + 32 tokens; per-slot rings
+    and states, no prefix cache), xlstm-125m through ``ServeEngine`` (8
+    requests of 47-49 + 32 tokens on 4 slots).  Returns the prefill run's
+    launch counts."""
+    cfg = get_config(arch)
+    opts = ModelOptions(compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = cast_params(init_params(cfg, seed=seed, device="cuda"), opts.dtype)
+    torch.cuda.synchronize()
+    log(f"== prefill: {arch} bf16, {cfg.param_count() / 1e9:.3f} B params "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card), "
+        f"ready in {time.perf_counter() - t0:.1f} s")
+    n_decode = 16
+    rng = np.random.default_rng(seed + 3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S))).to("cuda")
+    prefill_then_decode(cfg, params, opts, tokens[:, :128], 1)  # warm
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    last, prefill_ms, decode_ms = prefill_then_decode(cfg, params, opts, tokens,
+                                                      n_decode)
+    got = counts()
+    assert last.shape == (1, cfg.padded_vocab) and torch.isfinite(last).all()
+    log(f"   (1, {S}) tokens through make_prefill_step: wall {prefill_ms:.3f} ms; "
+        f"then {n_decode} decode steps: wall {decode_ms:.3f} ms "
+        f"({decode_ms / n_decode:.3f} ms a step); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    log(f"   launches {got}")
+    kinds = cfg.layer_kinds
+    want = {"rglru_scan": kinds.count("rglru"), "mlstm_chunk": kinds.count("mlstm"),
+            "flash_attention": kinds.count("local"),
+            "decode_attention": kinds.count("local") * n_decode,
+            "rmsnorm": norm_sites(cfg) * (1 + n_decode),
+            "paged_decode_attention": 0, "flash_attention_bwd": 0}
+    assert got == want, (got, want)
+    prefill = make_prefill_step(cfg, opts, max_len=S + 1)
+    log_profile(f"prefill ({S} tokens x {cfg.num_layers} layers)",
+                profiled(lambda: prefill(params, {"tokens": tokens}),
+                         by_op=arch == "recurrentgemma-9b"), smi)
+    _, cache = prefill(params, {"tokens": tokens})
+    step = make_decode_step(cfg, opts)
+    log_profile(f"decode step (context {S})",
+                profiled(lambda: step(params, cache, tokens[:, 0].to(torch.int32))),
+                smi)
+    del cache
+
+    if arch == "recurrentgemma-9b":
+        trace = [(rid, rng.integers(0, cfg.vocab_size, 160).tolist(), 32)
+                 for rid in range(8)]
+        make = functools.partial(PagedServeEngine, cfg, params, num_blocks=128,
+                                 block_size=16, max_active=8, prefill_chunk=16,
+                                 opts=opts)
+        label = "PagedServeEngine, 8 slots, prefill chunk 16"
+    else:
+        trace = fixed_trace(cfg.vocab_size, seed)
+        make = functools.partial(ServeEngine, cfg, params, num_slots=4,
+                                 max_len=256, opts=opts)
+        label = "ServeEngine, 4 slots, max_len 256"
+    drive(make(), [(0, trace[0][1][:20], 2)])  # warm
+    eng = make()
+    kernels.reset_launch_counts()
+    m = drive(eng, trace)
+    log(f"== serve: {arch} bf16, {label}, {len(trace)} requests of "
+        f"{min(len(p) for _r, p, _n in trace)}-{max(len(p) for _r, p, _n in trace)} "
+        f"prompt tokens + {trace[0][2]} new")
+    log_serve(m, smi)
+    log(f"   launches {counts()}; metrics {eng.metrics()}")
+    check_finished(eng, trace, cfg.vocab_size)
+    if arch == "recurrentgemma-9b":
+        assert eng.cache is None and eng.metrics()["prefillBacklog"] == 0
+    del eng, params
+    torch.cuda.empty_cache()
+    return got
+
+
+def check_recurrent(arch: str, n_layers: int, seed: int, smi: str) -> None:
+    """Full width, one pattern group (``n_layers``), random weights.  f32:
+    the kernel path's logits over 4096 tokens against the plain path's;
+    prefill of 2560 tokens plus 128 decode steps against ``forward`` over
+    2688 (past the 2048 window); the paged engine's greedy tokens against
+    the fixed-slot engine's (8 requests of 160 + 8 tokens, rings of 2048
+    slots in both).  bf16: each RG-LRU, mLSTM and windowed flash kernel on
+    the inputs its layer hands it in a kernel-path forward, against its
+    plain version.  The mLSTM's outputs there reach |h| ~ 1e4, where the
+    normalizer cancels, so two f32 summation orders part by more than
+    5e-5 + 5e-4 rel: the kernel is held, as check_forward_flash holds
+    gemma's attention, to the f64 result, with no more elements outside
+    that band than the plain version leaves."""
+    cfg = get_config(arch).with_(num_layers=n_layers)
+    t0 = time.perf_counter()
+    params32 = init_params(cfg, seed=seed, device="cuda")
+    rng = np.random.default_rng(seed + 4)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 4096))).to("cuda")
+    opts32 = ModelOptions(compute_dtype="float32")
+    plain32 = ModelOptions(compute_dtype="float32", attn_impl="plain")
+    lk, _ = forward(params32, cfg, tokens, opts=opts32)
+    lp, _ = forward(params32, cfg, tokens, opts=plain32)
+    rel = rel_err(lk, lp)
+    log(f"== checks: {arch} at {n_layers} layers, full width\n   f32 logits (1, 4096), "
+        f"kernel vs plain path: max |diff| / max |logit| = {rel:.3g} (tolerance "
+        f"{RECURRENT_F32_RTOL}); argmax agrees on "
+        f"{(lk.argmax(-1) == lp.argmax(-1)).float().mean().item():.4f}")
+    assert torch.isfinite(lk).all() and rel <= RECURRENT_F32_RTOL, rel
+    del lk, lp
+
+    n0, n1 = 2560, 2688
+    full, _ = forward(params32, cfg, tokens[:, :n1], opts=opts32)
+    pre, cache = forward_with_cache(params32, cfg, tokens[:, :n0], max_len=n1,
+                                    opts=opts32)
+    errs = [(pre[:, -1] - full[:, n0 - 1]).abs().max().item()]
+    del pre
+    for t in range(n0, n1):
+        lg, cache = decode_step(params32, cfg, cache, tokens[:, t], opts32)
+        errs.append((lg - full[:, t]).abs().max().item())
+    rel = max(errs) / full.abs().max().item()
+    log(f"   prefill {n0} + decode {n1 - n0} vs forward, f32: max |diff| / "
+        f"max |logit| = {rel:.3g} (tolerance {PREFILL_DECODE_RTOL})")
+    assert rel <= PREFILL_DECODE_RTOL, rel
+    del full, cache
+
+    trace = [(rid, rng.integers(0, cfg.vocab_size, 160).tolist(), 8)
+             for rid in range(8)]
+    paged = PagedServeEngine(cfg, params32, num_blocks=128, block_size=16,
+                             max_active=8, prefill_chunk=16, opts=opts32)
+    drive(paged, trace)
+    fixed = ServeEngine(cfg, params32, num_slots=8, max_len=cfg.window or 256,
+                        opts=opts32)
+    drive(fixed, trace)
+    got = {r.rid: r.generated for r in paged.finished}
+    want = {r.rid: r.generated for r in fixed.finished}
+    log(f"   f32 greedy tokens, paged vs fixed-slot engine: "
+        f"{'the same' if got == want else 'DIFFER'} "
+        f"({sum(map(len, got.values()))} tokens)")
+    assert got == want, (got, want)
+    del paged, fixed
+
+    params16 = cast_params(params32, torch.bfloat16)
+    del params32
+    seen = {"rglru_scan": [], "mlstm_chunk": [], "flash_attention_train": []}
+    undo = [capture(kernels, "rglru_scan", seen["rglru_scan"]),
+            capture(kernels, "mlstm_chunk", seen["mlstm_chunk"]),
+            capture(layers, "flash_attention_train", seen["flash_attention_train"])]
+    try:
+        lk, _ = forward(params16, cfg, tokens, opts=ModelOptions(compute_dtype="bfloat16"))
+    finally:
+        for fn in undo:
+            fn()
+    assert torch.isfinite(lk).all()
+    del lk
+    for (log_a, b), _kw in seen["rglru_scan"]:
+        err = abs_rel_err(kernels.rglru_scan(log_a, b),
+                          kernels.ref.rglru_scan_ref(log_a, b), RGLRU_TOL, RGLRU_TOL,
+                          f"{arch} layer rglru_scan")
+        log(f"   bf16 layer, rglru_scan {tuple(log_a.shape)} on its own inputs vs "
+            f"plain: max abs error {err:.3g} (tolerance {RGLRU_TOL} abs + rel)")
+    for args, kw in seen["mlstm_chunk"]:
+        got, want = (fn(*args, **kw) for fn in (kernels.mlstm_chunk,
+                                                kernels.ref.mlstm_chunk_ref))
+        exact = kernels.ref.mlstm_chunk_ref(*(a.double() for a in args), **kw)
+        band = MLSTM_ATOL + MLSTM_RTOL * exact.abs()
+        stats = {}
+        for name, x in (("kernel", got), ("plain", want)):
+            e = (x.double() - exact).abs()
+            worst = e.argmax()
+            stats[name] = (e.max().item(), (e > band).sum().item(),
+                           exact.flatten()[worst].abs().item())
+        kp = (got - want).abs().max().item()
+        log(f"   bf16 layer, mlstm_chunk {tuple(args[0].shape)} {args[0].dtype} on "
+            f"its own inputs: kernel vs plain max abs {kp:.3g}; against f64 (max abs "
+            f"error, elements outside {MLSTM_ATOL} + {MLSTM_RTOL} rel of "
+            f"{exact.numel()}, |f64| at the worst): kernel {stats['kernel']}, plain "
+            f"{stats['plain']}; max |h| {exact.abs().max().item():.3g}")
+        # as check_forward_flash: held to f64, no more elements off than plain
+        assert torch.isfinite(got).all() and stats["kernel"][1] <= stats["plain"][1], stats
+        del got, want, exact, band
+    for (q, k, v), kw in seen["flash_attention_train"]:
+        window = kw["window"]
+        got = kernels.flash_attention(q, k, v, window=window)
+        want = kernels.ref.causal_attention_ref(q, k, v, window=window)
+        rel = rel_err(got.float(), want.float())
+        log(f"   bf16 layer, windowed flash {tuple(q.shape)} window {window} on its own "
+            f"inputs vs plain: max |diff| / max |plain| = {rel:.3g} (tolerance "
+            f"{WINDOW_BF16_REL})")
+        assert torch.isfinite(got).all() and rel <= WINDOW_BF16_REL, rel
+    kinds = cfg.layer_kinds
+    assert (len(seen["rglru_scan"]), len(seen["mlstm_chunk"]),
+            len(seen["flash_attention_train"])) == (
+        kinds.count("rglru"), kinds.count("mlstm"), kinds.count("local")), seen.keys()
+    del seen, params16
+    torch.cuda.empty_cache()
+    log(f"   {arch} checks: {time.perf_counter() - t0:.1f} s ({smi})")
 
 
 # -------------------------------------------------------------------- train
@@ -828,12 +1144,20 @@ def main() -> int:
                 gen, B, S, H, KV, D, dtype))
             results["flash_attention_bwd"].append(check_flash_bwd(
                 gen, B, S, H, KV, D, dtype))
+    # the recurrent families' prefill shapes: recurrentgemma-9b (d_rnn 4096;
+    # 16 heads, MQA, head_dim 256, window 2048 over 4096 tokens), xlstm-125m
+    # (4 heads of dk 384, chunk 128, 2048 tokens; bf16 first: the model's)
+    results["rglru_scan"].append(check_rglru(gen, 1, 4096, 4096))
+    for dtype in (torch.bfloat16, torch.float32):
+        results["mlstm_chunk"].append(check_mlstm(gen, 1, 2048, 4, 384, 128, dtype))
+    windowed = [check_flash(gen, 1, 4096, 16, 1, 256, torch.bfloat16, window=2048)]
     log(f"== kernels ({smi}; {time.perf_counter() - t0:.1f} s)")
-    for name, rows in results.items():
+    for name, rows in [*results.items(), ("flash_attention (window)", windowed)]:
         for r in rows:
+            lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
             log(f"   {name} {r['shape']} {r['dtype']}: max_abs_err "
                 f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+                f"{r['plain_ms']:.4f} ms, library {lib}, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     # 4. paged serve: full-width gemma-2b in bf16
@@ -1063,15 +1387,26 @@ def main() -> int:
     assert same, "train step is not deterministic"
     del runs, params32
 
-    # 9. the kernels line, the card, the result.  Each kernel's launches are
+    # 9-10. the recurrent families at full width and depth, bf16
+    rg_launches = recurrent_phase("recurrentgemma-9b", 4096, args.seed, smi)
+    xl_launches = recurrent_phase("xlstm-125m", 2048, args.seed, smi)
+
+    # 11. checks of both families at full width and one pattern group
+    for arch, n_layers in (("recurrentgemma-9b", 3), ("xlstm-125m", 4)):
+        check_recurrent(arch, n_layers, args.seed, smi)
+
+    # 12. the kernels line, the card, the result.  Each kernel's launches are
     # those of the path that runs it: the paged serve run (RMSNorm, paged
     # decode), the fixed-slot serve run (dense decode), the prefill (flash),
-    # the train run (flash backward)
+    # the train run (flash backward), the recurrent prefills (RG-LRU,
+    # mLSTM; the windowed flash is logged with the recurrentgemma phase)
     launches = {"rmsnorm": paged_launches["rmsnorm"],
                 "paged_decode_attention": paged_launches["paged_decode_attention"],
                 "decode_attention": fixed_launches["decode_attention"],
                 "flash_attention": prefill_launches["flash_attention"],
-                "flash_attention_bwd": train_launches["flash_attention_bwd"]}
+                "flash_attention_bwd": train_launches["flash_attention_bwd"],
+                "rglru_scan": rg_launches["rglru_scan"],
+                "mlstm_chunk": xl_launches["mlstm_chunk"]}
     assert all(n > 0 for n in launches.values()), launches
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": WHERE[name][0],

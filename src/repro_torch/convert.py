@@ -24,14 +24,35 @@ def map_params(fn, tree, key=None):
     return fn(key, tree)
 
 
+# Leaves that the reference reads in f32 (``x.astype(f32) @ w``, ``+ b`` in
+# f32, an f32 step conv) rather than through ``.astype(dtype)``, by the
+# block that holds them.  Norm scales (``scale``, anywhere) are read in f32
+# too.
+F32_LEAVES = {
+    "rglru": {"w_a", "w_i", "b_a", "b_i", "lam", "conv_w", "conv_b"},
+    "mlstm": {"w_i", "w_f", "b_i", "b_f", "conv_w", "conv_b"},
+    "slstm": {f"{kind}_{gate}" for kind in "wrb" for gate in "zifo"},
+}
+
+
+def _map_with_block(fn, tree, key=None, block=None):
+    """``fn(leaf, key, block)`` on every leaf: ``key`` is the dict key the
+    leaf sits under and ``block`` the key of the dict that holds it."""
+    if isinstance(tree, dict):
+        return {k: _map_with_block(fn, v, k, key) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_block(fn, v, key, block) for v in tree)
+    return fn(tree, key, block)
+
+
 def cast_params(params, dtype: torch.dtype, device=None):
-    """Matrices and the embedding table in ``dtype``; norm scales stay f32,
-    because the layers apply them as ``scale.astype(f32)`` and a narrower
-    copy would change the numbers."""
-    def cast(key, leaf):
-        return leaf.to(device=device, dtype=torch.float32 if key == "scale"
-                       else dtype)
-    return map_params(cast, params)
+    """Matrices and the embedding table in ``dtype``; norm scales and the
+    leaves in ``F32_LEAVES`` stay f32, because the layers read them in f32
+    and a narrower copy would change the numbers."""
+    def cast(leaf, key, block):
+        keep = key == "scale" or key in F32_LEAVES.get(block, ())
+        return leaf.to(device=device, dtype=torch.float32 if keep else dtype)
+    return _map_with_block(cast, params)
 
 
 def params_from_numpy(tree, device=None, dtype: torch.dtype = torch.float32):

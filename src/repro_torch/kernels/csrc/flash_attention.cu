@@ -1,11 +1,16 @@
-// Causal (or full) GQA flash attention, forward, for Hopper (sm_90a).
+// Causal (or full) GQA flash attention, forward, for Hopper (sm_90a), with
+// an optional sliding window (local attention).
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (_flash_kernel):
 // out = softmax(q k^T / sqrt(D), causal mask) v over q (B, S, H, D) and the
 // compact k, v (B, S, KV, D), with query head h reading KV head h / G.  Also
 // returns lse = m + log(max(l, 1e-30)) (B, S, H) f32, and divides by
-// max(l, 1e-30), as the TPU kernel does.
+// max(l, 1e-30), as the TPU kernel does.  With window > 0 a query at
+// position i sees only keys j with i - window < j (recurrentgemma's local
+// layers; the reference computes them with models/layers.py::
+// local_band_attention, whose plain statement is kernels/ref.py::
+// causal_attention_ref(window=)).
 //
 // What bounds it on the H100: operations.  A causal pass does 2*B*H*S^2*D
 // flops (QK^T and PV over the lower triangle) on 2*B*S*(H + KV)*D elements
@@ -22,6 +27,9 @@
 // - the block loops over KV tiles of 32 keys up to the diagonal only, and
 //   masks the ragged last tile (any S, no padding), so causal blocks never
 //   touch the upper triangle and the heaviest q tiles are launched first;
+// - with a window, the loop starts at the tile that holds key
+//   q0 - window + 1, so a block reads about (window + 64) / 32 tiles
+//   whatever its position; keys inside the band's ragged edges are masked;
 // - the online-softmax state (m, l) and the output accumulator are f32.
 //   Tiles above 48 KB of shared memory opt into dynamic shared memory (at
 //   most 232,448 bytes).
@@ -120,7 +128,7 @@ __global__ void __launch_bounds__(kTcThreads)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                     float* __restrict__ lse, int S, int H, int KV, int D, int GC, int BQ,
-                    int causal, float scale) {
+                    int causal, int window, float scale) {
   using namespace nvcuda;
   using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
   using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
@@ -165,10 +173,12 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     }
   };
 
-  // causal: the last key any row of this tile attends to is q0 + BQ - 1
+  // causal: the last key any row of this tile attends to is q0 + BQ - 1;
+  // window: the first is q0 - window + 1
   const int kend = causal ? min(S, q0 + BQ) : S;
   const int ntiles = (kend + kTcKeys - 1) / kTcKeys;
-  load_kv(0, 0);
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / kTcKeys : 0;
+  load_kv(t_first, t_first & 1);
   cp_async_commit();  // Q and the first K/V tile
 
   // this warp's 16 rows: their accumulator in registers, D/16 fragments
@@ -180,7 +190,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int qpos = q0 + r_own / GC;
   float m = kMaskValue, l = 0.f;
 
-  for (int t = 0; t < ntiles; ++t) {
+  for (int t = t_first; t < ntiles; ++t) {
     if (t + 1 < ntiles) load_kv(t + 1, (t + 1) & 1);
     cp_async_commit();  // possibly empty: keeps the group count regular
     cp_async_wait_one();
@@ -220,7 +230,8 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int kp = kbase + j;
-        const bool ok = kp < S && (!causal || kp <= qpos);
+        const bool ok =
+            kp < S && (!causal || kp <= qpos) && (window <= 0 || qpos - kp < window);
         s[j] = ok ? srow[j] * scale : kMaskValue;
         tile_max = fmaxf(tile_max, s[j]);
       }
@@ -313,7 +324,7 @@ template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, int S, int H, int KV, int D,
-                 int GC, int BQ, int causal, float scale) {
+                 int GC, int BQ, int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int Dp = D + 1;
   float* sQ = smem;               // (kRows, Dp)
@@ -345,9 +356,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
   for (int c = 0; c < DMAX / kSub; ++c) acc[c] = 0.f;
 
-  // causal: the last key any row of this tile attends to is q0 + BQ - 1
+  // causal: the last key any row of this tile attends to is q0 + BQ - 1;
+  // window: the first is q0 - window + 1
   const int kend = causal ? min(S, q0 + BQ) : S;
-  for (int k0 = 0; k0 < kend; k0 += kKeys) {
+  const int kstart = window > 0 ? max(0, q0 - window + 1) / kKeys * kKeys : 0;
+  for (int k0 = kstart; k0 < kend; k0 += kKeys) {
     __syncthreads();  // the previous tile's K/V reads are done (and sQ is written)
     for (int i = tid; i < kKeys * D; i += kThreads) {
       const int kk = i / D, e = i - kk * D;
@@ -375,7 +388,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int j = 0; j < kKeysPerThread; ++j) {
       const int kp = k0 + sub + kSub * j;
-      const bool ok = kp < S && (!causal || kp <= qpos);
+      const bool ok =
+          kp < S && (!causal || kp <= qpos) && (window <= 0 || qpos - kp < window);
       s[j] = ok ? s[j] * scale : kMaskValue;
       tile_max = fmaxf(tile_max, s[j]);
     }
@@ -422,7 +436,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int DMAX>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                     int S, int H, int KV, int D, int causal, float scale, cudaStream_t stream) {
+                     int S, int H, int KV, int D, int causal, int window, float scale,
+                     cudaStream_t stream) {
   const int G = H / KV;
   const int GC = G < kRows ? G : kRows;
   const int BQ = kRows / GC;
@@ -436,7 +451,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, flo
   dim3 grid((S + BQ - 1) / BQ, B * KV, (G + GC - 1) / GC);
   flash_fwd_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, S, H, KV, D, GC, BQ, causal, scale);
+      static_cast<T*>(out), lse, S, H, KV, D, GC, BQ, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -450,7 +465,7 @@ bool use_tc(int dtype, int D, const void* q, const void* k, const void* v, const
 
 template <int DMAX>
 cudaError_t launch_tc_d(const void* q, const void* k, const void* v, void* out, float* lse,
-                        int B, int S, int H, int KV, int D, int causal, float scale,
+                        int B, int S, int H, int KV, int D, int causal, int window, float scale,
                         cudaStream_t stream) {
   const int G = H / KV;
   const int GC = G < kTcRows ? G : kTcRows;
@@ -466,23 +481,30 @@ cudaError_t launch_tc_d(const void* q, const void* k, const void* v, void* out, 
   flash_fwd_tc_kernel<DMAX><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, S, H, KV, D,
-      GC, BQ, causal, scale);
+      GC, BQ, causal, window, scale);
   return cudaGetLastError();
 }
 
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                      int S, int H, int KV, int D, int causal, float scale, cudaStream_t stream) {
-  if (D <= 64) return launch_tc_d<64>(q, k, v, out, lse, B, S, H, KV, D, causal, scale, stream);
-  if (D <= 128) return launch_tc_d<128>(q, k, v, out, lse, B, S, H, KV, D, causal, scale, stream);
-  return launch_tc_d<256>(q, k, v, out, lse, B, S, H, KV, D, causal, scale, stream);
+                      int S, int H, int KV, int D, int causal, int window, float scale,
+                      cudaStream_t stream) {
+  if (D <= 64)
+    return launch_tc_d<64>(q, k, v, out, lse, B, S, H, KV, D, causal, window, scale, stream);
+  if (D <= 128)
+    return launch_tc_d<128>(q, k, v, out, lse, B, S, H, KV, D, causal, window, scale, stream);
+  return launch_tc_d<256>(q, k, v, out, lse, B, S, H, KV, D, causal, window, scale, stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                   int S, int H, int KV, int D, int causal, float scale, cudaStream_t stream) {
-  if (D <= 64) return launch_d<T, 64>(q, k, v, out, lse, B, S, H, KV, D, causal, scale, stream);
-  if (D <= 128) return launch_d<T, 128>(q, k, v, out, lse, B, S, H, KV, D, causal, scale, stream);
-  if (D <= 256) return launch_d<T, 256>(q, k, v, out, lse, B, S, H, KV, D, causal, scale, stream);
+                   int S, int H, int KV, int D, int causal, int window, float scale,
+                   cudaStream_t stream) {
+  if (D <= 64)
+    return launch_d<T, 64>(q, k, v, out, lse, B, S, H, KV, D, causal, window, scale, stream);
+  if (D <= 128)
+    return launch_d<T, 128>(q, k, v, out, lse, B, S, H, KV, D, causal, window, scale, stream);
+  if (D <= 256)
+    return launch_d<T, 256>(q, k, v, out, lse, B, S, H, KV, D, causal, window, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -495,23 +517,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 extern "C" int repro_flash_attention_max_head_dim() { return 256; }
 
 // q and out (B, S, H, D), k and v (B, S, KV, D) in `dtype`; lse (B, S, H) f32
-// or null.  bf16 rows that the tensor-core variant takes go to it, the rest
-// to the CUDA-core variant.  Returns the CUDA error of the launch (0 on
-// success).
+// or null; window 0 for global attention, else the local window.  bf16 rows
+// that the tensor-core variant takes go to it, the rest to the CUDA-core
+// variant.  Returns the CUDA error of the launch (0 on success).
 extern "C" int repro_flash_attention(int device, int dtype, const void* q, const void* k,
                                      const void* v, void* out, void* lse, int B, int S, int H,
-                                     int KV, int D, int causal, float scale, void* stream) {
+                                     int KV, int D, int causal, int window, float scale,
+                                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || S == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
   if (repro::use_tc(dtype, D, q, k, v, out))
-    return repro::launch_tc(q, k, v, out, l, B, S, H, KV, D, causal, scale, s);
+    return repro::launch_tc(q, k, v, out, l, B, S, H, KV, D, causal, window, scale, s);
   if (dtype == repro::kFloat32)
-    return repro::launch<float>(q, k, v, out, l, B, S, H, KV, D, causal, scale, s);
+    return repro::launch<float>(q, k, v, out, l, B, S, H, KV, D, causal, window, scale, s);
   if (dtype == repro::kBFloat16)
-    return repro::launch<__nv_bfloat16>(q, k, v, out, l, B, S, H, KV, D, causal, scale, s);
+    return repro::launch<__nv_bfloat16>(q, k, v, out, l, B, S, H, KV, D, causal, window, scale,
+                                        s);
   return cudaErrorInvalidValue;
 }
 

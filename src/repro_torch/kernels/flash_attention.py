@@ -7,8 +7,9 @@ They replace the Pallas TPU kernels ``flash_attention``,
 ``flash_attention_bwd`` and the custom VJP ``flash_attention_train`` of
 ``repro/kernels/flash_attention.py``.  K/V stay compact (``KV`` heads, read
 through ``h // G``), any sequence length is taken (the kernels mask the
-ragged last tile themselves), and head dims up to 256.  A tensor on the CPU
-takes the plain version (``ref.causal_attention_ref``,
+ragged last tile themselves), head dims up to 256, and a sliding window
+(``window`` > 0, the local attention of recurrentgemma) in the forward.  A
+tensor on the CPU takes the plain version (``ref.causal_attention_ref``,
 ``ref.attention_lse_ref``, ``ref.flash_attention_bwd_ref``); a CUDA tensor
 launches the kernel or raises.
 """
@@ -43,13 +44,18 @@ def _check_shapes(name: str, q, k, v) -> tuple:
     return B, S, H, KV, D
 
 
-def flash_attention(q, k, v, *, causal: bool = True, return_lse: bool = False):
+def flash_attention(q, k, v, *, causal: bool = True, return_lse: bool = False,
+                    window: int = 0):
     """q (B,S,H,D); k, v (B,S,KV,D), all in one dtype -> out (B,S,H,D) in
-    that dtype [, lse (B,S,H) f32]."""
+    that dtype [, lse (B,S,H) f32].  ``window`` > 0: query i sees keys j
+    with i - window < j only."""
     name = "flash_attention"
+    if window < 0:
+        raise ValueError(f"{name}: window {window} is negative")
     if _build.on_cpu(name, q=q, k=k, v=v):
-        out = causal_attention_ref(q, k, v, causal)
-        return (out, attention_lse_ref(q, k, causal)) if return_lse else out
+        out = causal_attention_ref(q, k, v, causal, window)
+        return ((out, attention_lse_ref(q, k, causal, window)) if return_lse
+                else out)
     _build.check_inputs(name, q.device, q=q, k=k, v=v)
     B, S, H, KV, D = _check_shapes(name, q, k, v)
     out = torch.empty_like(q)
@@ -58,7 +64,7 @@ def flash_attention(q, k, v, *, causal: bool = True, return_lse: bool = False):
     err = _build.library().repro_flash_attention(
         q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-        B, S, H, KV, D, int(causal), 1.0 / math.sqrt(D),
+        B, S, H, KV, D, int(causal), int(window), 1.0 / math.sqrt(D),
         _build.stream(q.device))
     _build.check(err, name)
     flash_attention.launches += 1
@@ -121,8 +127,15 @@ class _FlashAttentionTrain(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def flash_attention_train(q, k, v, causal: bool = True):
+def flash_attention_train(q, k, v, causal: bool = True, window: int = 0):
     """Differentiable flash attention: ``flash_attention`` forward, the
     backward kernel in backward.  q (B,S,H,D); k, v (B,S,KV,D) ->
-    (B,S,H,D)."""
+    (B,S,H,D).  A window (local attention) runs the forward only: the
+    backward kernel takes none yet, so inputs that require grad raise."""
+    if window:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "flash attention with a window has no backward yet: it comes "
+                "with the recurrent training slice of the port")
+        return flash_attention(q, k, v, causal=causal, window=window)
     return _FlashAttentionTrain.apply(q, k, v, causal)

@@ -40,9 +40,10 @@ def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     return dx.to(x.dtype), dscale
 
 
-def _attention_scores(q, k, causal: bool):
+def _attention_scores(q, k, causal: bool, window: int = 0):
     """q (B,S,H,D); k (B,S,KV,D) -> f32 scores (B,H,S,S), scaled by
-    1/sqrt(D), with the masked entries at -inf."""
+    1/sqrt(D), with the masked entries at -inf.  ``window`` > 0 also masks
+    the keys ``window`` or more positions before the query."""
     B, S, H, D = q.shape
     G = H // k.shape[2]
     kf = k.repeat_interleave(G, dim=2).float()
@@ -50,25 +51,28 @@ def _attention_scores(q, k, causal: bool):
     i = torch.arange(S, device=q.device)
     mask = (i[None, :] <= i[:, None]) if causal else torch.ones(
         S, S, dtype=torch.bool, device=q.device)
+    if window:
+        mask = mask & (i[None, :] > i[:, None] - window)
     return s.masked_fill(~mask, float("-inf"))
 
 
-def causal_attention_ref(q, k, v, causal: bool = True):
+def causal_attention_ref(q, k, v, causal: bool = True, window: int = 0):
     """q (B,S,H,D); k,v (B,S,KV,D) -> (B,S,H,D).  Plain masked softmax
-    attention with KV head h // G for query head h.  The reference's
-    sliding-window mode comes with local attention."""
-    s = _attention_scores(q, k, causal)
+    attention with KV head h // G for query head h; ``window`` > 0 is the
+    reference's sliding-window (local) mode: query i sees keys j with
+    i - window < j <= i."""
+    s = _attention_scores(q, k, causal, window)
     G = q.shape[2] // k.shape[2]
     vf = v.repeat_interleave(G, dim=2).float()
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
-def attention_lse_ref(q, k, causal: bool = True):
+def attention_lse_ref(q, k, causal: bool = True, window: int = 0):
     """The log-sum-exp of each query row's scaled, masked scores: (B,S,H)
     f32, what ``flash_attention(..., return_lse=True)`` returns beside its
     output."""
-    s = _attention_scores(q, k, causal)
+    s = _attention_scores(q, k, causal, window)
     return torch.logsumexp(s, dim=-1).transpose(1, 2).contiguous()
 
 
@@ -129,3 +133,105 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths):
     kc = k_pool[tab].reshape(B, -1, KV, D)
     vc = v_pool[tab].reshape(B, -1, KV, D)
     return decode_attention_ref(q, kc, vc, lengths)
+
+
+def rglru_scan_ref(log_a, b):
+    """h_t = exp(log_a_t) * h_{t-1} + b_t from h_{-1} = 0, sequential over
+    time.  log_a, b (B,S,C) f32 -> h (B,S,C) f32."""
+    h = torch.zeros_like(b[:, 0])
+    out = torch.empty_like(b)
+    for t in range(b.shape[1]):
+        h = torch.exp(log_a[:, t]) * h + b[:, t]
+        out[:, t] = h
+    return out
+
+
+def _mlstm_inputs(q, k, v, i_pre, f_pre):
+    """The recurrences' common start: q scaled by 1/sqrt(dk), everything in
+    f32 (in f64 when q is f64: an exact reference), the forget gate as log
+    sigmoid."""
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    return (q.to(dt) * scale, k.to(dt), v.to(dt), i_pre.to(dt),
+            torch.nn.functional.logsigmoid(f_pre.to(dt)))
+
+
+def mlstm_ref(q, k, v, i_pre, f_pre):
+    """Fully sequential stabilized mLSTM, the oracle.  q,k,v (B,S,H,dk);
+    gates (B,S,H) -> h (B,S,H,dk) f32.
+
+    C_t = f C_{t-1} + i k v^T;  h_t = (q C_t) / max(|q n_t|, exp(-m_t))."""
+    B, S, H, dk = q.shape
+    qf, kf, vf, log_i, log_f = _mlstm_inputs(q, k, v, i_pre, f_pre)
+    C = qf.new_zeros((B, H, dk, dk))
+    n = qf.new_zeros((B, H, dk))
+    m = qf.new_zeros((B, H))
+    hs = []
+    for t in range(S):
+        qt, kt, vt, li, lf = qf[:, t], kf[:, t], vf[:, t], log_i[:, t], log_f[:, t]
+        m_next = torch.maximum(lf + m, li)
+        f_sc = torch.exp(lf + m - m_next)
+        i_sc = torch.exp(li - m_next)
+        C = f_sc[..., None, None] * C + i_sc[..., None, None] * (
+            kt[..., :, None] * vt[..., None, :])
+        n = f_sc[..., None] * n + i_sc[..., None] * kt
+        num = torch.einsum("bhd,bhde->bhe", qt, C)
+        den = torch.einsum("bhd,bhd->bh", qt, n)
+        hs.append(num / torch.maximum(den.abs(), torch.exp(-m_next))[..., None])
+        m = m_next
+    return torch.stack(hs, dim=1)
+
+
+def mlstm_chunk_ref(q, k, v, i_pre, f_pre, *, chunk: int = 128,
+                    return_final: bool = False):
+    """The chunkwise-parallel stabilized mLSTM recurrence: the plain version
+    of ``mlstm_chunk``, ported from the reference's
+    ``models/recurrent.py::mlstm_chunk_recurrence``.
+
+    q,k,v (B,S,H,dk); i_pre, f_pre (B,S,H) preactivations -> h (B,S,H,dk)
+    f32 [, the final (C (B,H,dk,dk), n (B,H,dk), m (B,H)) f32]; f64 inputs
+    give the same in f64.  The chunk
+    is ``min(chunk, S)`` and must divide S.  Within a chunk: D[i,j] =
+    csum_i - csum_j + li_j (j <= i), m_i = max(max_j D[i,j], csum_i + m),
+    h = num / max(|den|, exp(-m_i)); the carry (C, n, m) moves to the
+    chunk's end."""
+    B, S, H, dk = q.shape
+    c = min(chunk, S)
+    if c <= 0 or S % c:
+        raise ValueError(f"mlstm chunk {c} does not divide the sequence {S}")
+    nc = S // c
+
+    def chunks(x):  # (B,S,H,...) -> (nc, B,H,c,...)
+        x = x.transpose(1, 2).reshape(B, H, nc, c, *x.shape[3:])
+        return x.movedim(2, 0)
+
+    qf, kf, vf, log_i, log_f = (chunks(x) for x in _mlstm_inputs(
+        q, k, v, i_pre, f_pre))
+    tri = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    C = qf.new_zeros((B, H, dk, dk))
+    n = qf.new_zeros((B, H, dk))
+    m = qf.new_zeros((B, H))
+    hs = []
+    for qt, kt, vt, li, lf in zip(qf, kf, vf, log_i, log_f):
+        csum = torch.cumsum(lf, dim=-1)  # decay from the chunk start to i
+        total = csum[..., -1:]
+        D = csum[..., :, None] - csum[..., None, :] + li[..., None, :]
+        D = D.masked_fill(~tri, float("-inf"))
+        g = csum + m[..., None]  # the carry's magnitude at each position
+        m_i = torch.maximum(D.amax(dim=-1), g)
+        W = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * torch.exp(D - m_i[..., None])
+        inter = torch.exp(g - m_i)
+        num = torch.einsum("bhqk,bhkd->bhqd", W, vt) + inter[..., None] * torch.einsum(
+            "bhqd,bhde->bhqe", qt, C)
+        den = W.sum(dim=-1) + inter * torch.einsum("bhqd,bhd->bhq", qt, n)
+        hs.append(num / torch.maximum(den.abs(), torch.exp(-m_i))[..., None])
+        dec = total - csum + li  # weight of k_j v_j at the chunk's end
+        m_next = torch.maximum(m + total[..., 0], dec.amax(dim=-1))
+        w_new = torch.exp(dec - m_next[..., None])
+        decay = torch.exp(m + total[..., 0] - m_next)
+        C = decay[..., None, None] * C + torch.einsum(
+            "bhk,bhkd,bhke->bhde", w_new, kt, vt)
+        n = decay[..., None] * n + torch.einsum("bhk,bhkd->bhd", w_new, kt)
+        m = m_next
+    h = torch.stack(hs, dim=2).reshape(B, H, S, dk).transpose(1, 2)
+    return (h, (C, n, m)) if return_final else h

@@ -7,15 +7,18 @@ reference's sharding annotations have no counterpart here.
 
 Attention goes to the CUDA kernels: full-sequence causal attention to
 ``kernels.flash_attention_train`` (the flash forward kernel, and its
-backward kernel under autograd) and decode over a dense cache to
-``kernels.decode_attention`` (``causal_attention`` and
+backward kernel under autograd; local attention to the same forward kernel
+with a window) and decode over a dense cache or a local layer's ring buffer
+to ``kernels.decode_attention`` (``causal_attention`` and
 ``cached_decode_attention`` below; ``impl="plain"`` picks their plain
 versions on any device).  The reference's ``blockwise_causal_attention``
 and ``tree_causal_attention`` are XLA formulations of the same function,
 chunked so that XLA never builds an S x S score matrix; they are not
 ported, because the kernel and its plain version take their place.
-``decode_attention`` here is the plain decode layer, which the paged
-engine's gather path and ``impl="plain"`` run.
+``local_band_attention`` is the reference's band decomposition of local
+attention, the plain path of local layers.  ``decode_attention`` here is
+the plain decode layer, which the paged engine's gather path and
+``impl="plain"`` run.
 """
 
 from __future__ import annotations
@@ -110,11 +113,12 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 # ----------------------------------------------------------------- attention
 
 
-def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
-    """Single-token attention against a dense cache, the plain path.
+def decode_attention(q, k_cache, v_cache, lengths, window: int = 0) -> torch.Tensor:
+    """Single-token attention against a cache, the plain path.
 
-    q (B,H,D); caches (B,Smax,KV,D); lengths (B,) = #valid positions.  The
-    reference's ring-buffer mode (``window``) comes with local attention.
+    q (B,H,D); caches (B,Smax,KV,D); lengths (B,) = tokens written.
+    ``window`` > 0 marks a local layer's ring buffer: slot p holds a token
+    when p < length (not yet wrapped) or always (wrapped).
     """
     B, H, D = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
@@ -122,6 +126,8 @@ def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
     qg = q.reshape(B, KV, G, D).float()
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) / math.sqrt(D)
     valid = torch.arange(Smax, device=q.device)[None, :] < lengths[:, None]
+    if window:
+        valid = valid | (lengths[:, None] >= Smax)
     s = torch.where(valid[:, None, None, :], s, torch.full((), NEG_INF,
                                                            device=q.device))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
@@ -130,23 +136,61 @@ def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
     return out.reshape(B, H, D).to(q.dtype)
 
 
-def causal_attention(q, k, v, impl: str = "kernel") -> torch.Tensor:
+def local_band_attention(q, k, v, window: int) -> torch.Tensor:
+    """Sliding-window causal attention in O(S * window): the reference's
+    band decomposition.  q (B,S,H,D); compact k, v (B,S,KV,D).  Chunks of
+    ``min(window, S)`` queries (which must divide S) each attend their own
+    chunk and the one before, masked to ``0 <= qpos - kpos < window``."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    c = min(window, S)
+    if S % c:
+        raise ValueError(f"local attention: the window chunk {c} does not "
+                         f"divide the sequence {S}")
+    nc = S // c
+    qs, ks, vs = (x.reshape(B, nc, c, H, D) for x in (q, k, v))
+    kcat = torch.cat([torch.roll(ks, 1, dims=1), ks], dim=2)  # (B,nc,2c,H,D)
+    vcat = torch.cat([torch.roll(vs, 1, dims=1), vs], dim=2)
+    s = torch.einsum("bnqhd,bnkhd->bnhqk", qs.float(), kcat.float()) * (1.0 / math.sqrt(D))
+    a = torch.arange(c, device=q.device)
+    b = torch.arange(2 * c, device=q.device)
+    rel = (a[:, None] + c) - b[None, :]  # qpos - kpos in the 2c frame
+    base = (rel >= 0) & (rel < window)  # (c, 2c)
+    mask = base[None].expand(nc, c, 2 * c).clone()
+    mask[0] &= (b >= c)[None, :]  # the first chunk has no chunk before it
+    s = torch.where(mask[None, :, None], s, torch.full((), NEG_INF, device=q.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bnhqk,bnkhd->bnhqd", p, vcat.float())  # (B,nc,H,c,D)
+    return out.permute(0, 1, 3, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+def causal_attention(q, k, v, impl: str = "kernel",
+                     window: int = 0) -> torch.Tensor:
     """Causal attention over a full sequence: q (B,S,H,D), compact k, v
     (B,S,KV,D) -> (B,S,H,D), through the flash kernels (``impl="kernel"``:
     the forward kernel, and the backward kernel when differentiated) or
-    their plain version (``"plain"``)."""
+    their plain version (``"plain"``).  ``window`` > 0 is local attention:
+    the windowed flash forward, or ``local_band_attention``."""
     if impl == "plain":
+        if window:
+            return local_band_attention(q, k, v, window)
         return causal_attention_ref(q, k, v)
-    return flash_attention_train(q.contiguous(), k.contiguous(), v.contiguous())
+    return flash_attention_train(q.contiguous(), k.contiguous(), v.contiguous(),
+                                 window=window)
 
 
 def cached_decode_attention(q, k_cache, v_cache, lengths,
-                            impl: str = "kernel") -> torch.Tensor:
+                            impl: str = "kernel", window: int = 0) -> torch.Tensor:
     """One token per row against a dense cache, positions below
     ``min(lengths, Smax)`` valid: the dense decode kernel
-    (``impl="kernel"``) or the plain layer ``decode_attention``."""
+    (``impl="kernel"``) or the plain layer ``decode_attention``.  A local
+    layer's ring buffer (``window`` > 0) takes the same kernel: its valid
+    slots are those below ``min(lengths, Smax)`` too, and the softmax does
+    not depend on the order of the slots."""
     if impl == "plain":
-        return decode_attention(q, k_cache, v_cache, lengths)
+        return decode_attention(q, k_cache, v_cache, lengths, window)
     return decode_attention_kernel(q.contiguous(), k_cache, v_cache,
                                    lengths.to(torch.int32))
 

@@ -6,7 +6,8 @@ leading group axis, and an unrolled tail.  The port keeps the same dict
 keys, shapes and axis orders (``wq (d,H,hd)``, ``wo (H,hd,d)``), so the
 reference's weights carry across unchanged (``repro_torch.convert``).
 
-Entry points, for stacks of global-attention layers with dense MLPs:
+Entry points, for stacks of global-attention, local-attention, RG-LRU,
+mLSTM and sLSTM layers with dense MLPs (MoE and frontends raise):
 
 - ``init_params``        -- parameters drawn from a torch generator;
 - ``forward``            -- full-sequence logits (+ a zero aux loss),
@@ -16,12 +17,15 @@ Entry points, for stacks of global-attention layers with dense MLPs:
 - ``init_cache``         -- an empty dense decode cache;
 - ``decode_step``        -- one token per row against the cache.
 
-Full-sequence attention runs the flash kernel and decode the dense decode
-kernel (``ModelOptions.attn_impl``).  The reference's ``lax.scan`` over the
-main groups is a loop over the stacked leading axis, and the decode cache
-is written in place where the reference returns a new one.  The paged
-engine's tick lives in ``repro_torch.serve.paged_model``.  Recurrent and
-local-attention layers, MoE and frontends come in their own slices.
+Full-sequence attention runs the flash kernel (with a window for local
+layers), decode the dense decode kernel, RG-LRU layers the ``rglru_scan``
+kernel and mLSTM layers the ``mlstm_chunk`` kernel
+(``ModelOptions.attn_impl``).  The reference's ``lax.scan`` over the main
+groups is a loop over the stacked leading axis, and the decode cache (K/V,
+ring buffers and recurrent states) is written in place where the reference
+returns a new one.  The paged engine's tick lives in
+``repro_torch.serve.paged_model``.  MoE and frontends come in their own
+slices.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from . import recurrent as rec
 from .layers import (
     ATTN_IMPLS,
     apply_rope,
@@ -52,13 +57,16 @@ from .layers import (
 @dataclass(frozen=True)
 class ModelOptions:
     """Implementation knobs that do not change semantics.  ``attn_impl``
-    picks the attention kernels (``"kernel"``) or their plain versions
-    (``"plain"``, which tests and ``chip_smoke.py`` compare against).  The
-    reference's other knobs (attention chunking, MoE dispatch, Pallas
-    hooks) come with the code paths that read them."""
+    picks every kernel of the model path (flash attention, decode
+    attention, ``rglru_scan``, ``mlstm_chunk``: ``"kernel"``) or their plain
+    versions (``"plain"``, which tests and ``chip_smoke.py`` compare
+    against).  ``mlstm_chunk`` is the mLSTM recurrence's chunk length, the
+    reference's default.  The reference's other knobs (attention chunking,
+    MoE dispatch, Pallas hooks) come with the code paths that read them."""
 
     compute_dtype: str = "bfloat16"
     attn_impl: str = "kernel"
+    mlstm_chunk: int = 128
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -117,12 +125,13 @@ def stack_plan(cfg: ArchConfig) -> StackPlan:
     return StackPlan(prefix, pattern, num_groups, tail)
 
 
+LAYER_KINDS = ("attn", "local", "rglru", "mlstm", "slstm")
+
+
 def check_supported(spec: LayerSpec) -> None:
-    """This slice ports global-attention layers with a dense MLP."""
-    if spec.kind != "attn":
-        raise NotImplementedError(
-            f"layers of kind {spec.kind!r} come with the recurrent and "
-            "local-attention slice of the port")
+    """The port takes every layer kind with a dense MLP (or none)."""
+    if spec.kind not in LAYER_KINDS:
+        raise ValueError(f"unknown layer kind {spec.kind!r}")
     if spec.use_moe:
         raise NotImplementedError("MoE layers come with the MoE slice of the port")
 
@@ -130,8 +139,7 @@ def check_supported(spec: LayerSpec) -> None:
 # ------------------------------------------------------------------- params
 
 
-def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> dict:
-    check_supported(spec)
+def _init_attention(gen: torch.Generator, cfg: ArchConfig) -> dict:
     d, dev = cfg.d_model, gen.device
     hd, H, KV = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     out_scale = 1.0 / max(cfg.num_layers, 1) ** 0.5
@@ -148,7 +156,22 @@ def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> dict:
     if cfg.qk_norm:
         attn["q_norm"] = init_rmsnorm(hd, dev)
         attn["k_norm"] = init_rmsnorm(hd, dev)
-    p: dict = {"norm1": init_rmsnorm(d, dev), "attn": attn}
+    return attn
+
+
+def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> dict:
+    check_supported(spec)
+    d, dev = cfg.d_model, gen.device
+    out_scale = 1.0 / max(cfg.num_layers, 1) ** 0.5
+    p: dict = {"norm1": init_rmsnorm(d, dev)}
+    if spec.kind in ("attn", "local"):
+        p["attn"] = _init_attention(gen, cfg)
+    elif spec.kind == "rglru":
+        p["rglru"] = rec.init_rglru(gen, d, cfg.d_rnn or d, cfg.conv_width)
+    elif spec.kind == "mlstm":
+        p["mlstm"] = rec.init_mlstm(gen, d, cfg.num_heads, cfg.conv_width)
+    else:
+        p["slstm"] = rec.init_slstm(gen, d, cfg.num_heads)
     if spec.d_ff > 0:
         p["norm2"] = init_rmsnorm(d, dev)
         p["mlp"] = init_mlp(gen, d, spec.d_ff, cfg.gated_mlp, out_scale=out_scale)
@@ -251,12 +274,12 @@ def embed_inputs(params, cfg: ArchConfig, tokens, frontend_embeds,
 
 
 def _attention_block(aparams, cfg: ArchConfig, x, sin, cos,
-                     opts: ModelOptions):
-    """Self-attention over the sequence.  x (B,S,d) in the compute dtype.
-    Returns the output projection and the compact (B,S,KV,hd) K/V for the
-    cache.  q/k/v are accumulated in f32 and rounded to the compute dtype;
-    the output projection comes out in the compute dtype, as in the
-    reference."""
+                     opts: ModelOptions, kind: str = "attn"):
+    """Self-attention over the sequence (``kind`` "local": within the
+    config's window).  x (B,S,d) in the compute dtype.  Returns the output
+    projection and the compact (B,S,KV,hd) K/V for the cache.  q/k/v are
+    accumulated in f32 and rounded to the compute dtype; the output
+    projection comes out in the compute dtype, as in the reference."""
     dt = x.dtype
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -273,16 +296,27 @@ def _attention_block(aparams, cfg: ArchConfig, x, sin, cos,
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     # the kernel reads the compact K/V through h // G: no GQA repeat
-    out = causal_attention(q, k, v, opts.attn_impl)
+    window = cfg.window if kind == "local" else 0
+    out = causal_attention(q, k, v, opts.attn_impl, window)
     proj = out.reshape(B, S, H * hd) @ aparams["wo"].flatten(0, 1).to(dt)
     return proj, (k, v)
 
 
-def _pack_kv_cache(k, v, max_len: int) -> dict:
-    """Full-sequence K/V (B,S,KV,hd) as the decode cache: zero-padded to
-    (B, max_len, KV, hd).  (The reference's ring buffer for local
-    attention comes with that layer kind.)"""
-    pad = max_len - k.shape[1]
+def _pack_kv_cache(k, v, kind: str, cfg: ArchConfig, max_len: int) -> dict:
+    """Full-sequence K/V (B,S,KV,hd) as the decode cache.  Global attention:
+    zero-padded to (B, max_len, KV, hd).  Local attention: a ring buffer of
+    ``min(window, max_len)`` slots, position p in slot p % w."""
+    B, S = k.shape[:2]
+    if kind == "local":
+        w = min(cfg.window, max_len)
+        n = min(S, w)
+        slots = (torch.arange(S - n, S, device=k.device) % w).long()
+        buf_k = k.new_zeros((B, w, *k.shape[2:]))
+        buf_v = v.new_zeros((B, w, *v.shape[2:]))
+        buf_k[:, slots] = k[:, S - n:]
+        buf_v[:, slots] = v[:, S - n:]
+        return {"k": buf_k, "v": buf_v}
+    pad = max_len - S
     if pad < 0:
         raise ValueError(f"max_len {max_len} is shorter than the sequence "
                          f"{k.shape[1]}")
@@ -296,14 +330,30 @@ def _apply_layer_seq(lparams, cfg: ArchConfig, spec: LayerSpec, x, sin, cos,
     """One layer over a full sequence.  Returns (x, aux[, state])."""
     check_supported(spec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    impl = opts.attn_impl
     h = rmsnorm(x, lparams["norm1"]["scale"], cfg.norm_eps)
-    mix, (k, v) = _attention_block(lparams["attn"], cfg, h, sin, cos, opts)
+    if spec.kind in ("attn", "local"):
+        mix, (k, v) = _attention_block(lparams["attn"], cfg, h, sin, cos, opts,
+                                       spec.kind)
+        state = _pack_kv_cache(k, v, spec.kind, cfg, max_len) if want_state else None
+    else:
+        if spec.kind == "rglru":
+            out = rec.rglru_seq(lparams["rglru"], h, return_state=want_state,
+                                impl=impl)
+        elif spec.kind == "mlstm":
+            out = rec.mlstm_seq(lparams["mlstm"], h, cfg.num_heads,
+                                chunk=opts.mlstm_chunk, return_state=want_state,
+                                impl=impl)
+        else:
+            out = rec.slstm_seq(lparams["slstm"], h, cfg.num_heads,
+                                return_state=want_state)
+        mix, state = out if want_state else (out, None)
     x = x + mix
     if spec.d_ff > 0:
         h2 = rmsnorm(x, lparams["norm2"]["scale"], cfg.norm_eps)
         x = x + mlp_apply(lparams["mlp"], h2, cfg.act, cfg.gated_mlp)
     if want_state:
-        return x, aux, _pack_kv_cache(k, v, max_len)
+        return x, aux, state
     return x, aux
 
 
@@ -370,8 +420,9 @@ def forward_with_cache(params, cfg: ArchConfig, tokens, frontend_embeds=None,
                        max_len: int = 0, opts: ModelOptions = ModelOptions()):
     """Prefill: full-sequence forward that also builds the decode cache.
 
-    Returns (logits (B,S,V) f32, cache) with the cache padded to
-    ``max(max_len, S)`` positions and ``cache['len']`` set to S."""
+    Returns (logits (B,S,V) f32, cache) with global-attention caches padded
+    to ``max(max_len, S)`` positions, local ones as ring buffers, recurrent
+    layers' final states, and ``cache['len']`` set to S."""
     B, S = tokens.shape
     max_len = max(max_len, S)
     logits, _, states = _run_seq(params, cfg, tokens, frontend_embeds, opts,
@@ -379,7 +430,7 @@ def forward_with_cache(params, cfg: ArchConfig, tokens, frontend_embeds=None,
     cache = {
         "prefix": states["prefix"],
         "main": [{key: torch.stack([st[key] for st in per_group])
-                  for key in ("k", "v")} for per_group in states["main"]],
+                  for key in per_group[0]} for per_group in states["main"]],
         "tail": states["tail"],
         "len": torch.full((B,), S, dtype=torch.int32, device=logits.device),
     }
@@ -391,18 +442,31 @@ def forward_with_cache(params, cfg: ArchConfig, tokens, frontend_embeds=None,
 
 def _init_layer_state(cfg: ArchConfig, spec: LayerSpec, batch: int,
                       max_len: int, dtype, device, groups=()) -> dict:
+    """One layer's empty decode state: K/V of ``max_len`` positions (global
+    attention), a ring buffer of ``min(window, max_len)`` (local), or the
+    recurrent state (f32, with the conv tail in ``dtype``)."""
     check_supported(spec)
-    shape = (*groups, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if spec.kind in ("attn", "local"):
+        n = min(cfg.window, max_len) if spec.kind == "local" else max_len
+        shape = (*groups, batch, n, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if spec.kind == "rglru":
+        return rec.rglru_init_state(batch, cfg.d_rnn or cfg.d_model,
+                                    cfg.conv_width, dtype, device, groups)
+    if spec.kind == "mlstm":
+        return rec.mlstm_init_state(batch, cfg.d_model, cfg.num_heads,
+                                    cfg.conv_width, dtype, device, groups)
+    return rec.slstm_init_state(batch, cfg.d_model, device, groups)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """An empty dense decode cache on ``device`` (CUDA unless the caller
-    asks for the CPU): per global-attention layer, K and V of shape
-    (batch, max_len, KV, hd), with the group axis first for main-group
-    layers, and ``len`` (batch,) int32."""
+    """An empty decode cache on ``device`` (CUDA unless the caller asks for
+    the CPU): per global-attention layer, K and V of shape (batch, max_len,
+    KV, hd); per local layer a ring buffer of ``min(window, max_len)``
+    slots; per recurrent layer its initial state; the group axis first for
+    main-group layers, and ``len`` (batch,) int32."""
     dev = resolve_device(device)
     plan = stack_plan(cfg)
     layer = (batch, max_len, dtype, dev)
@@ -415,17 +479,48 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     }
 
 
+def _keep_rows(new: torch.Tensor, old: torch.Tensor, advance) -> torch.Tensor:
+    """``new`` on the rows where ``advance`` is True, ``old`` elsewhere (the
+    batch axis leads)."""
+    if advance is None:
+        return new
+    return torch.where(advance.view(-1, *(1,) * (new.dim() - 1)), new, old)
+
+
 def _decode_layer(lparams, cfg: ArchConfig, spec: LayerSpec, state, x, sin,
                   cos, lengths, advance, opts: ModelOptions):
-    """One layer, one token per row.  x (B,d).  Writes this token's K/V
-    into ``state`` in place (rows where ``advance`` is False keep their
-    cache) and returns the new x."""
+    """One layer, one token per row.  x (B,d).  Updates ``state`` in place
+    (rows where ``advance`` is False keep every leaf bit for bit) and
+    returns the new x."""
     check_supported(spec)
-    dt = x.dtype
-    B = x.shape[0]
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = rmsnorm(x, lparams["norm1"]["scale"], cfg.norm_eps)
-    ap = lparams["attn"]
+    if spec.kind in ("attn", "local"):
+        mix = _decode_attention(lparams["attn"], cfg, spec.kind, state, h, sin,
+                                cos, lengths, advance, opts)
+    else:
+        if spec.kind == "rglru":
+            mix, new = rec.rglru_step(lparams["rglru"], h, state)
+        elif spec.kind == "mlstm":
+            mix, new = rec.mlstm_step(lparams["mlstm"], h, state, cfg.num_heads)
+        else:
+            mix, new = rec.slstm_step(lparams["slstm"], h, state, cfg.num_heads)
+        for key, t in new.items():  # the reference's _merge_slot / _mask_tree
+            state[key].copy_(_keep_rows(t, state[key], advance))
+    x = x + mix
+    if spec.d_ff > 0:
+        h2 = rmsnorm(x, lparams["norm2"]["scale"], cfg.norm_eps)
+        x = x + mlp_apply(lparams["mlp"], h2, cfg.act, cfg.gated_mlp)
+    return x
+
+
+def _decode_attention(ap, cfg: ArchConfig, kind: str, state, h, sin, cos,
+                      lengths, advance, opts: ModelOptions):
+    """The attention mix of one decode token per row: writes its K/V into
+    ``state`` in place and attends over the cache (global) or the ring
+    buffer (local)."""
+    dt = h.dtype
+    B = h.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     # the reference's einsums name no accumulation type here: the
     # projections come out in the compute dtype
     q = (h @ ap["wq"].flatten(1).to(dt)).view(B, H, hd)
@@ -440,22 +535,21 @@ def _decode_layer(lparams, cfg: ArchConfig, spec: LayerSpec, state, x, sin,
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     Smax = state["k"].shape[1]
-    # a row past the end writes the last slot (the reference clamps too)
-    slot = torch.clamp(lengths, max=Smax - 1).long()
-    rows = torch.arange(B, device=x.device)
-    if advance is not None:
+    # local: the ring buffer's slot; global: a row past the end writes the
+    # last slot (the reference clamps too)
+    slot = (lengths % Smax if kind == "local"
+            else torch.clamp(lengths, max=Smax - 1)).long()
+    rows = torch.arange(B, device=h.device)
+    if advance is not None:  # rows that stay write their old K/V back
         keep = ~advance[:, None, None]
         k = torch.where(keep, state["k"][rows, slot], k)
         v = torch.where(keep, state["v"][rows, slot], v)
     state["k"][rows, slot] = k
     state["v"][rows, slot] = v
+    window = cfg.window if kind == "local" else 0
     out = cached_decode_attention(q, state["k"], state["v"], lengths + 1,
-                                  opts.attn_impl)
-    x = x + out.reshape(B, H * hd) @ ap["wo"].flatten(0, 1).to(dt)
-    if spec.d_ff > 0:
-        h2 = rmsnorm(x, lparams["norm2"]["scale"], cfg.norm_eps)
-        x = x + mlp_apply(lparams["mlp"], h2, cfg.act, cfg.gated_mlp)
-    return x
+                                  opts.attn_impl, window)
+    return out.reshape(B, H * hd) @ ap["wo"].flatten(0, 1).to(dt)
 
 
 def decode_step(params, cfg: ArchConfig, cache, tokens,
@@ -467,7 +561,8 @@ def decode_step(params, cfg: ArchConfig, cache, tokens,
     given, limits the step to those rows: the others keep their K/V and
     their length bit for bit (their logits are computed and meaningless).
     That is the reference's batched step followed by ``_merge_slot``,
-    without a second copy of the cache."""
+    without a second copy of the cache; recurrent states are merged row by
+    row the same way."""
     plan = stack_plan(cfg)
     dt = opts.dtype
     lengths = cache["len"]

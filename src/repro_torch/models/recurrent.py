@@ -1,0 +1,384 @@
+"""Recurrent sequence-mixing blocks: RG-LRU (Griffin), mLSTM and sLSTM
+(xLSTM), ported from ``repro/models/recurrent.py``.
+
+Each block provides ``init_*`` (parameters), ``*_seq`` (a full sequence:
+prefill), ``*_step`` (one token with carried state: decode) and
+``*_init_state``.  ``rglru_seq`` runs its linear recurrence through the
+``rglru_scan`` kernel and ``mlstm_seq`` its chunkwise recurrence through the
+``mlstm_chunk`` kernel (``impl="kernel"``; their wrappers run the plain
+versions for CPU tensors), or through those plain versions (``"plain"``).
+The plain RG-LRU scan is sequential where the reference uses an associative
+scan: only the order of summation differs.  sLSTM has recurrent weights and
+runs its cell as a loop over time, with the values of the reference's
+custom-VJP forward.  Nothing here has a backward kernel yet: training of
+these blocks comes with a later slice.
+
+The reference's dtype choices are kept, each of which an f32 comparison
+cannot see:
+
+- the sequence conv multiplies in the compute dtype (``conv_w`` and
+  ``conv_b`` rounded to it at use), but the step conv sums in f32 against
+  the f32 ``conv_w`` and adds the f32 ``conv_b``;
+- the RG-LRU gates (``w_a``, ``w_i``, ``b_a``, ``b_i``, ``lam``), the mLSTM
+  gate pre-activations (``w_i``, ``w_f``, ``b_i``, ``b_f``) and every sLSTM
+  input, recurrent and bias weight are read in f32, from f32 inputs;
+- ``rglru_seq``'s state ``h`` is f32 and is rounded to the compute dtype
+  just before the gate product; the mLSTM recurrence and its carry are f32
+  and its output is rounded before the group norm; the sLSTM cell and its
+  state are f32.
+
+``repro_torch.convert.cast_params`` keeps all of those leaves in f32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .. import kernels
+from ..kernels.ref import mlstm_chunk_ref, rglru_scan_ref
+from .layers import act_fn, dense_init, init_rmsnorm, rmsnorm
+
+RGLRU_C = 8.0  # Griffin's fixed gate sharpness constant
+SLSTM_GATES = ("z", "i", "f", "o")
+
+# the reference's name for the plain chunkwise recurrence
+mlstm_chunk_recurrence = mlstm_chunk_ref
+
+
+# ---------------------------------------------------------------- temporal conv
+
+
+def causal_conv_seq(x: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time, in x's dtype.  x (B,S,C), w (W,C)."""
+    W, S = w.shape[0], x.shape[1]
+    out = x * w[W - 1].to(x.dtype)
+    for j in range(1, W):
+        shifted = F.pad(x, (0, 0, j, 0))[:, :S]
+        out = out + shifted * w[W - 1 - j].to(x.dtype)
+    return out + b.to(x.dtype)
+
+
+def causal_conv_step(x: torch.Tensor, state: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor):
+    """x (B,C); state (B,W-1,C) holds the previous W-1 inputs, oldest first.
+    Sums in f32 against ``w`` as stored.  Returns (out in x's dtype, the new
+    state)."""
+    window = torch.cat([state, x[:, None]], dim=1)  # (B,W,C)
+    out = torch.einsum("bwc,wc->bc", window.float(), w) + b
+    return out.to(x.dtype), window[:, 1:]
+
+
+def _conv_tail(x_pre: torch.Tensor, W: int) -> torch.Tensor:
+    """The last W-1 pre-conv inputs (zero-padded at the front), oldest
+    first: the step conv's state after a prefill."""
+    B, S, C = x_pre.shape
+    n = W - 1
+    if S >= n:
+        return x_pre[:, S - n:]
+    return torch.cat([x_pre.new_zeros((B, n - S, C)), x_pre], dim=1)
+
+
+# ----------------------------------------------------------------------- rg-lru
+
+
+def init_rglru(gen: torch.Generator, d: int, d_rnn: int,
+               conv_width: int) -> dict:
+    dev = gen.device
+    # lam so that a = exp(-c * softplus(lam)) is spread in [0.9, 0.999]
+    # (Griffin, section 2.4)
+    u = 0.9 + 0.099 * torch.rand(d_rnn, generator=gen, dtype=torch.float32,
+                                 device=dev)
+    lam = torch.log(torch.expm1(-torch.log(u) / RGLRU_C))
+    return {
+        "w_x": dense_init(gen, (d, d_rnn)),
+        "w_g": dense_init(gen, (d, d_rnn)),
+        "conv_w": dense_init(gen, (conv_width, d_rnn)),
+        "conv_b": torch.zeros(d_rnn, device=dev),
+        "w_a": dense_init(gen, (d_rnn, d_rnn)),
+        "b_a": torch.zeros(d_rnn, device=dev),
+        "w_i": dense_init(gen, (d_rnn, d_rnn)),
+        "b_i": torch.zeros(d_rnn, device=dev),
+        "lam": lam,
+        "w_o": dense_init(gen, (d_rnn, d)),
+    }
+
+
+def _rglru_gates(params: dict, xr: torch.Tensor):
+    """xr (..., d_rnn) post-conv input -> (log_a, b), both f32."""
+    x32 = xr.float()
+    r = torch.sigmoid(x32 @ params["w_a"].float() + params["b_a"])
+    i = torch.sigmoid(x32 @ params["w_i"].float() + params["b_i"])
+    log_a = -RGLRU_C * F.softplus(params["lam"]) * r  # <= 0
+    a2 = torch.exp(2.0 * log_a)
+    b = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * x32)
+    return log_a, b
+
+
+def rglru_seq(params: dict, x: torch.Tensor, return_state: bool = False,
+              impl: str = "kernel"):
+    """The RG-LRU mix over a sequence.  x (B,S,d), already normed ->
+    (B,S,d) [, state {h (B,d_rnn) f32, conv (B,W-1,d_rnn)}]."""
+    dt = x.dtype
+    gate = act_fn("gelu")(x @ params["w_g"].to(dt))
+    xr_pre = x @ params["w_x"].to(dt)
+    xr = causal_conv_seq(xr_pre, params["conv_w"], params["conv_b"])
+    log_a, b = _rglru_gates(params, xr)
+    scan = kernels.rglru_scan if impl == "kernel" else rglru_scan_ref
+    h = scan(log_a.contiguous(), b.contiguous())  # (B,S,d_rnn) f32
+    out = ((h.to(dt) * gate) @ params["w_o"].to(dt)).to(dt)
+    if return_state:
+        state = {"h": h[:, -1].float(),
+                 "conv": _conv_tail(xr_pre, params["conv_w"].shape[0])}
+        return out, state
+    return out
+
+
+def rglru_step(params: dict, x: torch.Tensor, state: dict):
+    """One decode step.  x (B,d); state {h (B,d_rnn) f32, conv
+    (B,W-1,d_rnn)} -> (out (B,d), the new state)."""
+    dt = x.dtype
+    gate = act_fn("gelu")(x @ params["w_g"].to(dt))
+    xr = x @ params["w_x"].to(dt)
+    xr, conv_state = causal_conv_step(xr, state["conv"], params["conv_w"],
+                                      params["conv_b"])
+    log_a, b = _rglru_gates(params, xr)
+    h = state["h"] * torch.exp(log_a) + b
+    out = ((h.to(dt) * gate) @ params["w_o"].to(dt)).to(dt)
+    return out, {"h": h, "conv": conv_state}
+
+
+def rglru_init_state(batch: int, d_rnn: int, conv_width: int,
+                     dtype=torch.bfloat16, device=None, groups=()) -> dict:
+    return {
+        "h": torch.zeros((*groups, batch, d_rnn), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros((*groups, batch, conv_width - 1, d_rnn),
+                            dtype=dtype, device=device),
+    }
+
+
+# ------------------------------------------------------------------------ mlstm
+
+
+def init_mlstm(gen: torch.Generator, d: int, num_heads: int,
+               conv_width: int) -> dict:
+    dev = gen.device
+    di = 2 * d  # up-projection factor 2
+    dk = di // num_heads
+    return {
+        "w_up": dense_init(gen, (d, 2 * di)),  # (x_inner, z-gate)
+        "conv_w": dense_init(gen, (conv_width, di)),
+        "conv_b": torch.zeros(di, device=dev),
+        "wq": dense_init(gen, (di, num_heads, dk)),
+        "wk": dense_init(gen, (di, num_heads, dk)),
+        "wv": dense_init(gen, (di, num_heads, dk)),
+        "w_i": dense_init(gen, (di, num_heads)),
+        "b_i": torch.full((num_heads,), -3.0, device=dev),
+        "w_f": dense_init(gen, (di, num_heads)),
+        "b_f": torch.linspace(3.0, 6.0, num_heads, device=dev),
+        "gn": init_rmsnorm(di, dev),
+        "w_down": dense_init(gen, (di, d)),
+    }
+
+
+def _mlstm_qkvif(params: dict, xc: torch.Tensor, x_inner: torch.Tensor,
+                 num_heads: int):
+    """Per-head q, k, v in the compute dtype and the f32 gate
+    pre-activations, from the conv output and the inner stream."""
+    dt = xc.dtype
+    lead = xc.shape[:-1]
+
+    def heads(x, w):
+        return (x @ w.flatten(1).to(dt)).view(*lead, num_heads, -1)
+
+    q = heads(xc, params["wq"])
+    k = heads(xc, params["wk"])
+    v = heads(x_inner, params["wv"])
+    x32 = xc.float()
+    i_pre = x32 @ params["w_i"] + params["b_i"]
+    f_pre = x32 @ params["w_f"] + params["b_f"]
+    return q, k, v, i_pre, f_pre
+
+
+def _mlstm_up(params: dict, x: torch.Tensor):
+    """The up projection split into the inner stream and the z gate."""
+    di = 2 * x.shape[-1]
+    up = x @ params["w_up"].to(x.dtype)
+    return up[..., :di], up[..., di:]
+
+
+def _mlstm_out(params: dict, h: torch.Tensor, z: torch.Tensor,
+               dt) -> torch.Tensor:
+    """Group norm of the f32 recurrence output rounded to ``dt``, the z gate,
+    the down projection."""
+    h = rmsnorm(h.to(dt), params["gn"]["scale"])
+    h = h * F.silu(z)
+    return (h @ params["w_down"].to(dt)).to(dt)
+
+
+def mlstm_seq(params: dict, x: torch.Tensor, num_heads: int, *,
+              chunk: int = 128, return_state: bool = False,
+              impl: str = "kernel"):
+    """The mLSTM mix over a sequence.  x (B,S,d), normed -> (B,S,d) [, state
+    {C, n, m (f32), conv}].  The prefill takes the final carry from the
+    same kernel."""
+    dt = x.dtype
+    B, S, d = x.shape
+    x_inner, z = _mlstm_up(params, x)
+    xc = F.silu(causal_conv_seq(x_inner, params["conv_w"], params["conv_b"]))
+    q, k, v, i_pre, f_pre = _mlstm_qkvif(params, xc, x_inner, num_heads)
+    rec = kernels.mlstm_chunk if impl == "kernel" else mlstm_chunk_ref
+    out = rec(q.contiguous(), k.contiguous(), v.contiguous(),
+              i_pre.contiguous(), f_pre.contiguous(), chunk=chunk,
+              return_final=return_state)
+    h, final = out if return_state else (out, None)
+    out = _mlstm_out(params, h.reshape(B, S, 2 * d), z, dt)
+    if return_state:
+        C, n, m = final
+        return out, {"C": C, "n": n, "m": m,
+                     "conv": _conv_tail(x_inner, params["conv_w"].shape[0])}
+    return out
+
+
+def mlstm_step(params: dict, x: torch.Tensor, state: dict, num_heads: int):
+    """One decode step.  x (B,d); state {C (B,H,dk,dk), n (B,H,dk), m (B,H)
+    f32, conv (B,W-1,di)} -> (out (B,d), the new state)."""
+    dt = x.dtype
+    B, d = x.shape
+    x_inner, z = _mlstm_up(params, x)
+    xc, conv_state = causal_conv_step(x_inner, state["conv"],
+                                      params["conv_w"], params["conv_b"])
+    xc = F.silu(xc)
+    q, k, v, i_pre, f_pre = _mlstm_qkvif(params, xc, x_inner, num_heads)
+    q, k, v = q.float(), k.float(), v.float()
+    log_f = F.logsigmoid(f_pre)
+    q = q / math.sqrt(q.shape[-1])
+    C, n, m = state["C"], state["n"], state["m"]
+    m_next = torch.maximum(log_f + m, i_pre)
+    f_sc = torch.exp(log_f + m - m_next)
+    i_sc = torch.exp(i_pre - m_next)
+    C_next = f_sc[..., None, None] * C + i_sc[..., None, None] * torch.einsum(
+        "bhd,bhe->bhde", k, v)
+    n_next = f_sc[..., None] * n + i_sc[..., None] * k
+    num = torch.einsum("bhd,bhde->bhe", q, C_next)
+    den = torch.einsum("bhd,bhd->bh", q, n_next)
+    h = num / torch.maximum(den.abs(), torch.exp(-m_next))[..., None]
+    out = _mlstm_out(params, h.reshape(B, 2 * d), z, dt)
+    return out, {"C": C_next, "n": n_next, "m": m_next, "conv": conv_state}
+
+
+def mlstm_init_state(batch: int, d: int, num_heads: int, conv_width: int,
+                     dtype=torch.bfloat16, device=None, groups=()) -> dict:
+    di = 2 * d
+    dk = di // num_heads
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "C": torch.zeros((*groups, batch, num_heads, dk, dk), **f32),
+        "n": torch.zeros((*groups, batch, num_heads, dk), **f32),
+        "m": torch.zeros((*groups, batch, num_heads), **f32),
+        "conv": torch.zeros((*groups, batch, conv_width - 1, di), dtype=dtype,
+                            device=device),
+    }
+
+
+# ------------------------------------------------------------------------ slstm
+
+
+def init_slstm(gen: torch.Generator, d: int, num_heads: int) -> dict:
+    dev = gen.device
+    dh = d // num_heads
+    p: dict = {}
+    for gate in SLSTM_GATES:
+        p[f"w_{gate}"] = dense_init(gen, (d, d))
+        p[f"r_{gate}"] = dense_init(gen, (num_heads, dh, dh))
+        p[f"b_{gate}"] = (torch.linspace(3.0, 6.0, d, device=dev) if gate == "f"
+                          else torch.zeros(d, device=dev))
+    p["gn"] = init_rmsnorm(d, dev)
+    p["w_o_proj"] = dense_init(gen, (d, d))
+    d_ff = max(int(round(d * 4 / 3 / 64) * 64), 64)
+    p["ffn"] = {
+        "norm": init_rmsnorm(d, dev),
+        "w_gate": dense_init(gen, (d, d_ff)),
+        "w_up": dense_init(gen, (d, d_ff)),
+        "w_down": dense_init(gen, (d_ff, d)),
+    }
+    return p
+
+
+def _slstm_pre(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The input contributions W_g x + b_g of the four gates, in f32 from
+    the f32 weights: (4, ..., d)."""
+    x32 = x.float()
+    return torch.stack([x32 @ params[f"w_{g}"] + params[f"b_{g}"]
+                        for g in SLSTM_GATES])
+
+
+def _slstm_cell(R: torch.Tensor, pre: torch.Tensor, state: dict) -> dict:
+    """One sLSTM step.  R (4,H,dh,dh) the stacked recurrent weights; pre
+    (4,B,d) the gates' input contributions; state {h, c, n, m} (B,d) f32."""
+    B, d = state["h"].shape
+    H = R.shape[1]
+    rec = torch.einsum("bhx,ghxy->gbhy", state["h"].view(B, H, d // H), R)
+    a = pre + rec.reshape(4, B, d)  # z, i, f, o
+    z = torch.tanh(a[0])
+    o = torch.sigmoid(a[3])
+    log_f = F.logsigmoid(a[2])
+    m_next = torch.maximum(log_f + state["m"], a[1])
+    i_sc = torch.exp(a[1] - m_next)
+    f_sc = torch.exp(log_f + state["m"] - m_next)
+    c_next = f_sc * state["c"] + i_sc * z
+    n_next = torch.clamp(f_sc * state["n"] + i_sc, min=1e-6)
+    h_next = o * (c_next / n_next)
+    return {"h": h_next, "c": c_next, "n": n_next, "m": m_next}
+
+
+def _slstm_out(params: dict, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Group norm, output projection and the gated FFN sub-layer (its
+    residual inside; the caller adds the block-input residual)."""
+    dt = x.dtype
+    h = rmsnorm(h.to(dt), params["gn"]["scale"])
+    out = (h @ params["w_o_proj"].to(dt)).to(dt)
+    ffn = params["ffn"]
+    y = rmsnorm(out + x, ffn["norm"]["scale"])
+    g = act_fn("gelu")((y @ ffn["w_gate"].to(dt)).float())
+    u = (y @ ffn["w_up"].to(dt)).float()
+    ff = ((g * u).to(dt) @ ffn["w_down"].to(dt)).to(dt)
+    return out + ff
+
+
+def _slstm_R(params: dict) -> torch.Tensor:
+    return torch.stack([params[f"r_{g}"] for g in SLSTM_GATES])
+
+
+def slstm_seq(params: dict, x: torch.Tensor, num_heads: int,
+              return_state: bool = False):
+    """The sLSTM block over a sequence: its cell as a loop over time from
+    ``slstm_init_state``, then ``_slstm_out``.  x (B,S,d) normed -> (B,S,d)
+    [, the final state]."""
+    B, S, d = x.shape
+    pre = _slstm_pre(params, x)  # (4,B,S,d)
+    R = _slstm_R(params)
+    state = slstm_init_state(B, d, device=x.device)
+    hs = []
+    for t in range(S):
+        state = _slstm_cell(R, pre[:, :, t], state)
+        hs.append(state["h"])
+    result = _slstm_out(params, torch.stack(hs, dim=1), x)
+    return (result, state) if return_state else result
+
+
+def slstm_step(params: dict, x: torch.Tensor, state: dict, num_heads: int):
+    """One decode step.  x (B,d); state {h, c, n, m} (B,d) f32."""
+    new_state = _slstm_cell(_slstm_R(params), _slstm_pre(params, x), state)
+    return _slstm_out(params, new_state["h"], x), new_state
+
+
+def slstm_init_state(batch: int, d: int, device=None, groups=()) -> dict:
+    shape = (*groups, batch, d)
+    z = dict(dtype=torch.float32, device=device)
+    return {"h": torch.zeros(shape, **z), "c": torch.zeros(shape, **z),
+            "n": torch.full(shape, 1e-6, **z), "m": torch.zeros(shape, **z)}

@@ -3,7 +3,9 @@
 Ported from ``repro/serve/paged_model.py``.  ``init_paged_state`` gives
 every global-attention layer a shared block pool ``(num_blocks,
 block_size, KV, D)``; sequences address it through a per-slot block table,
-so cache memory follows the tokens actually held.
+so cache memory follows the tokens actually held.  Every other layer (a
+local layer's ring buffer, a recurrent state) keeps per-slot state: it is
+O(window) or O(1) per sequence and gains nothing from paging.
 
 ``make_paged_tick`` builds the engine's one step: ``C`` micro-steps in
 which every active slot advances by its own number of tokens (``counts``).
@@ -11,7 +13,9 @@ Decoding slots advance one sampled token; prefilling slots consume up to a
 whole prompt chunk, so chunked prefill runs interleaved with decode and the
 serving path needs no full-sequence attention.  Each micro-step runs the
 RMSNorm kernel at every norm site and the paged decode kernel in every
-layer.
+global-attention layer; the other layers run ``lm._decode_layer`` with the
+step's ``advance`` mask, which keeps the state of rows that do not
+advance (the reference's ``_mask_tree``).
 
 Block 0 of every pool is scratch: rows that do not advance write there and
 their outputs are ignored, so no per-slot control flow exists inside a
@@ -38,18 +42,30 @@ from ..models.layers import (
     rmsnorm,
     rope_table,
 )
-from ..models.lm import ModelOptions, _mask_padded_vocab, check_supported, stack_plan
+from ..models.lm import (
+    ModelOptions,
+    _decode_layer,
+    _init_layer_state,
+    _mask_padded_vocab,
+    check_supported,
+    stack_plan,
+)
 
 ATTN_IMPLS = ("kernel", "gather")
 
 
 def _is_paged(spec) -> bool:
-    """Global-attention layers page through the block pool."""
+    """Global-attention layers page through the block pool; everything
+    else (local ring buffers, recurrences) keeps per-slot state."""
     return spec.kind == "attn"
 
 
-def _init_entry(cfg, spec, num_blocks, block_size, dtype, device, groups=()):
+def _init_entry(cfg, spec, max_active, num_blocks, block_size, dtype,
+                device, groups=()):
     check_supported(spec)
+    if not _is_paged(spec):  # a ring of cfg.window slots, as the reference's
+        return _init_layer_state(cfg, spec, max_active, cfg.window or 1,
+                                 dtype, device, groups)
     shape = (*groups, num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -58,10 +74,11 @@ def _init_entry(cfg, spec, num_blocks, block_size, dtype, device, groups=()):
 def init_paged_state(cfg, max_active: int, num_blocks: int, block_size: int,
                      dtype=torch.bfloat16, device=None) -> dict:
     """Same skeleton as the reference (prefix/main/tail/len), with every
-    attention entry pool-shaped; main-group pools carry the group axis
-    first.  ``len`` is per-slot tokens in context."""
+    global-attention entry pool-shaped and the others per slot; main-group
+    entries carry the group axis first.  ``len`` is per-slot tokens in
+    context."""
     plan = stack_plan(cfg)
-    pool = (num_blocks, block_size, dtype, device)
+    pool = (max_active, num_blocks, block_size, dtype, device)
     return {
         "prefix": [_init_entry(cfg, s, *pool) for s in plan.prefix],
         "main": [_init_entry(cfg, s, *pool, groups=(plan.num_groups,))
@@ -150,9 +167,12 @@ def _paged_decode_step(params, cfg, state, tables, tokens, adv,
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
     sin, cos = rope_table(lengths, cfg.head_dim, cfg.rope_theta)
 
-    def run(lp, spec, pool, x):
-        return _paged_attn_layer(lp, cfg, spec, pool, x, sin, cos, lengths,
-                                 adv, tables, attn_impl)
+    def run(lp, spec, entry, x):
+        if _is_paged(spec):
+            return _paged_attn_layer(lp, cfg, spec, entry, x, sin, cos,
+                                     lengths, adv, tables, attn_impl)
+        return _decode_layer(lp, cfg, spec, entry, x, sin, cos, lengths, adv,
+                             opts)
 
     for lp, spec, pool in zip(params["prefix"], plan.prefix, state["prefix"]):
         x = run(lp, spec, pool, x)
@@ -204,28 +224,45 @@ def make_paged_tick(cfg, opts: ModelOptions = ModelOptions(), *,
     return tick
 
 
+def _entries(cfg, state, paged: bool):
+    """``(entry, stacked)`` for every layer entry of ``state`` that is paged
+    (or, with ``paged`` False, per slot); main-group entries are stacked,
+    their group axis first."""
+    plan = stack_plan(cfg)
+    for seg, specs in (("prefix", plan.prefix), ("tail", plan.tail),
+                       ("main", plan.pattern)):
+        for spec, entry in zip(specs, state[seg]):
+            if _is_paged(spec) == paged:
+                yield entry, seg == "main"
+
+
 def make_copy_block(cfg):
     """Pool-slab copy ``src -> dst`` across every paged layer, in place:
     the device half of copy-on-write (the allocator decides when)."""
     def copy(state, src: int, dst: int):
-        for entry in state["prefix"] + state["tail"]:
+        for entry, stacked in _entries(cfg, state, paged=True):
             for pool in entry.values():
-                pool[dst] = pool[src]
-        for entry in state["main"]:  # stacked: group axis first
-            for pool in entry.values():
-                pool[:, dst] = pool[:, src]
+                if stacked:
+                    pool[:, dst] = pool[:, src]
+                else:
+                    pool[dst] = pool[src]
         return state
 
     return copy
 
 
 def make_reset_slot(cfg):
-    """Per-slot reset for admission: seed the slot's length with the number
-    of prefix-cached tokens it adopts.  Paged pools need no reset: block
-    contents past a sequence's length are masked by construction.  The
-    reference also zeroes per-slot (non-paged) state, which arrives with
-    the recurrent and local-attention slice."""
+    """Per-slot reset for admission, in place: zero the slot's rows of every
+    per-slot (non-paged) state leaf and seed its length with the number of
+    prefix-cached tokens it adopts.  Paged pools need no reset: block
+    contents past a sequence's length are masked by construction."""
     def reset(state, slot: int, n_tokens: int):
+        for entry, stacked in _entries(cfg, state, paged=False):
+            for t in entry.values():
+                if stacked:
+                    t[:, slot] = 0
+                else:
+                    t[slot] = 0
         state["len"][slot] = n_tokens
         return state
 

@@ -13,7 +13,14 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import reduced_config
 from repro_torch.convert import map_params
-from repro_torch.models import ModelOptions, init_params, loss_fn
+from repro_torch.models import (
+    ModelOptions,
+    decode_step,
+    forward,
+    forward_with_cache,
+    init_params,
+    loss_fn,
+)
 from repro_torch.models.layers import matmul_f32
 from repro_torch.serve import PagedServeEngine, Request, ServeEngine
 from repro_torch.train import (
@@ -469,3 +476,138 @@ def test_train_step_kernel_path_matches_plain_path(cuda):
 
 def _clone(params):
     return map_params(lambda _k, p: p.detach().clone(), params)
+
+
+# ------------------------------------------------- recurrent families' kernels
+
+# mLSTM against its plain version: 5e-5 abs + 5e-4 rel, as
+# tests/test_kernels.py::test_mlstm_chunk_sweep (both sides widen bf16 inputs
+# to f32 exactly and sum in another order)
+MLSTM_ATOL, MLSTM_RTOL = 5e-5, 5e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,C", [
+    (2, 128, 128), (4, 64, 256), (1, 256, 128),  # test_rglru_scan_sweep's
+    (3, 37, 100),                                # ragged everywhere
+    (1, 1000, 4096),                             # recurrentgemma-9b's width
+])
+def test_rglru_scan_kernel(cuda, B, S, C):
+    rng = np.random.default_rng(S + C)
+    log_a = -(_randn(rng, (B, S, C), cuda, "float32").abs() * 0.2)
+    b = _randn(rng, (B, S, C), cuda, "float32")
+    before = kernels.rglru_scan.launches
+    got = kernels.rglru_scan(log_a, b)
+    assert kernels.rglru_scan.launches == before + 1
+    torch.cuda.synchronize()
+    # f32, 1e-5 abs + rel, as tests/test_kernels.py::test_rglru_scan_sweep
+    torch.testing.assert_close(got, kernels.ref.rglru_scan_ref(log_a, b),
+                               atol=1e-5, rtol=1e-5)
+
+
+def _mlstm_inputs(rng, B, S, H, dk, device, dtype):
+    """The inputs of test_mlstm_chunk_sweep: i_pre ~ N - 2, f_pre ~ N + 3."""
+    q, k, v = (_randn(rng, (B, S, H, dk), device, dtype) for _ in range(3))
+    i_pre = _randn(rng, (B, S, H), device, "float32") - 2.0
+    f_pre = _randn(rng, (B, S, H), device, "float32") + 3.0
+    return q, k, v, i_pre, f_pre
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,dk,chunk", [
+    (1, 64, 2, 32, 16), (2, 128, 2, 64, 32), (1, 128, 4, 32, 64),  # the sweep's
+    (1, 60, 2, 100, 20),    # dk off the 32 columns a block owns, chunk off 16
+    (1, 512, 4, 384, 128),  # xlstm-125m's width
+    (2, 96, 4, 64, 96),     # xlstm's reduced width, one chunk of 96
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlstm_chunk_kernel(cuda, B, S, H, dk, chunk, dtype):
+    """h and the final carry against the plain chunkwise recurrence; h also
+    against the sequential oracle at the sweep's shapes."""
+    rng = np.random.default_rng(S + dk)
+    inputs = _mlstm_inputs(rng, B, S, H, dk, cuda, dtype)
+    before = kernels.mlstm_chunk.launches
+    h, (C, n, m) = kernels.mlstm_chunk(*inputs, chunk=chunk, return_final=True)
+    assert kernels.mlstm_chunk.launches == before + 1
+    want, (Cw, nw, mw) = kernels.ref.mlstm_chunk_ref(*inputs, chunk=chunk,
+                                                     return_final=True)
+    torch.cuda.synchronize()
+    assert h.dtype == torch.float32 and h.shape == (B, S, H, dk)
+    for got, ref in ((h, want), (C, Cw), (n, nw), (m, mw)):
+        torch.testing.assert_close(got, ref, atol=MLSTM_ATOL, rtol=MLSTM_RTOL)
+    assert torch.equal(kernels.mlstm_chunk(*inputs, chunk=chunk), h)
+    if S <= 128:
+        torch.testing.assert_close(h, kernels.ref.mlstm_ref(*inputs),
+                                   atol=MLSTM_ATOL, rtol=MLSTM_RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,window", [
+    (1, 200, 4, 1, 64, 64),      # S off the tiles, window on them
+    (2, 256, 8, 2, 128, 100),    # window off the tiles
+    (1, 1000, 16, 1, 256, 300),  # recurrentgemma-9b's heads
+    (1, 50, 4, 4, 32, 64),       # window longer than the sequence
+    (2, 45, 6, 2, 72, 16),       # D off 16: the CUDA-core variant in bf16
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_window_kernel(cuda, B, S, H, KV, D, window, dtype):
+    rng = np.random.default_rng(S + window)
+    q = _randn(rng, (B, S, H, D), cuda, dtype)
+    k, v = (_randn(rng, (B, S, KV, D), cuda, dtype) for _ in range(2))
+    before = kernels.flash_attention.launches
+    got, lse = kernels.flash_attention(q, k, v, return_lse=True, window=window)
+    assert kernels.flash_attention.launches == before + 1
+    _close(got, kernels.ref.causal_attention_ref(q, k, v, window=window), dtype)
+    _close(lse, kernels.ref.attention_lse_ref(q, k, window=window), dtype)
+
+
+@pytest.mark.gpu
+def test_recurrent_wrappers_refuse_grad_and_bad_inputs(cuda):
+    x = torch.zeros(1, 8, 32, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError):  # no backward in either package
+        kernels.rglru_scan(x, x)
+    q = torch.zeros(1, 8, 2, 32, device=cuda, requires_grad=True)
+    g = torch.zeros(1, 8, 2, device=cuda)
+    with pytest.raises(RuntimeError):
+        kernels.mlstm_chunk(q, q, q, g, g, chunk=4)
+    with pytest.raises(NotImplementedError):  # the window has no backward yet
+        kernels.flash_attention_train(q, q, q, window=4)
+    with torch.no_grad():
+        with pytest.raises(TypeError):  # not f32
+            kernels.rglru_scan(x.bfloat16(), x.bfloat16())
+        with pytest.raises(ValueError):  # the chunk does not divide S
+            kernels.mlstm_chunk(q, q, q, g, g, chunk=3)
+        with pytest.raises(ValueError):  # dk above the kernel's limit
+            wide = torch.zeros(1, 8, 1, 520, device=cuda)
+            kernels.mlstm_chunk(wide, wide, wide, g[..., :1], g[..., :1], chunk=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,layers", [("recurrentgemma-9b", 3), ("xlstm-125m", 4),
+                                         ("recurrentgemma-9b", 1)])
+def test_recurrent_prefill_decode_equivalence_on_card(cuda, arch, layers):
+    """Reduced widths, 1-4 layers, f32, kernel path: prefill + decode
+    against forward past the reduced window of 64 (the ring wraps), and the
+    kernel path's logits against the plain path's."""
+    cfg = reduced_config(arch).with_(num_layers=layers)
+    params = init_params(cfg, seed=0, device=cuda)
+    opts = ModelOptions(compute_dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 128))).to(cuda)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        full, _ = forward(params, cfg, toks, opts=opts)
+        plain, _ = forward(params, cfg, toks,
+                           opts=ModelOptions(compute_dtype="float32", attn_impl="plain"))
+        pre, cache = forward_with_cache(params, cfg, toks[:, :64], max_len=128, opts=opts)
+        errs = [(pre[:, -1] - full[:, 63]).abs().max().item()]
+        for t in range(64, 128):
+            lg, cache = decode_step(params, cfg, cache, toks[:, t], opts)
+            errs.append((lg - full[:, t]).abs().max().item())
+    assert max(errs) < 5e-3, errs  # the bound of tests/test_models.py
+    torch.testing.assert_close(full, plain, atol=1e-4 * full.abs().max().item(), rtol=0)
+    kinds = cfg.layer_kinds
+    assert kernels.rglru_scan.launches == 2 * kinds.count("rglru")
+    assert kernels.mlstm_chunk.launches == 2 * kinds.count("mlstm")
+    assert kernels.flash_attention.launches == 2 * kinds.count("local")
+    assert kernels.decode_attention.launches == 64 * kinds.count("local")

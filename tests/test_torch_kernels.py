@@ -234,3 +234,94 @@ def test_decode_attention_lengths_past_the_cache_match_the_model_layer():
     zero = tk.decode_attention(*(torch.from_numpy(a) for a in (q, kc, vc)),
                                torch.zeros(B, dtype=torch.int32))
     assert not zero.any()  # an empty row attends to nothing: 0
+
+
+# ---------------------------------------------------- local (windowed) flash
+
+
+@pytest.mark.parametrize("S,H,KV,D,window", [(256, 2, 2, 32, 64), (100, 4, 1, 32, 30),
+                                             (40, 4, 2, 64, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_windowed_flash_matches_reference(S, H, KV, D, window, dtype):
+    """The windowed flash wrapper (its plain version on the CPU) against
+    the JAX oracle's sliding-window mode, any S and window; the LSE against
+    the oracle's scores."""
+    rng = np.random.default_rng(S + window)
+    q = rng.standard_normal((2, S, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((2, S, KV, D)).astype(np.float32) for _ in range(2))
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
+    got, lse = tk.flash_attention(qt, kt, vt, window=window, return_lse=True)
+    _close(got, jref.causal_attention_ref(qj, kj, vj, window=window), TOL[dtype])
+    G = H // KV
+    s = np.einsum("bqhd,bkhd->bhqk", _np32(qj), np.repeat(_np32(kj), G, 2)) / np.sqrt(D)
+    i = np.arange(S)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    s = np.where(mask, s, -np.inf)
+    want_lse = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
+    np.testing.assert_allclose(lse.numpy(), want_lse.transpose(0, 2, 1),
+                               atol=2e-5, rtol=2e-5)
+
+
+def _np32(a) -> np.ndarray:
+    return np.asarray(a.astype(jnp.float32))
+
+
+# ------------------------------------------------------------ rg-lru scan
+
+
+@pytest.mark.parametrize("B,S,C,bt", [(2, 128, 128, 16), (4, 64, 256, 8),
+                                      (1, 256, 128, 64)])
+def test_rglru_scan_matches_pallas(B, S, C, bt):
+    """At test_rglru_scan_sweep's shapes and inputs: the wrapper (its plain
+    version on the CPU) and the plain version itself against the Pallas
+    kernel in interpret mode and the JAX oracle, 1e-5 as there."""
+    rng = np.random.default_rng(S + C)
+    log_a = (-np.abs(rng.standard_normal((B, S, C))) * 0.2).astype(np.float32)
+    b = rng.standard_normal((B, S, C)).astype(np.float32)
+    want = jk.rglru_scan(jnp.asarray(log_a), jnp.asarray(b), block_b=min(2, B),
+                         block_c=128, block_t=bt, interpret=True)
+    oracle = jref.rglru_scan_ref(jnp.asarray(log_a), jnp.asarray(b))
+    got = tk.rglru_scan(torch.from_numpy(log_a), torch.from_numpy(b))
+    assert got.dtype == torch.float32 and got.shape == (B, S, C)
+    for w in (want, oracle):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
+
+
+# ------------------------------------------------------------ mlstm chunk
+
+# 5e-5 abs + 5e-4 rel, as tests/test_kernels.py::test_mlstm_chunk_sweep
+MLSTM_ATOL, MLSTM_RTOL = 5e-5, 5e-4
+
+
+def _mlstm_inputs(B, S, H, dk, seed):
+    """test_mlstm_chunk_sweep's inputs: i_pre ~ N - 2, f_pre ~ N + 3."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, S, H, dk)).astype(np.float32) for _ in range(3))
+    i_pre = (rng.standard_normal((B, S, H)) - 2.0).astype(np.float32)
+    f_pre = (rng.standard_normal((B, S, H)) + 3.0).astype(np.float32)
+    return q, k, v, i_pre, f_pre
+
+
+@pytest.mark.parametrize("B,S,H,dk,chunk", [
+    (1, 64, 2, 32, 16), (2, 128, 2, 64, 32), (1, 128, 4, 32, 64),
+])
+def test_mlstm_chunk_matches_pallas(B, S, H, dk, chunk):
+    """The wrapper (its plain version on the CPU) against the Pallas kernel
+    in interpret mode and against the sequential oracle of both packages;
+    its final carry against the model's recurrence with ``return_final``."""
+    from repro.models.recurrent import mlstm_chunk_recurrence
+
+    inputs = _mlstm_inputs(B, S, H, dk, S + dk)
+    jin = [jnp.asarray(a) for a in inputs]
+    tin = [torch.from_numpy(a) for a in inputs]
+    got, final = tk.mlstm_chunk(*tin, chunk=chunk, return_final=True)
+    want = jk.mlstm_chunk(*jin, chunk=chunk, interpret=True)
+    oracle = jref.mlstm_ref(*jin)
+    for w in (want, oracle, tk.ref.mlstm_ref(*tin)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=MLSTM_ATOL,
+                                   rtol=MLSTM_RTOL)
+    _, wfinal = mlstm_chunk_recurrence(*jin, chunk=chunk, return_final=True)
+    for g, w in zip(final, wfinal):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=MLSTM_ATOL,
+                                   rtol=MLSTM_RTOL)
+    assert torch.equal(tk.mlstm_chunk(*tin, chunk=chunk), got)

@@ -26,6 +26,13 @@ def test_serve_smoke_on_cpu(capsys):
     assert "5 requests, 20 tokens" in out
 
 
+@pytest.mark.parametrize("arch", ["xlstm-125m", "recurrentgemma-9b"])
+def test_serve_recurrent_smoke_on_cpu(arch, capsys):
+    serve.main(["--arch", arch, "--smoke", "--requests", "3", "--slots", "2",
+                "--max-new", "4", "--max-len", "16", "--device", "cpu"])
+    assert "3 requests, 12 tokens" in capsys.readouterr().out
+
+
 def test_serve_module_runs_as_a_script():
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",

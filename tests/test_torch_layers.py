@@ -81,6 +81,51 @@ def test_mlp_matches_jax(act, gated):
     _close(got, want)
 
 
+@pytest.mark.parametrize("S,H,KV,w", [(256, 2, 2, 64), (128, 4, 1, 32), (48, 4, 2, 64)])
+def test_local_band_attention_matches_jax(S, H, KV, w):
+    """The plain path of local attention (the band decomposition) and the
+    plain version of the windowed kernel against the reference's
+    ``local_band_attention`` (shapes of tests/test_models.py; the reference
+    takes K/V expanded to H heads, the port the compact ones)."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels.ref import causal_attention_ref
+
+    rng = np.random.default_rng(S + w)
+    q = rng.standard_normal((2, S, H, 32)).astype(np.float32)
+    k, v = (rng.standard_normal((2, S, KV, 32)).astype(np.float32) for _ in range(2))
+    G = H // KV
+    want = jl.local_band_attention(jnp.asarray(q), jnp.asarray(np.repeat(k, G, 2)),
+                                   jnp.asarray(np.repeat(v, G, 2)), window=w)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    _close(tl.local_band_attention(qt, kt, vt, w), want, 2e-5)
+    _close(tl.causal_attention(qt, kt, vt, "plain", window=w), want, 2e-5)
+    _close(causal_attention_ref(qt, kt, vt, window=w),
+           jref.causal_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     window=w), 2e-5)
+    _close(tl.causal_attention(qt, kt, vt, "kernel", window=w), want, 2e-5)
+    if S > w:
+        with pytest.raises(ValueError):  # the band decomposition's rule
+            tl.local_band_attention(qt[:, :S - 1], kt[:, :S - 1], vt[:, :S - 1], w)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+def test_decode_attention_on_a_wrapped_ring_matches_jax(impl):
+    """A local layer's ring buffer: rows not yet wrapped (length <= Smax)
+    and wrapped ones (length > Smax, every slot valid), through the plain
+    layer with ``window`` and the dense decode wrapper (its plain version
+    here; the kernel loops over min(length, Smax) slots)."""
+    rng = np.random.default_rng(5)
+    B, H, KV, D, Smax = 4, 4, 1, 32, 16
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, Smax, KV, D)).astype(np.float32)
+    v = rng.standard_normal((B, Smax, KV, D)).astype(np.float32)
+    lengths = np.asarray([5, 16, 17, 40], np.int32)
+    want = jl.decode_attention(*(jnp.asarray(a) for a in (q, k, v, lengths)), window=64)
+    got = tl.cached_decode_attention(*(torch.from_numpy(a) for a in (q, k, v, lengths)),
+                                     impl=impl, window=64)
+    _close(got, want)
+
+
 def test_decode_attention_matches_jax():
     rng = np.random.default_rng(3)
     B, H, KV, D, S = 3, 8, 2, 32, 40
@@ -139,7 +184,7 @@ def test_cast_keeps_norm_scales_f32():
         assert t.dtype == (torch.float32 if path[-1] == "scale" else torch.bfloat16), path
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-moe-16b"])
 def test_layers_outside_the_slice_raise(arch):
     with pytest.raises(NotImplementedError):
         init_params(reduced_config(arch), device="cpu")
@@ -187,3 +232,56 @@ def test_paged_decode_step_matches_jax(arch, attn_impl):
     for name in ("k", "v"):
         _close(tstate["main"][0][name][:, used], jstate["main"][0][name][:, used],
                LOGITS_TOL)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m"])
+def test_paged_decode_step_per_slot_layers_match_jax(arch):
+    """``_paged_decode_step`` on configs whose layers keep per-slot state
+    (local ring buffers, recurrent states): logits of the advancing rows
+    and every state leaf agree with JAX's after each micro-step, with one
+    slot idle and one stalled for a step (whose state stays as it was)."""
+    jcfg, tcfg = jax_reduced_config(arch), reduced_config(arch)
+    jp = jax_init_params(jax.random.key(1), jcfg)
+    tp = params_from_numpy(jp, device="cpu")
+    jopts, topts = (JaxModelOptions(compute_dtype="float32"),
+                    ModelOptions(compute_dtype="float32"))
+    B, N, bs = 3, 4, 2
+    jstate = jpm.init_paged_state(jcfg, B, N, bs, jnp.float32)
+    tstate = tpm.init_paged_state(tcfg, B, N, bs, torch.float32, "cpu")
+    tables = np.zeros((B, 2), np.int32)
+    rng = np.random.default_rng(6)
+    for step in range(3):
+        tokens = rng.integers(0, tcfg.vocab_size, B).astype(np.int32)
+        adv = np.asarray([True, step != 1, False])
+        jl_, jstate = jpm._paged_decode_step(
+            jp, jcfg, jstate, jnp.asarray(tables), jnp.asarray(tokens),
+            jnp.asarray(adv), jopts, "kernel", True)
+        tl_ = tpm._paged_decode_step(
+            tp, tcfg, tstate, torch.from_numpy(tables), torch.from_numpy(tokens),
+            torch.from_numpy(adv), topts, "kernel")
+        _close(tl_[adv], np.asarray(jl_)[adv], LOGITS_TOL)
+        for (path, t), (jpath, j) in zip(_leaves(tstate), _leaves(jstate)):
+            assert path == jpath
+            # held to the leaf's largest entry: mLSTM's C sums outer products
+            j = np.asarray(j)
+            np.testing.assert_allclose(_np(t), j, rtol=0,
+                                       atol=LOGITS_TOL * max(np.abs(j).max(), 1.0))
+    assert not tstate["main"][0][list(tstate["main"][0])[0]][:, 2].any()  # idle slot
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m"])
+def test_paged_reset_slot_zeroes_per_slot_state(arch):
+    """Admission zeroes the slot's rows of every per-slot leaf (sLSTM's n
+    becomes 0, as the reference's reset gives) and leaves other slots."""
+    cfg = reduced_config(arch)
+    state = tpm.init_paged_state(cfg, 3, 4, 2, torch.float32, "cpu")
+    for _, t in _leaves(state):
+        t.fill_(1)
+    tpm.make_reset_slot(cfg)(state, 1, 0)
+    for path, t in _leaves(state):
+        if path == ("len",):
+            assert t.tolist() == [1, 0, 1]
+            continue
+        slot_axis = 1 if path[0] == "main" else 0
+        assert not t.select(slot_axis, 1).any(), path
+        assert t.select(slot_axis, 0).eq(1).all() and t.select(slot_axis, 2).eq(1).all()

@@ -4,6 +4,8 @@ tokens and the same weights (through ``repro_torch.convert``), in f32 on
 the CPU.  The port's attention wrappers run their plain versions here;
 JAX's model runs its XLA blockwise attention and plain decode layer."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,7 @@ from repro.models import init_cache as jax_init_cache
 from repro.models import init_params as jax_init_params
 from repro_torch import kernels
 from repro_torch.configs import reduced_config
-from repro_torch.convert import params_from_numpy
+from repro_torch.convert import cast_params, params_from_numpy
 from repro_torch.models import (
     ModelOptions,
     decode_step,
@@ -57,10 +59,18 @@ def _close(a, b, tol=LOGITS_TOL):
     np.testing.assert_allclose(a, b, rtol=0, atol=tol * max(np.abs(b).max(), 1.0))
 
 
+@functools.cache
 def _models(arch, seed=0):
+    """The reduced configs and the reference's parameters in both packages,
+    made once per file (no test writes to them)."""
     jcfg, tcfg = jax_reduced_config(arch), reduced_config(arch)
     jp = jax_init_params(jax.random.key(seed), jcfg)
     return jcfg, tcfg, jp, params_from_numpy(jp, device="cpu")
+
+
+# JAX's decode step compiled once per cache shape: run op by op, a step of
+# the recurrent stacks takes about a second on the CPU
+_jax_decode_jit = jax.jit(jax_decode_step, static_argnums=(1, 4))
 
 
 def _tokens(cfg, B, S, seed=1):
@@ -68,11 +78,14 @@ def _tokens(cfg, B, S, seed=1):
 
 
 def _caches_close(tcache, jcache, tol=LOGITS_TOL):
+    """Every leaf of every layer's state (K/V, ring buffers, recurrent
+    states), each held to its own largest entry."""
     np.testing.assert_array_equal(tcache["len"].numpy(), np.asarray(jcache["len"]))
     for seg in ("prefix", "main", "tail"):
         assert len(tcache[seg]) == len(jcache[seg]), seg
         for t, j in zip(tcache[seg], jcache[seg]):
-            for name in ("k", "v"):
+            assert set(t) == set(j), (seg, set(t), set(j))
+            for name in j:
                 assert tuple(t[name].shape) == np.shape(j[name]), (seg, name)
                 _close(t[name], j[name], tol)
 
@@ -220,5 +233,156 @@ def test_unported_inputs_raise():
                      torch.zeros(1, 2, dtype=torch.int64), None, torch.float32)
     with pytest.raises(ValueError):
         ModelOptions(attn_impl="sdpa")
-    with pytest.raises(NotImplementedError):  # recurrent layers: their slice
-        init_cache(reduced_config("recurrentgemma-9b"), 1, 8, torch.float32, "cpu")
+    with pytest.raises(NotImplementedError):  # MoE layers: their slice
+        init_cache(reduced_config("deepseek-moe-16b"), 1, 8, torch.float32, "cpu")
+
+
+
+# ------------------------------------------------------- recurrent families
+
+RECURRENT = ["recurrentgemma-9b", "xlstm-125m"]  # RG-LRU + local; mLSTM + sLSTM
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("S", [64, 128])  # 128: past the reduced window of 64
+def test_recurrent_forward_matches_jax(arch, S):
+    jcfg, tcfg, jp, tp = _models(arch)
+    toks = _tokens(tcfg, 2, S)
+    want, _ = jax_forward(jp, jcfg, jnp.asarray(toks), None, JOPTS)
+    for impl in ("kernel", "plain"):
+        got, aux = forward(tp, tcfg, torch.from_numpy(toks),
+                           opts=ModelOptions(compute_dtype="float32", attn_impl=impl))
+        assert got.shape == (2, S, tcfg.padded_vocab) and float(aux) == 0.0
+        _close(got, want)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("S,max_len", [(40, 64), (128, 160)])
+def test_recurrent_forward_with_cache_matches_jax(arch, S, max_len):
+    """Prefill logits and every cache leaf: ring buffers (S = 128 fills a
+    ring of 64 slots past its end), recurrent states, conv tails."""
+    jcfg, tcfg, jp, tp = _models(arch)
+    toks = _tokens(tcfg, 2, S)
+    want, jcache = jax_forward_with_cache(jp, jcfg, jnp.asarray(toks), None,
+                                          max_len=max_len, opts=JOPTS)
+    got, cache = forward_with_cache(tp, tcfg, torch.from_numpy(toks),
+                                    max_len=max_len, opts=TOPTS)
+    _close(got, want)
+    _caches_close(cache, jcache)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("max_len", [24, 4])  # 4: the local ring wraps at once
+def test_recurrent_decode_step_matches_jax(arch, max_len):
+    """Decode steps from a prefilled cache, then from an empty one: logits
+    and every cache leaf after every step."""
+    jcfg, tcfg, jp, tp = _models(arch)
+    toks = _tokens(tcfg, 3, 24)
+    n0 = min(20, max_len)
+    _, jcache = jax_forward_with_cache(jp, jcfg, jnp.asarray(toks[:, :n0]), None,
+                                       max_len=max_len, opts=JOPTS)
+    _, cache = forward_with_cache(tp, tcfg, torch.from_numpy(toks[:, :n0]),
+                                  max_len=max_len, opts=TOPTS)
+    for t in range(n0, n0 + 3):
+        jl_, jcache = _jax_decode_jit(jp, jcfg, jcache, jnp.asarray(toks[:, t]), JOPTS)
+        tl_, cache = decode_step(tp, tcfg, cache, torch.from_numpy(toks[:, t]), TOPTS)
+        _close(tl_, jl_)
+        _caches_close(cache, jcache)
+    jcache = jax_init_cache(jcfg, 3, max_len, jnp.float32)
+    cache = init_cache(tcfg, 3, max_len, torch.float32, "cpu")
+    _caches_close(cache, jcache)  # sLSTM's n starts at 1e-6 in both
+    for t in range(7):
+        jl_, jcache = _jax_decode_jit(jp, jcfg, jcache, jnp.asarray(toks[:, t]), JOPTS)
+        tl_, cache = decode_step(tp, tcfg, cache, torch.from_numpy(toks[:, t]), TOPTS)
+        _close(tl_, jl_)
+    _caches_close(cache, jcache)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_prefill_decode_equivalence(arch):
+    """decode_step from a prefilled cache == the full forward, as
+    tests/test_models.py::test_prefill_decode_equivalence (B 2, S 128, n0
+    64): decode runs past the reduced window of 64, so the ring wraps."""
+    cfg = reduced_config(arch)
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, 2, 128))
+    full, _ = forward(params, cfg, toks, opts=TOPTS)
+    n0 = 64
+    pre, cache = forward_with_cache(params, cfg, toks[:, :n0], max_len=128, opts=TOPTS)
+    errs = [float((pre[:, -1] - full[:, n0 - 1]).abs().max())]
+    for t in range(n0, 128):
+        lg, cache = decode_step(params, cfg, cache, toks[:, t], TOPTS)
+        errs.append(float((lg - full[:, t]).abs().max()))
+    assert max(errs) < EQUIV_TOL, errs
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_advance_leaves_other_rows_alone(arch):
+    """With ``advance``, every state leaf of the rows that do not advance
+    stays bit for bit (ring buffers and recurrent states alike)."""
+    _, tcfg, _, tp = _models(arch)
+    toks = torch.from_numpy(_tokens(tcfg, 3, 8))
+    cache = init_cache(tcfg, 3, 4, torch.float32, "cpu")
+    for t in range(6):
+        _, cache = decode_step(tp, tcfg, cache, toks[:, t], TOPTS)
+    before = [{n: x.clone() for n, x in entry.items()} for entry in cache["main"]]
+    adv = torch.tensor([False, True, False])
+    _, cache = decode_step(tp, tcfg, cache, toks[:, 6], TOPTS, advance=adv)
+    assert cache["len"].tolist() == [6, 7, 6]
+    for entry, old in zip(cache["main"], before):
+        for n, x in entry.items():
+            assert torch.equal(x[:, [0, 2]], old[n][:, [0, 2]]), n
+            assert not torch.equal(x[:, 1], old[n][:, 1]), n
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_cast_params_keeps_what_the_reference_reads_in_f32(arch):
+    """A bf16 forward on ``cast_params(p, bf16)`` equals a bf16 forward on
+    the f32 parameters bit for bit: the leaves the reference reads in f32
+    (RG-LRU and mLSTM gates, conv weights, every sLSTM gate weight, norm
+    scales) stay f32, the rest are rounded exactly as the layers round
+    them at use."""
+    cfg = reduced_config(arch)
+    params = init_params(cfg, seed=2, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, 2, 64))
+    opts = ModelOptions(compute_dtype="bfloat16")
+    want, _ = forward(params, cfg, toks, opts=opts)
+    got, _ = forward(cast_params(params, torch.bfloat16), cfg, toks, opts=opts)
+    assert torch.equal(got, want)
+
+
+def test_model_path_reaches_the_recurrent_wrappers(monkeypatch):
+    """forward and the prefill go through the ``rglru_scan`` and
+    ``mlstm_chunk`` wrappers and local layers through the windowed flash
+    wrapper, once per layer and call; the plain path through none."""
+    from repro_torch.models import layers, recurrent
+
+    calls = {"rglru": 0, "mlstm": 0, "window": 0}
+    real = {"rglru": kernels.rglru_scan, "mlstm": kernels.mlstm_chunk,
+            "flash": layers.flash_attention_train}
+
+    def counted(name, fn):
+        def wrap(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrap
+
+    def flash(q, k, v, causal=True, window=0):
+        calls["window"] += window == cfg.window
+        return real["flash"](q, k, v, causal, window)
+
+    monkeypatch.setattr(recurrent.kernels, "rglru_scan", counted("rglru", real["rglru"]))
+    monkeypatch.setattr(recurrent.kernels, "mlstm_chunk", counted("mlstm", real["mlstm"]))
+    monkeypatch.setattr(layers, "flash_attention_train", flash)
+    for arch in RECURRENT:
+        cfg = reduced_config(arch)
+        params = init_params(cfg, device="cpu")
+        toks = torch.from_numpy(_tokens(cfg, 1, 64))
+        forward(params, cfg, toks, opts=TOPTS)
+        forward_with_cache(params, cfg, toks, opts=TOPTS)
+        forward(params, cfg, toks, opts=ModelOptions(compute_dtype="float32",
+                                                     attn_impl="plain"))
+    rg, xl = reduced_config("recurrentgemma-9b"), reduced_config("xlstm-125m")
+    assert calls == {"rglru": 2 * rg.layer_kinds.count("rglru"),
+                     "mlstm": 2 * xl.layer_kinds.count("mlstm"),
+                     "window": 2 * rg.layer_kinds.count("local")}

@@ -1,0 +1,311 @@
+"""The port's recurrent blocks (``repro_torch.models.recurrent``: RG-LRU,
+mLSTM, sLSTM and their temporal conv) against the JAX package's, on the
+same numpy inputs and the same weights (the reference's ``init_*`` through
+``repro_torch.convert``), in f32 on the CPU, at the reduced configs' widths.
+The port's kernel wrappers run their plain versions here."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import recurrent as jr
+from repro_torch.configs import reduced_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.models import recurrent as tr
+
+# f32, the same arithmetic summed in another order (matmuls of width <=
+# 512; a sequential scan against JAX's associative scan; the chunkwise
+# mLSTM's einsums), held to the largest element
+TOL = 2e-5
+IMPLS = ["kernel", "plain"]
+RG = reduced_config("recurrentgemma-9b")  # d 128, d_rnn 128, conv width 4
+XL = reduced_config("xlstm-125m")  # d 128, 4 heads: dk 64, sLSTM dh 32
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def _close(got, want, tol=TOL):
+    """|got - want| <= tol * max(max |want|, 1), elementwise."""
+    g, w = _np(got), _np(want)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    np.testing.assert_allclose(g, w, rtol=0, atol=tol * max(np.abs(w).max(), 1.0))
+
+
+def _trees_close(got: dict, want: dict, tol=TOL):
+    assert set(got) == set(want), (set(got), set(want))
+    for key in want:
+        _close(got[key], want[key], tol)
+
+
+def _x(shape, seed=0, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def _params(init, *args, seed=0):
+    jp = init(jax.random.key(seed), *args)
+    return jp, params_from_numpy(jp, device="cpu")
+
+
+def _both(a: np.ndarray):
+    return jnp.asarray(a), torch.from_numpy(a)
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+# ------------------------------------------------------------------- conv
+
+
+@pytest.mark.parametrize("S", [1, 2, 9])
+def test_causal_conv_seq_and_tail_match_jax(S):
+    xj, xt = _both(_x((2, S, RG.d_rnn)))
+    wj, wt = _both(_x((RG.conv_width, RG.d_rnn), 1, 0.5))
+    bj, bt = _both(_x((RG.d_rnn,), 2, 0.1))
+    _close(tr.causal_conv_seq(xt, wt, bt), jr.causal_conv_seq(xj, wj, bj))
+    # the tail, zero-padded at the front when S < W - 1
+    _close(tr._conv_tail(xt, RG.conv_width), jr._conv_tail(xj, RG.conv_width))
+
+
+def test_causal_conv_step_matches_jax():
+    xj, xt = _both(_x((3, RG.d_rnn)))
+    sj, st = _both(_x((3, RG.conv_width - 1, RG.d_rnn), 1))
+    wj, wt = _both(_x((RG.conv_width, RG.d_rnn), 2, 0.5))
+    bj, bt = _both(_x((RG.d_rnn,), 3, 0.1))
+    (oj, nj), (ot, nt) = jr.causal_conv_step(xj, sj, wj, bj), tr.causal_conv_step(xt, st, wt, bt)
+    _close(ot, oj)
+    _close(nt, nj)
+
+
+def test_conv_step_continues_conv_seq():
+    """The step conv from the sequence's tail gives the next position of
+    the sequence conv (the port alone)."""
+    x = torch.from_numpy(_x((2, 12, 16)))
+    w, b = torch.from_numpy(_x((4, 16), 1)), torch.from_numpy(_x((16,), 2))
+    seq = tr.causal_conv_seq(x, w, b)
+    out, _ = tr.causal_conv_step(x[:, 11], tr._conv_tail(x[:, :11], 4), w, b)
+    _close(out, seq[:, 11])
+
+
+# ------------------------------------------------------------------ params
+
+
+@pytest.mark.parametrize("block", ["rglru", "mlstm", "slstm"])
+def test_init_same_tree_and_scales(block):
+    """The port's ``init_*`` give the reference's keys, shapes and
+    per-leaf spread (the draws differ: torch's generator is not JAX's)."""
+    d, H, W = 128, 4, 4
+    args = {"rglru": (d, 96, W), "mlstm": (d, H, W), "slstm": (d, H)}[block]
+    jp = dict(_leaves(getattr(jr, f"init_{block}")(jax.random.key(0), *args)))
+    gen = torch.Generator().manual_seed(0)
+    tp = dict(_leaves(getattr(tr, f"init_{block}")(gen, *args)))
+    assert jp.keys() == tp.keys()
+    for path, t in tp.items():
+        j = np.asarray(jp[path])
+        assert tuple(t.shape) == j.shape and t.dtype == torch.float32, path
+        if path == ("lam",):  # a = exp(-c softplus(lam)) lies in [0.9, 0.999]
+            a = torch.exp(-tr.RGLRU_C * torch.nn.functional.softplus(t))
+            assert 0.9 - 1e-6 <= float(a.min()) and float(a.max()) <= 0.999 + 1e-6
+        elif j.std() > 0 and path[-1].startswith(("w", "r", "conv_w")):
+            assert abs(float(t.std()) / float(j.std()) - 1) < 0.15, path
+        else:  # zeros, constants and linspaces: the same numbers
+            np.testing.assert_allclose(t.numpy(), j, rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------------------------ rg-lru
+
+
+def test_rglru_gates_match_jax():
+    jp, tp = _params(jr.init_rglru, RG.d_model, RG.d_rnn, RG.conv_width)
+    xj, xt = _both(_x((2, 5, RG.d_rnn)))
+    for got, want in zip(tr._rglru_gates(tp, xt), jr._rglru_gates(jp, xj)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("S", [2, 64])
+def test_rglru_seq_matches_jax(impl, S):
+    jp, tp = _params(jr.init_rglru, RG.d_model, RG.d_rnn, RG.conv_width)
+    xj, xt = _both(_x((2, S, RG.d_model)))
+    _close(tr.rglru_seq(tp, xt, impl=impl), jr.rglru_seq(jp, xj))
+    got, gstate = tr.rglru_seq(tp, xt, return_state=True, impl=impl)
+    want, wstate = jr.rglru_seq(jp, xj, return_state=True)
+    _close(got, want)
+    _trees_close(gstate, wstate)
+    assert gstate["h"].dtype == torch.float32
+
+
+def test_rglru_step_matches_jax():
+    """Four steps from the reference's initial state, then one from a
+    prefilled state."""
+    jp, tp = _params(jr.init_rglru, RG.d_model, RG.d_rnn, RG.conv_width)
+    xs = _x((5, 2, RG.d_model))
+    jstate = jr.rglru_init_state(2, RG.d_rnn, RG.conv_width, jnp.float32)
+    tstate = tr.rglru_init_state(2, RG.d_rnn, RG.conv_width, torch.float32, "cpu")
+    _trees_close(tstate, jstate)
+    for x in xs[:4]:
+        (jo, jstate), (to, tstate) = (jr.rglru_step(jp, jnp.asarray(x), jstate),
+                                      tr.rglru_step(tp, torch.from_numpy(x), tstate))
+        _close(to, jo)
+        _trees_close(tstate, jstate)
+    xj, xt = _both(_x((2, 7, RG.d_model), 3))
+    _, jstate = jr.rglru_seq(jp, xj, return_state=True)
+    _, tstate = tr.rglru_seq(tp, xt, return_state=True)
+    (jo, _), (to, _) = (jr.rglru_step(jp, jnp.asarray(xs[4]), jstate),
+                        tr.rglru_step(tp, torch.from_numpy(xs[4]), tstate))
+    _close(to, jo)
+
+
+# ------------------------------------------------------------------- mlstm
+
+
+def _mlstm_params(seed=0):
+    return _params(jr.init_mlstm, XL.d_model, XL.num_heads, XL.conv_width, seed=seed)
+
+
+def test_mlstm_qkvif_matches_jax():
+    jp, tp = _mlstm_params()
+    di = 2 * XL.d_model
+    (xcj, xct), (xij, xit) = _both(_x((2, 6, di))), _both(_x((2, 6, di), 1))
+    for got, want in zip(tr._mlstm_qkvif(tp, xct, xit, XL.num_heads),
+                         jr._mlstm_qkvif(jp, xcj, xij, XL.num_heads)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("S,chunk", [(64, 16), (96, 32), (40, 128)])
+def test_mlstm_chunk_recurrence_matches_jax(S, chunk):
+    """h and the final (C, n, m), on the inputs of test_mlstm_chunk_sweep
+    (i_pre ~ N - 2, f_pre ~ N + 3); a chunk above S takes S."""
+    B, H, dk = 2, 2, 32
+    q, k, v = (_x((B, S, H, dk), s) for s in range(3))
+    i_pre, f_pre = _x((B, S, H), 3) - 2.0, _x((B, S, H), 4) + 3.0
+    jin = [jnp.asarray(a) for a in (q, k, v, i_pre, f_pre)]
+    tin = [torch.from_numpy(a) for a in (q, k, v, i_pre, f_pre)]
+    want, wfinal = jr.mlstm_chunk_recurrence(*jin, chunk=chunk, return_final=True)
+    got, gfinal = tr.mlstm_chunk_recurrence(*tin, chunk=chunk, return_final=True)
+    _close(got, want)
+    for g, w in zip(gfinal, wfinal):
+        _close(g, w)
+    _close(tr.mlstm_chunk_recurrence(*tin, chunk=chunk), want)
+
+
+def test_mlstm_chunk_must_divide_the_sequence():
+    q = torch.zeros(1, 96, 2, 8)
+    g = torch.zeros(1, 96, 2)
+    with pytest.raises(ValueError):  # the reference asserts S % chunk == 0
+        tr.mlstm_chunk_recurrence(q, q, q, g, g, chunk=64)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("S,chunk", [(64, 128), (128, 32)])
+def test_mlstm_seq_matches_jax(impl, S, chunk):
+    jp, tp = _mlstm_params()
+    xj, xt = _both(_x((2, S, XL.d_model)))
+    _close(tr.mlstm_seq(tp, xt, XL.num_heads, chunk=chunk, impl=impl),
+           jr.mlstm_seq(jp, xj, XL.num_heads, chunk=chunk))
+    got, gstate = tr.mlstm_seq(tp, xt, XL.num_heads, chunk=chunk,
+                               return_state=True, impl=impl)
+    want, wstate = jr.mlstm_seq(jp, xj, XL.num_heads, chunk=chunk, return_state=True)
+    _close(got, want)
+    _trees_close(gstate, wstate)
+
+
+def test_mlstm_step_matches_jax():
+    """Four steps from the reference's initial state, then one from a
+    prefilled state."""
+    jp, tp = _mlstm_params()
+    xs = _x((5, 2, XL.d_model))
+    jstate = jr.mlstm_init_state(2, XL.d_model, XL.num_heads, XL.conv_width, jnp.float32)
+    tstate = tr.mlstm_init_state(2, XL.d_model, XL.num_heads, XL.conv_width,
+                                 torch.float32, "cpu")
+    _trees_close(tstate, jstate)
+    for x in xs[:4]:
+        (jo, jstate), (to, tstate) = (
+            jr.mlstm_step(jp, jnp.asarray(x), jstate, XL.num_heads),
+            tr.mlstm_step(tp, torch.from_numpy(x), tstate, XL.num_heads))
+        _close(to, jo)
+        _trees_close(tstate, jstate)
+    xj, xt = _both(_x((2, 16, XL.d_model), 3))
+    _, jstate = jr.mlstm_seq(jp, xj, XL.num_heads, return_state=True)
+    _, tstate = tr.mlstm_seq(tp, xt, XL.num_heads, return_state=True)
+    (jo, _), (to, _) = (jr.mlstm_step(jp, jnp.asarray(xs[4]), jstate, XL.num_heads),
+                        tr.mlstm_step(tp, torch.from_numpy(xs[4]), tstate, XL.num_heads))
+    _close(to, jo)
+
+
+# ------------------------------------------------------------------- slstm
+
+
+def _slstm_params(seed=0):
+    return _params(jr.init_slstm, XL.d_model, XL.num_heads, seed=seed)
+
+
+def test_slstm_cell_matches_jax():
+    jp, tp = _slstm_params()
+    B, d = 3, XL.d_model
+    pre = _x((4, B, d))
+    state = {k: _x((B, d), i + 1) for i, k in enumerate(("h", "c", "n", "m"))}
+    state["n"] = np.abs(state["n"]) + 0.1
+    want = jr._slstm_cell(jp, {g: jnp.asarray(pre[i]) for i, g in
+                               enumerate(tr.SLSTM_GATES)},
+                          {k: jnp.asarray(v) for k, v in state.items()}, XL.num_heads)
+    got = tr._slstm_cell(tr._slstm_R(tp), torch.from_numpy(pre),
+                         {k: torch.from_numpy(v) for k, v in state.items()})
+    _trees_close(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 24])
+def test_slstm_seq_matches_jax(S):
+    """Without a state the reference runs its custom-VJP scan, with one its
+    per-step cell: the port's loop equals both."""
+    jp, tp = _slstm_params()
+    xj, xt = _both(_x((2, S, XL.d_model)))
+    _close(tr.slstm_seq(tp, xt, XL.num_heads), jr.slstm_seq(jp, xj, XL.num_heads))
+    got, gstate = tr.slstm_seq(tp, xt, XL.num_heads, return_state=True)
+    want, wstate = jr.slstm_seq(jp, xj, XL.num_heads, return_state=True)
+    _close(got, want)
+    _trees_close(gstate, wstate)
+
+
+def test_slstm_step_matches_jax():
+    """Four steps from the reference's initial state (n = 1e-6), then one
+    from a prefilled state."""
+    jp, tp = _slstm_params()
+    xs = _x((5, 2, XL.d_model))
+    jstate = jr.slstm_init_state(2, XL.d_model)
+    tstate = tr.slstm_init_state(2, XL.d_model, "cpu")
+    _trees_close(tstate, jstate, 0)
+    for x in xs[:4]:
+        (jo, jstate), (to, tstate) = (
+            jr.slstm_step(jp, jnp.asarray(x), jstate, XL.num_heads),
+            tr.slstm_step(tp, torch.from_numpy(x), tstate, XL.num_heads))
+        _close(to, jo)
+        _trees_close(tstate, jstate)
+    xj, xt = _both(_x((2, 9, XL.d_model), 3))
+    _, jstate = jr.slstm_seq(jp, xj, XL.num_heads, return_state=True)
+    _, tstate = tr.slstm_seq(tp, xt, XL.num_heads, return_state=True)
+    (jo, _), (to, _) = (jr.slstm_step(jp, jnp.asarray(xs[4]), jstate, XL.num_heads),
+                        tr.slstm_step(tp, torch.from_numpy(xs[4]), tstate, XL.num_heads))
+    _close(to, jo)
+
+
+def test_recurrent_seq_refuses_grad_through_the_kernels():
+    """Neither package has a backward for the RG-LRU or mLSTM kernels yet:
+    the kernel path refuses inputs that require grad, on either device."""
+    _, tp = _params(jr.init_rglru, RG.d_model, RG.d_rnn, RG.conv_width)
+    x = torch.from_numpy(_x((1, 4, RG.d_model))).requires_grad_()
+    with pytest.raises(RuntimeError):
+        tr.rglru_seq(tp, x)
+    _, tp = _mlstm_params()
+    with pytest.raises(RuntimeError):
+        tr.mlstm_seq(tp, x, XL.num_heads)

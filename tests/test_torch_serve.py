@@ -4,6 +4,7 @@ weights; plus the port's import hygiene and its refusal to fall back to the
 CPU."""
 
 import ast
+import functools
 from pathlib import Path
 
 import jax
@@ -18,7 +19,7 @@ from repro.serve import Request as JaxRequest
 from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch.configs import reduced_config
 from repro_torch.convert import params_from_numpy
-from repro_torch.models import ModelOptions, init_params
+from repro_torch.models import ModelOptions, forward, init_params
 from repro_torch.serve import PagedServeEngine, Request, ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -201,6 +202,93 @@ def test_fixed_slot_engine_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         ServeEngine(cfg, params, num_slots=2, max_len=8)
+
+
+# ------------------------------------------------------- recurrent families
+
+RECURRENT = ["recurrentgemma-9b", "xlstm-125m"]
+# prompts of 4-6 tokens and 14 new ones: contexts reach 20 > max_len 16, so
+# the fixed-slot engine's local ring (min(window, max_len) = 16 slots) wraps
+RECURRENT_PROMPTS = [[1, 5, 9, 2], [1, 5, 9, 2, 7, 3], [4, 4, 8, 1]]
+RECURRENT_NEW = 14
+
+
+def _recurrent_both(arch, jax_engine, engine, **kw):
+    """The same requests through JAX's engine and the port's, on the same
+    converted weights, in f32."""
+    jp = _jax_params(arch)
+    want, jeng = _fixed(jax_engine, JaxRequest, jax_reduced_config(arch), jp,
+                        JaxModelOptions(compute_dtype="float32"),
+                        RECURRENT_PROMPTS, RECURRENT_NEW, **kw)
+    got, teng = _fixed(engine, Request, reduced_config(arch),
+                       params_from_numpy(jp, device="cpu"),
+                       ModelOptions(compute_dtype="float32"), RECURRENT_PROMPTS,
+                       RECURRENT_NEW, device="cpu", **kw)
+    return want, got, jeng, teng
+
+
+@functools.cache
+def _jax_params(arch):
+    return jax_init_params(jax.random.key(0), jax_reduced_config(arch))
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_fixed_slot_engine_matches_jax(arch):
+    """Two slots, max_len 16: queueing, admission token by token beside a
+    running row, a wrapping local ring, recurrent states reset on
+    admission (sLSTM's n to 0, as the reference's reset gives)."""
+    want, got, jeng, teng = _recurrent_both(arch, JaxServeEngine, ServeEngine,
+                                            num_slots=2, max_len=16)
+    assert got == want and len(got) == len(RECURRENT_PROMPTS)
+    assert all(len(t) == RECURRENT_NEW for t in got.values())
+    assert teng.metrics() == jeng.metrics()
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_paged_engine_matches_jax(arch):
+    """The paged engine keeps local rings and recurrent states per slot
+    (window-sized rings, prefix cache off): JAX's tokens and metrics."""
+    want, got, jeng, teng = _recurrent_both(
+        arch, JaxPagedServeEngine, PagedServeEngine, num_blocks=24, block_size=4,
+        max_active=2, prefill_chunk=3)
+    assert got == want and len(got) == len(RECURRENT_PROMPTS)
+    m = teng.metrics()
+    assert m == jeng.metrics()
+    assert teng.cache is None and m["prefixHitRate"] == 0 and m["prefillBacklog"] == 0
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_engines_against_repeated_forward(arch, capsys):
+    """The greedy continuation by repeated ``forward`` (f32, the port).  Both
+    engines, as the reference's, feed the prompt's own next token without
+    reporting it, so ``generated`` is that continuation from its second
+    token on (ROADMAP Queue 3).  The paged engine's rings are window-sized,
+    so it must give those tokens.  The fixed-slot engine's ring of max_len
+    16 slots sees only the last 16 tokens past that length, and the
+    reference's engines start sLSTM from n = 0 where ``forward`` starts it
+    from 1e-6 (Queue 3): where its tokens part from forward's is logged,
+    not held."""
+    cfg = reduced_config(arch)
+    params = params_from_numpy(_jax_params(arch), device="cpu")
+    opts = ModelOptions(compute_dtype="float32")
+    greedy = {}
+    for rid, prompt in enumerate(RECURRENT_PROMPTS):
+        toks = list(prompt)
+        for _ in range(RECURRENT_NEW + 1):
+            logits, _ = forward(params, cfg, torch.tensor([toks]), opts=opts)
+            toks.append(int(torch.argmax(logits[0, -1])))
+        greedy[rid] = toks[len(prompt) + 1:]
+    paged, _ = _fixed(PagedServeEngine, Request, cfg, params, opts,
+                      RECURRENT_PROMPTS, RECURRENT_NEW, num_blocks=24,
+                      block_size=4, max_active=2, prefill_chunk=3, device="cpu")
+    assert paged == greedy
+    fixed, _ = _fixed(ServeEngine, Request, cfg, params, opts, RECURRENT_PROMPTS,
+                      RECURRENT_NEW, num_slots=2, max_len=16, device="cpu")
+    parts = {rid: next((i for i, (a, b) in enumerate(zip(fixed[rid], greedy[rid]))
+                        if a != b), None) for rid in greedy}
+    with capsys.disabled():
+        print(f"\n{arch}: fixed-slot engine (max_len 16) vs repeated forward, first "
+              f"differing new token per request (None: all equal): {parts}")
 
 
 def _port_files():
