@@ -77,6 +77,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import cast_params, map_params  # noqa: E402
 from repro_torch.data import StreamSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attention import _paged_splits  # noqa: E402
+from repro_torch.kernels.flash_attention import _dkv_splits  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     ModelOptions,
@@ -203,6 +205,23 @@ def time_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
+def ptxas_summary(text: str) -> list:
+    """One line per compiled kernel of ``nvcc -Xptxas -v``'s log: its
+    (mangled) name, registers, spills and shared memory."""
+    out, name, spill = [], "", ""
+    for line in text.splitlines():
+        if line.startswith("=="):
+            out.append(line.strip())
+        elif "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            used = line.split("Used", 1)[1].strip()
+            out.append(f"  {name}: {used}; {spill}")
+    return out
+
+
 def max_err_within(got, want, tol: float, what: str) -> float:
     """max |got - want|, which must stay within tol + tol * |want|."""
     return abs_rel_err(got, want, tol, tol, what)
@@ -289,13 +308,17 @@ def check_paged(gen, B, H, KV, D, bs, max_len, dtype) -> dict:
         q, *pools[i % copies], tables, lengths))
     plain_ms = time_ms(lambda i: kernels.ref.paged_decode_attention_ref(
         q, *pools[i % copies], tables, lengths))
-    # yardstick: SDPA over the cache gathered beforehand (the gather untimed)
+    # yardstick: SDPA over the cache gathered beforehand (the gather
+    # untimed), from as many copies as the kernel reads, so that neither
+    # finds its inputs in L2
     S = tables.shape[1] * bs
-    kc = kp[tables.long()].reshape(B, S, KV, D).transpose(1, 2).contiguous()
-    vc = vp[tables.long()].reshape(B, S, KV, D).transpose(1, 2).contiguous()
+    tab = tables.long()
+    gathered = [tuple(p[tab].reshape(B, S, KV, D).transpose(1, 2).contiguous()
+                      for p in pool) for pool in pools]
     mask = (torch.arange(S, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
     library_ms = time_ms(lambda i: F.scaled_dot_product_attention(
-        q[:, :, None, :], kc, vc, attn_mask=mask, enable_gqa=True))
+        q[:, :, None, :], *gathered[i % copies], attn_mask=mask, enable_gqa=True))
+    del gathered
     es = q.element_size()
     pages = sum(-(-n // bs) for n in lens)  # only the pages the lengths need
     nbytes = (2 * q.numel() * es + 2 * pages * bs * KV * D * es
@@ -303,9 +326,14 @@ def check_paged(gen, B, H, KV, D, bs, max_len, dtype) -> dict:
     ops = 4 * sum(lens) * H * D
     b_ms, b_by = bound(nbytes, ops, dtype)
     del pools
+    chunk, tile, nsplit = _paged_splits(
+        B, KV, tables.shape[1], bs, _build.library().repro_paged_decode_max_tile(),
+        _build.sm_count(0))
     return {
         "shape": {"B": B, "H": H, "KV": KV, "D": D, "bs": bs,
                   "max_len": max_len}, "dtype": str(dtype),
+        "plan": f"chunk {chunk}, tile {tile}, {nsplit} splits: "
+                f"{nsplit * KV * B} blocks",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
     }
@@ -332,11 +360,14 @@ def check_decode(gen, B, H, KV, D, Smax, dtype) -> dict:
     ms = time_ms(lambda i: kernels.decode_attention(q, *caches[i % copies], lengths))
     plain_ms = time_ms(lambda i: kernels.ref.decode_attention_ref(
         q, *caches[i % copies], lengths))
-    # yardstick: SDPA with a length mask on pre-transposed caches
-    kt, vt = (c.transpose(1, 2).contiguous() for c in (kc, vc))
+    # yardstick: SDPA with a length mask on pre-transposed caches, from as
+    # many copies as the kernel reads
+    transposed = [tuple(c.transpose(1, 2).contiguous() for c in pair)
+                  for pair in caches]
     mask = (torch.arange(Smax, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
     library_ms = time_ms(lambda i: F.scaled_dot_product_attention(
-        q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True))
+        q[:, :, None, :], *transposed[i % copies], attn_mask=mask, enable_gqa=True))
+    del transposed
     valid = sum(min(n, Smax) for n in lens)  # only the rows the lengths need
     nbytes = 2 * q.numel() * es + 2 * valid * KV * D * es + 4 * B
     b_ms, b_by = bound(nbytes, 4 * valid * H * D, dtype)
@@ -407,8 +438,9 @@ def check_flash_bwd(gen, B, S, H, KV, D, dtype) -> dict:
     want = kernels.ref.flash_attention_bwd_ref(*args)
     torch.cuda.synchronize()
     what = f"flash_attention_bwd B={B} S={S} H={H} KV={KV} D={D} {dtype}"
-    err = 0.0
+    err = rel = 0.0
     for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+        rel = max(rel, rel_err(g.float(), w.float()))
         if not torch.equal(g, g2):
             raise AssertionError(f"{what} {name}: two launches differ")
         if dtype == torch.float32:
@@ -453,9 +485,13 @@ def check_flash_bwd(gen, B, S, H, KV, D, dtype) -> dict:
     nbytes = ((3 * q.numel() + 2 * k.numel()) * es + lse.numel() * 4  # read
               + (q.numel() + 2 * k.numel()) * es)  # dq, dk, dv written
     b_ms, b_by = bound(nbytes, 5 * 2 * B * H * (S * S / 2) * D, dtype)
+    nsplit = (_dkv_splits(B, S, H, KV, _build.library().repro_flash_attention_bwd_key_tile(),
+                          _build.sm_count(0)) if dtype == torch.bfloat16 and D % 16 == 0 else 1)
     return {
         "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D},
         "dtype": str(dtype), "max_abs_err": err,
+        "plan": f"dk/dv pass in {nsplit} query ranges; max error {rel:.3g} of the "
+                "output's largest entry",
         "ms": time_ms(lambda i: kernels.flash_attention_bwd(*args), iters=5),
         "plain_ms": time_ms(lambda i: kernels.ref.flash_attention_bwd_ref(*args),
                             iters=5),
@@ -643,7 +679,8 @@ def profiled(fn, by_op: bool = False) -> dict:
     if device_ms == 0:
         raise AssertionError("the profiler recorded no device time")
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
-           "busy_share": device_ms / wall_ms, "top": rows[:10]}
+           "busy_share": device_ms / wall_ms, "top": rows[:10],
+           "port": [r for r in rows if "repro::" in r[0]]}
     if by_op:
         def host_ops(events, label):
             ops = [(label(e), e.device_time_total / 1e3, e.count) for e in events
@@ -663,6 +700,9 @@ def log_profile(label: str, p: dict, smi: str) -> None:
         f"{p['device_ms']:.3f} ms ({p['busy_share']:.3f} of wall) ({smi})")
     for name, ms, calls in p["top"]:
         log(f"      {ms:9.3f} ms  {calls:6d} calls  {name[:90]}")
+    log("   the port's kernels: " + "; ".join(
+        f"{name.split('namespace)::')[-1].split('(')[0]} {ms:.3f} ms / {calls} calls"
+        for name, ms, calls in p["port"]))
     for key, what in (("top_ops", "host ops"), ("top_ops_by_shape", "host ops by input shape")):
         if key in p:
             log(f"   {what}, by the device time of their kernels (children included):")
@@ -1121,9 +1161,8 @@ def main() -> int:
     lib_path = _build.build()
     _build.library()
     log(f"== build: {time.perf_counter() - t0:.2f} s -> {lib_path}")
-    for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or line.startswith("=="):
-            log("   ", line.strip())
+    for line in ptxas_summary((lib_path.parent / "build.log").read_text()):
+        log("   ", line)
 
     # 3. kernels at the serving and prefill paths' shapes (gemma-2b first:
     # its bf16 row is the one in the kernels line)
@@ -1158,7 +1197,8 @@ def main() -> int:
             log(f"   {name} {r['shape']} {r['dtype']}: max_abs_err "
                 f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, library {lib}, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                + (f"; {r['plan']}" if "plan" in r else ""))
 
     # 4. paged serve: full-width gemma-2b in bf16
     cfg = get_config("gemma-2b")

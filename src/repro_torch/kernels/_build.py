@@ -34,9 +34,12 @@ _SIGNATURES = {
     "repro_rmsnorm": ([_int, _int, _vp, _vp, _vp, _int, _int, _float, _vp],
                       ctypes.c_int),
     "repro_paged_decode_attention": (
-        [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
-         _int, _int, _float, _vp], ctypes.c_int),
-    "repro_paged_decode_smem_bytes": ([_int, _int], ctypes.c_longlong),
+        [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
+         _int, _int, _int, _int, _int, _int, _int, _float, _vp],
+        ctypes.c_int),
+    "repro_paged_decode_smem_bytes": ([_int, _int, _int, _int, _int],
+                                      ctypes.c_longlong),
+    "repro_paged_decode_max_tile": ([], ctypes.c_int),
     "repro_decode_attention": (
         [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
          _int, _int, _int, _int, _float, _vp], ctypes.c_int),
@@ -47,8 +50,9 @@ _SIGNATURES = {
          _int, _int, _float, _vp], ctypes.c_int),
     "repro_flash_attention_max_head_dim": ([], ctypes.c_int),
     "repro_flash_attention_bwd": (
-        [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
-         _int, _int, _int, _int, _float, _vp], ctypes.c_int),
+        [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int,
+         _int, _int, _int, _int, _int, _int, _float, _vp], ctypes.c_int),
+    "repro_flash_attention_bwd_key_tile": ([], ctypes.c_int),
     "repro_rglru_scan": ([_int, _vp, _vp, _vp, _int, _int, _int, _vp],
                          ctypes.c_int),
     "repro_mlstm_chunk": (
@@ -178,6 +182,13 @@ def check_inputs(name: str, device: torch.device, **tensors) -> None:
             raise ValueError(f"{name}: {arg} is on {t.device}, not {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the split plans
+    size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream(device: torch.device) -> int:

@@ -29,18 +29,19 @@
 //   (m, l); the f32 accumulator (G x D) stays in shared memory, each element
 //   owned by one thread (the body of the paged kernel, over a dense row);
 // - each block writes its unnormalised (acc, m, l) to a scratch buffer, and
-//   a second kernel combines the chunks of one (sequence, head):
+//   a second kernel (decode_combine.cuh, shared with the paged kernel)
+//   combines the chunks of one (sequence, head):
 //   out = sum_c acc_c e^(m_c - M) / max(sum_c l_c e^(m_c - M), 1e-30).
 #include <cstdint>
 
 #include "common.cuh"
+#include "decode_combine.cuh"
 
 namespace repro {
 namespace {
 
 constexpr int kTile = 32;  // tokens per tile; <= 32 (one lane per token in the softmax)
 constexpr int kThreads = 256;
-constexpr int kCombineThreads = 128;
 constexpr float kMaskValue = -1e30f;  // the reference's mask value
 
 __host__ __device__ inline size_t smem_floats(int G, int D) {
@@ -171,26 +172,6 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   }
 }
 
-// One block per (head, sequence): merge the chunks' online-softmax partials.
-template <typename T>
-__global__ void __launch_bounds__(kCombineThreads)
-decode_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                      T* __restrict__ out, int H, int D, int nsplit) {
-  const long long bh = static_cast<long long>(blockIdx.y) * H + blockIdx.x;
-  const float* ml = part_ml + 2 * bh * nsplit;
-  float m_all = kMaskValue;
-  for (int c = 0; c < nsplit; ++c) m_all = fmaxf(m_all, ml[2 * c]);
-  float l_all = 0.f;
-  for (int c = 0; c < nsplit; ++c) l_all += ml[2 * c + 1] * expf(ml[2 * c] - m_all);
-  const float den = fmaxf(l_all, 1e-30f);
-  for (int e = threadIdx.x; e < D; e += blockDim.x) {
-    float a = 0.f;
-    for (int c = 0; c < nsplit; ++c)
-      a += part_acc[(bh * nsplit + c) * D + e] * expf(ml[2 * c] - m_all);
-    out[bh * D + e] = from_f32<T>(a / den);
-  }
-}
-
 template <typename T>
 cudaError_t launch(const void* q, const void* k_cache, const void* v_cache, const int* lengths,
                    float* part_acc, float* part_ml, void* out, int B, int H, int KV, int D,
@@ -209,9 +190,7 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache, cons
       lengths, part_acc, part_ml, H, KV, D, Smax, chunk, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<dim3(H, B), kCombineThreads, 0, stream>>>(
-      part_acc, part_ml, static_cast<T*>(out), H, D, nsplit);
-  return cudaGetLastError();
+  return launch_decode_combine<T>(part_acc, part_ml, out, B, H, D, nsplit, stream);
 }
 
 }  // namespace

@@ -105,22 +105,6 @@ __host__ __device__ inline TcLayout tc_layout(int D) {
   return L;
 }
 
-// 16 bytes from global to shared memory, asynchronously; zero-filled when
-// `valid` is false (no source byte is read then).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most one committed group of this thread is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // DMAX: the head dims up to DMAX (multiples of 16) share one register
 // budget of DMAX / 16 accumulator fragments.
 template <int DMAX>

@@ -11,7 +11,10 @@ axis across thread blocks and combined in a second pass.
 a block pool ``(num_blocks, block_size, KV, D)``; each sequence names its
 blocks through a row of ``block_tables``.  Block 0 is the engine's scratch
 block: unused table entries point at it, and ``lengths`` masks whatever it
-holds.
+holds.  It is split along the table's positions as the dense kernel is
+along the cache axis, and shares its combine pass.  Both split plans are
+made from the shapes alone: reading ``lengths`` on the host would sync
+every decode step.
 
 A tensor on the CPU takes the plain version (``ref.decode_attention_ref``,
 ``ref.paged_decode_attention_ref``); a CUDA tensor launches the kernel or
@@ -21,7 +24,6 @@ grad mode both wrappers refuse inputs that require grad, on either device.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -32,11 +34,6 @@ from .ref import decode_attention_ref, paged_decode_attention_ref
 BLOCKS_PER_SM = 2  # split the cache axis until the grid holds this many blocks per SM
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _splits(B: int, KV: int, Smax: int, tile: int, sms: int) -> tuple:
     """``(chunk, nsplit)``: cut the cache axis into ``nsplit`` chunks of
     ``chunk`` positions (a multiple of the kernel's tile) so that the grid
@@ -45,6 +42,22 @@ def _splits(B: int, KV: int, Smax: int, tile: int, sms: int) -> tuple:
     want = max(1, -(-BLOCKS_PER_SM * sms // max(1, B * KV)))
     chunk = -(-tiles // min(tiles, want)) * tile
     return chunk, max(1, -(-Smax // chunk))
+
+
+def _paged_splits(B: int, KV: int, T: int, bs: int, tile_max: int,
+                  sms: int) -> tuple:
+    """``(chunk, tile, nsplit)`` for a table of ``T`` pages of ``bs``
+    positions: ``nsplit`` chunks of ``chunk`` positions cover ``T * bs``,
+    each a whole number of pages and of ``tile``-token tiles (``tile <=
+    tile_max``).  Chunks are as long as still gives the grid of ``nsplit *
+    KV * B`` blocks ``BLOCKS_PER_SM`` per SM or more, where the table has
+    that many pages; otherwise one page each."""
+    want = -(-BLOCKS_PER_SM * sms // max(1, B * KV))
+    chunk = max(1, T // want) * bs
+    if chunk > tile_max:  # whole tiles of tile_max tokens, still whole pages
+        step = math.lcm(bs, tile_max)
+        chunk = max(step, chunk // step * step)
+    return chunk, min(chunk, tile_max), max(1, -(-(T * bs) // chunk))
 
 
 def decode_attention(q, k_cache, v_cache, lengths):
@@ -82,7 +95,7 @@ def decode_attention(q, k_cache, v_cache, lengths):
         raise ValueError(f"{name}: G={H // KV}, D={D} needs more shared "
                          "memory than one block has")
     chunk, nsplit = _splits(B, KV, Smax, lib.repro_decode_attention_tile(),
-                            _sm_count(q.device.index))
+                            _build.sm_count(q.device.index))
     part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
@@ -132,15 +145,25 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, tables "
             f"{tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
     lib = _build.library()
-    if lib.repro_paged_decode_smem_bytes(H // KV, D) > _build.MAX_SMEM_BYTES:
+    chunk, tile, nsplit = _paged_splits(B, KV, T, bs,
+                                        lib.repro_paged_decode_max_tile(),
+                                        _build.sm_count(q.device.index))
+    code = _build.DTYPE_CODES[q.dtype]
+    if (lib.repro_paged_decode_smem_bytes(code, H // KV, D, tile, chunk // bs)
+            > _build.MAX_SMEM_BYTES):
         raise ValueError(f"{name}: G={H // KV}, D={D} needs more shared "
                          "memory than one block has")
+    part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
+                          device=q.device)
     out = torch.empty_like(q)
     err = lib.repro_paged_decode_attention(
-        q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(),
-        k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, H, KV, D, bs, T,
-        1.0 / math.sqrt(D), _build.stream(q.device))
+        q.device.index, code, q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, H, KV, D,
+        bs, T, chunk, tile, nsplit, 1.0 / math.sqrt(D),
+        _build.stream(q.device))
     _build.check(err, name)
     paged_decode_attention.launches += 1
     return out

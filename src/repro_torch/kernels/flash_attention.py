@@ -24,6 +24,24 @@ from . import _build
 from .ref import attention_lse_ref, causal_attention_ref, flash_attention_bwd_ref
 
 
+ROWS = 64  # (position, head) rows of a query tile in the kernels
+
+
+def _dkv_splits(B: int, S: int, H: int, KV: int, key_tile: int,
+                sms: int) -> int:
+    """How many query ranges the tensor-core dk/dv pass cuts each key
+    tile's work into: as many as keep its ``ceil(S / key_tile) * B * KV *
+    nsplit`` blocks within one wave of the card's SMs (one block per SM,
+    for its shared memory), at least 1 and at most the query tiles of the
+    first key tile (``S * G / ROWS``, rounded up, for every head chunk).
+    The splits' f32 partials are summed in order by the kernel's last pass."""
+    G = H // KV
+    gc = min(G, ROWS)
+    tiles = -(-G // gc) * -(-S // (ROWS // gc))
+    blocks = -(-S // key_tile) * B * KV
+    return max(1, min(sms // max(1, blocks), tiles))
+
+
 def _check_shapes(name: str, q, k, v) -> tuple:
     """(B, S, H, KV, D) of CUDA inputs the kernels take; raises otherwise."""
     if q.dtype not in _build.DTYPE_CODES:
@@ -78,8 +96,10 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True):
     """The backward of ``flash_attention``: q, out, do (B,S,H,D) and k, v
     (B,S,KV,D) in one dtype, lse (B,S,H) f32 from the forward -> (dq in q's
     dtype, dk, dv in k's).  ``delta = rowsum(do * out)`` is taken in f32
-    here, as the reference takes it outside its kernels; the kernel's two
-    passes then write dq and the group-summed dk, dv, deterministically."""
+    here, as the reference takes it outside its kernels; the kernel's
+    passes then write dq and the group-summed dk, dv, deterministically
+    (in bf16 the dk/dv pass may be cut into query ranges whose f32 partials
+    a last pass sums in order: ``_dkv_splits``)."""
     name = "flash_attention_bwd"
     if _build.on_cpu(name, q=q, k=k, v=v, out=out, lse=lse, do=do):
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
@@ -95,10 +115,19 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True):
                          f"got {lse.dtype} {tuple(lse.shape)}")
     delta = (do.float() * out.float()).sum(dim=-1)  # (B,S,H) f32
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    err = _build.library().repro_flash_attention_bwd(
+    lib = _build.library()
+    nsplit, part = 1, None
+    if q.dtype == torch.bfloat16 and D % 16 == 0:  # the tensor-core variant
+        nsplit = _dkv_splits(B, S, H, KV, lib.repro_flash_attention_bwd_key_tile(),
+                             _build.sm_count(q.device.index))
+        if nsplit > 1:  # f32 partial dk, dv of each split
+            part = torch.empty((2, nsplit, B, S, KV, D), dtype=torch.float32,
+                               device=q.device)
+    err = lib.repro_flash_attention_bwd(
         q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, KV, D,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if part is None else part.data_ptr(), nsplit, B, S, H, KV, D,
         int(causal), 1.0 / math.sqrt(D), _build.stream(q.device))
     _build.check(err, name)
     flash_attention_bwd.launches += 1

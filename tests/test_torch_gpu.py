@@ -98,6 +98,37 @@ def test_paged_decode_kernel(cuda, B, H, KV, D, bs, T, lengths, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KV,D,bs,T", [
+    (8, 8, 1, 256, 16, 64),   # gemma-2b
+    (8, 40, 8, 128, 16, 64),  # qwen3-14b
+    (4, 4, 1, 32, 2, 64),     # block size 2: far more splits than the sequences' pages
+    (5, 8, 2, 64, 32, 8),     # block size 32
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_kernel_split_edges(cuda, B, H, KV, D, bs, T, dtype):
+    """Lengths on and beside the split plan's chunk edges, 0 beside a full
+    table, past the table, and a single token, each length in every slot."""
+    from repro_torch.kernels.decode_attention import _paged_splits
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunk, _tile, _n = _paged_splits(B, KV, T, bs, 32, sms)
+    edges = [chunk, chunk - 1, chunk + 1, 2 * chunk, 0, T * bs, T * bs + 7, 1]
+    rng = np.random.default_rng(8)
+    n = B * T + 1
+    q, kp, vp = (_randn(rng, sh, cuda, dtype)
+                 for sh in ((B, H, D), (n, bs, KV, D), (n, bs, KV, D)))
+    perm = torch.from_numpy(rng.permutation(n - 1) + 1).view(B, T).to(cuda, torch.int32)
+    for shift in range(len(edges)):
+        lens = torch.tensor([edges[(i + shift) % len(edges)] for i in range(B)],
+                            dtype=torch.int32, device=cuda)
+        used = (lens.clamp(max=T * bs) + bs - 1) // bs
+        tables = torch.where(torch.arange(T, device=cuda)[None] < used[:, None],
+                             perm, 0).to(torch.int32).contiguous()
+        got = kernels.paged_decode_attention(q, kp, vp, tables, lens)
+        _close(got, kernels.ref.paged_decode_attention_ref(q, kp, vp, tables, lens), dtype)
+        assert not got[lens == 0].any()
+
+
+@pytest.mark.gpu
 def test_wrappers_check_inputs(cuda):
     x = torch.zeros(4, 64, device=cuda)
     with pytest.raises(ValueError):  # not contiguous
@@ -292,7 +323,7 @@ def _bwd_close(got, want, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (8, 1)])  # MHA, GQA, MQA
-@pytest.mark.parametrize("S", [128, 200])  # on the tiles, and ragged
+@pytest.mark.parametrize("S", [128, 200, 1000])  # on the tiles, and ragged
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_backward_kernel(cuda, D, H, KV, S, dtype):
     """dq, dk, dv against ``flash_attention_bwd_ref`` on the forward
@@ -310,24 +341,26 @@ def test_flash_attention_backward_kernel(cuda, D, H, KV, S, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_backward_kernel_full_and_wide_groups(cuda, causal):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_backward_kernel_full_and_wide_groups(cuda, causal, dtype):
     """Non-causal, and G = 80 (two head chunks of one KV head)."""
     rng = np.random.default_rng(11)
-    q = _randn(rng, (1, 77, 80, 64), cuda, "float32")
-    k, v = (_randn(rng, (1, 77, 1, 64), cuda, "float32") for _ in range(2))
-    do = _randn(rng, (1, 77, 80, 64), cuda, "float32")
+    q = _randn(rng, (1, 77, 80, 64), cuda, dtype)
+    k, v = (_randn(rng, (1, 77, 1, 64), cuda, dtype) for _ in range(2))
+    do = _randn(rng, (1, 77, 80, 64), cuda, dtype)
     out, lse = kernels.flash_attention(q, k, v, causal=causal, return_lse=True)
     got = kernels.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     want = kernels.ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
     for g, w in zip(got, want):
-        _bwd_close(g, w, "float32")
+        _bwd_close(g, w, dtype)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(1, 1000), (2, 1024)])  # ragged; gemma-2b's train step
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_backward_kernel_is_deterministic(cuda, dtype):
+def test_flash_attention_backward_kernel_is_deterministic(cuda, B, S, dtype):
     rng = np.random.default_rng(12)
-    inputs = _bwd_inputs(rng, 1, 1000, 8, 1, 256, cuda, dtype)
+    inputs = _bwd_inputs(rng, B, S, 8, 1, 256, cuda, dtype)
     a = kernels.flash_attention_bwd(*inputs)
     b = kernels.flash_attention_bwd(*inputs)
     torch.cuda.synchronize()

@@ -97,6 +97,66 @@ def test_paged_decode_attention_matches_pallas(B, H, KV, D, bs, T, lengths,
         assert not got[lens.tolist().index(0)].any()
 
 
+# The split plans are pure Python on shapes; the kernels' own limits, which
+# the wrappers read from the built library on the card: a paged tile holds
+# at most 32 tokens, a dk/dv key tile 64 keys.  H100: 132 SMs.
+PAGED_TILE_MAX, BWD_KEY_TILE, H100_SMS = 32, 64, 132
+
+
+@pytest.mark.parametrize("B,KV,T,bs", [
+    (8, 1, 64, 16),     # gemma-2b, 1024 positions
+    (8, 8, 64, 16),     # qwen3-14b
+    (8, 1, 255, 16),    # the paged serve's table (256 blocks)
+    (1, 1, 1, 16),      # a single page
+    (1, 1, 1, 2),
+    (2, 1, 8, 2),       # block size 2
+    (3, 2, 4, 32),      # block size 32
+    (1, 1, 40, 64),     # pages larger than a tile
+    (2, 1, 10, 48),     # a page size that does not divide the tile
+    (64, 8, 2048, 16),  # a batch that fills the card without splitting
+])
+def test_paged_split_plan_covers_the_table(B, KV, T, bs):
+    from repro_torch.kernels.decode_attention import BLOCKS_PER_SM, _paged_splits
+    chunk, tile, nsplit = _paged_splits(B, KV, T, bs, PAGED_TILE_MAX, H100_SMS)
+    assert chunk % bs == 0 and chunk % tile == 0  # whole pages, whole tiles
+    assert 1 <= tile <= PAGED_TILE_MAX
+    assert nsplit * chunk >= T * bs > (nsplit - 1) * chunk  # covers, no empty tail
+    # two blocks per SM or more wherever the table has the pages for it
+    if T * bs // max(bs, tile) * B * KV >= BLOCKS_PER_SM * H100_SMS:
+        assert nsplit * B * KV >= BLOCKS_PER_SM * H100_SMS
+
+
+def test_paged_split_plan_at_the_model_shapes():
+    from repro_torch.kernels.decode_attention import _paged_splits
+    chunk, tile, nsplit = _paged_splits(8, 1, 64, 16, PAGED_TILE_MAX, H100_SMS)
+    assert nsplit * 8 * 1 >= 2 * H100_SMS  # gemma-2b: 8 sequences, one KV head
+    assert (chunk, tile, nsplit) == (16, 16, 64)
+    assert _paged_splits(8, 8, 64, 16, PAGED_TILE_MAX, H100_SMS)[2] * 64 >= 2 * H100_SMS
+    for bs in (2, 16, 32):  # a single-page table takes one split
+        assert _paged_splits(1, 1, 1, bs, PAGED_TILE_MAX, H100_SMS) == (bs, bs, 1)
+
+
+@pytest.mark.parametrize("B,S,H,KV", [
+    (1, 1024, 8, 1),    # gemma-2b, one sequence
+    (2, 1024, 8, 1),    # gemma-2b's train step
+    (1, 2048, 40, 8),   # qwen3-14b
+    (1, 77, 80, 1),     # two head chunks
+    (2, 128, 4, 4),     # MHA
+    (1, 100000, 8, 1),  # long enough to fill the card alone
+])
+def test_dkv_split_plan_fills_one_wave(B, S, H, KV):
+    from repro_torch.kernels.flash_attention import ROWS, _dkv_splits
+    nsplit = _dkv_splits(B, S, H, KV, BWD_KEY_TILE, H100_SMS)
+    blocks = -(-S // BWD_KEY_TILE) * B * KV
+    G = H // KV
+    tiles = -(-G // min(G, ROWS)) * -(-S // (ROWS // min(G, ROWS)))
+    assert 1 <= nsplit <= tiles
+    assert nsplit == 1 or nsplit * blocks <= H100_SMS  # one block per SM
+    assert (nsplit + 1) * blocks > H100_SMS or nsplit == tiles
+    if (B, S, H, KV) == (1, 1024, 8, 1):
+        assert nsplit == 8  # 16 key tiles x 8 = 128 blocks
+
+
 def test_wrappers_refuse_other_devices():
     """Only CPU tensors take the plain version; anything that is not a CUDA
     tensor either is refused, never computed some other way."""
