@@ -77,7 +77,12 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import cast_params, map_params  # noqa: E402
 from repro_torch.data import StreamSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.decode_attention import _paged_splits  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    CUDA_CORE_PLAN,
+    TC_PLAN,
+    _paged_splits,
+    _splits,
+)
 from repro_torch.kernels.flash_attention import _dkv_splits  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import (  # noqa: E402
@@ -354,26 +359,36 @@ def check_decode(gen, B, H, KV, D, Smax, dtype) -> dict:
     err = max_err_within(got, want, TOL[str(dtype)], what)
     # time on copies of the caches that together exceed L2: in the serving
     # path a layer's cache was last touched a whole decode step earlier
+    # (up to 64 copies for the small serving caches, each call of the
+    # captured graph on its own copy)
     es = q.element_size()
-    copies = max(1, min(16, math.ceil(2 * L2_BYTES / (2 * kc.numel() * es))))
+    copies = max(1, min(64, math.ceil(2 * L2_BYTES / (2 * kc.numel() * es))))
+    iters = max(20, copies)
     caches = [(kc.clone(), vc.clone()) for _ in range(copies)]
-    ms = time_ms(lambda i: kernels.decode_attention(q, *caches[i % copies], lengths))
+    ms = time_ms(lambda i: kernels.decode_attention(q, *caches[i % copies], lengths),
+                 iters=iters)
     plain_ms = time_ms(lambda i: kernels.ref.decode_attention_ref(
-        q, *caches[i % copies], lengths))
+        q, *caches[i % copies], lengths), iters=iters)
     # yardstick: SDPA with a length mask on pre-transposed caches, from as
     # many copies as the kernel reads
     transposed = [tuple(c.transpose(1, 2).contiguous() for c in pair)
                   for pair in caches]
     mask = (torch.arange(Smax, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
     library_ms = time_ms(lambda i: F.scaled_dot_product_attention(
-        q[:, :, None, :], *transposed[i % copies], attn_mask=mask, enable_gqa=True))
+        q[:, :, None, :], *transposed[i % copies], attn_mask=mask, enable_gqa=True),
+        iters=iters)
     del transposed
     valid = sum(min(n, Smax) for n in lens)  # only the rows the lengths need
     nbytes = 2 * q.numel() * es + 2 * valid * KV * D * es + 4 * B
     b_ms, b_by = bound(nbytes, 4 * valid * H * D, dtype)
     del caches
+    tc = _build.library().repro_decode_attention_tensor_cores(
+        _build.DTYPE_CODES[dtype], H // KV, D, q.data_ptr(), kc.data_ptr(), vc.data_ptr())
+    chunk, nsplit = _splits(B, KV, Smax, _build.sm_count(0),
+                            TC_PLAN if tc else CUDA_CORE_PLAN)
     return {
         "shape": {"B": B, "H": H, "KV": KV, "D": D, "Smax": Smax},
+        "plan": f"chunk {chunk}, {nsplit} splits: {nsplit * KV * B} blocks",
         "dtype": str(dtype), "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
         "bound_by": b_by,
@@ -388,15 +403,20 @@ def band_pairs(S: int, window: int) -> int:
 
 def check_flash(gen, B, S, H, KV, D, dtype, window: int = 0) -> dict:
     """Causal flash attention forward (windowed with ``window`` > 0, as
-    local layers run it), output and LSE, over (B, S, H, D)."""
+    local layers run it), output and LSE, over (B, S, H, D), and two
+    launches bit for bit."""
     q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
     got, lse = kernels.flash_attention(q, k, v, return_lse=True, window=window)
+    again, lse_again = kernels.flash_attention(q, k, v, return_lse=True, window=window)
     want = kernels.ref.causal_attention_ref(q, k, v, window=window)
     want_lse = kernels.ref.attention_lse_ref(q, k, window=window)
     torch.cuda.synchronize()
     what = f"flash_attention B={B} S={S} H={H} KV={KV} D={D} window={window} {dtype}"
+    if not (torch.equal(got, again) and torch.equal(lse, lse_again)):
+        raise AssertionError(f"{what}: two launches differ")
+    del again, lse_again
     tol = TOL[str(dtype)]
     err = max(max_err_within(got, want, tol, what),
               max_err_within(lse, want_lse, tol, what + " lse"))
@@ -1183,6 +1203,12 @@ def main() -> int:
                 gen, B, S, H, KV, D, dtype))
             results["flash_attention_bwd"].append(check_flash_bwd(
                 gen, B, S, H, KV, D, dtype))
+    # dense decode at the serving paths' shapes, bf16: the fixed-slot serve
+    # (4 slots of 256), decode after the 1024-token prefill, and
+    # recurrentgemma-9b's local ring (16 heads, 2048 slots)
+    for B, H, Smax in ((4, 8, 256), (1, 8, 1024), (1, 16, 2048)):
+        results["decode_attention"].append(check_decode(
+            gen, B, H, 1, 256, Smax, torch.bfloat16))
     # the recurrent families' prefill shapes: recurrentgemma-9b (d_rnn 4096;
     # 16 heads, MQA, head_dim 256, window 2048 over 4096 tokens), xlstm-125m
     # (4 heads of dk 384, chunk 128, 2048 tokens; bf16 first: the model's)

@@ -1,0 +1,192 @@
+#!/usr/bin/env python3
+"""Time the port's flash-attention forward and dense decode kernels on one
+NVIDIA GPU.
+
+    python3 scripts/bench_attention.py [ROOT ...]
+
+For each ROOT (a checkout of this repository; by default the one holding
+this script), in the order given, builds that checkout's kernels and times,
+in bf16:
+
+- ``repro_torch.kernels.flash_attention`` with its LSE, causal at gemma-2b's
+  (1, 1024, 8, 1, 256) and qwen3-14b's (1, 2048, 40, 8, 128), and windowed
+  at recurrentgemma-9b's (1, 4096, 16, 1, 256), window 2048;
+- ``repro_torch.kernels.decode_attention`` at (B 8, Smax 1024) of gemma-2b
+  and qwen3-14b, and at the serving paths' shapes: the fixed-slot serve
+  (B 4, Smax 256), decode after a 1024-token prefill (B 1, Smax 1024) and
+  recurrentgemma-9b's local ring (B 1, Smax 2048, 16 heads), each from as
+  many copies of the cache as exceed the L2 cache together;
+- ``repro_torch.kernels.paged_decode_attention`` at its two shapes (it shares
+  the combine pass with the dense kernel);
+
+with the largest error against the plain version, and SDPA on the same
+inputs (causal, band mask or length mask) as the yardstick.  Each ROOT runs
+in its own process, so two versions can be compared on one card in one
+call: give them in turns (A B B A).  Prints the card's name and power
+limit, then one JSON line per ROOT.
+
+    python3 scripts/bench_attention.py --gates [ROOT ...]
+
+runs instead, for each ROOT, the per-layer precision gates of the flash
+forward at full width with random weights (seed 0): gemma-2b at 2 layers
+over 1024 tokens and recurrentgemma-9b's windowed layer at 3 layers over
+4096, each layer's bf16 kernel output on the q, k, v its forward hands it
+held to the correctly rounded f64 result, with no more elements off it
+than the plain version leaves (``chip_smoke.check_forward_flash``'s gate).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLASH = ((1, 1024, 8, 1, 256, 0), (1, 2048, 40, 8, 128, 0), (1, 4096, 16, 1, 256, 2048))
+DECODE = ((8, 8, 1, 256, 1024), (8, 40, 8, 128, 1024), (4, 8, 1, 256, 256),
+          (1, 8, 1, 256, 1024), (1, 16, 1, 256, 2048))
+PAGED = ((8, 8, 1, 256), (8, 40, 8, 128))  # 16-token pages, lengths up to 1024
+
+
+def measure(root: str) -> dict:
+    """Build and time ``root``'s kernels in this process."""
+    sys.path[:0] = [os.path.join(root, "src"), root]
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from repro_torch import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    res = {}
+    for B, S, H, KV, D, window in FLASH:
+        q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(bf)
+        k, v = (torch.randn(B, S, KV, D, generator=gen, device="cuda").to(bf)
+                for _ in range(2))
+        got, lse = kernels.flash_attention(q, k, v, return_lse=True, window=window)
+        want = kernels.ref.causal_attention_ref(q, k, v, window=window)
+        want_lse = kernels.ref.attention_lse_ref(q, k, window=window)
+        err = max((got.float() - want.float()).abs().max().item(),
+                  (lse - want_lse).abs().max().item())
+        del got, lse, want, want_lse
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        i = torch.arange(S, device="cuda")
+        band = ((i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+                if window else None)
+        res[f"flash {B}x{S}x{H}x{KV}x{D} w{window}"] = {
+            "ms": chip_smoke.time_ms(lambda i: kernels.flash_attention(
+                q, k, v, return_lse=True, window=window), iters=5),
+            "sdpa_ms": chip_smoke.time_ms(lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, is_causal=not window, enable_gqa=True),
+                iters=5),
+            "max_abs_err": err}
+        del q, k, v, qt, kt, vt
+    for B, H, KV, D, Smax in DECODE:
+        lens = [Smax + 1] + [max(1, Smax - (Smax * i) // B) for i in range(1, B)]
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(B, H, D, generator=gen, device="cuda").to(bf)
+        kc, vc = (torch.randn(B, Smax, KV, D, generator=gen, device="cuda").to(bf)
+                  for _ in range(2))
+        err = (kernels.decode_attention(q, kc, vc, lengths).float()
+               - kernels.ref.decode_attention_ref(q, kc, vc, lengths).float()).abs().max().item()
+        copies = max(1, min(64, math.ceil(2 * chip_smoke.L2_BYTES / (2 * kc.numel() * 2))))
+        caches = [(kc.clone(), vc.clone()) for _ in range(copies)]
+        transposed = [tuple(c.transpose(1, 2).contiguous() for c in pair) for pair in caches]
+        mask = (torch.arange(Smax, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+        res[f"decode B{B} H{H} KV{KV} D{D} Smax{Smax}"] = {
+            "ms": chip_smoke.time_ms(lambda i: kernels.decode_attention(
+                q, *caches[i % copies], lengths), iters=copies if copies > 20 else 20),
+            "sdpa_ms": chip_smoke.time_ms(lambda i: F.scaled_dot_product_attention(
+                q[:, :, None, :], *transposed[i % copies], attn_mask=mask, enable_gqa=True),
+                iters=copies if copies > 20 else 20),
+            "max_abs_err": err}
+        del caches, transposed
+    for B, H, KV, D in PAGED:
+        r = chip_smoke.check_paged(gen, B, H, KV, D, 16, 1024, bf)
+        res[f"paged B{B} H{H} KV{KV} D{D}"] = {
+            "ms": r["ms"], "sdpa_ms": r["library_ms"], "max_abs_err": r["max_abs_err"]}
+    return res
+
+
+def gates(root: str) -> dict:
+    """Elements off the rounded f64 result, kernel and plain, per layer."""
+    sys.path[:0] = [os.path.join(root, "src"), root]
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.convert import cast_params
+    from repro_torch.models import ModelOptions, forward, init_params, layers
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opts = ModelOptions(compute_dtype="bfloat16")
+    res = {}
+    for arch, n, S, seed in (("gemma-2b", 2, 1024, 2), ("recurrentgemma-9b", 3, 4096, 4)):
+        cfg = get_config(arch).with_(num_layers=n)
+        params = cast_params(init_params(cfg, seed=0, device="cuda"), torch.bfloat16)
+        tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (1, S))).to("cuda")
+        seen = []
+        undo = chip_smoke.capture(layers, "flash_attention_train", seen)
+        try:
+            with torch.no_grad():
+                forward(params, cfg, tokens, opts=opts)
+        finally:
+            undo()
+        del params
+        rows = []
+        for (q, k, v), kw in seen:
+            window = kw.get("window", 0)
+            got = kernels.flash_attention(q, k, v, window=window)
+            want = kernels.ref.causal_attention_ref(q, k, v, window=window)
+            G, D = q.shape[2] // k.shape[2], q.shape[3]
+            sc = torch.einsum("bqhd,bkhd->bhqk", q.double(),
+                              k.repeat_interleave(G, 2).double()) / math.sqrt(D)
+            i = torch.arange(S, device="cuda")
+            mask = i[None, :] <= i[:, None]
+            if window:
+                mask = mask & (i[None, :] > i[:, None] - window)
+            p = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+            del sc
+            exact = torch.einsum("bhqk,bkhd->bqhd", p, v.repeat_interleave(G, 2).double())
+            del p
+            off = {name: (x != exact.to(q.dtype)).sum().item()
+                   for name, x in (("kernel", got), ("plain", want))}
+            rows.append({"window": window, "of": got.numel(), **off,
+                         "held": bool(torch.isfinite(got).all()) and off["kernel"] <= off["plain"]})
+            del exact, got, want
+        res[f"{arch} {n} layers"] = rows
+        del seen
+        torch.cuda.empty_cache()
+    return res
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] in ("--one", "--one-gates"):
+        run = measure if sys.argv[1] == "--one" else gates
+        print(json.dumps({"root": sys.argv[2], **run(sys.argv[2])}), flush=True)
+        return 0
+    mode, roots = "--one", sys.argv[1:]
+    if roots[:1] == ["--gates"]:
+        mode, roots = "--one-gates", roots[1:]
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_attention: no CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    for root in roots or [HERE]:
+        subprocess.run([sys.executable, __file__, mode, os.path.abspath(root)],
+                       check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

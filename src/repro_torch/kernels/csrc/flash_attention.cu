@@ -24,33 +24,48 @@
 //   one KV group (GC = min(G, 64), BQ = 64 / GC).  Each K/V tile is loaded
 //   once into shared memory for all GC heads that read it: at gemma's G = 8
 //   that is 8x fewer K/V reads than one block per query head;
-// - the block loops over KV tiles of 32 keys up to the diagonal only, and
-//   masks the ragged last tile (any S, no padding), so causal blocks never
-//   touch the upper triangle and the heaviest q tiles are launched first;
+// - the block loops over KV tiles up to the diagonal only, and masks the
+//   ragged last tile (any S, no padding), so causal blocks never touch the
+//   upper triangle;
 // - with a window, the loop starts at the tile that holds key
-//   q0 - window + 1, so a block reads about (window + 64) / 32 tiles
+//   q0 - window + 1, so a block reads about (window + 64) / tile tiles
 //   whatever its position; keys inside the band's ragged edges are masked;
 // - the online-softmax state (m, l) and the output accumulator are f32.
 //   Tiles above 48 KB of shared memory opt into dynamic shared memory (at
 //   most 232,448 bytes).
 //
 // The tensor-core variant (bf16, D a multiple of 16, 16-byte aligned rows):
-// - four warps, each owning 16 of the 64 rows from the scores to the output,
-//   so the only block-wide barriers are around the K/V tiles;
-// - K/V tiles arrive by cp.async into two buffers: tile t + 1 is in flight
-//   while tile t is computed.  Rows past S are zero-filled by the copy;
-// - S = Q K^T and O += P V are bf16 wmma products (16x16x16, f32 sums): Q,
-//   K, V and P sit in shared memory as bf16 rows padded by 16 bytes, S as
-//   f32 rows; the f32 accumulator O stays in registers (D/16 fragments a
-//   warp) from the first tile to the last;
-// - P is split into bf16 hi + lo parts and both are multiplied with V, so
-//   the product keeps about 16 bits of P, near the TPU kernel's f32 P V.
-//   (P rounded once to bf16 moves nearly every output by an ulp; the
-//   reference's near-hard attention turns that into different logits two
-//   layers on);
-// - two lanes own a row for the softmax (16 scores each, one shuffle); the
-//   rescale of O by exp(m_old - m_new) reads the rows of a thread's
-//   accumulator elements from the sm_80+ fragment layout.
+// - both products are bf16 mma.sync.m16n8k16 with f32 sums (mma.cuh, shared
+//   with the backward, where mma.sync beat wgmma at D = 256).  Q, K and V
+//   sit in shared memory as bf16 rows padded by 16 bytes (pitch D + 8) and
+//   reach the tensor cores by ldmatrix (.trans for V);
+// - S, P and O never leave registers: S stays in its m16n8 accumulator
+//   fragments, a row's max and sum come from the quad of lanes that holds
+//   the row (two shuffles), and P is re-packed from the accumulator layout
+//   straight into A fragments.  P is split into bf16 hi + lo fragments and
+//   both are multiplied with V (one extra mma per step), so the product
+//   keeps about 16 bits of P, near the TPU kernel's f32 P V.  (P rounded
+//   once to bf16 moves nearly every output by an ulp; the reference's
+//   near-hard attention turns that into different logits two layers on);
+// - 8 warps and K/V tiles of 64 keys, two buffers each, filled by cp.async
+//   while the other is multiplied (rows past S zero-filled).  Warp w takes
+//   rows 16 (w % 4) .. + 15 and keys 32 (w / 4) .. + 31 of every tile, with
+//   its own (m, l) and O of 16 rows x D in registers (128 floats a lane at
+//   D = 256).  At the end the two warps of a row slice exchange half of O
+//   and (m, l) through the free K/V buffers; each merges, in the fixed
+//   order (keys 0-31) + (keys 32-63), and writes half the columns;
+// - shared memory at D = 256: Q 33,792 + K/V 4 x 33,792 = 168,960 bytes,
+//   one block per SM (87,040 at D = 128);
+// - only edge tiles (crossing the causal diagonal, the band's lower edge or
+//   S) do the mask arithmetic; interior tiles skip it;
+// - the grid is one dimension ordered heaviest q tile first over every
+//   (batch, KV head, head chunk), the longest-first plan: at gemma-2b's
+//   (1, 1024, 8, 1, 256) it is 128 blocks (8 positions x 8 heads each) on
+//   132 SMs, one wave whose length is the last q tile's 16 key tiles (the
+//   mean is 8.5); at the train step's batch 2, 256 blocks, and the second
+//   wave takes the light ones; recurrentgemma's windowed (1, 4096, 16, 1,
+//   256) is 1,024 blocks of about 33 key tiles each.  Pairing tile i with
+//   n - 1 - i would halve the blocks below one wave and not shorten it.
 //
 // The CUDA-core variant (f32, or a head dim the tensor-core one refuses):
 // - four threads own one row: each computes 8 of the tile's 32 scores, the
@@ -62,11 +77,10 @@
 // - tiles are staged in shared memory as f32 whatever the input type, with
 //   rows padded to D + 1 floats so the column reads do not collide in a
 //   bank: 140,032 bytes at D = 256.
-#include <mma.h>
-
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace repro {
 namespace {
@@ -75,65 +89,64 @@ constexpr float kMaskValue = -1e30f;  // the TPU kernel's mask value
 
 // ------------------------------------------------------ tensor-core variant
 
-constexpr int kTcRows = 64;   // (position, head) rows per block, 16 per warp
-constexpr int kTcKeys = 32;   // keys per KV tile
-constexpr int kTcWarps = kTcRows / 16;
-constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kLdS = kTcKeys + 4;  // f32 score rows (a multiple of 4 floats)
-constexpr int kLdP = kTcKeys + 8;  // bf16 probability rows (of 8 elements)
+constexpr int kTcRows = 64;   // (position, head) rows per block
+constexpr int kTcKeys = 64;   // keys per K/V tile
+constexpr int kTcThreads = 256;  // 8 warps: 4 row slices x 2 key halves
+constexpr int kTcHalf = kTcKeys / 2;  // keys of a tile one warp takes
 
 struct TcLayout {
-  int ldh;  // pitch of the bf16 Q, K and V rows: D + 8 (16 bytes of padding)
-  int ldo;  // pitch of the f32 O rows staged for the output: D + 4
-  size_t q, k, v, s, ph, pl, total;  // byte offsets in dynamic shared memory
+  int ld;  // pitch of the bf16 Q, K and V rows: D + 8 (16 bytes of padding)
+  size_t q, k, v, total;  // byte offsets in dynamic shared memory
 };
 
-// Every region starts on a 32-byte boundary, as wmma's loads and stores
-// need.  After the last tile, O is staged where the K/V buffers were.
+// Every region starts on a 16-byte boundary, as cp.async and ldmatrix need.
+// After the last tile, the K/V buffers hold the warps' exchanged halves of O.
 __host__ __device__ inline TcLayout tc_layout(int D) {
   TcLayout L;
-  L.ldh = D + 8;
-  L.ldo = D + 4;
-  const size_t kv_tile = static_cast<size_t>(kTcKeys) * L.ldh * 2;
+  L.ld = D + 8;
+  const size_t tile = static_cast<size_t>(kTcKeys) * L.ld * 2;
   L.q = 0;
-  L.k = L.q + static_cast<size_t>(kTcRows) * L.ldh * 2;
-  L.v = L.k + 2 * kv_tile;  // two buffers each for K and V
-  L.s = L.v + 2 * kv_tile;
-  L.ph = L.s + static_cast<size_t>(kTcRows) * kLdS * 4;
-  L.pl = L.ph + static_cast<size_t>(kTcRows) * kLdP * 2;
-  L.total = L.pl + static_cast<size_t>(kTcRows) * kLdP * 2;
+  L.k = L.q + static_cast<size_t>(kTcRows) * L.ld * 2;
+  L.v = L.k + 2 * tile;  // two buffers each for K and V
+  L.total = L.v + 2 * tile;
   return L;
 }
 
 // DMAX: the head dims up to DMAX (multiples of 16) share one register
-// budget of DMAX / 16 accumulator fragments.
+// budget: a warp keeps 16 rows x DMAX columns of O (DMAX / 8 accumulator
+// tiles of 16 x 8, 4 floats a lane each).  One block per SM: held to two
+// (128 registers), DMAX = 128 ran 1.5x faster but spilled 44 bytes, so the
+// compiler keeps its 149 there (PERF.md).
 template <int DMAX>
-__global__ void __launch_bounds__(kTcThreads)
-flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                    float* __restrict__ lse, int S, int H, int KV, int D, int GC, int BQ,
-                    int causal, int window, float scale) {
-  using namespace nvcuda;
-  using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-  constexpr int kFrags = DMAX / 16;
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                    int S, int H, int KV, int D, int GC, int BQ, int causal, int window,
+                    float scale) {
+  constexpr int kNt = DMAX / 8;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const TcLayout L = tc_layout(D);
-  auto* sQ = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.q);
-  auto* sK = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.k);  // 2 buffers
-  auto* sV = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.v);  // 2 buffers
-  auto* sS = reinterpret_cast<float*>(tc_smem + L.s);
-  auto* sPh = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.ph);
-  auto* sPl = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.pl);
+  const int ld = L.ld;
+  auto* sQ = reinterpret_cast<bf16*>(tc_smem + L.q);
+  auto* sK = reinterpret_cast<bf16*>(tc_smem + L.k);  // 2 buffers
+  auto* sV = reinterpret_cast<bf16*>(tc_smem + L.v);  // 2 buffers
   const int G = H / KV;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
-  const int b = blockIdx.y / KV, kvh = blockIdx.y - b * KV;
-  const int g0 = blockIdx.z * GC;
+  // block order: heaviest q tiles first, over every (batch, KV head) and
+  // head chunk, so that the blocks of a second wave are the light ones
+  const int ntq = (S + BQ - 1) / BQ, nch = (G + GC - 1) / GC;
+  const int nbk = gridDim.x / ntq;  // B * KV * nch blocks share a q tile
+  const int qt = ntq - 1 - static_cast<int>(blockIdx.x) / nbk;
+  const int rest = static_cast<int>(blockIdx.x) % nbk;
+  const int g0 = rest / (nbk / nch) * GC, bkv = rest % (nbk / nch);
+  const int q0 = qt * BQ;
+  const int b = bkv / KV, kvh = bkv - b * KV;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;  // accumulator row and column pair
+  const int wm = warp & 3, wn = warp >> 2;  // rows 16 wm .., keys 32 wn .. of each tile
   const int rows = BQ * GC;
-  const int nfr = D / 16;    // 16-wide column blocks of a row
   const int chunks = D / 8;  // 16-byte pieces of a row
-  const int tile_elems = kTcKeys * L.ldh;
+  const int tile_elems = kTcKeys * ld;
+  const int nfr = D / 8;     // 8-column accumulator tiles of a row
 
   // row r of the tile is query position q0 + r / GC, head kvh*G + g0 + r % GC
   for (int i = tid; i < kTcRows * chunks; i += kTcThreads) {
@@ -142,151 +155,168 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     const bool ok = r < rows && qp < S && g < G;
     const long long off =
         ok ? ((static_cast<long long>(b) * S + qp) * H + kvh * G + g) * D + c * 8 : 0;
-    cp_async16(sQ + r * L.ldh + c * 8, q + off, ok);
+    cp_async16(sQ + r * ld + c * 8, q + off, ok);
   }
+  // a thread copies piece c_ld of rows r_ld, r_ld + r_step, ... of each
+  // K/V tile (no division per piece)
+  const int r_step = kTcThreads / chunks, c_ld = tid % chunks;
+  const int r_ld = tid < r_step * chunks ? tid / chunks : kTcKeys;
+  const long long kv0 = (static_cast<long long>(b) * S * KV + kvh) * D + c_ld * 8;
   auto load_kv = [&](int tile, int buf) {
-    __nv_bfloat16* dk = sK + buf * tile_elems;
-    __nv_bfloat16* dv = sV + buf * tile_elems;
-    for (int i = tid; i < kTcKeys * chunks; i += kTcThreads) {
-      const int r = i / chunks, c = i - r * chunks;
+    const int off_s = buf * tile_elems + c_ld * 8;
+    for (int r = r_ld; r < kTcKeys; r += r_step) {
       const int kp = tile * kTcKeys + r;
       const bool ok = kp < S;
-      const long long off = ok ? ((static_cast<long long>(b) * S + kp) * KV + kvh) * D + c * 8 : 0;
-      cp_async16(dk + r * L.ldh + c * 8, k + off, ok);
-      cp_async16(dv + r * L.ldh + c * 8, v + off, ok);
+      const long long off = ok ? kv0 + static_cast<long long>(kp) * KV * D : 0;
+      cp_async16(sK + off_s + r * ld, k + off, ok);
+      cp_async16(sV + off_s + r * ld, v + off, ok);
     }
   };
 
   // causal: the last key any row of this tile attends to is q0 + BQ - 1;
   // window: the first is q0 - window + 1
+  const int q_last = q0 + BQ - 1;
   const int kend = causal ? min(S, q0 + BQ) : S;
   const int ntiles = (kend + kTcKeys - 1) / kTcKeys;
   const int t_first = window > 0 ? max(0, q0 - window + 1) / kTcKeys : 0;
   load_kv(t_first, t_first & 1);
   cp_async_commit();  // Q and the first K/V tile
 
-  // this warp's 16 rows: their accumulator in registers, D/16 fragments
-  FragAcc o[kFrags];
+  // this thread's two rows are 16 wm + gq and + 8: query positions
+  // q0 + row / GC
+  float o[kNt][4];
 #pragma unroll
-  for (int j = 0; j < kFrags; ++j) wmma::fill_fragment(o[j], 0.f);
-  // two lanes per row for the softmax
-  const int r_own = warp * 16 + (lane >> 1), side = lane & 1;
-  const int qpos = q0 + r_own / GC;
-  float m = kMaskValue, l = 0.f;
+  for (int j = 0; j < kNt; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
 
   for (int t = t_first; t < ntiles; ++t) {
     if (t + 1 < ntiles) load_kv(t + 1, (t + 1) & 1);
     cp_async_commit();  // possibly empty: keeps the group count regular
     cp_async_wait_one();
     __syncthreads();  // tile t (and Q) landed for every thread
-    const __nv_bfloat16* cK = sK + (t & 1) * tile_elems;
-    const __nv_bfloat16* cV = sV + (t & 1) * tile_elems;
+    const bf16* cK = sK + (t & 1) * tile_elems;
+    const bf16* cV = sV + (t & 1) * tile_elems;
+    const int k0 = t * kTcKeys;
+    const int kw = k0 + kTcHalf * wn;  // this warp's first key
 
-    // S = Q K^T for this warp's 16 rows: one Q fragment per 16 dims feeds
-    // both key blocks, whose two sums run side by side
-    FragAcc acc[kTcKeys / 16];
+    // S = Q K^T: rows 16 wm .., keys kw .. kw + 31, in four 8-key tiles
+    float s[4][4];
 #pragma unroll
-    for (int j = 0; j < kTcKeys / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-    for (int kk = 0; kk < nfr; ++kk) {
-      FragA a;
-      wmma::load_matrix_sync(a, sQ + warp * 16 * L.ldh + kk * 16, L.ldh);
+    for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int kk = 0; kk < D; kk += 16) {
+      unsigned aq[4];
+      load_a(aq, sQ, ld, 16 * wm, kk, lane);
 #pragma unroll
-      for (int j = 0; j < kTcKeys / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bk;
-        wmma::load_matrix_sync(bk, cK + j * 16 * L.ldh + kk * 16, L.ldh);
-        wmma::mma_sync(acc[j], a, bk, acc[j]);
+      for (int jj = 0; jj < 2; ++jj) {
+        unsigned bk[4];
+        load_b_nmajor(bk, cK, ld, kTcHalf * wn + 16 * jj, kk, lane);
+        mma16816(s[2 * jj], aq, bk[0], bk[1]);
+        mma16816(s[2 * jj + 1], aq, bk[2], bk[3]);
       }
     }
-#pragma unroll
-    for (int j = 0; j < kTcKeys / 16; ++j)
-      wmma::store_matrix_sync(sS + warp * 16 * kLdS + j * 16, acc[j], kLdS, wmma::mem_row_major);
-    __syncwarp();
 
-    // online softmax: lanes 2r and 2r + 1 take 16 keys each of row r.  P is
-    // split into bf16 hi + lo parts, so P V keeps about 16 bits of P, near
-    // the TPU kernel's f32 product
-    float corr;
-    {
-      const int kbase = t * kTcKeys + side * 16;
-      const float* srow = sS + r_own * kLdS + side * 16;
-      float s[16];
-      float tile_max = kMaskValue;
+    // scale and mask; only a tile that crosses the causal diagonal, the
+    // band's lower edge or S does the mask arithmetic
+    const bool edge = k0 + kTcKeys > S || (causal && k0 + kTcKeys - 1 > q0) ||
+                      (window > 0 && q_last - k0 >= window);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int kp = kbase + j;
-        const bool ok =
-            kp < S && (!causal || kp <= qpos) && (window <= 0 || qpos - kp < window);
-        s[j] = ok ? srow[j] * scale : kMaskValue;
-        tile_max = fmaxf(tile_max, s[j]);
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (edge) {
+          const int kp = kw + 8 * j + 2 * tq + (e & 1);
+          const int qp = q0 + (16 * wm + gq + 8 * (e >> 1)) / GC;
+          const bool ok =
+              kp < S && (!causal || kp <= qp) && (window <= 0 || qp - kp < window);
+          x = ok ? x : kMaskValue;
+        }
+        s[j][e] = x;
       }
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-      const float m_new = fmaxf(m, tile_max);
-      corr = expf(m - m_new);
-      float psum = 0.f;
-      __nv_bfloat16* ph = sPh + r_own * kLdP + side * 16;
-      __nv_bfloat16* pl = sPl + r_own * kLdP + side * 16;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float p = s[j] > kMaskValue ? expf(s[j] - m_new) : 0.f;
-        psum += p;
-        const __nv_bfloat16 hi = __float2bfloat16_rn(p);
-        ph[j] = hi;
-        pl[j] = __float2bfloat16_rn(p - __bfloat162float(hi));
-      }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      l = l * corr + psum;
-      m = m_new;
-    }
-    // rescale the accumulator: a thread's fragment elements lie in rows
-    // lane/4 (elements 0, 1, 4, 5) and lane/4 + 8 (2, 3, 6, 7) of the
-    // warp's 16, the sm_80+ layout of a 16x16 f32 accumulator
-    const float c_top = __shfl_sync(0xffffffffu, corr, 2 * (lane >> 2));
-    const float c_bot = __shfl_sync(0xffffffffu, corr, 2 * ((lane >> 2) + 8));
-#pragma unroll
-    for (int j = 0; j < kFrags; ++j)
-#pragma unroll
-      for (int i = 0; i < o[j].num_elements; ++i) o[j].x[i] *= (i & 2) ? c_bot : c_top;
-    __syncwarp();
 
-    // O += (P_hi + P_lo) V for this warp's 16 rows
-    FragA pah[kTcKeys / 16], pal[kTcKeys / 16];
+    // online softmax per row (mma.cuh); P is then split into bf16 hi + lo
+    // A fragments in registers (one bf16 rounding of P fails the f64 gate:
+    // see the header)
+    float corr[2];
+    softmax_step(s, m, l, corr, kMaskValue);
 #pragma unroll
-    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
-      wmma::load_matrix_sync(pah[kk], sPh + warp * 16 * kLdP + kk * 16, kLdP);
-      wmma::load_matrix_sync(pal[kk], sPl + warp * 16 * kLdP + kk * 16, kLdP);
+    for (int j = 0; j < kNt; ++j) {
+      o[j][0] *= corr[0];
+      o[j][1] *= corr[0];
+      o[j][2] *= corr[1];
+      o[j][3] *= corr[1];
     }
+
+    // O += (P_hi + P_lo) V over this warp's 32 keys: two k-steps of 16,
+    // whose A fragments are the score tiles 2 kk and 2 kk + 1 re-packed
 #pragma unroll
-    for (int j = 0; j < kFrags; ++j) {
-      if (j >= nfr) continue;
+    for (int kk = 0; kk < 2; ++kk) {
+      unsigned ah[4], al[4];
+      p_frags_hi_lo(s[2 * kk], s[2 * kk + 1], ah, al);
 #pragma unroll
-      for (int kk = 0; kk < kTcKeys / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, cV + kk * 16 * L.ldh + j * 16, L.ldh);
-        wmma::mma_sync(o[j], pah[kk], vb, o[j]);
-        wmma::mma_sync(o[j], pal[kk], vb, o[j]);
+      for (int jj = 0; jj < kNt / 2; ++jj) {
+        if (2 * jj < nfr) {
+          unsigned bv[4];
+          load_b_kmajor(bv, cV, ld, 16 * jj, kTcHalf * wn + 16 * kk, lane);
+          mma16816(o[2 * jj], ah, bv[0], bv[1]);
+          mma16816(o[2 * jj], al, bv[0], bv[1]);
+          mma16816(o[2 * jj + 1], ah, bv[2], bv[3]);
+          mma16816(o[2 * jj + 1], al, bv[2], bv[3]);
+        }
       }
     }
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
+  cp_async_wait_all();
 
-  // stage O in the K/V buffers (free now), then out = O / max(l, 1e-30) row
-  // by row (coalesced) and lse = m + log(max(l, 1e-30))
-  float* oW = reinterpret_cast<float*>(tc_smem + L.k) + warp * 16 * L.ldo;
+  // the two warps of a row slice (wn = 0, 1) hold partial (m, l, O) over
+  // the two key halves of every tile.  Each finalizes half the columns,
+  // wn * D / 2 ..: it leaves the other half, and its (m, l), in the K/V
+  // buffers (free now; 256 D + 4096 bytes of their 512 (D + 8)) for its
+  // partner, then merges the partner's, always in the order (wn = 0) +
+  // (wn = 1), so the result does not depend on the warp
+  const int half = nfr / 2;  // accumulator tiles of half a row
+  float4* xo = reinterpret_cast<float4*>(tc_smem + L.k);  // (8 warps, half, 32 lanes)
+  float4* xml = xo + kTcThreads / 32 * half * 32;         // (8 warps, 32 lanes)
+  const int partner = warp ^ 4;
 #pragma unroll
-  for (int j = 0; j < kFrags; ++j)
-    if (j < nfr) wmma::store_matrix_sync(oW + j * 16, o[j], L.ldo, wmma::mem_row_major);
-  __syncwarp();
-  const float den = fmaxf(l, 1e-30f);
-  for (int r = 0; r < 16; ++r) {
-    const float d = __shfl_sync(0xffffffffu, den, 2 * r);
-    const float mr = __shfl_sync(0xffffffffu, m, 2 * r);
-    const int rr = warp * 16 + r;
-    const int qp = q0 + rr / GC, g = g0 + rr % GC;
-    if (rr >= rows || qp >= S || g >= G) continue;  // the same for the whole warp
+  for (int j = 0; j < kNt; ++j) {
+    const int jl = j - (1 - wn) * half;  // index within the exported half
+    if (j < nfr && jl >= 0 && jl < half)
+      xo[(warp * half + jl) * 32 + lane] = make_float4(o[j][0], o[j][1], o[j][2], o[j][3]);
+  }
+  xml[warp * 32 + lane] = make_float4(m[0], m[1], l[0], l[1]);
+  __syncthreads();
+  const float4 pml = xml[partner * 32 + lane];
+  const float pm[2] = {pml.x, pml.y}, pl[2] = {pml.z, pml.w};
+  float wa[2], wb[2], den[2], mt[2];  // weights of wn = 0 and wn = 1
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m0 = wn == 0 ? m[h] : pm[h], m1 = wn == 0 ? pm[h] : m[h];
+    const float l0 = wn == 0 ? l[h] : pl[h], l1 = wn == 0 ? pl[h] : l[h];
+    mt[h] = fmaxf(m0, m1);
+    wa[h] = expf(m0 - mt[h]);
+    wb[h] = expf(m1 - mt[h]);
+    den[h] = fmaxf(l0 * wa[h] + l1 * wb[h], 1e-30f);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * wm + gq + 8 * h;
+    const int qp = q0 + r / GC, g = g0 + r % GC;
+    if (r >= rows || qp >= S || g >= G) continue;
     const long long orow = (static_cast<long long>(b) * S + qp) * H + kvh * G + g;
-    for (int e = lane; e < D; e += 32)
-      out[orow * D + e] = __float2bfloat16_rn(oW[r * L.ldo + e] / d);
-    if (lse != nullptr && lane == 0) lse[orow] = mr + logf(d);
+#pragma unroll
+    for (int j = 0; j < kNt; ++j) {
+      const int jl = j - wn * half;
+      if (j >= nfr || jl < 0 || jl >= half) continue;
+      const float4 x = xo[(partner * half + jl) * 32 + lane];
+      const float p0 = h ? x.z : x.x, p1 = h ? x.w : x.y;
+      const float a0 = wn == 0 ? o[j][2 * h] : p0, b0 = wn == 0 ? p0 : o[j][2 * h];
+      const float a1 = wn == 0 ? o[j][2 * h + 1] : p1, b1 = wn == 0 ? p1 : o[j][2 * h + 1];
+      *reinterpret_cast<unsigned*>(out + orow * D + 8 * j + 2 * tq) =
+          pack_bf16((a0 * wa[h] + b0 * wb[h]) / den[h], (a1 * wa[h] + b1 * wb[h]) / den[h]);
+    }
+    if (lse != nullptr && wn == 0 && tq == 0) lse[orow] = mt[h] + logf(den[h]);
   }
 }
 
@@ -461,10 +491,13 @@ cudaError_t launch_tc_d(const void* q, const void* k, const void* v, void* out, 
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  dim3 grid((S + BQ - 1) / BQ, B * KV, (G + GC - 1) / GC);
-  flash_fwd_tc_kernel<DMAX><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, S, H, KV, D,
+  // one dimension: the kernel orders its blocks heaviest q tile first
+  const long long blocks =
+      static_cast<long long>((S + BQ - 1) / BQ) * B * KV * ((G + GC - 1) / GC);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_tc_kernel<DMAX><<<static_cast<unsigned>(blocks), kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), lse, S, H, KV, D,
       GC, BQ, causal, window, scale);
   return cudaGetLastError();
 }
@@ -497,7 +530,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 
 // The largest head dim the kernel takes (the CUDA-core variant keeps its
 // accumulator in registers).  Both variants fit their shared memory at it:
-// 140,032 bytes for the CUDA-core one, 120,832 for the tensor-core one.
+// 140,032 bytes for the CUDA-core one, 168,960 for the tensor-core one.
 extern "C" int repro_flash_attention_max_head_dim() { return 256; }
 
 // q and out (B, S, H, D), k and v (B, S, KV, D) in `dtype`; lse (B, S, H) f32

@@ -83,6 +83,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace repro {
 namespace {
@@ -387,8 +388,6 @@ constexpr int kTcKeys = 64;  // keys per K/V tile
 constexpr int kTcThreads = 256;
 constexpr int kLdP = kTcKeys + 8;  // pitch of the bf16 p / ds tiles (64 + 16 bytes)
 
-using bf16 = __nv_bfloat16;
-
 // Byte offsets in dynamic shared memory; every region starts on a 16-byte
 // boundary, as cp.async and ldmatrix need.
 struct DqLayout {
@@ -427,52 +426,6 @@ __host__ __device__ inline DkvLayout dkv_layout(int D) {
   L.pos = L.delta + 2 * kTcRows * 4;  // two buffers of 64 int: query position, -1 if none
   L.total = L.pos + 2 * kTcRows * 4;
   return L;
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// one row of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-// c (16x8 f32) += a (16x16 bf16, row-major) b (16x8 bf16, column-major).
-// Lane l = 4 g + t holds c[0], c[1] at row g, columns 2t, 2t + 1 and c[2],
-// c[3] at row g + 8.
-__device__ __forceinline__ void mma16816(float* c, const unsigned* a, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// A (16 x 16) at rows m0 .., columns k0 .. of a row-major bf16 tile.
-__device__ __forceinline__ void load_a(unsigned* a, const bf16* tile, int ld, int m0, int k0,
-                                       int lane) {
-  ldsm_x4(a, tile + (m0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
-}
-// B of two adjacent 8-column blocks n0 .. n0 + 15 from a tile stored
-// n-major (row n holds B's column n: K and Q rows in the score products).
-// b[0], b[1]: columns n0 ..; b[2], b[3]: n0 + 8 ..
-__device__ __forceinline__ void load_b_nmajor(unsigned* b, const bf16* tile, int ld, int n0,
-                                              int k0, int lane) {
-  ldsm_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 + ((lane >> 3) & 1) * 8);
-}
-// The same from a tile stored k-major (row k holds B's row k: dO, Q and K
-// rows in the gradient products).
-__device__ __forceinline__ void load_b_kmajor(unsigned* b, const bf16* tile, int ld, int n0,
-                                              int k0, int lane) {
-  ldsm_x4_t(b, tile + (k0 + (lane & 15)) * ld + n0 + (lane >> 4) * 8);
 }
 
 // Stage rows of (position, head) pairs of q and dO: row r is query position

@@ -31,16 +31,28 @@ import torch
 from . import _build
 from .ref import decode_attention_ref, paged_decode_attention_ref
 
-BLOCKS_PER_SM = 2  # split the cache axis until the grid holds this many blocks per SM
+BLOCKS_PER_SM = 2  # paged: split the table until the grid holds this many blocks per SM
+# the dense kernel's split plans: (step: chunks are whole multiples of it,
+# the fewest steps a chunk takes, blocks per SM the grid aims at).  The
+# tensor-core variant: 16-key mma steps, one 64-key tile a block or more,
+# one block per SM (chunks of one or two steps filled more SMs at the
+# serving shapes and measured slower: scripts/bench_attention.py,
+# PERF.md).  The CUDA-core variant (f32, or bf16 the tensor cores do not
+# take): its 32-key tiles, two blocks per SM.
+TC_PLAN = (16, 4, 1)
+CUDA_CORE_PLAN = (32, 1, 2)
 
 
-def _splits(B: int, KV: int, Smax: int, tile: int, sms: int) -> tuple:
-    """``(chunk, nsplit)``: cut the cache axis into ``nsplit`` chunks of
-    ``chunk`` positions (a multiple of the kernel's tile) so that the grid
-    of ``nsplit * KV * B`` blocks holds about ``BLOCKS_PER_SM`` per SM."""
-    tiles = max(1, -(-Smax // tile))
-    want = max(1, -(-BLOCKS_PER_SM * sms // max(1, B * KV)))
-    chunk = -(-tiles // min(tiles, want)) * tile
+def _splits(B: int, KV: int, Smax: int, sms: int, plan: tuple) -> tuple:
+    """``(chunk, nsplit)`` of the dense kernel, from the shapes alone: cut
+    the cache axis into ``nsplit`` chunks of ``chunk`` positions, a whole
+    number of the plan's steps and at least its fewest, as short as still
+    gives the grid of ``nsplit * KV * B`` blocks no more than one wave of
+    the plan's blocks per SM on ``sms`` SMs."""
+    step, min_steps, per_sm = plan
+    steps = max(1, -(-Smax // step))
+    want = max(1, -(-per_sm * sms // max(1, B * KV)))
+    chunk = max(min_steps, -(-steps // min(steps, want))) * step
     return chunk, max(1, -(-Smax // chunk))
 
 
@@ -91,18 +103,22 @@ def decode_attention(q, k_cache, v_cache, lengths):
             f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, lengths "
             f"{tuple(lengths.shape)}")
     lib = _build.library()
-    if lib.repro_decode_attention_smem_bytes(H // KV, D) > _build.MAX_SMEM_BYTES:
+    code = _build.DTYPE_CODES[q.dtype]
+    tc = lib.repro_decode_attention_tensor_cores(
+        code, H // KV, D, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
+    chunk, nsplit = _splits(B, KV, Smax, _build.sm_count(q.device.index),
+                            TC_PLAN if tc else CUDA_CORE_PLAN)
+    if (lib.repro_decode_attention_smem_bytes(code, H // KV, D, chunk)
+            > _build.MAX_SMEM_BYTES):
         raise ValueError(f"{name}: G={H // KV}, D={D} needs more shared "
                          "memory than one block has")
-    chunk, nsplit = _splits(B, KV, Smax, lib.repro_decode_attention_tile(),
-                            _build.sm_count(q.device.index))
     part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
                           device=q.device)
     out = torch.empty_like(q)
     err = lib.repro_decode_attention(
-        q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(),
+        q.device.index, code, q.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, H, KV, D,
         Smax, chunk, nsplit, 1.0 / math.sqrt(D), _build.stream(q.device))

@@ -174,7 +174,7 @@ def _randn(rng, shape, device, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [64, 128, 256])
-@pytest.mark.parametrize("G", [1, 5, 8])
+@pytest.mark.parametrize("G", [1, 5, 8, 16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel(cuda, D, G, causal, dtype):
@@ -197,14 +197,40 @@ def test_flash_attention_kernel(cuda, D, G, causal, dtype):
     (3, 1, 4, 4, 32),       # one token
     (1, 77, 80, 1, 64),     # G = 80: two head chunks of one KV head
     (2, 45, 6, 2, 72),      # D off the tensor cores' 16: the CUDA-core variant in bf16
+    (2, 1, 8, 1, 256),      # one token, gemma-2b's heads
+    (1, 63, 8, 1, 128),     # one key below a 64-key tile
+    (1, 65, 8, 1, 128),     # one key above it
+    (1, 127, 16, 1, 64),    # around two tiles, 4 positions a q tile
+    (1, 129, 16, 1, 64),
+    (1, 1000, 8, 1, 256),   # ragged, gemma-2b's heads
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_shapes(cuda, B, S, H, KV, D, dtype):
     rng = np.random.default_rng(S + H)
     q = _randn(rng, (B, S, H, D), cuda, dtype)
     k, v = (_randn(rng, (B, S, KV, D), cuda, dtype) for _ in range(2))
-    _close(kernels.flash_attention(q, k, v),
-           kernels.ref.causal_attention_ref(q, k, v), dtype)
+    got, lse = kernels.flash_attention(q, k, v, return_lse=True)
+    _close(got, kernels.ref.causal_attention_ref(q, k, v), dtype)
+    _close(lse, kernels.ref.attention_lse_ref(q, k), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,window", [
+    (1, 1000, 8, 1, 256, 0),     # gemma-2b's heads, causal
+    (2, 1024, 8, 1, 256, 0),     # the train step's batch: a second wave of blocks
+    (1, 300, 16, 1, 256, 100),   # recurrentgemma-9b's heads, windowed
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_is_deterministic(cuda, B, S, H, KV, D, window, dtype):
+    """Two launches on the same inputs give the same bits, output and LSE:
+    no atomics, and the warps' partials merge in a fixed order."""
+    rng = np.random.default_rng(S + window)
+    q = _randn(rng, (B, S, H, D), cuda, dtype)
+    k, v = (_randn(rng, (B, S, KV, D), cuda, dtype) for _ in range(2))
+    out1, lse1 = kernels.flash_attention(q, k, v, return_lse=True, window=window)
+    out2, lse2 = kernels.flash_attention(q, k, v, return_lse=True, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
 
 
 @pytest.mark.gpu
@@ -229,6 +255,14 @@ def test_flash_attention_kernel_unaligned_rows(cuda):
     (2, 4, 2, 36, 50, [50, 17]),  # bf16 rows of 72 bytes: staged element by element
     (8, 8, 1, 256, 1024, [1025, 1024, 900, 700, 513, 300, 33, 1]),  # gemma-2b
     (8, 40, 8, 128, 1024, [1025, 1024, 900, 700, 513, 300, 33, 1]),  # qwen3-14b
+    # the serving shapes (the split plan's chunks: 64 positions each)
+    (4, 8, 1, 256, 256, [257, 0, 63, 65]),    # fixed-slot serve: past Smax, 0, chunk +- 1
+    (4, 8, 1, 256, 256, [1, 64, 255, 256]),
+    (1, 8, 1, 256, 1024, [1017]),             # decode after a 1024-token prefill
+    (1, 16, 1, 256, 2048, [2049]),            # recurrentgemma-9b's ring, G = 16
+    (8, 8, 1, 128, 1024, [63, 65, 64, 0, 1, 1025, 129, 127]),  # past the first chunk's tile
+    (2, 10, 2, 128, 300, [65, 63]),           # G = 5
+    (2, 32, 2, 64, 200, [0, 129]),            # G = 16
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel(cuda, B, H, KV, D, Smax, lengths, dtype):
@@ -581,6 +615,9 @@ def test_mlstm_chunk_kernel(cuda, B, S, H, dk, chunk, dtype):
     (1, 1000, 16, 1, 256, 300),  # recurrentgemma-9b's heads
     (1, 50, 4, 4, 32, 64),       # window longer than the sequence
     (2, 45, 6, 2, 72, 16),       # D off 16: the CUDA-core variant in bf16
+    (1, 300, 16, 1, 64, 100),    # G = 16 with a window, at each head dim
+    (1, 300, 16, 1, 128, 100),
+    (1, 300, 16, 1, 256, 100),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_window_kernel(cuda, B, S, H, KV, D, window, dtype):

@@ -136,6 +136,48 @@ def test_paged_split_plan_at_the_model_shapes():
         assert _paged_splits(1, 1, 1, bs, PAGED_TILE_MAX, H100_SMS) == (bs, bs, 1)
 
 
+@pytest.mark.parametrize("variant", ["tensor_cores", "cuda_cores"])
+@pytest.mark.parametrize("B,KV,Smax", [
+    (8, 1, 1024),     # gemma-2b, batch 8
+    (4, 1, 256),      # the fixed-slot serve (4 slots, max_len 256)
+    (1, 1, 1024),     # decode after a 1024-token prefill
+    (1, 1, 2048),     # recurrentgemma-9b's local ring
+    (8, 8, 1024),     # qwen3-14b
+    (3, 2, 100),      # Smax off the step
+    (1, 1, 1),        # one position
+    (64, 8, 4096),    # a batch that fills the card without splitting
+])
+def test_dense_split_plan_covers_the_cache(B, KV, Smax, variant):
+    from repro_torch.kernels.decode_attention import CUDA_CORE_PLAN, TC_PLAN, _splits
+    plan = TC_PLAN if variant == "tensor_cores" else CUDA_CORE_PLAN
+    step, min_steps, per_sm = plan
+    chunk, nsplit = _splits(B, KV, Smax, H100_SMS, plan)
+    assert chunk % step == 0 and chunk >= min_steps * step  # whole steps, the fewest or more
+    assert nsplit * chunk >= Smax > (nsplit - 1) * chunk  # covers, no empty tail
+    # at most one wave of blocks (one split fewer is under it) ...
+    assert nsplit == 1 or (nsplit - 1) * B * KV < per_sm * H100_SMS
+    # ... from the shortest chunk that keeps it: one step shorter and the
+    # grid would pass a wave
+    if chunk > min_steps * step:
+        assert -(-Smax // (chunk - step)) * B * KV > per_sm * H100_SMS
+
+
+def test_dense_split_plan_at_the_serving_shapes():
+    from repro_torch.kernels.decode_attention import CUDA_CORE_PLAN, TC_PLAN, _splits
+    # (B, KV, Smax) -> (chunk, blocks) of the tensor-core variant: one
+    # 64-key tile a block where the cache is short (the plan before this
+    # one: 32, 32, 64 and 256 blocks, which the CUDA-core variant keeps)
+    for (B, KV, Smax), want in {(4, 1, 256): (64, 16), (1, 1, 1024): (64, 16),
+                                (1, 1, 2048): (64, 32), (8, 1, 1024): (64, 128),
+                                (8, 8, 1024): (352, 192)}.items():
+        chunk, nsplit = _splits(B, KV, Smax, H100_SMS, TC_PLAN)
+        assert (chunk, nsplit * B * KV) == want, (B, KV, Smax)
+    for (B, KV, Smax), want in {(4, 1, 256): (32, 32), (1, 1, 1024): (32, 32),
+                                (1, 1, 2048): (32, 64), (8, 1, 1024): (32, 256)}.items():
+        chunk, nsplit = _splits(B, KV, Smax, H100_SMS, CUDA_CORE_PLAN)
+        assert (chunk, nsplit * B * KV) == want, (B, KV, Smax)
+
+
 @pytest.mark.parametrize("B,S,H,KV", [
     (1, 1024, 8, 1),    # gemma-2b, one sequence
     (2, 1024, 8, 1),    # gemma-2b's train step
