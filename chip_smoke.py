@@ -125,6 +125,12 @@ LOGITS_BF16_RTOL = 2e-2
 # logit: the bound of tests/test_models.py::test_prefill_decode_equivalence
 PREFILL_DECODE_RTOL = 5e-3
 L2_BYTES = 50 * 2**20
+# RMSNorm's timed shapes: gemma-2b's decode (first: its bf16 row is the one
+# in the kernels line) and qwen3's per-head norm, then the prefill and
+# training shapes (gemma-2b 1024 and 2 x 1024 tokens, recurrentgemma-9b
+# 4096, xlstm-125m 2048 at its model and inner widths)
+RMSNORM_SHAPES = ((8, 2048), (64, 8, 128), (1024, 2048), (2048, 2048), (4096, 4096),
+                  (2048, 768), (2048, 1536))
 WHERE = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:28"),
@@ -269,8 +275,8 @@ def check_rmsnorm(gen, rows_shape, dtype) -> dict:
     weight = (1.0 + scale).to(dtype)
     nbytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
     b_ms, b_by = bound(nbytes, 4 * x.numel(), dtype)
-    # the inputs are tens of KB: the serving path finds them in L2 too,
-    # just written by the op before
+    # every call reads the same x, as the model's norm reads the x that the
+    # op before it has just written: from L2 where it fits in its 50 MB
     return {
         "shape": list(rows_shape), "dtype": str(dtype), "max_abs_err": err,
         "ms": time_ms(lambda i: kernels.rmsnorm(x, scale)),
@@ -567,8 +573,11 @@ def check_mlstm(gen, B, S, H, dk, chunk, dtype) -> dict:
     del got, final, want, wfinal
     nbytes = (3 * q.numel() * q.element_size() + 2 * i_pre.numel() * 4
               + q.numel() * 4 + B * H * (dk * dk + dk + 1) * 4)
-    # the products run in f32 on the CUDA cores whatever the input type
-    b_ms, b_by = bound(nbytes, mlstm_flops(B, S, H, dk, chunk), torch.float32)
+    # the products' rate follows the input type: bf16 q, k, v run them on
+    # the tensor cores (989 TFLOP/s; the kernel's split of its f32 operands
+    # into bf16 terms is its own choice, not the work's), f32 ones on the
+    # CUDA cores (67 TFLOP/s)
+    b_ms, b_by = bound(nbytes, mlstm_flops(B, S, H, dk, chunk), dtype)
     return {
         "shape": {"B": B, "S": S, "H": H, "dk": dk, "chunk": chunk},
         "dtype": str(dtype), "max_abs_err": err,
@@ -1190,7 +1199,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     results = {name: [] for name in WHERE}
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in ((8, 2048), (64, 8, 128)):
+        for shape in RMSNORM_SHAPES:
             results["rmsnorm"].append(check_rmsnorm(gen, shape, dtype))
         for B, H, KV, D in ((8, 8, 1, 256), (8, 40, 8, 128)):
             results["paged_decode_attention"].append(check_paged(

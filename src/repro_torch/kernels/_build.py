@@ -58,8 +58,8 @@ _SIGNATURES = {
     "repro_rglru_scan": ([_int, _vp, _vp, _vp, _int, _int, _int, _vp],
                          ctypes.c_int),
     "repro_mlstm_chunk": (
-        [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
-         _int, _int, _int, _float, _vp], ctypes.c_int),
+        [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int,
+         _int, _int, _int, _int, _int, _int, _int, _float, _vp], ctypes.c_int),
     "repro_mlstm_chunk_max_dk": ([], ctypes.c_int),
     "repro_mlstm_chunk_max_chunk": ([], ctypes.c_int),
     "repro_error_string": ([_int], ctypes.c_char_p),

@@ -32,10 +32,6 @@ __device__ __forceinline__ void mma16816(float* c, const unsigned* a, unsigned b
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
 
 // A (16 x 16) at rows m0 .., columns k0 .. of a row-major bf16 tile.
 __device__ __forceinline__ void load_a(unsigned* a, const bf16* tile, int ld, int m0, int k0,

@@ -10,6 +10,11 @@ sigmoid is taken here, outside the kernel.  A tensor on the CPU takes the
 plain version (``ref.mlstm_chunk_ref``); a CUDA tensor launches the kernel
 or raises.  Neither package has a backward for it, so under grad mode
 inputs that require grad are refused.
+
+The kernel runs in two passes on the caller's stream (one call, one count
+in ``.launches``): a state pass writes the carry entering every chunk to a
+workspace that this wrapper allocates, and an output pass reads it.  The
+grids and the workspace come from the shapes alone (``_plan``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,26 @@ import torch.nn.functional as F
 
 from . import _build
 from .ref import mlstm_chunk_ref
+
+# as in csrc/mlstm_chunk.cu: a state-pass block holds a STATE_TILE[0] x
+# STATE_TILE[1] tile of C (dk rows x value columns); an output-pass block
+# writes VALUE_TILE value columns of h
+STATE_TILE = {torch.bfloat16: (64, 96), torch.float32: (64, 64)}
+VALUE_TILE = {torch.bfloat16: 192, torch.float32: 32}
+
+
+def _plan(B: int, S: int, H: int, dk: int, c: int, dtype) -> tuple:
+    """``(state_tiles, state_e_tiles, value_tiles, workspace_floats)`` for
+    chunks of ``c``: the state pass's grid is (B * H, state_tiles,
+    state_e_tiles) tiles of C, the output pass's (B * H, S / c,
+    value_tiles); the workspace holds, for every (batch, head, chunk), the
+    carry entering that chunk with dk rounded up to 16 (dkp): C (dkp^2
+    floats: row-major for f32 inputs, in mma fragment order for bf16), n
+    (dkp) and m."""
+    dkp = -(-dk // 16) * 16
+    rows, cols = STATE_TILE[dtype]
+    return (-(-dk // rows), -(-dk // cols), -(-dk // VALUE_TILE[dtype]),
+            B * H * (S // c) * (dkp * dkp + dkp + 1))
 
 
 def mlstm_chunk(q, k, v, i_pre, f_pre, *, chunk: int = 128,
@@ -66,11 +91,14 @@ def mlstm_chunk(q, k, v, i_pre, f_pre, *, chunk: int = 128,
                  torch.empty((B, H), dtype=torch.float32, device=q.device))
     C_ptr, n_ptr, m_ptr = ((None, None, None) if final is None
                            else tuple(t.data_ptr() for t in final))
+    state_tiles, state_e_tiles, value_tiles, ws_floats = _plan(B, S, H, dk, c,
+                                                               q.dtype)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=q.device)
     err = lib.repro_mlstm_chunk(
         q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), log_i.data_ptr(), log_f.data_ptr(), h.data_ptr(), C_ptr,
-        n_ptr, m_ptr, B, S, H, dk, c, 1.0 / math.sqrt(dk),
-        _build.stream(q.device))
+        n_ptr, m_ptr, ws.data_ptr(), B, S, H, dk, c, state_tiles, state_e_tiles,
+        value_tiles, 1.0 / math.sqrt(dk), _build.stream(q.device))
     _build.check(err, name)
     mlstm_chunk.launches += 1
     return (h, final) if return_final else h

@@ -52,7 +52,13 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(7, 128), (2, 33, 256), (8, 2048), (64, 8, 128)])
+@pytest.mark.parametrize("shape", [
+    (7, 128), (2, 33, 256), (8, 2048), (64, 8, 128),
+    # the prefill and training shapes: gemma-2b, recurrentgemma-9b, xlstm's
+    # inner width, qwen3-14b's model width
+    (1024, 2048), (2048, 2048), (4096, 4096), (2048, 1536), (3, 5120),
+    (5, 100), (4, 770),  # widths no plan holds: the scalar variant
+])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_kernel(cuda, shape, dtype):
     rng = np.random.default_rng(5)
@@ -63,6 +69,32 @@ def test_rmsnorm_kernel(cuda, shape, dtype):
     got = kernels.rmsnorm(x, scale)
     assert kernels.rmsnorm.launches == before + 1
     _close(got, kernels.ref.rmsnorm_ref(x, scale), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 2048, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_unaligned_rows(cuda, d, dtype):
+    """Rows that start one element past a 16-byte boundary (a contiguous
+    view at an odd offset, as ``layers.rmsnorm``'s ``x.contiguous()`` may
+    pass) take the scalar variant and give the same result."""
+    rng = np.random.default_rng(d)
+    flat = torch.from_numpy(rng.standard_normal(6 * d + 1).astype(np.float32))
+    x = flat.to(cuda, TDT[dtype])[1:].view(6, d)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    scale = torch.from_numpy((rng.standard_normal(d) * 0.1).astype(np.float32)).to(cuda)
+    _close(kernels.rmsnorm(x, scale), kernels.ref.rmsnorm_ref(x, scale), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 2048), (64, 8, 128), (2048, 1536), (4, 4096),
+                                   (3, 5120), (5, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_is_deterministic(cuda, shape, dtype):
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, TDT[dtype])
+    scale = torch.from_numpy((rng.standard_normal(shape[-1]) * 0.1).astype(np.float32)).to(cuda)
+    assert torch.equal(kernels.rmsnorm(x, scale), kernels.rmsnorm(x, scale))
 
 
 @pytest.mark.gpu
@@ -583,9 +615,13 @@ def _mlstm_inputs(rng, B, S, H, dk, device, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,dk,chunk", [
     (1, 64, 2, 32, 16), (2, 128, 2, 64, 32), (1, 128, 4, 32, 64),  # the sweep's
-    (1, 60, 2, 100, 20),    # dk off the 32 columns a block owns, chunk off 16
+    (1, 60, 2, 100, 20),    # dk off the tiles (and off 8: no 16-byte pieces), chunk off 16
     (1, 512, 4, 384, 128),  # xlstm-125m's width
     (2, 96, 4, 64, 96),     # xlstm's reduced width, one chunk of 96
+    (1, 2048, 4, 384, 128),  # xlstm-125m's prefill, the full shape
+    (2, 256, 4, 384, 128),  # two batches, two chunks
+    (1, 384, 2, 64, 128),   # dk within one value tile
+    (1, 4096, 2, 64, 128),  # 32 chunks: two groups of the state pass's gates
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mlstm_chunk_kernel(cuda, B, S, H, dk, chunk, dtype):

@@ -427,3 +427,34 @@ def test_mlstm_chunk_matches_pallas(B, S, H, dk, chunk):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=MLSTM_ATOL,
                                    rtol=MLSTM_RTOL)
     assert torch.equal(tk.mlstm_chunk(*tin, chunk=chunk), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,dk,chunk", [
+    (1, 2048, 4, 384, 128),  # xlstm-125m's prefill
+    (2, 256, 4, 384, 128),   # two batches, two chunks
+    (1, 384, 2, 64, 128),    # dk one tile wide
+    (1, 60, 2, 100, 20),     # dk off the tiles, chunk off 16
+    (2, 96, 4, 64, 96),      # one chunk
+    (1, 64, 2, 32, 16),      # dk under a tile
+    (1, 8, 1, 512, 8),       # the widest dk the kernel takes
+    (3, 7, 2, 1, 7),         # one column
+])
+def test_mlstm_plan_covers_every_column_and_chunk(B, S, H, dk, chunk, dtype):
+    """The two passes' grids and the workspace, planned in the wrapper from
+    the shapes: the state pass's tiles cover every dk row and value column
+    of C once, the output pass's every value column of h, and the
+    workspace holds one carry (C, n, m) for every (batch, head, chunk), with
+    dk rounded up to whole 16 x 16 units of C."""
+    from repro_torch.kernels.mlstm_chunk import STATE_TILE, VALUE_TILE, _plan
+    tdt = TDT[dtype]
+    c = min(chunk, S)
+    state_tiles, state_e_tiles, value_tiles, ws_floats = _plan(B, S, H, dk, c, tdt)
+    # the tiles (consecutive, of a fixed width) reach past every dk row and
+    # value column of C and of h, and none lies wholly past dk
+    for tiles, width in ((state_tiles, STATE_TILE[tdt][0]), (state_e_tiles, STATE_TILE[tdt][1]),
+                         (value_tiles, VALUE_TILE[tdt])):
+        assert tiles * width >= dk > (tiles - 1) * width
+    assert S % c == 0 and (S // c) * c == S  # the output grid's chunks tile S
+    dkp = -(-dk // 16) * 16  # C in whole 16 x 16 units
+    assert ws_floats == B * H * (S // c) * (dkp * dkp + dkp + 1)
