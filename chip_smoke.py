@@ -1222,6 +1222,9 @@ def main() -> int:
     # 16 heads, MQA, head_dim 256, window 2048 over 4096 tokens), xlstm-125m
     # (4 heads of dk 384, chunk 128, 2048 tokens; bf16 first: the model's)
     results["rglru_scan"].append(check_rglru(gen, 1, 4096, 4096))
+    # and a batch, a long sequence, a sequence off the kernel's stages
+    for B, S in ((4, 1024), (1, 16384), (1, 1000)):
+        results["rglru_scan"].append(check_rglru(gen, B, S, 4096))
     for dtype in (torch.bfloat16, torch.float32):
         results["mlstm_chunk"].append(check_mlstm(gen, 1, 2048, 4, 384, 128, dtype))
     windowed = [check_flash(gen, 1, 4096, 16, 1, 256, torch.bfloat16, window=2048)]

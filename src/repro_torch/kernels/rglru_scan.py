@@ -7,6 +7,11 @@ channels, in f32.  Unlike the TPU kernel it takes any B, S and C.  A tensor
 on the CPU takes the plain version (``ref.rglru_scan_ref``); a CUDA tensor
 launches the kernel or raises.  Neither package has a backward for it, so
 under grad mode inputs that require grad are refused.
+
+A block of the kernel owns 32 channels of one batch row and walks the
+sequence in stages of 128 time steps, two stages of loads in flight ahead of
+its scan; rows that are not whole 16-byte pieces from 16-byte aligned bases
+take 4-byte copies (``csrc/rglru_scan.cu``).
 """
 
 from __future__ import annotations

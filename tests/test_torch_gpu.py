@@ -22,6 +22,7 @@ from repro_torch.models import (
     loss_fn,
 )
 from repro_torch.models.layers import matmul_f32
+from repro_torch.models.recurrent import _rglru_gates, init_rglru
 from repro_torch.serve import PagedServeEngine, Request, ServeEngine
 from repro_torch.train import (
     OptimizerConfig,
@@ -585,21 +586,73 @@ def _clone(params):
 MLSTM_ATOL, MLSTM_RTOL = 5e-5, 5e-4
 
 
+RGLRU_STEPS = 128  # time steps of a stage of csrc/rglru_scan.cu (kSteps)
+
+
+def _rglru_inputs(rng, B, S, C, device):
+    """The inputs of test_rglru_scan_sweep: log_a = -0.2 |N|, b ~ N."""
+    log_a = -(_randn(rng, (B, S, C), device, "float32").abs() * 0.2)
+    return log_a, _randn(rng, (B, S, C), device, "float32")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,C", [
     (2, 128, 128), (4, 64, 256), (1, 256, 128),  # test_rglru_scan_sweep's
     (3, 37, 100),                                # ragged everywhere
     (1, 1000, 4096),                             # recurrentgemma-9b's width
+    # the ring's edges: a stage short of, at and one past 10 stages
+    (2, 10 * RGLRU_STEPS - 1, 128), (2, 10 * RGLRU_STEPS, 128),
+    (2, 10 * RGLRU_STEPS + 1, 128),
+    (2, 300, 4), (2, 300, 36), (1, 200, 4100),   # C off the 32-channel blocks
+    (2, 130, 37),                                # C off the 16-byte pieces
+    (4, 1024, 4096), (1, 16384, 4096),           # a batch; a long sequence
 ])
 def test_rglru_scan_kernel(cuda, B, S, C):
     rng = np.random.default_rng(S + C)
-    log_a = -(_randn(rng, (B, S, C), cuda, "float32").abs() * 0.2)
-    b = _randn(rng, (B, S, C), cuda, "float32")
+    log_a, b = _rglru_inputs(rng, B, S, C, cuda)
     before = kernels.rglru_scan.launches
     got = kernels.rglru_scan(log_a, b)
     assert kernels.rglru_scan.launches == before + 1
     torch.cuda.synchronize()
     # f32, 1e-5 abs + rel, as tests/test_kernels.py::test_rglru_scan_sweep
+    torch.testing.assert_close(got, kernels.ref.rglru_scan_ref(log_a, b),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,C", [(1, 4096, 4096), (3, 37, 100), (2, 130, 37)])
+def test_rglru_scan_kernel_is_deterministic(cuda, B, S, C):
+    """Two calls agree bit for bit; so do inputs that start one element past
+    a 16-byte boundary (the scalar copies), since every variant computes
+    each step as fma(exp(log_a), h, b) in sequence."""
+    rng = np.random.default_rng(B + S + C)
+    log_a, b = _rglru_inputs(rng, B, S, C, cuda)
+    first = kernels.rglru_scan(log_a, b)
+    assert torch.equal(kernels.rglru_scan(log_a, b), first)
+    n = log_a.numel()
+    flat = torch.empty(2, n + 1, device=cuda)
+    flat[0, 1:], flat[1, 1:] = log_a.reshape(-1), b.reshape(-1)
+    shifted = (flat[0, 1:].view(B, S, C), flat[1, 1:].view(B, S, C))
+    assert shifted[0].data_ptr() % 16 and shifted[0].is_contiguous()
+    assert torch.equal(kernels.rglru_scan(*shifted), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,d_rnn", [(1, 4096, 4096), (2, 2048, 1024)])
+def test_rglru_scan_kernel_on_recurrentgemma_decay(cuda, B, S, d_rnn):
+    """log_a and b as recurrentgemma's RG-LRU layer makes them: a =
+    exp(-c softplus(lam) r) from init_rglru's lam (a in [0.9, 0.999] at r =
+    1) and a sigmoid gate r, b = sqrt(1 - a^2) i x.  a lies close to 1, so h
+    carries a long memory."""
+    gen = torch.Generator(device=cuda).manual_seed(S + d_rnn)
+    params = init_rglru(gen, 8, d_rnn, 4)
+    xr = torch.randn(B, S, d_rnn, generator=gen, device=cuda)
+    with torch.no_grad():
+        log_a, b = _rglru_gates(params, xr)
+    log_a, b = log_a.contiguous(), b.contiguous()
+    assert log_a.min().item() > -0.2  # a > 0.8 everywhere
+    got = kernels.rglru_scan(log_a, b)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got, kernels.ref.rglru_scan_ref(log_a, b),
                                atol=1e-5, rtol=1e-5)
 
