@@ -25,13 +25,15 @@ def map_params(fn, tree, key=None):
 
 
 # Leaves that the reference reads in f32 (``x.astype(f32) @ w``, ``+ b`` in
-# f32, an f32 step conv) rather than through ``.astype(dtype)``, by the
+# f32, an f32 step conv, qwen2-moe's shared-expert gate) rather than through
+# ``.astype(dtype)``, by the
 # block that holds them.  Norm scales (``scale``, anywhere) are read in f32
 # too.
 F32_LEAVES = {
     "rglru": {"w_a", "w_i", "b_a", "b_i", "lam", "conv_w", "conv_b"},
     "mlstm": {"w_i", "w_f", "b_i", "b_f", "conv_w", "conv_b"},
     "slstm": {f"{kind}_{gate}" for kind in "wrb" for gate in "zifo"},
+    "moe": {"shared_gate"},
 }
 
 

@@ -4,7 +4,9 @@ the fixed-slot engine (prefill-by-decode admission, greedy sampling).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --smoke \\
       --requests 8 --slots 4 --max-new 16
 
-Ported from ``repro/launch/serve.py``.  It runs on CUDA in bf16;
+Ported from ``repro/launch/serve.py``; it takes any of the ten archs (the
+frontend families serve tokens only, as the reference's engines do).  It
+runs on CUDA in bf16;
 ``--device cpu`` runs the plain path in f32 on the CPU.  Weights are random,
 drawn from a torch generator, so the tokens differ from the JAX launcher's.
 ``--platform`` (serving inside the control plane) comes with the port's

@@ -7,8 +7,10 @@
 
 Ported from the direct mode of ``repro/launch/train.py``: f32 parameters
 and AdamW moments, the lcg token stream from seed 0, remat unless
-``--smoke``.  It runs on CUDA in bf16; ``--device cpu`` runs the plain
-path in f32 on the CPU.  As in the reference, the direct mode builds its
+``--smoke``; a config with a frontend (musicgen-large, internvl2-26b)
+also draws its ``frontend_embeds`` from the stream, which the reference's
+direct mode leaves out.  It runs on CUDA in bf16; ``--device cpu`` runs
+the plain path in f32 on the CPU.  As in the reference, the direct mode builds its
 ``TrainConfig`` without ``--lr``, so the optimizer keeps its default rate.
 ``--mesh`` (sharded training) comes with the port's multi-GPU slice and
 ``--platform`` (a job on the control plane) with its trainer PE.
@@ -58,7 +60,8 @@ def main(argv=None) -> list:
                         else "bfloat16")
     tcfg = TrainConfig(accum_steps=args.accum, remat=not args.smoke)
     src = StreamSource(vocab_size=cfg.vocab_size, batch=args.batch,
-                       seq_len=args.seq, seed=0)
+                       seq_len=args.seq, seed=0, frontend_len=cfg.frontend_len,
+                       frontend_dim=cfg.frontend_dim)
     state = init_train_state(cfg, tcfg, seed=0, device=device)
     step = make_train_step(cfg, tcfg, opts)
     print(f"training {cfg.name}: {cfg.param_count() / 1e6:.0f}M params on "

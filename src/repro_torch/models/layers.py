@@ -39,21 +39,23 @@ ATTN_IMPLS = ("kernel", "plain")
 
 
 class _MatmulF32(torch.autograd.Function):
-    """``torch.mm(a, b, out_dtype=float32)`` with a backward: that call has
-    no derivative of its own.  The gradients are two products in the
-    operands' dtype, as the reference's transposed dots come out."""
+    """``torch.mm(a, b, out_dtype=float32)`` (``torch.bmm`` for 3-D
+    operands) with a backward: that call has no derivative of its own.  The
+    gradients are two products in the operands' dtype, as the reference's
+    transposed dots come out."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        return torch.mm(a, b, out_dtype=torch.float32)
+        mm = torch.bmm if a.dim() == 3 else torch.mm
+        return mm(a, b, out_dtype=torch.float32)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         g = g.to(a.dtype)
-        da = torch.mm(g, b.t()) if ctx.needs_input_grad[0] else None
-        db = torch.mm(a.t(), g) if ctx.needs_input_grad[1] else None
+        da = g @ b.mT if ctx.needs_input_grad[0] else None
+        db = a.mT @ g if ctx.needs_input_grad[1] else None
         return da, db
 
 
@@ -61,14 +63,24 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for 2-D ``b``, accumulated and returned in f32: the
     reference's ``preferred_element_type=jnp.float32``.  bf16 operands on the
     card keep their width (no f32 copy of a weight); on the CPU they are
-    widened first."""
-    if a.dtype == torch.float32 and b.dtype == torch.float32:
+    widened first.  f32 or f64 operands of one dtype multiply as they are."""
+    if a.dtype == b.dtype and a.dtype in (torch.float32, torch.float64):
         return a @ b
     if a.is_cuda:
         lead = a.shape[:-1]
         out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*lead, b.shape[-1])
     return a.float() @ b.float()
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for 3-D ``a`` (G,M,K) and ``b`` (G,K,N), accumulated and
+    returned in f32, as ``matmul_f32``."""
+    if a.dtype == b.dtype and a.dtype in (torch.float32, torch.float64):
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return _MatmulF32.apply(a, b)
+    return torch.bmm(a.float(), b.float())
 
 
 # --------------------------------------------------------------------- norms

@@ -7,10 +7,11 @@ keys, shapes and axis orders (``wq (d,H,hd)``, ``wo (H,hd,d)``), so the
 reference's weights carry across unchanged (``repro_torch.convert``).
 
 Entry points, for stacks of global-attention, local-attention, RG-LRU,
-mLSTM and sLSTM layers with dense MLPs (MoE and frontends raise):
+mLSTM and sLSTM layers with dense MLPs or MoE layers, and for the audio
+and vision frontends' precomputed embeddings:
 
 - ``init_params``        -- parameters drawn from a torch generator;
-- ``forward``            -- full-sequence logits (+ a zero aux loss),
+- ``forward``            -- full-sequence logits (+ the MoE aux loss),
                             optionally rematerialised per main group;
 - ``loss_fn``            -- masked f32 cross-entropy over ``forward``;
 - ``forward_with_cache`` -- prefill: ``forward`` that also builds the cache;
@@ -20,25 +21,29 @@ mLSTM and sLSTM layers with dense MLPs (MoE and frontends raise):
 Full-sequence attention runs the flash kernel (with a window for local
 layers), decode the dense decode kernel, RG-LRU layers the ``rglru_scan``
 kernel and mLSTM layers the ``mlstm_chunk`` kernel
-(``ModelOptions.attn_impl``).  The reference's ``lax.scan`` over the main
-groups is a loop over the stacked leading axis, and the decode cache (K/V,
-ring buffers and recurrent states) is written in place where the reference
-returns a new one.  The paged engine's tick lives in
-``repro_torch.serve.paged_model``.  MoE and frontends come in their own
-slices.
+(``ModelOptions.attn_impl``); MoE layers run ``models.moe``, whose
+products are plain batched matmuls as in the reference.  The reference's
+``lax.scan`` over the main groups is a loop over the stacked leading axis,
+and the decode cache (K/V, ring buffers and recurrent states) is written
+in place where the reference returns a new one.  The paged engine's tick
+lives in ``repro_torch.serve.paged_model``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..convert import cast_params, map_params
 from ..device import resolve_device
 from . import recurrent as rec
+from .moe import IMPLS as MOE_IMPLS
+from .moe import init_moe, moe_apply
 from .layers import (
     ATTN_IMPLS,
     apply_rope,
@@ -61,16 +66,21 @@ class ModelOptions:
     attention, ``rglru_scan``, ``mlstm_chunk``: ``"kernel"``) or their plain
     versions (``"plain"``, which tests and ``chip_smoke.py`` compare
     against).  ``mlstm_chunk`` is the mLSTM recurrence's chunk length, the
-    reference's default.  The reference's other knobs (attention chunking,
-    MoE dispatch, Pallas hooks) come with the code paths that read them."""
+    reference's default.  ``moe_impl``, if given, overrides ``MoECfg.impl``
+    (the MoE dispatch path: ``"einsum"`` or ``"sort"``).  The reference's
+    other knobs (attention chunking, Pallas hooks) have no counterpart:
+    the kernels take their place."""
 
     compute_dtype: str = "bfloat16"
     attn_impl: str = "kernel"
     mlstm_chunk: int = 128
+    moe_impl: Optional[str] = None
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
+        if self.moe_impl is not None and self.moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl must be one of {MOE_IMPLS}")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -129,11 +139,8 @@ LAYER_KINDS = ("attn", "local", "rglru", "mlstm", "slstm")
 
 
 def check_supported(spec: LayerSpec) -> None:
-    """The port takes every layer kind with a dense MLP (or none)."""
     if spec.kind not in LAYER_KINDS:
         raise ValueError(f"unknown layer kind {spec.kind!r}")
-    if spec.use_moe:
-        raise NotImplementedError("MoE layers come with the MoE slice of the port")
 
 
 # ------------------------------------------------------------------- params
@@ -172,44 +179,64 @@ def _init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> dict:
         p["mlstm"] = rec.init_mlstm(gen, d, cfg.num_heads, cfg.conv_width)
     else:
         p["slstm"] = rec.init_slstm(gen, d, cfg.num_heads)
-    if spec.d_ff > 0:
+    if spec.use_moe:
+        p["norm2"] = init_rmsnorm(d, dev)
+        p["moe"] = init_moe(gen, d, cfg.moe)
+    elif spec.d_ff > 0:
         p["norm2"] = init_rmsnorm(d, dev)
         p["mlp"] = init_mlp(gen, d, spec.d_ff, cfg.gated_mlp, out_scale=out_scale)
     return p
 
 
-def _stack(trees: list):
-    """Stack same-structured dicts leaf by leaf on a new leading axis."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _put(stacked, layer, g: int) -> None:
+    """Copy ``layer``'s leaves into group ``g`` of the stacked tree."""
+    if isinstance(layer, dict):
+        for k, v in layer.items():
+            _put(stacked[k], v, g)
+    else:
+        stacked[g].copy_(layer)
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
+def init_params(cfg: ArchConfig, seed: int = 0, device=None,
+                dtype=None) -> dict:
     """Random f32 parameters drawn from ``seed`` on ``device`` (CUDA unless
     the caller asks for the CPU).  Same keys, shapes and scales as the
     reference's ``init_params``; the numbers differ, since torch's
-    generator is not JAX's."""
+    generator is not JAX's.
+
+    ``dtype``, if given, casts as ``convert.cast_params`` does (norm scales
+    and ``F32_LEAVES`` stay f32), each layer as soon as it is drawn: the
+    result equals ``cast_params(init_params(cfg, seed, device), dtype)``
+    without the whole f32 tree ever existing (deepseek-moe-16b: 30.5 GiB
+    in bf16, where the f32 tree alone is 61.0)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     plan = stack_plan(cfg)
+
+    def cast(tree):
+        return tree if dtype is None else cast_params(tree, dtype)
+
     params: dict = {
-        "embed": {"table": dense_init(gen, (cfg.padded_vocab, cfg.d_model))
-                  * cfg.d_model ** 0.5},
+        "embed": cast({"table": dense_init(gen, (cfg.padded_vocab, cfg.d_model))
+                       * cfg.d_model ** 0.5}),
         "final_norm": init_rmsnorm(cfg.d_model, dev),
     }
     if not cfg.tie_embeddings:
-        params["head"] = {"w": dense_init(gen, (cfg.d_model, cfg.padded_vocab))}
+        params["head"] = cast({"w": dense_init(gen, (cfg.d_model, cfg.padded_vocab))})
     if cfg.frontend:
-        params["frontend"] = {"w": dense_init(gen, (cfg.frontend_dim, cfg.d_model))}
-    params["prefix"] = [_init_layer(gen, cfg, s) for s in plan.prefix]
+        params["frontend"] = cast(
+            {"w": dense_init(gen, (cfg.frontend_dim, cfg.d_model))})
+    params["prefix"] = [cast(_init_layer(gen, cfg, s)) for s in plan.prefix]
     params["main"] = []
-    if plan.num_groups:
-        groups = [[_init_layer(gen, cfg, s) for s in plan.pattern]
-                  for _ in range(plan.num_groups)]
-        params["main"] = [_stack([g[i] for g in groups])
-                          for i in range(len(plan.pattern))]
-    params["tail"] = [_init_layer(gen, cfg, s) for s in plan.tail]
+    for g in range(plan.num_groups):  # drawn group by group, in place
+        group = [cast(_init_layer(gen, cfg, s)) for s in plan.pattern]
+        if g == 0:
+            params["main"] = [
+                map_params(lambda _k, t: t.new_empty((plan.num_groups, *t.shape)),
+                           layer) for layer in group]
+        for stacked, layer in zip(params["main"], group):
+            _put(stacked, layer, g)
+    params["tail"] = [cast(_init_layer(gen, cfg, s)) for s in plan.tail]
     return params
 
 
@@ -259,17 +286,26 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def embed_inputs(params, cfg: ArchConfig, tokens, frontend_embeds,
                  dtype) -> torch.Tensor:
     """tokens (B,S) int -> (B,S,d) in ``dtype``.  The scale is rounded to
-    ``dtype`` first (45.25 in bf16 for d_model 2048), as in the
-    reference."""
-    if cfg.frontend or frontend_embeds is not None:
-        raise NotImplementedError(
-            "frontend embeddings come with the frontends slice of the port")
+    ``dtype`` first (45.25 in bf16 for d_model 2048), as in the reference.
+    A config with a frontend takes ``frontend_embeds`` (B,F,frontend_dim),
+    projects them by ``frontend.w`` in ``dtype`` and puts them ahead of
+    the (scaled) tokens: (B, F+S, d).  Other configs ignore them, as the
+    reference does."""
     # F.embedding, not indexing: on the CPU the backward of indexing adds
     # rows in an order that depends on threads, so two equal train steps
     # could part in the last bits
     x = F.embedding(tokens.long(), params["embed"]["table"]).to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=x.device)
+    if cfg.frontend:
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name} takes frontend_embeds "
+                             f"(B, {cfg.frontend_len}, {cfg.frontend_dim})")
+        # the reference's einsum names no accumulation type: the output is
+        # in the compute dtype
+        fe = (frontend_embeds.to(device=x.device, dtype=dtype)
+              @ params["frontend"]["w"].to(dtype))
+        x = torch.cat([fe, x], dim=1)
     return x
 
 
@@ -348,13 +384,29 @@ def _apply_layer_seq(lparams, cfg: ArchConfig, spec: LayerSpec, x, sin, cos,
             out = rec.slstm_seq(lparams["slstm"], h, cfg.num_heads,
                                 return_state=want_state)
         mix, state = out if want_state else (out, None)
-    x = x + mix
-    if spec.d_ff > 0:
-        h2 = rmsnorm(x, lparams["norm2"]["scale"], cfg.norm_eps)
-        x = x + mlp_apply(lparams["mlp"], h2, cfg.act, cfg.gated_mlp)
+    x, moe_aux = ffn_block(lparams, cfg, spec, x + mix, opts)
+    if moe_aux is not None:
+        aux = moe_aux
     if want_state:
         return x, aux, state
     return x, aux
+
+
+def ffn_block(lparams, cfg: ArchConfig, spec: LayerSpec, x, opts: ModelOptions):
+    """x plus the layer's second sub-block: RMSNorm, then the MoE or the
+    dense MLP (none where ``d_ff`` is 0).  x is a sequence (B,S,d) or one
+    token per row (B,d); an MoE routes one row's tokens, or all rows'
+    tokens, together.  Returns (x, the MoE's aux loss or None)."""
+    if spec.use_moe:
+        h2 = rmsnorm(x, lparams["norm2"]["scale"], cfg.norm_eps)
+        seq = x.dim() == 3
+        m = cfg.moe if opts.moe_impl is None else replace(cfg.moe, impl=opts.moe_impl)
+        out, aux = moe_apply(lparams["moe"], h2 if seq else h2[:, None], m, cfg.act)
+        return x + (out if seq else out[:, 0]), aux
+    if spec.d_ff > 0:
+        h2 = rmsnorm(x, lparams["norm2"]["scale"], cfg.norm_eps)
+        x = x + mlp_apply(lparams["mlp"], h2, cfg.act, cfg.gated_mlp)
+    return x, None
 
 
 def _unstack(main: list, num_groups: int) -> list:
@@ -404,8 +456,9 @@ def _run_seq(params, cfg: ArchConfig, tokens, frontend_embeds,
 
 def forward(params, cfg: ArchConfig, tokens, frontend_embeds=None,
             opts: ModelOptions = ModelOptions(), remat: bool = False):
-    """Full-sequence forward.  tokens (B,S) -> (logits (B,S,V) f32, aux),
-    with ``aux`` the f32 zero the reference's MoE loss is added to.
+    """Full-sequence forward.  tokens (B,S) -> (logits (B,S+F,V) f32, aux),
+    with F the frontend's positions (0 without one) and ``aux`` the MoE
+    layers' load-balance losses summed in f32 (0 without MoE).
 
     ``remat`` recomputes each main group's activations in backward instead
     of keeping them (``torch.utils.checkpoint``): the same numbers, less
@@ -422,8 +475,11 @@ def forward_with_cache(params, cfg: ArchConfig, tokens, frontend_embeds=None,
 
     Returns (logits (B,S,V) f32, cache) with global-attention caches padded
     to ``max(max_len, S)`` positions, local ones as ring buffers, recurrent
-    layers' final states, and ``cache['len']`` set to S."""
+    layers' final states, and ``cache['len']`` set to S (a frontend's
+    positions included)."""
     B, S = tokens.shape
+    if cfg.frontend and frontend_embeds is not None:
+        S += frontend_embeds.shape[1]
     max_len = max(max_len, S)
     logits, _, states = _run_seq(params, cfg, tokens, frontend_embeds, opts,
                                  want_state=True, max_len=max_len)
@@ -491,7 +547,9 @@ def _decode_layer(lparams, cfg: ArchConfig, spec: LayerSpec, state, x, sin,
                   cos, lengths, advance, opts: ModelOptions):
     """One layer, one token per row.  x (B,d).  Updates ``state`` in place
     (rows where ``advance`` is False keep every leaf bit for bit) and
-    returns the new x."""
+    returns the new x.  Every row computes as if it advanced, as the
+    reference's batched step does before ``_merge_slot``: an MoE layer
+    routes all rows together, so the rows that stay take capacity too."""
     check_supported(spec)
     h = rmsnorm(x, lparams["norm1"]["scale"], cfg.norm_eps)
     if spec.kind in ("attn", "local"):
@@ -506,11 +564,7 @@ def _decode_layer(lparams, cfg: ArchConfig, spec: LayerSpec, state, x, sin,
             mix, new = rec.slstm_step(lparams["slstm"], h, state, cfg.num_heads)
         for key, t in new.items():  # the reference's _merge_slot / _mask_tree
             state[key].copy_(_keep_rows(t, state[key], advance))
-    x = x + mix
-    if spec.d_ff > 0:
-        h2 = rmsnorm(x, lparams["norm2"]["scale"], cfg.norm_eps)
-        x = x + mlp_apply(lparams["mlp"], h2, cfg.act, cfg.gated_mlp)
-    return x
+    return ffn_block(lparams, cfg, spec, x + mix, opts)[0]
 
 
 def _decode_attention(ap, cfg: ArchConfig, kind: str, state, h, sin, cos,
@@ -540,15 +594,19 @@ def _decode_attention(ap, cfg: ArchConfig, kind: str, state, h, sin, cos,
     slot = (lengths % Smax if kind == "local"
             else torch.clamp(lengths, max=Smax - 1)).long()
     rows = torch.arange(B, device=h.device)
-    if advance is not None:  # rows that stay write their old K/V back
-        keep = ~advance[:, None, None]
-        k = torch.where(keep, state["k"][rows, slot], k)
-        v = torch.where(keep, state["v"][rows, slot], v)
+    if advance is not None:
+        old = (state["k"][rows, slot], state["v"][rows, slot])
+    # every row attends over its new K/V, as in the reference's batched
+    # step; then the rows that stay get their old K/V back (_merge_slot)
     state["k"][rows, slot] = k
     state["v"][rows, slot] = v
     window = cfg.window if kind == "local" else 0
     out = cached_decode_attention(q, state["k"], state["v"], lengths + 1,
                                   opts.attn_impl, window)
+    if advance is not None:
+        go = advance[:, None, None]
+        state["k"][rows, slot] = torch.where(go, k, old[0])
+        state["v"][rows, slot] = torch.where(go, v, old[1])
     return out.reshape(B, H * hd) @ ap["wo"].flatten(0, 1).to(dt)
 
 
@@ -587,12 +645,12 @@ def loss_fn(params, cfg: ArchConfig, batch: dict,
     """batch: tokens (B,S), labels (B,S) with negative labels masked.
     Returns (loss, metrics): the mean f32 cross-entropy over unmasked
     tokens (over at least one) plus the MoE aux loss times its weight, and
-    ``ce_loss``, ``aux_loss``, ``tokens``."""
-    if cfg.frontend:
-        raise NotImplementedError(
-            "frontend label slicing comes with the frontends slice of the port")
+    ``ce_loss``, ``aux_loss``, ``tokens``.  A frontend's prefix positions
+    carry no labels: their logits are cut off first."""
     logits, aux = forward(params, cfg, batch["tokens"],
                           batch.get("frontend_embeds"), opts, remat=remat)
+    if cfg.frontend:
+        logits = logits[:, cfg.frontend_len:]
     labels = batch["labels"].long()
     mask = labels >= 0
     # log-softmax and the label's entry in one call, summed over unmasked

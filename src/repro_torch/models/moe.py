@@ -1,0 +1,214 @@
+"""Mixture-of-Experts layer: shared + fine-grained routed experts, ported
+from ``repro/models/moe.py``.
+
+Covers deepseek-moe-16b (2 shared + 64 routed experts, top-6) and
+qwen2-moe-a2.7b (4 shared + 60 routed, top-4, a sigmoid-gated shared
+expert).  Tokens are routed in groups of ``min(group_size, T)``; each
+expert takes at most ``C`` (the capacity) of a group's assignments, filled
+choice-major (every token's first choice, then every token's second, ...)
+and in token order, and the rest are dropped.  Two dispatch paths with the
+same drops, selected by ``MoECfg.impl``:
+
+- ``einsum``: the GShard dense dispatch and combine, as batched products
+  over the (E * C) slots of a group;
+- ``sort``: a stable argsort by expert gives each assignment its slot; the
+  tokens are scattered into an (E, C, d) buffer and the outputs gathered
+  back, each token's contributions summed in f32 in ascending expert order
+  (a fixed order: no atomics, the same bits on every call).
+
+Both run every slot of every expert through the experts' gated MLPs
+(``bmm`` over the expert axis).  The reference's ``shard`` constraints
+have no counterpart on one device.  No TPU kernel lies behind this layer:
+its products are plain einsums in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import MoECfg
+from .layers import act_fn, bmm_f32, dense_init, matmul_f32, mlp_apply
+
+IMPLS = ("einsum", "sort")
+
+
+def init_moe(gen: torch.Generator, d: int, m: MoECfg) -> dict:
+    """The reference's leaves and shapes: ``router`` (d,E), ``w_gate`` and
+    ``w_up`` (E,d,de), ``w_down`` (E,de,d), the shared experts' gated MLP
+    of width ``num_shared * de`` and qwen2's ``shared_gate`` (d,1)."""
+    E, de = m.num_experts, m.d_expert
+    p = {
+        "router": dense_init(gen, (d, E)),
+        "w_gate": dense_init(gen, (E, d, de)),
+        "w_up": dense_init(gen, (E, d, de)),
+        "w_down": dense_init(gen, (E, de, d)),
+    }
+    if m.num_shared:
+        ds = m.num_shared * de
+        p["shared"] = {
+            "w_gate": dense_init(gen, (d, ds)),
+            "w_up": dense_init(gen, (d, ds)),
+            "w_down": dense_init(gen, (ds, d)),
+        }
+        if m.shared_gate:
+            p["shared_gate"] = dense_init(gen, (d, 1))
+    return p
+
+
+def _capacity(m: MoECfg, g: int) -> int:
+    return max(4, int(math.ceil(g * m.top_k * m.capacity_factor / m.num_experts)))
+
+
+def _route(params, xg, m: MoECfg):
+    """xg (n,g,d) -> (gate_vals (n,g,k) f32, idx (n,g,k), probs (n,g,E) f32).
+
+    The router is rounded to the compute dtype and its product accumulated
+    in f32; the softmax is f32.  The top k come from a stable descending
+    sort, so equal probabilities go to the lower expert index first, as
+    ``jax.lax.top_k`` breaks ties (``torch.topk`` promises no order)."""
+    logits = matmul_f32(xg, params["router"].to(xg.dtype))
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :m.top_k], idx[..., :m.top_k], probs
+
+
+def _aux_loss(probs, idx, m: MoECfg) -> torch.Tensor:
+    """Load-balance loss: E * sum_e f_e * P_e (Switch/GShard form)."""
+    E = m.num_experts
+    f = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+    P = probs.mean(dim=(0, 1))
+    return E * torch.sum(f * P)
+
+
+def _slots(idx, C: int, E: int):
+    """Each assignment's slot in its expert's buffer, choice-major.
+
+    idx (n,g,k) -> (pos (n,g,k), keep (n,g,k) bool): ``pos`` counts the
+    assignments to the same expert before this one in the order (choice 0
+    of every token, then choice 1, ...; tokens in order), and ``keep`` is
+    ``pos < C``.  The reference's running count of one-hot masks."""
+    n, g, k = idx.shape
+    seq = idx.transpose(1, 2).reshape(n, k * g)  # choice-major sequence
+    counts = torch.cumsum(F.one_hot(seq, E), dim=1)  # (n, k*g, E)
+    pos = counts.gather(2, seq[..., None])[..., 0] - 1
+    pos = pos.view(n, k, g).transpose(1, 2)
+    return pos, pos < C
+
+
+def _experts_gemm(params, xe, act: str) -> torch.Tensor:
+    """xe (E, M, d) -> (E, M, d) through the experts' gated MLPs: gate and
+    up accumulated in f32, the activation product rounded to the compute
+    dtype, the down projection accumulated in f32 and rounded."""
+    dt = xe.dtype
+    g = bmm_f32(xe, params["w_gate"].to(dt))
+    u = bmm_f32(xe, params["w_up"].to(dt))
+    return bmm_f32((act_fn(act)(g) * u).to(dt),
+                   params["w_down"].to(dt)).to(dt)
+
+
+def _run_experts(params, xs, act: str) -> torch.Tensor:
+    """xs (n, E*C, d) slot buffers -> (n, E*C, d) expert outputs.  The
+    groups' slots of one expert form one product (E, n*C, d)."""
+    n, EC, d = xs.shape
+    E = params["w_gate"].shape[0]
+    xe = xs.view(n, E, EC // E, d).transpose(0, 1).reshape(E, -1, d)
+    ye = _experts_gemm(params, xe, act)
+    return ye.view(E, n, EC // E, d).transpose(0, 1).reshape(n, EC, d)
+
+
+def _moe_einsum(params, xg, m: MoECfg, act: str):
+    """The GShard dense dispatch.  xg (n,g,d) -> (out (n,g,d), aux).
+
+    ``combine`` (n, g, E*C) holds each kept assignment's gate at its slot.
+    The reference sums a one-hot (n,g,k,E,C) tensor over k to build it;
+    every token's k experts differ, so each of its slots gets one gate and
+    a scatter gives the same numbers without that tensor.  Dropped
+    assignments go to a spare column that is cut off."""
+    n, g, d = xg.shape
+    E = m.num_experts
+    C = _capacity(m, g)
+    gate_vals, idx, probs = _route(params, xg, m)
+    pos, keep = _slots(idx, C, E)
+    slot = torch.where(keep, idx * C + pos, E * C)
+    combine = gate_vals.new_zeros((n, g, E * C + 1)).scatter(
+        2, slot, gate_vals)[..., :E * C]
+    dispatch = (combine > 0).to(xg.dtype)
+    # each slot receives one token at most: the product is exact in any dtype
+    xs = torch.bmm(dispatch.transpose(1, 2), xg)  # (n, E*C, d)
+    ys = _run_experts(params, xs, act)
+    out = torch.bmm(combine.to(xg.dtype), ys)
+    return out, _aux_loss(probs, idx, m)
+
+
+def _moe_sort(params, xg, m: MoECfg, act: str):
+    """The argsort dispatch.  xg (n,g,d) -> (out (n,g,d), aux).
+
+    The same slots as the einsum path: a stable sort of the choice-major
+    sequence by expert gives each assignment its place in its expert's
+    run.  Tokens move by scatter and gather; a dropped assignment's index
+    points at a spare row (written and never read on scatter, zero on
+    gather), since torch faults where JAX drops or fills out of range."""
+    n, g, d = xg.shape
+    E, k = m.num_experts, m.top_k
+    C = _capacity(m, g)
+    gate_vals, idx, probs = _route(params, xg, m)
+    a = g * k
+    seq = idx.transpose(1, 2).reshape(n, a)  # j = choice * g + token
+    order = torch.argsort(seq, dim=1, stable=True)
+    e_sorted = seq.gather(1, order)
+    counts = F.one_hot(seq, E).sum(dim=1)  # (n, E)
+    starts = torch.cumsum(counts, dim=1) - counts
+    ar = torch.arange(a, device=xg.device)
+    pos_sorted = ar - starts.gather(1, e_sorted)
+    pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+    pos = pos.view(n, k, g).transpose(1, 2)  # (n, g, k)
+    keep = pos < C
+    slot = torch.where(keep, idx * C + pos, E * C)  # (n, g, k)
+
+    rows = torch.arange(n, device=xg.device)[:, None]
+    tok = ar % g  # the token of sequence entry j
+    buf = xg.new_zeros((n, E * C + 1, d))
+    buf = buf.index_put((rows, slot.transpose(1, 2).reshape(n, a)),
+                        xg[:, tok])
+    ys = _run_experts(params, buf[:, :E * C], act)
+    ys = torch.cat([ys, ys.new_zeros((n, 1, d))], dim=1)
+
+    # each token's k contributions, summed in f32 in ascending expert order
+    # (the order of the reference's scatter-add over the sorted sequence)
+    by_expert = torch.argsort(idx, dim=2)
+    slot = slot.gather(2, by_expert)
+    gates = (gate_vals * keep).gather(2, by_expert)
+    out = None
+    for c in range(k):
+        vals = ys[rows, slot[..., c]] * gates[..., c:c + 1]
+        out = vals if out is None else out + vals
+    return out.to(xg.dtype), _aux_loss(probs, idx, m)
+
+
+def moe_apply(params: dict, x: torch.Tensor, m: MoECfg, act: str):
+    """x (B,S,d) -> (out (B,S,d), aux_loss f32 scalar).
+
+    Tokens are routed in groups of ``min(group_size, B*S)``, which must
+    divide B*S (the reference asserts it).  The shared experts run as a
+    gated MLP on every token; qwen2's sigmoid gate on them is f32."""
+    B, S, d = x.shape
+    T = B * S
+    g = min(m.group_size, T)
+    if T % g:
+        raise ValueError(f"MoE: {T} tokens do not split into groups of {g}")
+    if m.impl not in IMPLS:
+        raise ValueError(f"MoE impl must be one of {IMPLS}, got {m.impl!r}")
+    xg = x.reshape(T // g, g, d)
+    dispatch = _moe_sort if m.impl == "sort" else _moe_einsum
+    out, aux = dispatch(params, xg, m, act)
+    out = out.reshape(B, S, d)
+    if "shared" in params:
+        y = mlp_apply(params["shared"], x, act, gated=True)
+        if "shared_gate" in params:
+            gate = torch.sigmoid(x.float() @ params["shared_gate"].float())
+            y = (y.float() * gate).to(x.dtype)
+        out = out + y
+    return out, aux

@@ -19,7 +19,12 @@ advance (the reference's ``_mask_tree``).
 
 Block 0 of every pool is scratch: rows that do not advance write there and
 their outputs are ignored, so no per-slot control flow exists inside a
-micro-step.
+micro-step.  They still run every layer, and a retired row (a table of
+scratch, length 0) attends to exactly scratch position (0, 0); an MoE
+layer routes all rows of the micro-step together, so what such a row
+reads can take capacity from a real token.  The value written there is
+therefore defined as the reference's scatter leaves it: the last such row
+in batch order wins.
 
 The reference's state is immutable and donated to each jitted step; here
 the pools are written in place.  The write of a token's K/V and the
@@ -38,7 +43,6 @@ from ..models.layers import (
     apply_rope,
     decode_attention,
     matmul_f32,
-    mlp_apply,
     rmsnorm,
     rope_table,
 )
@@ -48,6 +52,7 @@ from ..models.lm import (
     _init_layer_state,
     _mask_padded_vocab,
     check_supported,
+    ffn_block,
     stack_plan,
 )
 
@@ -98,9 +103,10 @@ def all_attention(cfg) -> bool:
 
 
 def _paged_attn_layer(lparams, cfg, spec, pool, x, sin, cos, lengths, adv,
-                      tables, attn_impl):
+                      src, tables, opts, attn_impl):
     """One attention layer for one token per slot, against the block pool.
-    Writes this token's K/V into ``pool`` in place and returns the new x."""
+    Writes row ``src[b]``'s K/V for row b into ``pool`` in place (``src``
+    is b itself where b advances) and returns the new x."""
     dt = x.dtype
     B = x.shape[0]
     h = rmsnorm(x, lparams["norm1"]["scale"], cfg.norm_eps)
@@ -126,8 +132,8 @@ def _paged_attn_layer(lparams, cfg, spec, pool, x, sin, cos, lengths, adv,
     row = torch.arange(B, device=x.device)
     blk = torch.where(adv, tables[row, torch.where(adv, lengths // bs, 0).long()], 0).long()
     off = torch.where(adv, lengths % bs, 0).long()
-    pool["k"][blk, off] = k  # repeated (0, 0) indices: any winner will do
-    pool["v"][blk, off] = v
+    pool["k"][blk, off] = k[src]
+    pool["v"][blk, off] = v[src]
 
     if attn_impl == "kernel":
         out = paged_decode_attention(q, pool["k"], pool["v"], tables,
@@ -139,10 +145,8 @@ def _paged_attn_layer(lparams, cfg, spec, pool, x, sin, cos, lengths, adv,
         vc = pool["v"][tab].reshape(B, -1, KV, D)
         out = decode_attention(q, kc, vc, lengths + 1)
     x = x + out.reshape(B, -1) @ ap["wo"].flatten(0, 1).to(dt)
-    if spec.d_ff > 0:
-        h2 = rmsnorm(x, lparams["norm2"]["scale"], cfg.norm_eps)
-        x = x + mlp_apply(lparams["mlp"], h2, cfg.act, cfg.gated_mlp)
-    return x
+    # an MoE routes every row, advancing or not, as in the reference
+    return ffn_block(lparams, cfg, spec, x, opts)[0]
 
 
 def _group(tree, g: int):
@@ -166,11 +170,16 @@ def _paged_decode_step(params, cfg, state, tables, tokens, adv,
         # for d_model 2048), as in the reference
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
     sin, cos = rope_table(lengths, cfg.head_dim, cfg.rope_theta)
+    # the rows that do not advance all write scratch position (0, 0), each
+    # the K/V of the last of them in batch order: the value the reference's
+    # scatter leaves, so the repeated writes agree and none races another
+    row = torch.arange(adv.shape[0], device=adv.device)
+    src = torch.where(adv, row, torch.where(adv, -1, row).amax().clamp(min=0))
 
     def run(lp, spec, entry, x):
         if _is_paged(spec):
             return _paged_attn_layer(lp, cfg, spec, entry, x, sin, cos,
-                                     lengths, adv, tables, attn_impl)
+                                     lengths, adv, src, tables, opts, attn_impl)
         return _decode_layer(lp, cfg, spec, entry, x, sin, cos, lengths, adv,
                              opts)
 

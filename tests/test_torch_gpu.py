@@ -107,6 +107,7 @@ def test_rmsnorm_kernel_is_deterministic(cuda, shape, dtype):
     (2, 4, 1, 32, 2, 8, [3, 40]),        # block size 2, a length past the table
     (8, 8, 1, 256, 16, 64, None),        # gemma-2b
     (8, 40, 8, 128, 16, 64, None),       # qwen3-14b
+    (8, 16, 16, 128, 16, 64, None),      # the MoE families: MHA, G = 1, D 128
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_decode_kernel(cuda, B, H, KV, D, bs, T, lengths, dtype):
@@ -236,6 +237,8 @@ def test_flash_attention_kernel(cuda, D, G, causal, dtype):
     (1, 127, 16, 1, 64),    # around two tiles, 4 positions a q tile
     (1, 129, 16, 1, 64),
     (1, 1000, 8, 1, 256),   # ragged, gemma-2b's heads
+    (1, 2048, 16, 16, 128),  # the MoE families' prefill: MHA at D 128
+    (1, 1024, 32, 32, 64),   # musicgen-large: MHA at D 64
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_shapes(cuda, B, S, H, KV, D, dtype):
@@ -296,6 +299,10 @@ def test_flash_attention_kernel_unaligned_rows(cuda):
     (8, 8, 1, 128, 1024, [63, 65, 64, 0, 1, 1025, 129, 127]),  # past the first chunk's tile
     (2, 10, 2, 128, 300, [65, 63]),           # G = 5
     (2, 32, 2, 64, 200, [0, 129]),            # G = 16
+    # the MoE families (MHA, G = 1, D 128): fixed-slot serve, decode after
+    # a 2048-token prefill
+    (4, 16, 16, 128, 256, [257, 0, 63, 200]),
+    (1, 16, 16, 128, 2064, [2049]),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel(cuda, B, H, KV, D, Smax, lengths, dtype):
@@ -770,3 +777,100 @@ def test_recurrent_prefill_decode_equivalence_on_card(cuda, arch, layers):
     assert kernels.mlstm_chunk.launches == 2 * kinds.count("mlstm")
     assert kernels.flash_attention.launches == 2 * kinds.count("local")
     assert kernels.decode_attention.launches == 64 * kinds.count("local")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D", [(1, 2048, 16, 16, 128), (2, 1024, 32, 32, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_backward_kernel_mha_shapes(cuda, B, S, H, KV, D, dtype):
+    """The backward at the MoE families' (MHA, D 128) and musicgen-large's
+    (32 heads, D 64) training shapes, and two launches bit for bit."""
+    rng = np.random.default_rng(S + H)
+    inputs = _bwd_inputs(rng, B, S, H, KV, D, cuda, dtype)
+    got = kernels.flash_attention_bwd(*inputs)
+    again = kernels.flash_attention_bwd(*inputs)
+    want = kernels.ref.flash_attention_bwd_ref(*inputs)
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, g2)
+        _bwd_close(g, w, dtype)
+
+
+def _moe_layer(arch, device, seed=0):
+    """A reduced MoE family's first MoE layer (8 experts, top 2) and an
+    input of one (4, 64) batch: 4 routing groups."""
+    from repro_torch.models.moe import init_moe
+    cfg = reduced_config(arch)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    params = init_moe(gen, cfg.d_model, cfg.moe)
+    x = torch.randn(4, 64, cfg.d_model, generator=gen)
+    return cfg, map_params(lambda _k, t: t.to(device), params), x.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("impl", ["einsum", "sort"])
+def test_moe_apply_on_card_matches_cpu(cuda, arch, impl):
+    """f32: the layer on the card against the same layer on the CPU (which
+    the CPU tests hold to the JAX package), output and aux loss."""
+    from dataclasses import replace
+
+    from repro_torch.models.moe import moe_apply
+    cfg, params, x = _moe_layer(arch, cuda)
+    m = replace(cfg.moe, impl=impl)
+    got, aux = moe_apply(params, x, m, cfg.act)
+    want, waux = moe_apply(map_params(lambda _k, t: t.cpu(), params), x.cpu(), m, cfg.act)
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=TOL["float32"] * want.abs().max().item())
+    torch.testing.assert_close(aux.cpu(), waux, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_sort_dispatch_is_deterministic(cuda, dtype):
+    """The sort path's combine sums in a fixed order (no atomics): two calls
+    give the same bits, forward and input gradient."""
+    from dataclasses import replace
+
+    from repro_torch.models.moe import moe_apply
+    cfg, params, x = _moe_layer("deepseek-moe-16b", cuda)
+    m = replace(cfg.moe, impl="sort")
+    params = map_params(lambda _k, t: t.to(TDT[dtype]) if t.dim() > 1 else t, params)
+    runs = []
+    for _ in range(2):
+        xi = x.to(TDT[dtype]).clone().requires_grad_()
+        out, _ = moe_apply(params, xi, m, cfg.act)
+        out.float().square().sum().backward()
+        runs.append((out.detach(), xi.grad))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_paged_moe_engine_gives_the_same_tokens_twice(cuda):
+    """Reduced deepseek-moe-16b in bf16, 8 slots for 3 requests: the idle
+    rows all write scratch position (0, 0), and what they read there takes
+    expert capacity; two runs give the same tokens."""
+    cfg = reduced_config("deepseek-moe-16b")
+    params = init_params(cfg, seed=0, device=cuda)
+    prompts = [[1, 5, 9, 2], [1, 5, 9, 2, 7, 3], [4, 4, 8]]
+    outs = []
+    for _ in range(2):
+        eng = PagedServeEngine(cfg, params, num_blocks=40, block_size=4, max_active=8,
+                               prefill_chunk=3, opts=ModelOptions(compute_dtype="bfloat16"))
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=8))
+        outs.append({r.rid: r.generated for r in eng.run_until_drained(400)})
+    assert outs[0] == outs[1] and len(outs[0]) == len(prompts)
+
+
+@pytest.mark.gpu
+def test_cast_params_keeps_the_shared_expert_gate_f32(cuda):
+    from repro_torch.convert import cast_params
+    params = init_params(reduced_config("qwen2-moe-a2.7b"), seed=0, device=cuda)
+    moe = cast_params(params, torch.bfloat16)["main"][0]["moe"]
+    assert moe["shared_gate"].dtype == torch.float32 and moe["shared_gate"].is_cuda
+    assert moe["router"].dtype == moe["w_gate"].dtype == torch.bfloat16
+    same = init_params(reduced_config("qwen2-moe-a2.7b"), seed=0, device=cuda,
+                       dtype=torch.bfloat16)["main"][0]["moe"]
+    assert torch.equal(same["shared_gate"], moe["shared_gate"])
+    assert torch.equal(same["w_down"], moe["w_down"])

@@ -87,3 +87,17 @@ def test_train_without_card_raises(monkeypatch):
 def test_train_mesh_and_platform_are_not_ported_yet(flag):
     with pytest.raises(NotImplementedError):
         train.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen2-moe-a2.7b",
+                                  "musicgen-large", "internvl2-26b"])
+def test_moe_and_frontend_families_serve_and_train_on_cpu(arch, capsys):
+    """The MoE and frontend families through both launchers (the frontend
+    families serve tokens only and train on the stream's frontend
+    embeddings)."""
+    serve.main(["--arch", arch, "--smoke", "--requests", "3", "--slots", "2",
+                "--max-new", "4", "--max-len", "16", "--device", "cpu"])
+    assert "3 requests, 12 tokens" in capsys.readouterr().out
+    records = train.main(["--arch", arch, "--smoke", "--steps", "2", "--batch", "2",
+                          "--seq", "32", "--device", "cpu"])
+    assert len(records) == 2 and all(math.isfinite(r["loss"]) for r in records)

@@ -140,7 +140,8 @@ def test_decode_attention_matches_jax():
 
 # ------------------------------------------------------------------- params
 
-ARCHS = ["gemma-2b", "qwen3-14b", "qwen1.5-4b", "musicgen-large"]
+ARCHS = ["gemma-2b", "qwen3-14b", "qwen1.5-4b", "musicgen-large", "internvl2-26b",
+         "deepseek-moe-16b", "qwen2-moe-a2.7b"]
 
 
 def _leaves(tree, path=()):
@@ -157,7 +158,8 @@ def _leaves(tree, path=()):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_params_same_tree_and_scales(arch):
     """Same keys, shapes and axis orders as the reference (tied or not,
-    qkv bias, qk-norm, frontend), and the same init scale per leaf."""
+    qkv bias, qk-norm, frontend, MoE experts stacked per group), and the
+    same init scale per leaf."""
     jp = dict(_leaves(jax_init_params(jax.random.key(0), jax_reduced_config(arch))))
     tp = dict(_leaves(init_params(reduced_config(arch), seed=0, device="cpu")))
     assert jp.keys() == tp.keys()
@@ -184,10 +186,16 @@ def test_cast_keeps_norm_scales_f32():
         assert t.dtype == (torch.float32 if path[-1] == "scale" else torch.bfloat16), path
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-moe-16b"])
-def test_layers_outside_the_slice_raise(arch):
-    with pytest.raises(NotImplementedError):
-        init_params(reduced_config(arch), device="cpu")
+def test_cast_keeps_the_shared_expert_gate_f32():
+    """qwen2-moe's ``shared_gate`` is read in f32 (``convert.F32_LEAVES``);
+    the router, the stacked experts and the shared experts are cast."""
+    p = init_params(reduced_config("qwen2-moe-a2.7b"), seed=0, device="cpu")
+    seen = set()
+    for path, t in _leaves(cast_params(p, torch.bfloat16)):
+        f32 = path[-1] in ("scale", "shared_gate")
+        assert t.dtype == (torch.float32 if f32 else torch.bfloat16), path
+        seen.add(path[-1])
+    assert {"router", "w_gate", "shared_gate"} <= seen
 
 
 def test_no_card_raises_instead_of_running_on_cpu(monkeypatch):
@@ -285,3 +293,17 @@ def test_paged_reset_slot_zeroes_per_slot_state(arch):
         slot_axis = 1 if path[0] == "main" else 0
         assert not t.select(slot_axis, 1).any(), path
         assert t.select(slot_axis, 0).eq(1).all() and t.select(slot_axis, 2).eq(1).all()
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "recurrentgemma-9b", "internvl2-26b"])
+def test_init_params_cast_as_drawn_equals_cast_params(arch):
+    """``init_params(..., dtype=bf16)`` casts each layer as it is drawn:
+    the same tensors, bit for bit and leaf for leaf, as ``cast_params`` of
+    the f32 parameters."""
+    cfg = reduced_config(arch)
+    want = cast_params(init_params(cfg, seed=3, device="cpu"), torch.bfloat16)
+    got = init_params(cfg, seed=3, device="cpu", dtype=torch.bfloat16)
+    want, got = list(_leaves(want)), list(_leaves(got))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), path

@@ -49,7 +49,10 @@ def _both(arch, **kw):
     return want, got, jeng, teng
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-14b"])
+MOE = ["deepseek-moe-16b", "qwen2-moe-a2.7b"]
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-14b"] + MOE)
 def test_paged_engine_matches_jax(arch):
     want, got, jeng, teng = _both(arch, num_blocks=24, block_size=4,
                                   max_active=3, prefill_chunk=3)
@@ -60,7 +63,7 @@ def test_paged_engine_matches_jax(arch):
     assert m["blocksFree"] == m["blocksTotal"] - m["blocksCached"]
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-14b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-14b"] + MOE)
 def test_small_pool_drains_like_jax(arch):
     """A pool too small for all requests at once still drains: admission
     waits for retiring requests, and every block comes back."""
@@ -116,6 +119,12 @@ FIXED_CASES = {
     # rows run past max_len: the clamped writes and the full-cache reads
     "past_max_len": ("gemma-2b", dict(num_slots=2, max_len=6),
                      [[1, 5, 9, 2], [4, 4, 8], [7, 7]], 6),
+    # MoE: every admission step routes the idle rows beside the admitted
+    # one, as the reference's batched step does before _merge_slot
+    "moe_deepseek": ("deepseek-moe-16b", dict(num_slots=3, max_len=32),
+                     [[1, 5, 9, 2], [4, 4, 8], [7, 7], [3, 1, 4, 1, 5]], 6),
+    "moe_qwen2": ("qwen2-moe-a2.7b", dict(num_slots=2, max_len=16),
+                  [[1, 5, 9, 2], [4, 4, 8], [3]], 6),
 }
 
 
