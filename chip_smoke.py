@@ -9,7 +9,7 @@ tolerance miss:
 1. device: the card's name, count and power limit;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels: hold each kernel against its plain PyTorch version at the
-   serving and prefill paths' shapes, and time kernel, plain version and a
+   serving, prefill and training paths' shapes, and time kernel, plain version and a
    PyTorch library call beside the least time the card could take;
 4. paged serve: full-width gemma-2b in bf16 through ``PagedServeEngine``
    (random weights from ``--seed``), 16 requests with prefix sharing and
@@ -61,12 +61,25 @@ tolerance miss:
    path against its gather path; in bf16 the kernel path against the
    plain one, with the share of positions whose expert set differs;
 14. training: deepseek-moe-16b at full width and 3 layers (4 steps of 2 x
-   1024; the first step's gradients in f32, kernels against plain),
+   1024; the first step's gradients in f32, kernels against plain, and
+   both held to the plain path in f64 on the same routing),
    musicgen-large at full depth through the launcher (4 steps of 2 x (64
    + 960), frontend embeddings from the stream), internvl2-26b at full
    width and 4 layers (a forward of (1, 256 + 768) and 2 train steps);
-15. the kernels line (JSON), the card's name and power limit, and the
-   result line ``{"ok": true, "device": {...}}`` last.
+15. training the recurrent families at full width in bf16 with remat:
+   recurrentgemma-9b at 3 layers over 1 x 4096 tokens, xlstm-125m at full
+   depth over 2 x 1024, 2 warm-up and 3 timed steps with exact launch
+   counts, one step profiled; their checks: the first step in f32,
+   kernels against plain (leaves past the tolerance held to the plain path
+   in f64), each backward kernel (windowed flash, RG-LRU, mLSTM) on its
+   layer's own inputs against its plain version, and two bf16 steps from
+   one state bit for bit;
+16. the trainer PE (``repro_torch.platform.run_trainer``) on a stand-in
+   runtime with the port's checkpoint store: gemma-2b at full width and 2
+   layers, stopped after step 6, restarted from the committed step 4,
+   ending at the uninterrupted run's checkpoint bytes;
+17. the kernels line (JSON), the run's wall, the card's name and power
+   limit, and the result line ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -77,6 +90,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import importlib
 import json
 import math
 import os
@@ -85,9 +99,13 @@ import sys
 import time
 from dataclasses import replace
 
-import numpy as np
-import torch
-import torch.nn.functional as F
+# the trainer PE's deterministic mode needs cuBLAS's fixed workspace, which
+# cuBLAS reads when its first handle is made: set before any CUDA call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 # the port, from this checkout (outside one, this import fails)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
@@ -102,6 +120,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     _paged_splits,
     _splits,
 )
+from repro_torch.ckpt import CheckpointStore  # noqa: E402
 from repro_torch.kernels.flash_attention import _dkv_splits  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import (  # noqa: E402
@@ -116,6 +135,13 @@ from repro_torch.models import (  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.lm import layer_specs, stack_plan  # noqa: E402
+from repro_torch.platform import run_trainer  # noqa: E402
+
+# the kernel modules (the package's names of the same spelling are the
+# wrapper functions)
+flash_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+mlstm_mod = importlib.import_module("repro_torch.kernels.mlstm_chunk")
+rglru_mod = importlib.import_module("repro_torch.kernels.rglru_scan")
 from repro_torch.serve import (  # noqa: E402
     PagedServeEngine,
     Request,
@@ -168,6 +194,16 @@ WHERE = {  # kernel -> (CUDA source, the TPU kernel it replaces)
                    "src/repro/kernels/rglru_scan.py:45"),
     "mlstm_chunk": ("src/repro_torch/kernels/csrc/mlstm_chunk.cu",
                     "src/repro/kernels/mlstm_chunk.py:83"),
+    # the backward kernels of the recurrent training slice: the flash
+    # backward with a window (recurrentgemma's local layers), and the
+    # RG-LRU and mLSTM backwards, which the TPU kernels did not have (the
+    # reference differentiates their XLA formulations)
+    "flash_attention_bwd_window": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                   "src/repro/kernels/flash_attention.py:214"),
+    "rglru_scan_bwd": ("src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+                       "src/repro/kernels/rglru_scan.py:45"),
+    "mlstm_chunk_bwd": ("src/repro_torch/kernels/csrc/mlstm_chunk_bwd.cu",
+                        "src/repro/kernels/mlstm_chunk.py:83"),
 }
 # the recurrent kernels against their plain versions: RG-LRU f32 1e-5 abs +
 # rel and mLSTM 5e-5 abs + 5e-4 rel, as tests/test_kernels.py; the windowed
@@ -475,20 +511,21 @@ def check_flash(gen, B, S, H, KV, D, dtype, window: int = 0) -> dict:
     }
 
 
-def check_flash_bwd(gen, B, S, H, KV, D, dtype) -> dict:
-    """Causal flash attention backward on the forward kernel's (out, lse):
-    dq, dk, dv against the plain version, and two launches bit for bit."""
+def check_flash_bwd(gen, B, S, H, KV, D, dtype, window: int = 0) -> dict:
+    """Causal flash attention backward (windowed with ``window`` > 0) on
+    the forward kernel's (out, lse): dq, dk, dv against the plain version,
+    and two launches bit for bit."""
     q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
     do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
-    out, lse = kernels.flash_attention(q, k, v, return_lse=True)
+    out, lse = kernels.flash_attention(q, k, v, return_lse=True, window=window)
     args = (q, k, v, out, lse, do)
-    got = kernels.flash_attention_bwd(*args)
-    again = kernels.flash_attention_bwd(*args)
-    want = kernels.ref.flash_attention_bwd_ref(*args)
+    got = kernels.flash_attention_bwd(*args, window=window)
+    again = kernels.flash_attention_bwd(*args, window=window)
+    want = kernels.ref.flash_attention_bwd_ref(*args, True, window)
     torch.cuda.synchronize()
-    what = f"flash_attention_bwd B={B} S={S} H={H} KV={KV} D={D} {dtype}"
+    what = f"flash_attention_bwd B={B} S={S} H={H} KV={KV} D={D} window={window} {dtype}"
     err = rel = 0.0
     for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
         rel = max(rel, rel_err(g.float(), w.float()))
@@ -505,29 +542,36 @@ def check_flash_bwd(gen, B, S, H, KV, D, dtype) -> dict:
             err = max(err, e)
     del got, again, want
     # yardstick: SDPA on K/V expanded to H heads (outside the timing), its
-    # flash backend in bf16 (it takes no f32: there SDPA picks its backend);
-    # backward time taken as (forward + backward) - forward, both replayed
-    # from CUDA graphs
+    # flash backend in bf16 (it takes no f32: there SDPA picks its backend),
+    # or with a boolean band mask for a window (SDPA picks a backend that
+    # takes the mask); backward time taken as (forward + backward) -
+    # forward, both replayed from CUDA graphs
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     def backend():
-        return (sdpa_kernel(SDPBackend.FLASH_ATTENTION) if dtype == torch.bfloat16
-                else contextlib.nullcontext())
+        return (sdpa_kernel(SDPBackend.FLASH_ATTENTION)
+                if dtype == torch.bfloat16 and not window else contextlib.nullcontext())
 
     G = H // KV
     qt = q.transpose(1, 2).contiguous().requires_grad_()
     kt, vt = (x.repeat_interleave(G, 2).transpose(1, 2).contiguous().requires_grad_()
               for x in (k, v))
     dot = do.transpose(1, 2).contiguous()
+    i_ = torch.arange(S, device="cuda")
+    band = ((i_[None, :] <= i_[:, None]) & (i_[None, :] > i_[:, None] - window)
+            if window else None)
+
+    def sdpa(grad):
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                              is_causal=not window)
 
     def sdpa_fwd(i):
         with backend(), torch.no_grad():
-            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            sdpa(False)
 
     def sdpa_fwd_bwd(i):
         with backend():
-            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-            torch.autograd.grad(o, (qt, kt, vt), dot)
+            torch.autograd.grad(sdpa(True), (qt, kt, vt), dot)
 
     fwd_ms = time_ms(sdpa_fwd, iters=5)
     library_ms = time_ms(sdpa_fwd_bwd, iters=5) - fwd_ms
@@ -535,17 +579,19 @@ def check_flash_bwd(gen, B, S, H, KV, D, dtype) -> dict:
     es = q.element_size()
     nbytes = ((3 * q.numel() + 2 * k.numel()) * es + lse.numel() * 4  # read
               + (q.numel() + 2 * k.numel()) * es)  # dq, dk, dv written
-    b_ms, b_by = bound(nbytes, 5 * 2 * B * H * (S * S / 2) * D, dtype)
+    b_ms, b_by = bound(nbytes, 5 * 2 * B * H * band_pairs(S, window) * D, dtype)
     nsplit = (_dkv_splits(B, S, H, KV, _build.library().repro_flash_attention_bwd_key_tile(),
-                          _build.sm_count(0)) if dtype == torch.bfloat16 and D % 16 == 0 else 1)
+                          _build.sm_count(0), window)
+              if dtype == torch.bfloat16 and D % 16 == 0 else 1)
     return {
-        "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D},
+        "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "window": window},
         "dtype": str(dtype), "max_abs_err": err,
         "plan": f"dk/dv pass in {nsplit} query ranges; max error {rel:.3g} of the "
                 "output's largest entry",
-        "ms": time_ms(lambda i: kernels.flash_attention_bwd(*args), iters=5),
-        "plain_ms": time_ms(lambda i: kernels.ref.flash_attention_bwd_ref(*args),
-                            iters=5),
+        "ms": time_ms(lambda i: kernels.flash_attention_bwd(*args, window=window),
+                      iters=5),
+        "plain_ms": time_ms(lambda i: kernels.ref.flash_attention_bwd_ref(
+            *args, True, window), iters=5),
         "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
     }
 
@@ -610,6 +656,116 @@ def check_mlstm(gen, B, S, H, dk, chunk, dtype) -> dict:
                                                     return_final=True), iters=5),
         "plain_ms": time_ms(lambda i: kernels.ref.mlstm_chunk_ref(
             *args, chunk=chunk, return_final=True), iters=5),
+        "library_ms": None,  # no PyTorch call computes it
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def check_rglru_bwd(gen, B, S, C) -> dict:
+    """The RG-LRU backward over (B, S, C) f32 on the forward kernel's h
+    (inputs as check_rglru's, dh ~ N): dlog_a and db against the plain
+    reverse loop, and two launches bit for bit."""
+    log_a = -(torch.randn(B, S, C, generator=gen, device="cuda").abs() * 0.2)
+    b = torch.randn(B, S, C, generator=gen, device="cuda")
+    dh = torch.randn(B, S, C, generator=gen, device="cuda")
+    h = rglru_mod.rglru_scan_fwd(log_a, b)
+    del b
+    got = kernels.rglru_scan_bwd(log_a, h, dh)
+    again = kernels.rglru_scan_bwd(log_a, h, dh)
+    want = kernels.ref.rglru_scan_bwd_ref(log_a, h, dh)
+    torch.cuda.synchronize()
+    what = f"rglru_scan_bwd ({B}, {S}, {C})"
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{what}: two launches differ")
+    err = max(abs_rel_err(g, w, RGLRU_TOL, RGLRU_TOL, f"{what} {name}")
+              for name, g, w in zip(("dlog_a", "db"), got, want))
+    del got, again, want
+    n = log_a.numel()
+    # log_a, h, dh read once, dlog_a and db written once; exp, FMA and two
+    # multiplies an element
+    b_ms, b_by = bound(5 * n * 4, 5 * n, torch.float32)
+    # a same-bytes yardstick: one torch.add moving 5 n floats (2 reads, 1 write)
+    x = torch.randn(5 * n // 3, generator=gen, device="cuda")
+    y, z = torch.randn_like(x), torch.empty_like(x)
+    add_ms = time_ms(lambda i: torch.add(x, y, out=z), iters=10)
+    del x, y, z
+    return {
+        "shape": [B, S, C], "dtype": "torch.float32", "max_abs_err": err,
+        "ms": time_ms(lambda i: kernels.rglru_scan_bwd(log_a, h, dh), iters=10),
+        "plain_ms": time_ms(lambda i: kernels.ref.rglru_scan_bwd_ref(log_a, h, dh),
+                            iters=1, replays=2),
+        "library_ms": None,  # no PyTorch call computes a linear recurrence
+        "plan": f"torch.add over the same bytes {add_ms:.4f} ms",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def mlstm_bwd_flops(B, S, H, dk, chunk) -> float:
+    """The mLSTM backward's operations that the data needs: per chunk and
+    (batch, head), five products over the lower triangle (S, dh v^T, dS k,
+    dS^T q, W^T dnum: 5 c (c + 1) dk), three of c dk^2 (C dnum, G v, G^T k:
+    6 c dk^2) and the carry gradient's move (2 c dk^2, all chunks but the
+    first)."""
+    c = min(chunk, S)
+    nc = S // c
+    return B * H * (nc * (5 * c * (c + 1) * dk + 6 * c * dk * dk)
+                    + (nc - 1) * 2 * c * dk * dk)
+
+
+def mlstm_bwd_close(got, want, dtype, what: str) -> float:
+    """Each gradient against its plain version, relative to its largest
+    entry: f32 within MLSTM_ATOL + MLSTM_RTOL of it (every entry is a sum
+    of terms of both signs over a chunk, dlog_f a reverse cumulative sum
+    of them, so its rounding scales with the terms, not with the entry);
+    bf16 inputs within BWD_BF16_REL (dq, dk, dv are rounded to bf16, and
+    the forward's h came from bf16 products)."""
+    err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv", "dlog_i", "dlog_f"), got, want):
+        e = (g.float() - w.float()).abs().max().item()
+        big = w.float().abs().max().item()
+        limit = (MLSTM_ATOL + MLSTM_RTOL * big if dtype == torch.float32
+                 else BWD_BF16_REL * big)
+        if not torch.isfinite(g).all() or e > limit:
+            raise AssertionError(f"{what} {name}: max abs error {e} over {limit} "
+                                 f"(largest entry {big})")
+        err = max(err, e)
+    return err
+
+
+def check_mlstm_bwd(gen, B, S, H, dk, chunk, dtype) -> dict:
+    """The mLSTM backward on the forward kernel's workspace, denominators
+    and h (inputs as check_mlstm's, dh ~ N): dq, dk, dv, dlog_i, dlog_f
+    against the plain version, and two launches bit for bit."""
+    q, k, v = (torch.randn(B, S, H, dk, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    log_i = torch.randn(B, S, H, generator=gen, device="cuda") - 2.0
+    log_f = F.logsigmoid(torch.randn(B, S, H, generator=gen, device="cuda") + 3.0)
+    dh = torch.randn(B, S, H, dk, generator=gen, device="cuda")
+    h, _, (ws, den) = mlstm_mod.mlstm_chunk_fwd(q, k, v, log_i, log_f, chunk=chunk,
+                                                keep=True)
+    args = (q, k, v, log_i, log_f, ws, den, h, dh)
+    got = kernels.mlstm_chunk_bwd(*args, chunk=chunk)
+    again = kernels.mlstm_chunk_bwd(*args, chunk=chunk)
+    want = kernels.ref.mlstm_chunk_bwd_ref(q, k, v, log_i, log_f, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    what = f"mlstm_chunk_bwd B={B} S={S} H={H} dk={dk} chunk={chunk} {dtype}"
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{what}: two launches differ")
+    err = mlstm_bwd_close(got, want, dtype, what)
+    del got, again, want
+    es = q.element_size()
+    nbytes = (3 * q.numel() * es + 2 * log_i.numel() * 4   # q, k, v, the gates
+              + 2 * h.numel() * 4 + den.numel() * 4          # h, dh, den
+              + ws.numel() * 4                               # the carries
+              + 3 * q.numel() * es + 2 * log_i.numel() * 4)  # the gradients
+    # f32 operands (dh, the carries) on the CUDA cores: the f32 rate
+    b_ms, b_by = bound(nbytes, mlstm_bwd_flops(B, S, H, dk, chunk), torch.float32)
+    return {
+        "shape": {"B": B, "S": S, "H": H, "dk": dk, "chunk": chunk},
+        "dtype": str(dtype), "max_abs_err": err,
+        "ms": time_ms(lambda i: kernels.mlstm_chunk_bwd(*args, chunk=chunk), iters=5),
+        "plain_ms": time_ms(lambda i: kernels.ref.mlstm_chunk_bwd_ref(
+            q, k, v, log_i, log_f, dh, chunk=chunk), iters=2),
         "library_ms": None,  # no PyTorch call computes it
         "bound_ms": b_ms, "bound_by": b_by,
     }
@@ -708,18 +864,22 @@ def first_tick_logits(cfg, params, opts, trace, C, attn_impl):
     return logits
 
 
-def profiled(fn, by_op: bool = False, ranges: tuple = ()) -> dict:
+def profiled(fn, by_op: bool = False, ranges: tuple = (),
+             device_only: bool = False) -> dict:
     """Wall time of ``fn()`` (host clock, synchronized) and its device time
     by kernel (torch.profiler; kernels on one stream do not overlap).  With
     ``by_op``, also the host ops whose kernels took the most device time,
     with their input shapes.  ``ranges`` names ``record_function`` ranges
-    (``moe_ranges``) whose kernels' device time is reported apart."""
+    (``moe_ranges``) whose kernels' device time is reported apart.  With
+    ``device_only`` the host ops are not traced (for a function of 1e5
+    host ops, whose trace takes minutes to read back)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=by_op) as prof:
+    activities = ([ProfilerActivity.CUDA] if device_only
+                  else [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with profile(activities=activities, record_shapes=by_op) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -819,8 +979,15 @@ def capture(module, name: str, seen: list):
         seen.append((args, kw))
         return real(*args, **kw)
 
+    # a kernel wrapper counts its launches on the name it is looked up by
+    wrap.__dict__.update(real.__dict__)
+
+    def undo():
+        real.__dict__.update(wrap.__dict__)
+        setattr(module, name, real)
+
     setattr(module, name, wrap)
-    return lambda: setattr(module, name, real)
+    return undo
 
 
 def check_forward_flash(cfg2, params16, tokens, opts) -> None:
@@ -938,12 +1105,14 @@ def recurrent_phase(arch: str, S: int, seed: int, smi: str) -> dict:
             "flash_attention": kinds.count("local"),
             "decode_attention": kinds.count("local") * n_decode,
             "rmsnorm": norm_sites(cfg) * (1 + n_decode),
-            "paged_decode_attention": 0, "flash_attention_bwd": 0}
+            "paged_decode_attention": 0, "flash_attention_bwd": 0,
+            "rglru_scan_bwd": 0, "mlstm_chunk_bwd": 0}
     assert got == want, (got, want)
     prefill = make_prefill_step(cfg, opts, max_len=S + 1)
     log_profile(f"prefill ({S} tokens x {cfg.num_layers} layers)",
                 profiled(lambda: prefill(params, {"tokens": tokens}),
-                         by_op=arch == "recurrentgemma-9b"), smi)
+                         by_op=arch == "recurrentgemma-9b",
+                         device_only=arch == "xlstm-125m"), smi)  # its loops' host ops
     _, cache = prefill(params, {"tokens": tokens})
     step = make_decode_step(cfg, opts)
     log_profile(f"decode step (context {S})",
@@ -1379,7 +1548,8 @@ def moe_phase(arch: str, seed: int, smi: str) -> dict:
     L = cfg.num_layers
     want = {"rmsnorm": norm_sites(cfg) * (1 + n_decode), "paged_decode_attention": 0,
             "decode_attention": L * n_decode, "flash_attention": L,
-            "flash_attention_bwd": 0, "rglru_scan": 0, "mlstm_chunk": 0}
+            "flash_attention_bwd": 0, "rglru_scan": 0, "mlstm_chunk": 0,
+            "rglru_scan_bwd": 0, "mlstm_chunk_bwd": 0}
     assert got == want, (got, want)
     # the logits (0.78 GiB for deepseek) and the cache (0.45 GiB) are the
     # largest; one MoE layer's dispatch tensors are a few hundred MB
@@ -1572,6 +1742,24 @@ def remat_flash_launches(cfg) -> int:
     return once + 2 * main
 
 
+def check_train_f64(cfg, params32, batch, smi: str) -> None:
+    """An MoE family's first f32 train step, the kernel path and the plain
+    path each held to the plain path in f64 (``f64_plain``), all three on
+    the kernel path's routing (``held_to_f64``)."""
+    names = leaf_names(params32)
+    with routing_log() as routes:
+        _, grads_k = train_grads(params32, cfg, batch, ModelOptions(compute_dtype="float32"))
+    with routing_log(routes):
+        _, grads_p = train_grads(params32, cfg, batch,
+                                 ModelOptions(compute_dtype="float32", attn_impl="plain"))
+    _, grads_64 = f64_grads(params32, cfg, batch, routes)
+    held = held_to_f64(grads_k, grads_p, grads_64, names)
+    log_f64(held, len(names), f"the same step at {cfg.num_layers} layers, on the same routing,",
+            smi)
+    assert not held["failed"], held["failed"]
+    del grads_k, grads_p, grads_64
+
+
 def train_moe_frontends(seed: int, smi: str) -> None:
     """deepseek-moe-16b at full width and 3 layers (the dense first layer +
     2 MoE), musicgen-large at full depth through the launcher, and
@@ -1637,10 +1825,12 @@ def train_moe_frontends(seed: int, smi: str) -> None:
     # deepseek's first step, kernels against plain, f32: held at 2 layers
     # (the dense first layer + 1 MoE), as gemma-2b's; at 3 layers the
     # nearly hard attention of the reference's init carries the two paths'
-    # f32 differences past the tolerance (a miss, logged: PERF.md)
+    # f32 differences past the tolerance, so there each path is held to the
+    # plain path in f64 on the same routing (check_train_f64)
     params32 = init_params(cfg, seed=seed, device="cuda")
     tb = {k: v.to("cuda") for k, v in src.batch_at(7).items()}
     check_train_step(cfg, params32, tb, "float32", TRAIN_F32, smi, held=False)
+    check_train_f64(cfg, params32, tb, smi)
     check_train_step(cfg.with_(num_layers=2), take_layers(params32, 1), tb, "float32",
                      TRAIN_F32, smi)
     shares, rel, n = routing_flips(cfg, cast_params(params32, torch.bfloat16), tb["tokens"],
@@ -1655,10 +1845,414 @@ def train_moe_frontends(seed: int, smi: str) -> None:
     log(f"   MoE and frontend training: {time.perf_counter() - t_all:.1f} s")
 
 
+# ------------------------------------------------------ recurrent training
+
+
+def remat_step_launches(cfg) -> dict:
+    """Each kernel's launches in one train step under remat: a forward
+    kernel once for a prefix or tail layer and twice for a main-group layer
+    (forward, and again in backward), RMSNorm likewise at every norm site
+    and once for the final norm, each backward kernel once a layer."""
+    plan = stack_plan(cfg)
+    once, main = plan.prefix + plan.tail, plan.pattern * plan.num_groups
+
+    def fwd(fn):
+        return sum(map(fn, once)) + 2 * sum(map(fn, main))
+
+    def per_layer(fn):
+        return sum(map(fn, once + main))
+
+    def norms(spec):
+        return (1 + (spec.d_ff > 0 or spec.use_moe)
+                + {"mlstm": 1, "slstm": 2}.get(spec.kind, 0))
+
+    def attn(spec):
+        return spec.kind in ("attn", "local")
+
+    return {"rmsnorm": 1 + fwd(norms), "paged_decode_attention": 0,
+            "decode_attention": 0, "flash_attention": fwd(attn),
+            "flash_attention_bwd": per_layer(attn),
+            "rglru_scan": fwd(lambda sp: sp.kind == "rglru"),
+            "rglru_scan_bwd": per_layer(lambda sp: sp.kind == "rglru"),
+            "mlstm_chunk": fwd(lambda sp: sp.kind == "mlstm"),
+            "mlstm_chunk_bwd": per_layer(lambda sp: sp.kind == "mlstm")}
+
+
+def recurrent_train_phase(arch: str, n_layers, batch: int, seq: int, seed: int,
+                          smi: str) -> dict:
+    """``arch`` at full width (``n_layers`` of it, or full depth with None):
+    f32 parameters and AdamW moments, bf16 compute, remat, the lcg stream.
+    2 warm-up and 3 timed steps with every kernel's launches counted exactly
+    per step, then one step profiled on the device.  Returns the five
+    steps' launches."""
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.with_(num_layers=n_layers)
+    opts = ModelOptions(compute_dtype="bfloat16")
+    tcfg = TrainConfig(remat=True)
+    src = StreamSource(vocab_size=cfg.vocab_size, batch=batch, seq_len=seq, seed=seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, tcfg, seed=seed, device="cuda")
+    step = make_train_step(cfg, tcfg, opts)
+    log(f"== train: {arch}, full width, {cfg.num_layers} layers "
+        f"({cfg.param_count() / 1e9:.3f} B params), 5 steps (2 warm-up) of {batch} x "
+        f"{seq} tokens, f32 params and moments, bf16 compute, remat")
+    kernels.reset_launch_counts()
+    records = train_steps(step, state, src, 5)
+    got = counts()
+    per_step = remat_step_launches(cfg)
+    log_train(records[1:], batch * seq, smi)
+    log(f"   launches over the 5 steps {got}")
+    assert got == {k: 5 * v for k, v in per_step.items()}, (got, per_step)
+    log_profile(f"train step ({batch} x {seq} tokens x {cfg.num_layers} layers, remat)",
+                profiled(lambda: step(state, src.batch_at(5)), by_op=arch != "xlstm-125m",
+                         device_only=arch == "xlstm-125m"), smi)  # its loops' 1e5 host ops
+    del state, step
+    torch.cuda.empty_cache()
+    return got
+
+
+@contextlib.contextmanager
+def f64_plain():
+    """The plain path in f64, an exact run to hold two f32 runs against:
+    every ``.float()`` of the port leaves an f64 tensor f64 (as the JAX
+    tests' f64 runs widen the reference's f32 casts), and RMSNorm, whose
+    kernel takes no f64, runs its plain version.  Kernels are not touched:
+    use it with ``attn_impl="plain"``."""
+    real_float, real_norm = torch.Tensor.float, layers.rmsnorm_kernel
+
+    def wide(self, *args, **kw):
+        return self if self.dtype == torch.float64 else real_float(self, *args, **kw)
+
+    torch.Tensor.float = wide
+    layers.rmsnorm_kernel = kernels.ref.rmsnorm_ref
+    try:
+        yield
+    finally:
+        torch.Tensor.float = real_float
+        layers.rmsnorm_kernel = real_norm
+
+
+def f64_grads(params, cfg, batch, routes=None) -> tuple:
+    """Loss and gradients of the plain path in f64 from the weights in
+    ``params`` (f32, or already f64: then no copy is made), routed as
+    ``routes`` records for an MoE."""
+    params64 = map_params(lambda _k, p: p.detach().double().requires_grad_(True), params)
+    ctx = routing_log(routes) if routes is not None else contextlib.nullcontext()
+    with f64_plain(), ctx:
+        loss, _ = loss_fn(params64, cfg, batch,
+                          ModelOptions(compute_dtype="float64", attn_impl="plain"),
+                          remat=True)
+        loss.backward()
+    return loss.item(), [p.grad for p in leaves(params64)]
+
+
+def held_to_f64(grads_k, grads_p, grads_64, names) -> dict:
+    """Per leaf, the kernel path's and the plain path's distance from the
+    f64 gradient, relative to its largest entry.  A leaf is held if the
+    kernel path lies within TRAIN_F32's leaf tolerance of the f64 gradient
+    or within twice the plain path's distance (two f32 runs each carry
+    their own rounding, which the stack amplifies alike: the bound of
+    their sum); a kernel path much farther than the plain path fails it."""
+    out = {"failed": [], "farther": 0, "ratio": (0.0, ""), "worst_k": (0.0, ""),
+           "worst_p": 0.0}
+    for gk, gp, g64, name in zip(grads_k, grads_p, grads_64, names):
+        scale = g64.abs().max().clamp(min=1e-300)
+        ek = ((gk.double() - g64).abs().max() / scale).item()
+        ep = ((gp.double() - g64).abs().max() / scale).item()
+        if ek > max(TRAIN_F32["leaf"], 2 * ep):
+            out["failed"].append((name, ek, ep))
+        out["farther"] += ek > ep
+        out["ratio"] = max(out["ratio"], (ek / max(ep, 1e-300), name))
+        out["worst_k"] = max(out["worst_k"], (ek, name))
+        out["worst_p"] = max(out["worst_p"], ep)
+    return out
+
+
+def log_f64(held: dict, n: int, what: str, smi: str) -> None:
+    log(f"   {what} held to the plain path in f64: kernel path at most "
+        f"{held['worst_k'][0]:.4g} of the leaf's largest entry (at {held['worst_k'][1]}), "
+        f"plain path at most {held['worst_p']:.4g}; the kernel path farther than the plain "
+        f"path on {held['farther']} of {n} leaves, by at most x{held['ratio'][0]:.4f} (at "
+        f"{held['ratio'][1]}); past both {TRAIN_F32['leaf']} and twice the plain path's "
+        f"distance: {held['failed']} ({smi})")
+
+
+def check_recurrent_train(arch: str, n_layers: int, batch: int, seq: int, seed: int,
+                          smi: str) -> None:
+    """The first train step of ``arch`` at full width and ``n_layers`` (one
+    pattern group: deep random stacks are chaotic in f32, and at
+    xlstm-125m's full depth both paths' f32 gradients part from the f64
+    ones by more than half a leaf's largest entry) in f32 from one state
+    and batch, the kernel path (every backward kernel) against the plain
+    path: the loss within TRAIN_F32's, each gradient leaf within TRAIN_F32's
+    of its largest entry; the leaves past it are held to the plain path in
+    f64 (``held_to_f64``).  Each backward kernel on the inputs its layer
+    handed it there, against its plain version (f32: RG-LRU RGLRU_TOL,
+    mLSTM MLSTM_ATOL/RTOL, windowed flash BWD_F32_*); the windowed flash in
+    bf16 on a bf16 step's inputs (BWD_BF16_REL); two bf16 kernel-path
+    steps from one state, bit for bit."""
+    cfg = get_config(arch).with_(num_layers=n_layers)
+    t0 = time.perf_counter()
+    params32 = init_params(cfg, seed=seed, device="cuda")
+    src = StreamSource(vocab_size=cfg.vocab_size, batch=batch, seq_len=seq, seed=seed)
+    tb = {k: v.to("cuda") for k, v in src.batch_at(7).items()}
+    names = leaf_names(params32)
+    seen = {"rglru_scan_bwd": [], "mlstm_chunk_bwd": [], "flash_attention_bwd": []}
+    undo = [capture(rglru_mod, "rglru_scan_bwd", seen["rglru_scan_bwd"]),
+            capture(mlstm_mod, "mlstm_chunk_bwd", seen["mlstm_chunk_bwd"]),
+            capture(flash_mod, "flash_attention_bwd", seen["flash_attention_bwd"])]
+    try:
+        loss_k, grads_k = train_grads(params32, cfg, tb, ModelOptions(compute_dtype="float32"))
+    finally:
+        for fn in undo:
+            fn()
+    log(f"== checks: {arch} training at full width, {cfg.num_layers} layers, "
+        f"{tuple(tb['tokens'].shape)} tokens")
+    for args, kw in seen["rglru_scan_bwd"]:
+        got = kernels.rglru_scan_bwd(*args)
+        want = kernels.ref.rglru_scan_bwd_ref(*args)
+        err = max(abs_rel_err(g, w, RGLRU_TOL, RGLRU_TOL, f"{arch} layer rglru_scan_bwd")
+                  for g, w in zip(got, want))
+        log(f"   f32 layer, rglru_scan_bwd {tuple(args[0].shape)} on its own inputs vs "
+            f"plain: max abs error {err:.3g} (tolerance {RGLRU_TOL} abs + rel)")
+    for args, kw in seen["mlstm_chunk_bwd"]:
+        got = kernels.mlstm_chunk_bwd(*args, **kw)
+        q, k, v, log_i, log_f, _ws, _den, _h, dh = args
+        want = kernels.ref.mlstm_chunk_bwd_ref(q, k, v, log_i, log_f, dh, **kw)
+        err = mlstm_bwd_close(got, want, q.dtype, f"{arch} layer mlstm_chunk_bwd")
+        log(f"   f32 layer, mlstm_chunk_bwd {tuple(q.shape)} on its own inputs vs plain: "
+            f"max abs error {err:.3g} (tolerance {MLSTM_ATOL} + {MLSTM_RTOL} of the "
+            "largest entry)")
+    windowed = [(a, kw) for a, kw in seen["flash_attention_bwd"] if kw.get("window")]
+    for args, kw in windowed:
+        got = kernels.flash_attention_bwd(*args, **kw)
+        want = kernels.ref.flash_attention_bwd_ref(*args, kw["causal"], kw["window"])
+        err = max(abs_rel_err(g, w, BWD_F32_ATOL, BWD_F32_RTOL,
+                              f"{arch} layer windowed flash_attention_bwd")
+                  for g, w in zip(got, want))
+        log(f"   f32 layer, windowed flash_attention_bwd {tuple(args[0].shape)} window "
+            f"{kw['window']} on its own inputs vs plain: max abs error {err:.3g} "
+            f"(tolerance {BWD_F32_ATOL} + {BWD_F32_RTOL} rel)")
+        del got, want
+    kinds = cfg.layer_kinds
+    assert (len(seen["rglru_scan_bwd"]), len(seen["mlstm_chunk_bwd"]), len(windowed)) == (
+        kinds.count("rglru"), kinds.count("mlstm"), kinds.count("local")), seen.keys()
+    del seen, windowed
+
+    loss_p, grads_p = train_grads(params32, cfg, tb,
+                                  ModelOptions(compute_dtype="float32", attn_impl="plain"))
+    g_rel, g_at = leaf_rel(grads_k, grads_p, names)
+    l_rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"   first step, f32, kernels vs plain: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+        f"{l_rel:.3g}, tolerance {TRAIN_F32['loss']}); gradients {g_rel:.3g} of the leaf's "
+        f"largest entry (worst {g_at}; tolerance {TRAIN_F32['leaf']}) ({smi})")
+    assert l_rel <= TRAIN_F32["loss"], l_rel
+    past = [i for i, (gk, gp) in enumerate(zip(grads_k, grads_p))
+            if ((gk - gp).abs().max() / gp.abs().max().clamp(min=1e-30)).item()
+            > TRAIN_F32["leaf"]]
+    grads_k, grads_p = [grads_k[i] for i in past], [grads_p[i] for i in past]
+
+    # bf16: two kernel-path steps from one state, bit for bit; the first
+    # one's windowed flash backwards on their own inputs
+    opts = ModelOptions(compute_dtype="bfloat16")
+    runs, seen16 = [], []
+    for i in range(2):
+        state = init_train_state(cfg, params=clone_params(params32))
+        undo = capture(flash_mod, "flash_attention_bwd", seen16) if i == 0 else None
+        try:
+            state, m = make_train_step(cfg, TrainConfig(), opts)(state, tb)
+        finally:
+            if undo:
+                undo()
+        runs.append((m["loss"].item(), leaves(state["params"])))
+        del state
+    same = runs[0][0] == runs[1][0] and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    log(f"   two bf16 train steps from one state: parameters "
+        f"{'identical' if same else 'DIFFER'} bit for bit")
+    assert same, f"{arch} train step is not deterministic"
+    del runs
+    for args, kw in seen16:
+        if not kw.get("window"):
+            continue
+        got = kernels.flash_attention_bwd(*args, **kw)
+        want = kernels.ref.flash_attention_bwd_ref(*args, kw["causal"], kw["window"])
+        rel = max(rel_err(g.float(), w.float()) for g, w in zip(got, want))
+        log(f"   bf16 layer, windowed flash_attention_bwd {tuple(args[0].shape)} on its own "
+            f"inputs vs plain: max |diff| / max |plain| = {rel:.3g} (tolerance "
+            f"{BWD_BF16_REL})")
+        assert all(torch.isfinite(g).all() for g in got) and rel <= BWD_BF16_REL, rel
+        del got, want
+    del seen16
+
+    if past:  # last: the f64 run needs the card's memory
+        params64 = map_params(lambda _k, p: p.detach().double(), params32)
+        del params32
+        torch.cuda.empty_cache()
+        _, grads_64 = f64_grads(params64, cfg, tb)
+        del params64
+        grads_64 = [grads_64[i] for i in past]
+        held = held_to_f64(grads_k, grads_p, grads_64, [names[i] for i in past])
+        log_f64(held, len(past), f"{len(past)} leaves past {TRAIN_F32['leaf']},", smi)
+        assert not held["failed"], held["failed"]
+        del grads_64
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+    log(f"   {arch} training checks: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------- the trainer PE
+
+
+class StandInCollective:
+    """A width-1 collective group: the fabric's ``allreduce_mean`` (the sum
+    of the ranks' arrays in rank order, over the width) for one rank, the
+    arrays handed back as every rank gets them (the trainer copies
+    before it scales them)."""
+
+    epoch = 0
+
+    def allreduce_mean(self, key, value, epoch: int, timeout: float = 30.0, rank: int = 0):
+        # the mean over one rank is the rank's own f32 arrays, bit for bit
+        return [np.asarray(a, dtype=np.float32) for a in value]
+
+
+class StandInRest:
+    """The control plane's side as the trainer PE sees it: the consistent
+    region commits a checkpoint as soon as it is notified (width 1) and
+    sweeps the older steps; metrics are kept; ``stop_after`` sets the
+    stop event once that step's metrics arrive."""
+
+    def __init__(self, ckpt: CheckpointStore, stop_event, stop_after=None,
+                 committed: int = -1):
+        self.ckpt, self.stop_event, self.stop_after = ckpt, stop_event, stop_after
+        self.committed, self.metrics, self.done = committed, [], False
+
+    def get_cr_state(self, job, region):
+        return {"lastCommitted": self.committed}
+
+    def notify_checkpoint(self, job, region, pe_id, step):
+        self.committed = step
+        self.ckpt.sweep(job, region, step)
+
+    def report_metrics(self, job, pe_id, metrics):
+        self.metrics.append(metrics)
+        if self.stop_after is not None and metrics.get("step") == self.stop_after:
+            self.stop_event.set()
+
+    def notify_source_done(self, job, pe_id):
+        self.done = True
+
+
+class StandInRuntime:
+    """The PE runtime's surface that ``run_trainer`` uses, for one trainer
+    channel of width 1 on the card."""
+
+    def __init__(self, app: dict, interval: int, rest: StandInRest):
+        self.job, self.pe_id, self._drain, self.emitted = "smoke", 0, None, []
+        self.meta = {"operators": [{"name": "trainer", "kind": "trainer", "channel": 0,
+                                    "config": app}],
+                     "widths": {"dp": 1},
+                     "consistentRegion": {"name": "dp", "interval": interval}}
+        self.stop_event, self.rest = rest.stop_event, rest
+        self.fabric = type("Fabric", (), {
+            "collective": staticmethod(lambda job, region, width: StandInCollective())})()
+
+    def _cr(self):
+        return self.meta["consistentRegion"]
+
+    def _emit(self, port, item, partition=None):
+        self.emitted.append(item)
+
+    def _flush_all(self):
+        pass
+
+    def load_metrics(self, extra=None):
+        return dict(extra or {})
+
+
+def checkpoint_digest(store: CheckpointStore, step: int) -> str:
+    """The content digest the store wrote beside a committed shard (SHA-256
+    over its arrays' keys, dtypes, shapes and bytes)."""
+    d = store._dir("smoke", "dp", step)
+    with open(os.path.join(d, "params.json")) as f:
+        assert json.load(f) == {"step": step}
+    with open(os.path.join(d, "params.npz.sha256")) as f:
+        return f.read()
+
+
+def trainer_pe_phase(seed: int, smi: str) -> dict:
+    """The port's trainer PE (``repro_torch.platform.run_trainer``) on a
+    stand-in runtime: full-width gemma-2b at 2 layers, f32, 8 steps of 2 x
+    512 tokens, checkpoints every 4 steps through the port's
+    ``CheckpointStore``.  An uninterrupted run, then a run stopped after
+    step 6 and restarted from the committed step 4: both must end at the
+    same checkpoint bytes (the uninterrupted run checkpoints only at step
+    8).  Returns the launches of the uninterrupted run."""
+    import shutil
+    import tempfile
+    import threading
+
+    cfg = get_config("gemma-2b").with_(num_layers=2)
+    app = {"arch": cfg, "steps": 8, "batch_per_shard": 2, "seq_len": 512, "lr": 1e-3,
+           "param_seed": seed + 7, "data_seed": seed, "device": "cuda"}
+    root = tempfile.mkdtemp(prefix="smoke-ckpt-")
+    t0 = time.perf_counter()
+    try:
+        def run(name, stop_after=None, store=None, committed=-1, interval=4):
+            store = store or CheckpointStore(os.path.join(root, name))
+            rest = StandInRest(store, threading.Event(), stop_after, committed)
+            rt = StandInRuntime(app, interval, rest)
+            t = time.perf_counter()
+            run_trainer(rt)
+            torch.cuda.synchronize()
+            return store, rt, time.perf_counter() - t
+
+        # the uninterrupted run checkpoints only its end (the interval
+        # moves no parameter bit; a 9 GB checkpoint takes ~25 s)
+        kernels.reset_launch_counts()
+        whole, rt, wall = run("whole", interval=8)
+        got = counts()
+        steps = [m["step"] for m in rt.rest.metrics]
+        step_s = [m["stepTime"] for m in rt.rest.metrics]
+        losses = ", ".join(f"{x['loss']:.4f}" for x in rt.emitted)
+        assert steps == list(range(1, 9)) and rt.rest.done and rt.rest.committed == 8, steps
+        assert all(math.isfinite(x["loss"]) for x in rt.emitted), rt.emitted
+        log(f"== trainer PE: repro_torch.platform.run_trainer on a stand-in runtime, "
+            f"gemma-2b full width at 2 layers ({cfg.param_count() / 1e9:.3f} B params), f32, "
+            f"8 steps of 2 x 512 tokens, checkpoints every 4 steps (the uninterrupted "
+            f"run's at step 8 only) ({smi})\n"
+            f"   uninterrupted: {wall:.1f} s, step time {min(step_s):.3f}-{max(step_s):.3f} s "
+            f"(checkpoint steps included); losses {losses}; launches {got}")
+        assert got["flash_attention"] == 8 * 2 and got["flash_attention_bwd"] == 8 * 2, got
+        want = checkpoint_digest(whole, 8)
+        shutil.rmtree(os.path.join(root, "whole"), ignore_errors=True)
+
+        store, rt, wall1 = run("stopped", stop_after=6)
+        steps = [m["step"] for m in rt.rest.metrics]
+        assert steps == list(range(1, 7)) and not rt.rest.done and rt.rest.committed == 4
+        _, rt2, wall2 = run("resumed", store=store, committed=rt.rest.committed)
+        steps2 = [m["step"] for m in rt2.rest.metrics]
+        assert steps2 == [5, 6, 7, 8] and rt2.rest.done and rt2.rest.committed == 8, steps2
+        got_digest = checkpoint_digest(store, 8)
+        log(f"   stopped after step 6 ({wall1:.1f} s), restarted from the committed step 4 "
+            f"({wall2:.1f} s, steps {steps2}): step 8's checkpoint "
+            f"{'equals' if got_digest == want else 'DIFFERS from'} the uninterrupted run's "
+            f"bit for bit (sha256 {want[:16]})")
+        assert got_digest == want, (got_digest, want)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"   trainer PE phase: {time.perf_counter() - t0:.1f} s")
+    return got
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_run = time.perf_counter()
 
     # 1. device
     if not torch.cuda.is_available():
@@ -1714,6 +2308,16 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         results["mlstm_chunk"].append(check_mlstm(gen, 1, 2048, 4, 384, 128, dtype))
     windowed = [check_flash(gen, 1, 4096, 16, 1, 256, torch.bfloat16, window=2048)]
+    # the recurrent families' training shapes (bf16 first: the model's):
+    # recurrentgemma-9b's local layers and RG-LRU over 1 x 4096 tokens,
+    # xlstm-125m's mLSTM over 2 x 1024
+    for dtype in (torch.bfloat16, torch.float32):
+        results["flash_attention_bwd_window"].append(check_flash_bwd(
+            gen, 1, 4096, 16, 1, 256, dtype, window=2048))
+    results["rglru_scan_bwd"].append(check_rglru_bwd(gen, 1, 4096, 4096))
+    for dtype in (torch.bfloat16, torch.float32):
+        results["mlstm_chunk_bwd"].append(check_mlstm_bwd(gen, 2, 1024, 4, 384, 128,
+                                                          dtype))
     # the MoE and frontend families' attention, bf16: MHA at D 128
     # (deepseek-moe-16b, qwen2-moe-a2.7b: H = KV = 16, G = 1; prefill of
     # 2048, paged serving, fixed-slot serving) and at D 64 (musicgen-large:
@@ -1738,6 +2342,7 @@ def main() -> int:
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
                 + (f"; {r['plan']}" if "plan" in r else ""))
 
+    log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
     # 4. paged serve: full-width gemma-2b in bf16
     cfg = get_config("gemma-2b")
     opts = ModelOptions(compute_dtype="bfloat16")
@@ -1786,6 +2391,7 @@ def main() -> int:
         log_profile(f"{label} ({C} micro-steps x {cfg.num_layers} layers, "
                     f"8 slots)", p, smi)
 
+    log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
     # 5. fixed-slot serve: 8 requests on 4 slots (admission queues)
     ftrace = fixed_trace(cfg.vocab_size, args.seed)
     warm = ServeEngine(cfg, params, num_slots=1, max_len=16, opts=opts)
@@ -1811,6 +2417,7 @@ def main() -> int:
     assert fixed_launches["rmsnorm"] == (2 * cfg.num_layers + 1) * steps
     del fixed
 
+    log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
     # 6. prefill 1024 tokens through make_prefill_step, then 16 decode steps
     S, n_decode = 1024, 16
     rng = np.random.default_rng(args.seed + 2)
@@ -1838,6 +2445,7 @@ def main() -> int:
                 smi)
     del cache, params
 
+    log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
     # 7. train: full-width, full-depth gemma-2b through the launcher
     steps, warmup, batch, seq = 8, 2, 2, 1024
     t_train = time.perf_counter()
@@ -1887,6 +2495,7 @@ def main() -> int:
     del state, step
     log(f"   train phase: {time.perf_counter() - t_train:.1f} s")
 
+    log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
     # 8. checks at full width and 2 layers.  The random network is chaotic
     # with depth (the reference's init gives nearly hard attention), so at
     # 18 layers two correct attention implementations part ways; 2 layers
@@ -1965,14 +2574,17 @@ def main() -> int:
     assert same, "train step is not deterministic"
     del runs, params32
 
+    log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
     # 9-10. the recurrent families at full width and depth, bf16
     rg_launches = recurrent_phase("recurrentgemma-9b", 4096, args.seed, smi)
     xl_launches = recurrent_phase("xlstm-125m", 2048, args.seed, smi)
 
+    log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
     # 11. checks of both families at full width and one pattern group
     for arch, n_layers in (("recurrentgemma-9b", 3), ("xlstm-125m", 4)):
         check_recurrent(arch, n_layers, args.seed, smi)
 
+    log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
     # 12-13. the MoE families at full width and depth, bf16, then their
     # checks at full width and 2 layers
     for arch in ("deepseek-moe-16b", "qwen2-moe-a2.7b"):
@@ -1980,21 +2592,43 @@ def main() -> int:
     for arch in ("deepseek-moe-16b", "qwen2-moe-a2.7b"):
         check_moe(arch, args.seed, smi)
 
+    log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
     # 14. training the MoE and frontend families
     train_moe_frontends(args.seed, smi)
 
-    # 15. the kernels line, the card, the result.  Each kernel's launches are
+    log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
+    # 15. training the recurrent families at full width: recurrentgemma-9b
+    # at one pattern group (3 layers; its 38 do not fit in f32 with AdamW)
+    # over 1 x 4096 tokens, twice its window; xlstm-125m at full depth over
+    # 2 x 1024; then their checks
+    rg_train = recurrent_train_phase("recurrentgemma-9b", 3, 1, 4096, args.seed, smi)
+    xl_train = recurrent_train_phase("xlstm-125m", None, 2, 1024, args.seed, smi)
+    check_recurrent_train("recurrentgemma-9b", 3, 1, 4096, args.seed, smi)
+    check_recurrent_train("xlstm-125m", 4, 2, 1024, args.seed, smi)
+
+    log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
+    # 16. the port's trainer PE with a stop and a resume (last: it turns on
+    # deterministic algorithms for the rest of the process)
+    trainer_pe_phase(args.seed, smi)
+
+    log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
+    # 17. the kernels line, the card, the result.  Each kernel's launches are
     # those of the path that runs it: the paged serve run (RMSNorm, paged
     # decode), the fixed-slot serve run (dense decode), the prefill (flash),
     # the train run (flash backward), the recurrent prefills (RG-LRU,
-    # mLSTM; the windowed flash is logged with the recurrentgemma phase)
+    # mLSTM; the windowed flash is logged with the recurrentgemma phase),
+    # the recurrent train runs (the windowed flash backward and the RG-LRU
+    # backward in recurrentgemma-9b's, the mLSTM backward in xlstm-125m's)
     launches = {"rmsnorm": paged_launches["rmsnorm"],
                 "paged_decode_attention": paged_launches["paged_decode_attention"],
                 "decode_attention": fixed_launches["decode_attention"],
                 "flash_attention": prefill_launches["flash_attention"],
                 "flash_attention_bwd": train_launches["flash_attention_bwd"],
                 "rglru_scan": rg_launches["rglru_scan"],
-                "mlstm_chunk": xl_launches["mlstm_chunk"]}
+                "mlstm_chunk": xl_launches["mlstm_chunk"],
+                "flash_attention_bwd_window": rg_train["flash_attention_bwd"],
+                "rglru_scan_bwd": rg_train["rglru_scan_bwd"],
+                "mlstm_chunk_bwd": xl_train["mlstm_chunk_bwd"]}
     assert all(n > 0 for n in launches.values()), launches
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": WHERE[name][0],
@@ -2004,6 +2638,7 @@ def main() -> int:
              "library_ms")}}
         for name in WHERE]}
     log(json.dumps(line))
+    log(f"== wall: {time.perf_counter() - t_run:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -10,12 +10,13 @@ sources with ``nvcc`` at first use.
 from . import ref
 from .decode_attention import decode_attention, paged_decode_attention
 from .flash_attention import flash_attention, flash_attention_bwd, flash_attention_train
-from .mlstm_chunk import mlstm_chunk
-from .rglru_scan import rglru_scan
+from .mlstm_chunk import mlstm_chunk, mlstm_chunk_bwd
+from .rglru_scan import rglru_scan, rglru_scan_bwd
 from .rmsnorm import rmsnorm
 
 KERNELS = (rmsnorm, paged_decode_attention, decode_attention, flash_attention,
-           flash_attention_bwd, rglru_scan, mlstm_chunk)
+           flash_attention_bwd, rglru_scan, rglru_scan_bwd, mlstm_chunk,
+           mlstm_chunk_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -26,5 +27,5 @@ def reset_launch_counts() -> None:
 
 __all__ = ["KERNELS", "decode_attention", "flash_attention",
            "flash_attention_bwd", "flash_attention_train", "mlstm_chunk",
-           "paged_decode_attention", "ref", "reset_launch_counts",
-           "rglru_scan", "rmsnorm"]
+           "mlstm_chunk_bwd", "paged_decode_attention", "ref",
+           "reset_launch_counts", "rglru_scan", "rglru_scan_bwd", "rmsnorm"]

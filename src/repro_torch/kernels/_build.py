@@ -53,13 +53,21 @@ _SIGNATURES = {
     "repro_flash_attention_max_head_dim": ([], ctypes.c_int),
     "repro_flash_attention_bwd": (
         [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int,
-         _int, _int, _int, _int, _int, _int, _float, _vp], ctypes.c_int),
+         _int, _int, _int, _int, _int, _int, _int, _float, _vp], ctypes.c_int),
     "repro_flash_attention_bwd_key_tile": ([], ctypes.c_int),
     "repro_rglru_scan": ([_int, _vp, _vp, _vp, _int, _int, _int, _vp],
                          ctypes.c_int),
+    "repro_rglru_scan_bwd": ([_int, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
+                              _vp], ctypes.c_int),
     "repro_mlstm_chunk": (
-        [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int,
-         _int, _int, _int, _int, _int, _int, _int, _float, _vp], ctypes.c_int),
+        [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+         _int, _int, _int, _int, _int, _int, _int, _int, _float, _vp],
+        ctypes.c_int),
+    "repro_mlstm_chunk_bwd": (
+        [_int, _int] + [_vp] * 16 + [_int, _int, _int, _int, _int, _float,
+                                      _vp], ctypes.c_int),
+    "repro_mlstm_chunk_bwd_scratch": ([_int, _int, _int, _int, _int],
+                                      ctypes.c_longlong),
     "repro_mlstm_chunk_max_dk": ([], ctypes.c_int),
     "repro_mlstm_chunk_max_chunk": ([], ctypes.c_int),
     "repro_error_string": ([_int], ctypes.c_char_p),

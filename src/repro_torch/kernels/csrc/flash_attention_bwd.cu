@@ -1,4 +1,5 @@
-// Causal (or full) GQA flash attention, backward, for Hopper (sm_90a).
+// Causal (or full, or windowed) GQA flash attention, backward, for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernels of
 // src/repro/kernels/flash_attention.py::flash_attention_bwd
@@ -27,6 +28,12 @@
 //   key < S (and key <= query when causal).  Blocks above the diagonal are
 //   never visited: the dq pass walks the key tiles from the diagonal back
 //   to 0, the dk/dv pass the query tiles from the diagonal on;
+// - a sliding window (window > 0: recurrentgemma's local layers) masks
+//   every pair but 0 <= q - k < window, as the forward does; the dq pass
+//   then starts its key tiles at the one that holds q0 - window + 1 and the
+//   dk/dv pass ends its query tiles before k0 + (key tile) + window - 1, so
+//   a block walks about (window + tile) / tile tiles whatever S is (the
+//   wrapper's split plan, `_dkv_splits`, counts the windowed range);
 // - p, dp, delta and ds are f32.
 //
 // The tensor-core variant (bf16, D a multiple of 16 up to 256, 16-byte
@@ -156,7 +163,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int S, int H, int KV,
-                    int D, int GC, int BQ, int causal, float scale) {
+                    int D, int GC, int BQ, int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int Dp = D + 1;
   float* sQ = smem;                 // (kRows, Dp)
@@ -185,7 +192,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   // causal: the last key any row of this tile attends to is q0 + BQ - 1
   const int kend = causal ? min(S, q0 + BQ) : S;
   const int ntiles = (kend + kQKeys - 1) / kQKeys;
-  for (int t = ntiles - 1; t >= 0; --t) {
+  // window: the first key any row sees is q0 - window + 1
+  const int tfirst = window > 0 ? max(0, q0 - window + 1) / kQKeys : 0;
+  for (int t = ntiles - 1; t >= tfirst; --t) {
     const int k0 = t * kQKeys;
     __syncthreads();  // the previous tile's reads are done (and sQ, sdO are written)
     load_keys(k, v, sK, sV, b, kvh, k0, kQKeys, S, KV, D);
@@ -207,7 +216,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
       const int kk = sub + kSub * j, kp = k0 + kk;
-      const bool ok = row_ok && kp < S && (!causal || kp <= qpos);
+      const bool ok = row_ok && kp < S && (!causal || kp <= qpos) &&
+                      (window <= 0 || qpos - kp < window);
       const float p = ok ? expf(s[j] * scale - row_lse) : 0.f;
       sDS[r * (kQKeys + 1) + kk] = p * (dp[j] - row_delta) * scale;
     }
@@ -238,7 +248,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int S, int H, int KV, int D, int GC, int BQ, int causal, float scale) {
+                     int S, int H, int KV, int D, int GC, int BQ, int causal, int window,
+                     float scale) {
   extern __shared__ float smem[];
   const int Dp = D + 1;
   float* sQ = smem;                   // (kRows, Dp)
@@ -263,8 +274,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   // causal: no query before k0 attends to this block's keys
   const int qstart = causal ? k0 : 0;
+  // window: no query from k0 + kKvKeys + window - 1 on sees this block's keys
+  const int qend = window > 0 ? min(S, k0 + kKvKeys + window - 1) : S;
   for (int g0 = 0; g0 < G; g0 += GC) {
-    for (int q0 = qstart; q0 < S; q0 += BQ) {
+    for (int q0 = qstart; q0 < qend; q0 += BQ) {
       __syncthreads();  // the previous tile's reads are done (and sK, sV are written)
       load_rows(q, dout, sQ, sdO, b, kvh, q0, g0, S, H, G, D, GC, BQ);
       __syncthreads();
@@ -289,7 +302,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
         const int kk = sub + kSub * j, kp = k0 + kk;
-        const bool ok = row_ok && kp < S && (!causal || kp <= qpos);
+        const bool ok = row_ok && kp < S && (!causal || kp <= qpos) &&
+                      (window <= 0 || qpos - kp < window);
         const float p = ok ? expf(s[j] * scale - row_lse) : 0.f;
         sP[r * (kKvKeys + 1) + kk] = p;
         sDS[r * (kKvKeys + 1) + kk] = p * (dp[j] - row_delta) * scale;
@@ -336,7 +350,8 @@ cudaError_t opt_in_smem(Kernel kernel, size_t bytes) {
 template <typename T, int DMAX>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* dout,
                      const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
-                     int S, int H, int KV, int D, int causal, float scale, cudaStream_t stream) {
+                     int S, int H, int KV, int D, int causal, int window, float scale,
+                     cudaStream_t stream) {
   const int G = H / KV;
   const int GC = G < kRows ? G : kRows;
   const int BQ = kRows / GC;
@@ -350,7 +365,8 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* do
   if (err != cudaSuccess) return err;
   dim3 dq_grid((S + BQ - 1) / BQ, B * KV, (G + GC - 1) / GC);
   flash_bwd_dq_kernel<T, DMAX><<<dq_grid, kThreads, dq_smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H, KV, D, GC, BQ, causal, scale);
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H, KV, D, GC, BQ, causal, window,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -360,23 +376,24 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* do
   dim3 dkv_grid((S + kKvKeys - 1) / kKvKeys, B * KV);
   flash_bwd_dkv_kernel<T, DMAX><<<dkv_grid, kThreads, dkv_smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H, KV, D, GC,
-      BQ, causal, scale);
+      BQ, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
-                   int S, int H, int KV, int D, int causal, float scale, cudaStream_t stream) {
+                   int S, int H, int KV, int D, int causal, int window, float scale,
+                   cudaStream_t stream) {
   if (D <= 64)
-    return launch_d<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV, D, causal, scale,
-                           stream);
+    return launch_d<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV, D, causal,
+                           window, scale, stream);
   if (D <= 128)
     return launch_d<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV, D, causal,
-                            scale, stream);
+                            window, scale, stream);
   if (D <= 256)
     return launch_d<T, 256>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, KV, D, causal,
-                            scale, stream);
+                            window, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -472,7 +489,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        bf16* __restrict__ dq, int S, int H, int KV, int D, int GC, int BQ,
-                       int causal, float scale) {
+                       int causal, int window, float scale) {
   constexpr int kNt = DMAX / 16;  // 8-column accumulator tiles a warp, at most
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const DqLayout L = dq_layout(D);
@@ -496,6 +513,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   tc_load_rows(q, dout, sQ, sdO, ld, b, kvh, q0, g0, S, H, G, D, GC, BQ);
   const int kend = causal ? min(S, q0 + BQ) : S;  // the last key any row attends to, + 1
   const int ntk = (kend + kTcKeys - 1) / kTcKeys;
+  // window: the first key any row sees is q0 - window + 1
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / kTcKeys : 0;
   tc_load_keys(k, v, sK + ((ntk - 1) & 1) * tile_elems, sV + ((ntk - 1) & 1) * tile_elems, ld, b,
                kvh, (ntk - 1) * kTcKeys, S, KV, D);
   cp_async_commit();
@@ -518,8 +537,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < kNt; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  for (int t = ntk - 1; t >= 0; --t) {  // from the diagonal back to key 0
-    if (t > 0)
+  for (int t = ntk - 1; t >= t_first; --t) {  // from the diagonal back to the first key seen
+    if (t > t_first)
       tc_load_keys(k, v, sK + ((t - 1) & 1) * tile_elems, sV + ((t - 1) & 1) * tile_elems, ld, b,
                    kvh, (t - 1) * kTcKeys, S, KV, D);
     cp_async_commit();  // possibly empty: keeps the group count regular
@@ -560,7 +579,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 2; ++e) {
           const int kp = k0 + 32 * wn + 8 * j + 2 * tq + e;
           const int qp = row_pos[h];
-          const bool ok = qp >= 0 && kp < S && (!causal || kp <= qp);
+          const bool ok = qp >= 0 && kp < S && (!causal || kp <= qp) &&
+                          (window <= 0 || qp - kp < window);
           const float p = ok ? expf(s[j][2 * h + e] * scale - row_lse[h]) : 0.f;
           ds[e] = p * (dp[j][2 * h + e] - row_delta[h]) * scale;
         }
@@ -614,7 +634,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         bf16* __restrict__ dk, bf16* __restrict__ dv,
                         float* __restrict__ part_dk, float* __restrict__ part_dv, int B, int S,
-                        int H, int KV, int D, int GC, int BQ, int causal, float scale) {
+                        int H, int KV, int D, int GC, int BQ, int causal, int window,
+                        float scale) {
   constexpr int kNt = DMAX / 16;
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const DkvLayout L = dkv_layout(D);
@@ -640,11 +661,13 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int npairs = (half + 15) / 16;
 
   // this key tile's work: for each head chunk, the query tiles from the
-  // diagonal on (all of them when not causal); split `split` takes the
-  // items [lo, hi) of that list, in order
+  // diagonal on (all of them when not causal), up to the last query that
+  // sees a key of the tile (k0 + 64 + window - 2 with a window); split
+  // `split` takes the items [lo, hi) of that list, in order
   const int nch = (G + GC - 1) / GC;
   const int qt_first = causal ? k0 / BQ : 0;
-  const int per = (S + BQ - 1) / BQ - qt_first;
+  const int q_end = window > 0 ? min(S, k0 + kTcKeys + window - 1) : S;
+  const int per = (q_end + BQ - 1) / BQ - qt_first;
   const long long total = static_cast<long long>(nch) * per;
   const int lo = static_cast<int>(total * split / nsplit);
   const int hi = static_cast<int>(total * (split + 1) / nsplit);
@@ -719,7 +742,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 2; ++e) {
           const int r = 32 * wn + 8 * j + 2 * tq + e;
           const int qp = cPos[r];
-          const bool ok = qp >= 0 && kp < S && (!causal || kp <= qp);
+          const bool ok = qp >= 0 && kp < S && (!causal || kp <= qp) &&
+                          (window <= 0 || qp - kp < window);
           p[e] = ok ? expf(st[j][2 * h + e] * scale - cLse[r]) : 0.f;
           ds[e] = p[e] * (dpt[j][2 * h + e] - cDelta[r]) * scale;
         }
@@ -805,7 +829,7 @@ template <int DMAX>
 cudaError_t launch_tc_d(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, void* dq, void* dk, void* dv,
                         float* part, int nsplit, int B, int S, int H, int KV, int D, int causal,
-                        float scale, cudaStream_t stream) {
+                        int window, float scale, cudaStream_t stream) {
   const int G = H / KV;
   const int GC = G < kTcRows ? G : kTcRows;
   const int BQ = kTcRows / GC;
@@ -819,7 +843,8 @@ cudaError_t launch_tc_d(const void* q, const void* k, const void* v, const void*
   if (err != cudaSuccess) return err;
   dim3 dq_grid((S + BQ - 1) / BQ, B * KV, (G + GC - 1) / GC);
   flash_bwd_dq_tc_kernel<DMAX><<<dq_grid, kTcThreads, dq_smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), S, H, KV, D, GC, BQ, causal, scale);
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), S, H, KV, D, GC, BQ, causal, window,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -832,7 +857,7 @@ cudaError_t launch_tc_d(const void* q, const void* k, const void* v, const void*
   dim3 dkv_grid((S + kTcKeys - 1) / kTcKeys, B * KV, nsplit);
   flash_bwd_dkv_tc_kernel<DMAX><<<dkv_grid, kTcThreads, dkv_smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), part_dk,
-      part_dv, B, S, H, KV, D, GC, BQ, causal, scale);
+      part_dv, B, S, H, KV, D, GC, BQ, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
   const long long blocks = (n / 4 + 255) / 256;
@@ -852,15 +877,15 @@ bool use_tc(int dtype, int D, const void* q, const void* k, const void* v, const
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq, void* dk, void* dv,
                       float* part, int nsplit, int B, int S, int H, int KV, int D, int causal,
-                      float scale, cudaStream_t stream) {
+                      int window, float scale, cudaStream_t stream) {
   if (D <= 64)
     return launch_tc_d<64>(q, k, v, dout, lse, delta, dq, dk, dv, part, nsplit, B, S, H, KV, D,
-                           causal, scale, stream);
+                           causal, window, scale, stream);
   if (D <= 128)
     return launch_tc_d<128>(q, k, v, dout, lse, delta, dq, dk, dv, part, nsplit, B, S, H, KV, D,
-                            causal, scale, stream);
+                            causal, window, scale, stream);
   return launch_tc_d<256>(q, k, v, dout, lse, delta, dq, dk, dv, part, nsplit, B, S, H, KV, D,
-                          causal, scale, stream);
+                          causal, window, scale, stream);
 }
 
 }  // namespace
@@ -871,9 +896,11 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* d
 extern "C" int repro_flash_attention_bwd_key_tile() { return repro::kTcKeys; }
 
 // q, out's gradient dout and dq (B, S, H, D), k, v, dk, dv (B, S, KV, D), all
-// in `dtype`; lse and delta (B, S, H) f32.  Head dims up to 256 (the forward's
-// limit).  bf16 rows that the tensor-core variant takes go to it, with the
-// dk/dv pass cut into `nsplit` query ranges; nsplit > 1 needs `part`, f32
+// in `dtype`; lse and delta (B, S, H) f32; window 0 for global attention,
+// else the local window (query i sees keys j with i - window < j), as in the
+// forward.  Head dims up to 256 (the forward's limit).  bf16 rows that
+// the tensor-core variant takes go to it, with the dk/dv pass cut into
+// `nsplit` query ranges; nsplit > 1 needs `part`, f32
 // scratch of 2 * nsplit * B * S * KV * D.  The rest go to the CUDA-core
 // variant (nsplit and part unused), whose dq pass takes 205,824 bytes of
 // shared memory at D = 256 and its dk/dv pass 173,184.  Launches the dq
@@ -883,7 +910,8 @@ extern "C" int repro_flash_attention_bwd(int device, int dtype, const void* q, c
                                          const void* v, const void* dout, const void* lse,
                                          const void* delta, void* dq, void* dk, void* dv,
                                          void* part, int nsplit, int B, int S, int H, int KV,
-                                         int D, int causal, float scale, void* stream) {
+                                         int D, int causal, int window, float scale,
+                                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || S == 0) return cudaSuccess;
@@ -893,13 +921,13 @@ extern "C" int repro_flash_attention_bwd(int device, int dtype, const void* q, c
   if (repro::use_tc(dtype, D, q, k, v, dout)) {
     if (nsplit < 1 || (nsplit > 1 && part == nullptr)) return cudaErrorInvalidValue;
     return repro::launch_tc(q, k, v, dout, l, d, dq, dk, dv, static_cast<float*>(part), nsplit,
-                            B, S, H, KV, D, causal, scale, s);
+                            B, S, H, KV, D, causal, window, scale, s);
   }
   if (dtype == repro::kFloat32)
-    return repro::launch<float>(q, k, v, dout, l, d, dq, dk, dv, B, S, H, KV, D, causal, scale,
-                                s);
+    return repro::launch<float>(q, k, v, dout, l, d, dq, dk, dv, B, S, H, KV, D, causal, window,
+                                scale, s);
   if (dtype == repro::kBFloat16)
     return repro::launch<__nv_bfloat16>(q, k, v, dout, l, d, dq, dk, dv, B, S, H, KV, D, causal,
-                                        scale, s);
+                                        window, scale, s);
   return cudaErrorInvalidValue;
 }

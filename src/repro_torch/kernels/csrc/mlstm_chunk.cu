@@ -58,13 +58,12 @@
 // Any dk up to 512 and any c up to 128; tiles past dk or c are zero-filled.
 #include <cstdint>
 
+#include "mlstm.cuh"
 #include "mma.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kMaxChunk = 128;
-constexpr int kMaxDk = 512;
 constexpr int kTile = 64;          // dk rows of a state tile; bf16 output: value tile, dk step
 constexpr int kPitch = kTile + 8;  // bf16 shared rows of 144 bytes: ldmatrix rows on distinct banks
 constexpr int kE32 = 32;           // f32 output pass: value columns a block
@@ -75,73 +74,6 @@ constexpr int kOutWarps = 8;       // bf16 output pass: 16 positions a warp
 constexpr int kOutStages = 3;      // bf16 output pass: steps in the ring of buffers
 constexpr int kValueGroup = 3;     // bf16 output pass: 64-wide value tiles a block
 constexpr int kF32Threads = 256;
-constexpr unsigned kFull = 0xffffffffu;
-
-__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// The workspace: for each (batch * head, chunk) entry p the carry entering
-// that chunk, with dkp = dk rounded up to 16.  C's dkp^2 floats hold
-// C[d][e] row-major (f32 variant, rows of dk) or in units of mma fragment
-// order (bf16 variant, below).
-struct Carry {
-  float* C;  // [P][dkp * dkp]
-  float* n;  // [P][dkp]
-  float* m;  // [P]
-};
-__host__ __device__ inline Carry carry_of(float* ws, long long P, int dkp) {
-  Carry w;
-  w.C = ws;
-  w.n = ws + P * dkp * dkp;
-  w.m = w.n + P * dkp;
-  return w;
-}
-
-// Inclusive cumsum of src[0], src[stride], ... (c values) into cs[0..c), by
-// one warp in a fixed order: lane l sums its run of ceil(c / 32) values in
-// order, the lanes' run totals are scanned with shuffles.
-__device__ void warp_cumsum(const float* src, long long stride, float* cs, int c, int lane) {
-  constexpr int kRun = kMaxChunk / 32;
-  const int per = (c + 31) >> 5, j0 = lane * per;
-  float loc[kRun];
-  float run = 0.f;
-#pragma unroll
-  for (int u = 0; u < kRun; ++u) {
-    const int j = j0 + u;
-    loc[u] = u < per && j < c ? src[j * stride] : 0.f;
-    run += loc[u];
-  }
-  float incl = run;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float y = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += y;
-  }
-  float acc = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) acc = 0.f;
-#pragma unroll
-  for (int u = 0; u < kRun; ++u) {
-    const int j = j0 + u;
-    if (u < per && j < c) {
-      acc += loc[u];
-      cs[j] = acc;
-    }
-  }
-}
-
-// The carry's move to the chunk's end, by one warp: the weight w[j] of
-// k_j v_j (0 for j in [c, rows)), the decay of the old carry and m'.
-__device__ void warp_carry(const float* cs, const float* li, float* w, int c, int rows, float m,
-                           int lane, float* decay, float* m_next) {
-  const float total = cs[c - 1];
-  float dmax = -INFINITY;
-  for (int j = lane; j < c; j += 32) dmax = fmaxf(dmax, total - cs[j] + li[j]);
-  const float mn = fmaxf(m + total, warp_max(dmax));
-  for (int j = lane; j < rows; j += 32) w[j] = j < c ? expf(total - cs[j] + li[j] - mn) : 0.f;
-  if (lane == 0) {
-    *decay = expf(m + total - mn);
-    *m_next = mn;
-  }
-}
 
 // acc[i] += part[i] for the first n of N m16n8 accumulator tiles, in f32
 // (rounded to nearest).  The kernels add each short run of mma.sync sums
@@ -506,8 +438,8 @@ __host__ __device__ inline OutLayout out_layout(int dk) {
 __global__ void __launch_bounds__(kOutWarps * 32, 1)
 mlstm_out_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
              const float* __restrict__ log_i, const float* __restrict__ log_f,
-             const float* __restrict__ ws, float* __restrict__ h, int S, int H, int dk, int c,
-             float scale, bool vec) {
+             const float* __restrict__ ws, float* __restrict__ h, float* __restrict__ den,
+             int S, int H, int dk, int c, float scale, bool vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const OutLayout L = out_layout(dk);
   bf16* sq = reinterpret_cast<bf16*>(smem_raw + L.q);
@@ -742,8 +674,13 @@ mlstm_out_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
     const float qn1 = __shfl_sync(kFull, qn[2] + qn[3], lane & ~3) +
                       __shfl_sync(kFull, qn[2], (lane & ~3) + 1);
     const float inter0 = expf(cs0 + m_prev - mi0), inter1 = expf(cs1 + m_prev - mi1);
-    const float lim0 = fmaxf(fabsf(rs0 + inter0 * (qn0 * scale)), expf(-mi0));
-    const float lim1 = fmaxf(fabsf(rs1 + inter1 * (qn1 * scale)), expf(-mi1));
+    const float den0 = rs0 + inter0 * (qn0 * scale), den1 = rs1 + inter1 * (qn1 * scale);
+    const float lim0 = fmaxf(fabsf(den0), expf(-mi0));
+    const float lim1 = fmaxf(fabsf(den1), expf(-mi1));
+    if (den != nullptr && vt0 + vt == 0 && t == 0) {  // for the backward: one lane a row
+      if (i0 < c) den[row0 + static_cast<long long>(i0) * H] = den0;
+      if (i1 < c) den[row0 + static_cast<long long>(i1) * H] = den1;
+    }
     const bool pair = (dk & 1) == 0;
     const int e0 = (vt0 + vt) * kTile;
 #pragma unroll
@@ -891,7 +828,8 @@ __global__ void __launch_bounds__(kF32Threads, 1)
 mlstm_out_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ log_i,
               const float* __restrict__ log_f, const float* __restrict__ ws,
-              float* __restrict__ h, int S, int H, int dk, int c, float scale) {
+              float* __restrict__ h, float* __restrict__ den_out, int S, int H, int dk, int c,
+              float scale) {
   extern __shared__ float smem[];
   const OutF32Layout L = out_f32_layout(dk, c);
   float* sS = smem + L.s;
@@ -1042,6 +980,8 @@ mlstm_out_f32(const float* __restrict__ q, const float* __restrict__ k,
     num += inter * qc[a];
     const float den = sRsum[i] + inter * sQn[i];
     if (col_ok) h[head0 + i * tstride + ecol] = num / fmaxf(fabsf(den), expf(-sMi[i]));
+    if (den_out != nullptr && blockIdx.z == 0 && lane == 0)  // for the backward
+      den_out[row0 + static_cast<long long>(i) * H] = den;
   }
 }
 
@@ -1054,9 +994,9 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* li,
-                        const float* lf, float* h, float* C, float* n, float* m, float* ws, int B,
-                        int S, int H, int dk, int c, int tiles, int e_tiles, int value_tiles,
-                        float scale, cudaStream_t stream) {
+                        const float* lf, float* h, float* den, float* C, float* n, float* m,
+                        float* ws, int B, int S, int H, int dk, int c, int tiles, int e_tiles,
+                        int value_tiles, float scale, cudaStream_t stream) {
   const bool vec = dk % 8 == 0 &&
                    ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(ws)) & 15u) == 0;
@@ -1070,14 +1010,14 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   mlstm_out_tc<<<dim3(B * H, S / c, value_tiles), kOutWarps * 32, out_smem, stream>>>(
-      q, k, v, li, lf, ws, h, S, H, dk, c, scale, vec);
+      q, k, v, li, lf, ws, h, den, S, H, dk, c, scale, vec);
   return cudaGetLastError();
 }
 
 cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* li,
-                       const float* lf, float* h, float* C, float* n, float* m, float* ws, int B,
-                       int S, int H, int dk, int c, int tiles, int value_tiles, float scale,
-                       cudaStream_t stream) {
+                       const float* lf, float* h, float* den, float* C, float* n, float* m,
+                       float* ws, int B, int S, int H, int dk, int c, int tiles, int value_tiles,
+                       float scale, cudaStream_t stream) {
   const size_t out_smem = out_f32_layout(dk, c).total * sizeof(float);
   cudaError_t err = allow_smem(mlstm_state_f32, sizeof(StateF32));
   if (err != cudaSuccess) return err;
@@ -1088,7 +1028,7 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   mlstm_out_f32<<<dim3(B * H, S / c, value_tiles), kF32Threads, out_smem, stream>>>(
-      q, k, v, li, lf, ws, h, S, H, dk, c, scale);
+      q, k, v, li, lf, ws, h, den, S, H, dk, c, scale);
   return cudaGetLastError();
 }
 
@@ -1099,8 +1039,10 @@ extern "C" int repro_mlstm_chunk_max_dk() { return repro::kMaxDk; }
 extern "C" int repro_mlstm_chunk_max_chunk() { return repro::kMaxChunk; }
 
 // q, k, v (B, S, H, dk) in `dtype`; log_i, log_f (B, S, H) f32; h (B, S, H,
-// dk) f32; C (B, H, dk, dk), n (B, H, dk), m (B, H) f32, all three null or
-// none; ws f32, B * H * (S / c) * (dkp^2 + dkp + 1) floats (dkp: dk rounded
+// dk) f32; den (B, S, H) f32 or null: each row's denominator before
+// max(|den|, exp(-m_i)), which the backward (csrc/mlstm_chunk_bwd.cu) reads
+// to take the forward's branch; C (B, H, dk, dk), n (B, H, dk), m (B, H)
+// f32, all three null or none; ws f32, B * H * (S / c) * (dkp^2 + dkp + 1) floats (dkp: dk rounded
 // up to 16), 16-byte aligned.  c divides S.  The wrapper's plan gives the
 // grids' tiles: the state pass's `state_tiles` tiles of 64 dk rows and
 // `state_e_tiles` of value columns (96 in bf16, 64 in f32), and the output
@@ -1110,7 +1052,8 @@ extern "C" int repro_mlstm_chunk_max_chunk() { return repro::kMaxChunk; }
 // the launches (0 on success).
 extern "C" int repro_mlstm_chunk(int device, int dtype, const void* q, const void* k,
                                  const void* v, const void* log_i, const void* log_f, void* h,
-                                 void* C, void* n, void* m, void* ws, int B, int S, int H, int dk,
+                                 void* den, void* C, void* n, void* m, void* ws, int B, int S,
+                                 int H, int dk,
                                  int c, int state_tiles, int state_e_tiles, int value_tiles,
                                  float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -1129,18 +1072,19 @@ extern "C" int repro_mlstm_chunk(int device, int dtype, const void* q, const voi
   auto li = static_cast<const float*>(log_i);
   auto lf = static_cast<const float*>(log_f);
   auto hp = static_cast<float*>(h);
+  auto dp = static_cast<float*>(den);
   auto Cp = static_cast<float*>(C);
   auto np = static_cast<float*>(n);
   auto mp = static_cast<float*>(m);
   auto wp = static_cast<float*>(ws);
   if (dtype == repro::kFloat32)
     return repro::launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
-                             static_cast<const float*>(v), li, lf, hp, Cp, np, mp, wp, B, S, H,
-                             dk, c, state_tiles, value_tiles, scale, s);
+                             static_cast<const float*>(v), li, lf, hp, dp, Cp, np, mp, wp, B, S,
+                             H, dk, c, state_tiles, value_tiles, scale, s);
   if (dtype == repro::kBFloat16)
     return repro::launch_bf16(static_cast<const repro::bf16*>(q),
                               static_cast<const repro::bf16*>(k),
-                              static_cast<const repro::bf16*>(v), li, lf, hp, Cp, np, mp, wp, B,
-                              S, H, dk, c, state_tiles, state_e_tiles, value_tiles, scale, s);
+                              static_cast<const repro::bf16*>(v), li, lf, hp, dp, Cp, np, mp, wp,
+                              B, S, H, dk, c, state_tiles, state_e_tiles, value_tiles, scale, s);
   return cudaErrorInvalidValue;
 }

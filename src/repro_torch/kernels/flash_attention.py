@@ -8,7 +8,7 @@ They replace the Pallas TPU kernels ``flash_attention``,
 ``repro/kernels/flash_attention.py``.  K/V stay compact (``KV`` heads, read
 through ``h // G``), any sequence length is taken (the kernels mask the
 ragged last tile themselves), head dims up to 256, and a sliding window
-(``window`` > 0, the local attention of recurrentgemma) in the forward.  A
+(``window`` > 0, the local attention of recurrentgemma) in both.  A
 tensor on the CPU takes the plain version (``ref.causal_attention_ref``,
 ``ref.attention_lse_ref``, ``ref.flash_attention_bwd_ref``); a CUDA tensor
 launches the kernel or raises.
@@ -28,16 +28,19 @@ ROWS = 64  # (position, head) rows of a query tile in the kernels
 
 
 def _dkv_splits(B: int, S: int, H: int, KV: int, key_tile: int,
-                sms: int) -> int:
+                sms: int, window: int = 0) -> int:
     """How many query ranges the tensor-core dk/dv pass cuts each key
     tile's work into: as many as keep its ``ceil(S / key_tile) * B * KV *
     nsplit`` blocks within one wave of the card's SMs (one block per SM,
     for its shared memory), at least 1 and at most the query tiles of the
-    first key tile (``S * G / ROWS``, rounded up, for every head chunk).
-    The splits' f32 partials are summed in order by the kernel's last pass."""
+    first key tile (``S * G / ROWS``, rounded up, for every head chunk;
+    with a window, those of the ``key_tile + window - 1`` queries that see
+    a key of the tile).  The splits' f32 partials are summed in order by
+    the kernel's last pass."""
     G = H // KV
     gc = min(G, ROWS)
-    tiles = -(-G // gc) * -(-S // (ROWS // gc))
+    span = min(S, key_tile + window - 1) if window > 0 else S
+    tiles = -(-G // gc) * -(-span // (ROWS // gc))
     blocks = -(-S // key_tile) * B * KV
     return max(1, min(sms // max(1, blocks), tiles))
 
@@ -92,17 +95,21 @@ def flash_attention(q, k, v, *, causal: bool = True, return_lse: bool = False,
 flash_attention.launches = 0  # kernel launches since the count was last reset
 
 
-def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True):
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
+                        window: int = 0):
     """The backward of ``flash_attention``: q, out, do (B,S,H,D) and k, v
-    (B,S,KV,D) in one dtype, lse (B,S,H) f32 from the forward -> (dq in q's
-    dtype, dk, dv in k's).  ``delta = rowsum(do * out)`` is taken in f32
-    here, as the reference takes it outside its kernels; the kernel's
+    (B,S,KV,D) in one dtype, lse (B,S,H) f32 from the forward, and the
+    forward's ``window`` -> (dq in q's dtype, dk, dv in k's).  ``delta =
+    rowsum(do * out)`` is taken in f32 here, as the reference takes it
+    outside its kernels; the kernel's
     passes then write dq and the group-summed dk, dv, deterministically
     (in bf16 the dk/dv pass may be cut into query ranges whose f32 partials
     a last pass sums in order: ``_dkv_splits``)."""
     name = "flash_attention_bwd"
+    if window < 0:
+        raise ValueError(f"{name}: window {window} is negative")
     if _build.on_cpu(name, q=q, k=k, v=v, out=out, lse=lse, do=do):
-        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window)
     _build.check_inputs(name, q.device, q=q, k=k, v=v, out=out, lse=lse, do=do)
     B, S, H, KV, D = _check_shapes(name, q, k, v)
     if out.shape != q.shape or do.shape != q.shape:
@@ -119,7 +126,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True):
     nsplit, part = 1, None
     if q.dtype == torch.bfloat16 and D % 16 == 0:  # the tensor-core variant
         nsplit = _dkv_splits(B, S, H, KV, lib.repro_flash_attention_bwd_key_tile(),
-                             _build.sm_count(q.device.index))
+                             _build.sm_count(q.device.index), window)
         if nsplit > 1:  # f32 partial dk, dv of each split
             part = torch.empty((2, nsplit, B, S, KV, D), dtype=torch.float32,
                                device=q.device)
@@ -128,7 +135,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True):
         v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if part is None else part.data_ptr(), nsplit, B, S, H, KV, D,
-        int(causal), 1.0 / math.sqrt(D), _build.stream(q.device))
+        int(causal), int(window), 1.0 / math.sqrt(D), _build.stream(q.device))
     _build.check(err, name)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -139,32 +146,26 @@ flash_attention_bwd.launches = 0  # calls that launched the kernel's two passes
 
 class _FlashAttentionTrain(torch.autograd.Function):
     """Forward: the flash kernel with its LSE; backward: the flash backward
-    kernel on the saved (q, k, v, out, lse)."""
+    kernel on the saved (q, k, v, out, lse), with the forward's window."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True,
+                                   window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
-                                         causal=ctx.causal)
-        return dq, dk, dv, None
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_train(q, k, v, causal: bool = True, window: int = 0):
     """Differentiable flash attention: ``flash_attention`` forward, the
-    backward kernel in backward.  q (B,S,H,D); k, v (B,S,KV,D) ->
-    (B,S,H,D).  A window (local attention) runs the forward only: the
-    backward kernel takes none yet, so inputs that require grad raise."""
-    if window:
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(
-                "flash attention with a window has no backward yet: it comes "
-                "with the recurrent training slice of the port")
-        return flash_attention(q, k, v, causal=causal, window=window)
-    return _FlashAttentionTrain.apply(q, k, v, causal)
+    backward kernel in backward, both with the sliding ``window`` when it is
+    > 0 (local attention).  q (B,S,H,D); k, v (B,S,KV,D) -> (B,S,H,D)."""
+    return _FlashAttentionTrain.apply(q, k, v, causal, window)

@@ -1,20 +1,29 @@
-"""Chunkwise stabilized mLSTM: the wrapper of the CUDA kernel
-``csrc/mlstm_chunk.cu``.
+"""Chunkwise stabilized mLSTM: the wrappers of the CUDA kernels
+``csrc/mlstm_chunk.cu`` (forward) and ``csrc/mlstm_chunk_bwd.cu``
+(backward), and ``mlstm_chunk``, the differentiable function made of the
+two.
 
 Replaces the Pallas TPU kernel ``repro/kernels/mlstm_chunk.py::mlstm_chunk``,
 which computes ``repro/models/recurrent.py::mlstm_chunk_recurrence``.  Unlike
 the TPU kernel it can also return the final carry ``(C, n, m)``, so the
 prefill runs it too.  The chunk is ``min(chunk, S)`` and must divide S, the
 reference's rule.  As in the TPU kernel's wrapper, the forget gate's log
-sigmoid is taken here, outside the kernel.  A tensor on the CPU takes the
-plain version (``ref.mlstm_chunk_ref``); a CUDA tensor launches the kernel
-or raises.  Neither package has a backward for it, so under grad mode
-inputs that require grad are refused.
+sigmoid is taken here, outside the kernel, so autograd carries the
+gradient of ``log_f`` back to ``f_pre``.  Tensors on the CPU take the plain
+version (``ref.mlstm_chunk_ref``, differentiated by autograd); CUDA tensors
+launch the kernels or raise.  The reference trains through XLA's
+derivative of its chunk recurrence; the port's backward kernel is the
+gradient with respect to q, k, v, log_i and log_f, walking the chunks in
+reverse (its header says how).  The final carry is a prefill's state and
+has no backward kernel: asking the kernel for it from inputs that require
+grad raises.
 
-The kernel runs in two passes on the caller's stream (one call, one count
+The forward runs in two passes on the caller's stream (one call, one count
 in ``.launches``): a state pass writes the carry entering every chunk to a
 workspace that this wrapper allocates, and an output pass reads it.  The
-grids and the workspace come from the shapes alone (``_plan``).
+grids and the workspace come from the shapes alone (``_plan``).  Under
+autograd the workspace and each row's denominator stay for the backward,
+which reads the carries from it rather than running the recurrence again.
 """
 
 from __future__ import annotations
@@ -48,15 +57,8 @@ def _plan(B: int, S: int, H: int, dk: int, c: int, dtype) -> tuple:
             B * H * (S // c) * (dkp * dkp + dkp + 1))
 
 
-def mlstm_chunk(q, k, v, i_pre, f_pre, *, chunk: int = 128,
-                return_final: bool = False):
-    """q, k, v (B,S,H,dk) in one dtype (f32 or bf16); i_pre, f_pre (B,S,H)
-    -> h (B,S,H,dk) f32 [, (C (B,H,dk,dk), n (B,H,dk), m (B,H)) f32]."""
-    name = "mlstm_chunk"
-    _build.refuse_grad(name, q=q, k=k, v=v, i_pre=i_pre, f_pre=f_pre)
-    if _build.on_cpu(name, q=q, k=k, v=v, i_pre=i_pre, f_pre=f_pre):
-        return mlstm_chunk_ref(q, k, v, i_pre, f_pre, chunk=chunk,
-                               return_final=return_final)
+def _check(name, q, k, v, i_pre, f_pre, chunk: int) -> tuple:
+    """(B, S, H, dk, c) of CUDA inputs the kernels take; raises otherwise."""
     _build.check_inputs(name, q.device, q=q, k=k, v=v, i_pre=i_pre,
                         f_pre=f_pre)
     if q.dtype not in _build.DTYPE_CODES:
@@ -81,27 +83,120 @@ def mlstm_chunk(q, k, v, i_pre, f_pre, *, chunk: int = 128,
     if c > lib.repro_mlstm_chunk_max_chunk():
         raise ValueError(f"{name}: chunk {c} is above "
                          f"{lib.repro_mlstm_chunk_max_chunk()}")
-    log_i = i_pre.float().contiguous()
-    log_f = F.logsigmoid(f_pre.float()).contiguous()
-    h = torch.empty((B, S, H, dk), dtype=torch.float32, device=q.device)
+    return B, S, H, dk, c
+
+
+def mlstm_chunk_fwd(q, k, v, log_i, log_f, *, chunk: int = 128,
+                    return_final: bool = False, keep: bool = False):
+    """The forward kernel on CUDA tensors: q, k, v (B,S,H,dk) in one dtype
+    (f32 or bf16); log_i, log_f (B,S,H) f32 (log_f a log sigmoid) -> h
+    (B,S,H,dk) f32, the final carry ``(C (B,H,dk,dk), n (B,H,dk), m (B,H))``
+    f32 or None, and with ``keep`` the workspace and each row's denominator
+    (B,S,H) for the backward (else None, None)."""
+    name = "mlstm_chunk"
+    B, S, H, dk, c = _check(name, q, k, v, log_i, log_f, chunk)
+    dev = q.device
+    h = torch.empty((B, S, H, dk), dtype=torch.float32, device=dev)
+    den = (torch.empty((B, S, H), dtype=torch.float32, device=dev) if keep
+           else None)
     final = None
     if return_final:
-        final = (torch.empty((B, H, dk, dk), dtype=torch.float32, device=q.device),
-                 torch.empty((B, H, dk), dtype=torch.float32, device=q.device),
-                 torch.empty((B, H), dtype=torch.float32, device=q.device))
+        final = (torch.empty((B, H, dk, dk), dtype=torch.float32, device=dev),
+                 torch.empty((B, H, dk), dtype=torch.float32, device=dev),
+                 torch.empty((B, H), dtype=torch.float32, device=dev))
     C_ptr, n_ptr, m_ptr = ((None, None, None) if final is None
                            else tuple(t.data_ptr() for t in final))
     state_tiles, state_e_tiles, value_tiles, ws_floats = _plan(B, S, H, dk, c,
                                                                q.dtype)
-    ws = torch.empty(ws_floats, dtype=torch.float32, device=q.device)
-    err = lib.repro_mlstm_chunk(
-        q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), log_i.data_ptr(), log_f.data_ptr(), h.data_ptr(), C_ptr,
-        n_ptr, m_ptr, ws.data_ptr(), B, S, H, dk, c, state_tiles, state_e_tiles,
-        value_tiles, 1.0 / math.sqrt(dk), _build.stream(q.device))
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=dev)
+    err = _build.library().repro_mlstm_chunk(
+        dev.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), log_i.data_ptr(), log_f.data_ptr(), h.data_ptr(),
+        None if den is None else den.data_ptr(), C_ptr, n_ptr, m_ptr,
+        ws.data_ptr(), B, S, H, dk, c, state_tiles, state_e_tiles,
+        value_tiles, 1.0 / math.sqrt(dk), _build.stream(dev))
     _build.check(err, name)
     mlstm_chunk.launches += 1
-    return (h, final) if return_final else h
+    return h, final, (ws, den) if keep else (None, None)
 
 
-mlstm_chunk.launches = 0  # kernel launches since the count was last reset
+def mlstm_chunk_bwd(q, k, v, log_i, log_f, ws, den, h, dh, *,
+                    chunk: int = 128) -> tuple:
+    """The backward kernel on CUDA tensors: the forward's inputs (q, k, v,
+    log_i, log_f as ``mlstm_chunk_fwd`` took them), its workspace ``ws``,
+    denominators ``den`` and output ``h``, and the output's gradient ``dh``
+    (B,S,H,dk) f32 -> (dq, dk, dv in q's dtype, dlog_i, dlog_f f32)."""
+    name = "mlstm_chunk_bwd"
+    B, S, H, dk, c = _check(name, q, k, v, log_i, log_f, chunk)
+    _build.check_inputs(name, q.device, ws=ws, den=den, h=h, dh=dh)
+    if dh.shape != h.shape or dh.dtype != torch.float32:
+        raise ValueError(f"{name}: dh must be float32 of h's shape "
+                         f"{tuple(h.shape)}, got {dh.dtype} {tuple(dh.shape)}")
+    dev = q.device
+    lib = _build.library()
+    grads = [torch.empty((B, S, H, dk), dtype=torch.float32, device=dev)
+             for _ in range(3)]
+    dlog = [torch.empty((B, S, H), dtype=torch.float32, device=dev)
+            for _ in range(2)]
+    gws = torch.empty(B * H * (S // c) * (dk * dk + dk), dtype=torch.float32,
+                      device=dev)
+    scratch = torch.empty(lib.repro_mlstm_chunk_bwd_scratch(B, S, H, dk, c),
+                          dtype=torch.float32, device=dev)
+    err = lib.repro_mlstm_chunk_bwd(
+        dev.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), log_i.data_ptr(), log_f.data_ptr(), ws.data_ptr(),
+        den.data_ptr(), h.data_ptr(), dh.data_ptr(),
+        *(t.data_ptr() for t in grads + dlog), gws.data_ptr(),
+        scratch.data_ptr(), B, S, H, dk, c, 1.0 / math.sqrt(dk),
+        _build.stream(dev))
+    _build.check(err, name)
+    mlstm_chunk_bwd.launches += 1
+    dq, dk_, dv = (g.to(q.dtype) for g in grads)
+    return dq, dk_, dv, dlog[0], dlog[1]
+
+
+class _MlstmChunk(torch.autograd.Function):
+    """Forward: the chunk kernel, keeping its workspace and denominators;
+    backward: the backward kernel on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_i, log_f, chunk):
+        h, _final, (ws, den) = mlstm_chunk_fwd(q, k, v, log_i, log_f,
+                                               chunk=chunk, keep=True)
+        ctx.save_for_backward(q, k, v, log_i, log_f, ws, den, h)
+        ctx.chunk = chunk
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        q, k, v, log_i, log_f, ws, den, h = ctx.saved_tensors
+        grads = mlstm_chunk_bwd(q, k, v, log_i, log_f, ws, den, h,
+                                dh.contiguous(), chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def mlstm_chunk(q, k, v, i_pre, f_pre, *, chunk: int = 128,
+                return_final: bool = False):
+    """q, k, v (B,S,H,dk) in one dtype (f32 or bf16); i_pre, f_pre (B,S,H)
+    -> h (B,S,H,dk) f32 [, (C (B,H,dk,dk), n (B,H,dk), m (B,H)) f32],
+    differentiable in all five inputs (h only)."""
+    name = "mlstm_chunk"
+    if _build.on_cpu(name, q=q, k=k, v=v, i_pre=i_pre, f_pre=f_pre):
+        return mlstm_chunk_ref(q, k, v, i_pre, f_pre, chunk=chunk,
+                               return_final=return_final)
+    log_i = i_pre.float().contiguous()
+    log_f = F.logsigmoid(f_pre.float()).contiguous()
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v, i_pre, f_pre))
+    if not grad:
+        h, final, _ = mlstm_chunk_fwd(q, k, v, log_i, log_f, chunk=chunk,
+                                      return_final=return_final)
+        return (h, final) if return_final else h
+    if return_final:
+        raise ValueError(f"{name}: the final carry is a prefill's state and "
+                         "has no backward; ask for it under torch.no_grad()")
+    return _MlstmChunk.apply(q, k, v, log_i, log_f, chunk)
+
+
+mlstm_chunk.launches = 0  # forward kernel launches since the count was last reset
+mlstm_chunk_bwd.launches = 0  # backward kernel launches likewise

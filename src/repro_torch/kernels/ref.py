@@ -76,8 +76,10 @@ def attention_lse_ref(q, k, causal: bool = True, window: int = 0):
     return torch.logsumexp(s, dim=-1).transpose(1, 2).contiguous()
 
 
-def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = True):
-    """The gradients of causal GQA attention from the forward's ``out`` and
+def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = True,
+                            window: int = 0):
+    """The gradients of causal GQA attention (windowed when ``window`` > 0,
+    the local attention of ``causal_attention_ref``) from the forward's ``out`` and
     ``lse`` (B,S,H) and the output's gradient ``do``: (dq (B,S,H,D) in q's
     dtype, dk, dv (B,S,KV,D) in k's and v's).  Quadratic, in f32: with
     ``p = exp(s - lse)`` and ``delta = rowsum(do * out)``, ``ds = p * (do
@@ -92,7 +94,7 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = True):
     vf = v.repeat_interleave(G, dim=2).float()
     qf, dof = q.float(), do.float()
     delta = (dof * out.float()).sum(dim=-1).transpose(1, 2)  # (B,H,S)
-    s = _attention_scores(q, k, causal)  # masked entries -inf: p = 0 there
+    s = _attention_scores(q, k, causal, window)  # masked entries -inf: p = 0 there
     p = torch.exp(s - lse.transpose(1, 2)[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - delta[..., None]) * scale
@@ -146,6 +148,24 @@ def rglru_scan_ref(log_a, b):
     return out
 
 
+def rglru_scan_bwd_ref(log_a, h, dh):
+    """The gradients of ``rglru_scan_ref`` from its output ``h`` and the
+    output's gradient ``dh`` (B,S,C) f32: the reverse scan ``g_t = dh_t +
+    a_{t+1} g_{t+1}`` (g past the end 0) as an explicit loop, then ``db =
+    g`` and ``dlog_a_t = g_t * a_t * h_{t-1}`` (h_{-1} = 0).  Returns
+    (dlog_a, db)."""
+    a = torch.exp(log_a)
+    db = torch.empty_like(dh)
+    g = torch.zeros_like(dh[:, 0])
+    a_next = torch.zeros_like(g)
+    for t in range(dh.shape[1] - 1, -1, -1):
+        g = dh[:, t] + a_next * g
+        db[:, t] = g
+        a_next = a[:, t]
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return db * a * h_prev, db
+
+
 def _mlstm_inputs(q, k, v, i_pre, f_pre):
     """The recurrences' common start: q scaled by 1/sqrt(dk), everything in
     f32 (in f64 when q is f64: an exact reference), the forget gate as log
@@ -195,7 +215,29 @@ def mlstm_chunk_ref(q, k, v, i_pre, f_pre, *, chunk: int = 128,
     csum_i - csum_j + li_j (j <= i), m_i = max(max_j D[i,j], csum_i + m),
     h = num / max(|den|, exp(-m_i)); the carry (C, n, m) moves to the
     chunk's end."""
-    B, S, H, dk = q.shape
+    return _mlstm_chunks(*_mlstm_inputs(q, k, v, i_pre, f_pre), chunk,
+                         return_final)
+
+
+def mlstm_chunk_bwd_ref(q, k, v, log_i, log_f, dh, *, chunk: int = 128):
+    """The plain version of the mLSTM backward kernel: autograd through
+    the chunk recurrence from the log gates as the kernels take them (q, k,
+    v (B,S,H,dk); log_i, log_f (B,S,H) f32, log_f a log sigmoid) given the
+    output's gradient ``dh`` -> (dq, dk, dv in q's dtype, dlog_i, dlog_f)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, log_i, log_f)]
+        dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        h = _mlstm_chunks(leaves[0].to(dt) * scale, leaves[1].to(dt),
+                          leaves[2].to(dt), leaves[3].to(dt), leaves[4].to(dt),
+                          chunk, False)
+        return torch.autograd.grad(h, leaves, dh.to(h.dtype))
+
+
+def _mlstm_chunks(qs, kf, vf, log_i, log_f, chunk: int, return_final: bool):
+    """The chunk recurrence of ``mlstm_chunk_ref`` from its prepared inputs:
+    q already scaled, the forget gate as log sigmoid."""
+    B, S, H, dk = qs.shape
     c = min(chunk, S)
     if c <= 0 or S % c:
         raise ValueError(f"mlstm chunk {c} does not divide the sequence {S}")
@@ -205,9 +247,8 @@ def mlstm_chunk_ref(q, k, v, i_pre, f_pre, *, chunk: int = 128,
         x = x.transpose(1, 2).reshape(B, H, nc, c, *x.shape[3:])
         return x.movedim(2, 0)
 
-    qf, kf, vf, log_i, log_f = (chunks(x) for x in _mlstm_inputs(
-        q, k, v, i_pre, f_pre))
-    tri = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    qf, kf, vf, log_i, log_f = (chunks(x) for x in (qs, kf, vf, log_i, log_f))
+    tri = torch.ones((c, c), dtype=torch.bool, device=qs.device).tril()
     C = qf.new_zeros((B, H, dk, dk))
     n = qf.new_zeros((B, H, dk))
     m = qf.new_zeros((B, H))

@@ -13,7 +13,8 @@ direct mode leaves out.  It runs on CUDA in bf16; ``--device cpu`` runs
 the plain path in f32 on the CPU.  As in the reference, the direct mode builds its
 ``TrainConfig`` without ``--lr``, so the optimizer keeps its default rate.
 ``--mesh`` (sharded training) comes with the port's multi-GPU slice and
-``--platform`` (a job on the control plane) with its trainer PE.
+``--platform`` (a job on the control plane) with its launcher slice; the
+trainer PE that such a job runs is ``repro_torch.platform.run_trainer``.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ def main(argv=None) -> list:
     if args.platform:
         raise NotImplementedError(
             "--platform (a training job on the control plane) comes with the "
-            "port's trainer PE and platform slice")
+            "port's launcher slice; the trainer PE it runs is "
+            "repro_torch.platform.run_trainer")
     if args.mesh:
         raise NotImplementedError(
             "--mesh (sharded training) comes with the port's multi-GPU slice")

@@ -10,8 +10,9 @@ versions for CPU tensors), or through those plain versions (``"plain"``).
 The plain RG-LRU scan is sequential where the reference uses an associative
 scan: only the order of summation differs.  sLSTM has recurrent weights and
 runs its cell as a loop over time, with the values of the reference's
-custom-VJP forward.  Nothing here has a backward kernel yet: training of
-these blocks comes with a later slice.
+custom-VJP forward, and trains through ``_SlstmScan``, the port of that
+hand-written VJP.  Under autograd the two kernels run their backward
+kernels (``rglru_scan_bwd``, ``mlstm_chunk_bwd``).
 
 The reference's dtype choices are kept, each of which an f32 comparison
 cannot see:
@@ -354,21 +355,110 @@ def _slstm_R(params: dict) -> torch.Tensor:
     return torch.stack([params[f"r_{g}"] for g in SLSTM_GATES])
 
 
+class _SlstmScan(torch.autograd.Function):
+    """The sLSTM cell over a sequence with the reference's hand-written VJP
+    (``repro/models/recurrent.py::_slstm_scan``): the forward keeps only
+    the four state sequences; the backward recomputes the gate quantities
+    vectorized over time, runs the reverse loop (elementwise work and the
+    constant-R products of each step) and takes the batch-contracted
+    ``dR = sum_t outer(h_{t-1}, dgate_t)`` as one product after the loop.
+    Plain PyTorch: the reference has no Pallas kernel here."""
+
+    @staticmethod
+    def forward(ctx, R, pre):
+        """R (4,H,dh,dh); pre (4,B,S,d) f32 -> h (B,S,d) f32."""
+        B, S, d = pre.shape[1:]
+        state = {k: v.to(pre.dtype)
+                 for k, v in slstm_init_state(B, d, device=pre.device).items()}
+        # the other state sequences only when a backward will read them
+        kept = ("h", "c", "n", "m") if any(ctx.needs_input_grad) else ("h",)
+        seqs = {name: [] for name in kept}
+        for t in range(S):
+            state = _slstm_cell(R, pre[:, :, t], state)
+            for name in kept:
+                seqs[name].append(state[name])
+        seqs = {name: torch.stack(vals) for name, vals in seqs.items()}
+        if len(kept) > 1:
+            ctx.save_for_backward(R, pre, *(seqs[name] for name in kept))
+        return seqs["h"].transpose(0, 1)
+
+    @staticmethod
+    def backward(ctx, dh):
+        R, pre, h_seq, c_seq, n_seq, m_seq = ctx.saved_tensors  # (S,B,d)
+        S, B, d = h_seq.shape
+        H = R.shape[1]
+        dh_ = d // H
+        init = {k: v.to(pre.dtype)
+                for k, v in slstm_init_state(B, d, device=pre.device).items()}
+
+        def shift(seq, first):
+            return torch.cat([first[None], seq[:-1]], dim=0)
+
+        h_prev, c_prev = shift(h_seq, init["h"]), shift(c_seq, init["c"])
+        n_prev, m_prev = shift(n_seq, init["n"]), shift(m_seq, init["m"])
+        pre_t = pre.transpose(1, 2)  # (4,S,B,d)
+        rec = torch.einsum("sbhx,ghxy->gsbhy", h_prev.view(S, B, H, dh_), R)
+        a = pre_t + rec.reshape(4, S, B, d)
+        z = torch.tanh(a[0])
+        o = torch.sigmoid(a[3])
+        lf = F.logsigmoid(a[2])
+        sg_naf = torch.sigmoid(-a[2])  # d log_sigmoid(a_f) / d a_f
+        i_sc = torch.exp(a[1] - m_seq)
+        f_sc = torch.exp(lf + m_prev - m_seq)
+        uncl = (f_sc * n_prev + i_sc > 1e-6).float()  # n_t = max(n_pre, 1e-6)
+        mxl = (lf + m_prev >= a[1]).float()  # m's max takes its left branch
+        u = c_seq / n_seq
+        dhs = dh.transpose(0, 1)
+        Dc_c = torch.zeros((B, d), dtype=pre.dtype, device=pre.device)
+        Dn_c, Dm_c, Dh_c = (torch.zeros_like(Dc_c) for _ in range(3))
+        Das = torch.empty((S, 4, B, d), dtype=pre.dtype, device=pre.device)
+        for t in range(S - 1, -1, -1):
+            Dh = dhs[t] + Dh_c
+            Da_o = Dh * u[t] * o[t] * (1.0 - o[t])
+            Dc = Dc_c + Dh * o[t] / n_seq[t]
+            Dn_pre = (Dn_c - Dh * o[t] * u[t] / n_seq[t]) * uncl[t]
+            Df = Dc * c_prev[t] + Dn_pre * n_prev[t]  # onto f_sc
+            Di = Dc * z[t] + Dn_pre  # onto i_sc
+            Dz = Dc * i_sc[t]
+            Dc_c = Dc * f_sc[t]
+            Dn_c = Dn_pre * f_sc[t]
+            # i_sc = exp(a_i - m_t); f_sc = exp(lf + m_prev - m_t)
+            Da_i = Di * i_sc[t]
+            Dm_t = Dm_c - Di * i_sc[t] - Df * f_sc[t]
+            Dlf = Df * f_sc[t] + Dm_t * mxl[t]
+            Dm_c = Df * f_sc[t] + Dm_t * mxl[t]
+            Da_i = Da_i + Dm_t * (1.0 - mxl[t])
+            Das[t, 0] = Dz * (1.0 - z[t] * z[t])
+            Das[t, 1] = Da_i
+            Das[t, 2] = Dlf * sg_naf[t]
+            Das[t, 3] = Da_o
+            # h_{t-1} through the recurrent products (R constant here)
+            Dh_c = torch.einsum("gbhy,ghxy->bhx", Das[t].view(4, B, H, dh_),
+                                R).reshape(B, d)
+        # the weight gradient: one batch and time contraction
+        DR = torch.einsum("sbhx,sgbhy->ghxy", h_prev.view(S, B, H, dh_),
+                          Das.view(S, 4, B, H, dh_))
+        return DR, Das.permute(1, 2, 0, 3)
+
+
 def slstm_seq(params: dict, x: torch.Tensor, num_heads: int,
               return_state: bool = False):
     """The sLSTM block over a sequence: its cell as a loop over time from
-    ``slstm_init_state``, then ``_slstm_out``.  x (B,S,d) normed -> (B,S,d)
+    ``slstm_init_state`` (through ``_SlstmScan``, whose backward is the
+    reference's hand-written VJP, unless the final state is asked for, as
+    in the reference), then ``_slstm_out``.  x (B,S,d) normed -> (B,S,d)
     [, the final state]."""
     B, S, d = x.shape
     pre = _slstm_pre(params, x)  # (4,B,S,d)
     R = _slstm_R(params)
+    if not return_state:
+        return _slstm_out(params, _SlstmScan.apply(R, pre), x)
     state = slstm_init_state(B, d, device=x.device)
     hs = []
     for t in range(S):
         state = _slstm_cell(R, pre[:, :, t], state)
         hs.append(state["h"])
-    result = _slstm_out(params, torch.stack(hs, dim=1), x)
-    return (result, state) if return_state else result
+    return _slstm_out(params, torch.stack(hs, dim=1), x), state
 
 
 def slstm_step(params: dict, x: torch.Tensor, state: dict, num_heads: int):

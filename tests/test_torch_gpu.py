@@ -6,6 +6,8 @@ that has only PyTorch.  The kernels are held against their plain
 versions (the CPU tests hold those against the JAX package).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ from repro_torch.models import (
     init_params,
     loss_fn,
 )
+from repro_torch.models import layers as layers_mod
 from repro_torch.models.layers import matmul_f32
 from repro_torch.models.recurrent import _rglru_gates, init_rglru
 from repro_torch.serve import PagedServeEngine, Request, ServeEngine
@@ -729,15 +732,19 @@ def test_flash_attention_window_kernel(cuda, B, S, H, KV, D, window, dtype):
 
 @pytest.mark.gpu
 def test_recurrent_wrappers_refuse_grad_and_bad_inputs(cuda):
+    """Since the recurrent training slice the three wrappers differentiate
+    (each through its backward kernel); only the mLSTM's final carry, a
+    prefill's state, refuses grad.  Bad inputs raise as before."""
     x = torch.zeros(1, 8, 32, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError):  # no backward in either package
-        kernels.rglru_scan(x, x)
+    kernels.rglru_scan(x, x).sum().backward()
+    assert x.grad is not None
     q = torch.zeros(1, 8, 2, 32, device=cuda, requires_grad=True)
     g = torch.zeros(1, 8, 2, device=cuda)
-    with pytest.raises(RuntimeError):
-        kernels.mlstm_chunk(q, q, q, g, g, chunk=4)
-    with pytest.raises(NotImplementedError):  # the window has no backward yet
-        kernels.flash_attention_train(q, q, q, window=4)
+    kernels.mlstm_chunk(q, q, q, g, g, chunk=4).sum().backward()
+    with pytest.raises(ValueError):  # the final carry has no backward
+        kernels.mlstm_chunk(q, q, q, g, g, chunk=4, return_final=True)
+    kernels.flash_attention_train(q, q, q, window=4).sum().backward()
+    assert q.grad is not None
     with torch.no_grad():
         with pytest.raises(TypeError):  # not f32
             kernels.rglru_scan(x.bfloat16(), x.bfloat16())
@@ -874,3 +881,197 @@ def test_cast_params_keeps_the_shared_expert_gate_f32(cuda):
                        dtype=torch.bfloat16)["main"][0]["moe"]
     assert torch.equal(same["shared_gate"], moe["shared_gate"])
     assert torch.equal(same["w_down"], moe["w_down"])
+
+
+# ------------------------------------------------ the recurrent training slice
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,H,KV", [(64, 8, 2), (256, 16, 1), (128, 5, 1)])
+@pytest.mark.parametrize("S,window", [(200, 5), (333, 64), (1000, 300), (130, 500)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_windowed_flash_backward_kernel(cuda, D, H, KV, S, window, dtype):
+    """dq, dk, dv with a sliding window against the plain version on the
+    forward kernel's own (out, lse); windows below a tile, across tiles and
+    past S."""
+    rng = np.random.default_rng(D + H + S + window)
+    q = _randn(rng, (2, S, H, D), cuda, dtype)
+    k, v = (_randn(rng, (2, S, KV, D), cuda, dtype) for _ in range(2))
+    do = _randn(rng, (2, S, H, D), cuda, dtype)
+    out, lse = kernels.flash_attention(q, k, v, return_lse=True, window=window)
+    before = kernels.flash_attention_bwd.launches
+    got = kernels.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    assert kernels.flash_attention_bwd.launches == before + 1
+    want = kernels.ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True, window)
+    for g, w in zip(got, want):
+        _bwd_close(g, w, dtype)
+    again = kernels.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_windowed_flash_train_gradients(cuda, dtype):
+    """Autograd through ``flash_attention_train(window=)`` (both kernels)
+    against autograd through the plain windowed attention."""
+    rng = np.random.default_rng(21)
+    q = _randn(rng, (1, 300, 4, 64), cuda, dtype)
+    k, v = (_randn(rng, (1, 300, 1, 64), cuda, dtype) for _ in range(2))
+    w = _randn(rng, (1, 300, 4, 64), cuda, "float32")
+    grads = {}
+    kernels.reset_launch_counts()
+    for name, fn in (("kernel", kernels.flash_attention_train),
+                     ("plain", kernels.ref.causal_attention_ref)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fn(*leaves, True, 100).float() * w).sum().backward()
+        grads[name] = [t.grad for t in leaves]
+    assert kernels.flash_attention.launches == 1
+    assert kernels.flash_attention_bwd.launches == 1
+    for g, w_ in zip(grads["kernel"], grads["plain"]):
+        _bwd_close(g, w_, dtype)
+
+
+def _rglru_bwd_inputs(rng, shape, device):
+    log_a = -torch.from_numpy(rng.uniform(0.001, 0.5, shape).astype(np.float32))
+    return (log_a.to(device), _randn(rng, shape, device, "float32"),
+            _randn(rng, shape, device, "float32"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 300, 96), (1, 4096, 4096), (3, 129, 37),
+                                   (4, 1024, 256)])
+def test_rglru_scan_backward_kernel(cuda, shape):
+    """dlog_a, db against the plain reverse loop (f32, 1e-5 abs + rel, as
+    the forward), twice bit for bit; C = 37 takes the 4-byte variant."""
+    rng = np.random.default_rng(sum(shape))
+    log_a, b, dh = _rglru_bwd_inputs(rng, shape, cuda)
+    h = kernels.rglru_scan(log_a, b)
+    before = kernels.rglru_scan_bwd.launches
+    got = kernels.rglru_scan_bwd(log_a, h, dh)
+    assert kernels.rglru_scan_bwd.launches == before + 1
+    want = kernels.ref.rglru_scan_bwd_ref(log_a, h, dh)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    again = kernels.rglru_scan_bwd(log_a, h, dh)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_rglru_scan_gradients_through_autograd(cuda):
+    rng = np.random.default_rng(22)
+    log_a, b, w = _rglru_bwd_inputs(rng, (2, 500, 64), cuda)
+    grads = {}
+    for name, fn in (("kernel", kernels.rglru_scan),
+                     ("plain", kernels.ref.rglru_scan_ref)):
+        leaves = [t.clone().requires_grad_() for t in (log_a, b)]
+        (fn(*leaves) * w).sum().backward()
+        grads[name] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    for g, w_ in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(g, w_, atol=1e-5, rtol=1e-5)
+
+
+def _mlstm_grads(fn, q, k, v, i_pre, f_pre, dh, chunk):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, i_pre, f_pre)]
+    (fn(*leaves, chunk=chunk) * dh).sum().backward()
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,dk,chunk", [
+    (2, 256, 2, 64, 64), (1, 384, 4, 384, 128), (2, 96, 3, 40, 32),
+    (1, 128, 1, 130, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlstm_chunk_backward_kernel(cuda, B, S, H, dk, chunk, dtype):
+    """The backward kernel's q, k, v, i_pre and f_pre gradients against
+    autograd through the plain chunk recurrence on the same inputs: f32
+    within 5e-5 abs + 5e-4 rel of each gradient's largest entry; bf16 within
+    2e-2 of it (the forward's h differs by its bf16 products, and the q, k,
+    v gradients are rounded to bf16).  Twice bit for bit."""
+    rng = np.random.default_rng(B + S + H + dk)
+    q, k, v = (_randn(rng, (B, S, H, dk), cuda, dtype) for _ in range(3))
+    i_pre = _randn(rng, (B, S, H), cuda, "float32")
+    f_pre = _randn(rng, (B, S, H), cuda, "float32") + 3.0
+    dh = _randn(rng, (B, S, H, dk), cuda, "float32")
+    before = kernels.mlstm_chunk_bwd.launches
+    got = _mlstm_grads(kernels.mlstm_chunk, q, k, v, i_pre, f_pre, dh, chunk)
+    assert kernels.mlstm_chunk_bwd.launches == before + 1
+    want = _mlstm_grads(kernels.ref.mlstm_chunk_ref, q, k, v, i_pre, f_pre, dh,
+                        chunk)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        big = w.float().abs().max().item()
+        limit = 5e-5 + 5e-4 * big if dtype == "float32" else 2e-2 * big
+        assert err <= limit, (err, big)
+    again = _mlstm_grads(kernels.mlstm_chunk, q, k, v, i_pre, f_pre, dh, chunk)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@contextlib.contextmanager
+def _f64_plain():
+    """The plain path in f64: every ``.float()`` of the port leaves an f64
+    tensor f64 and RMSNorm (whose kernel takes no f64) runs its plain
+    version; an exact run to hold two f32 runs against."""
+    real_float, real_norm = torch.Tensor.float, layers_mod.rmsnorm_kernel
+
+    def wide(self, *args, **kw):
+        return self if self.dtype == torch.float64 else real_float(self, *args, **kw)
+
+    torch.Tensor.float = wide
+    layers_mod.rmsnorm_kernel = kernels.ref.rmsnorm_ref
+    try:
+        yield
+    finally:
+        torch.Tensor.float = real_float
+        layers_mod.rmsnorm_kernel = real_norm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m"])
+def test_recurrent_train_gradients_on_card(cuda, arch):
+    """Reduced config, f32, S = 128 (past the reduced window of 64, a
+    multiple of the mLSTM chunk): ``loss_fn``'s gradients on the kernel
+    path (every backward kernel) against the plain path, within 1e-3 of
+    each leaf's largest entry; a leaf past it (a gradient that cancels to
+    rounding, as the sLSTM input-gate bias's through its stabilizer) is
+    held to the plain path in f64: within 1e-3 of it or twice the plain
+    path's distance (two f32 runs, each with its own rounding).  Two
+    kernel-path gradients bit for bit."""
+    cfg = reduced_config(arch)
+    params = init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(23)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 129))).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def grads(impl, dtype="float32"):
+        ps = map_params(lambda _k, p: p.detach().to(TDT.get(dtype, torch.float64))
+                        .requires_grad_(True), params)
+        loss, _ = loss_fn(ps, cfg, batch,
+                          ModelOptions(compute_dtype=dtype, attn_impl=impl), remat=True)
+        loss.backward()
+        return loss.detach(), [p.grad.clone() for p in _leaves(ps)]
+
+    kernels.reset_launch_counts()
+    loss_k, g_k = grads("kernel")
+    assert kernels.rglru_scan_bwd.launches + kernels.mlstm_chunk_bwd.launches > 0
+    loss_p, g_p = grads("plain")
+    _, g_again = grads("kernel")
+    torch.cuda.synchronize()
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-5 * abs(loss_p.item())
+    assert all(torch.equal(a, b) for a, b in zip(g_k, g_again))
+    past = [i for i, (a, b) in enumerate(zip(g_k, g_p))
+            if (a - b).abs().max().item() > 1e-3 * b.abs().max().item()]
+    if past:
+        with _f64_plain():
+            _, g_64 = grads("plain", "float64")
+        for i in past:
+            scale = g_64[i].abs().max()
+            ek = ((g_k[i].double() - g_64[i]).abs().max() / scale).item()
+            ep = ((g_p[i].double() - g_64[i]).abs().max() / scale).item()
+            assert ek <= max(1e-3, 2 * ep), (i, ek, ep)

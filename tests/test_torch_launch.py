@@ -77,6 +77,19 @@ def test_train_main_returns_the_step_records(capsys):
     assert "on cpu" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m"])
+def test_train_recurrent_families_on_cpu(arch, capsys):
+    """The recurrent families train through the launcher on the default
+    kernel path (on the CPU the backward kernels' plain versions), 2 x 128
+    tokens: past the reduced window of 64, one mLSTM chunk."""
+    records = train.main(["--arch", arch, "--smoke", "--steps", "2", "--batch", "2",
+                          "--seq", "128", "--device", "cpu"])
+    assert [r["step"] for r in records] == [0, 1]
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               and r["grad_norm"] > 0 for r in records)
+    assert "on cpu" in capsys.readouterr().out
+
+
 def test_train_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):

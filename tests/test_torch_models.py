@@ -505,9 +505,9 @@ def test_arch_smoke_forward_and_train_step(arch):
     """The port of tests/test_models.py's smoke test, on the reference's
     weights: one forward and one gradient of ``loss_fn`` (remat off), with
     the shapes, finite values and a positive grad norm; the loss also
-    against JAX's.  The recurrent families differentiate their plain path:
-    the ``rglru_scan`` and ``mlstm_chunk`` wrappers have no backward yet
-    (ROADMAP Queue 1, item E) and refuse inputs that require grad."""
+    against JAX's.  Every family differentiates the default kernel path
+    (the recurrent ones through the RG-LRU, mLSTM and windowed flash
+    backwards since the recurrent training slice)."""
     jcfg, tcfg, jp, _ = _models(arch)
     tp = params_from_numpy(jp, device="cpu")
     B, S = 2, 64
@@ -522,10 +522,8 @@ def test_arch_smoke_forward_and_train_step(arch):
         batch["frontend_embeds"] = fe
     for p in jax.tree.leaves(tp):
         p.requires_grad_(True)
-    opts = (ModelOptions(compute_dtype="float32", attn_impl="plain")
-            if arch in RECURRENT else TOPTS)
     loss, _ = loss_fn(tp, tcfg, {k: torch.from_numpy(v) for k, v in batch.items()},
-                      opts, remat=False)
+                      TOPTS, remat=False)
     loss.backward()
     gnorm = torch.sqrt(sum((p.grad.double() ** 2).sum() for p in jax.tree.leaves(tp)))
     assert torch.isfinite(loss) and torch.isfinite(gnorm) and float(gnorm) > 0

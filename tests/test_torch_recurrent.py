@@ -4,6 +4,8 @@ same numpy inputs and the same weights (the reference's ``init_*`` through
 ``repro_torch.convert``), in f32 on the CPU, at the reduced configs' widths.
 The port's kernel wrappers run their plain versions here."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,8 +13,10 @@ import pytest
 import torch
 
 from repro.models import recurrent as jr
+from repro_torch import kernels
 from repro_torch.configs import reduced_config
 from repro_torch.convert import params_from_numpy
+from repro_torch.kernels import ref as kernels_ref
 from repro_torch.models import recurrent as tr
 
 # f32, the same arithmetic summed in another order (matmuls of width <=
@@ -300,12 +304,140 @@ def test_slstm_step_matches_jax():
 
 
 def test_recurrent_seq_refuses_grad_through_the_kernels():
-    """Neither package has a backward for the RG-LRU or mLSTM kernels yet:
-    the kernel path refuses inputs that require grad, on either device."""
+    """Until the recurrent training slice the kernel path refused inputs
+    that require grad.  The RG-LRU and mLSTM kernels now have backward
+    kernels, so the kernel path differentiates: on the CPU (the plain
+    versions behind the kernels' autograd functions) its input gradients
+    equal the plain path's."""
     _, tp = _params(jr.init_rglru, RG.d_model, RG.d_rnn, RG.conv_width)
-    x = torch.from_numpy(_x((1, 4, RG.d_model))).requires_grad_()
-    with pytest.raises(RuntimeError):
-        tr.rglru_seq(tp, x)
-    _, tp = _mlstm_params()
-    with pytest.raises(RuntimeError):
-        tr.mlstm_seq(tp, x, XL.num_heads)
+    x = _x((1, 8, RG.d_model))
+    w = _x((1, 8, RG.d_model), seed=1)
+    for seq, args in ((tr.rglru_seq, (tp,)),
+                      (tr.mlstm_seq, (_mlstm_params()[1], XL.num_heads))):
+        grads = []
+        for impl in ("kernel", "plain"):
+            xt = torch.from_numpy(x).requires_grad_()
+            (seq(args[0], xt, *args[1:], impl=impl) * torch.from_numpy(w)).sum().backward()
+            grads.append(xt.grad)
+        _close(grads[0], grads[1])
+
+
+# ------------------------------------------------------------- backward
+
+
+def _jax_rglru_scan(log_a, b):
+    """The reference's associative scan of ``rglru_seq``
+    (``repro/models/recurrent.py:240-245``)."""
+    def combine(left, right):
+        al, bl = left
+        ar, br = right
+        return al + ar, bl * jnp.exp(ar) + br
+
+    return jax.lax.associative_scan(combine, (log_a, b), axis=1)[1]
+
+
+@pytest.mark.parametrize("B,S,C", [(2, 64, 32), (1, 300, 8)])
+def test_rglru_scan_backward_matches_jax(B, S, C):
+    """``ref.rglru_scan_bwd_ref`` (the backward kernel's plain version, the
+    reverse loop) and the kernel wrapper's autograd on the CPU against
+    ``jax.grad`` of the reference's associative scan."""
+    rng = np.random.default_rng(S + C)
+    log_a = -rng.uniform(0.001, 0.5, (B, S, C)).astype(np.float32)
+    b, w = _x((B, S, C), seed=1), _x((B, S, C), seed=2)
+    want = jax.jit(jax.grad(lambda la, bb: jnp.sum(_jax_rglru_scan(la, bb) * jnp.asarray(w)),
+                            argnums=(0, 1)))(jnp.asarray(log_a), jnp.asarray(b))
+    la_t, b_t = torch.from_numpy(log_a), torch.from_numpy(b)
+    h = tr.rglru_scan_ref(la_t, b_t)
+    got = kernels_ref.rglru_scan_bwd_ref(la_t, h, torch.from_numpy(w))
+    for g, j in zip(got, want):
+        _close(g, j)
+    leaves = [t.clone().requires_grad_() for t in (la_t, b_t)]
+    (kernels.rglru_scan(*leaves) * torch.from_numpy(w)).sum().backward()
+    for t, j in zip(leaves, want):
+        _close(t.grad, j)
+
+
+@pytest.mark.parametrize("S,chunk", [(64, 16), (128, 128), (96, 32)])
+def test_mlstm_chunk_backward_matches_jax(S, chunk):
+    """Autograd through the plain chunk recurrence (the backward kernel's
+    plain version, what the kernel wrapper runs on the CPU) against
+    ``jax.grad`` of the reference's ``mlstm_chunk_recurrence``, for q, k, v
+    and both gate pre-activations."""
+    B, H, dk = 2, XL.num_heads, 16
+    rng = np.random.default_rng(S + chunk)
+    q, k, v = (rng.standard_normal((B, S, H, dk)).astype(np.float32) for _ in range(3))
+    i_pre = rng.standard_normal((B, S, H)).astype(np.float32)
+    f_pre = (rng.standard_normal((B, S, H)) + 3.0).astype(np.float32)
+    w = _x((B, S, H, dk), seed=3)
+    args = (q, k, v, i_pre, f_pre)
+    want = jax.grad(lambda *a: jnp.sum(jr.mlstm_chunk_recurrence(*a, chunk=chunk)
+                                       * jnp.asarray(w)),
+                    argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(a) for a in args))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    (kernels.mlstm_chunk(*leaves, chunk=chunk) * torch.from_numpy(w)).sum().backward()
+    for t, j in zip(leaves, want):
+        _close(t.grad, j, 1e-4)
+
+
+@pytest.mark.parametrize("S", [1, 24])
+def test_slstm_vjp_matches_jax(S):
+    """The port of the reference's hand-written sLSTM VJP (``_SlstmScan``)
+    against ``jax.grad`` through the reference's ``_slstm_scan`` (its
+    custom VJP), for the recurrent weights and the gates' input terms, and
+    against autograd through the port's plain cell loop."""
+    B, d, H = 2, XL.d_model, XL.num_heads
+    rng = np.random.default_rng(S)
+    R = (rng.standard_normal((4, H, d // H, d // H)) * 0.2).astype(np.float32)
+    pre = rng.standard_normal((4, B, S, d)).astype(np.float32)
+    w = _x((B, S, d), seed=4)
+    want = jax.grad(lambda r, p: jnp.sum(jr._slstm_scan(r, p.transpose(0, 2, 1, 3), H)
+                                         .transpose(1, 0, 2) * jnp.asarray(w)),
+                    argnums=(0, 1))(jnp.asarray(R), jnp.asarray(pre))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (R, pre)]
+    (tr._SlstmScan.apply(*leaves) * torch.from_numpy(w)).sum().backward()
+    for t, j in zip(leaves, want):
+        _close(t.grad, j, 1e-4)
+    loop = [torch.from_numpy(a).requires_grad_() for a in (R, pre)]
+    state = tr.slstm_init_state(B, d)
+    hs = []
+    for t in range(S):
+        state = tr._slstm_cell(loop[0], loop[1][:, :, t], state)
+        hs.append(state["h"])
+    (torch.stack(hs, dim=1) * torch.from_numpy(w)).sum().backward()
+    for t, u in zip(leaves, loop):
+        _close(t.grad, u.grad, 1e-4)
+
+
+@pytest.mark.parametrize("block", ["rglru", "mlstm", "slstm"])
+def test_recurrent_block_gradients_match_jax(block):
+    """Each block's ``*_seq`` differentiated on the port's default kernel
+    path (the plain versions behind the kernels' autograd functions on the
+    CPU; sLSTM through its VJP) against ``jax.grad`` of the reference's:
+    the input's gradient and every parameter's, to 1e-4 of each leaf's
+    largest entry."""
+    S = 64
+    if block == "rglru":
+        jp, tp = _params(jr.init_rglru, RG.d_model, RG.d_rnn, RG.conv_width)
+        jfn = jr.rglru_seq
+        tfn = tr.rglru_seq
+        extra = ()
+    elif block == "mlstm":
+        jp, tp = _mlstm_params()
+        jfn = functools.partial(jr.mlstm_seq, chunk=32)
+        tfn = functools.partial(tr.mlstm_seq, chunk=32)
+        extra = (XL.num_heads,)
+    else:
+        jp, tp = _params(jr.init_slstm, XL.d_model, XL.num_heads)
+        jfn, tfn, extra = jr.slstm_seq, tr.slstm_seq, (XL.num_heads,)
+    d = RG.d_model if block == "rglru" else XL.d_model
+    x, w = _x((2, S, d), seed=5, scale=0.5), _x((2, S, d), seed=6)
+    jgx, jgp = jax.jit(jax.grad(lambda xx, pp: jnp.sum(jfn(pp, xx, *extra) * jnp.asarray(w)),
+                                argnums=(0, 1)))(jnp.asarray(x), jp)
+    xt = torch.from_numpy(x).requires_grad_()
+    for _path, leaf in _leaves(tp):
+        leaf.requires_grad_(True)
+    (tfn(tp, xt, *extra) * torch.from_numpy(w)).sum().backward()
+    _close(xt.grad, jgx, 1e-4)
+    jleaves = dict(_leaves(jgp))
+    for path, leaf in _leaves(tp):
+        _close(leaf.grad, jleaves[path], 1e-4)

@@ -148,6 +148,29 @@ def test_flash_attention_backward_ragged_matches_reference(S, H, KV, D):
                                    rtol=BWD_RTOL)
 
 
+@pytest.mark.parametrize("S,H,KV,window", [(128, 4, 2, 64), (96, 8, 1, 32)])
+def test_windowed_flash_backward_matches_local_band_attention(S, H, KV, window):
+    """The windowed backward's plain version (``flash_attention_train`` with
+    a window on the CPU: ``flash_attention_bwd_ref`` on the forward's own
+    out and LSE) against ``jax.grad`` of the reference's local attention,
+    ``layers.local_band_attention`` (K/V expanded to the query heads, their
+    gradients summed back over each group)."""
+    q, k, v, w = _attn_inputs(2, S, H, KV, 32, S + window)
+    G = H // KV
+    wj = jnp.asarray(w)
+
+    def jloss(q, k, v):
+        kx, vx = (jnp.repeat(x, G, axis=2) for x in (k, v))
+        return jnp.sum(jlayers.local_band_attention(q, kx, vx, window=window) * wj)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    (tk.flash_attention_train(qt, kt, vt, window=window) * torch.from_numpy(w)).sum().backward()
+    for got, ref in zip((qt.grad, kt.grad, vt.grad), want):
+        np.testing.assert_allclose(_np(got), np.asarray(ref), atol=BWD_ATOL,
+                                   rtol=BWD_RTOL)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_backward_matches_jax(dtype):
     """The backward the CUDA RMSNorm's autograd function runs
@@ -309,6 +332,160 @@ def test_moe_and_frontend_train_steps_match_jax(arch):
                             _leaves(jax.device_get(jstate)["params"])):
                 np.testing.assert_allclose(x, y, rtol=0, atol=STEP_PARAM_TOL)
     assert int(state["step"]) == 2
+
+
+RECURRENT = ["recurrentgemma-9b", "xlstm-125m"]
+# the Adam eps of the recurrent train steps: their gradients part from the
+# reference's by f32 rounding amplified through the stack (up to 3e-4 of a
+# leaf's largest entry, the reference's own f32 gradients as far from its
+# exact ones), and the first step's g / (|g| + eps) turns that into a
+# parameter part of 1.3e-4 at eps 1e-4 (2.3e-5 at 1e-3)
+RECURRENT_STEP_OPT = dict(STEP_OPT, eps=1e-3)
+# the first step's grad norm, relative: the norm of those gradients
+GRAD_NORM_RTOL = 1e-3
+
+
+class _Wide:
+    """``jax.numpy`` with ``float32`` read as ``float64``: patched over the
+    reference's model modules for one exact run, so every f32 cast the
+    reference makes (the gates, the norms' statistics, the recurrences'
+    carries) is f64 too."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def _exact_grads(monkeypatch, jp, jcfg, batch):
+    """The reference's gradient of ``loss_fn`` computed wholly in f64."""
+    from repro.models import layers as jlayers_mod
+    from repro.models import lm as jlm
+    from repro.models import recurrent as jrec
+    with monkeypatch.context() as m:
+        for mod in (jlayers_mod, jlm, jrec):
+            m.setattr(mod, "jnp", _Wide())
+        with jax.enable_x64(True):
+            wide = {k: jnp.asarray(v) for k, v in batch.items()}
+            grads = jax.grad(lambda p: jax_loss_fn(
+                p, jcfg, wide, JaxModelOptions(compute_dtype="float64"))[0])(
+                jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), jp))
+            return [np.asarray(g) for g in jax.tree.leaves(jax.device_get(grads))]
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "deepseek-moe-16b"])
+def test_f64_plain_run_matches_jax_f64(arch):
+    """The exact run that ``chip_smoke.py`` and the card tests hold f32
+    gradients to: the port's plain path with f64 weights, every
+    ``.float()`` leaving f64 tensors f64 (``test_torch_gpu._f64_plain``),
+    against the reference's f64 run, within 5e-5 of each leaf's largest
+    entry (the reference's f64 run keeps its norms' statistics and its
+    router's softmax inputs in f32, ``astype(jnp.float32)``)."""
+    from test_torch_gpu import _f64_plain
+
+    jcfg, tcfg = jax_reduced_config(arch), reduced_config(arch)
+    jp = jax_init_params(jax.random.key(0), jcfg)
+    batch = _batch(jcfg, 2, 24, seed=4, masked=[(0, 1), (1, 0)])
+    with jax.enable_x64(True):
+        wide = {k: jnp.asarray(v) for k, v in batch.items()}
+        exact = jax.device_get(jax.grad(lambda p: jax_loss_fn(
+            p, jcfg, wide, JaxModelOptions(compute_dtype="float64"))[0])(
+            jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), jp)))
+    tp = map_params(lambda _k, p: p.double().requires_grad_(True),
+                    params_from_numpy(jp, device="cpu"))
+    with _f64_plain():
+        loss, _ = loss_fn(tp, tcfg, {k: torch.from_numpy(v) for k, v in batch.items()},
+                          ModelOptions(compute_dtype="float64", attn_impl="plain"))
+        loss.backward()
+    got = jax.tree.leaves(map_params(lambda _k, p: p.grad.numpy(), tp))
+    assert all(g.dtype == np.float64 for g in got)
+    for g, e in zip(got, jax.tree.leaves(exact)):
+        np.testing.assert_allclose(g, e, rtol=0, atol=5e-5 * np.abs(e).max())
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_loss_and_grads_match_jax(arch, monkeypatch):
+    """``loss_fn`` and its gradients on the port's default kernel path (on
+    the CPU the plain versions behind the kernels' autograd functions: the
+    windowed flash backward, the RG-LRU reverse scan, autograd through the
+    mLSTM chunk recurrence, the sLSTM hand-written VJP), remat on, against
+    ``jax.value_and_grad(loss_fn)``.  S = 128: past the reduced window of
+    64, and a multiple of the mLSTM chunk.
+
+    The loss is held within LOSS_RTOL.  The gradients are held to the
+    reference's run in f64 on the same f32 weights: at this length the
+    reference's own f32 gradients part from its f64 ones by up to 3e-4 of
+    a leaf's largest entry (and an sLSTM input-gate bias, whose gradient
+    cancels through the stabilizer, by 0.19), so GRAD_TOL against the f32
+    run would hold rounding, not the port.  Each leaf of the port's
+    gradient lies within GRAD_TOL of the f64 one or within twice the
+    reference's own f32 distance from it (both f32 runs carry their own
+    rounding: the bound of their sum)."""
+    jcfg, tcfg = jax_reduced_config(arch), reduced_config(arch)
+    jp = jax_init_params(jax.random.key(0), jcfg)
+    batch = _batch(jcfg, 2, 128, seed=5, masked=[(0, 3), (1, 127)])
+    (jloss, jm), jgrads = jax.value_and_grad(jax_loss_fn, has_aux=True)(
+        jp, jcfg, {k: jnp.asarray(v) for k, v in batch.items()}, JOPTS)
+    exact = _exact_grads(monkeypatch, jp, jcfg, batch)
+    tp = params_from_numpy(jp, device="cpu")
+    map_params(lambda _k, p: p.requires_grad_(True), tp)
+    tloss, tm = loss_fn(tp, tcfg, {k: torch.from_numpy(v) for k, v in batch.items()},
+                        TOPTS)
+    tloss.backward()
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss), rtol=LOSS_RTOL)
+    assert float(tm["tokens"]) == float(jm["tokens"]) == 2 * 128 - 2
+    got = _leaves(map_params(lambda _k, p: p.grad, tp))
+    assert len(got) == len(exact)
+    for g, j, e in zip(got, _leaves(jgrads), exact):
+        scale = np.abs(e).max()
+        port_err, ref_err = np.abs(g - e).max() / scale, np.abs(j - e).max() / scale
+        assert port_err <= max(GRAD_TOL, 2 * ref_err), (port_err, ref_err)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_train_steps_match_jax(arch):
+    """Two train steps of a recurrent family from the reference's initial
+    state on its batches (4 x 128 tokens of its StreamSource), the port
+    with remat on and off (equal bit for bit), held as
+    ``test_moe_and_frontend_train_steps_match_jax`` holds the MoE and
+    frontend families: both steps' loss within STEP_LOSS_TOL, the first
+    step's grad norm within GRAD_NORM_RTOL and its parameters within
+    STEP_PARAM_TOL.  After the first step the two runs' parameters part by
+    the gradients' f32 rounding (held in
+    ``test_recurrent_loss_and_grads_match_jax``), which the chaotic stack
+    grows: the second step's grad norm parts by up to a few percent."""
+    jcfg = jax_reduced_config(arch)
+    src = JaxStreamSource(vocab_size=jcfg.vocab_size, batch=4, seq_len=128, seed=0)
+    batches = [{k: np.asarray(v) for k, v in src.batch_at(i).items()} for i in range(2)]
+    tcfg_j = JaxTrainConfig(optimizer=JaxOptimizerConfig(**RECURRENT_STEP_OPT), remat=False)
+    jstate0 = jax_init_train_state(jax.random.key(0), jcfg, tcfg_j)
+    jstep = jax.jit(jax_make_train_step(jcfg, tcfg_j, JOPTS))
+    jstate1, want1 = jstep(jstate0, batches[0])
+    _, want2 = jstep(jstate1, batches[1])
+    cfg = reduced_config(arch)
+    ports = {}
+    for remat in (False, True):
+        step = make_train_step(cfg, TrainConfig(
+            optimizer=OptimizerConfig(**RECURRENT_STEP_OPT), remat=remat), TOPTS)
+        state = train_state_from_numpy(jax.device_get(jstate0), device="cpu")
+        metrics, after_one = [], None
+        for b in batches:
+            state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+            if after_one is None:
+                after_one = [x.copy() for x in _leaves(state["params"])]  # updated in place
+        ports[remat] = (state, metrics, after_one)
+    (s_off, m_off, _), (s_on, m_on, p_one) = ports[False], ports[True]
+    assert m_off == m_on
+    for x, y in zip(_leaves(s_off), _leaves(s_on)):
+        np.testing.assert_array_equal(x, y)
+    assert int(s_on["step"]) == 2
+    for got, want in zip(m_on, (want1, want2)):
+        assert abs(got["loss"] - float(want["loss"])) < STEP_LOSS_TOL
+    gn = float(want1["grad_norm"])
+    assert abs(m_on[0]["grad_norm"] - gn) <= GRAD_NORM_RTOL * gn
+    for x, y in zip(p_one, _leaves(jax.device_get(jstate1)["params"])):
+        np.testing.assert_allclose(x, y, rtol=0, atol=STEP_PARAM_TOL)
 
 
 def test_loss_of_fully_masked_batch_is_zero():
