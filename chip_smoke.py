@@ -78,7 +78,16 @@ tolerance miss:
    runtime with the port's checkpoint store: gemma-2b at full width and 2
    layers, stopped after step 6, restarted from the committed step 4,
    ending at the uninterrupted run's checkpoint bytes;
-17. the kernels line (JSON), the run's wall, the card's name and power
+17. the mesh train step (``repro_torch.launch.mesh``) at world size 1 over
+   NCCL: gemma-2b at full width and 2 layers, 2 steps of 2 x 1024, the
+   mesh step equal to the one-device step and the compressed step
+   (``num_pods`` 1) to the one-device gradients through the plain
+   ``ef_quantize_mean``, clipping and AdamW, bit for bit, with equal
+   launch counts; then full-depth gemma-2b through
+   ``repro_torch.launch.train.main`` with ``--mesh 1,1,1`` (as phase 7),
+   its peak memory within 5% of phase 7's; and the compressed combine's
+   bytes and time;
+18. the kernels line (JSON), the run's wall, the card's name and power
    limit, and the result line ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -123,6 +132,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.ckpt import CheckpointStore  # noqa: E402
 from repro_torch.kernels.flash_attention import _dkv_splits  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     ModelOptions,
     decode_step,
@@ -150,14 +160,18 @@ from repro_torch.serve import (  # noqa: E402
     make_prefill_step,
     paged_model,
 )
+from repro_torch.sharding import activation_rules  # noqa: E402
 from repro_torch.train import (  # noqa: E402
     OptimizerConfig,
     TrainConfig,
+    adamw_update,
+    clip_by_global_norm,
     global_norm,
     init_train_state,
     lr_schedule,
     make_train_step,
 )
+from repro_torch.train.compress import compressed_mean_over_axis, ef_quantize_mean  # noqa: E402
 from repro_torch.train.optim import leaves  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -237,6 +251,8 @@ TRAIN_BF16 = {"loss": 2e-2, "leaf": 2e-2}
 # parameters resolve (at the default 3e-6 it lies within a few ulps of
 # the parameter)
 TRAIN_CHECK_OPT = OptimizerConfig(lr=1e-2, warmup_steps=4)
+# the full-depth --mesh 1,1,1 run's peak memory against phase 7's
+MESH_PEAK_RTOL = 0.05
 
 
 def log(*args) -> None:
@@ -2248,6 +2264,162 @@ def trainer_pe_phase(seed: int, smi: str) -> dict:
     return got
 
 
+# ------------------------------------------------------------- the mesh step
+
+
+def snapshot(state) -> dict:
+    """Copies of a train state's tensors (params, moments, EF buffers)."""
+    return {k: [t.detach().clone() for t in leaves(state[k])]
+            for k in ("params", "opt", "ef") if k in state}
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        len(a[k]) == len(b[k]) and all(torch.equal(x, y) for x, y in zip(a[k], b[k]))
+        for k in a)
+
+
+def run_steps(step, state, batches) -> tuple:
+    """Each step's (loss, grad norm) and launch counts, and the final state."""
+    out = []
+    for b in batches:
+        kernels.reset_launch_counts()
+        state, m = step(state, b)
+        out.append(((m["loss"].item(), m["grad_norm"].item()), counts()))
+    return out, state
+
+
+def plain_compressed_step(cfg, tcfg, opts):
+    """The one-device gradients through the plain ``ef_quantize_mean`` (one
+    pod), clipping and AdamW: what the compressed mesh step must equal."""
+    ocfg = tcfg.optimizer
+
+    def step(state, batch):
+        params = state["params"]
+        for p in leaves(params):
+            p.grad = None
+        loss, _ = loss_fn(params, cfg, batch, opts, remat=tcfg.remat)
+        loss.backward()
+        grads = map_params(lambda _k, p: p.grad[None], params)
+        mean, state["ef"] = ef_quantize_mean(grads, state["ef"])
+        mean, gnorm = clip_by_global_norm(mean, ocfg.clip_norm)
+        adamw_update(ocfg, params, mean, state["opt"], state["step"])
+        for p in leaves(params):
+            p.grad = None
+        state["step"] += 1
+        return state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return step
+
+
+def mesh_phase(seed: int, smi: str, phase7: dict) -> dict:
+    """The mesh train step at world size 1 over NCCL, bit for bit against
+    the one-device step and the plain compressed composition; full-depth
+    gemma-2b through the launcher's ``--mesh 1,1,1`` beside phase 7; the
+    compressed combine's cost.  Returns the launches of the launcher run."""
+    t0 = time.perf_counter()
+    # phase 7 ran without deterministic algorithms (the trainer PE turned
+    # them on): compare like with like
+    torch.use_deterministic_algorithms(False)
+    cfg = get_config("gemma-2b")
+    cfg2 = cfg.with_(num_layers=2)
+    opts = ModelOptions(compute_dtype="bfloat16")
+    params32 = init_params(cfg2, seed=seed, device="cuda")
+    src = StreamSource(vocab_size=cfg.vocab_size, batch=2, seq_len=1024, seed=seed)
+    batches = [{k: v.to("cuda") for k, v in src.batch_at(i).items()} for i in range(2)]
+    mesh = make_mesh((1, 1, 1), device="cuda")
+    try:
+        log(f"== mesh: world size 1 over {torch.distributed.get_backend()}, mesh "
+            f"{mesh.shape}; gemma-2b full width at 2 layers "
+            f"({cfg2.param_count() / 1e9:.3f} B params), f32 parameters, bf16 compute, "
+            f"remat, 2 steps of 2 x 1024 ({smi})")
+        for compress in (False, True):
+            tcfg = TrainConfig(compress_pod_grads=compress)
+            state = init_train_state(cfg2, tcfg, params=clone_params(params32))
+            one = (plain_compressed_step(cfg2, tcfg, opts) if compress
+                   else make_train_step(cfg2, tcfg, opts))
+            want, state = run_steps(one, state, batches)
+            want_bits = snapshot(state)
+            del state
+            state = init_train_state(cfg2, tcfg, params=clone_params(params32), mesh=mesh)
+            step = make_train_step(cfg2, tcfg, opts, mesh=mesh, act_rules=activation_rules())
+            got, state = run_steps(step, state, batches)
+            got_bits = snapshot(state)
+            del state
+            same = [g[0] for g in got] == [w[0] for w in want] and same_bits(got_bits,
+                                                                             want_bits)
+            what = ("compressed (num_pods 1) vs the plain ef_quantize_mean, clipping and "
+                    "AdamW" if compress else "mesh step vs the one-device step")
+            log(f"   {what}: (loss, grad norm) {[g[0] for g in got]}; parameters, "
+                f"moments{' and EF buffers' if compress else ''} "
+                f"{'identical' if same else 'DIFFER'} bit for bit; launches per step "
+                f"{[g[1] for g in got]} (one-device {[w[1] for w in want]})")
+            assert same, (what, got, want)
+            for (_, g), (_, w) in zip(got, want):
+                for name in ("rmsnorm", "flash_attention", "flash_attention_bwd"):
+                    assert g[name] == w[name] > 0, (name, g, w)
+            del got_bits, want_bits
+        torch.cuda.synchronize()
+
+        # the compressed combine's cost: EF state and int8 payload of the
+        # 2-layer model, and its time at world size 1 (no wire), on random
+        # gradients and zero buffers
+        n = sum(p.numel() for p in leaves(params32))
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        grads = map_params(lambda _k, p: torch.randn(p.shape, generator=gen, device="cuda"),
+                           params32)
+        ef = map_params(lambda _k, p: torch.zeros_like(p), params32)
+        compressed_mean_over_axis(grads, ef, None)  # warm
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            compressed_mean_over_axis(grads, ef, None)
+        end.record()
+        torch.cuda.synchronize()
+        combine_ms = start.elapsed_time(end) / 5
+        moved = 17 * n  # read g and e, write the mean and the new e (f32), the int8 payload
+        log(f"   compressed combine over {n / 1e9:.3f} B parameters: EF state "
+            f"{4 * n / 1e9:.3f} GB, int8 payload {n / 1e9:.3f} GB "
+            f"(+ {4 * len(leaves(params32))} B of scales) a pod; {combine_ms:.3f} ms a "
+            f"combine at world size 1 (mean of 5), bound {moved / HBM_BYTES_PER_S * 1e3:.3f} "
+            f"ms ({moved / 1e9:.2f} GB at 3.35 TB/s) ({smi})")
+        del grads, ef, params32
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+
+    # full depth through the launcher, as phase 7, on a mesh of one rank
+    steps, warmup = 8, 2
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    records = train_launcher.main(["--arch", "gemma-2b", "--steps", str(steps),
+                                   "--batch", "2", "--seq", "1024", "--mesh", "1,1,1"])
+    launches = counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    assert not torch.distributed.is_initialized(), "the launcher left its world running"
+    assert len(records) == steps and all(
+        math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records)
+    timed = [r["wall_s"] for r in records[warmup:]]
+    wall = sum(timed) / len(timed)
+    log(f"   launcher --mesh 1,1,1, full depth: step wall {wall * 1e3:.3f} ms (mean of "
+        f"{len(timed)}; phase 7: {phase7['wall'] * 1e3:.3f}), {2 * 1024 / wall:.1f} "
+        f"training tokens/s (phase 7: {2 * 1024 / phase7['wall']:.1f}), peak memory "
+        f"{peak_gib:.2f} GiB (phase 7: {phase7['peak_gib']:.2f}) ({smi})")
+    log("   per step (loss, grad norm, wall s): " + "; ".join(
+        f"{r['loss']:.4f} {r['grad_norm']:.4f} {r['wall_s']:.3f}" for r in records))
+    log(f"   launches {launches} (phase 7: {phase7['launches']})")
+    same = [(r["loss"], r["grad_norm"]) for r in records] == phase7["records"]
+    log(f"   its losses and grad norms {'equal' if same else 'differ from'} phase 7's "
+        "(not held: full depth)")
+    for name in ("rmsnorm", "flash_attention", "flash_attention_bwd"):
+        assert launches[name] == phase7["launches"][name], (name, launches)
+    assert abs(peak_gib - phase7["peak_gib"]) <= MESH_PEAK_RTOL * phase7["peak_gib"], \
+        (peak_gib, phase7["peak_gib"])
+    log(f"   mesh phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2474,6 +2646,8 @@ def main() -> int:
     # backward): flash forward 2 per layer, RMSNorm 2 per layer twice plus
     # the final norm once; the backward kernel once per layer
     L = cfg.num_layers
+    phase7 = {"wall": wall, "peak_gib": peak_gib, "launches": train_launches,
+              "records": [(r["loss"], r["grad_norm"]) for r in records]}
     assert train_launches["flash_attention"] == 2 * L * steps, train_launches
     assert train_launches["flash_attention_bwd"] == L * steps, train_launches
     assert train_launches["rmsnorm"] == (4 * L + 1) * steps, train_launches
@@ -2612,7 +2786,11 @@ def main() -> int:
     trainer_pe_phase(args.seed, smi)
 
     log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
-    # 17. the kernels line, the card, the result.  Each kernel's launches are
+    # 17. the mesh train step at world size 1 over NCCL
+    mesh_phase(args.seed, smi, phase7)
+
+    log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
+    # 18. the kernels line, the card, the result.  Each kernel's launches are
     # those of the path that runs it: the paged serve run (RMSNorm, paged
     # decode), the fixed-slot serve run (dense decode), the prefill (flash),
     # the train run (flash backward), the recurrent prefills (RG-LRU,

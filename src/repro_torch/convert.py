@@ -24,6 +24,16 @@ def map_params(fn, tree, key=None):
     return fn(key, tree)
 
 
+def zip_params(fn, a, b):
+    """Apply ``fn(leaf_a, leaf_b)`` to the matching leaves of two trees of
+    one structure (dicts matched by key, in ``a``'s order)."""
+    if isinstance(a, dict):
+        return {k: zip_params(fn, v, b[k]) for k, v in a.items()}
+    if isinstance(a, (list, tuple)):
+        return type(a)(zip_params(fn, x, y) for x, y in zip(a, b))
+    return fn(a, b)
+
+
 # Leaves that the reference reads in f32 (``x.astype(f32) @ w``, ``+ b`` in
 # f32, an f32 step conv, qwen2-moe's shared-expert gate) rather than through
 # ``.astype(dtype)``, by the

@@ -1,0 +1,146 @@
+"""Device meshes of ``torch.distributed`` ranks, the counterpart of
+``repro/launch/mesh.py``.
+
+A mesh lays the world's ranks out row-major over named axes ``("pod",
+"data", "model")`` (or the last ones of them) and holds one process group
+per axis, plus the group of the batch axes (``pod`` x ``data``): the
+groups the mesh train step gathers parameters and averages gradients
+over.  A group is made only where it joins more than one rank.
+
+The backend follows the device: NCCL on CUDA, gloo on the CPU; a CUDA
+mesh where NCCL is missing raises.  ``make_mesh`` joins a world already
+started (``torch.distributed`` initialized, e.g. by the launcher), or
+starts one from ``init_method`` and ``rank``, from torchrun's environment
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), or, for a
+world of one rank, on a free local port; ``Mesh.close`` ends a world the
+mesh started.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+import os
+import socket
+
+import torch
+import torch.distributed as dist
+
+from ..device import resolve_device
+
+AXES = ("pod", "data", "model")
+BATCH_AXES = ("pod", "data")
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Mesh:
+    """This rank's view of the mesh: ``axis_names``, ``shape`` (axis ->
+    size), ``coords`` (axis -> this rank's index), ``rank``, ``device``,
+    and ``group(axes)``, the process group of the ranks that differ from
+    this one only along ``axes`` (None where that is one rank)."""
+
+    def __init__(self, shape: tuple, axes: tuple, rank: int, device: torch.device,
+                 owns_world: bool):
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(axes, shape))
+        self.rank, self.device, self._owns_world = rank, device, owns_world
+        self.world_size = math.prod(shape)
+        idx, self.coords = rank, {}
+        for a in reversed(axes):
+            self.coords[a] = idx % self.shape[a]
+            idx //= self.shape[a]
+        self._groups = {}
+        batch = tuple(a for a in BATCH_AXES if a in axes)
+        for key in [(a,) for a in axes] + ([batch] if len(batch) > 1 else []):
+            self._make_groups(key)
+
+    def _make_groups(self, key: tuple) -> None:
+        """Every group along ``key`` (each rank must make all of them, in
+        the same order); keep the one this rank is in."""
+        if self.size(key) == 1:
+            return
+        others = [a for a in self.axis_names if a not in key]
+        for fixed in itertools.product(*(range(self.shape[a]) for a in others)):
+            at = dict(zip(others, fixed))
+            ranks = []
+            for moving in itertools.product(*(range(self.shape[a]) for a in key)):
+                at.update(zip(key, moving))
+                ranks.append(self._rank_at(at))
+            group = dist.new_group(ranks)
+            if self.rank in ranks:
+                self._groups[key] = group
+
+    def _rank_at(self, coords: dict) -> int:
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + coords[a]
+        return r
+
+    def size(self, axes: tuple) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    def index(self, axes: tuple) -> int:
+        """This rank's block index over ``axes``, the first axis major."""
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def group(self, axes: tuple):
+        return self._groups.get(tuple(axes)) if self.size(axes) > 1 else None
+
+    def close(self) -> None:
+        """End the world, if this mesh started it."""
+        if self._owns_world and dist.is_initialized():
+            dist.destroy_process_group()
+        self._owns_world = False
+
+
+def make_mesh(shape, axes=None, *, device=None, init_method=None,
+              rank=None) -> Mesh:
+    """A mesh of ``prod(shape)`` ranks on ``device`` (CUDA unless the caller
+    asks for the CPU).  ``axes`` default to the last ``len(shape)`` of
+    ``("pod", "data", "model")``, as the reference's launcher names them."""
+    shape = tuple(int(s) for s in shape)
+    axes = tuple(axes) if axes is not None else AXES[-len(shape):]
+    if len(axes) != len(shape):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl" and not dist.is_nccl_available():
+        raise RuntimeError("a CUDA mesh needs NCCL, which this torch lacks")
+    world = math.prod(shape)
+    owns = not dist.is_initialized()
+    if owns:
+        if init_method is None and "RANK" in os.environ:
+            init_method, rank = "env://", int(os.environ["RANK"])
+        elif init_method is None and world == 1:
+            init_method, rank = f"tcp://127.0.0.1:{free_port()}", 0
+        elif init_method is None or rank is None:
+            raise ValueError(f"a world of {world} ranks needs init_method and rank, "
+                             "or torchrun's environment")
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=world)
+    elif dist.get_backend() != backend or dist.get_world_size() != world:
+        raise ValueError(f"the running world ({dist.get_backend()}, "
+                         f"{dist.get_world_size()} ranks) is not a {backend} "
+                         f"mesh of {world}")
+    rank = dist.get_rank()
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+        dev = torch.device("cuda", local)
+    mesh = Mesh(shape, axes, rank, dev, owns)
+    # one collective over the world, so a broken transport fails here
+    dist.all_reduce(torch.zeros(1, device=dev))
+    return mesh
+
+
+def make_smoke_mesh(shape=(2, 2, 2), axes=("pod", "data", "model"), **kw) -> Mesh:
+    """Small mesh for real (executing) multi-rank tests on the CPU's gloo."""
+    return make_mesh(shape, axes, **kw)

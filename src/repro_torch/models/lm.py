@@ -41,6 +41,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..convert import cast_params, map_params
 from ..device import resolve_device
+from ..sharding.collectives import ordered_sum
+from ..sharding.ctx import loss_group
 from . import recurrent as rec
 from .moe import IMPLS as MOE_IMPLS
 from .moe import init_moe, moe_apply
@@ -646,7 +648,10 @@ def loss_fn(params, cfg: ArchConfig, batch: dict,
     Returns (loss, metrics): the mean f32 cross-entropy over unmasked
     tokens (over at least one) plus the MoE aux loss times its weight, and
     ``ce_loss``, ``aux_loss``, ``tokens``.  A frontend's prefix positions
-    carry no labels: their logits are cut off first."""
+    carry no labels: their logits are cut off first.  Under a mesh binding
+    (``sharding.ctx.use_rules``) ``batch`` is this rank's rows of the
+    bound loss's, ``tokens`` the global count and the loss this rank's
+    share: the ranks' mean is the global batch's loss."""
     logits, aux = forward(params, cfg, batch["tokens"],
                           batch.get("frontend_embeds"), opts, remat=remat)
     if cfg.frontend:
@@ -659,7 +664,15 @@ def loss_fn(params, cfg: ArchConfig, batch: dict,
                           labels.masked_fill(~mask, -100).flatten(),
                           ignore_index=-100, reduction="sum")
     count = mask.sum().float()
-    loss = nll / torch.clamp(count, min=1.0)
+    group, n = loss_group()
+    if group is None:
+        loss = nll / torch.clamp(count, min=1.0)
+    else:
+        # the global batch's mean over n ranks' rows: the count is the
+        # global one, and each rank's share is scaled so that the ranks'
+        # mean is the global loss (right however the labels are masked)
+        count = ordered_sum(count, group, n)
+        loss = nll / (torch.clamp(count, min=1.0) / n)
     aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
     return loss + aux_w * aux, {"ce_loss": loss, "aux_loss": aux,
                                 "tokens": count}

@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import MoECfg
+from ..sharding.collectives import ordered_sum, sum_over
+from ..sharding.ctx import loss_group
 from .layers import act_fn, bmm_f32, dense_init, matmul_f32, mlp_apply
 
 IMPLS = ("einsum", "sort")
@@ -76,10 +78,17 @@ def _route(params, xg, m: MoECfg):
 
 
 def _aux_loss(probs, idx, m: MoECfg) -> torch.Tensor:
-    """Load-balance loss: E * sum_e f_e * P_e (Switch/GShard form)."""
+    """Load-balance loss: E * sum_e f_e * P_e (Switch/GShard form).  Under
+    a mesh binding f and P are the means over the bound loss's global
+    batch (every rank holds as many groups), taken before the product,
+    with P's gradient flowing back to each rank's own probabilities."""
     E = m.num_experts
     f = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
     P = probs.mean(dim=(0, 1))
+    group, n = loss_group()
+    if group is not None:
+        f = ordered_sum(f, group, n) / n
+        P = sum_over(P, group, n) / n
     return E * torch.sum(f * P)
 
 
@@ -192,13 +201,21 @@ def moe_apply(params: dict, x: torch.Tensor, m: MoECfg, act: str):
     """x (B,S,d) -> (out (B,S,d), aux_loss f32 scalar).
 
     Tokens are routed in groups of ``min(group_size, B*S)``, which must
-    divide B*S (the reference asserts it).  The shared experts run as a
-    gated MLP on every token; qwen2's sigmoid gate on them is f32."""
+    divide B*S (the reference asserts it).  Under a mesh binding x is this
+    rank's rows of the bound loss's batch, and the groups are those of the
+    global batch: capacity couples a group's tokens, so where this rank's
+    tokens are not whole groups it raises rather than route otherwise.  The
+    shared experts run as a gated MLP on every token; qwen2's sigmoid gate
+    on them is f32."""
     B, S, d = x.shape
     T = B * S
-    g = min(m.group_size, T)
+    _, n = loss_group()
+    g = min(m.group_size, T * n)
     if T % g:
-        raise ValueError(f"MoE: {T} tokens do not split into groups of {g}")
+        raise ValueError(
+            f"MoE: {T} tokens do not split into groups of {g}" + (
+                f" (the routing groups of the global batch of {T * n} tokens "
+                f"over {n} ranks)" if n > 1 else ""))
     if m.impl not in IMPLS:
         raise ValueError(f"MoE impl must be one of {IMPLS}, got {m.impl!r}")
     xg = x.reshape(T // g, g, d)

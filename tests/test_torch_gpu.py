@@ -1075,3 +1075,71 @@ def test_recurrent_train_gradients_on_card(cuda, arch):
             ek = ((g_k[i].double() - g_64[i]).abs().max() / scale).item()
             ep = ((g_p[i].double() - g_64[i]).abs().max() / scale).item()
             assert ek <= max(1e-3, 2 * ep), (i, ek, ep)
+
+
+def _plain_compressed_step(cfg, tcfg, opts):
+    """The one-device gradients through the plain ``ef_quantize_mean`` (one
+    pod), clipping and AdamW."""
+    from repro_torch.train import adamw_update, clip_by_global_norm
+    from repro_torch.train.compress import ef_quantize_mean
+    from repro_torch.train.optim import leaves
+
+    def step(state, batch):
+        params = state["params"]
+        for p in leaves(params):
+            p.grad = None
+        loss, _ = loss_fn(params, cfg, batch, opts, remat=tcfg.remat)
+        loss.backward()
+        mean, state["ef"] = ef_quantize_mean(map_params(lambda _k, p: p.grad[None], params),
+                                             state["ef"])
+        mean, gnorm = clip_by_global_norm(mean, tcfg.optimizer.clip_norm)
+        adamw_update(tcfg.optimizer, params, mean, state["opt"], state["step"])
+        state["step"] += 1
+        return state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compress", [False, True])
+def test_mesh_step_of_one_rank_over_nccl_is_the_one_device_step(cuda, compress):
+    """A (1, 1, 1) mesh over NCCL, reduced gemma-2b in bf16 on the kernels,
+    two steps: the mesh step equals the one-device step, and the compressed
+    step (one pod) the plain composition, bit for bit (loss, grad norm,
+    parameters, moments, EF buffers), with the same launch counts."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import activation_rules
+    from repro_torch.train.optim import leaves
+
+    cfg = reduced_config("gemma-2b")
+    opts = ModelOptions(compute_dtype="bfloat16")
+    tcfg = TrainConfig(compress_pod_grads=compress)
+    params = init_params(cfg, seed=3, device=cuda)
+    rng = np.random.default_rng(3)
+    batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))).to(cuda)
+                for k in ("tokens", "labels")} for _ in range(2)]
+
+    def run(step, state):
+        out = []
+        for b in batches:
+            kernels.reset_launch_counts()
+            state, m = step(state, b)
+            out.append((m["loss"].item(), m["grad_norm"].item(),
+                        {fn.__name__: fn.launches for fn in kernels.KERNELS}))
+        return out, [t.detach().clone() for k in ("params", "opt", "ef") if k in state
+                     for t in leaves(state[k])]
+
+    clone = lambda: map_params(lambda _k, p: p.clone(), params)  # noqa: E731
+    one = _plain_compressed_step(cfg, tcfg, opts) if compress else \
+        make_train_step(cfg, tcfg, opts)
+    want, want_t = run(one, init_train_state(cfg, tcfg, params=clone()))
+    mesh = make_mesh((1, 1, 1), device="cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        got, got_t = run(make_train_step(cfg, tcfg, opts, mesh=mesh,
+                                         act_rules=activation_rules()),
+                         init_train_state(cfg, tcfg, params=clone(), mesh=mesh))
+    finally:
+        mesh.close()
+    assert got == want and got[0][2]["flash_attention_bwd"] > 0
+    assert len(got_t) == len(want_t) and all(torch.equal(a, b) for a, b in zip(got_t, want_t))

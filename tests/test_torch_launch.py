@@ -1,7 +1,8 @@
 """The port's launchers, ``python -m repro_torch.launch.serve`` and
 ``python -m repro_torch.launch.train``: each runs end to end on the CPU when
-asked to, refuses to start without a card otherwise, and says what is not
-ported yet (``--platform``, ``--mesh``)."""
+asked to (the trainer also on a mesh of gloo ranks), refuses to start
+without a card otherwise, and says what is not ported yet
+(``--platform``)."""
 
 import math
 import os
@@ -96,10 +97,44 @@ def test_train_without_card_raises(monkeypatch):
         train.main(["--arch", "gemma-2b", "--smoke", "--steps", "1"])
 
 
-@pytest.mark.parametrize("flag", [["--platform"], ["--mesh", "2,2,2"]])
+@pytest.mark.parametrize("flag", [["--platform"]])
 def test_train_mesh_and_platform_are_not_ported_yet(flag):
     with pytest.raises(NotImplementedError):
         train.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu", *flag])
+
+
+def _step_losses(*flags) -> list:
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen3-14b",
+         "--smoke", "--steps", "2", "--batch", "8", "--seq", "32", "--device", "cpu",
+         *flags],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return [float(l.split()[3]) for l in proc.stdout.splitlines() if l.startswith("step ")]
+
+
+def test_train_mesh_world_matches_one_device():
+    """``--mesh 2,2,2`` without torchrun: the launcher starts 8 gloo ranks
+    itself, and rank 0's losses are within 1e-3 of the same command
+    without a mesh (the bound of tests/test_sharding_multi.py:77)."""
+    plain, mesh = _step_losses(), _step_losses("--mesh", "2,2,2")
+    assert len(plain) == len(mesh) == 2
+    assert all(abs(a - b) < 1e-3 for a, b in zip(plain, mesh)), (plain, mesh)
+
+
+def test_train_mesh_of_one_rank_runs_in_process(capsys):
+    """A world of one rank runs in the launcher's own process (a gloo group
+    on a free local port, ended after the run) and gives the one-device
+    records' numbers."""
+    argv = ["--arch", "gemma-2b", "--smoke", "--steps", "2", "--batch", "2",
+            "--seq", "16", "--device", "cpu"]
+    plain = train.main(argv)
+    mesh = train.main(argv + ["--mesh", "1,1,1"])
+    assert not torch.distributed.is_initialized()
+    assert [(r["loss"], r["grad_norm"]) for r in mesh] == \
+        [(r["loss"], r["grad_norm"]) for r in plain]
+    assert "mesh {'pod': 1, 'data': 1, 'model': 1}" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen2-moe-a2.7b",

@@ -6,21 +6,34 @@ The wiring stays out of ``src/repro``: a ``PERuntime`` whose
 runtimes from), and the port's ``CheckpointStore`` over the one the
 ``Platform`` builds, so every consistent-region checkpoint goes through the
 port's store.  The trainers compute on the CPU (``"device": "cpu"`` in the
-app config).  The two tests are the reference's
+app config).  The two platform tests are the reference's
 ``tests/test_platform_e2e.py::test_training_survives_pod_kill_bit_exact``
 and ``::test_elastic_training_width_change``, at its sizes and timeouts.
+
+Last, the port's trainer PE is held to the reference's step for step: both
+loops run on one width-1 stand-in runtime, the port patched (here, not in
+``src``) to the reference's weights and batches.
 """
 
 import hashlib
+import threading
 
+import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.platform
+from repro.ckpt import CheckpointStore as JaxCheckpointStore
+from repro.configs import reduced_config as jax_reduced_config
 from repro.core import wait_for
+from repro.data import StreamSource as JaxStreamSource
+from repro.models import init_params as jax_init_params
 from repro.platform import Platform, cluster, crds
 from repro_torch.ckpt import CheckpointStore
+from repro_torch.convert import params_from_numpy
 from repro_torch.platform import run_trainer
+from repro_torch.platform import trainer as trainer_mod
 
 
 class TorchTrainerRuntime(cluster.PERuntime):
@@ -113,3 +126,103 @@ def test_elastic_training_width_change(platform):
                 if "trainer" in str(x.spec.get("operators"))]) == 3
     st = p.rest.get_cr_state("et", "dp")
     assert st["lastCommitted"] >= 30
+
+
+# ------------------------------------------- against the reference's trainer PE
+
+# each step's loss against the reference's (tests/test_torch_train.py)
+STEP_LOSS_TOL = 1e-3
+
+
+class _WidthOneCollective:
+    """The fabric's ``allreduce_mean`` for one rank: its own f32 arrays."""
+
+    epoch = 0
+
+    def allreduce_mean(self, key, value, epoch, timeout=30.0, rank=0):
+        return [np.asarray(a, dtype=np.float32) for a in value]
+
+
+class _StandInRest:
+    """The control plane as a trainer sees it: a consistent region that
+    commits each checkpoint as soon as it is notified."""
+
+    def __init__(self, ckpt):
+        self.ckpt, self.committed, self.metrics, self.done = ckpt, -1, [], False
+
+    def get_cr_state(self, job, region):
+        return {"lastCommitted": self.committed}
+
+    def notify_checkpoint(self, job, region, pe_id, step):
+        self.committed = step
+
+    def report_metrics(self, job, pe_id, metrics):
+        self.metrics.append(metrics)
+
+    def notify_source_done(self, job, pe_id):
+        self.done = True
+
+
+class _StandInRuntime:
+    """The PE runtime's surface that both trainer loops use, for one trainer
+    channel of width 1."""
+
+    def __init__(self, app, interval, ckpt):
+        self.job, self.pe_id, self._drain, self.emitted = "probe", 0, None, []
+        self.meta = {"operators": [{"name": "trainer", "kind": "trainer", "channel": 0,
+                                    "config": app}],
+                     "widths": {"dp": 1},
+                     "consistentRegion": {"name": "dp", "interval": interval}}
+        self.rest, self.stop_event = _StandInRest(ckpt), threading.Event()
+        self.fabric = type("Fabric", (), {"collective": staticmethod(
+            lambda job, region, width: _WidthOneCollective())})()
+
+    def _cr(self):
+        return self.meta["consistentRegion"]
+
+    def _emit(self, port, item, partition=None):
+        self.emitted.append(item)
+
+    def _flush_all(self):
+        pass
+
+    def load_metrics(self, extra=None):
+        return dict(extra or {})
+
+
+class _ReferenceBatches:
+    """The reference's lcg stream, as the port's trainer reads a source."""
+
+    def __init__(self, vocab_size, batch, seq_len, seed, mode, **_frontend):
+        self.src = JaxStreamSource(vocab_size=vocab_size, batch=batch, seq_len=seq_len,
+                                   seed=seed, mode=mode)
+
+    def batch_at(self, offset):
+        return {k: torch.from_numpy(np.array(v)) for k, v in self.src.batch_at(offset).items()}
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "xlstm-125m", "deepseek-moe-16b"])
+def test_trainer_pe_matches_reference_trainer(arch, tmp_path, monkeypatch):
+    """6 steps of 2 x 32 tokens with checkpoints every 3: the reference's
+    ``PERuntime._run_trainer`` and the port's ``run_trainer`` on the same
+    stand-in runtime, the port on the reference's weights
+    (``jax.random.key(7)``) and batches; every step's loss within 1e-3, and
+    both commit the same checkpoints."""
+    app = {"arch": arch, "steps": 6, "batch_per_shard": 2, "seq_len": 32, "lr": 1e-3,
+           "device": "cpu"}
+    ref = _StandInRuntime(app, 3, JaxCheckpointStore(str(tmp_path / "ref")))
+    cluster.PERuntime._run_trainer(ref)
+
+    jax_cfg = jax_reduced_config(arch)
+    monkeypatch.setattr(trainer_mod, "init_params", lambda cfg, seed, device: params_from_numpy(
+        jax_init_params(jax.random.key(seed), jax_cfg), device=device))
+    monkeypatch.setattr(trainer_mod, "StreamSource", _ReferenceBatches)
+    port = _StandInRuntime(app, 3, CheckpointStore(str(tmp_path / "port")))
+    run_trainer(port)
+
+    for rt in (ref, port):
+        assert [m["step"] for m in rt.rest.metrics] == list(range(1, 7))
+        assert rt.rest.done and rt.rest.committed == 6
+    assert [x["step"] for x in port.emitted] == [x["step"] for x in ref.emitted]
+    for got, want in zip(port.emitted, ref.emitted):
+        assert abs(got["loss"] - want["loss"]) < STEP_LOSS_TOL, (got, want)
