@@ -10,7 +10,12 @@ tolerance miss:
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels: hold each kernel against its plain PyTorch version at the
    serving, prefill and training paths' shapes, and time kernel, plain version and a
-   PyTorch library call beside the least time the card could take;
+   PyTorch library call beside the least time the card could take (f32
+   flash rows also beside the split-TF32 bound, with the variant each
+   took: at D a multiple of 8 the f32 backward must take the f32
+   tensor-core one, and the f32 forward the CUDA-core one), and hold the
+   f32 flash backward at scores in the hundreds no farther from an f64
+   run than the CUDA-core variant (``check_flash_near_hard``);
 4. paged serve: full-width gemma-2b in bf16 through ``PagedServeEngine``
    (random weights from ``--seed``), 16 requests with prefix sharing and
    copy-on-write, with the kernels' launch counts read around the run and
@@ -176,6 +181,9 @@ from repro_torch.train.optim import leaves  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# f32 products as split TF32 on the tensor cores (the f32 flash variants):
+# three TF32 products each, at a third of the 495 TFLOP/s TF32 rate
+SPLIT_TF32_OPS_PER_S = 495e12 / 3
 TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}  # as tests/test_kernels.py
 # bf16 logits, kernel path vs plain path (the paged first tick at 2 layers,
 # forward at 1 layer): the two attention outputs differ by summation order,
@@ -491,6 +499,9 @@ def check_flash(gen, B, S, H, KV, D, dtype, window: int = 0) -> dict:
     q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+    route = kernels.flash_route(q, k, v)
+    if dtype == torch.float32:  # the f32 forward's scores round as plain f32's
+        assert route == "cuda-cores", route
     got, lse = kernels.flash_attention(q, k, v, return_lse=True, window=window)
     again, lse_again = kernels.flash_attention(q, k, v, return_lse=True, window=window)
     want = kernels.ref.causal_attention_ref(q, k, v, window=window)
@@ -510,10 +521,13 @@ def check_flash(gen, B, S, H, KV, D, dtype, window: int = 0) -> dict:
     band = ((i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
             if window else None)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    b_ms, b_by = bound(nbytes, 4 * B * H * D * band_pairs(S, window), dtype)
+    ops = 4 * B * H * D * band_pairs(S, window)
+    b_ms, b_by = bound(nbytes, ops, dtype)
     return {
         "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "window": window},
-        "dtype": str(dtype), "max_abs_err": err,
+        "dtype": str(dtype), "max_abs_err": err, "route": route,
+        "bound_split_tf32_ms": (ops / SPLIT_TF32_OPS_PER_S * 1e3
+                                if dtype == torch.float32 else None),
         # with the LSE, as the prefill and train paths launch it (through
         # flash_attention_train)
         "ms": time_ms(lambda i: kernels.flash_attention(q, k, v, return_lse=True,
@@ -537,6 +551,9 @@ def check_flash_bwd(gen, B, S, H, KV, D, dtype, window: int = 0) -> dict:
     do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
     out, lse = kernels.flash_attention(q, k, v, return_lse=True, window=window)
     args = (q, k, v, out, lse, do)
+    route = kernels.flash_route(q, k, v, do, backward=True)
+    if dtype == torch.float32 and D % 8 == 0:  # the f32 tensor-core backward's
+        assert route == "f32-tensor-cores", route
     got = kernels.flash_attention_bwd(*args, window=window)
     again = kernels.flash_attention_bwd(*args, window=window)
     want = kernels.ref.flash_attention_bwd_ref(*args, True, window)
@@ -595,13 +612,18 @@ def check_flash_bwd(gen, B, S, H, KV, D, dtype, window: int = 0) -> dict:
     es = q.element_size()
     nbytes = ((3 * q.numel() + 2 * k.numel()) * es + lse.numel() * 4  # read
               + (q.numel() + 2 * k.numel()) * es)  # dq, dk, dv written
-    b_ms, b_by = bound(nbytes, 5 * 2 * B * H * band_pairs(S, window) * D, dtype)
-    nsplit = (_dkv_splits(B, S, H, KV, _build.library().repro_flash_attention_bwd_key_tile(),
-                          _build.sm_count(0), window)
-              if dtype == torch.bfloat16 and D % 16 == 0 else 1)
+    ops = 5 * 2 * B * H * band_pairs(S, window) * D
+    b_ms, b_by = bound(nbytes, ops, dtype)
+    lib = _build.library()
+    tile = {"bf16-tensor-cores": lib.repro_flash_attention_bwd_key_tile(),
+            "f32-tensor-cores": lib.repro_flash_attention_bwd_f32_key_tile()}.get(route)
+    nsplit = (_dkv_splits(B, S, H, KV, tile, _build.sm_count(0), window,
+                          paired=route == "f32-tensor-cores") if tile else 1)
     return {
         "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "window": window},
-        "dtype": str(dtype), "max_abs_err": err,
+        "dtype": str(dtype), "max_abs_err": err, "route": route,
+        "bound_split_tf32_ms": (ops / SPLIT_TF32_OPS_PER_S * 1e3
+                                if dtype == torch.float32 else None),
         "plan": f"dk/dv pass in {nsplit} query ranges; max error {rel:.3g} of the "
                 "output's largest entry",
         "ms": time_ms(lambda i: kernels.flash_attention_bwd(*args, window=window),
@@ -610,6 +632,74 @@ def check_flash_bwd(gen, B, S, H, KV, D, dtype, window: int = 0) -> dict:
             *args, True, window), iters=5),
         "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
     }
+
+
+def exact_attention(q, k, v, do, window: int = 0) -> tuple:
+    """out, lse, dq, dk, dv of causal GQA attention in f64, by autograd
+    through the plain statement."""
+    qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
+    S, G = q.shape[1], q.shape[2] // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd.repeat_interleave(G, 2)) / math.sqrt(q.shape[3])
+    i = torch.arange(S, device=q.device)
+    mask = i[None, :] <= i[:, None]
+    if window:
+        mask = mask & (i[None, :] > i[:, None] - window)
+    s = s.masked_fill(~mask, float("-inf"))
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vd.repeat_interleave(G, 2))
+    out.backward(do.double())
+    return (out.detach(), torch.logsumexp(s, -1).transpose(1, 2).detach(), qd.grad, kd.grad,
+            vd.grad)
+
+
+def unaligned(t):
+    """The same values 4 bytes into a fresh buffer: rows off 16-byte
+    boundaries, which the flash kernels' CUDA-core variant takes."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# how much farther from f64 the f32 tensor-core flash backward may be than
+# the CUDA-core one, of the largest f64 entry: both take p from the same
+# scores and lse, and their products' own rounding (split TF32 against f32
+# FMA chains) differs by about 2^-21 of a product
+NEAR_HARD_MARGIN = 1e-5
+
+
+def check_flash_near_hard(gen, B, S, H, KV, D, window: int = 0) -> dict:
+    """f32 flash attention at scores in the hundreds (q and k of std 10:
+    a score's std is 100 at any D), the near-hard attention the reference's
+    init gives.  The forward and both backward variants on the forward's
+    out and lse against f64, each error over the largest f64 entry: the
+    tensor-core backward (the route these inputs take) must be no farther
+    from f64 than the CUDA-core one (the same inputs on rows off 16-byte
+    boundaries) by more than NEAR_HARD_MARGIN."""
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda") * 10
+    k = torch.randn(B, S, KV, D, generator=gen, device="cuda") * 10
+    v = torch.randn(B, S, KV, D, generator=gen, device="cuda")
+    do = torch.randn(B, S, H, D, generator=gen, device="cuda")
+    out, lse = kernels.flash_attention(q, k, v, return_lse=True, window=window)
+    want = exact_attention(q, k, v, do, window)
+
+    def rel(g, w):
+        return ((g.double() - w).abs().max() / w.abs().max()).item()
+
+    row = {"shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "window": window},
+           "out": rel(out, want[0]), "lse": rel(lse, want[1])}
+    got = {}
+    for variant, qq in (("f32-tensor-cores", q), ("cuda-cores", unaligned(q))):
+        assert kernels.flash_route(qq, k, v, do, backward=True) == variant, variant
+        got[variant] = kernels.flash_attention_bwd(qq, k, v, out, lse, do, window=window)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        tc, cc = (rel(got[variant][i], want[2 + i]) for variant in got)
+        row[name] = {"tensor-cores": tc, "cuda-cores": cc}
+        if not torch.isfinite(got["f32-tensor-cores"][i]).all() or tc > cc + NEAR_HARD_MARGIN:
+            raise AssertionError(f"flash_attention_bwd f32 near-hard {row['shape']} {name}: "
+                                 f"{tc:.3g} of the largest entry off f64 on the tensor "
+                                 f"cores, {cc:.3g} on the CUDA cores")
+    del got, want
+    return row
 
 
 def check_rglru(gen, B, S, C) -> dict:
@@ -1974,6 +2064,7 @@ def held_to_f64(grads_k, grads_p, grads_64, names) -> dict:
     out = {"failed": [], "farther": 0, "ratio": (0.0, ""), "worst_k": (0.0, ""),
            "worst_p": 0.0}
     for gk, gp, g64, name in zip(grads_k, grads_p, grads_64, names):
+        gk, gp = gk.to(g64.device), gp.to(g64.device)  # one leaf at a time from the host
         scale = g64.abs().max().clamp(min=1e-300)
         ek = ((gk.double() - g64).abs().max() / scale).item()
         ep = ((gp.double() - g64).abs().max() / scale).item()
@@ -2104,6 +2195,9 @@ def check_recurrent_train(arch: str, n_layers: int, batch: int, seq: int, seed: 
     del seen16
 
     if past:  # last: the f64 run needs the card's memory
+        # the past leaves' f32 gradients wait on the host (the embedding
+        # table's are 4.2 GB each at recurrentgemma-9b's width)
+        grads_k, grads_p = [g.cpu() for g in grads_k], [g.cpu() for g in grads_p]
         params64 = map_params(lambda _k, p: p.detach().double(), params32)
         del params32
         torch.cuda.empty_cache()
@@ -2246,6 +2340,7 @@ def trainer_pe_phase(seed: int, smi: str) -> dict:
         want = checkpoint_digest(whole, 8)
         shutil.rmtree(os.path.join(root, "whole"), ignore_errors=True)
 
+        kernels.reset_launch_counts()
         store, rt, wall1 = run("stopped", stop_after=6)
         steps = [m["step"] for m in rt.rest.metrics]
         assert steps == list(range(1, 7)) and not rt.rest.done and rt.rest.committed == 4
@@ -2253,8 +2348,10 @@ def trainer_pe_phase(seed: int, smi: str) -> dict:
         steps2 = [m["step"] for m in rt2.rest.metrics]
         assert steps2 == [5, 6, 7, 8] and rt2.rest.done and rt2.rest.committed == 8, steps2
         got_digest = checkpoint_digest(store, 8)
+        got2 = counts()  # the stopped and the resumed run: 6 + 4 steps of 2 layers
+        assert got2["flash_attention"] == 10 * 2 and got2["flash_attention_bwd"] == 10 * 2, got2
         log(f"   stopped after step 6 ({wall1:.1f} s), restarted from the committed step 4 "
-            f"({wall2:.1f} s, steps {steps2}): step 8's checkpoint "
+            f"({wall2:.1f} s, steps {steps2}; launches of both {got2}): step 8's checkpoint "
             f"{'equals' if got_digest == want else 'DIFFERS from'} the uninterrupted run's "
             f"bit for bit (sha256 {want[:16]})")
         assert got_digest == want, (got_digest, want)
@@ -2464,6 +2561,15 @@ def main() -> int:
                 gen, B, S, H, KV, D, dtype))
             results["flash_attention_bwd"].append(check_flash_bwd(
                 gen, B, S, H, KV, D, dtype))
+    # the trainer PE's attention, f32 as its model runs: gemma-2b's heads
+    # over 2 x 512 tokens
+    results["flash_attention"].append(check_flash(gen, 2, 512, 8, 1, 256, torch.float32))
+    results["flash_attention_bwd"].append(check_flash_bwd(gen, 2, 512, 8, 1, 256,
+                                                          torch.float32))
+    # f32 flash at scores in the hundreds, against f64: gemma-2b's heads,
+    # the trainer PE's batch, recurrentgemma-9b's heads with a window
+    near_hard = [check_flash_near_hard(gen, *shape) for shape in (
+        (1, 1024, 8, 1, 256), (2, 512, 8, 1, 256), (1, 1024, 16, 1, 256, 256))]
     # dense decode at the serving paths' shapes, bf16: the fixed-slot serve
     # (4 slots of 256), decode after the 1024-token prefill, and
     # recurrentgemma-9b's local ring (16 heads, 2048 slots)
@@ -2479,7 +2585,8 @@ def main() -> int:
         results["rglru_scan"].append(check_rglru(gen, B, S, 4096))
     for dtype in (torch.bfloat16, torch.float32):
         results["mlstm_chunk"].append(check_mlstm(gen, 1, 2048, 4, 384, 128, dtype))
-    windowed = [check_flash(gen, 1, 4096, 16, 1, 256, torch.bfloat16, window=2048)]
+    windowed = [check_flash(gen, 1, 4096, 16, 1, 256, dtype, window=2048)
+                for dtype in (torch.bfloat16, torch.float32)]
     # the recurrent families' training shapes (bf16 first: the model's):
     # recurrentgemma-9b's local layers and RG-LRU over 1 x 4096 tokens,
     # xlstm-125m's mLSTM over 2 x 1024
@@ -2508,11 +2615,21 @@ def main() -> int:
                        *((f"{k} (MHA)", v) for k, v in mha.items())]:
         for r in rows:
             lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-            log(f"   {name} {r['shape']} {r['dtype']}: max_abs_err "
+            tf32 = (f", {r['bound_split_tf32_ms']:.4f} ms as split TF32"
+                    if r.get("bound_split_tf32_ms") is not None else "")
+            log(f"   {name} {r['shape']} {r['dtype']}"
+                + (f" [{r['route']}]" if "route" in r else "") + ": max_abs_err "
                 f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, library {lib}, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}{tf32})"
                 + (f"; {r['plan']}" if "plan" in r else ""))
+    for r in near_hard:
+        log(f"   flash f32 at scores in the hundreds {r['shape']}, max error over the "
+            f"largest f64 entry: out {r['out']:.3g}, lse {r['lse']:.3g}; backward on "
+            f"the tensor cores / on the CUDA cores: "
+            + ", ".join(f"{n} {r[n]['tensor-cores']:.3g} / {r[n]['cuda-cores']:.3g}"
+                        for n in ("dq", "dk", "dv"))
+            + f" (held: no more than {NEAR_HARD_MARGIN:g} farther)")
 
     log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
     # 4. paged serve: full-width gemma-2b in bf16

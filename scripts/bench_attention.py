@@ -2,7 +2,7 @@
 """Time the port's flash-attention forward and dense decode kernels on one
 NVIDIA GPU.
 
-    python3 scripts/bench_attention.py [ROOT ...]
+    python3 scripts/bench_attention.py [--f32] [ROOT ...]
 
 For each ROOT (a checkout of this repository; by default the one holding
 this script), in the order given, builds that checkout's kernels and times,
@@ -23,7 +23,10 @@ with the largest error against the plain version, and SDPA on the same
 inputs (causal, band mask or length mask) as the yardstick.  Each ROOT runs
 in its own process, so two versions can be compared on one card in one
 call: give them in turns (A B B A).  Prints the card's name and power
-limit, then one JSON line per ROOT.
+limit, then one JSON line per ROOT.  With ``--f32`` it times the flash
+forward only, on f32 inputs, at gemma-2b's, qwen3-14b's, the trainer PE's
+(2, 512, 8, 1, 256) and recurrentgemma-9b's windowed shapes, and names the
+variant that ran (``route``, where the checkout has it).
 
     python3 scripts/bench_attention.py --gates [ROOT ...]
 
@@ -45,12 +48,14 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLASH = ((1, 1024, 8, 1, 256, 0), (1, 2048, 40, 8, 128, 0), (1, 4096, 16, 1, 256, 2048))
+F32_FLASH = ((1, 1024, 8, 1, 256, 0), (1, 2048, 40, 8, 128, 0), (2, 512, 8, 1, 256, 0),
+             (1, 4096, 16, 1, 256, 2048))
 DECODE = ((8, 8, 1, 256, 1024), (8, 40, 8, 128, 1024), (4, 8, 1, 256, 256),
           (1, 8, 1, 256, 1024), (1, 16, 1, 256, 2048))
 PAGED = ((8, 8, 1, 256), (8, 40, 8, 128))  # 16-token pages, lengths up to 1024
 
 
-def measure(root: str) -> dict:
+def measure(root: str, f32: bool = False) -> dict:
     """Build and time ``root``'s kernels in this process."""
     sys.path[:0] = [os.path.join(root, "src"), root]
     import torch
@@ -61,12 +66,14 @@ def measure(root: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bf = torch.bfloat16
+    bf = torch.float32 if f32 else torch.bfloat16
     res = {}
-    for B, S, H, KV, D, window in FLASH:
+    for B, S, H, KV, D, window in F32_FLASH if f32 else FLASH:
         q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(bf)
         k, v = (torch.randn(B, S, KV, D, generator=gen, device="cuda").to(bf)
                 for _ in range(2))
+        pick = getattr(kernels, "flash_route", None)  # older checkouts have none
+        route = pick(q, k, v) if pick else "no route query"
         got, lse = kernels.flash_attention(q, k, v, return_lse=True, window=window)
         want = kernels.ref.causal_attention_ref(q, k, v, window=window)
         want_lse = kernels.ref.attention_lse_ref(q, k, window=window)
@@ -83,8 +90,10 @@ def measure(root: str) -> dict:
             "sdpa_ms": chip_smoke.time_ms(lambda i: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=band, is_causal=not window, enable_gqa=True),
                 iters=5),
-            "max_abs_err": err}
+            "max_abs_err": err, "route": route}
         del q, k, v, qt, kt, vt
+    if f32:
+        return res
     for B, H, KV, D, Smax in DECODE:
         lens = [Smax + 1] + [max(1, Smax - (Smax * i) // B) for i in range(1, B)]
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -168,13 +177,16 @@ def gates(root: str) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] in ("--one", "--one-gates"):
-        run = measure if sys.argv[1] == "--one" else gates
+    if len(sys.argv) == 3 and sys.argv[1] in ("--one", "--one-gates", "--one-f32"):
+        run = {"--one": measure, "--one-gates": gates,
+               "--one-f32": lambda root: measure(root, f32=True)}[sys.argv[1]]
         print(json.dumps({"root": sys.argv[2], **run(sys.argv[2])}), flush=True)
         return 0
     mode, roots = "--one", sys.argv[1:]
     if roots[:1] == ["--gates"]:
         mode, roots = "--one-gates", roots[1:]
+    elif roots[:1] == ["--f32"]:
+        mode, roots = "--one-f32", roots[1:]
     import torch
 
     if not torch.cuda.is_available():

@@ -51,10 +51,14 @@ _SIGNATURES = {
         [_int, _int, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
          _int, _int, _float, _vp], ctypes.c_int),
     "repro_flash_attention_max_head_dim": ([], ctypes.c_int),
+    "repro_flash_attention_route": ([_int, _int, _vp, _vp, _vp, _vp, _int],
+                                    ctypes.c_int),
     "repro_flash_attention_bwd": (
         [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int,
-         _int, _int, _int, _int, _int, _int, _int, _float, _vp], ctypes.c_int),
+         _vp, _int, _int, _int, _int, _int, _int, _int, _int, _float, _vp],
+        ctypes.c_int),
     "repro_flash_attention_bwd_key_tile": ([], ctypes.c_int),
+    "repro_flash_attention_bwd_f32_key_tile": ([], ctypes.c_int),
     "repro_rglru_scan": ([_int, _vp, _vp, _vp, _int, _int, _int, _vp],
                          ctypes.c_int),
     "repro_rglru_scan_bwd": ([_int, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,

@@ -18,7 +18,7 @@
 //
 // Design, rather than a copy of the TPU grid (which walks KV tiles as its
 // innermost sequential axis and carries (m, l, acc) in VMEM across steps),
-// common to both variants below:
+// common to the variants below:
 // - one thread block per (batch, KV head, q tile, head chunk).  Its 64 rows
 //   are (query position, query head) pairs: BQ positions times GC heads of
 //   one KV group (GC = min(G, 64), BQ = 64 / GC).  Each K/V tile is loaded
@@ -68,19 +68,38 @@
 //   n - 1 - i would halve the blocks below one wave and not shorten it.
 //
 // The CUDA-core variant (f32, or a head dim the tensor-core one refuses):
+// - f32 stays on the CUDA cores on purpose: each score is the sequential
+//   f32 FMA chain over the head dim that cuBLAS's f32 GEMM (the plain
+//   path's einsum) also takes, so the f32 forward gives the plain path's
+//   bits on the reference's nearly hard attention.  The f32 train-step
+//   checks need that: a split-TF32 tensor-core forward (PERF.md),
+//   closer to an f64 run than plain f32 is, still moved the 2-layer
+//   gemma-2b gradients 0.065 of a leaf's largest entry from the plain
+//   path's (the gate is 1e-3): scores in the hundreds turn a few ulps of
+//   difference into different probabilities where two keys nearly tie,
+//   and the next layer amplifies them.  The f32 backward runs its other
+//   products on the tensor cores but recomputes these same scores, bit for
+//   bit (fma4 in tf32.cuh; flash_attention_bwd.cu);
 // - four threads own one row: each computes 8 of the tile's 32 scores, the
 //   row's max and sum come from two shuffles, the probabilities go through
 //   shared memory to the same four threads (one warp, so __syncwarp), and
-//   each thread keeps a quarter of the row's f32 accumulator (D/4 values)
-//   in registers.  Products run in f32 on the CUDA cores, so f32 inputs
-//   keep their f32 accuracy;
-// - tiles are staged in shared memory as f32 whatever the input type, with
-//   rows padded to D + 1 floats so the column reads do not collide in a
-//   bank: 140,032 bytes at D = 256.
+//   each thread keeps a quarter of the row's f32 accumulator (columns 16 c
+//   + 4 sub .. + 3) in registers.  Products run in f32 on the CUDA cores,
+//   so f32 inputs keep their f32 accuracy;
+// - tiles are staged in shared memory as f32 whatever the input type, in
+//   rows of whole 4-column pieces padded by 4 floats (pitch D + 4 at D a
+//   multiple of 4), and every shared-memory read is 16 bytes: four steps
+//   of a score's chain, or four of a thread's output columns.  K and V
+//   have two buffers, the next tile filled while this one is used: by
+//   16-byte cp.async for f32 rows of whole pieces on 16-byte boundaries
+//   (rows past S zero-filled), element by element for the rest (bf16,
+//   other head dims, unaligned rows), with the same arithmetic either way.
+//   208,128 bytes at D = 256, one block per SM.
 #include <cstdint>
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "tf32.cuh"
 
 namespace repro {
 namespace {
@@ -328,23 +347,41 @@ constexpr int kThreads = 256;  // 4 per row
 constexpr int kSub = kThreads / kRows;
 constexpr int kKeysPerThread = kKeys / kSub;
 
+// f32 rows of whole 4-column pieces (D rounded up, zero past D) and 4
+// floats of padding
+__host__ __device__ inline int cc_pitch(int D) { return (D + 3) / 4 * 4 + 4; }
+
 __host__ __device__ inline size_t smem_floats(int D) {
-  // Q tile (kRows x D+1), K and V tiles (kKeys x D+1 each), P (kRows x kKeys+1)
-  return static_cast<size_t>(kRows + 2 * kKeys) * (D + 1) +
+  // Q (kRows rows), two buffers each of K and V (kKeys rows), P (kRows x kKeys+1)
+  return static_cast<size_t>(kRows + 4 * kKeys) * cc_pitch(D) +
          static_cast<size_t>(kRows) * (kKeys + 1);
+}
+
+// Columns e .. e + 3 of a row as f32 into shared memory, zero past D or
+// where !ok: one 16-byte cp.async when `vec` (f32 rows of whole pieces on
+// 16-byte boundaries), else element by element.
+template <typename T>
+__device__ __forceinline__ void stage4(float* dst, const T* src, bool ok, int e, int D, bool vec) {
+  if (vec) {
+    cp_async16(dst, src, ok);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) dst[i] = ok && e + i < D ? to_f32(src[i]) : 0.f;
 }
 
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, int S, int H, int KV, int D,
-                 int GC, int BQ, int causal, int window, float scale) {
-  extern __shared__ float smem[];
-  const int Dp = D + 1;
-  float* sQ = smem;               // (kRows, Dp)
-  float* sK = sQ + kRows * Dp;    // (kKeys, Dp)
-  float* sV = sK + kKeys * Dp;    // (kKeys, Dp)
-  float* sP = sV + kKeys * Dp;    // (kRows, kKeys + 1)
+                 int GC, int BQ, int causal, int window, float scale, int vec) {
+  constexpr int kChunks = DMAX / 16;  // a thread's 4-column pieces of a row, at most
+  extern __shared__ __align__(16) float smem[];
+  const int Dp = cc_pitch(D);
+  float* sQ = smem;                // (kRows, Dp)
+  float* sK = sQ + kRows * Dp;     // 2 x (kKeys, Dp)
+  float* sV = sK + 2 * kKeys * Dp;  // 2 x (kKeys, Dp)
+  float* sP = sV + 2 * kKeys * Dp;  // (kRows, kKeys + 1)
   const int G = H / KV;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
   const int b = blockIdx.y / KV, kvh = blockIdx.y - b * KV;
@@ -352,51 +389,60 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tid = threadIdx.x;
   const int r = tid / kSub, sub = tid - r * kSub;
   const int rows = BQ * GC;
+  const int pieces = Dp / 4 - 1;  // 4-column pieces of a row
 
-  // row r of the tile is query position q0 + r / GC, head kvh*G + g0 + r % GC
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int rr = i / D, e = i - rr * D;
+  // row rr of the tile is query position q0 + rr / GC, head kvh*G + g0 + rr % GC
+  for (int i = tid; i < kRows * pieces; i += kThreads) {
+    const int rr = i / pieces, c = i - rr * pieces;
     const int qp = q0 + rr / GC, g = g0 + rr % GC;
-    float x = 0.f;
-    if (rr < rows && qp < S && g < G)
-      x = to_f32(q[((static_cast<long long>(b) * S + qp) * H + kvh * G + g) * D + e]);
-    sQ[rr * Dp + e] = x;
+    const bool ok = rr < rows && qp < S && g < G;
+    const long long off =
+        ok ? ((static_cast<long long>(b) * S + qp) * H + kvh * G + g) * D + c * 4 : 0;
+    stage4(sQ + rr * Dp + c * 4, q + off, ok, c * 4, D, vec);
   }
+  auto load_kv = [&](int k0, int buf) {
+    for (int i = tid; i < kKeys * pieces; i += kThreads) {
+      const int kk = i / pieces, c = i - kk * pieces;
+      const int kp = k0 + kk;
+      const bool ok = kp < S;
+      const long long off =
+          ok ? ((static_cast<long long>(b) * S + kp) * KV + kvh) * D + c * 4 : 0;
+      stage4(sK + (buf * kKeys + kk) * Dp + c * 4, k + off, ok, c * 4, D, vec);
+      stage4(sV + (buf * kKeys + kk) * Dp + c * 4, v + off, ok, c * 4, D, vec);
+    }
+  };
   const int qpos = q0 + r / GC, g = g0 + r % GC;
   const bool row_ok = r < rows && qpos < S && g < G;
 
   float m = kMaskValue, l = 0.f;
-  float acc[DMAX / kSub];
+  float acc[4 * kChunks];
 #pragma unroll
-  for (int c = 0; c < DMAX / kSub; ++c) acc[c] = 0.f;
+  for (int c = 0; c < 4 * kChunks; ++c) acc[c] = 0.f;
 
   // causal: the last key any row of this tile attends to is q0 + BQ - 1;
   // window: the first is q0 - window + 1
   const int kend = causal ? min(S, q0 + BQ) : S;
   const int kstart = window > 0 ? max(0, q0 - window + 1) / kKeys * kKeys : 0;
-  for (int k0 = kstart; k0 < kend; k0 += kKeys) {
-    __syncthreads();  // the previous tile's K/V reads are done (and sQ is written)
-    for (int i = tid; i < kKeys * D; i += kThreads) {
-      const int kk = i / D, e = i - kk * D;
-      const int kp = k0 + kk;
-      float kx = 0.f, vx = 0.f;
-      if (kp < S) {
-        const long long off = ((static_cast<long long>(b) * S + kp) * KV + kvh) * D + e;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
-      }
-      sK[kk * Dp + e] = kx;
-      sV[kk * Dp + e] = vx;
-    }
-    __syncthreads();
+  load_kv(kstart, 0);
+  cp_async_commit();  // Q and the first K/V tile
+  for (int k0 = kstart, buf = 0; k0 < kend; k0 += kKeys, buf ^= 1) {
+    if (k0 + kKeys < kend) load_kv(k0 + kKeys, buf ^ 1);
+    cp_async_commit();  // possibly empty: keeps the group count regular
+    cp_async_wait_one();
+    __syncthreads();  // tile k0 (and Q) landed for every thread
+    const float* cK = sK + buf * kKeys * Dp;
+    const float* cV = sV + buf * kKeys * Dp;
 
+    // this thread's keys sub, sub + 4, ...: each score the FMA chain over
+    // the head dim (fma4), as the f32 backward recomputes it
     float s[kKeysPerThread];
 #pragma unroll
     for (int j = 0; j < kKeysPerThread; ++j) s[j] = 0.f;
-    for (int e = 0; e < D; ++e) {
-      const float qe = sQ[r * Dp + e];
+    for (int e = 0; e < Dp - 4; e += 4) {
+      const float4 qe = *reinterpret_cast<const float4*>(sQ + r * Dp + e);
 #pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) s[j] += qe * sK[(sub + kSub * j) * Dp + e];
+      for (int j = 0; j < kKeysPerThread; ++j)
+        s[j] = fma4(s[j], qe, *reinterpret_cast<const float4*>(cK + (sub + kSub * j) * Dp + e));
     }
     float tile_max = kMaskValue;
 #pragma unroll
@@ -426,24 +472,43 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     m = m_new;
     __syncwarp();  // the row's probabilities are read by the same four threads
 #pragma unroll
-    for (int c = 0; c < DMAX / kSub; ++c) acc[c] *= corr;
+    for (int c = 0; c < 4 * kChunks; ++c) acc[c] *= corr;
+    // columns 16 c + 4 sub .. + 3: the four threads of a row read
+    // neighbouring banks
     for (int kk = 0; kk < kKeys; ++kk) {
       const float p = sP[r * (kKeys + 1) + kk];
-      const float* vrow = sV + kk * Dp + sub;
+      const float* vrow = cV + kk * Dp + 4 * sub;
 #pragma unroll
-      for (int c = 0; c < DMAX / kSub; ++c)
-        if (sub + kSub * c < D) acc[c] += p * vrow[kSub * c];
+      for (int c = 0; c < kChunks; ++c) {
+        if (16 * c + 4 * sub < D) {
+          const float4 ve = *reinterpret_cast<const float4*>(vrow + 16 * c);
+          acc[4 * c] = __fmaf_rn(p, ve.x, acc[4 * c]);
+          acc[4 * c + 1] = __fmaf_rn(p, ve.y, acc[4 * c + 1]);
+          acc[4 * c + 2] = __fmaf_rn(p, ve.z, acc[4 * c + 2]);
+          acc[4 * c + 3] = __fmaf_rn(p, ve.w, acc[4 * c + 3]);
+        }
+      }
     }
-    __syncwarp();  // sP is rewritten by the next tile
+    __syncthreads();  // this K/V buffer and sP are free for the next tile
   }
+  cp_async_wait_all();
 
   if (!row_ok) return;
   const long long orow = (static_cast<long long>(b) * S + qpos) * H + kvh * G + g;
   const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int c = 0; c < DMAX / kSub; ++c) {
-    const int e = sub + kSub * c;
-    if (e < D) out[orow * D + e] = from_f32<T>(acc[c] / den);
+  for (int c = 0; c < kChunks; ++c) {
+    const int e = 16 * c + 4 * sub;
+    if (e >= D) continue;
+    if (vec) {
+      *reinterpret_cast<float4*>(out + orow * D + e) =
+          make_float4(acc[4 * c] / den, acc[4 * c + 1] / den, acc[4 * c + 2] / den,
+                      acc[4 * c + 3] / den);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (e + i < D) out[orow * D + e + i] = from_f32<T>(acc[4 * c + i] / den);
+    }
   }
   if (lse != nullptr && sub == 0) lse[orow] = m + logf(den);
 }
@@ -456,25 +521,17 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, flo
   const int GC = G < kRows ? G : kRows;
   const int BQ = kRows / GC;
   const size_t smem = smem_floats(D) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DMAX>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  // 16-byte copies and stores: f32 rows of whole pieces on 16-byte boundaries
+  const int vec = sizeof(T) == 4 && D % 4 == 0 && aligned16(q, k, v, out);
   dim3 grid((S + BQ - 1) / BQ, B * KV, (G + GC - 1) / GC);
   flash_fwd_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, S, H, KV, D, GC, BQ, causal, window, scale);
+      static_cast<T*>(out), lse, S, H, KV, D, GC, BQ, causal, window, scale, vec);
   return cudaGetLastError();
-}
-
-// The tensor-core variant takes bf16 rows of whole 16-element steps that
-// start on 16-byte boundaries (cp.async copies 16 bytes at a time).
-bool use_tc(int dtype, int D, const void* q, const void* k, const void* v, const void* out) {
-  const auto bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                    reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
-  return dtype == kBFloat16 && D % 16 == 0 && D <= 256 && bits % 16 == 0;
 }
 
 template <int DMAX>
@@ -530,13 +587,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 
 // The largest head dim the kernel takes (the CUDA-core variant keeps its
 // accumulator in registers).  Both variants fit their shared memory at it:
-// 140,032 bytes for the CUDA-core one, 168,960 for the tensor-core one.
+// 208,128 bytes for the CUDA-core one, 168,960 for the tensor-core one.
 extern "C" int repro_flash_attention_max_head_dim() { return 256; }
 
+// The variant a call with these arguments takes (tf32.cuh: 0 CUDA cores,
+// 1 bf16 tensor cores, 2 the f32 backward's split TF32 on the tensor
+// cores): `x` is the forward's out or the backward's dout, or null;
+// `backward` picks the kernel.
+extern "C" int repro_flash_attention_route(int dtype, int D, const void* q, const void* k,
+                                           const void* v, const void* x, int backward) {
+  return repro::flash_route(dtype, D, q, k, v, x, backward != 0);
+}
+
 // q and out (B, S, H, D), k and v (B, S, KV, D) in `dtype`; lse (B, S, H) f32
-// or null; window 0 for global attention, else the local window.  bf16 rows
-// that the tensor-core variant takes go to it, the rest to the CUDA-core
-// variant.  Returns the CUDA error of the launch (0 on success).
+// or null; window 0 for global attention, else the local window.  Rows the
+// bf16 tensor-core variant takes go to it, the rest to the CUDA-core
+// variant.  Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int repro_flash_attention(int device, int dtype, const void* q, const void* k,
                                      const void* v, void* out, void* lse, int B, int S, int H,
                                      int KV, int D, int causal, int window, float scale,
@@ -546,7 +613,7 @@ extern "C" int repro_flash_attention(int device, int dtype, const void* q, const
   if (B == 0 || S == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
-  if (repro::use_tc(dtype, D, q, k, v, out))
+  if (repro::flash_route(dtype, D, q, k, v, out, false) == repro::kRouteBf16Tc)
     return repro::launch_tc(q, k, v, out, l, B, S, H, KV, D, causal, window, scale, s);
   if (dtype == repro::kFloat32)
     return repro::launch<float>(q, k, v, out, l, B, S, H, KV, D, causal, window, scale, s);
@@ -555,4 +622,3 @@ extern "C" int repro_flash_attention(int device, int dtype, const void* q, const
                                         s);
   return cudaErrorInvalidValue;
 }
-

@@ -12,9 +12,13 @@
 //
 // What bounds it on the H100: operations.  The causal half of five
 // products, 5 * 2 * B * H * (S^2 / 2) * D flops (10.7 GFLOP at gemma-2b's
-// (1, 1024, 8, 1, 256)), on 4 * B * S * (H + KV) * D elements moved.
+// (1, 1024, 8, 1, 256)), on 4 * B * S * (H + KV) * D elements moved.  In
+// f32: 67 TFLOP/s on the CUDA cores (0.160 ms there), or about 165 TFLOP/s
+// with three TF32 products per f32 product on the tensor cores (0.065 ms;
+// here the dP products take four, and the score products, recomputed in
+// both passes, run on the CUDA cores: 0.064 ms of CUDA-core work).
 //
-// Common to both variants, rather than a copy of the TPU grid (which walks
+// Common to the variants, rather than a copy of the TPU grid (which walks
 // the other axis as its innermost sequential grid dimension and carries the
 // sums in VMEM):
 // - a dq pass and a dk/dv pass.  Every output element is written once,
@@ -36,7 +40,7 @@
 //   wrapper's split plan, `_dkv_splits`, counts the windowed range);
 // - p, dp, delta and ds are f32.
 //
-// The tensor-core variant (bf16, D a multiple of 16 up to 256, 16-byte
+// The bf16 tensor-core variant (D a multiple of 16 up to 256, 16-byte
 // aligned rows; the same test as the forward's tensor-core variant):
 // - all five products are bf16 mma.sync.m16n8k16 with f32 sums, their
 //   operands read from shared memory by ldmatrix (.trans for the operands
@@ -78,9 +82,47 @@
 //   in order and rounds to bf16 (16 MB of f32 traffic at gemma's train
 //   shape, about 5 us); with nsplit = 1 the block writes dk, dv itself.
 //
-// The CUDA-core variant (f32, or a bf16 head dim the tensor-core one
-// refuses) does its products in f32 on the CUDA cores, so f32 inputs keep
-// their f32 accuracy:
+// The f32 tensor-core variant (f32, D a multiple of 8 up to 256, 16-byte
+// aligned rows):
+// - the scores S (and S^T) are the f32 forward's own, bit for bit: the FMA
+//   chain over the head dim on the CUDA cores (scores_f32, tf32.cuh), so
+//   p = exp(s - lse) meets the forward's lse as the CUDA-core variant's p
+//   does.  Scores in the hundreds (the reference's init) make p near
+//   one-hot, and a score rounded any other way leaves p off by the
+//   difference: split-TF32 scores put the gradients of gemma-2b's f32
+//   calls up to 17x farther from an f64 run than the CUDA-core variant's
+//   (PERF.md).  Held by chip_smoke.check_flash_near_hard;
+// - the other four products are split TF32 on mma.sync.m16n8k8 (tf32.cuh):
+//   each f32 operand is hi + lo in TF32; dP and dP^T take all four
+//   products of terms, the gradient products lo hi + hi lo + hi hi, about
+//   2^-21 of |a b|.  p, dp, delta and ds stay f32 and are split like any
+//   operand (rounding them to bf16 would fail the f32 checks).  Each 8-deep
+//   step of dP, dP^T, each 32-key tile of dS K and each 64-row item of P^T
+//   dO, dS^T Q sums from zero on the tensor cores and is added to f32
+//   running sums (the tensor cores' sums truncate);
+// - the bf16 variant's two passes with 32-key tiles, f32 rows at pitch
+//   D + 4 and one buffer per operand, each refilled by cp.async while
+//   another product runs: dq pass (Q, dO, K, V, ds): 62,464 bytes at
+//   D = 64, 111,616 at 128, 209,920 at 256; dk/dv pass (K, V, Q, dO, p^T,
+//   ds^T): 71,424, 120,576, 218,880.  ds and p^T, ds^T go through shared
+//   memory at pitches 40 and 72 (8 mod 16);
+// - warps: dq pass 4 row slices x 2 key halves for S and dP (S in the
+//   accumulator layout of dP, 8 scores a lane), 4 row slices
+//   x 2 column halves for dS K; dk/dv pass 2 key slices x 4 row quarters
+//   for S^T and dP^T, 2 key slices x 4 column quarters for the gradients;
+// - filling the card under the causal triangle: the dq pass cuts each q
+//   tile's key tiles into nsplit_dq ranges (the wrapper's `_dq_splits`: 2
+//   at gemma-2b's shape, where one block per q tile leaves the heaviest
+//   block twice the mean), one dimension heaviest first, their f32
+//   partials summed in order by flash_bwd_sum_kernel; the dk/dv pass gives
+//   block i key tiles i and n - 1 - i in turn, so every block has the same
+//   rows, and cuts them into the split plan's query ranges (`_dkv_splits`
+//   with paired blocks: 16 pairs x 8 = 128 blocks at gemma-2b's shape).
+//   No atomics: two runs give the same bits.
+//
+// The CUDA-core variant (f32 at a head dim off 8 or on unaligned rows, or
+// a bf16 head dim the tensor-core one refuses) does its products in f32 on
+// the CUDA cores, so f32 inputs keep their f32 accuracy:
 // - dq pass: one block per (batch, KV head, q tile, head chunk), keeping
 //   dq in f32 registers;
 // - dk/dv pass: one block per (batch, KV head, 16-key tile), walking every
@@ -91,6 +133,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "tf32.cuh"
 
 namespace repro {
 namespace {
@@ -805,24 +848,45 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dk, dv = the sum over the nsplit partials (nsplit, n) f32, in order,
-// rounded to bf16; four elements a thread and step.
+// Four sums of the splits, stored as bf16 (rounded) or f32.
+__device__ __forceinline__ void store4(bf16* dst, float4 x) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+}
+__device__ __forceinline__ void store4(float* dst, float4 x) {
+  *reinterpret_cast<float4*>(dst) = x;
+}
+
+// dk, dv = the sum over the nsplit partials (nsplit, n) f32, in order, in
+// T; four elements a thread and step.  Without part_dv only dk (the f32
+// dq pass's partials of dq).
+template <typename T>
 __global__ void __launch_bounds__(256)
 flash_bwd_sum_kernel(const float* __restrict__ part_dk, const float* __restrict__ part_dv,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, long long n, int nsplit) {
+                     T* __restrict__ dk, T* __restrict__ dv, long long n, int nsplit) {
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x * 4;
   for (long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4; i < n;
        i += step) {
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
     for (int s = 0; s < nsplit; ++s) {
       const float4 x = *reinterpret_cast<const float4*>(part_dk + s * n + i);
-      const float4 y = *reinterpret_cast<const float4*>(part_dv + s * n + i);
       a.x += x.x, a.y += x.y, a.z += x.z, a.w += x.w;
-      c.x += y.x, c.y += y.y, c.z += y.z, c.w += y.w;
+      if (part_dv != nullptr) {
+        const float4 y = *reinterpret_cast<const float4*>(part_dv + s * n + i);
+        c.x += y.x, c.y += y.y, c.z += y.z, c.w += y.w;
+      }
     }
-    *reinterpret_cast<uint2*>(dk + i) = make_uint2(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w));
-    *reinterpret_cast<uint2*>(dv + i) = make_uint2(pack_bf16(c.x, c.y), pack_bf16(c.z, c.w));
+    store4(dk + i, a);
+    if (part_dv != nullptr) store4(dv + i, c);
   }
+}
+
+template <typename T>
+cudaError_t launch_sum(const float* part_dk, const float* part_dv, void* dk, void* dv,
+                       long long n, int nsplit, cudaStream_t stream) {
+  const long long blocks = (n / 4 + 255) / 256;
+  flash_bwd_sum_kernel<T><<<static_cast<int>(blocks < 1024 ? blocks : 1024), 256, 0, stream>>>(
+      part_dk, part_dv, static_cast<T*>(dk), static_cast<T*>(dv), n, nsplit);
+  return cudaGetLastError();
 }
 
 template <int DMAX>
@@ -860,18 +924,7 @@ cudaError_t launch_tc_d(const void* q, const void* k, const void* v, const void*
       part_dv, B, S, H, KV, D, GC, BQ, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
-  const long long blocks = (n / 4 + 255) / 256;
-  flash_bwd_sum_kernel<<<static_cast<int>(blocks < 1024 ? blocks : 1024), 256, 0, stream>>>(
-      part_dk, part_dv, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, nsplit);
-  return cudaGetLastError();
-}
-
-// The tensor-core variant takes bf16 rows of whole 16-element steps that
-// start on 16-byte boundaries (cp.async copies 16 bytes at a time).
-bool use_tc(int dtype, int D, const void* q, const void* k, const void* v, const void* dout) {
-  const auto bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                    reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
-  return dtype == kBFloat16 && D % 16 == 0 && D <= 256 && bits % 16 == 0;
+  return launch_sum<bf16>(part_dk, part_dv, dk, dv, n, nsplit, stream);
 }
 
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* dout,
@@ -888,40 +941,533 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* d
                           causal, window, scale, stream);
 }
 
+
+// --------------------------------------------------- f32 tensor-core variant
+
+constexpr int kF32Keys = 32;         // keys per K/V tile of both f32 passes
+constexpr int kLdDs = kF32Keys + 8;  // pitch of the dq pass's f32 ds tile (8 mod 16)
+constexpr int kLdPt = kTcRows + 8;   // pitch of the dk/dv pass's f32 p^T, ds^T tiles
+
+// Byte offsets in dynamic shared memory, one buffer per operand; every
+// region starts on a 16-byte boundary.  The operand rows (pitch D + 4,
+// tf32.cuh) come first: the reads of a last, half-filled pair of 8-column
+// tiles (D an odd multiple of 8) run up to 16 bytes into the next region,
+// in columns that are never stored.
+struct DqF32Layout {
+  int ld;
+  size_t q, dout, k, v, ds, total;
+};
+__host__ __device__ inline DqF32Layout dq_f32_layout(int D) {
+  DqF32Layout L;
+  L.ld = D + 4;
+  const size_t row = static_cast<size_t>(L.ld) * 4;
+  L.q = 0;
+  L.dout = L.q + kTcRows * row;
+  L.k = L.dout + kTcRows * row;
+  L.v = L.k + kF32Keys * row;
+  L.ds = L.v + kF32Keys * row;
+  L.total = L.ds + static_cast<size_t>(kTcRows) * kLdDs * 4;
+  return L;
+}
+
+struct DkvF32Layout {
+  int ld;
+  size_t k, v, q, dout, pt, dst, lse, delta, pos, total;
+};
+__host__ __device__ inline DkvF32Layout dkv_f32_layout(int D) {
+  DkvF32Layout L;
+  L.ld = D + 4;
+  const size_t row = static_cast<size_t>(L.ld) * 4;
+  L.k = 0;
+  L.v = L.k + kF32Keys * row;
+  L.q = L.v + kF32Keys * row;
+  L.dout = L.q + kTcRows * row;
+  L.pt = L.dout + kTcRows * row;  // p^T and ds^T: (32 keys, 64 rows)
+  L.dst = L.pt + static_cast<size_t>(kF32Keys) * kLdPt * 4;
+  L.lse = L.dst + static_cast<size_t>(kF32Keys) * kLdPt * 4;  // 64 f32
+  L.delta = L.lse + kTcRows * 4;
+  L.pos = L.delta + kTcRows * 4;  // 64 int: query position, -1 if none
+  L.total = L.pos + kTcRows * 4;
+  return L;
+}
+
+// Rows of (position, head) pairs of one f32 (B, S, H, D) tensor: row r is
+// query position q0 + r / GC, head kvh * G + g0 + r % GC; rows past S or G
+// load as zero.
+__device__ __forceinline__ void f32_stage_rows(const float* __restrict__ src, float* dst, int ld,
+                                               int b, int kvh, int q0, int g0, int S, int H,
+                                               int G, int D, int GC, int BQ) {
+  const int chunks = D / 4;
+  for (int i = threadIdx.x; i < kTcRows * chunks; i += kTcThreads) {
+    const int r = i / chunks, c = i - r * chunks;
+    const int qp = q0 + r / GC, g = g0 + r % GC;
+    const bool ok = r < BQ * GC && qp < S && g < G;
+    const long long off =
+        ok ? ((static_cast<long long>(b) * S + qp) * H + kvh * G + g) * D + c * 4 : 0;
+    cp_async16(dst + r * ld + c * 4, src + off, ok);
+  }
+}
+
+// Keys k0 .. k0 + 31 of KV head kvh of one f32 (B, S, KV, D) tensor; keys
+// past S load as zero.
+__device__ __forceinline__ void f32_stage_keys(const float* __restrict__ src, float* dst, int ld,
+                                               int b, int kvh, int k0, int S, int KV, int D) {
+  const int chunks = D / 4;
+  for (int i = threadIdx.x; i < kF32Keys * chunks; i += kTcThreads) {
+    const int r = i / chunks, c = i - r * chunks;
+    const int kp = k0 + r;
+    const bool ok = kp < S;
+    const long long off = ok ? ((static_cast<long long>(b) * S + kp) * KV + kvh) * D + c * 4 : 0;
+    cp_async16(dst + r * ld + c * 4, src + off, ok);
+  }
+}
+
+// acc += A B for rows m0 .. m0 + 15 of A and the pairs p0 .. p0 + np - 1
+// of 8-column tiles of B (np <= NP), over KSTEPS steps of 8: A in the
+// paired k order from `a` (pitch 8 mod 16: ds, p^T, ds^T), B k-major from
+// `bk` (pitch 4 mod 8: K, dO, Q).  One run: the steps sum from zero on the
+// tensor cores, then add to acc in f32.
+template <int NP, int KSTEPS>
+__device__ __forceinline__ void grad_tf32(float (&acc)[2 * NP][4], const float* a, int lda,
+                                          const float* bk, int ld, int m0, int p0, int np,
+                                          int lane) {
+  float c[2 * NP][4];
+#pragma unroll
+  for (int i = 0; i < 2 * NP; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    float x[4];
+    unsigned at[kTerms][4];
+    lda_f32_paired(x, a, lda, m0, 8 * ks, lane);
+    split_tf32<kTerms, 4>(x, at);
+#pragma unroll
+    for (int jj = 0; jj < NP; ++jj) {
+      if (jj < np) {
+        float y[2][2];
+        unsigned bt[2][kTerms][2];
+        ldb_f32_kmajor_pair(y, bk, ld, 16 * (p0 + jj), 8 * ks, lane);
+        split_tf32<kTerms, 2>(y[0], bt[0]);
+        split_tf32<kTerms, 2>(y[1], bt[1]);
+        mma_split<kTerms, kTerms, kOrder>(c[2 * jj], at, bt[0]);
+        mma_split<kTerms, kTerms, kOrder>(c[2 * jj + 1], at, bt[1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2 * NP; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] += c[i][e];
+}
+
+// ------------------------------------------------------------ dq pass (f32)
+
+// DMAX: head dims up to DMAX (multiples of 8) share one register budget:
+// a warp keeps 16 rows x DMAX / 2 columns of dq (DMAX / 32 pairs of tiles).
+template <int DMAX>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dq, float* __restrict__ part_dq, int B, int S,
+                        int H, int KV, int D, int GC, int BQ, int nsq, int causal, int window,
+                        float scale) {
+  constexpr int kNp = DMAX / 32;
+  extern __shared__ __align__(128) unsigned char f32_smem[];
+  const DqF32Layout L = dq_f32_layout(D);
+  const int ld = L.ld;
+  auto* sQ = reinterpret_cast<float*>(f32_smem + L.q);
+  auto* sdO = reinterpret_cast<float*>(f32_smem + L.dout);
+  auto* sK = reinterpret_cast<float*>(f32_smem + L.k);
+  auto* sV = reinterpret_cast<float*>(f32_smem + L.v);
+  auto* sdS = reinterpret_cast<float*>(f32_smem + L.ds);
+  const int G = H / KV;
+  // one dimension, heaviest q tile first over every (key range, batch x KV
+  // head, head chunk)
+  const int ntq = (S + BQ - 1) / BQ;
+  const int nbk = gridDim.x / ntq;  // blocks that share a q tile
+  const int q0 = (ntq - 1 - static_cast<int>(blockIdx.x) / nbk) * BQ;
+  const int rest = static_cast<int>(blockIdx.x) % nbk;
+  const int sq = rest % nsq, bkv = rest / nsq % (B * KV);
+  const int g0 = rest / nsq / (B * KV) * GC;
+  const int b = bkv / KV, kvh = bkv - b * KV;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;  // rows 16 wm ..; keys 16 wn .. / column half wn
+  const int npair = (D / 8 + 1) / 2;        // pairs of 8-column tiles of a row
+  const int hp = (npair + 1) / 2;
+  const int p0 = hp * wn, np = min(hp, npair - p0);  // this warp's pairs
+
+  f32_stage_rows(q, sQ, ld, b, kvh, q0, g0, S, H, G, D, GC, BQ);
+  f32_stage_rows(dout, sdO, ld, b, kvh, q0, g0, S, H, G, D, GC, BQ);
+  const int kend = causal ? min(S, q0 + BQ) : S;  // the last key any row attends to, + 1
+  const int ntk = (kend + kF32Keys - 1) / kF32Keys;
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / kF32Keys : 0;
+  // this block's key range sq of nsq: tiles [t_lo, t_hi) of the q tile's
+  const int t_lo = t_first + (ntk - t_first) * sq / nsq;
+  const int t_hi = t_first + (ntk - t_first) * (sq + 1) / nsq;
+  // one buffer each: V(t - 1) lands while S and dq of tile t are
+  // computed, K(t - 1) while dP of tile t - 1 is
+  if (t_hi > t_lo) f32_stage_keys(v, sV, ld, b, kvh, (t_hi - 1) * kF32Keys, S, KV, D);
+  cp_async_commit();  // Q, dO and the last V tile
+  if (t_hi > t_lo) f32_stage_keys(k, sK, ld, b, kvh, (t_hi - 1) * kF32Keys, S, KV, D);
+  cp_async_commit();
+
+  int row_pos[2];
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * wm + gq + 8 * h;
+    const int qp = q0 + r / GC, g = g0 + r % GC;
+    const bool ok = r < BQ * GC && qp < S && g < G;
+    const long long orow = (static_cast<long long>(b) * S + qp) * H + kvh * G + g;
+    row_pos[h] = ok ? qp : -1;
+    row_lse[h] = ok ? lse[orow] : 0.f;
+    row_delta[h] = ok ? delta[orow] : 0.f;
+  }
+
+  float acc[2 * kNp][4];
+#pragma unroll
+  for (int j = 0; j < 2 * kNp; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int t = t_hi - 1; t >= t_lo; --t) {  // from the diagonal back to the first key seen
+    const int k0 = t * kF32Keys;
+    cp_async_wait_one();
+    __syncthreads();  // V(t) (and Q, dO) landed for every thread
+    // dP = dO V^T, S = Q K^T: rows 16 wm .., keys 16 wn .. (two 8-key tiles)
+    float dp[2][4], s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] = 0.f;
+    scores_tf32(dp, sdO, sV + 16 * wn * ld, ld, 16 * wm, D, lane);
+    __syncthreads();  // every warp is done with V(t)
+    if (t > t_lo) f32_stage_keys(v, sV, ld, b, kvh, k0 - kF32Keys, S, KV, D);
+    cp_async_commit();  // possibly empty: keeps the group count regular
+    cp_async_wait_one();
+    __syncthreads();  // K(t) landed for every thread
+    scores_f32(s, sQ, sK + 16 * wn * ld, ld, 16 * wm, D, lane);  // the forward's bits
+    // ds = p (dp - delta) scale in f32 into sdS
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kp = k0 + 16 * wn + 8 * j + 2 * tq + e;
+          const int qp = row_pos[h];
+          const bool ok = qp >= 0 && kp < S && (!causal || kp <= qp) &&
+                          (window <= 0 || qp - kp < window);
+          const float p = ok ? expf(s[j][2 * h + e] * scale - row_lse[h]) : 0.f;
+          ds[e] = p * (dp[j][2 * h + e] - row_delta[h]) * scale;
+        }
+        *reinterpret_cast<float2*>(sdS + (16 * wm + gq + 8 * h) * kLdDs + 16 * wn + 8 * j +
+                                   2 * tq) = make_float2(ds[0], ds[1]);
+      }
+    }
+    __syncthreads();  // every warp's ds is written
+    // dq += dS K: rows 16 wm .., this warp's pairs of column tiles
+    grad_tf32<kNp, kF32Keys / 8>(acc, sdS, kLdDs, sK, ld, 16 * wm, p0, np, lane);
+    __syncthreads();  // every warp is done with K(t) and sdS
+    if (t > t_lo) f32_stage_keys(k, sK, ld, b, kvh, k0 - kF32Keys, S, KV, D);
+    cp_async_commit();
+  }
+  cp_async_wait_all();
+
+  // dq of this warp's rows and columns, or this key range's f32 partial
+  // (zero for an empty range) when nsq > 1
+  float* to = nsq == 1 ? dq : part_dq + static_cast<long long>(sq) * B * S * H * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * wm + gq + 8 * h;
+    if (row_pos[h] < 0) continue;
+    const int g = g0 + r % GC;
+    const long long orow = (static_cast<long long>(b) * S + row_pos[h]) * H + kvh * G + g;
+#pragma unroll
+    for (int jj = 0; jj < kNp; ++jj) {
+      const int col = 16 * (p0 + jj) + 4 * tq;
+      if (jj < np && col < D)
+        *reinterpret_cast<float4*>(to + orow * D + col) =
+            c_pair_row(acc[2 * jj], acc[2 * jj + 1], h);
+    }
+  }
+}
+
+// -------------------------------------------------------- dk/dv pass (f32)
+
+// DMAX: a warp keeps 16 keys x DMAX / 4 columns of dk and of dv (DMAX / 64
+// pairs of tiles each).  Block x takes key tiles x and ntiles - 1 - x in
+// turn (one when they meet), so that under causal masking every block has
+// the same rows to walk: the first key tiles have the most.
+template <int DMAX>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         float* __restrict__ part_dk, float* __restrict__ part_dv, int B, int S,
+                         int H, int KV, int D, int GC, int BQ, int causal, int window,
+                         float scale) {
+  constexpr int kNp = DMAX / 64;
+  extern __shared__ __align__(128) unsigned char f32_smem[];
+  const DkvF32Layout L = dkv_f32_layout(D);
+  const int ld = L.ld;
+  auto* sK = reinterpret_cast<float*>(f32_smem + L.k);
+  auto* sV = reinterpret_cast<float*>(f32_smem + L.v);
+  auto* sQ = reinterpret_cast<float*>(f32_smem + L.q);
+  auto* sdO = reinterpret_cast<float*>(f32_smem + L.dout);
+  auto* sPt = reinterpret_cast<float*>(f32_smem + L.pt);    // (32 keys, 64 rows)
+  auto* sdSt = reinterpret_cast<float*>(f32_smem + L.dst);
+  auto* sLse = reinterpret_cast<float*>(f32_smem + L.lse);
+  auto* sDelta = reinterpret_cast<float*>(f32_smem + L.delta);
+  auto* sPos = reinterpret_cast<int*>(f32_smem + L.pos);
+  const int G = H / KV;
+  const int ntiles = (S + kF32Keys - 1) / kF32Keys;
+  const int b = blockIdx.y / KV, kvh = blockIdx.y - b * KV;
+  const int split = blockIdx.z, nsplit = gridDim.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wk = warp & 1, wr = warp >> 1;  // keys 16 wk ..; rows 16 wr .. / column quarter wr
+  const int npair = (D / 8 + 1) / 2;
+  const int qp4 = (npair + 3) / 4;
+  const int p0 = qp4 * wr, np = min(qp4, npair - p0);  // this warp's pairs
+  const int nch = (G + GC - 1) / GC;
+
+  for (int turn = 0; turn < 2; ++turn) {
+    const int kt = turn == 0 ? static_cast<int>(blockIdx.x) : ntiles - 1 - blockIdx.x;
+    if (turn == 1 && kt == static_cast<int>(blockIdx.x)) break;
+    const int k0 = kt * kF32Keys;
+    // this key tile's work, cut into splits as the bf16 variant's
+    const int qt_first = causal ? k0 / BQ : 0;
+    const int q_end = window > 0 ? min(S, k0 + kF32Keys + window - 1) : S;
+    const int per = (q_end + BQ - 1) / BQ - qt_first;
+    const long long total = static_cast<long long>(nch) * per;
+    const int lo = static_cast<int>(total * split / nsplit);
+    const int hi = static_cast<int>(total * (split + 1) / nsplit);
+
+    auto item_rows = [&](int item, int& q0, int& g0) {
+      const int ch = item / per;
+      q0 = (qt_first + item - ch * per) * BQ;
+      g0 = ch * GC;
+    };
+    auto load_dout = [&](int item) {  // dO rows with their lse, delta and positions
+      int q0, g0;
+      item_rows(item, q0, g0);
+      f32_stage_rows(dout, sdO, ld, b, kvh, q0, g0, S, H, G, D, GC, BQ);
+      for (int r = threadIdx.x; r < kTcRows; r += kTcThreads) {
+        const int qp = q0 + r / GC, g = g0 + r % GC;
+        const bool ok = r < BQ * GC && qp < S && g < G;
+        const long long orow = ok ? (static_cast<long long>(b) * S + qp) * H + kvh * G + g : 0;
+        cp_async4(sLse + r, lse + orow, ok);
+        cp_async4(sDelta + r, delta + orow, ok);
+        sPos[r] = ok ? qp : -1;
+      }
+    };
+    auto load_q = [&](int item) {
+      int q0, g0;
+      item_rows(item, q0, g0);
+      f32_stage_rows(q, sQ, ld, b, kvh, q0, g0, S, H, G, D, GC, BQ);
+    };
+
+    // one buffer each: dO of item i + 1 lands while dk of item i is
+    // computed, Q of item i + 1 while dP^T of item i + 1 is
+    __syncthreads();  // the first turn's reads of every buffer are done
+    f32_stage_keys(k, sK, ld, b, kvh, k0, S, KV, D);
+    f32_stage_keys(v, sV, ld, b, kvh, k0, S, KV, D);
+    if (lo < hi) load_dout(lo);
+    cp_async_commit();  // K, V and the first item's dO
+    if (lo < hi) load_q(lo);
+    cp_async_commit();
+
+    float acc_dk[2 * kNp][4], acc_dv[2 * kNp][4];
+#pragma unroll
+    for (int j = 0; j < 2 * kNp; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+
+    for (int item = lo; item < hi; ++item) {
+      cp_async_wait_one();
+      __syncthreads();  // this item's dO, lse, delta, positions (and K, V) landed
+      // dP^T = V dO^T, S^T = K Q^T: keys 16 wk .., rows 16 wr .. (two 8-row tiles)
+      float dpt[2][4], st[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dpt[j][e] = st[j][e] = 0.f;
+      scores_tf32<2, true>(dpt, sV, sdO + 16 * wr * ld, ld, 16 * wk, D, lane);
+      cp_async_wait_all();
+      __syncthreads();  // this item's Q landed for every thread
+      scores_f32(st, sK, sQ + 16 * wr * ld, ld, 16 * wk, D, lane);  // the forward's bits
+      // p^T and ds^T in f32 into sPt, sdSt
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kl = 16 * wk + gq + 8 * h;  // key within the tile
+          const int kp = k0 + kl;
+          float p[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = 16 * wr + 8 * j + 2 * tq + e;
+            const int qp = sPos[r];
+            const bool ok = qp >= 0 && kp < S && (!causal || kp <= qp) &&
+                            (window <= 0 || qp - kp < window);
+            p[e] = ok ? expf(st[j][2 * h + e] * scale - sLse[r]) : 0.f;
+            ds[e] = p[e] * (dpt[j][2 * h + e] - sDelta[r]) * scale;
+          }
+          const int off = kl * kLdPt + 16 * wr + 8 * j + 2 * tq;
+          *reinterpret_cast<float2*>(sPt + off) = make_float2(p[0], p[1]);
+          *reinterpret_cast<float2*>(sdSt + off) = make_float2(ds[0], ds[1]);
+        }
+      }
+      __syncthreads();  // every warp's p^T, ds^T are written
+      // dv += P^T dO, then dk += dS^T Q: keys 16 wk .., this warp's pairs of
+      // column tiles, over the item's 64 rows
+      grad_tf32<kNp, kTcRows / 8>(acc_dv, sPt, kLdPt, sdO, ld, 16 * wk, p0, np, lane);
+      __syncthreads();  // every warp is done with dO and the positions
+      if (item + 1 < hi) load_dout(item + 1);
+      cp_async_commit();  // possibly empty: keeps the group count regular
+      grad_tf32<kNp, kTcRows / 8>(acc_dk, sdSt, kLdPt, sQ, ld, 16 * wk, p0, np, lane);
+      __syncthreads();  // every warp is done with Q, p^T and ds^T
+      if (item + 1 < hi) load_q(item + 1);
+      cp_async_commit();
+    }
+    cp_async_wait_all();
+
+    // dk, dv of keys 16 wk + gq (+ 8): f32 when this block holds every
+    // query of its keys, else this split's partial (zero for an empty one)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kp = k0 + 16 * wk + gq + 8 * h;
+      if (kp >= S) continue;
+      const long long krow = (static_cast<long long>(b) * S + kp) * KV + kvh;
+      const long long prow = static_cast<long long>(split) * B * S * KV + krow;
+#pragma unroll
+      for (int jj = 0; jj < kNp; ++jj) {
+        const int col = 16 * (p0 + jj) + 4 * tq;
+        if (jj >= np || col >= D) continue;
+        const float4 xk = c_pair_row(acc_dk[2 * jj], acc_dk[2 * jj + 1], h);
+        const float4 xv = c_pair_row(acc_dv[2 * jj], acc_dv[2 * jj + 1], h);
+        float* to_k = nsplit == 1 ? dk + krow * D : part_dk + prow * D;
+        float* to_v = nsplit == 1 ? dv + krow * D : part_dv + prow * D;
+        *reinterpret_cast<float4*>(to_k + col) = xk;
+        *reinterpret_cast<float4*>(to_v + col) = xv;
+      }
+    }
+  }
+}
+
+template <int DMAX>
+cudaError_t launch_f32_d(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                         float* part, int nsplit, float* part_dq, int nsq, int B, int S, int H,
+                         int KV, int D, int causal, int window, float scale,
+                         cudaStream_t stream) {
+  const int G = H / KV;
+  const int GC = G < kTcRows ? G : kTcRows;
+  const int BQ = kTcRows / GC;
+  const auto* fq = static_cast<const float*>(q);
+  const auto* fk = static_cast<const float*>(k);
+  const auto* fv = static_cast<const float*>(v);
+  const auto* fdo = static_cast<const float*>(dout);
+
+  const size_t dq_smem = dq_f32_layout(D).total;
+  cudaError_t err = opt_in_smem(flash_bwd_dq_f32_kernel<DMAX>, dq_smem);
+  if (err != cudaSuccess) return err;
+  // one dimension: the kernel orders its blocks heaviest q tile first
+  const long long dq_blocks =
+      static_cast<long long>((S + BQ - 1) / BQ) * nsq * B * KV * ((G + GC - 1) / GC);
+  if (dq_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const auto dq_grid = static_cast<unsigned>(dq_blocks);
+  flash_bwd_dq_f32_kernel<DMAX><<<dq_grid, kTcThreads, dq_smem, stream>>>(
+      fq, fk, fv, fdo, lse, delta, static_cast<float*>(dq), part_dq, B, S, H, KV, D, GC, BQ,
+      nsq, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (nsq > 1) {
+    err = launch_sum<float>(part_dq, nullptr, dq, nullptr,
+                            static_cast<long long>(B) * S * H * D, nsq, stream);
+    if (err != cudaSuccess) return err;
+  }
+
+  const size_t dkv_smem = dkv_f32_layout(D).total;
+  err = opt_in_smem(flash_bwd_dkv_f32_kernel<DMAX>, dkv_smem);
+  if (err != cudaSuccess) return err;
+  const long long n = static_cast<long long>(B) * S * KV * D;
+  float* part_dk = nsplit > 1 ? part : nullptr;
+  float* part_dv = nsplit > 1 ? part + nsplit * n : nullptr;
+  // one block per pair of key tiles (i, ntiles - 1 - i)
+  dim3 dkv_grid(((S + kF32Keys - 1) / kF32Keys + 1) / 2, B * KV, nsplit);
+  flash_bwd_dkv_f32_kernel<DMAX><<<dkv_grid, kTcThreads, dkv_smem, stream>>>(
+      fq, fk, fv, fdo, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), part_dk,
+      part_dv, B, S, H, KV, D, GC, BQ, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return err;
+  return launch_sum<float>(part_dk, part_dv, dk, dv, n, nsplit, stream);
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                       float* part, int nsplit, float* part_dq, int nsq, int B, int S, int H,
+                       int KV, int D, int causal, int window, float scale,
+                       cudaStream_t stream) {
+  if (D <= 64)
+    return launch_f32_d<64>(q, k, v, dout, lse, delta, dq, dk, dv, part, nsplit, part_dq, nsq,
+                            B, S, H, KV, D, causal, window, scale, stream);
+  if (D <= 128)
+    return launch_f32_d<128>(q, k, v, dout, lse, delta, dq, dk, dv, part, nsplit, part_dq, nsq,
+                             B, S, H, KV, D, causal, window, scale, stream);
+  return launch_f32_d<256>(q, k, v, dout, lse, delta, dq, dk, dv, part, nsplit, part_dq, nsq, B,
+                           S, H, KV, D, causal, window, scale, stream);
+}
+
 }  // namespace
 }  // namespace repro
 
-// Keys a tile of the tensor-core dk/dv pass holds (the wrapper's split plan
-// counts its blocks from it).
+// Keys a tile of the bf16 tensor-core dk/dv pass holds (the wrapper's split
+// plan counts its blocks from it), and of the f32 one.
 extern "C" int repro_flash_attention_bwd_key_tile() { return repro::kTcKeys; }
+extern "C" int repro_flash_attention_bwd_f32_key_tile() { return repro::kF32Keys; }
 
 // q, out's gradient dout and dq (B, S, H, D), k, v, dk, dv (B, S, KV, D), all
 // in `dtype`; lse and delta (B, S, H) f32; window 0 for global attention,
 // else the local window (query i sees keys j with i - window < j), as in the
-// forward.  Head dims up to 256 (the forward's limit).  bf16 rows that
-// the tensor-core variant takes go to it, with the dk/dv pass cut into
-// `nsplit` query ranges; nsplit > 1 needs `part`, f32
-// scratch of 2 * nsplit * B * S * KV * D.  The rest go to the CUDA-core
+// forward.  Head dims up to 256 (the forward's limit).  Rows the
+// tensor-core variants take (repro_flash_attention_route) go to them, with
+// the dk/dv pass cut into `nsplit` query ranges; nsplit > 1 needs `part`,
+// f32 scratch of 2 * nsplit * B * S * KV * D.  The f32 one also cuts its dq
+// pass into `nsplit_dq` key ranges; nsplit_dq > 1 needs `part_dq`, f32
+// scratch of nsplit_dq * B * S * H * D (the other variants take 1 and
+// null).  The rest go to the CUDA-core
 // variant (nsplit and part unused), whose dq pass takes 205,824 bytes of
-// shared memory at D = 256 and its dk/dv pass 173,184.  Launches the dq
-// pass, then the dk/dv pass (then the sum of the splits) on `stream`.
-// Returns the CUDA error of the launches (0 on success).
+// shared memory at D = 256 and its dk/dv pass 173,184.  A failed launch is
+// returned, never retried on another variant.  Launches the dq pass, then
+// the dk/dv pass (then the sum of the splits) on `stream`.  Returns the
+// CUDA error of the launches (0 on success).
 extern "C" int repro_flash_attention_bwd(int device, int dtype, const void* q, const void* k,
                                          const void* v, const void* dout, const void* lse,
                                          const void* delta, void* dq, void* dk, void* dv,
-                                         void* part, int nsplit, int B, int S, int H, int KV,
-                                         int D, int causal, int window, float scale,
-                                         void* stream) {
+                                         void* part, int nsplit, void* part_dq, int nsplit_dq,
+                                         int B, int S, int H, int KV, int D, int causal,
+                                         int window, float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || S == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
   auto d = static_cast<const float*>(delta);
-  if (repro::use_tc(dtype, D, q, k, v, dout)) {
+  const int route = repro::flash_route(dtype, D, q, k, v, dout, true);
+  if (nsplit_dq < 1 || (nsplit_dq > 1 && (part_dq == nullptr || route != repro::kRouteF32Tc)))
+    return cudaErrorInvalidValue;
+  if (route != repro::kRouteCudaCores) {
     if (nsplit < 1 || (nsplit > 1 && part == nullptr)) return cudaErrorInvalidValue;
-    return repro::launch_tc(q, k, v, dout, l, d, dq, dk, dv, static_cast<float*>(part), nsplit,
-                            B, S, H, KV, D, causal, window, scale, s);
+    auto* pt = static_cast<float*>(part);
+    if (route == repro::kRouteBf16Tc)
+      return repro::launch_tc(q, k, v, dout, l, d, dq, dk, dv, pt, nsplit, B, S, H, KV, D,
+                              causal, window, scale, s);
+    return repro::launch_f32(q, k, v, dout, l, d, dq, dk, dv, pt, nsplit,
+                             static_cast<float*>(part_dq), nsplit_dq, B, S, H, KV, D, causal,
+                             window, scale, s);
   }
   if (dtype == repro::kFloat32)
     return repro::launch<float>(q, k, v, dout, l, d, dq, dk, dv, B, S, H, KV, D, causal, window,

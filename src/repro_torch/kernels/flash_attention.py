@@ -11,11 +11,16 @@ ragged last tile themselves), head dims up to 256, and a sliding window
 (``window`` > 0, the local attention of recurrentgemma) in both.  A
 tensor on the CPU takes the plain version (``ref.causal_attention_ref``,
 ``ref.attention_lse_ref``, ``ref.flash_attention_bwd_ref``); a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  ``route`` names the variant a call takes:
+bf16 on the tensor cores, the f32 backward on the tensor cores as split
+TF32 (its scores on the CUDA cores, the forward's bits), or the CUDA-core
+kernels for the rest, the f32 forward among them (its scores must round as
+plain f32's do, ``csrc/flash_attention.cu``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -25,24 +30,50 @@ from .ref import attention_lse_ref, causal_attention_ref, flash_attention_bwd_re
 
 
 ROWS = 64  # (position, head) rows of a query tile in the kernels
+# the variants, by the code repro_flash_attention_route returns
+ROUTES = ("cuda-cores", "bf16-tensor-cores", "f32-tensor-cores")
 
 
 def _dkv_splits(B: int, S: int, H: int, KV: int, key_tile: int,
-                sms: int, window: int = 0) -> int:
-    """How many query ranges the tensor-core dk/dv pass cuts each key
-    tile's work into: as many as keep its ``ceil(S / key_tile) * B * KV *
-    nsplit`` blocks within one wave of the card's SMs (one block per SM,
-    for its shared memory), at least 1 and at most the query tiles of the
-    first key tile (``S * G / ROWS``, rounded up, for every head chunk;
-    with a window, those of the ``key_tile + window - 1`` queries that see
-    a key of the tile).  The splits' f32 partials are summed in order by
-    the kernel's last pass."""
+                sms: int, window: int = 0, paired: bool = False) -> int:
+    """How many query ranges a tensor-core dk/dv pass (bf16: 64-key tiles;
+    f32: 32) cuts each key tile's work into: as many as keep its ``ceil(S /
+    key_tile) * B * KV * nsplit`` blocks within one wave of the card's SMs
+    (one block per SM, for its shared memory; ``paired``: the f32 pass,
+    whose blocks each take two key tiles, i and n - 1 - i), at least 1 and
+    at most the query tiles of the first key tile (``S * G / ROWS``,
+    rounded up, for every head chunk; with a window, those of the
+    ``key_tile + window - 1`` queries that see a key of the tile).  The
+    splits' f32 partials are summed in order by the kernel's last pass."""
     G = H // KV
     gc = min(G, ROWS)
     span = min(S, key_tile + window - 1) if window > 0 else S
     tiles = -(-G // gc) * -(-span // (ROWS // gc))
-    blocks = -(-S // key_tile) * B * KV
+    key_tiles = -(-S // key_tile)
+    blocks = (-(-key_tiles // 2) if paired else key_tiles) * B * KV
     return max(1, min(sms // max(1, blocks), tiles))
+
+
+@functools.lru_cache(maxsize=64)
+def _dq_splits(B: int, S: int, H: int, KV: int, key_tile: int, sms: int,
+               causal: bool = True, window: int = 0) -> int:
+    """How many key ranges the f32 tensor-core dq pass cuts each query
+    tile's key tiles into (1, 2 or 4).  Under causal masking a q tile's key
+    tiles grow with its position, so with one block per q tile the heaviest
+    block walks about twice the mean work of an SM (one block an SM, for
+    its shared memory); the ranges bring the heaviest block near that mean.
+    Their f32 partials are summed in order by a last pass."""
+    G = H // KV
+    gc = min(G, ROWS)
+    bq = ROWS // gc
+    heaviest = total = 0
+    for q0 in range(0, S, bq):
+        end = min(S, q0 + bq) if causal else S
+        first = max(0, q0 - window + 1) // key_tile if window > 0 else 0
+        n = -(-end // key_tile) - first
+        heaviest, total = max(heaviest, n), total + n
+    per_sm = total * B * KV * -(-G // gc) / sms
+    return max(1, min(4, heaviest, int(heaviest / max(per_sm, 1e-9) + 0.5)))
 
 
 def _check_shapes(name: str, q, k, v) -> tuple:
@@ -63,6 +94,25 @@ def _check_shapes(name: str, q, k, v) -> tuple:
     if not 0 < D <= limit:
         raise ValueError(f"{name}: head dim {D} is outside 1..{limit}")
     return B, S, H, KV, D
+
+
+def route(q, k, v, do=None, *, backward: bool = False) -> str:
+    """The variant ``flash_attention(q, k, v)`` takes on these inputs, or
+    with ``backward`` the variant ``flash_attention_bwd(q, k, v, out, lse,
+    do)`` takes: "plain" for CPU tensors, else one of ``ROUTES`` (the C
+    entries' own rule: bf16 with D a multiple of 16 goes to the tensor
+    cores, and in the backward f32 with D a multiple of 8, each up to D 256
+    on rows that start on 16-byte boundaries; the CUDA-core kernels take
+    the rest).  ``do`` (the backward's) counts in the alignment only."""
+    if backward and do is None:
+        raise ValueError("route: the backward's route needs its do")
+    tensors = dict(q=q, k=k, v=v) if do is None else dict(q=q, k=k, v=v, do=do)
+    if _build.on_cpu("route", **tensors):
+        return "plain"
+    code = _build.library().repro_flash_attention_route(
+        _build.DTYPE_CODES[q.dtype], q.shape[-1], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), None if do is None else do.data_ptr(), int(backward))
+    return ROUTES[code]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, return_lse: bool = False,
@@ -103,8 +153,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
     rowsum(do * out)`` is taken in f32 here, as the reference takes it
     outside its kernels; the kernel's
     passes then write dq and the group-summed dk, dv, deterministically
-    (in bf16 the dk/dv pass may be cut into query ranges whose f32 partials
-    a last pass sums in order: ``_dkv_splits``)."""
+    (on the tensor cores the dk/dv pass may be cut into query ranges, and
+    in f32 the dq pass into key ranges, whose f32 partials a last pass sums
+    in order: ``_dkv_splits``, ``_dq_splits``)."""
     name = "flash_attention_bwd"
     if window < 0:
         raise ValueError(f"{name}: window {window} is negative")
@@ -123,18 +174,28 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
     delta = (do.float() * out.float()).sum(dim=-1)  # (B,S,H) f32
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.library()
-    nsplit, part = 1, None
-    if q.dtype == torch.bfloat16 and D % 16 == 0:  # the tensor-core variant
-        nsplit = _dkv_splits(B, S, H, KV, lib.repro_flash_attention_bwd_key_tile(),
-                             _build.sm_count(q.device.index), window)
-        if nsplit > 1:  # f32 partial dk, dv of each split
-            part = torch.empty((2, nsplit, B, S, KV, D), dtype=torch.float32,
-                               device=q.device)
+    sms = _build.sm_count(q.device.index)
+    nsplit, part, nsplit_dq, part_dq = 1, None, 1, None
+    variant = route(q, k, v, do, backward=True)
+    if variant == "bf16-tensor-cores":
+        nsplit = _dkv_splits(B, S, H, KV, lib.repro_flash_attention_bwd_key_tile(), sms,
+                             window)
+    elif variant == "f32-tensor-cores":
+        tile = lib.repro_flash_attention_bwd_f32_key_tile()
+        nsplit = _dkv_splits(B, S, H, KV, tile, sms, window, paired=True)
+        nsplit_dq = _dq_splits(B, S, H, KV, tile, sms, causal, window)
+        if nsplit_dq > 1:  # f32 partial dq of each key range
+            part_dq = torch.empty((nsplit_dq, B, S, H, D), dtype=torch.float32,
+                                  device=q.device)
+    if nsplit > 1:  # f32 partial dk, dv of each split
+        part = torch.empty((2, nsplit, B, S, KV, D), dtype=torch.float32,
+                           device=q.device)
     err = lib.repro_flash_attention_bwd(
         q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        None if part is None else part.data_ptr(), nsplit, B, S, H, KV, D,
+        None if part is None else part.data_ptr(), nsplit,
+        None if part_dq is None else part_dq.data_ptr(), nsplit_dq, B, S, H, KV, D,
         int(causal), int(window), 1.0 / math.sqrt(D), _build.stream(q.device))
     _build.check(err, name)
     flash_attention_bwd.launches += 1

@@ -1143,3 +1143,140 @@ def test_mesh_step_of_one_rank_over_nccl_is_the_one_device_step(cuda, compress):
         mesh.close()
     assert got == want and got[0][2]["flash_attention_bwd"] > 0
     assert len(got_t) == len(want_t) and all(torch.equal(a, b) for a, b in zip(got_t, want_t))
+
+
+# ------------------------- f32 flash backward on the tensor cores (split TF32)
+
+
+def _unaligned(t):
+    """The same values 4 bytes into a fresh buffer: rows off 16-byte
+    boundaries."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _f32_case(rng, B, S, H, KV, D, window, cuda):
+    q = _randn(rng, (B, S, H, D), cuda, "float32")
+    k, v = (_randn(rng, (B, S, KV, D), cuda, "float32") for _ in range(2))
+    do = _randn(rng, (B, S, H, D), cuda, "float32")
+    return q, k, v, do
+
+
+def _fwd_bwd_against_plain(q, k, v, do, window):
+    """Forward (out, LSE within 2e-5) and backward (5e-5 + 5e-4 rel) against
+    the plain versions, each launched twice with equal bits."""
+    out, lse = kernels.flash_attention(q, k, v, return_lse=True, window=window)
+    out2, lse2 = kernels.flash_attention(q, k, v, return_lse=True, window=window)
+    _close(out, kernels.ref.causal_attention_ref(q, k, v, window=window), "float32")
+    _close(lse, kernels.ref.attention_lse_ref(q, k, window=window), "float32")
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    got = kernels.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    again = kernels.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    want = kernels.ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True, window)
+    for g, g2, w in zip(got, again, want):
+        _bwd_close(g, w, "float32")
+        assert torch.equal(g, g2)
+
+
+F32_TC_CASES = [
+    (2, 512, 8, 1, 256, 0),     # the trainer PE's attention
+    (1, 300, 16, 1, 256, 100),  # recurrentgemma-9b's heads, windowed
+    (1, 63, 8, 1, 256, 0),      # ragged: one key below a 64-key tile
+    (1, 65, 8, 1, 256, 0),      # one key above it
+    (1, 1000, 8, 1, 256, 0),    # ragged, gemma-2b's heads
+    (2, 45, 6, 2, 72, 0),       # D an odd multiple of 8: a half-filled pair of column tiles
+    (1, 200, 4, 2, 40, 30),     # the same, windowed
+] + [(1, 200, 2 * G, 2, D, 0) for G in (1, 5, 8, 16) for D in (64, 128, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,window", F32_TC_CASES)
+def test_flash_attention_f32_backward_on_tensor_cores(cuda, B, S, H, KV, D, window):
+    """f32 with D a multiple of 8: the backward takes the split-TF32
+    tensor-core variant and the forward the CUDA-core one, both held to
+    the plain versions at the f32 tolerances, two launches bit for bit; the
+    forward gives the same bits from rows it copies 16 bytes at a time and
+    from rows off 16-byte boundaries (element by element), output and LSE."""
+    rng = np.random.default_rng(B + S + H + D + window)
+    q, k, v, do = _f32_case(rng, B, S, H, KV, D, window, cuda)
+    assert kernels.flash_route(q, k, v) == "cuda-cores"
+    assert kernels.flash_route(q, k, v, do, backward=True) == "f32-tensor-cores"
+    copied = kernels.flash_attention(q, k, v, return_lse=True, window=window)
+    loaded = kernels.flash_attention(_unaligned(q), k, v, return_lse=True, window=window)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(copied, loaded))
+    _fwd_bwd_against_plain(q, k, v, do, window)
+
+
+def _f64_attention(q, k, v, do, window):
+    """dq, dk, dv of causal GQA attention in f64, by autograd."""
+    qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
+    S, G = q.shape[1], q.shape[2] // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd.repeat_interleave(G, 2)) / q.shape[3] ** 0.5
+    i = torch.arange(S, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & ((i[None, :] > i[:, None] - window) if window else True)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s.masked_fill(~mask, float("-inf")), -1),
+                       vd.repeat_interleave(G, 2))
+    return torch.autograd.grad(out, (qd, kd, vd), do.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,window", [
+    (1, 512, 8, 1, 256, 0),     # gemma-2b's heads
+    (2, 256, 8, 1, 256, 0),
+    (1, 300, 16, 1, 256, 100),  # recurrentgemma-9b's heads, windowed
+    (1, 200, 10, 2, 128, 0),    # GQA at D 128
+])
+def test_flash_attention_f32_backward_near_hard_is_no_farther_from_f64(cuda, B, S, H, KV, D,
+                                                                      window):
+    """At scores in the hundreds (q and k of std 10), the near-hard
+    attention the reference's init gives, p = exp(s - lse) turns any
+    difference between the backward's scores and the forward's into an
+    error: the tensor-core backward recomputes the forward's own scores, so
+    its dq, dk, dv are no farther from f64 than the CUDA-core backward's on
+    the same out and lse, within 1e-5 of the largest entry (as
+    ``chip_smoke.check_flash_near_hard``)."""
+    rng = np.random.default_rng(S + H + D)
+    q, k, v, do = _f32_case(rng, B, S, H, KV, D, window, cuda)
+    q, k = q * 10, k * 10
+    out, lse = kernels.flash_attention(q, k, v, return_lse=True, window=window)
+    want = _f64_attention(q, k, v, do, window)
+    tc = kernels.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    cc = kernels.flash_attention_bwd(_unaligned(q), k, v, out, lse, do, window=window)
+    for g_tc, g_cc, w in zip(tc, cc, want):
+        e_tc, e_cc = (((g.double() - w).abs().max() / w.abs().max()).item() for g in (g_tc, g_cc))
+        assert torch.isfinite(g_tc).all() and e_tc <= e_cc + 1e-5, (e_tc, e_cc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["f32 D 60", "f32 unaligned rows", "bf16 D 72"])
+def test_flash_attention_cuda_core_variant_keeps_what_the_tensor_cores_refuse(cuda, case):
+    """f32 at a head dim off 8, f32 rows off 16-byte boundaries (a view 4
+    bytes into its storage) and bf16 at D = 72 (the bf16 tensor-core
+    variant needs D % 16 == 0) stay on the CUDA-core variant, forward and
+    backward; the f32 backward at D = 72 takes the tensor cores."""
+    rng = np.random.default_rng(7)
+    B, S, H, KV = 1, 130, 4, 2
+    if case == "bf16 D 72":
+        q = _randn(rng, (B, S, H, 72), cuda, "bfloat16")
+        k, v = (_randn(rng, (B, S, KV, 72), cuda, "bfloat16") for _ in range(2))
+        do = _randn(rng, (B, S, H, 72), cuda, "bfloat16")
+        assert kernels.flash_route(q, k, v) == "cuda-cores"
+        assert kernels.flash_route(q, k, v, do, backward=True) == "cuda-cores"
+        assert kernels.flash_route(*(t.float() for t in (q, k, v, do)), backward=True) == \
+            "f32-tensor-cores"
+        out, lse = kernels.flash_attention(q, k, v, return_lse=True)
+        _close(out, kernels.ref.causal_attention_ref(q, k, v), "bfloat16")
+        got = kernels.flash_attention_bwd(q, k, v, out, lse, do)
+        for g, w in zip(got, kernels.ref.flash_attention_bwd_ref(q, k, v, out, lse, do)):
+            _bwd_close(g, w, "bfloat16")
+        return
+    D = 60 if case == "f32 D 60" else 64
+    q, k, v, do = _f32_case(rng, B, S, H, KV, D, 0, cuda)
+    if case == "f32 unaligned rows":
+        q = _unaligned(q)
+    assert kernels.flash_route(q, k, v) == "cuda-cores"
+    assert kernels.flash_route(q, k, v, do, backward=True) == "cuda-cores"
+    _fwd_bwd_against_plain(q, k, v, do, 0)

@@ -6,6 +6,8 @@ numpy inputs go through both.  ``test_torch_gpu.py`` holds the CUDA kernels
 against the plain versions on the card.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -99,8 +101,9 @@ def test_paged_decode_attention_matches_pallas(B, H, KV, D, bs, T, lengths,
 
 # The split plans are pure Python on shapes; the kernels' own limits, which
 # the wrappers read from the built library on the card: a paged tile holds
-# at most 32 tokens, a dk/dv key tile 64 keys.  H100: 132 SMs.
-PAGED_TILE_MAX, BWD_KEY_TILE, H100_SMS = 32, 64, 132
+# at most 32 tokens, a dk/dv key tile 64 keys (32 in the f32 tensor-core
+# variant).  H100: 132 SMs.
+PAGED_TILE_MAX, BWD_KEY_TILE, BWD_F32_KEY_TILE, H100_SMS = 32, 64, 32, 132
 
 
 @pytest.mark.parametrize("B,KV,T,bs", [
@@ -187,16 +190,57 @@ def test_dense_split_plan_at_the_serving_shapes():
     (1, 100000, 8, 1),  # long enough to fill the card alone
 ])
 def test_dkv_split_plan_fills_one_wave(B, S, H, KV):
+    """Both tensor-core dk/dv passes' plans: bf16 (a block per 64-key
+    tile) and f32 (a block per pair of 32-key tiles)."""
     from repro_torch.kernels.flash_attention import ROWS, _dkv_splits
-    nsplit = _dkv_splits(B, S, H, KV, BWD_KEY_TILE, H100_SMS)
-    blocks = -(-S // BWD_KEY_TILE) * B * KV
-    G = H // KV
-    tiles = -(-G // min(G, ROWS)) * -(-S // (ROWS // min(G, ROWS)))
-    assert 1 <= nsplit <= tiles
-    assert nsplit == 1 or nsplit * blocks <= H100_SMS  # one block per SM
-    assert (nsplit + 1) * blocks > H100_SMS or nsplit == tiles
+    for key_tile, paired in ((BWD_KEY_TILE, False), (BWD_F32_KEY_TILE, True)):
+        nsplit = _dkv_splits(B, S, H, KV, key_tile, H100_SMS, paired=paired)
+        key_tiles = -(-S // key_tile)
+        blocks = (-(-key_tiles // 2) if paired else key_tiles) * B * KV
+        G = H // KV
+        tiles = -(-G // min(G, ROWS)) * -(-S // (ROWS // min(G, ROWS)))
+        assert 1 <= nsplit <= tiles
+        assert nsplit == 1 or nsplit * blocks <= H100_SMS  # one block per SM
+        assert (nsplit + 1) * blocks > H100_SMS or nsplit == tiles
     if (B, S, H, KV) == (1, 1024, 8, 1):
-        assert nsplit == 8  # 16 key tiles x 8 = 128 blocks
+        assert _dkv_splits(B, S, H, KV, BWD_KEY_TILE, H100_SMS) == 8  # 16 key tiles x 8
+        # 16 pairs of key tiles x 8
+        assert _dkv_splits(B, S, H, KV, BWD_F32_KEY_TILE, H100_SMS, paired=True) == 8
+    if (B, S, H, KV) == (2, 1024, 8, 1):  # the f32 pass at the train step's batch
+        assert _dkv_splits(B, S, H, KV, BWD_F32_KEY_TILE, H100_SMS, paired=True) == 4
+
+
+@pytest.mark.parametrize("B,S,H,KV,window,want", [
+    (1, 1024, 8, 1, 0, 2),      # gemma-2b: the heaviest q tile walks 32 key tiles, the mean SM 16
+    (2, 512, 8, 1, 0, 2),       # the trainer PE's attention
+    (1, 2048, 40, 8, 0, 1),     # qwen3-14b: 1,368 q tiles, many waves
+    (1, 4096, 16, 1, 2048, 1),  # recurrentgemma-9b's windowed layers: even work
+    (1, 1, 8, 1, 0, 1),         # one token: one key tile
+])
+def test_dq_split_plan_brings_the_heaviest_block_to_the_mean(B, S, H, KV, window, want):
+    """The f32 dq pass's key ranges: 1, 2 or 4, no more than the heaviest
+    q tile's key tiles, chosen so its block does about the work of the mean
+    SM."""
+    from repro_torch.kernels.flash_attention import _dq_splits
+    assert _dq_splits(B, S, H, KV, BWD_F32_KEY_TILE, H100_SMS, True, window) == want
+
+
+def test_flash_route_is_the_plain_version_on_the_cpu():
+    """``flash_route`` names the plain version for CPU tensors (any dtype
+    and head dim, forward or backward), refuses a CPU tensor beside one
+    elsewhere, as the wrappers do, and a backward without its do; on the
+    card it reads the C entries' rule."""
+    from repro_torch.kernels.flash_attention import ROUTES
+    route = tk.flash_route
+    q = torch.zeros(1, 4, 2, 72)
+    assert route(q, q[:, :, :1], q[:, :, :1]) == "plain"
+    assert route(q.bfloat16(), q.bfloat16(), q.bfloat16()) == "plain"
+    assert route(q, q, q, q, backward=True) == "plain"
+    assert ROUTES == ("cuda-cores", "bf16-tensor-cores", "f32-tensor-cores")
+    with pytest.raises(ValueError):
+        route(q, q, q, torch.empty(1, 4, 2, 72, device="meta"), backward=True)
+    with pytest.raises(ValueError):
+        route(q, q, q, backward=True)
 
 
 def test_wrappers_refuse_other_devices():
@@ -366,6 +410,169 @@ def test_windowed_flash_matches_reference(S, H, KV, D, window, dtype):
 
 def _np32(a) -> np.ndarray:
     return np.asarray(a.astype(jnp.float32))
+
+
+# ------------------------------- split-TF32 error model of the f32 flash backward
+#
+# The f32 tensor-core variant of csrc/flash_attention_bwd.cu recomputes
+# the scores S as the f32 CUDA-core forward does (one FMA chain over the
+# head dim), and forms every other product from tensor-core products of
+# TF32 terms (csrc/tf32.cuh): each operand in hi + lo, dP as all four
+# products of terms, the gradient products (dS K, dS^T Q, P^T dO) as lo hi
+# + hi lo + hi hi.  The emulation below models it: the chain's FMAs through
+# f64 (each product exact, one rounding to f64, then to f32), TF32 rounding
+# on the low 13 bits (ties away from zero, as the kernel's cvt.rna, or to
+# even), each tensor-core product exact and its sum into the accumulator
+# truncated toward zero, and runs of 8-deep steps summed that way before an
+# f32 add: one step in dP, 32 keys in dS K, 64 rows in P^T dO and dS^T Q.
+# With whole-depth runs instead the truncation compounds: at D = 256 and
+# scores in the hundreds the gradients then part from f64 by more than
+# this test allows.  The forward's out and lse come from the same chain's
+# scores, as the kernels' do.
+
+
+def _tf32(x: torch.Tensor, ties: str) -> torch.Tensor:
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    if ties == "away":
+        u = (u + 0x1000) & 0xFFFFE000
+    else:
+        u = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
+    return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32).view(torch.float32)
+
+
+def _rz(x64: torch.Tensor) -> torch.Tensor:
+    """f64 -> f32 rounded toward zero."""
+    f = x64.float()
+    return torch.where(f.double().abs() > x64.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, run: int, terms: int, order: int,
+             ties: str) -> torch.Tensor:
+    """a (..., M, K) @ b (..., K, N) from TF32 terms: the products of terms
+    (i, j) with i + j <= order, smallest first; K is zero-padded to whole
+    steps of 8, as the kernels zero-fill rows past S."""
+    pad = -a.shape[-1] % 8
+    a, b = torch.nn.functional.pad(a, (0, pad)), torch.nn.functional.pad(b, (0, 0, 0, pad))
+    ta, tb = [], []
+    for x, out in ((a, ta), (b, tb)):
+        for _ in range(terms):
+            out.append(_tf32(x, ties))
+            x = x - out[-1]
+    pairs = [(i, o - i) for o in range(order, -1, -1) for i in range(terms - 1, -1, -1)
+             if 0 <= o - i < terms]
+    steps = a.shape[-1] // 8
+    acc = None
+    for r0 in range(0, steps, run):
+        c = torch.zeros(a.shape[:-1] + b.shape[-1:])
+        for ks in range(r0, min(steps, r0 + run)):
+            sl = slice(8 * ks, 8 * ks + 8)
+            for i, j in pairs:
+                c = _rz(c.double() + ta[i][..., sl].double() @ tb[j][..., sl, :].double())
+        acc = c if acc is None else acc + c
+    return acc
+
+
+def _chain_scores(q, kg):
+    """q kg^T (..., S, S) as the f32 kernels' FMA chain over the head dim,
+    in order from zero."""
+    s = torch.zeros(q.shape[:-1] + kg.shape[-2:-1], dtype=torch.float32)
+    for d in range(q.shape[-1]):
+        s = (s.double() + q[..., d, None].double() * kg[..., None, :, d].double()).float()
+    return s
+
+
+def _band(S, window):
+    i = torch.arange(S)
+    return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window if window else True)
+
+
+def _emulated_flash_fwd(q, k, v, window):
+    """out, lse of causal GQA attention on (B, H, S, D) f32 tensors from the
+    chain's scores, softmax in f32."""
+    G, D, S = q.shape[1] // k.shape[1], q.shape[-1], q.shape[2]
+    sc = _chain_scores(q, k.repeat_interleave(G, 1)) * (1.0 / math.sqrt(D))
+    sc = sc.masked_fill(~_band(S, window), float("-inf"))
+    return torch.softmax(sc, -1) @ v.repeat_interleave(G, 1), torch.logsumexp(sc, -1)
+
+
+def _emulated_flash_bwd(q, k, v, out, lse, do, window, ties):
+    """dq, dk, dv of causal GQA attention on (B, H, S, D) f32 tensors (k, v,
+    dk, dv with KV heads) from the forward's out and lse, as the f32
+    backward kernel: the chain's scores, split-TF32 products, f32
+    elsewhere."""
+    G, D, S = q.shape[1] // k.shape[1], q.shape[-1], q.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    kg, vg = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    mask = _band(S, window)
+    delta = (do * out).sum(-1, keepdim=True)
+    sc = _chain_scores(q, kg) * scale
+    p = torch.where(mask, torch.exp(sc - lse[..., None]), torch.zeros(()))
+    ds = p * (_mm_tf32(do, vg.transpose(-1, -2), 1, 2, 2, ties) - delta) * scale
+    dq = _mm_tf32(ds, kg, 4, 2, 1, ties)
+    fold = lambda x: x.unflatten(1, (k.shape[1], G)).sum(2)  # noqa: E731
+    dk = fold(_mm_tf32(ds.transpose(-1, -2), q, 8, 2, 1, ties))
+    dv = fold(_mm_tf32(p.transpose(-1, -2), do, 8, 2, 1, ties))
+    return dq, dk, dv
+
+
+def _exact_flash(q, k, v, do, window):
+    """The same in f64 through autograd."""
+    q, k, v = (t.double().requires_grad_() for t in (q, k, v))
+    G, S = q.shape[1] // k.shape[1], q.shape[2]
+    s = q @ k.repeat_interleave(G, 1).transpose(-1, -2) / math.sqrt(q.shape[-1])
+    i = torch.arange(S)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window if window else True)
+    s = s.masked_fill(~mask, float("-inf"))
+    out = torch.softmax(s, -1) @ v.repeat_interleave(G, 1)
+    out.backward(do.double())
+    return out.detach(), torch.logsumexp(s, -1).detach(), q.grad, k.grad, v.grad
+
+
+def _off(got, want, atol, rtol) -> int:
+    return int(((got.double() - want).abs() > atol + rtol * want.abs()).sum())
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,window", [
+    (1, 96, 4, 1, 64, 0),   # MQA
+    (2, 70, 4, 2, 40, 0),   # GQA, ragged, D an odd multiple of 8
+    (1, 80, 2, 1, 32, 30),  # windowed
+    (1, 200, 4, 1, 256, 0),  # gemma-2b's head dim: whole-depth runs would fail here
+])
+@pytest.mark.parametrize("score_std", [1.0, 100.0])
+@pytest.mark.parametrize("ties", ["away", "even"])
+def test_split_tf32_flash_error_model(B, S, H, KV, D, window, score_std, ties):
+    """The emulated f32 backward kernel (dq, dk, dv) from the emulated f32
+    forward's out and lse, held to the f64 gradients at the f32 kernels'
+    tolerance, 5e-5 + 5e-4 rel.  Scores of unit size: every element
+    within.  Scores in the hundreds (q and k of std 10, near-hard
+    attention, as the reference's init gives): there plain f32 itself
+    leaves elements off f64 (the port's plain backward,
+    ``ref.flash_attention_bwd_ref``, from the same out and lse: checked
+    below), so the largest error is held within 5e-4 of the largest
+    entry."""
+    rng = np.random.default_rng(S + D + window)
+    amp = math.sqrt(score_std)
+    q = torch.from_numpy(rng.standard_normal((B, H, S, D)).astype(np.float32) * amp)
+    k = torch.from_numpy(rng.standard_normal((B, KV, S, D)).astype(np.float32) * amp)
+    v, do = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+             for sh in ((B, KV, S, D), (B, H, S, D)))
+    want = _exact_flash(q, k, v, do, window)[2:]
+    # the plain f32 forward and backward, (B, S, heads, D) as the wrappers take them
+    qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    out = tk.ref.causal_attention_ref(qs, ks, vs, True, window)
+    lse = tk.ref.attention_lse_ref(qs, ks, True, window)
+    plain = [g.transpose(1, 2) for g in tk.ref.flash_attention_bwd_ref(
+        qs, ks, vs, out, lse, dos, True, window)]
+    got = _emulated_flash_bwd(q, k, v, *_emulated_flash_fwd(q, k, v, window), do, window, ties)
+    for name, g, w, pl in zip(("dq", "dk", "dv"), got, want, plain):
+        assert torch.isfinite(g).all(), name
+        if score_std == 1.0:
+            assert _off(g, w, 5e-5, 5e-4) == 0, name
+        else:
+            rel = ((g.double() - w).abs().max() / w.abs().max()).item()
+            assert rel <= 5e-4, (name, rel)
+    if score_std != 1.0 and D == 256:  # where plain f32 itself misses element-wise
+        assert sum(_off(pl, w, 5e-5, 5e-4) for pl, w in zip(plain, want)) > 0
 
 
 # ------------------------------------------------------------ rg-lru scan
