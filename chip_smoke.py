@@ -864,8 +864,14 @@ def check_mlstm_bwd(gen, B, S, H, dk, chunk, dtype) -> dict:
               + 2 * h.numel() * 4 + den.numel() * 4          # h, dh, den
               + ws.numel() * 4                               # the carries
               + 3 * q.numel() * es + 2 * log_i.numel() * 4)  # the gradients
-    # f32 operands (dh, the carries) on the CUDA cores: the f32 rate
-    b_ms, b_by = bound(nbytes, mlstm_bwd_flops(B, S, H, dk, chunk), torch.float32)
+    # the products' rate follows the input type, as check_mlstm's: bf16 q,
+    # k, v run them on the tensor cores (989 TFLOP/s; the kernel's split of
+    # its f32 operands into bf16 terms is its own choice, not the work's),
+    # f32 ones at the CUDA cores' 67 TFLOP/s; the plan keeps the f32-rate
+    # figure beside it
+    flops = mlstm_bwd_flops(B, S, H, dk, chunk)
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    f32_ms, f32_by = bound(nbytes, flops, torch.float32)
     return {
         "shape": {"B": B, "S": S, "H": H, "dk": dk, "chunk": chunk},
         "dtype": str(dtype), "max_abs_err": err,
@@ -874,7 +880,61 @@ def check_mlstm_bwd(gen, B, S, H, dk, chunk, dtype) -> dict:
             q, k, v, log_i, log_f, dh, chunk=chunk), iters=2),
         "library_ms": None,  # no PyTorch call computes it
         "bound_ms": b_ms, "bound_by": b_by,
+        "plan": f"bound at the f32 rate {f32_ms:.4f} ms ({f32_by})",
     }
+
+
+# the f32 mLSTM backward per layer against f64: a gradient's distance from
+# f64 (over its largest f64 entry) may be at most twice the plain f32
+# version's, or this if that is larger
+MLSTM_BWD_F64_FLOOR = 1e-6
+
+
+def mlstm_carries(ws, B, S, H, dk, c) -> list:
+    """The carries (C (B,H,dk,dk), n (B,H,dk), m (B,H)) entering each chunk
+    from the f32 forward kernel's workspace (C row-major with rows of dk;
+    chunk 0's, never written, is zero)."""
+    nc, dkp = S // c, -(-dk // 16) * 16
+    P = B * H * nc
+    Cw = ws[:P * dkp * dkp].view(B, H, nc, dkp * dkp)[..., :dk * dk].reshape(B, H, nc, dk, dk)
+    nw = ws[P * dkp * dkp:P * dkp * (dkp + 1)].view(B, H, nc, dkp)[..., :dk]
+    mw = ws[P * dkp * (dkp + 1):P * dkp * (dkp + 1) + P].view(B, H, nc)
+    zero = (ws.new_zeros((B, H, dk, dk)), ws.new_zeros((B, H, dk)), ws.new_zeros((B, H)))
+    return [zero] + [(Cw[:, :, t], nw[:, :, t], mw[:, :, t]) for t in range(1, nc)]
+
+
+def mlstm_bwd_near_f64(args: tuple, got, want, kw: dict, what: str) -> dict:
+    """The f32 backward kernel's gradients (``got``) on one call's inputs
+    against the f64 evaluation of its own equations from the same forward
+    state (the forward kernel's h, den and carries: ``ref.
+    mlstm_chunk_bwd_state_ref``), as a distance over the largest f64 entry;
+    the kernel must lie within twice the plain f32 evaluation's distance or
+    MLSTM_BWD_F64_FLOOR (the pattern of check_flash_near_hard).  Beside it,
+    end to end: the kernel and the plain version through autograd
+    (``want``, which runs its own f32 forward) against
+    ``mlstm_chunk_bwd_ref`` in f64 (logged: there the forward kernel's own
+    rounding of h and den counts too)."""
+    q, k, v, log_i, log_f, ws, den, h, dh = args
+    B, S, H, dk = q.shape
+    c = min(kw.get("chunk", 128), S)
+    carries = mlstm_carries(ws, B, S, H, dk, c)
+    inputs = (q, k, v, log_i, log_f, h, den)
+    exact = kernels.ref.mlstm_chunk_bwd_state_ref(
+        *(x.double() for x in inputs), [tuple(y.double() for y in cr) for cr in carries],
+        dh.double(), chunk=c)
+    plain = kernels.ref.mlstm_chunk_bwd_state_ref(*inputs, carries, dh, chunk=c)
+    e2e = kernels.ref.mlstm_chunk_bwd_ref(*(x.double() for x in (q, k, v, log_i, log_f, dh)),
+                                          **kw)
+    row = {}
+    for name, g, p, e, w, x in zip(("dq", "dk", "dv", "dlog_i", "dlog_f"), got, plain, exact,
+                                   want, e2e):
+        dist = [((y.double() - ref).abs().max() / ref.abs().max().clamp(min=1e-300)).item()
+                for y, ref in ((g, e), (p, e), (g, x), (w, x))]
+        row[name] = dist
+        if not torch.isfinite(g).all() or dist[0] > max(2 * dist[1], MLSTM_BWD_F64_FLOOR):
+            raise AssertionError(f"{what} {name}: {dist[0]:.3g} of the largest entry off its "
+                                 f"equations in f64, their plain f32 evaluation {dist[1]:.3g}")
+    return row
 
 
 # -------------------------------------------------------------------- serve
@@ -2097,7 +2157,8 @@ def check_recurrent_train(arch: str, n_layers: int, batch: int, seq: int, seed: 
     of its largest entry; the leaves past it are held to the plain path in
     f64 (``held_to_f64``).  Each backward kernel on the inputs its layer
     handed it there, against its plain version (f32: RG-LRU RGLRU_TOL,
-    mLSTM MLSTM_ATOL/RTOL, windowed flash BWD_F32_*); the windowed flash in
+    mLSTM MLSTM_ATOL/RTOL and, against f64, ``mlstm_bwd_near_f64``;
+    windowed flash BWD_F32_*); the windowed flash in
     bf16 on a bf16 step's inputs (BWD_BF16_REL); two bf16 kernel-path
     steps from one state, bit for bit."""
     cfg = get_config(arch).with_(num_layers=n_layers)
@@ -2129,9 +2190,16 @@ def check_recurrent_train(arch: str, n_layers: int, batch: int, seq: int, seed: 
         q, k, v, log_i, log_f, _ws, _den, _h, dh = args
         want = kernels.ref.mlstm_chunk_bwd_ref(q, k, v, log_i, log_f, dh, **kw)
         err = mlstm_bwd_close(got, want, q.dtype, f"{arch} layer mlstm_chunk_bwd")
+        near = mlstm_bwd_near_f64(args, got, want, kw, f"{arch} layer mlstm_chunk_bwd")
         log(f"   f32 layer, mlstm_chunk_bwd {tuple(q.shape)} on its own inputs vs plain: "
             f"max abs error {err:.3g} (tolerance {MLSTM_ATOL} + {MLSTM_RTOL} of the "
-            "largest entry)")
+            "largest entry); off its equations in f64 from the same forward state, over "
+            "the largest entry, kernel / plain f32: "
+            + ", ".join(f"{n} {d[0]:.3g} / {d[1]:.3g}" for n, d in near.items())
+            + f" (held: at most twice plain, or {MLSTM_BWD_F64_FLOOR:g}); end to end off "
+            "mlstm_chunk_bwd_ref in f64, kernel path / plain autograd: "
+            + ", ".join(f"{n} {d[2]:.3g} / {d[3]:.3g}" for n, d in near.items()))
+        del got, want
     windowed = [(a, kw) for a, kw in seen["flash_attention_bwd"] if kw.get("window")]
     for args, kw in windowed:
         got = kernels.flash_attention_bwd(*args, **kw)

@@ -12,8 +12,14 @@ this script), in the order given, builds that checkout's kernels and times:
   f32, with ``F.rms_norm`` on the same inputs as the yardstick;
 - ``repro_torch.kernels.mlstm_chunk`` with its final carry at xlstm-125m's
   prefill shape (1, 2048, 4, 384), chunk 128, in bf16 and in f32;
+- ``repro_torch.kernels.mlstm_chunk_bwd`` at xlstm-125m's training shape
+  (2, 1024, 4, 384), chunk 128, in bf16 and in f32, on the forward kernel's
+  workspace, with each of its passes' device time (``torch.profiler`` over
+  three calls: every kernel a call launches, by name);
 
-with the largest error against the plain version.  Each ROOT runs in its
+with the largest error against the plain version and a SHA-256 of every
+output, forward and backward (two checkouts whose kernels give the same
+bits print the same digests).  Each ROOT runs in its
 own process, so two versions can be compared on one card in one call: give
 them in turns (A B B A).  Prints the card's name and power limit, then one
 JSON line per ROOT.
@@ -39,6 +45,41 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RMSNORM = ((8, 2048), (64, 8, 128), (1024, 2048), (2048, 2048), (4096, 4096),
            (2048, 768), (2048, 1536))
 MLSTM = (1, 2048, 4, 384, 128)
+MLSTM_BWD = (2, 1024, 4, 384, 128)
+
+
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def pass_times(fn, calls: int = 3) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, by name, from
+    torch.profiler over ``calls`` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if us > 0:
+            out[e.key[:90]] = us / calls / 1e3
+    return out
 
 
 def measure(root: str) -> dict:
@@ -47,8 +88,12 @@ def measure(root: str) -> dict:
     import torch
     import torch.nn.functional as F
 
+    import importlib
+
     import chip_smoke
     from repro_torch import kernels
+
+    mlstm_mod = importlib.import_module("repro_torch.kernels.mlstm_chunk")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -64,7 +109,7 @@ def measure(root: str) -> dict:
             res[f"rmsnorm {'x'.join(map(str, shape))} {dtype}"] = {
                 "ms": chip_smoke.time_ms(lambda i: kernels.rmsnorm(x, scale)),
                 "library_ms": chip_smoke.time_ms(lambda i: F.rms_norm(x, (d,), weight, 1e-6)),
-                "max_abs_err": err}
+                "max_abs_err": err, "sha256": digest(kernels.rmsnorm(x, scale))}
             del x
         B, S, H, dk, chunk = MLSTM
         q, k, v = (torch.randn(B, S, H, dk, generator=gen, device="cuda").to(dtype)
@@ -76,11 +121,34 @@ def measure(root: str) -> dict:
         want, wfinal = kernels.ref.mlstm_chunk_ref(*args, chunk=chunk, return_final=True)
         err = max((g - w).abs().max().item()
                   for g, w in zip((got, *final), (want, *wfinal)))
+        sha = digest(got, *final)
         del got, final, want, wfinal
         res[f"mlstm_chunk {B}x{S}x{H}x{dk} c{chunk} {dtype}"] = {
             "ms": chip_smoke.time_ms(lambda i: kernels.mlstm_chunk(
                 *args, chunk=chunk, return_final=True), iters=5),
-            "max_abs_err": err}
+            "max_abs_err": err, "sha256": sha}
+        del q, k, v, args
+        B, S, H, dk, chunk = MLSTM_BWD
+        q, k, v = (torch.randn(B, S, H, dk, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        log_i = torch.randn(B, S, H, generator=gen, device="cuda") - 2.0
+        log_f = F.logsigmoid(torch.randn(B, S, H, generator=gen, device="cuda") + 3.0)
+        dh = torch.randn(B, S, H, dk, generator=gen, device="cuda")
+        h, _, (ws, den) = mlstm_mod.mlstm_chunk_fwd(q, k, v, log_i, log_f, chunk=chunk,
+                                                    keep=True)
+        args = (q, k, v, log_i, log_f, ws, den, h, dh)
+        got = kernels.mlstm_chunk_bwd(*args, chunk=chunk)
+        want = kernels.ref.mlstm_chunk_bwd_ref(q, k, v, log_i, log_f, dh, chunk=chunk)
+        err = max(((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                  for g, w in zip(got, want))
+        sha, fwd_sha = digest(*got), digest(h, den)
+        del got, want
+        res[f"mlstm_chunk_bwd {B}x{S}x{H}x{dk} c{chunk} {dtype}"] = {
+            "ms": chip_smoke.time_ms(lambda i: kernels.mlstm_chunk_bwd(*args, chunk=chunk),
+                                     iters=5),
+            "passes_ms": pass_times(lambda: kernels.mlstm_chunk_bwd(*args, chunk=chunk)),
+            "max_err_over_largest": err, "sha256": sha, "forward_sha256": fwd_sha}
+        del args, q, k, v, h, ws, den, dh
     return res
 
 

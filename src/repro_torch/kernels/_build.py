@@ -68,10 +68,8 @@ _SIGNATURES = {
          _int, _int, _int, _int, _int, _int, _int, _int, _float, _vp],
         ctypes.c_int),
     "repro_mlstm_chunk_bwd": (
-        [_int, _int] + [_vp] * 16 + [_int, _int, _int, _int, _int, _float,
-                                      _vp], ctypes.c_int),
-    "repro_mlstm_chunk_bwd_scratch": ([_int, _int, _int, _int, _int],
-                                      ctypes.c_longlong),
+        [_int, _int] + [_vp] * 15 + [_int] * 8 + [_float, _vp], ctypes.c_int),
+    "repro_mlstm_chunk_bwd_scratch": ([_int] * 6, ctypes.c_longlong),
     "repro_mlstm_chunk_max_dk": ([], ctypes.c_int),
     "repro_mlstm_chunk_max_chunk": ([], ctypes.c_int),
     "repro_error_string": ([_int], ctypes.c_char_p),

@@ -24,6 +24,9 @@ workspace that this wrapper allocates, and an output pass reads it.  The
 grids and the workspace come from the shapes alone (``_plan``).  Under
 autograd the workspace and each row's denominator stay for the backward,
 which reads the carries from it rather than running the recurrence again.
+The backward writes dq, dk, dv in q's dtype itself: bf16 inputs run six
+passes on the tensor cores (grids from ``_bwd_plan``), f32 inputs five on
+the CUDA cores; the library sizes the scratch for either.
 """
 
 from __future__ import annotations
@@ -41,6 +44,10 @@ from .ref import mlstm_chunk_ref
 # writes VALUE_TILE value columns of h
 STATE_TILE = {torch.bfloat16: (64, 96), torch.float32: (64, 64)}
 VALUE_TILE = {torch.bfloat16: 192, torch.float32: 32}
+# as in csrc/mlstm_chunk_bwd.cu, which refuses another plan: the backward's
+# column tile of dk, the rows of a rows-pass block, and the scores pass's
+# blocks a chunk
+BWD_TILE, BWD_ROW_GROUP, BWD_SCORE_BLOCKS = 64, 16, 4
 
 
 def _plan(B: int, S: int, H: int, dk: int, c: int, dtype) -> tuple:
@@ -55,6 +62,21 @@ def _plan(B: int, S: int, H: int, dk: int, c: int, dtype) -> tuple:
     rows, cols = STATE_TILE[dtype]
     return (-(-dk // rows), -(-dk // cols), -(-dk // VALUE_TILE[dtype]),
             B * H * (S // c) * (dkp * dkp + dkp + 1))
+
+
+def _bwd_plan(B: int, S: int, H: int, dk: int, c: int) -> dict:
+    """The backward's grids, pass by pass, for chunks of ``c``: rows (B * H,
+    S / c, row groups of BWD_ROW_GROUP), moves (B * H, chunks 1 .., dk tiles
+    x value tiles of BWD_TILE; none for one chunk), state (B * H, dk tiles,
+    value tiles), scores (B * H, S / c, BWD_SCORE_BLOCKS tile pairs), grads
+    (B * H, S / c, dq | dk | dv x column tiles), gates (B * H, S / c)."""
+    tiles = -(-dk // BWD_TILE)
+    return {"rows": (B * H, S // c, -(-c // BWD_ROW_GROUP)),
+            "moves": (B * H, S // c - 1, tiles * tiles),
+            "state": (B * H, tiles, tiles),
+            "scores": (B * H, S // c, BWD_SCORE_BLOCKS),
+            "grads": (B * H, S // c, 3 * tiles),
+            "gates": (B * H, S // c, 1)}
 
 
 def _check(name, q, k, v, i_pre, f_pre, chunk: int) -> tuple:
@@ -125,7 +147,8 @@ def mlstm_chunk_bwd(q, k, v, log_i, log_f, ws, den, h, dh, *,
     """The backward kernel on CUDA tensors: the forward's inputs (q, k, v,
     log_i, log_f as ``mlstm_chunk_fwd`` took them), its workspace ``ws``,
     denominators ``den`` and output ``h``, and the output's gradient ``dh``
-    (B,S,H,dk) f32 -> (dq, dk, dv in q's dtype, dlog_i, dlog_f f32)."""
+    (B,S,H,dk) f32 -> (dq, dk, dv in q's dtype, written by the kernel;
+    dlog_i, dlog_f f32)."""
     name = "mlstm_chunk_bwd"
     B, S, H, dk, c = _check(name, q, k, v, log_i, log_f, chunk)
     _build.check_inputs(name, q.device, ws=ws, den=den, h=h, dh=dh)
@@ -134,25 +157,23 @@ def mlstm_chunk_bwd(q, k, v, log_i, log_f, ws, den, h, dh, *,
                          f"{tuple(h.shape)}, got {dh.dtype} {tuple(dh.shape)}")
     dev = q.device
     lib = _build.library()
-    grads = [torch.empty((B, S, H, dk), dtype=torch.float32, device=dev)
+    grads = [torch.empty((B, S, H, dk), dtype=q.dtype, device=dev)
              for _ in range(3)]
     dlog = [torch.empty((B, S, H), dtype=torch.float32, device=dev)
             for _ in range(2)]
-    gws = torch.empty(B * H * (S // c) * (dk * dk + dk), dtype=torch.float32,
-                      device=dev)
-    scratch = torch.empty(lib.repro_mlstm_chunk_bwd_scratch(B, S, H, dk, c),
-                          dtype=torch.float32, device=dev)
+    code = _build.DTYPE_CODES[q.dtype]
+    scratch = torch.empty(lib.repro_mlstm_chunk_bwd_scratch(B, S, H, dk, c, code),
+                          dtype=torch.uint8, device=dev)
+    plan = _bwd_plan(B, S, H, dk, c)
     err = lib.repro_mlstm_chunk_bwd(
-        dev.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), log_i.data_ptr(), log_f.data_ptr(), ws.data_ptr(),
-        den.data_ptr(), h.data_ptr(), dh.data_ptr(),
-        *(t.data_ptr() for t in grads + dlog), gws.data_ptr(),
-        scratch.data_ptr(), B, S, H, dk, c, 1.0 / math.sqrt(dk),
-        _build.stream(dev))
+        dev.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        log_i.data_ptr(), log_f.data_ptr(), ws.data_ptr(), den.data_ptr(),
+        h.data_ptr(), dh.data_ptr(), *(t.data_ptr() for t in grads + dlog),
+        scratch.data_ptr(), B, S, H, dk, c, plan["state"][1], plan["rows"][2],
+        plan["scores"][2], 1.0 / math.sqrt(dk), _build.stream(dev))
     _build.check(err, name)
     mlstm_chunk_bwd.launches += 1
-    dq, dk_, dv = (g.to(q.dtype) for g in grads)
-    return dq, dk_, dv, dlog[0], dlog[1]
+    return (*grads, *dlog)
 
 
 class _MlstmChunk(torch.autograd.Function):

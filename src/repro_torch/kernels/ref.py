@@ -276,3 +276,89 @@ def _mlstm_chunks(qs, kf, vf, log_i, log_f, chunk: int, return_final: bool):
         m = m_next
     h = torch.stack(hs, dim=2).reshape(B, H, S, dk).transpose(1, 2)
     return (h, (C, n, m)) if return_final else h
+
+
+def _by_chunk(x, c: int):
+    """(B, S, H, ...) -> (S / c, B, H, c, ...)."""
+    B, S, H = x.shape[:3]
+    return x.transpose(1, 2).reshape(B, H, S // c, c, *x.shape[3:]).movedim(2, 0)
+
+
+def _unchunk(xs: list):
+    """S / c tensors (B, H, c, ...) -> (B, S, H, ...)."""
+    B, H, c = xs[0].shape[:3]
+    return torch.stack(xs, 2).reshape(B, H, len(xs) * c, *xs[0].shape[3:]).transpose(1, 2)
+
+
+def mlstm_chunk_bwd_state_ref(q, k, v, log_i, log_f, h, den, carries, dh, *,
+                              chunk: int = 128, mm=None) -> list:
+    """The plain version of the backward kernel's own equations (the header
+    of ``csrc/mlstm_chunk_bwd.cu``) from the forward's saved state, rather
+    than autograd through a forward run again: q, k, v (B,S,H,dk) unscaled;
+    log_i, log_f (B,S,H); the forward's h (B,S,H,dk) and den (B,S,H); the
+    carries ``(C (B,H,dk,dk), n (B,H,dk), m (B,H))`` entering each chunk;
+    dh -> [dq, dk, dv, dlog_i, dlog_f], in the inputs' dtype (f64 inputs
+    give an exact evaluation).  ``mm(a, b, a_kind, b_kind)`` forms each
+    matrix product, the kinds "in" (q, k, v) or "f32" (an f32 operand), so
+    a test can substitute the kernel's split products; a @ b by default."""
+    if mm is None:
+        def mm(a, b, _ka, _kb):
+            return a @ b
+    B, S, H, dk = q.shape
+    c = min(chunk, S)
+    scale = 1.0 / math.sqrt(dk)
+    nc = S // c
+    tri = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    zero = torch.zeros((), dtype=q.dtype, device=q.device)
+    Q, K, V, LI, LF, Hh, DEN, DH = (_by_chunk(x, c) for x in (q, k, v, log_i, log_f, h, den, dh))
+    rows = []
+    for t in range(nc):
+        cs, m = torch.cumsum(LF[t], -1), carries[t][2]
+        D = (cs[..., :, None] - cs[..., None, :] + LI[t][..., None, :]).masked_fill(~tri, -math.inf)
+        mi = torch.maximum(D.amax(-1), cs + m[..., None])
+        floor = torch.exp(-mi)
+        lim = torch.maximum(DEN[t].abs(), floor)
+        dden = torch.where((DEN[t].abs() >= floor) & (DEN[t] != 0),
+                           -(DH[t] * Hh[t]).sum(-1) / DEN[t], zero)
+        if t + 1 < nc:  # the move to the m' of the carry entering the next chunk
+            mn = carries[t + 1][2]
+            w = torch.exp(cs[..., -1:] - cs + LI[t] - mn[..., None])
+            decay = torch.exp(m + cs[..., -1] - mn)
+        else:  # past the last chunk G and dn are 0
+            w, decay = torch.zeros_like(cs), torch.zeros_like(m)
+        rows.append(dict(
+            inter=torch.exp(cs + m[..., None] - mi), dden=dden, dnum=DH[t] / lim[..., None],
+            w=w, decay=decay, E=torch.where(tri, torch.exp(D - mi[..., None]), zero)))
+    Gs, G, dn = [None] * nc, q.new_zeros((B, H, dk, dk)), q.new_zeros((B, H, dk))
+    for t in range(nc - 1, -1, -1):  # the carry gradient's reverse walk
+        Gs[t] = (G, dn)
+        if t == 0:
+            break
+        r = rows[t]
+        u = r["dnum"] * (scale * r["inter"])[..., None]
+        G = r["decay"][..., None, None] * G + mm(
+            u.transpose(-1, -2), Q[t], "f32", "in").transpose(-1, -2)
+        dn = r["decay"][..., None] * dn + ((r["dden"] * r["inter"])[..., None]
+                                           * (Q[t] * scale)).sum(-2)
+    out = [[] for _ in range(5)]
+    for t in range(nc):
+        r, (C, n, _m), (G, dnv) = rows[t], carries[t], Gs[t]
+        W = (mm(Q[t], K[t].transpose(-1, -2), "in", "in") * scale) * r["E"]
+        dW = torch.where(tri, mm(r["dnum"], V[t].transpose(-1, -2), "f32", "in")
+                         + r["dden"][..., None], zero)
+        dS, dD = dW * r["E"], dW * W
+        CD = mm(r["dnum"], C.transpose(-1, -2), "f32", "f32")
+        GV = mm(V[t], G.transpose(-1, -2), "in", "f32") + dnv[..., None, :]
+        di = r["dden"][..., None] * n[..., None, :]
+        out[0].append(scale * (mm(dS, K[t], "f32", "in") + r["inter"][..., None] * (CD + di)))
+        out[1].append(scale * mm(dS.transpose(-1, -2), Q[t], "f32", "in")
+                      + r["w"][..., None] * GV)
+        out[2].append(mm(W.transpose(-1, -2), r["dnum"], "f32", "f32")
+                      + r["w"][..., None] * mm(K[t], G, "in", "f32"))
+        ww = (K[t] * GV).sum(-1) * r["w"]
+        colD = dD.sum(-2)
+        dcs = ((Q[t] * scale) * (CD + di)).sum(-1) * r["inter"] + dD.sum(-1) - colD - ww
+        dcs[..., -1] += ((G * C).sum((-1, -2)) + (dnv * n).sum(-1)) * r["decay"] + ww.sum(-1)
+        out[3].append(colD + ww)
+        out[4].append(dcs.flip(-1).cumsum(-1).flip(-1))
+    return [_unchunk(x) for x in out]

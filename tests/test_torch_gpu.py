@@ -983,7 +983,10 @@ def _mlstm_grads(fn, q, k, v, i_pre, f_pre, dh, chunk):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,dk,chunk", [
     (2, 256, 2, 64, 64), (1, 384, 4, 384, 128), (2, 96, 3, 40, 32),
-    (1, 128, 1, 130, 128)])
+    (1, 128, 1, 130, 128),
+    (2, 1024, 4, 384, 128),  # xlstm-125m's training shape
+    (1, 64, 2, 96, 64),      # a single chunk: no carry
+])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mlstm_chunk_backward_kernel(cuda, B, S, H, dk, chunk, dtype):
     """The backward kernel's q, k, v, i_pre and f_pre gradients against
@@ -1011,6 +1014,46 @@ def test_mlstm_chunk_backward_kernel(cuda, B, S, H, dk, chunk, dtype):
     again = _mlstm_grads(kernels.mlstm_chunk, q, k, v, i_pre, f_pre, dh, chunk)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_mlstm_chunk_backward_writes_bf16_itself(cuda):
+    """bf16 inputs: dq, dk, dv come back as bf16 from the kernel itself
+    (finite, within 2e-2 of the plain version's largest entry, two launches
+    bit for bit), and a profile of one call shows only the backward's own
+    six passes on the card (one a pass of the wrapper's plan), no copy or
+    cast kernel."""
+    import importlib
+
+    mod = importlib.import_module("repro_torch.kernels.mlstm_chunk")
+    rng = np.random.default_rng(31)
+    B, S, H, dk, chunk = 2, 512, 4, 384, 128
+    q, k, v = (_randn(rng, (B, S, H, dk), cuda, "bfloat16") for _ in range(3))
+    log_i = _randn(rng, (B, S, H), cuda, "float32") - 2.0
+    log_f = torch.nn.functional.logsigmoid(_randn(rng, (B, S, H), cuda, "float32") + 3.0)
+    dh = _randn(rng, (B, S, H, dk), cuda, "float32")
+    h, _, (ws, den) = mod.mlstm_chunk_fwd(q, k, v, log_i, log_f, chunk=chunk, keep=True)
+    args = (q, k, v, log_i, log_f, ws, den, h, dh)
+    got = kernels.mlstm_chunk_bwd(*args, chunk=chunk)
+    again = kernels.mlstm_chunk_bwd(*args, chunk=chunk)
+    want = kernels.ref.mlstm_chunk_bwd_ref(q, k, v, log_i, log_f, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == torch.bfloat16 and g.shape == q.shape
+        assert torch.isfinite(g).all()
+        big = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * big
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kernels.mlstm_chunk_bwd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_names = [n for n in names if "mlstm_bwd_" in n]
+    assert len(kernel_names) == len(mod._bwd_plan(B, S, H, dk, chunk)), names
+    assert sorted(set(names)) == sorted(set(kernel_names)), names
 
 
 @contextlib.contextmanager

@@ -665,3 +665,199 @@ def test_mlstm_plan_covers_every_column_and_chunk(B, S, H, dk, chunk, dtype):
     assert S % c == 0 and (S // c) * c == S  # the output grid's chunks tile S
     dkp = -(-dk // 16) * 16  # C in whole 16 x 16 units
     assert ws_floats == B * H * (S // c) * (dkp * dkp + dkp + 1)
+
+
+@pytest.mark.parametrize("B,S,H,dk,chunk", [
+    (2, 1024, 4, 384, 128),  # xlstm-125m's training shape
+    (1, 60, 2, 100, 20),     # dk off the tiles, chunk off 16
+    (2, 96, 4, 64, 96),      # one chunk
+    (1, 8, 1, 512, 8),       # the widest dk the kernel takes
+    (3, 7, 2, 1, 7),         # one column
+])
+def test_mlstm_bwd_plan_covers_every_column_and_chunk(B, S, H, dk, chunk):
+    """The backward's grids, planned in the wrapper from the shapes: the
+    rows pass's groups cover every row of a chunk once, the moves and state
+    passes' tiles every (dk row, value column) of the carry gradient, the grads
+    pass's every column of dq, dk and dv, and the scores and gates passes
+    every chunk; at xlstm-125m's shape each pass with real work launches at
+    least one block per SM of the H100 (132)."""
+    from repro_torch.kernels.mlstm_chunk import (BWD_ROW_GROUP, BWD_SCORE_BLOCKS,
+                                                 BWD_TILE, _bwd_plan)
+    c = min(chunk, S)
+    plan = _bwd_plan(B, S, H, dk, c)
+    nc = S // c
+    groups = plan["rows"][2]
+    assert groups * BWD_ROW_GROUP >= c > (groups - 1) * BWD_ROW_GROUP
+    tiles = plan["state"][1]
+    assert tiles * BWD_TILE >= dk > (tiles - 1) * BWD_TILE
+    assert plan["state"] == (B * H, tiles, tiles)
+    assert plan["moves"] == (B * H, nc - 1, tiles * tiles)  # chunk 0's move has no use
+    assert plan["grads"] == (B * H, nc, 3 * tiles)  # dq, dk, dv x column tiles
+    # the scores pass's blocks pair 16-row tiles z and 7 - z: every tile once
+    pairs = sorted(t for z in range(BWD_SCORE_BLOCKS) for t in (z, 7 - z))
+    assert pairs == list(range(2 * BWD_SCORE_BLOCKS)) and 16 * len(pairs) >= 128
+    for name in ("rows", "scores", "gates"):
+        assert plan[name][:2] == (B * H, nc)
+    if (B, S, H, dk, chunk) == (2, 1024, 4, 384, 128):
+        for name in ("rows", "moves", "state", "scores", "grads"):
+            assert math.prod(plan[name]) >= 132, (name, plan[name])
+
+
+# ------------------------ split-bf16 error model of the mLSTM backward
+#
+# csrc/mlstm_chunk_bwd.cu runs every product of the chunk backward on bf16
+# tensor cores: q, k, v in bf16 enter as one exact term, every f32 operand
+# (and q, k, v for f32 inputs) as three bf16 terms hi + mid + lo; an f32 x
+# f32 product takes the six term products of order <= 2, an f32 x bf16 one
+# three, in the kernel's order (by B's term from the smallest, then by A's);
+# each 16-deep k-step's term products are summed by
+# the tensor cores (exact products, the sum into the accumulator truncated
+# toward zero) and then added to f32 running sums.  The emulation below
+# runs the kernel header's equations with products so formed, from the
+# forward's f32 den and carries, on inputs whose normalizers cancel: q
+# scaled by 1000, so |h| reaches 1e3-1e4 where den cancels against the
+# floor exp(-m_i).  With two terms (hi + lo, 16 bits) the products part
+# from f64 by 10 to 40 times as much as f32 sums do.
+
+
+def _bf16_terms(x: torch.Tensor, n: int) -> list:
+    out = []
+    for _ in range(n):
+        out.append(x.to(torch.bfloat16).float())
+        x = x - out[-1]
+    return out
+
+
+def _mm_split(a: torch.Tensor, b: torch.Tensor, ta: int, tb: int) -> torch.Tensor:
+    """a (..., M, K) @ b (..., K, N) in f32 from ta x tb bf16 terms, as
+    the kernel's tensor cores form it; ta = tb = 0 is an f32 product, and
+    a, b f64 give the exact one."""
+    if ta == 0 or a.dtype == torch.float64:
+        return a @ b
+    pad = -a.shape[-1] % 16
+    a, b = torch.nn.functional.pad(a, (0, pad)), torch.nn.functional.pad(b, (0, 0, 0, pad))
+    A, Bt = _bf16_terms(a, ta), _bf16_terms(b, tb)
+    order = max(ta, tb) - 1
+    pairs = [(x, y) for y in range(tb - 1, -1, -1) for x in range(ta - 1, -1, -1)
+             if x + y <= order]
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for ks in range(a.shape[-1] // 16):
+        sl = slice(16 * ks, 16 * ks + 16)
+        part = torch.zeros_like(acc)
+        for x, y in pairs:
+            part = _rz(part.double() + A[x][..., sl].double() @ Bt[y][..., sl, :].double())
+        acc = acc + part
+    return acc
+
+
+def _mlstm_fwd_state(q, k, v, log_i, log_f, c):
+    """h, den and the carries (C, n, m) entering every chunk (m also
+    leaving the last), as the forward kernel keeps them; q unscaled."""
+    B, S, H, dk = q.shape
+    scale = 1.0 / math.sqrt(dk)
+    tri = torch.ones((c, c), dtype=torch.bool).tril()
+    C, n, m = q.new_zeros((B, H, dk, dk)), q.new_zeros((B, H, dk)), q.new_zeros((B, H))
+    hs, dens, carries = [], [], []
+    for qt, kt, vt, li, lf in zip(*(tk.ref._by_chunk(x, c)
+                                    for x in (q * scale, k, v, log_i, log_f))):
+        carries.append((C, n, m))
+        cs = torch.cumsum(lf, -1)
+        D = (cs[..., :, None] - cs[..., None, :] + li[..., None, :]).masked_fill(~tri, -math.inf)
+        mi = torch.maximum(D.amax(-1), cs + m[..., None])
+        W = (qt @ kt.transpose(-1, -2)) * torch.exp(D - mi[..., None])
+        inter = torch.exp(cs + m[..., None] - mi)
+        den = W.sum(-1) + inter * (qt * n[..., None, :]).sum(-1)
+        hs.append((W @ vt + inter[..., None] * (qt @ C))
+                  / torch.maximum(den.abs(), torch.exp(-mi))[..., None])
+        dens.append(den)
+        dec = cs[..., -1:] - cs + li
+        mn = torch.maximum(m + cs[..., -1], dec.amax(-1))
+        wn, decay = torch.exp(dec - mn[..., None]), torch.exp(m + cs[..., -1] - mn)
+        C = decay[..., None, None] * C + (kt * wn[..., None]).transpose(-1, -2) @ vt
+        n = decay[..., None] * n + (wn[..., None] * kt).sum(-2)
+        m = mn
+    carries.append((None, None, m))
+    return tk.ref._unchunk(hs), tk.ref._unchunk(dens), carries
+
+
+def _mlstm_bwd_equations(q, k, v, log_i, log_f, h, den, carries, dh, c, tq, tf):
+    """The kernel header's chunk backward (``ref.mlstm_chunk_bwd_state_ref``)
+    with products of tq-term q, k, v and tf-term f32 operands
+    (``_mm_split``; 0 terms: plain products)."""
+    terms = {"in": tq, "f32": tf}
+    return tk.ref.mlstm_chunk_bwd_state_ref(
+        q, k, v, log_i, log_f, h, den, carries, dh, chunk=c,
+        mm=lambda a, b, ka, kb: _mm_split(a, b, terms[ka], terms[kb]))
+
+
+def _mlstm_bwd_inputs(dtype: str, seed: int = 2):
+    """(1, 256, 2, 64), chunk 64: test_mlstm_chunk_sweep's gates (i_pre ~ N
+    - 2, f_pre ~ N + 3) with q scaled by 1000, so the normalizers cancel;
+    q, k, v rounded to ``dtype`` and held as f32."""
+    rng = np.random.default_rng(seed)
+    q, k, v, dh = (torch.from_numpy(rng.standard_normal((1, 256, 2, 64)).astype(np.float32))
+                   for _ in range(4))
+    i_pre = torch.from_numpy((rng.standard_normal((1, 256, 2)) - 2.0).astype(np.float32))
+    f_pre = torch.from_numpy((rng.standard_normal((1, 256, 2)) + 3.0).astype(np.float32))
+    q, k, v = ((x * s).to(TDT[dtype]).float() for x, s in ((q, 1000.0), (k, 1.0), (v, 1.0)))
+    return q, k, v, i_pre, torch.nn.functional.logsigmoid(f_pre), dh
+
+
+def _rel(got, want) -> float:
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+def test_mlstm_bwd_state_ref_matches_autograd():
+    """The plain version of the backward kernel's equations from the
+    forward's saved state, in f64 from an f64 forward, against autograd
+    through the chunk recurrence in f64: the same gradients to rounding."""
+    q, k, v, log_i, log_f, dh = (x.double() for x in _mlstm_bwd_inputs("float32"))
+    h, den, carries = _mlstm_fwd_state(q, k, v, log_i, log_f, 64)
+    got = tk.ref.mlstm_chunk_bwd_state_ref(q, k, v, log_i, log_f, h, den, carries, dh, chunk=64)
+    want = tk.ref.mlstm_chunk_bwd_ref(q, k, v, log_i, log_f, dh, chunk=64)
+    for g, w in zip(got, want):
+        assert _rel(g, w) < 1e-12
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_split_bf16_mlstm_bwd_error_model(dtype):
+    """The emulated backward kernel (three terms) against the plain f32
+    version within MLSTM_ATOL + MLSTM_RTOL of each gradient's largest entry,
+    and no farther from the f64 gradient than twice the plain version."""
+    c = 64
+    q, k, v, log_i, log_f, dh = _mlstm_bwd_inputs(dtype)
+    h, den, carries = _mlstm_fwd_state(q, k, v, log_i, log_f, c)
+    assert 1e3 <= h.abs().max().item() <= 1e4  # the normalizers cancel
+    tq = 1 if dtype == "bfloat16" else 3
+    got = _mlstm_bwd_equations(q, k, v, log_i, log_f, h, den, carries, dh, c, tq, 3)
+    plain = tk.ref.mlstm_chunk_bwd_ref(q, k, v, log_i, log_f, dh, chunk=c)
+    exact = tk.ref.mlstm_chunk_bwd_ref(*(x.double() for x in (q, k, v, log_i, log_f, dh)),
+                                       chunk=c)
+    for name, g, p, e in zip(("dq", "dk", "dv", "dlog_i", "dlog_f"), got, plain, exact):
+        assert torch.isfinite(g).all(), name
+        big = p.abs().max().item()
+        assert (g - p).abs().max().item() <= MLSTM_ATOL + MLSTM_RTOL * big, name
+        assert _rel(g, e) <= 2 * _rel(p, e), (name, _rel(g, e), _rel(p, e))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_split_bf16_mlstm_bwd_needs_three_terms(dtype):
+    """From one forward's f32 den and carries, the equations' own rounding
+    against their f64 evaluation: three terms stay within twice f32
+    products' distance on every gradient (or 1e-6 of its largest entry);
+    two terms (hi + lo) miss that on dq, dk and dv."""
+    c = 64
+    q, k, v, log_i, log_f, dh = _mlstm_bwd_inputs(dtype)
+    fwd = _mlstm_fwd_state(q, k, v, log_i, log_f, c)
+    wide = lambda x: x.double() if torch.is_tensor(x) else x  # noqa: E731
+    exact = _mlstm_bwd_equations(
+        *(x.double() for x in (q, k, v, log_i, log_f, fwd[0], fwd[1])),
+        [tuple(wide(y) for y in cr) for cr in fwd[2]], dh.double(), c, 0, 0)
+    f32 = _mlstm_bwd_equations(q, k, v, log_i, log_f, *fwd, dh, c, 0, 0)
+    tq = 1 if dtype == "bfloat16" else 3
+    three = _mlstm_bwd_equations(q, k, v, log_i, log_f, *fwd, dh, c, tq, 3)
+    two = _mlstm_bwd_equations(q, k, v, log_i, log_f, *fwd, dh, c, min(tq, 2), 2)
+    for i, name in enumerate(("dq", "dk", "dv", "dlog_i", "dlog_f")):
+        assert _rel(three[i], exact[i]) <= max(2 * _rel(f32[i], exact[i]), 1e-6), name
+        if i < 3:
+            assert _rel(two[i], exact[i]) > max(2 * _rel(f32[i], exact[i]), 1e-6), name
