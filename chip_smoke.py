@@ -1315,6 +1315,30 @@ def recurrent_phase(arch: str, S: int, seed: int, smi: str) -> dict:
     return got
 
 
+def mlstm_layer_vs_f64(args: tuple, kw: dict, label: str) -> dict:
+    """One mLSTM layer's kernel output and its plain version, on the
+    inputs its layer handed the kernel, against the f64 result: for each,
+    (max abs error, elements outside MLSTM_ATOL + MLSTM_RTOL rel, |f64| at
+    the worst); logged.  The outputs reach |h| ~ 1e4 where the normalizer
+    cancels, so two f32 summation orders part by more than that band."""
+    got, want = (fn(*args, **kw) for fn in (kernels.mlstm_chunk, kernels.ref.mlstm_chunk_ref))
+    exact = kernels.ref.mlstm_chunk_ref(*(a.double() for a in args), **kw)
+    band = MLSTM_ATOL + MLSTM_RTOL * exact.abs()
+    stats = {"finite": bool(torch.isfinite(got).all())}
+    for name, x in (("kernel", got), ("plain", want)):
+        e = (x.double() - exact).abs()
+        worst = e.argmax()
+        stats[name] = (e.max().item(), (e > band).sum().item(),
+                       exact.flatten()[worst].abs().item())
+    kp = (got - want).abs().max().item()
+    log(f"   {label} layer, mlstm_chunk {tuple(args[0].shape)} {args[0].dtype} on "
+        f"its own inputs: kernel vs plain max abs {kp:.3g}; against f64 (max abs "
+        f"error, elements outside {MLSTM_ATOL} + {MLSTM_RTOL} rel of "
+        f"{exact.numel()}, |f64| at the worst): kernel {stats['kernel']}, plain "
+        f"{stats['plain']}; max |h| {exact.abs().max().item():.3g}")
+    return stats
+
+
 def check_recurrent(arch: str, n_layers: int, seed: int, smi: str) -> None:
     """Full width, one pattern group (``n_layers``), random weights.  f32:
     the kernel path's logits over 4096 tokens against the plain path's;
@@ -1327,7 +1351,9 @@ def check_recurrent(arch: str, n_layers: int, seed: int, smi: str) -> None:
     normalizer cancels, so two f32 summation orders part by more than
     5e-5 + 5e-4 rel: the kernel is held, as check_forward_flash holds
     gemma's attention, to the f64 result, with no more elements outside
-    that band than the plain version leaves."""
+    that band than the plain version leaves; each f32 mLSTM layer of the
+    f32 kernel-path forward likewise, with the f32 kernel's launches in
+    these checks logged."""
     cfg = get_config(arch).with_(num_layers=n_layers)
     t0 = time.perf_counter()
     params32 = init_params(cfg, seed=seed, device="cuda")
@@ -1335,7 +1361,12 @@ def check_recurrent(arch: str, n_layers: int, seed: int, smi: str) -> None:
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 4096))).to("cuda")
     opts32 = ModelOptions(compute_dtype="float32")
     plain32 = ModelOptions(compute_dtype="float32", attn_impl="plain")
-    lk, _ = forward(params32, cfg, tokens, opts=opts32)
+    seen32 = []  # the f32 mLSTM layers' inputs, held to f64 below
+    undo = capture(kernels, "mlstm_chunk", seen32)
+    try:
+        lk, _ = forward(params32, cfg, tokens, opts=opts32)
+    finally:
+        undo()
     lp, _ = forward(params32, cfg, tokens, opts=plain32)
     rel = rel_err(lk, lp)
     log(f"== checks: {arch} at {n_layers} layers, full width\n   f32 logits (1, 4096), "
@@ -1346,6 +1377,7 @@ def check_recurrent(arch: str, n_layers: int, seed: int, smi: str) -> None:
     del lk, lp
 
     n0, n1 = 2560, 2688
+    launched = mlstm_mod.mlstm_chunk.launches  # (capture's window is not in the count)
     full, _ = forward(params32, cfg, tokens[:, :n1], opts=opts32)
     pre, cache = forward_with_cache(params32, cfg, tokens[:, :n0], max_len=n1,
                                     opts=opts32)
@@ -1375,6 +1407,15 @@ def check_recurrent(arch: str, n_layers: int, seed: int, smi: str) -> None:
         f"({sum(map(len, got.values()))} tokens)")
     assert got == want, (got, want)
     del paged, fixed
+    if seen32:
+        log(f"   f32 mlstm_chunk launches in these checks: {len(seen32)} in the kernel-path "
+            f"forward over 4096 tokens, {mlstm_mod.mlstm_chunk.launches - launched} in the "
+            "forward over 2688, the prefill + decode and the two engines")
+    for args, kw in seen32:
+        stats = mlstm_layer_vs_f64(args, kw, "f32")
+        # as the bf16 layers: no more elements off f64 than plain
+        assert stats["finite"] and stats["kernel"][1] <= stats["plain"][1], stats
+    del seen32
 
     params16 = cast_params(params32, torch.bfloat16)
     del params32
@@ -1396,25 +1437,9 @@ def check_recurrent(arch: str, n_layers: int, seed: int, smi: str) -> None:
         log(f"   bf16 layer, rglru_scan {tuple(log_a.shape)} on its own inputs vs "
             f"plain: max abs error {err:.3g} (tolerance {RGLRU_TOL} abs + rel)")
     for args, kw in seen["mlstm_chunk"]:
-        got, want = (fn(*args, **kw) for fn in (kernels.mlstm_chunk,
-                                                kernels.ref.mlstm_chunk_ref))
-        exact = kernels.ref.mlstm_chunk_ref(*(a.double() for a in args), **kw)
-        band = MLSTM_ATOL + MLSTM_RTOL * exact.abs()
-        stats = {}
-        for name, x in (("kernel", got), ("plain", want)):
-            e = (x.double() - exact).abs()
-            worst = e.argmax()
-            stats[name] = (e.max().item(), (e > band).sum().item(),
-                           exact.flatten()[worst].abs().item())
-        kp = (got - want).abs().max().item()
-        log(f"   bf16 layer, mlstm_chunk {tuple(args[0].shape)} {args[0].dtype} on "
-            f"its own inputs: kernel vs plain max abs {kp:.3g}; against f64 (max abs "
-            f"error, elements outside {MLSTM_ATOL} + {MLSTM_RTOL} rel of "
-            f"{exact.numel()}, |f64| at the worst): kernel {stats['kernel']}, plain "
-            f"{stats['plain']}; max |h| {exact.abs().max().item():.3g}")
+        stats = mlstm_layer_vs_f64(args, kw, "bf16")
         # as check_forward_flash: held to f64, no more elements off than plain
-        assert torch.isfinite(got).all() and stats["kernel"][1] <= stats["plain"][1], stats
-        del got, want, exact, band
+        assert stats["finite"] and stats["kernel"][1] <= stats["plain"][1], stats
     for (q, k, v), kw in seen["flash_attention_train"]:
         window = kw["window"]
         got = kernels.flash_attention(q, k, v, window=window)
@@ -2171,6 +2196,7 @@ def check_recurrent_train(arch: str, n_layers: int, batch: int, seq: int, seed: 
     undo = [capture(rglru_mod, "rglru_scan_bwd", seen["rglru_scan_bwd"]),
             capture(mlstm_mod, "mlstm_chunk_bwd", seen["mlstm_chunk_bwd"]),
             capture(flash_mod, "flash_attention_bwd", seen["flash_attention_bwd"])]
+    launched = mlstm_mod.mlstm_chunk.launches
     try:
         loss_k, grads_k = train_grads(params32, cfg, tb, ModelOptions(compute_dtype="float32"))
     finally:
@@ -2178,6 +2204,10 @@ def check_recurrent_train(arch: str, n_layers: int, batch: int, seq: int, seed: 
             fn()
     log(f"== checks: {arch} training at full width, {cfg.num_layers} layers, "
         f"{tuple(tb['tokens'].shape)} tokens")
+    if seen["mlstm_chunk_bwd"]:
+        log(f"   f32 kernel-path step (remat): mlstm_chunk launched "
+            f"{mlstm_mod.mlstm_chunk.launches - launched} times, mlstm_chunk_bwd "
+            f"{len(seen['mlstm_chunk_bwd'])}")
     for args, kw in seen["rglru_scan_bwd"]:
         got = kernels.rglru_scan_bwd(*args)
         want = kernels.ref.rglru_scan_bwd_ref(*args)

@@ -11,7 +11,9 @@ this script), in the order given, builds that checkout's kernels and times:
   (2048, 2048), (4096, 4096), (2048, 768) and (2048, 1536), in bf16 and in
   f32, with ``F.rms_norm`` on the same inputs as the yardstick;
 - ``repro_torch.kernels.mlstm_chunk`` with its final carry at xlstm-125m's
-  prefill shape (1, 2048, 4, 384), chunk 128, in bf16 and in f32;
+  prefill shape (1, 2048, 4, 384), chunk 128, in bf16 and in f32, with each
+  of its passes' device time (state and output; ``torch.profiler`` over
+  three calls, as for the backward);
 - ``repro_torch.kernels.mlstm_chunk_bwd`` at xlstm-125m's training shape
   (2, 1024, 4, 384), chunk 128, in bf16 and in f32, on the forward kernel's
   workspace, with each of its passes' device time (``torch.profiler`` over
@@ -28,10 +30,10 @@ JSON line per ROOT.
 
 runs instead, for each ROOT, xlstm-125m's per-layer mLSTM gate at full
 width and 4 layers with random weights (seed 0), as ``chip_smoke.py``
-holds it: each mLSTM layer's bf16 kernel output, on the q, k, v and gates
-its forward over 4096 tokens hands it, against the f64 result, counting
-the elements outside 5e-5 + 5e-4 rel of it; the kernel must leave no more
-than the plain version.
+holds it: each mLSTM layer's kernel output, on the q, k, v and gates its
+forward over 4096 tokens hands it, against the f64 result, counting the
+elements outside 5e-5 + 5e-4 rel of it (held: the kernel leaves no more
+than the plain version), for a bf16 forward and for an f32 one.
 """
 
 from __future__ import annotations
@@ -126,6 +128,8 @@ def measure(root: str) -> dict:
         res[f"mlstm_chunk {B}x{S}x{H}x{dk} c{chunk} {dtype}"] = {
             "ms": chip_smoke.time_ms(lambda i: kernels.mlstm_chunk(
                 *args, chunk=chunk, return_final=True), iters=5),
+            "passes_ms": pass_times(lambda: kernels.mlstm_chunk(*args, chunk=chunk,
+                                                                return_final=True)),
             "max_abs_err": err, "sha256": sha}
         del q, k, v, args
         B, S, H, dk, chunk = MLSTM_BWD
@@ -167,17 +171,20 @@ def gates(root: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config("xlstm-125m").with_(num_layers=4)
-    params = cast_params(init_params(cfg, seed=0, device="cuda"), torch.bfloat16)
+    params32 = init_params(cfg, seed=0, device="cuda")
     tokens = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab_size, (1, 4096))).to("cuda")
     seen = []
-    undo = chip_smoke.capture(kernels, "mlstm_chunk", seen)
-    try:
-        with torch.no_grad():
-            forward(params, cfg, tokens, opts=ModelOptions(compute_dtype="bfloat16"))
-    finally:
-        undo()
-    del params
+    for dtype in ("bfloat16", "float32"):
+        params = cast_params(params32, torch.bfloat16) if dtype == "bfloat16" else params32
+        undo = chip_smoke.capture(kernels, "mlstm_chunk", seen)
+        try:
+            with torch.no_grad():
+                forward(params, cfg, tokens, opts=ModelOptions(compute_dtype=dtype))
+        finally:
+            undo()
+        del params
+    del params32
     rows = []
     for args, kw in seen:
         got = kernels.mlstm_chunk(*args, **kw)
@@ -186,7 +193,8 @@ def gates(root: str) -> dict:
         band = chip_smoke.MLSTM_ATOL + chip_smoke.MLSTM_RTOL * exact.abs()
         off = {name: ((x.double() - exact).abs() > band).sum().item()
                for name, x in (("kernel", got), ("plain", want))}
-        rows.append({"shape": list(args[0].shape), "of": got.numel(), **off,
+        rows.append({"shape": list(args[0].shape), "dtype": str(args[0].dtype),
+                     "of": got.numel(), **off,
                      "kernel_vs_plain_max_abs": (got - want).abs().max().item(),
                      "held": bool(torch.isfinite(got).all()) and off["kernel"] <= off["plain"]})
         del got, want, exact, band

@@ -69,7 +69,7 @@ _SIGNATURES = {
         ctypes.c_int),
     "repro_mlstm_chunk_bwd": (
         [_int, _int] + [_vp] * 15 + [_int] * 8 + [_float, _vp], ctypes.c_int),
-    "repro_mlstm_chunk_bwd_scratch": ([_int] * 6, ctypes.c_longlong),
+    "repro_mlstm_chunk_bwd_scratch": ([_int] * 5, ctypes.c_longlong),
     "repro_mlstm_chunk_max_dk": ([], ctypes.c_int),
     "repro_mlstm_chunk_max_chunk": ([], ctypes.c_int),
     "repro_error_string": ([_int], ctypes.c_char_p),

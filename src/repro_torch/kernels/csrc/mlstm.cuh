@@ -1,6 +1,6 @@
 // Helpers shared by the mLSTM kernels (csrc/mlstm_chunk.cu, the forward,
-// and csrc/mlstm_chunk_bwd.cu, the backward): the workspace of carries and
-// the per-chunk gate arithmetic.  Both passes of both kernels take the
+// and csrc/mlstm_chunk_bwd.cu, the backward): the workspace of carries,
+// the per-chunk gate arithmetic, and the f32 passes' asynchronous copies.  Both passes of both kernels take the
 // chunk's cumsum and carry weights from these functions, so every block
 // that needs them gets the same bits, and the backward recomputes exactly
 // the forward's stabilizers.
@@ -79,6 +79,27 @@ __device__ void warp_carry(const float* cs, const float* li, float* w, int c, in
     *decay = expf(m + total - mn);
     *m_next = mn;
   }
+}
+
+// Four floats of a row at `src`, element `col` of `valid` on (zero past
+// it; no byte past it is read, and `any` stands in for the source then):
+// one 16-byte cp.async piece with `vec`, else four 4-byte ones.
+__device__ __forceinline__ void copy4(float* dst, const float* src, const float* any, int col,
+                                      int valid, bool vec) {
+  if (vec) {
+    cp_async16(dst, col < valid ? src : any, col < valid);
+  } else {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) cp_async4(dst + x, col + x < valid ? src + x : any, col + x < valid);
+  }
+}
+
+// Eight bytes (two floats) from global to shared memory, asynchronously;
+// zero-filled when `valid` is false (no source byte is read then).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 8 : 0)
+               : "memory");
 }
 
 }  // namespace

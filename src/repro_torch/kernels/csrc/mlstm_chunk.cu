@@ -50,8 +50,13 @@
 //   pieces.  Tiles move by cp.async (16-byte pieces where dk is a multiple
 //   of 8), double-buffered over chunks (state) and in a ring of three steps
 //   (output).
-// - f32: the same two passes with the products on the CUDA cores; the
-//   output pass takes 32 value columns a block and keeps C row-major.
+// - f32: the same two passes on the CUDA cores, register-tiled FMA chains
+//   (below, "f32 passes"): the state pass a chained scan, one block per
+//   (chunk, 64 x 64 tile of C) forming the chunk's move at once and then
+//   taking C from the block of the chunk before (2304 blocks at xlstm's
+//   prefill); the output pass on 192 value columns and half of a chunk's
+//   rows a block (256 blocks of 9 warps, one an SM); the workspace keeps C
+//   row-major.
 // - The gates' cumsum is a warp scan (each lane sums a run in order, the
 //   runs are scanned with shuffles) and the carry weights are taken by a
 //   warp; every sum has one fixed order, so two calls give equal bits.
@@ -66,14 +71,12 @@ namespace {
 
 constexpr int kTile = 64;          // dk rows of a state tile; bf16 output: value tile, dk step
 constexpr int kPitch = kTile + 8;  // bf16 shared rows of 144 bytes: ldmatrix rows on distinct banks
-constexpr int kE32 = 32;           // f32 output pass: value columns a block
 constexpr int kStateE = 96;        // bf16 state pass: value columns of a block's tile of C
 constexpr int kStateWarps = 12;    // bf16 state pass: 6 x 2 warps on a 96 x 64 tile of C^T
 constexpr int kGateGroup = 16;     // bf16 state pass: chunks whose carry moves are taken at once
 constexpr int kOutWarps = 8;       // bf16 output pass: 16 positions a warp
 constexpr int kOutStages = 3;      // bf16 output pass: steps in the ring of buffers
 constexpr int kValueGroup = 3;     // bf16 output pass: 64-wide value tiles a block
-constexpr int kF32Threads = 256;
 
 // An element pair (e, e + 1) of a row of h: paired when dk is even (the
 // pair is then aligned), else element by element.
@@ -107,20 +110,22 @@ struct StateTC {
 };
 
 // The carry moves of chunks g0 .. g0 + n - 1 (n <= kGateGroup), by the
-// whole block: warp w takes chunks w and w + 12 (loading both chunks' gates
-// before it needs them): their cumsum (warp_cumsum's order, in registers),
-// total and dec_j = total - csum_j + log_i_j (into w) and max_j dec_j; then
-// one thread runs the m chain through them from `m`; then every thread
-// turns dec_j into w_j = exp(dec_j - m').  `m` enters the group.
-__device__ void group_gates(StateTC& sm, const float* log_i, const float* log_f, long long head0,
+// whole block of kWarps warps: warp w takes chunks w, w + kWarps, ..
+// (loading their gates before it needs them): their cumsum (warp_cumsum's
+// order, in registers), total and dec_j = total - csum_j + log_i_j (into w)
+// and max_j dec_j; then one thread runs the m chain through them from `m`;
+// then every thread turns dec_j into w_j = exp(dec_j - m') for j < rows (0
+// past c).  `m` enters the group.  Both state passes take their gates here.
+template <int kWarps, typename Sm>
+__device__ void group_gates(Sm& sm, const float* log_i, const float* log_f, long long head0,
                             int H, int c, int rows, int g0, int n, float m) {
-  constexpr int kRun = kMaxChunk / 32, kPer = (kGateGroup + kStateWarps - 1) / kStateWarps;
+  constexpr int kRun = kMaxChunk / 32, kPer = (kGateGroup + kWarps - 1) / kWarps;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int per = (c + 31) >> 5, j0 = lane * per;
   float lf[kPer][kRun], li[kPer][kRun];
 #pragma unroll
   for (int x = 0; x < kPer; ++x) {
-    const int i = warp + x * kStateWarps;
+    const int i = warp + x * kWarps;
     const long long pos = static_cast<long long>(g0 + i) * c;
 #pragma unroll
     for (int u = 0; u < kRun; ++u) {
@@ -131,7 +136,7 @@ __device__ void group_gates(StateTC& sm, const float* log_i, const float* log_f,
   }
 #pragma unroll
   for (int x = 0; x < kPer; ++x) {
-    const int i = warp + x * kStateWarps;
+    const int i = warp + x * kWarps;
     if (i >= n) break;
     float run = 0.f;
 #pragma unroll
@@ -249,7 +254,9 @@ mlstm_state_tc(const bf16* __restrict__ k, const bf16* __restrict__ v,
   stage(0, 0);
   for (int ch = 0; ch < nc; ++ch) {
     const int buf = ch & 1, gi = ch % kGateGroup;
-    if (gi == 0) group_gates(sm, log_i, log_f, head0, H, c, rows, ch, min(kGateGroup, nc - ch), m);
+    if (gi == 0)
+      group_gates<kStateWarps>(sm, log_i, log_f, head0, H, c, rows, ch, min(kGateGroup, nc - ch),
+                               m);
     cp_async_wait_all();
     __syncthreads();  // chunk ch has landed, and chunk ch - 1's buffer is consumed
     if (ch + 1 < nc) stage(ch + 1, buf ^ 1);
@@ -628,285 +635,588 @@ mlstm_out_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
 }
 
 // ------------------------------------------------------------- f32 passes
+//
+// f32 inputs stay on the CUDA cores, every product an f32 FMA chain in one
+// fixed order (f32 on the tensor cores, in split terms, misses the f32
+// gates that hold the kernel path to plain f32's own rounding: a split-TF32
+// flash forward and a split-bf16 mLSTM backward both did).  Each thread
+// owns an 8 x 8 tile of a product and reads 16 operands for its 64 FMAs
+// a step of the sum (four FMAs a shared-memory load); every tile arrives
+// by cp.async (16-byte pieces where dk is a multiple of 4 and the rows are
+// aligned, else 4-byte ones) into a ring of buffers, the next steps copied
+// while this one is multiplied.  The workspace keeps C row-major with rows
+// of dk.
+
+constexpr int kSF = 64;       // f32 state pass: a block's tile of C, 64 dk rows x 64 value columns
+constexpr int kSFThreads = 64;  // an 8 x 8 tile of it a thread
+constexpr int kSFStep = 32;   // positions a staged step
 
 struct StateF32 {
-  float k[kMaxChunk][kTile + 1];  // k rows of a chunk, this block's dk columns
-  float wv[kMaxChunk][kTile];     // w_j v_j, this block's value columns
-  float cs[kMaxChunk], li[kMaxChunk], w[kMaxChunk];
-  float decay, m_next;
+  float k[2][kSFStep][kSF];  // a step's k rows, this block's dk columns
+  float v[2][kSFStep][kSF];  // its v rows, turned into w_j v_j as they land
+  float w[kGateGroup][kMaxChunk];  // group_gates: the weights w_j of a group's chunks
+  float total[kGateGroup], dmax[kGateGroup], decay[kGateGroup], m_next[kGateGroup];
 };
 
-__global__ void __launch_bounds__(kF32Threads)
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// The f32 state pass, a chained scan: one block (64 threads) per (chunk t,
+// batch x head, 64 dk rows x 64 value columns of C), blocks of chunk t
+// taking the tickets after every block of chunk t - 1 (an atomic counter
+// hands them out in the order blocks start, so a block only waits on one
+// that is running or done).  Every block first forms its chunk's move U_t =
+// sum_j k_j (w_j v_j)^T over the chunk's positions in steps of 32, thread
+// (tr, tc) holding dk rows 4 tr + {0..3, 32..35} and value columns 4 tc +
+// {0..3, 32..35}: each step an FMA chain from 0, added to the running sum
+// (the first column of tiles also n's move, thread d for dk row d); these
+// run at once for all chunks.  Then it waits for the flag of chunk t's tile
+// of C (written by the block of chunk t - 1), reads that tile, and writes
+// C_{t+1} = fma(decay_t, C_t, U_t) (and n, m) as the carry entering chunk t
+// + 1 (the final carry at the last chunk), then raises chunk t + 1's flag.
+// The gates (m chain, w_j, decay) come from group_gates over the chunk's
+// group of 16, from m entering it, with the bits of every other pass.  A
+// wait that outlasts 2^22 polls traps rather than hanging the card.
+__global__ void __launch_bounds__(kSFThreads)
 mlstm_state_f32(const float* __restrict__ k, const float* __restrict__ v,
                 const float* __restrict__ log_i, const float* __restrict__ log_f,
-                float* __restrict__ ws, float* __restrict__ C_out, float* __restrict__ n_out,
-                float* __restrict__ m_out, int S, int H, int dk, int c) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  StateF32& sm = *reinterpret_cast<StateF32*>(smem_raw);
-  const int bh = blockIdx.x, b = bh / H, hh = bh - b * H;
-  const int d0 = blockIdx.y * kTile, e0 = blockIdx.z * kTile;
-  const bool n_tile = blockIdx.z == 0, m_tile = n_tile && blockIdx.y == 0;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, ty = tid >> 4, tx = tid & 15;
-  const int nc = S / c;
+                float* __restrict__ ws, int* __restrict__ sync, float* __restrict__ C_out,
+                float* __restrict__ n_out, float* __restrict__ m_out, int BH, int S, int H,
+                int dk, int c, bool vec) {
+  __shared__ __align__(16) StateF32 sm;
+  __shared__ int ticket_s;
+  const int tid = threadIdx.x, lane = tid & 31, tc = lane & 7, tr = (tid >> 5) * 4 + (lane >> 3);
+  const int tiles = ceil_div(dk, kSF), per_chunk = BH * tiles * tiles;
+  if (tid == 0) ticket_s = atomicAdd(sync, 1);
+  __syncthreads();
+  const int ticket = ticket_s, t = ticket / per_chunk, rest = ticket - t * per_chunk;
+  const int bh = rest / (tiles * tiles), tile = rest - bh * tiles * tiles;
+  const int b = bh / H, hh = bh - b * H;
+  const int d0 = (tile / tiles) * kSF, e0 = (tile % tiles) * kSF;
+  const bool n_tile = e0 == 0, m_thread = tile == 0 && tid == 0;
+  const int nc = S / c, ns = ceil_div(c, kSFStep);
   const long long head0 = static_cast<long long>(b) * S * H + hh;
+  const long long pos0 = static_cast<long long>(t) * c;
   const int dkp = (dk + 15) & ~15;
-  const Carry wsc = carry_of(ws, static_cast<long long>(gridDim.x) * nc, dkp);
-  const bool want_final = C_out != nullptr;
+  const Carry wsc = carry_of(ws, static_cast<long long>(BH) * nc, dkp);
+  int* flags = sync + 1;  // [chunk][batch x head][tile]: C entering that chunk is written
 
-  // thread (ty, tx) holds C[d0 + ty + 16 a][e0 + tx + 16 bb]; thread d < 64
-  // of an n tile holds n[d0 + d]
-  float C[4][4] = {}, nrow = 0.f, m = 0.f;
-  for (int ch = 0; ch < nc; ++ch) {
-    const long long pos = static_cast<long long>(ch) * c;
-    if (warp == 0) {
-      warp_cumsum(log_f + head0 + pos * H, H, sm.cs, c, lane);
-      for (int j = lane; j < c; j += 32) sm.li[j] = log_i[head0 + (pos + j) * H];
-      __syncwarp();
-      warp_carry(sm.cs, sm.li, sm.w, c, c, m, lane, &sm.decay, &sm.m_next);
+  // step s: positions 32 s .. of the chunk into buffer s & 1
+  auto issue = [&](int s) {
+    if (s >= ns) {
+      cp_async_commit();
+      return;
     }
-    __syncthreads();
-    const bool update = ch + 1 < nc || want_final;
-    if (update)
-      for (int i = tid; i < c * kTile; i += kF32Threads) {
-        const int r = i / kTile, col = i % kTile;
-        const long long src = (head0 + (pos + r) * H) * dk;
-        sm.k[r][col] = d0 + col < dk ? k[src + d0 + col] : 0.f;
-        sm.wv[r][col] = e0 + col < dk ? sm.w[r] * v[src + e0 + col] : 0.f;
+    for (int i = tid; i < kSFStep * (kSF / 4) * 2; i += kSFThreads) {
+      const int which = i / (kSFStep * (kSF / 4)), x = i - which * (kSFStep * (kSF / 4));
+      const int r = x / (kSF / 4), col = (x % (kSF / 4)) * 4, j = s * kSFStep + r;
+      const int base = which ? e0 : d0;
+      const float* src = (which ? v : k) + (head0 + (pos0 + j) * H) * dk + base + col;
+      float* dst = which ? &sm.v[s & 1][r][col] : &sm.k[s & 1][r][col];
+      copy4(dst, src, k, j < c ? base + col : dk, dk, vec);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  // the gates: m through the groups before chunk t's, then its group
+  const int g0 = (t / kGateGroup) * kGateGroup, gi = t - g0;
+  float m = 0.f;
+  for (int g = 0; g <= g0; g += kGateGroup) {
+    group_gates<kSFThreads / 32>(sm, log_i, log_f, head0, H, c, ns * kSFStep, g,
+                                 min(kGateGroup, nc - g), m);
+    m = sm.m_next[min(kGateGroup, nc - g) - 1];
+  }
+  const float* wj = sm.w[gi];
+  const float decay = sm.decay[gi], m_next = sm.m_next[gi];
+
+  float U[8][8], part[8][8], un = 0.f;
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int x = 0; x < 8; ++x) U[a][x] = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    cp_async_wait_all();
+    for (int i = tid; i < kSFStep * (kSF / 4); i += kSFThreads) {  // own pieces: w_j v_j
+      const int r = i / (kSF / 4), col = (i % (kSF / 4)) * 4;
+      float4* x = reinterpret_cast<float4*>(&sm.v[s & 1][r][col]);
+      const float w = wj[s * kSFStep + r];
+      float4 y = *x;
+      y.x = w * y.x;
+      y.y = w * y.y;
+      y.z = w * y.z;
+      y.w = w * y.w;
+      *x = y;
+    }
+    __syncthreads();  // step s has landed everywhere; step s - 1's buffer is consumed
+    issue(s + 1);
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int x = 0; x < 8; ++x) part[a][x] = 0.f;
+    float unp = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < kSFStep; ++r) {
+      const float4 ka = *reinterpret_cast<const float4*>(&sm.k[s & 1][r][4 * tr]);
+      const float4 kb = *reinterpret_cast<const float4*>(&sm.k[s & 1][r][32 + 4 * tr]);
+      const float4 va = *reinterpret_cast<const float4*>(&sm.v[s & 1][r][4 * tc]);
+      const float4 vb = *reinterpret_cast<const float4*>(&sm.v[s & 1][r][32 + 4 * tc]);
+      const float kd[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
+      const float ve[8] = {va.x, va.y, va.z, va.w, vb.x, vb.y, vb.z, vb.w};
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int x = 0; x < 8; ++x) part[a][x] = fmaf(kd[a], ve[x], part[a][x]);
+      if (n_tile) unp = fmaf(wj[s * kSFStep + r], sm.k[s & 1][r][tid], unp);
+    }
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int x = 0; x < 8; ++x) U[a][x] += part[a][x];
+    un += unp;
+  }
+
+  // the chain: C_t (and n_t) from chunk t - 1's block, then C_{t+1}
+  const long long p = static_cast<long long>(bh) * nc + t;  // the carry entering chunk t
+  if (t > 0) {
+    if (tid == 0) {
+      const int* flag = flags + (static_cast<long long>(t) * BH + bh) * tiles * tiles + tile;
+      for (int spins = 0; ld_acquire(flag) == 0; ++spins) {
+        if (spins > (1 << 22)) __trap();
+        __nanosleep(64);
       }
-    __syncthreads();
-    if (update) {
-      float u[4][4] = {};
-      for (int j = 0; j < c; ++j) {
-        float kd[4], ve[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) kd[a] = sm.k[j][ty + 16 * a];
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) ve[bb] = sm.wv[j][tx + 16 * bb];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) u[a][bb] = fmaf(kd[a], ve[bb], u[a][bb]);
-      }
-      const float decay = sm.decay;
-      m = sm.m_next;
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) C[a][bb] = decay * C[a][bb] + u[a][bb];
-      if (n_tile && tid < kTile) {
-        float un = 0.f;
-        for (int j = 0; j < c; ++j) un = fmaf(sm.w[j], sm.k[j][tid], un);
-        nrow = decay * nrow + un;
-      }
-      const bool last = ch + 1 == nc;
-      const long long p = static_cast<long long>(bh) * nc + ch + 1;
-      float* Cdst = last ? C_out + static_cast<long long>(bh) * dk * dk : wsc.C + p * dkp * dkp;
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          const int d = d0 + ty + 16 * a, e = e0 + tx + 16 * bb;
-          if (d < dk && e < dk) Cdst[static_cast<long long>(d) * dk + e] = C[a][bb];
-        }
-      if (n_tile && tid < kTile && d0 + tid < dk)
-        (last ? n_out + static_cast<long long>(bh) * dk : wsc.n + p * dkp)[d0 + tid] = nrow;
-      if (m_tile && tid == 0) *(last ? m_out + bh : wsc.m + p) = m;
     }
     __syncthreads();
   }
+  const bool last = t + 1 == nc;
+  const float* Cin = wsc.C + p * dkp * dkp;
+  float* Cdst = last ? C_out + static_cast<long long>(bh) * dk * dk : wsc.C + (p + 1) * dkp * dkp;
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int d = d0 + (a < 4 ? 4 * tr + a : 32 + 4 * tr + a - 4);
+    if (d >= dk) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int e = e0 + 32 * half + 4 * tc;
+      const long long at = static_cast<long long>(d) * dk + e;
+      float cin[4] = {0.f, 0.f, 0.f, 0.f};
+      if (t > 0) {
+        if (vec && e + 3 < dk) {
+          const float4 x = __ldcg(reinterpret_cast<const float4*>(Cin + at));
+          cin[0] = x.x;
+          cin[1] = x.y;
+          cin[2] = x.z;
+          cin[3] = x.w;
+        } else {
+#pragma unroll
+          for (int y = 0; y < 4; ++y)
+            if (e + y < dk) cin[y] = __ldcg(Cin + at + y);
+        }
+      }
+      float o[4];
+#pragma unroll
+      for (int y = 0; y < 4; ++y) o[y] = fmaf(decay, cin[y], U[a][4 * half + y]);
+      if (vec && e + 3 < dk) {
+        *reinterpret_cast<float4*>(Cdst + at) = make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+#pragma unroll
+        for (int y = 0; y < 4; ++y)
+          if (e + y < dk) Cdst[at + y] = o[y];
+      }
+    }
+  }
+  if (n_tile && d0 + tid < dk) {
+    const float nin = t > 0 ? __ldcg(wsc.n + p * dkp + d0 + tid) : 0.f;
+    (last ? n_out + static_cast<long long>(bh) * dk : wsc.n + (p + 1) * dkp)[d0 + tid] =
+        fmaf(decay, nin, un);
+  }
+  if (m_thread) *(last ? m_out + bh : wsc.m + p + 1) = m_next;
+  if (!last) {
+    __syncthreads();  // the block's part of C_{t+1} is written
+    if (tid == 0) {
+      __threadfence();
+      st_release(flags + (static_cast<long long>(t + 1) * BH + bh) * tiles * tiles + tile, 1);
+    }
+  }
 }
 
-struct OutF32Layout {
-  int lds;  // pitch of the score rows: c + 1
-  size_t s, C, n, v, q, k, li, cs, mi, inter, rsum, qn, total;  // float offsets
-};
-constexpr int kTD = 32;        // dk columns per q / k tile
-constexpr int kLdT = kTD + 1;  // pitch of the q / k tile rows
-constexpr int kF32Warps = kF32Threads / 32;
-constexpr int kRowsPerWarp = kMaxChunk / kF32Warps;  // 16
+// The output pass: one block per (batch x head, chunk, 192 value columns,
+// row part); part p takes the chunk's 32-row tiles p and 3 - p, which
+// share the causal work evenly (two blocks a 192-column group, so a chunk's
+// q k^T is formed once a group: ceil(dk / 192) times).  Its 64 rows, local
+// r: tile lo = p for r < 32, tile hi = 3 - p above.
+constexpr int kOF = 192;                        // value columns of a block
+constexpr int kOFRows = 64;                     // rows of a block
+constexpr int kOFParts = 2;                     // row parts of a chunk
+constexpr int kOFDepth = 16;                    // dk a staged step of q k^T, q C and q.n
+constexpr int kOFJStep = 32;                    // positions a staged step of W v
+constexpr int kOFQcThreads = 192;               // warps 0-5: an 8 x 8 tile of q C, then of h
+constexpr int kOFSTiles = 68;                   // then 68 threads: an 8 x 8 tile of S each
+constexpr int kOFThreads = 288;                 // 9 warps; warp 8's lanes 8 .. 31 take q.n
+constexpr int kOFPq = kOFDepth + 4;             // pitch of the q and k rows (+ 4 every 8 rows)
+constexpr int kOFQ = kOFRows * kOFPq + (kOFRows / 8) * 4;
+constexpr int kOFK = kMaxChunk * kOFPq + (kMaxChunk / 8) * 4;
+constexpr int kOFBuf = kOFQ + kOFK + kOFDepth * kOF + kOFDepth;  // floats of a ring buffer
+constexpr int kOFPw = kMaxChunk + 1;            // pitch of W's rows
+constexpr int kOFStages = 3;                    // buffers in the ring
+constexpr int kOFSums = kOFQcThreads + kOFSTiles;  // threads with running sums in shared memory
+static_assert(kOFJStep * kOF <= kOFBuf && kOFBuf % 4 == 0, "a buffer holds a step of v");
+constexpr size_t kOFSmem = (kOFStages * static_cast<size_t>(kOFBuf) + kOFRows * kOFPw +
+                            2 * kMaxChunk + 4 * kOFRows + 64 * kOFSums) * sizeof(float);
 
-__host__ __device__ inline OutF32Layout out_f32_layout(int dk, int c) {
-  OutF32Layout L;
-  L.lds = c + 1;
-  L.s = 0;
-  L.C = L.s + static_cast<size_t>(c) * L.lds;
-  L.n = L.C + static_cast<size_t>(dk) * kE32;
-  L.v = L.n + dk;
-  L.q = L.v + static_cast<size_t>(c) * kE32;
-  L.k = L.q + static_cast<size_t>(kMaxChunk) * kLdT;
-  L.li = L.k + static_cast<size_t>(kMaxChunk) * kLdT;
-  L.cs = L.li + kMaxChunk;
-  L.mi = L.cs + kMaxChunk;
-  L.inter = L.mi + kMaxChunk;
-  L.rsum = L.inter + kMaxChunk;
-  L.qn = L.rsum + kMaxChunk;
-  L.total = L.qn + kMaxChunk;
-  return L;
-}
+// q or k row r of a staged step: 16 floats, 4 more every 8 rows, so the
+// 8 rows of an S tile lie on distinct banks
+__device__ __forceinline__ int of_row(int r) { return r * kOFPq + (r >> 3) * 4; }
 
-// One block per (batch x head, chunk, 32 value columns), 256 threads: the
-// scores in a 16 x 16 thread grid (8 x 8 each, blocks above the diagonal
-// skipped), q C and q.n for rows warp + 8 a, over 32-wide dk tiles of q
-// and k whose partial sums are added to the running ones (a sum over dk
-// rounds like 32 + dk / 32 terms); one warp per row for W; then W v.
-__global__ void __launch_bounds__(kF32Threads, 1)
+// Phase 1, over dk in steps of 16: warps 0-5 form q C for the block's 64
+// rows x 192 columns (thread (tr, tc): rows tr + 8 a, columns 4 tc + {0..3,
+// 96..99}), threads 192 .. 259 the causal 8 x 8 tiles of S = q k^T (8-row
+// bands of each 32-row tile up to the diagonal: 16 lo + 10 + 16 hi + 10 =
+// 68), warp 8's lanes 8 .. 31 q.n, with q scaled as it lands: each step's
+// 16-term FMA chain is added to the running sum, so a sum over dk rounds
+// like 16 + dk / 16 terms (one chain over dk leaves xlstm's f32 layers more
+// elements off f64 than plain f32 does; these sums leave fewer).  A step's 64 partial sums stay in registers and the running
+// sums in shared memory, element-major (a 9-warp block gets 168 registers a
+// thread, which the two sets of 64 would pass).  Then W = S exp(D - m_i) into shared memory, the row sums
+// (16 chains of 8, added in pairs), den = rowsum + inter q.n, and q C
+// becomes inter q C, to which phase 2, over positions in steps of 32, adds
+// each step's W v; h = that / max(|den|, exp(-m_i)).  The steps flow
+// through a ring of three cp.async buffers, one barrier a step.
+// One block an SM: two of 9 warps would leave 96 registers a thread
+// (warps are allocated in pairs), where the 8 x 8 tiles spill.
+__global__ void __launch_bounds__(kOFThreads, 1)
 mlstm_out_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ log_i,
               const float* __restrict__ log_f, const float* __restrict__ ws,
               float* __restrict__ h, float* __restrict__ den_out, int S, int H, int dk, int c,
-              float scale) {
-  extern __shared__ float smem[];
-  const OutF32Layout L = out_f32_layout(dk, c);
-  float* sS = smem + L.s;
-  float* sC = smem + L.C;
-  float* sN = smem + L.n;
-  float* sV = smem + L.v;
-  float* sQ = smem + L.q;
-  float* sK = smem + L.k;
-  float* sLi = smem + L.li;
-  float* sCs = smem + L.cs;
-  float* sMi = smem + L.mi;
-  float* sInter = smem + L.inter;
-  float* sRsum = smem + L.rsum;
-  float* sQn = smem + L.qn;
+              float scale, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* sW = ring + kOFStages * kOFBuf;
+  float* scs = sW + kOFRows * kOFPw;
+  float* sli = scs + kMaxChunk;
+  float* smi = sli + kMaxChunk;
+  float* sinter = smi + kOFRows;
+  float* slim = sinter + kOFRows;
+  float* sqn = slim + kOFRows;
+  float* sacc = sqn + kOFRows;  // [64][kOFSums]: element e of thread t at e * kOFSums + t
 
-  const int bh = blockIdx.x, chunk = blockIdx.y, e0 = blockIdx.z * kE32;
+  const int bh = blockIdx.x, chunk = blockIdx.y;
+  const int vg = blockIdx.z / kOFParts, row_part = blockIdx.z % kOFParts;
   const int b = bh / H, hh = bh - b * H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int ecol = e0 + lane;
-  const bool col_ok = ecol < dk;
-  const int nc = S / c;
-  const long long tstride = static_cast<long long>(H) * dk;
+  const int lo = row_part, hi = 3 - row_part;
+  const bool lo_on = 32 * lo < c, hi_on = 32 * hi < c;
+  if (!lo_on) return;  // no row of this part lies within the chunk
+  const int krows = 32 * ((hi_on ? hi : lo) + 1);  // positions the block's rows reach
+  const int jmax = min(c, krows);
+  const int nd = ceil_div(dk, kOFDepth), nv = ceil_div(jmax, kOFJStep), nsteps = nd + nv;
+  const int nc = S / c, e0 = vg * kOF;
   const long long row0 =
       (static_cast<long long>(b) * S + static_cast<long long>(chunk) * c) * H + hh;
-  const long long head0 = row0 * dk;  // (b, t0, hh, 0) in q, k, v, h
   const bool carry_in = chunk > 0;
   const long long p = static_cast<long long>(bh) * nc + chunk;
   const int dkp = (dk + 15) & ~15;
   const Carry wsc = carry_of(const_cast<float*>(ws), static_cast<long long>(gridDim.x) * nc, dkp);
+  const float* Cp = wsc.C + p * dkp * dkp;
+  auto row_of = [lo, hi](int r) { return r < 32 ? 32 * lo + r : 32 * hi + r - 32; };
 
-  // 1. the carry's columns, v's columns and the chunk's gates
-  for (int i = tid; i < dk * kE32; i += kF32Threads) {
-    const int d = i / kE32, e = i - d * kE32;
-    sC[i] = carry_in && e0 + e < dk ? wsc.C[p * dkp * dkp + static_cast<long long>(d) * dk + e0 + e]
-                                    : 0.f;
+  // roles: q C / h tile (tr, tc); S tile (rb, cb); q.n rows
+  const bool qc_thread = tid < kOFQcThreads;
+  const int tc = (warp % 3) * 8 + (lane & 7), tr = (warp / 3) * 4 + (lane >> 3);
+  const bool s_thread = tid >= kOFQcThreads && tid < kOFQcThreads + kOFSTiles;
+  int rb = 0, cb = 0;
+  if (s_thread) {
+    for (int half = 0, n = 0, s = tid - kOFQcThreads; half < 2; ++half)
+      for (int band = 0; band < 4; ++band) {
+        const int cnt = 4 * (half ? hi : lo) + band + 1;
+        if (s >= n && s < n + cnt) {
+          rb = 4 * half + band;
+          cb = s - n;
+        }
+        n += cnt;
+      }
   }
-  for (int i = tid; i < dk; i += kF32Threads) sN[i] = carry_in ? wsc.n[p * dkp + i] : 0.f;
-  for (int j = tid; j < c * kE32; j += kF32Threads) {
-    const int r = j / kE32, e = j - r * kE32;
-    sV[j] = e0 + e < dk ? v[head0 + r * tstride + e0 + e] : 0.f;
-  }
-  if (warp == 0) {
-    warp_cumsum(log_f + row0, H, sCs, c, lane);
-    for (int j = lane; j < c; j += 32) sLi[j] = log_i[row0 + static_cast<long long>(j) * H];
-  }
-  const float m = carry_in ? wsc.m[p] : 0.f;
+  const bool qn_lane = warp == 8 && lane >= 8;
 
-  // a 32-wide tile of q (scaled) or k at columns d0.., rows past c and
-  // columns past dk zero
-  auto load_tile = [&](const float* src, float* dst, int d0, float mult) {
-    for (int i = tid; i < kMaxChunk * kTD; i += kF32Threads) {
-      const int r = i / kTD, dd = i - r * kTD;
-      dst[r * kLdT + dd] = r < c && d0 + dd < dk ? src[head0 + r * tstride + d0 + dd] * mult : 0.f;
+  // step st into buffer st % kOFStages, one cp.async group: dk step (q, k, the
+  // carry's C and n) or positions step (v)
+  auto issue = [&](int st) {
+    if (st >= nsteps) {
+      cp_async_commit();  // empty: keeps the group count regular
+      return;
     }
+    float* buf = ring + (st % kOFStages) * kOFBuf;
+    if (st < nd) {
+      const int d0 = st * kOFDepth;
+      constexpr int kPc = kOFDepth / 4;  // pieces a row
+      for (int i = tid; i < (kOFRows + kMaxChunk) * kPc; i += kOFThreads) {
+        const int r = i / kPc, col = (i % kPc) * 4;
+        const bool is_q = r < kOFRows;
+        const int rr = is_q ? r : r - kOFRows, pos = is_q ? row_of(rr) : rr;
+        if (!is_q && rr >= krows) continue;
+        const float* src = (is_q ? q : k) + (row0 + static_cast<long long>(pos) * H) * dk + d0 + col;
+        copy4(buf + (is_q ? 0 : kOFQ) + of_row(rr) + col, src, q, pos < c ? d0 + col : dk, dk,
+              vec);
+      }
+      if (carry_in) {
+        float* sC = buf + kOFQ + kOFK;
+        for (int i = tid; i < kOFDepth * (kOF / 4) + kPc; i += kOFThreads) {
+          if (i < kOFDepth * (kOF / 4)) {
+            const int dd = i / (kOF / 4), col = (i % (kOF / 4)) * 4;
+            copy4(sC + dd * kOF + col, Cp + static_cast<long long>(d0 + dd) * dk + e0 + col, ws,
+                  d0 + dd < dk ? e0 + col : dk, dk, vec);
+          } else {
+            const int col = (i - kOFDepth * (kOF / 4)) * 4;
+            copy4(sC + kOFDepth * kOF + col, wsc.n + p * dkp + d0 + col, ws, d0 + col, dk, vec);
+          }
+        }
+      }
+    } else {
+      const int j0 = (st - nd) * kOFJStep;
+      for (int i = tid; i < kOFJStep * (kOF / 4); i += kOFThreads) {
+        const int r = i / (kOF / 4), col = (i % (kOF / 4)) * 4;
+        const float* src = v + (row0 + static_cast<long long>(j0 + r) * H) * dk + e0 + col;
+        copy4(buf + r * kOF + col, src, v, j0 + r < c ? e0 + col : dk, dk, vec);
+      }
+    }
+    cp_async_commit();
   };
+  for (int st = 0; st < kOFStages - 1; ++st) issue(st);
 
-  // 2. scores q k^T, and q C[:, this block's columns] and q.n for rows
-  //    warp + 8 a, over dk tiles
-  float qc[kRowsPerWarp], qn[kRowsPerWarp];
+  // the chunk's gates, W zeroed (entries no S tile writes stay 0)
+  for (int i = tid; i < kOFRows * kOFPw; i += kOFThreads) sW[i] = 0.f;
+  if (warp == 0) {
+    warp_cumsum(log_f + row0, H, scs, c, lane);
+    for (int j = lane; j < c; j += 32) sli[j] = log_i[row0 + static_cast<long long>(j) * H];
+    for (int j = c + lane; j < kMaxChunk; j += 32) scs[j] = sli[j] = 0.f;
+  }
+  const float m_prev = carry_in ? wsc.m[p] : 0.f;
+  __syncthreads();
+  if (tid < 4 * kOFRows) {  // m_i and inter_i of local row tid / 4, four lanes a row
+    const int r = tid >> 2, i = row_of(r);
+    const float csi = i < c ? scs[i] : 0.f;
+    float dmax = -INFINITY;
+    for (int j = tid & 3; j <= i && j < c; j += 4) dmax = fmaxf(dmax, csi - scs[j] + sli[j]);
+    dmax = fmaxf(dmax, __shfl_xor_sync(kFull, dmax, 1));
+    dmax = fmaxf(dmax, __shfl_xor_sync(kFull, dmax, 2));
+    if ((tid & 3) == 0) {
+      const float mi = fmaxf(dmax, csi + m_prev);
+      smi[r] = i < c ? mi : 0.f;
+      sinter[r] = i < c ? expf(csi + m_prev - mi) : 0.f;
+    }
+  }
+
+  float part[8][8], qn[3] = {0.f, 0.f, 0.f};
+  float* acc = sacc + tid;  // this thread's running sums, element 8 a + x at (8 a + x) kOFSums
+
+  for (int st = 0; st < nsteps; ++st) {
+    cp_async_wait_group<kOFStages - 2>();  // this thread's copies of step st have landed
+    const float* buf = ring + (st % kOFStages) * kOFBuf;
+    if (st < nd) {  // scale this thread's own pieces of q as they land
+      float* sq = const_cast<float*>(buf);
+      constexpr int kPc = kOFDepth / 4;
+      for (int i = tid; i < kOFRows * kPc; i += kOFThreads) {
+        float4* x = reinterpret_cast<float4*>(sq + of_row(i / kPc) + (i % kPc) * 4);
+        float4 y = *x;
+        y.x *= scale;
+        y.y *= scale;
+        y.z *= scale;
+        y.w *= scale;
+        *x = y;
+      }
+    }
+    __syncthreads();  // step st has landed everywhere; step st - 1's buffer is consumed
+    issue(st + kOFStages - 1);
+    if (st < nd) {
+      const float* sq = buf;
+      const float* sk = buf + kOFQ;
+      const float* sC = sk + kOFK;
+      const float* sn = sC + kOFDepth * kOF;
+      if (qc_thread && carry_in) {
 #pragma unroll
-  for (int a = 0; a < kRowsPerWarp; ++a) qc[a] = qn[a] = 0.f;
-  for (int d0 = 0; d0 < dk; d0 += kTD) {
-    __syncthreads();  // the previous tile is consumed (and step 1 is written)
-    load_tile(q, sQ, d0, scale);
-    load_tile(k, sK, d0, 1.f);
-    __syncthreads();
-    float acc[8][8], qct[kRowsPerWarp];
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int x = 0; x < 8; ++x) part[a][x] = 0.f;
+#pragma unroll 2
+        for (int f = 0; f < kOFDepth; ++f) {
+          float a[8];
+#pragma unroll
+          for (int x = 0; x < 8; ++x) a[x] = sq[of_row(tr + 8 * x) + f];
+          const float4 c0 = *reinterpret_cast<const float4*>(sC + f * kOF + 4 * tc);
+          const float4 c1 = *reinterpret_cast<const float4*>(sC + f * kOF + 96 + 4 * tc);
+          const float bv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+          for (int x = 0; x < 8; ++x)
+#pragma unroll
+            for (int y = 0; y < 8; ++y) part[x][y] = fmaf(a[x], bv[y], part[x][y]);
+        }
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int x = 0; x < 8; ++x)
+            acc[(8 * a + x) * kOFSums] = (st == 0 ? 0.f : acc[(8 * a + x) * kOFSums]) + part[a][x];
+      } else if (s_thread) {
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int x = 0; x < 8; ++x) part[a][x] = 0.f;
+#pragma unroll 2
+        for (int f = 0; f < kOFDepth; ++f) {
+          float a[8], bk[8];
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            a[x] = sq[of_row(8 * rb + x) + f];
+            bk[x] = sk[of_row(8 * cb + x) + f];
+          }
+#pragma unroll
+          for (int x = 0; x < 8; ++x)
+#pragma unroll
+            for (int y = 0; y < 8; ++y) part[x][y] = fmaf(a[x], bk[y], part[x][y]);
+        }
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int x = 0; x < 8; ++x)
+            acc[(8 * a + x) * kOFSums] = (st == 0 ? 0.f : acc[(8 * a + x) * kOFSums]) + part[a][x];
+      } else if (qn_lane && carry_in) {
+        float qp[3] = {0.f, 0.f, 0.f};
+        for (int f = 0; f < kOFDepth; ++f) {
+          const float nf = sn[f];
+#pragma unroll
+          for (int x = 0; x < 3; ++x)
+            if (lane - 8 + 24 * x < kOFRows)
+              qp[x] = fmaf(sq[of_row(lane - 8 + 24 * x) + f], nf, qp[x]);
+        }
+#pragma unroll
+        for (int x = 0; x < 3; ++x) qn[x] += qp[x];
+      }
+      if (st == nd - 1) {
+        // S is whole: W = S exp(D - m_i) (j <= i < c); q C becomes inter q C
+        if (s_thread) {
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const int r = 8 * rb + x, i = row_of(r);
+            const float csi = scs[i], mi = smi[r];
+#pragma unroll
+            for (int y = 0; y < 8; ++y) {
+              const int j = 8 * cb + y;
+              if (i < c && j <= i)
+                sW[r * kOFPw + j] = acc[(8 * x + y) * kOFSums] * expf(csi - scs[j] + sli[j] - mi);
+            }
+          }
+        } else if (qn_lane) {
+#pragma unroll
+          for (int x = 0; x < 3; ++x)
+            if (lane - 8 + 24 * x < kOFRows) sqn[lane - 8 + 24 * x] = qn[x];
+        } else if (qc_thread) {  // (chunk 0 has no carry: its sums start at 0)
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const float in = sinter[tr + 8 * x];
+#pragma unroll
+            for (int y = 0; y < 8; ++y)
+              acc[(8 * x + y) * kOFSums] = carry_in ? acc[(8 * x + y) * kOFSums] * in : 0.f;
+          }
+        }
+        __syncthreads();  // W and q.n are written
+        if (tid < 4 * kOFRows) {  // row sums: lane q4 of a row's four takes j = q4 mod 4
+          const int r = tid >> 2, i = row_of(r);
+          const float* wr = sW + r * kOFPw + (tid & 3);
+          float ch[4];  // in four chains of 8 (j = q4 + 4 (8 x + 0 .. 7)), added in pairs
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            ch[x] = 0.f;
+#pragma unroll
+            for (int y = 0; y < 8; ++y) ch[x] += wr[4 * (8 * x + y)];  // W is 0 past jmax
+          }
+          float rs = (ch[0] + ch[1]) + (ch[2] + ch[3]);
+          rs += __shfl_xor_sync(kFull, rs, 1);
+          rs += __shfl_xor_sync(kFull, rs, 2);
+          if ((tid & 3) == 0 && i < c) {
+            const float den = fmaf(sinter[r], sqn[r], rs);
+            slim[r] = fmaxf(fabsf(den), expf(-smi[r]));
+            if (den_out != nullptr && vg == 0) den_out[row0 + static_cast<long long>(i) * H] = den;
+          }
+        }
+      }
+      continue;
+    }
+    // phase 2: W v over positions j0 .. j0 + 31, for rows whose tile reaches them
+    if (!qc_thread) continue;
+    const int j0 = (st - nd) * kOFJStep;
+    const float* sv = buf;
 #pragma unroll
     for (int a = 0; a < 8; ++a)
 #pragma unroll
-      for (int bb = 0; bb < 8; ++bb) acc[a][bb] = 0.f;
+      for (int x = 0; x < 8; ++x) part[a][x] = 0.f;
+    if (j0 < 32 * (lo + 1)) {
+#pragma unroll 2
+      for (int jj = 0; jj < kOFJStep; ++jj) {
+        float a[8];
 #pragma unroll
-    for (int a = 0; a < kRowsPerWarp; ++a) qct[a] = 0.f;
-    for (int dd = 0; dd < kTD; ++dd) {
-      float qa[8], kb[8];
+        for (int x = 0; x < 8; ++x) a[x] = sW[(tr + 8 * x) * kOFPw + j0 + jj];
+        const float4 v0 = *reinterpret_cast<const float4*>(sv + jj * kOF + 4 * tc);
+        const float4 v1 = *reinterpret_cast<const float4*>(sv + jj * kOF + 96 + 4 * tc);
+        const float bv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
-      for (int a = 0; a < 8; ++a) qa[a] = sQ[(ty + 16 * a) * kLdT + dd];
+        for (int x = 0; x < 8; ++x)
 #pragma unroll
-      for (int bb = 0; bb < 8; ++bb) kb[bb] = sK[(tx + 16 * bb) * kLdT + dd];
+          for (int y = 0; y < 8; ++y) part[x][y] = fmaf(a[x], bv[y], part[x][y]);
+      }
 #pragma unroll
       for (int a = 0; a < 8; ++a)
 #pragma unroll
-        for (int bb = 0; bb <= a; ++bb) acc[a][bb] += qa[a] * kb[bb];
-      const float cde = d0 + dd < dk ? sC[(d0 + dd) * kE32 + lane] : 0.f;
+        for (int x = 0; x < 8; ++x) acc[(8 * a + x) * kOFSums] += part[a][x];
+    } else {  // only the hi tile's rows (x >= 4) reach these positions
+#pragma unroll 2
+      for (int jj = 0; jj < kOFJStep; ++jj) {
+        float a[4];
 #pragma unroll
-      for (int a = 0; a < kRowsPerWarp; ++a) qct[a] += sQ[(warp + kF32Warps * a) * kLdT + dd] * cde;
-    }
+        for (int x = 0; x < 4; ++x) a[x] = sW[(tr + 8 * (x + 4)) * kOFPw + j0 + jj];
+        const float4 v0 = *reinterpret_cast<const float4*>(sv + jj * kOF + 4 * tc);
+        const float4 v1 = *reinterpret_cast<const float4*>(sv + jj * kOF + 96 + 4 * tc);
+        const float bv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
-    for (int a = 0; a < 8; ++a)
+        for (int x = 0; x < 4; ++x)
 #pragma unroll
-      for (int bb = 0; bb <= a; ++bb) {
-        const int i = ty + 16 * a, j = tx + 16 * bb;
-        if (i < c && j < c) sS[i * L.lds + j] = d0 == 0 ? acc[a][bb] : sS[i * L.lds + j] + acc[a][bb];
+          for (int y = 0; y < 8; ++y) part[x + 4][y] = fmaf(a[x], bv[y], part[x + 4][y]);
       }
 #pragma unroll
-    for (int a = 0; a < kRowsPerWarp; ++a) qc[a] += qct[a];
-    const float nd = d0 + lane < dk ? sN[d0 + lane] : 0.f;
+      for (int a = 4; a < 8; ++a)
 #pragma unroll
-    for (int a = 0; a < kRowsPerWarp; ++a) qn[a] += sQ[(warp + kF32Warps * a) * kLdT + lane] * nd;
-  }
-#pragma unroll
-  for (int a = 0; a < kRowsPerWarp; ++a) {
-    const float s = warp_sum(qn[a]);
-    const int i = warp + kF32Warps * a;
-    if (lane == 0 && i < c) sQn[i] = s;
-  }
-  __syncthreads();
-
-  // 3. one warp per row: the masked log weights D, the stabilizer m_i,
-  //    W = scores * exp(D - m_i) (0 above the diagonal) and its row sum
-  for (int i = warp; i < c; i += kF32Warps) {
-    const float csi = sCs[i];
-    const float g = csi + m;
-    float dmax = -INFINITY;
-    for (int j = lane; j <= i; j += 32) dmax = fmaxf(dmax, csi - sCs[j] + sLi[j]);
-    const float mi = fmaxf(warp_max(dmax), g);
-    float rsum = 0.f;
-    for (int j = lane; j < c; j += 32) {
-      const float w = j <= i ? sS[i * L.lds + j] * expf(csi - sCs[j] + sLi[j] - mi) : 0.f;
-      sS[i * L.lds + j] = w;
-      rsum += w;
-    }
-    rsum = warp_sum(rsum);
-    if (lane == 0) {
-      sMi[i] = mi;
-      sInter[i] = expf(g - mi);
-      sRsum[i] = rsum;
+        for (int x = 0; x < 8; ++x) acc[(8 * a + x) * kOFSums] += part[a][x];
     }
   }
-  __syncthreads();
-
-  // 4. h = (W v + inter * q C) / max(|rowsum W + inter * q.n|, exp(-m_i))
-  //    for rows warp + 8 a and this block's columns
+  cp_async_wait_all();
+  if (!qc_thread) return;
+  // h = (inter q C + W v) / max(|den|, exp(-m_i))
 #pragma unroll
-  for (int a = 0; a < kRowsPerWarp; ++a) {
-    const int i = warp + kF32Warps * a;
-    if (i >= c) break;
-    const float* srow = sS + i * L.lds;
-    float num = 0.f;
-    for (int j0 = 0; j0 <= i; j0 += 32) {  // 32-term partial sums
-      const int jend = min(i + 1, j0 + 32);
-      float part = 0.f;
-      for (int j = j0; j < jend; ++j) part += srow[j] * sV[j * kE32 + lane];
-      num += part;
+  for (int x = 0; x < 8; ++x) {
+    const int r = tr + 8 * x, i = row_of(r);
+    if (i >= c) continue;
+    const float lim = slim[r];
+    float* hr = h + (row0 + static_cast<long long>(i) * H) * dk;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int e = e0 + 96 * half + 4 * tc;
+      const float* ax = acc + (8 * x + 4 * half) * kOFSums;
+      const float o0 = ax[0] / lim, o1 = ax[kOFSums] / lim;
+      const float o2 = ax[2 * kOFSums] / lim, o3 = ax[3 * kOFSums] / lim;
+      if (vec && e + 3 < dk) {
+        *reinterpret_cast<float4*>(hr + e) = make_float4(o0, o1, o2, o3);
+      } else {
+        const float o[4] = {o0, o1, o2, o3};
+#pragma unroll
+        for (int y = 0; y < 4; ++y)
+          if (e + y < dk) hr[e + y] = o[y];
+      }
     }
-    const float inter = sInter[i];
-    num += inter * qc[a];
-    const float den = sRsum[i] + inter * sQn[i];
-    if (col_ok) h[head0 + i * tstride + ecol] = num / fmaxf(fabsf(den), expf(-sMi[i]));
-    if (den_out != nullptr && blockIdx.z == 0 && lane == 0)  // for the backward
-      den_out[row0 + static_cast<long long>(i) * H] = den;
   }
 }
 
@@ -943,17 +1253,27 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
                        const float* lf, float* h, float* den, float* C, float* n, float* m,
                        float* ws, int B, int S, int H, int dk, int c, int tiles, int value_tiles,
                        float scale, cudaStream_t stream) {
-  const size_t out_smem = out_f32_layout(dk, c).total * sizeof(float);
-  cudaError_t err = allow_smem(mlstm_state_f32, sizeof(StateF32));
+  const bool vec = dk % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(h) |
+                     reinterpret_cast<uintptr_t>(C) | reinterpret_cast<uintptr_t>(ws)) & 15u) == 0;
+  cudaError_t err = allow_smem(mlstm_out_f32, kOFSmem);
   if (err != cudaSuccess) return err;
-  err = allow_smem(mlstm_out_f32, out_smem);
-  if (err != cudaSuccess) return err;
-  mlstm_state_f32<<<dim3(B * H, tiles, tiles), kF32Threads, sizeof(StateF32), stream>>>(
-      k, v, li, lf, ws, C, n, m, S, H, dk, c);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  mlstm_out_f32<<<dim3(B * H, S / c, value_tiles), kF32Threads, out_smem, stream>>>(
-      q, k, v, li, lf, ws, h, den, S, H, dk, c, scale);
+  // the state pass's ticket counter and flags, after the carries (the plan's
+  // workspace), zeroed on the stream
+  const int nc = S / c, dkp = (dk + 15) & ~15, chunks = nc - 1 + (C != nullptr);
+  int* sync = reinterpret_cast<int*>(ws + static_cast<long long>(B) * H * nc * (dkp * dkp + dkp + 1));
+  if (chunks > 0) {
+    err = cudaMemsetAsync(sync, 0, (1 + static_cast<size_t>(nc) * B * H * tiles * tiles) * sizeof(int),
+                          stream);
+    if (err != cudaSuccess) return err;
+    mlstm_state_f32<<<chunks * B * H * tiles * tiles, kSFThreads, 0, stream>>>(
+        k, v, li, lf, ws, sync, C, n, m, B * H, S, H, dk, c, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  mlstm_out_f32<<<dim3(B * H, S / c, value_tiles * kOFParts), kOFThreads, kOFSmem, stream>>>(
+      q, k, v, li, lf, ws, h, den, S, H, dk, c, scale, vec);
   return cudaGetLastError();
 }
 
@@ -968,12 +1288,14 @@ extern "C" int repro_mlstm_chunk_max_chunk() { return repro::kMaxChunk; }
 // max(|den|, exp(-m_i)), which the backward (csrc/mlstm_chunk_bwd.cu) reads
 // to take the forward's branch; C (B, H, dk, dk), n (B, H, dk), m (B, H)
 // f32, all three null or none; ws f32, B * H * (S / c) * (dkp^2 + dkp + 1) floats (dkp: dk rounded
-// up to 16), 16-byte aligned.  c divides S.  The wrapper's plan gives the
+// up to 16; f32 inputs then the state pass's 1 + B * H * (S / c) * ceil(dk / 64)^2 int32
+// ticket and flags, zeroed here), 16-byte aligned.  c divides S.  The wrapper's plan gives the
 // grids' tiles: the state pass's `state_tiles` tiles of 64 dk rows and
 // `state_e_tiles` of value columns (96 in bf16, 64 in f32), and the output
-// pass's `value_tiles` of value columns (192 in bf16, 32 in f32); a plan
-// that does not cover dk exactly is refused.  Two launches on
-// `stream`, the state pass and the output pass.  Returns the CUDA error of
+// pass's `value_tiles` of 192 value columns (f32: two blocks each, one a
+// row part); a plan that does not cover dk exactly is refused.  Two launches on
+// `stream`, the state pass and the output pass (f32: after a memset of the
+// state pass's flags).  Returns the CUDA error of
 // the launches (0 on success).
 extern "C" int repro_mlstm_chunk(int device, int dtype, const void* q, const void* k,
                                  const void* v, const void* log_i, const void* log_f, void* h,
@@ -987,8 +1309,8 @@ extern "C" int repro_mlstm_chunk(int device, int dtype, const void* q, const voi
   if (dk <= 0 || dk > repro::kMaxDk || c <= 0 || c > repro::kMaxChunk || S % c)
     return cudaErrorInvalidValue;
   const bool tc = dtype == repro::kBFloat16;
-  const int state_e = tc ? repro::kStateE : repro::kTile;
-  const int value_tile = tc ? repro::kValueGroup * repro::kTile : repro::kE32;
+  const int state_e = tc ? repro::kStateE : repro::kSF;
+  const int value_tile = tc ? repro::kValueGroup * repro::kTile : repro::kOF;
   if (state_tiles != repro::ceil_div(dk, repro::kTile) ||
       state_e_tiles != repro::ceil_div(dk, state_e) ||
       value_tiles != repro::ceil_div(dk, value_tile))

@@ -1125,13 +1125,7 @@ inline Op input_op(const bf16* x, int dk) {
   return Op{x, 0, dk, dk, vec};
 }
 
-template <typename T>
-cudaError_t launch(const T* q, const T* k, const T* v, const float* li, const float* lf,
-                   const float* ws, bool frag, const float* den, const float* h, const float* dh,
-                   T* dq, T* dk_out, T* dv, float* dli, float* dlf, unsigned char* scratch, int B,
-                   int S, int H, int dk, int c, float scale, cudaStream_t stream) {
-  constexpr int TQ = terms_of<T>();
-  const Layout L = layout(B, S, H, dk, c);
+inline Shape shape_of(int B, int S, int H, int dk, int c, float scale) {
   Shape sh;
   sh.S = S;
   sh.H = H;
@@ -1144,12 +1138,26 @@ cudaError_t launch(const T* q, const T* k, const T* v, const float* li, const fl
   sh.rows = static_cast<long long>(B) * S * H;
   sh.P = sh.rows / c;
   sh.scale = scale;
+  return sh;
+}
+
+inline Scratch scratch_of(unsigned char* scratch, const Layout& L) {
   auto f = [scratch](size_t off) { return reinterpret_cast<float*>(scratch + off); };
   auto hb = [scratch](size_t off) { return reinterpret_cast<bf16*>(scratch + off); };
-  Scratch sc{f(L.mi),     f(L.inter), f(L.dden),   f(L.w),    f(L.rowD),
-             f(L.decay),  f(L.colD),  f(L.pinter), f(L.pw),   f(L.pdecay), f(L.dn),
-             f(L.U),      f(L.un),    f(L.G),      hb(L.dnum), hb(L.u),    hb(L.W),
-             hb(L.dS)};
+  return Scratch{f(L.mi),     f(L.inter), f(L.dden),   f(L.w),    f(L.rowD),
+                 f(L.decay),  f(L.colD),  f(L.pinter), f(L.pw),   f(L.pdecay), f(L.dn),
+                 f(L.U),      f(L.un),    f(L.G),      hb(L.dnum), hb(L.u),    hb(L.W),
+                 hb(L.dS)};
+}
+
+template <typename T>
+cudaError_t launch(const T* q, const T* k, const T* v, const float* li, const float* lf,
+                   const float* ws, bool frag, const float* den, const float* h, const float* dh,
+                   T* dq, T* dk_out, T* dv, float* dli, float* dlf, unsigned char* scratch, int B,
+                   int S, int H, int dk, int c, float scale, cudaStream_t stream) {
+  constexpr int TQ = terms_of<T>();
+  const Shape sh = shape_of(B, S, H, dk, c, scale);
+  const Scratch sc = scratch_of(scratch, layout(B, S, H, dk, c));
   const Op qo = input_op(q, dk), ko = input_op(k, dk), vo = input_op(v, dk);
   const int BH = B * H, nc = sh.nc, nt = sh.ntile;
   const size_t moves_smem =
@@ -1188,72 +1196,73 @@ cudaError_t launch(const T* q, const T* k, const T* v, const float* li, const fl
 
 // --------------------------------------------- f32 inputs: the CUDA cores
 //
-// f32 inputs take the first port's kernels, in f32 on the CUDA
-// cores: rows, state (G over 64 x 64 tiles walked back), scores, grads (64
-// columns), gates; every sum in a fixed order.  The tensor-core passes
-// above, with q, k, v in three bf16 terms too and six-term f32 x f32
-// products, put one leaf of the reduced xlstm's f32 gradients 2.03 times
-// as far from f64 as the plain path
-// (tests/test_torch_gpu.py::test_recurrent_train_gradients_on_card allows
-// twice; these kernels pass): the tensor cores align their products to
-// the largest one before summing, which costs more than f32 FMA chains
-// where the sums cancel.
+// f32 inputs take the same six passes on the same grids (_bwd_plan), with
+// f32 FMA chains on the CUDA cores in place of mma.sync: on the tensor
+// cores (q, k, v in three bf16 terms, six-term f32 x f32 products) one leaf
+// of the reduced xlstm's f32 gradients lay 2.03 times as far from f64 as
+// the plain path's (tests/test_torch_gpu.py::
+// test_recurrent_train_gradients_on_card allows twice): the tensor cores
+// align their products to the largest one before summing, which costs
+// more than f32 FMA chains where the sums cancel.  Every thread owns an 8
+// x 8 tile of a product and reads 16 operands for its 64 FMAs a step of the
+// sum; tiles arrive by cp.async into two buffers, the next step copied
+// while this one is multiplied.  The operands live in the bf16 planes'
+// room of the scratch, in f32: dnum and u (rows x dkp), W and dS (cp x cp
+// a chunk).  The state walk (mlstm_bwd_state, G in the forward's fragment
+// order, C row-major) and the gates (mlstm_bwd_gates) are the bf16 path's
+// own kernels: they add in f32 and f64 alone.
 namespace cc {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;   // G tile side; output columns of a grads block
-constexpr int kTD = 32;     // depth of one staged product step
-constexpr int kUnit = 256;  // floats in a 16 x 16 unit of the bf16 workspace
+constexpr int kMovesThreads = 64;   // moves: an 8 x 8 tile of U a thread
+constexpr int kMP = kT + 4;         // moves: pitch of a 64-wide row
+constexpr int kMD = 32;             // moves: positions a staged step
+constexpr int kScoreThreads = 96;   // scores: 34 tiles of S, 34 of P = dnum v^T
+constexpr int kSTiles = 34;
+constexpr int kSD = 16;             // scores: dk a staged step
+constexpr int kSPq = kSD + 4;       // pitch of its rows (+ 4 every 8 rows)
+constexpr int kScA = 2 * 16 * kSPq + 4 * 4;         // q or dnum: the block's 32 rows
+constexpr int kScB = kMaxChunk * kSPq + 16 * 4;     // k or v: the chunk's rows
+constexpr int kScBuf = 2 * kScA + 2 * kScB;         // floats of a ring buffer
+constexpr int kScPw = kMaxChunk + 1;                // pitch of S and P rows
+constexpr size_t kScSmem = (2 * static_cast<size_t>(kScBuf) + 2 * 32 * kScPw + 2 * kMaxChunk +
+                            2 * 32) * sizeof(float);
+constexpr int kGradThreads = 128;   // grads: rows tr + 16 a, columns tc + 8 b of a 128 x 64 output
+constexpr int kGD = 32;             // grads: depth of a staged step
+constexpr int kGR = kGD + 4;        // pitch of [row][f] tiles (144 bytes)
+constexpr int kGA = kMaxChunk * kGR;  // A: [128][kGR] or [kGD][kMaxChunk + 4]
+constexpr int kGB = kT * kGR;         // B: [64][kGR] or [kGD][kT + 4]
+constexpr int kGBuf = kGA + kGB;
+constexpr size_t kGSmem = (2 * static_cast<size_t>(kGBuf) + 3 * kMaxChunk + kT) * sizeof(float);
+static_assert(kGD * (kMaxChunk + 4) <= kGA && kGD * (kT + 4) <= kGB, "a buffer holds each layout");
 
-template <typename T>
-__device__ __forceinline__ float ld(const T* p, long long i) {
-  return to_f32(p[i]);
-}
-
-// Entry (d, e) of a carry C in the forward's workspace: row-major with rows
-// of dk (f32 inputs) or in mma fragment order (bf16: unit (e / 16, d / 16),
-// lane 4 g + t of column 16 eb + g (+ 8 in the second half) holds dk rows
-// 16 kb + 2t, + 1, + 8, + 9 as four floats).
-__device__ __forceinline__ float carry_at(const float* C, bool frag, int dk, int nkb, int d,
-                                          int e) {
-  if (!frag) return C[static_cast<long long>(d) * dk + e];
-  const int eb = e >> 4, kb = d >> 4, el = e & 15, r = d & 15;
-  const int g = el & 7, half = el >> 3, t = (r & 7) >> 1;
-  return C[(static_cast<long long>(eb) * nkb + kb) * kUnit + half * (kUnit / 2) +
-           (4 * g + t) * 4 + ((r >> 3) << 1) + (r & 1)];
-}
-
-// Scratch laid out by the wrapper (every array f32): per row (B, S, H) mi,
-// inter, lim, dden, w, rowD, colD; per (batch x head, chunk) decay; per
-// (batch x head, chunk) W and dS (c x c); per (column block, batch x head,
-// chunk) the partials pinter, pw (c each) and pdecay.
-// The row of (batch b, the first position of chunk `chunk`, head hh) in the
-// (B, S, H) arrays; position j of the chunk is H rows on.
-__device__ __forceinline__ long long chunk_row(int b, int S, int chunk, int c, int H, int hh) {
-  return (static_cast<long long>(b) * S + static_cast<long long>(chunk) * c) * H + hh;
-}
-
-struct Scratch {
-  float *mi, *inter, *lim, *dden, *w, *rowD, *colD, *decay, *W, *dS, *pinter, *pw, *pdecay;
+// The f32 operands in the room of the bf16 planes (4 of their 6 bytes an element).
+struct F32 {
+  float *dnum, *u, *W, *dS;
 };
+inline F32 f32_of(const Scratch& sc) {
+  return F32{reinterpret_cast<float*>(sc.dnum), reinterpret_cast<float*>(sc.u),
+             reinterpret_cast<float*>(sc.W), reinterpret_cast<float*>(sc.dS)};
+}
+
+// Row r of a staged scores step: 16 floats, 4 more every 8 rows, so the 8
+// rows of a tile lie on distinct banks.
+__device__ __forceinline__ int sc_row(int r) { return r * kSPq + (r >> 3) * 4; }
 
 // ------------------------------------------------------------------- rows
 
-// One block (4 warps) per (batch x head, chunk).
-__global__ void __launch_bounds__(128)
-mlstm_bwd_rows(const float* __restrict__ log_i, const float* __restrict__ log_f,
-               const float* __restrict__ ws, const float* __restrict__ den,
-               const float* __restrict__ h, const float* __restrict__ dh, Scratch sc, int S,
-               int H, int dk, int c) {
+// The bf16 rows pass's scalars, and dnum and u = scale inter dnum in f32.
+__global__ void __launch_bounds__(kRowWarps * 32)
+mlstm_bwd_rows_f32(const float* __restrict__ log_i, const float* __restrict__ log_f,
+                   const float* __restrict__ ws, const float* __restrict__ den,
+                   const float* __restrict__ h, const float* __restrict__ dh, Scratch sc, F32 op,
+                   Shape sh) {
   __shared__ float cs[kMaxChunk], li[kMaxChunk], w[kMaxChunk];
   __shared__ float decay_s, mn_s;
-  const int bh = blockIdx.x, chunk = blockIdx.y, nc = gridDim.y;
-  const int b = bh / H, hh = bh - b * H;
+  const int bh = blockIdx.x, chunk = blockIdx.y, nc = sh.nc, H = sh.H, c = sh.c, dk = sh.dk;
+  const int dkp = sh.dkp, b = bh / H, hh = bh - b * H;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long row0 = chunk_row(b, S, chunk, c, H, hh);
-  const int dkp = (dk + 15) & ~15;
-  const Carry wsc = carry_of(const_cast<float*>(ws), static_cast<long long>(gridDim.x) * nc, dkp);
+  const long long row0 = chunk_row(b, sh.S, chunk, c, H, hh);
+  const Carry wsc = carry_of(const_cast<float*>(ws), sh.P, dkp);
   const long long p = static_cast<long long>(bh) * nc + chunk;
   const float m = chunk > 0 ? wsc.m[p] : 0.f;
   if (warp == 0) {
@@ -1269,8 +1278,9 @@ mlstm_bwd_rows(const float* __restrict__ log_i, const float* __restrict__ log_f,
     }
   }
   __syncthreads();
-  if (threadIdx.x == 0) sc.decay[p] = decay_s;
-  for (int i = warp; i < c; i += 4) {
+  if (blockIdx.z == 0 && threadIdx.x == 0) sc.decay[p] = decay_s;
+  const int i_end = min(c, static_cast<int>(blockIdx.z + 1) * kRowGroup);
+  for (int i = blockIdx.z * kRowGroup + warp; i < i_end; i += kRowWarps) {
     const float csi = cs[i];
     float dmax = -INFINITY;
     for (int j = lane; j <= i; j += 32) dmax = fmaxf(dmax, csi - cs[j] + li[j]);
@@ -1279,606 +1289,552 @@ mlstm_bwd_rows(const float* __restrict__ log_i, const float* __restrict__ log_f,
     float dot = 0.f;
     for (int e = lane; e < dk; e += 32) dot += dh[row * dk + e] * h[row * dk + e];
     dot = warp_sum(dot);
+    const float dn = den[row], floor_ = expf(-mi), inter = expf(csi + m - mi);
+    const float lim = fmaxf(fabsf(dn), floor_);
     if (lane == 0) {
-      const float dn = den[row], floor_ = expf(-mi);
       sc.mi[row] = mi;
-      sc.inter[row] = expf(csi + m - mi);
-      sc.lim[row] = fmaxf(fabsf(dn), floor_);
+      sc.inter[row] = inter;
       sc.dden[row] = fabsf(dn) >= floor_ && dn != 0.f ? -dot / dn : 0.f;
       sc.w[row] = w[i];
+    }
+    const float su = sh.scale * inter;
+    for (int e = lane; e < dkp; e += 32) {
+      const float d = e < dk ? dh[row * dk + e] / lim : 0.f;
+      op.dnum[row * dkp + e] = d;
+      op.u[row * dkp + e] = d * su;
     }
   }
 }
 
-// ------------------------------------------------------------------ state
+// ------------------------------------------------------------------ moves
 
-// One block per (batch x head, 64 dk rows, 64 value columns) of G, walking
-// the chunks from the last; thread (ty, tx) holds G[d0 + ty + 16 a][e0 + tx
-// + 16 bb], thread d < 64 of the first column of tiles dn[d0 + d].
-struct StateSmem {
-  float a[kMaxChunk][kTile + 1];  // inter_i q_i[d] (q scaled)
-  float b[kMaxChunk][kTile];      // dh_i[e] / lim_i
-  float dd[kMaxChunk];            // dden_i
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-mlstm_bwd_state(const T* __restrict__ q, const float* __restrict__ dh, Scratch sc,
-                float* __restrict__ gws, int S, int H, int dk, int c, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  StateSmem& sm = *reinterpret_cast<StateSmem*>(smem_raw);
-  const int bh = blockIdx.x, b = bh / H, hh = bh - b * H;
-  const int d0 = blockIdx.y * kTile, e0 = blockIdx.z * kTile;
-  const bool n_tile = blockIdx.z == 0;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int nc = S / c;
-  const long long gsize = static_cast<long long>(dk) * dk + dk;  // G and dn of one entry
-  float G[4][4] = {}, dn = 0.f;
-  for (int ch = nc - 1; ch >= 0; --ch) {
-    float* slot = gws + (static_cast<long long>(bh) * nc + ch) * gsize;
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const int d = d0 + ty + 16 * a, e = e0 + tx + 16 * bb;
-        if (d < dk && e < dk) slot[static_cast<long long>(d) * dk + e] = G[a][bb];
-      }
-    if (n_tile && tid < kTile && d0 + tid < dk)
-      slot[static_cast<long long>(dk) * dk + d0 + tid] = dn;
-    if (ch == 0) break;  // G entering chunk 0 has no use: C_0 = 0
-    const long long row0 = chunk_row(b, S, ch, c, H, hh);
-    __syncthreads();  // the previous chunk's tiles are consumed
-    for (int i = tid; i < c * kTile; i += kThreads) {
-      const int r = i / kTile, col = i - r * kTile;
-      const long long row = row0 + static_cast<long long>(r) * H;
-      sm.a[r][col] = d0 + col < dk ? sc.inter[row] * (ld(q, row * dk + d0 + col) * scale) : 0.f;
-      sm.b[r][col] = e0 + col < dk ? dh[row * dk + e0 + col] / sc.lim[row] : 0.f;
+// One block (64 threads) per (batch x head, chunk 1 .., 64 dk columns d x
+// 64 value rows e): U = u^T q over the chunk's positions in steps of 32,
+// thread (tr, tc) holding value rows 4 tr + {0..3, 32..35} and dk columns
+// 4 tc + {0..3, 32..35}, one FMA chain an element; then written in the
+// bf16 moves pass's accumulator order (the state pass reads it).  In the
+// first column of tiles also un, as the bf16 pass forms it.
+__global__ void __launch_bounds__(kMovesThreads)
+mlstm_bwd_moves_f32(const float* __restrict__ q, F32 op, Scratch sc, Shape sh, bool vec) {
+  __shared__ __align__(16) float buf[2][2][kMD][kMP];  // [buffer][u | q][position][column]
+  __shared__ float sDd[kMaxChunk], sIn[kMaxChunk];
+  const int H = sh.H, c = sh.c, dk = sh.dk, dkp = sh.dkp, nc = sh.nc;
+  const int bh = blockIdx.x, ch = blockIdx.y + 1, b = bh / H, hh = bh - b * H;
+  const int tile = blockIdx.z, d0 = (tile / sh.ntile) * kT, e0 = (tile % sh.ntile) * kT;
+  const int tid = threadIdx.x, lane = tid & 31, tc = lane & 7, tr = (tid >> 5) * 4 + (lane >> 3);
+  const long long p = static_cast<long long>(bh) * nc + ch;
+  const long long row0 = chunk_row(b, sh.S, ch, c, H, hh);
+  const int nsteps = ceil_div(c, kMD);
+  const bool n_tile = e0 == 0;
+  auto issue = [&](int st) {
+    const int i0 = st * kMD;
+    for (int x = tid; x < 2 * kMD * (kT / 4); x += kMovesThreads) {
+      const int which = x / (kMD * (kT / 4)), y = x - which * (kMD * (kT / 4));
+      const int r = y / (kT / 4), col = (y % (kT / 4)) * 4;
+      const long long row = row0 + static_cast<long long>(i0 + r) * H;
+      const bool ok = i0 + r < c;
+      if (which == 0)
+        copy4(&buf[st & 1][0][r][col], op.u + row * dkp + e0 + col, op.u, ok ? e0 + col : dkp, dkp,
+              true);
+      else
+        copy4(&buf[st & 1][1][r][col], q + row * dk + d0 + col, q, ok ? d0 + col : dk, dk, vec);
     }
-    for (int r = tid; r < c; r += kThreads)
-      sm.dd[r] = sc.dden[row0 + static_cast<long long>(r) * H];
-    __syncthreads();
-    const float decay = sc.decay[static_cast<long long>(bh) * nc + ch];
-    float u[4][4] = {};
-    for (int i = 0; i < c; ++i) {
-      float ad[4], be[4];
+    cp_async_commit();
+  };
+  issue(0);
+  for (int r = tid; r < c; r += kMovesThreads) {
+    const long long row = row0 + static_cast<long long>(r) * H;
+    sDd[r] = sc.dden[row];
+    sIn[r] = sc.inter[row];
+  }
+  float U[8][8], un = 0.f;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) ad[a] = sm.a[i][ty + 16 * a];
+  for (int a = 0; a < 8; ++a)
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) be[bb] = sm.b[i][tx + 16 * bb];
+    for (int x = 0; x < 8; ++x) U[a][x] = 0.f;
+  for (int st = 0; st < nsteps; ++st) {
+    cp_async_wait_all();
+    __syncthreads();  // step st has landed everywhere; step st - 1's buffer is consumed
+    if (st + 1 < nsteps) issue(st + 1);
+    const float(*su)[kMP] = buf[st & 1][0];
+    const float(*sq)[kMP] = buf[st & 1][1];
+#pragma unroll 4
+    for (int f = 0; f < kMD; ++f) {
+      const float4 ua = *reinterpret_cast<const float4*>(&su[f][4 * tr]);
+      const float4 ub = *reinterpret_cast<const float4*>(&su[f][32 + 4 * tr]);
+      const float4 qa = *reinterpret_cast<const float4*>(&sq[f][4 * tc]);
+      const float4 qb = *reinterpret_cast<const float4*>(&sq[f][32 + 4 * tc]);
+      const float ue[8] = {ua.x, ua.y, ua.z, ua.w, ub.x, ub.y, ub.z, ub.w};
+      const float qd[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < 8; ++a)
 #pragma unroll
-        for (int bb = 0; bb < 4; ++bb) u[a][bb] = fmaf(ad[a], be[bb], u[a][bb]);
+        for (int x = 0; x < 8; ++x) U[a][x] = fmaf(ue[a], qd[x], U[a][x]);
     }
+    if (n_tile)  // q whole: sum_i dden_i inter_i q_i scaled, for dk column d0 + tid
+      for (int f = 0, i = st * kMD; f < kMD && i < c; ++f, ++i)
+        un = fmaf(sDd[i], sIn[i] * (sq[f][tid] * sh.scale), un);
+  }
+  __syncthreads();  // every step is consumed: the buffers hold U^T[e][d] now
+  float(*T)[kMP] = reinterpret_cast<float(*)[kMP]>(&buf[0][0][0][0]);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < 8; ++a) {
+    float* row = T[a < 4 ? 4 * tr + a : 32 + 4 * tr + a - 4];
+    *reinterpret_cast<float4*>(row + 4 * tc) = make_float4(U[a][0], U[a][1], U[a][2], U[a][3]);
+    *reinterpret_cast<float4*>(row + 32 + 4 * tc) = make_float4(U[a][4], U[a][5], U[a][6], U[a][7]);
+  }
+  __syncthreads();
+  // thread vt of the bf16 pass (warp w, lane 4 g + t) held, in tile nt, value
+  // rows 16 (w % 4) + g (+ 8) and dk columns 32 (w / 4) + 8 nt + 2 t (+ 1)
+  float4* out = reinterpret_cast<float4*>(sc.U) + (p * sh.ntile * sh.ntile + tile) * 4 * kThreads;
+  for (int vt = tid; vt < kThreads; vt += kMovesThreads) {
+    const int w = vt >> 5, g = (vt & 31) >> 2, t = vt & 3;
+    const int e = 16 * (w & 3) + g;
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) G[a][bb] = decay * G[a][bb] + u[a][bb];
-    if (n_tile && tid < kTile) {
-      float un = 0.f;
-      for (int i = 0; i < c; ++i) un = fmaf(sm.dd[i], sm.a[i][tid], un);
-      dn = decay * dn + un;
+    for (int nt = 0; nt < 4; ++nt) {
+      const int d = 32 * (w >> 2) + 8 * nt + 2 * t;
+      out[nt * kThreads + vt] = make_float4(T[e][d], T[e][d + 1], T[e + 8][d], T[e + 8][d + 1]);
     }
   }
+  if (n_tile && d0 + tid < dkp) sc.un[p * dkp + d0 + tid] = un;
 }
 
 // ----------------------------------------------------------------- scores
 
-// One block per (batch x head, chunk): S = q k^T (q scaled) and P = dh v^T
-// over dk in 32-wide steps (a 16 x 16 thread grid, 8 x 8 each, the lower
-// triangle only), then per row (a warp a row) W, dS and dD's sums.
-struct ScoreLayout {
-  int lds;
-  size_t s, p, q, k, colpart, total;  // float offsets
-};
-__host__ __device__ inline ScoreLayout score_layout() {
-  ScoreLayout L;
-  L.lds = kMaxChunk + 1;
-  L.s = 0;
-  L.p = L.s + static_cast<size_t>(kMaxChunk) * L.lds;
-  L.q = L.p + static_cast<size_t>(kMaxChunk) * L.lds;
-  L.k = L.q + static_cast<size_t>(kMaxChunk) * (kTD + 1);
-  L.colpart = L.k + static_cast<size_t>(kMaxChunk) * (kTD + 1);
-  L.total = L.colpart + static_cast<size_t>(kWarps) * kMaxChunk;
-  return L;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-mlstm_bwd_scores(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const float* __restrict__ log_i, const float* __restrict__ log_f,
-                 const float* __restrict__ dh, Scratch sc, int S, int H, int dk, int c,
-                 float scale) {
-  extern __shared__ float smem[];
-  __shared__ float cs[kMaxChunk], li[kMaxChunk];
-  const ScoreLayout L = score_layout();
-  float* sS = smem + L.s;
-  float* sP = smem + L.p;
-  float* sA = smem + L.q;
-  float* sB = smem + L.k;
-  float* colpart = smem + L.colpart;
-  const int bh = blockIdx.x, chunk = blockIdx.y, nc = gridDim.y;
-  const int b = bh / H, hh = bh - b * H;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, ty = tid >> 4, tx = tid & 15;
-  const long long tstride = static_cast<long long>(H) * dk;
-  const long long row0 = chunk_row(b, S, chunk, c, H, hh);
-  const long long head0 = row0 * dk;
-  if (warp == 0) {
-    warp_cumsum(log_f + row0, H, cs, c, lane);
-    for (int j = lane; j < c; j += 32) li[j] = log_i[row0 + static_cast<long long>(j) * H];
-  }
-
-  // dst[i][j] = sum over dk of x_i . y_j (x scaled by xs), j <= i
-  auto products = [&](const auto* x, const auto* y, float xs, float* dst) {
-    for (int d0 = 0; d0 < dk; d0 += kTD) {
-      __syncthreads();  // the previous step is consumed
-      for (int i = tid; i < kMaxChunk * kTD; i += kThreads) {
-        const int r = i / kTD, dd = i - r * kTD;
-        const bool ok = r < c && d0 + dd < dk;
-        sA[r * (kTD + 1) + dd] = ok ? ld(x, head0 + r * tstride + d0 + dd) * xs : 0.f;
-        sB[r * (kTD + 1) + dd] = ok ? ld(y, head0 + r * tstride + d0 + dd) : 0.f;
+// One block (3 warps) per (batch x head, chunk, 16-row tiles z and 7 - z).
+// Threads 0 .. 33 hold the causal 8 x 8 tiles of S = q k^T of the block's
+// 32 rows (8-row bands up to the diagonal: 4 z + 3 + 4 (7 - z) + 3),
+// threads 34 .. 67 the same tiles of P = dnum v^T, each an FMA chain over
+// dk in steps of 16; then, a warp a row, W = S scale E, dW = P + dden, dS =
+// dW E, dD = dW W (j <= i < c; written whole rows of cp, zero elsewhere),
+// rowD (a warp sum) and this block's share of colD (its rows in order).
+__global__ void __launch_bounds__(kScoreThreads)
+mlstm_bwd_scores_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ log_i,
+                     const float* __restrict__ log_f, F32 op, Scratch sc, Shape sh, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* sS = ring + 2 * kScBuf;  // [32][kScPw]: S scale, then dD
+  float* sP = sS + 32 * kScPw;
+  float* scs = sP + 32 * kScPw;
+  float* sli = scs + kMaxChunk;
+  float* smi = sli + kMaxChunk;
+  float* sdd = smi + 32;
+  const int H = sh.H, c = sh.c, dk = sh.dk, dkp = sh.dkp, cp = sh.cp;
+  const int bh = blockIdx.x, chunk = blockIdx.y, z = blockIdx.z, b = bh / H, hh = bh - b * H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long row0 = chunk_row(b, sh.S, chunk, c, H, hh);
+  const long long p = static_cast<long long>(bh) * sh.nc + chunk;
+  const int lo = z, hi = 7 - z;
+  auto row_of = [lo, hi](int r) { return r < 16 ? 16 * lo + r : 16 * hi + r - 16; };
+  const int krows = 16 * ((16 * hi < cp ? hi : lo) + 1);  // k and v rows the block's rows reach
+  const int nd = ceil_div(dk, kSD);
+  // this thread's tile: S (tid < 34) or P; 8-row band rb of the block, column band cb
+  const bool s_thread = tid < kSTiles, p_thread = tid >= kSTiles && tid < 2 * kSTiles;
+  int rb = 0, cb = 0;
+  for (int half = 0, n = 0, s = s_thread ? tid : tid - kSTiles; half < 2; ++half)
+    for (int band = 0; band < 2; ++band) {
+      const int cnt = 2 * (half ? hi : lo) + band + 1;
+      if (s >= n && s < n + cnt) {
+        rb = 2 * half + band;
+        cb = s - n;
       }
-      __syncthreads();
-      float acc[8][8];
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int bb = 0; bb < 8; ++bb) acc[a][bb] = 0.f;
-      for (int dd = 0; dd < kTD; ++dd) {
-        float xa[8], yb[8];
-#pragma unroll
-        for (int a = 0; a < 8; ++a) xa[a] = sA[(ty + 16 * a) * (kTD + 1) + dd];
-#pragma unroll
-        for (int bb = 0; bb < 8; ++bb) yb[bb] = sB[(tx + 16 * bb) * (kTD + 1) + dd];
-#pragma unroll
-        for (int a = 0; a < 8; ++a)
-#pragma unroll
-          for (int bb = 0; bb <= a; ++bb) acc[a][bb] = fmaf(xa[a], yb[bb], acc[a][bb]);
-      }
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int bb = 0; bb <= a; ++bb) {
-          const int i = ty + 16 * a, j = tx + 16 * bb;
-          float* o = dst + i * L.lds + j;
-          *o = d0 == 0 ? acc[a][bb] : *o + acc[a][bb];
-        }
+      n += cnt;
     }
+
+  auto issue = [&](int st) {
+    float* buf = ring + (st & 1) * kScBuf;
+    const int d0 = st * kSD;
+    constexpr int kPc = kSD / 4;
+    for (int x = tid; x < (2 * 32 + 2 * kMaxChunk) * kPc; x += kScoreThreads) {
+      const int r = x / kPc, col = (x % kPc) * 4;
+      if (r < 64) {  // q (r < 32) and dnum of the block's rows
+        const int rr = r & 31, pos = row_of(rr);
+        const long long row = row0 + static_cast<long long>(pos) * H;
+        if (r < 32)
+          copy4(buf + sc_row(rr) + col, q + row * dk + d0 + col, q, pos < c ? d0 + col : dk, dk, vec);
+        else
+          copy4(buf + kScA + sc_row(rr) + col, op.dnum + row * dkp + d0 + col, op.dnum,
+                pos < c ? d0 + col : dkp, dkp, true);
+      } else {  // k and v of the chunk's rows
+        const int rr = (r - 64) % kMaxChunk, is_v = (r - 64) / kMaxChunk;
+        if (rr >= krows) continue;
+        const float* src = (is_v ? v : k) + (row0 + static_cast<long long>(rr) * H) * dk + d0 + col;
+        copy4(buf + 2 * kScA + is_v * kScB + sc_row(rr) + col, src, k, rr < c ? d0 + col : dk, dk,
+              vec);
+      }
+    }
+    cp_async_commit();
   };
-  products(q, k, scale, sS);
-  products(dh, v, 1.f, sP);
-  __syncthreads();
-
-  for (int j = lane; j < kMaxChunk; j += 32) colpart[warp * kMaxChunk + j] = 0.f;
-  for (int i = warp; i < c; i += kWarps) {
+  issue(0);
+  if (warp == 0) {
+    warp_cumsum(log_f + row0, H, scs, c, lane);
+    for (int j = lane; j < c; j += 32) sli[j] = log_i[row0 + static_cast<long long>(j) * H];
+    for (int j = c + lane; j < kMaxChunk; j += 32) scs[j] = sli[j] = 0.f;
+  } else if (warp == 1) {
+    const int i = row_of(lane);
     const long long row = row0 + static_cast<long long>(i) * H;
-    const float csi = cs[i], mi = sc.mi[row], lim = sc.lim[row], dden = sc.dden[row];
-    float rsum = 0.f;
-    for (int j = lane; j < c; j += 32) {
-      float wv = 0.f, dsv = 0.f;
-      if (j <= i) {
-        const float e = expf(csi - cs[j] + li[j] - mi);
-        wv = sS[i * L.lds + j] * e;
-        const float dw = sP[i * L.lds + j] / lim + dden;
-        dsv = dw * e;
-        const float dd = dw * wv;
-        rsum += dd;
-        colpart[warp * kMaxChunk + j] += dd;
+    smi[lane] = i < c ? sc.mi[row] : 0.f;
+    sdd[lane] = i < c ? sc.dden[row] : 0.f;
+  }
+  float acc[8][8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int x = 0; x < 8; ++x) acc[a][x] = 0.f;
+  for (int st = 0; st < nd; ++st) {
+    cp_async_wait_all();
+    __syncthreads();  // step st has landed everywhere; step st - 1's buffer is consumed
+    if (st + 1 < nd) issue(st + 1);
+    if (!s_thread && !p_thread) continue;
+    const float* buf = ring + (st & 1) * kScBuf;
+    const float* sa = buf + (s_thread ? 0 : kScA);
+    const float* sb = buf + 2 * kScA + (s_thread ? 0 : kScB);
+#pragma unroll 4
+    for (int f = 0; f < kSD; ++f) {
+      float x8[8], y8[8];
+#pragma unroll
+      for (int x = 0; x < 8; ++x) {
+        x8[x] = sa[sc_row(8 * rb + x) + f];
+        y8[x] = sb[sc_row(8 * cb + x) + f];
       }
-      sS[i * L.lds + j] = wv;
-      sP[i * L.lds + j] = dsv;
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+#pragma unroll
+        for (int y = 0; y < 8; ++y) acc[x][y] = fmaf(x8[x], y8[y], acc[x][y]);
     }
-    rsum = warp_sum(rsum);
-    if (lane == 0) sc.rowD[row] = rsum;
+  }
+  if (s_thread || p_thread) {
+    float* dst = s_thread ? sS : sP;
+#pragma unroll
+    for (int x = 0; x < 8; ++x)
+#pragma unroll
+      for (int y = 0; y < 8; ++y)
+        dst[(8 * rb + x) * kScPw + 8 * cb + y] = s_thread ? acc[x][y] * sh.scale : acc[x][y];
   }
   __syncthreads();
-  const long long cc = static_cast<long long>(c) * c;
-  float* Wg = sc.W + (static_cast<long long>(bh) * nc + chunk) * cc;
-  float* dSg = sc.dS + (static_cast<long long>(bh) * nc + chunk) * cc;
-  for (int x = tid; x < c * c; x += kThreads) {
-    const int i = x / c, j = x - i * c;
-    Wg[x] = sS[i * L.lds + j];
-    dSg[x] = sP[i * L.lds + j];
+  const long long cc = static_cast<long long>(cp) * cp;
+  for (int r = warp; r < 32; r += kScoreThreads / 32) {
+    const int i = row_of(r);
+    if (i >= cp) continue;
+    const bool ok = i < c;
+    const float csi = scs[i], mi = smi[r], dd = sdd[r];
+    float rs = 0.f;
+    for (int j = lane; j < cp; j += 32) {
+      const bool on = ok && j <= i;
+      const float E = on ? expf(csi - scs[j] + sli[j] - mi) : 0.f;
+      const float Wv = on ? sS[r * kScPw + j] * E : 0.f;
+      const float dW = on ? sP[r * kScPw + j] + dd : 0.f;
+      const float dD = dW * Wv;
+      rs += dD;
+      op.W[p * cc + static_cast<long long>(i) * cp + j] = Wv;
+      op.dS[p * cc + static_cast<long long>(i) * cp + j] = dW * E;
+      sS[r * kScPw + j] = dD;
+    }
+    rs = warp_sum(rs);
+    if (lane == 0 && ok) sc.rowD[row0 + static_cast<long long>(i) * H] = rs;
   }
-  for (int j = tid; j < c; j += kThreads) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += colpart[w * kMaxChunk + j];
-    sc.colD[row0 + static_cast<long long>(j) * H] = s;
+  __syncthreads();
+  for (int j = tid; j < c; j += kScoreThreads) {
+    float x = 0.f;
+    for (int r = 0; r < 32; ++r)
+      if (row_of(r) < c) x += sS[r * kScPw + j];
+    sc.colD[z * sh.rows + row0 + static_cast<long long>(j) * H] = x;
   }
 }
 
 // ------------------------------------------------------------------ grads
 
-// One block per (batch x head, chunk, 64 columns of dk).  Thread (ty, tx)
-// holds rows ty + 16 a (a < 8) and columns tx + 16 bb (bb < 4) of a c x 64
-// output; products over a second axis go in 32-wide staged steps.
-struct GradLayout {
-  size_t m, xc, yc, sa, sb, red, total;  // float offsets
-};
-constexpr int kLdM = kMaxChunk + 1;
-constexpr int kLdC = kTile + 1;
-__host__ __device__ inline GradLayout grad_layout() {
-  GradLayout L;
-  L.m = 0;                                             // c x c (dS or W)
-  L.xc = L.m + static_cast<size_t>(kMaxChunk) * kLdM;  // c x 64: a column tile of an input
-  L.yc = L.xc + static_cast<size_t>(kMaxChunk) * kLdC;
-  L.sa = L.yc + static_cast<size_t>(kMaxChunk) * kLdC;  // c x 32 staged step
-  L.sb = L.sa + static_cast<size_t>(kMaxChunk) * (kTD + 1);  // 64 x 32 staged step
-  L.red = L.sb + static_cast<size_t>(kTile) * (kTD + 1);
-  L.total = L.red + kWarps;
-  return L;
+// acc += A B over one staged step of kGD: A [row][f] (ARF) or [f][row], B
+// [col][f] (BCF) or [f][col]; this thread's rows tr + 16 a for a in [alo,
+// ahi] (the others are zero over this step) and columns tc + 8 b.
+template <bool ARF, bool BCF>
+__device__ __forceinline__ void grads_fma(float (&acc)[8][8], const float* sA, const float* sB,
+                                          int tr, int tc, int alo, int ahi) {
+#pragma unroll 4
+  for (int f = 0; f < kGD; ++f) {
+    float bv[8];
+#pragma unroll
+    for (int y = 0; y < 8; ++y) bv[y] = BCF ? sB[(tc + 8 * y) * kGR + f] : sB[f * (kT + 4) + tc + 8 * y];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      if (a < alo || a > ahi) continue;
+      const float x = ARF ? sA[(tr + 16 * a) * kGR + f] : sA[f * (kMaxChunk + 4) + tr + 16 * a];
+#pragma unroll
+      for (int y = 0; y < 8; ++y) acc[a][y] = fmaf(x, bv[y], acc[a][y]);
+    }
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-mlstm_bwd_grads(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const float* __restrict__ ws, bool frag, const float* __restrict__ gws,
-                const float* __restrict__ dh, Scratch sc, float* __restrict__ dq,
-                float* __restrict__ dkk, float* __restrict__ dv, int S, int H, int dk, int c,
-                float scale) {
-  extern __shared__ float smem[];
-  __shared__ float s_inter[kMaxChunk], s_lim[kMaxChunk], s_dden[kMaxChunk], s_w[kMaxChunk];
-  __shared__ float s_n[kTile], s_dn[kTile];
-  const GradLayout L = grad_layout();
-  float* sM = smem + L.m;
-  float* sXc = smem + L.xc;
-  float* sYc = smem + L.yc;
-  float* sA = smem + L.sa;
-  float* sB = smem + L.sb;
-  float* sRed = smem + L.red;
-  const int bh = blockIdx.x, chunk = blockIdx.y, nc = gridDim.y, ct = blockIdx.z;
-  const int c0 = ct * kTile;
-  const int b = bh / H, hh = bh - b * H;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, ty = tid >> 4, tx = tid & 15;
-  const long long tstride = static_cast<long long>(H) * dk;
-  const long long row0 = chunk_row(b, S, chunk, c, H, hh);
-  const long long head0 = row0 * dk;
-  const int dkp = (dk + 15) & ~15, nkb = dkp / 16;
+// One block (128 threads) per (batch x head, chunk, output MODE 0 dq | 1
+// dk | 2 dv, 64 columns c0 ..), as the bf16 pass: first the carry's product
+// over dk in steps of 32 (MODE 0: C dnum; 1: G v; 2: G^T k) and its
+// partials, then the chunk's over positions (dS k; dS^T scale q; W^T dnum)
+// added to it.  G comes from the fragment order in 8-byte pieces.
+template <int MODE>
+__device__ __forceinline__ void grads_f32_body(const float* __restrict__ q,
+                                               const float* __restrict__ k,
+                                               const float* __restrict__ v,
+                                               const float* __restrict__ ws, F32 op, Scratch sc,
+                                               float* __restrict__ out, Shape sh, int ct, bool vec,
+                                               float* smem) {
+  float* sInter = smem + 2 * kGBuf;
+  float* sDden = sInter + kMaxChunk;
+  float* sW = sDden + kMaxChunk;
+  float* sN = sW + kMaxChunk;  // [kT]: n (dq) or dn (dk) of the block's columns
+  const int H = sh.H, c = sh.c, dk = sh.dk, dkp = sh.dkp, cp = sh.cp, nc = sh.nc, nkb = dkp / 16;
+  const int bh = blockIdx.x, chunk = blockIdx.y, b = bh / H, hh = bh - b * H;
+  const int tid = threadIdx.x, lane = tid & 31, tc = lane & 7, tr = (tid >> 5) * 4 + (lane >> 3);
+  const int c0 = ct * kT;
+  const long long row0 = chunk_row(b, sh.S, chunk, c, H, hh);
   const long long p = static_cast<long long>(bh) * nc + chunk;
-  const bool carry_in = chunk > 0;
-  const Carry wsc = carry_of(const_cast<float*>(ws), static_cast<long long>(gridDim.x) * nc, dkp);
-  const float* Cg = wsc.C + p * dkp * dkp;
-  const float* G = gws + p * (static_cast<long long>(dk) * dk + dk);
-  const float* dnG = G + static_cast<long long>(dk) * dk;
-  const long long cc = static_cast<long long>(c) * c;
-  const float* Wg = sc.W + p * cc;
-  const float* dSg = sc.dS + p * cc;
+  const Carry wsc = carry_of(const_cast<float*>(ws), sh.P, dkp);
+  const bool carry = MODE == 0 ? chunk > 0 : chunk + 1 < nc;
+  const int n1 = carry ? ceil_div(dk, kGD) : 0, nsteps = n1 + ceil_div(cp, kGD);
+  const long long cc = static_cast<long long>(cp) * cp;
+  const float* G = sc.G + p * dkp * dkp;
 
-  for (int r = tid; r < kMaxChunk; r += kThreads) {
+  auto issue = [&](int st) {
+    float* sA = smem + (st & 1) * kGBuf;
+    float* sB = sA + kGA;
+    if (st < n1) {
+      const int f0 = st * kGD;
+      for (int x = tid; x < kMaxChunk * (kGD / 4); x += kGradThreads) {  // A: dnum, v or k [i][f]
+        const int r = x / (kGD / 4), col = (x % (kGD / 4)) * 4;
+        const long long row = row0 + static_cast<long long>(r) * H;
+        if (MODE == 0)
+          copy4(sA + r * kGR + col, op.dnum + row * dkp + f0 + col, op.dnum,
+                r < c ? f0 + col : dkp, dkp, true);
+        else
+          copy4(sA + r * kGR + col, (MODE == 1 ? v : k) + row * dk + f0 + col, k,
+                r < c ? f0 + col : dk, dk, vec);
+      }
+      if (MODE == 0) {  // B: C[d][e] as [d = c0 ..][e = f0 ..]
+        const float* Cg = wsc.C + p * dkp * dkp;
+        for (int x = tid; x < kT * (kGD / 4); x += kGradThreads) {
+          const int r = x / (kGD / 4), col = (x % (kGD / 4)) * 4;
+          copy4(sB + r * kGR + col, Cg + static_cast<long long>(c0 + r) * dk + f0 + col, ws,
+                c0 + r < dk ? f0 + col : dk, dk, vec);
+        }
+      } else {  // B: G[d][e] from its fragment pieces (e, d .. d + 1 and d + 8 .. d + 9)
+        for (int x = tid; x < 8 * 64; x += kGradThreads) {
+          const int u = x >> 6, half = (x >> 5) & 1, l = x & 31, g = l >> 2, t = l & 3;
+          // MODE 1: [e = f0 ..][d = c0 ..], units 2 (e) x 4 (d); 2: [e = c0 ..][d = f0 ..], 4 x 2
+          const int ue = MODE == 1 ? u >> 2 : u >> 1, ud = MODE == 1 ? u & 3 : u & 1;
+          const int eb = (MODE == 1 ? f0 : c0) / 16 + ue, kb = (MODE == 1 ? c0 : f0) / 16 + ud;
+          const bool ok = eb < nkb && kb < nkb;
+          const float* src = G + (static_cast<long long>(ok ? eb : 0) * nkb + (ok ? kb : 0)) * kUnit +
+                             half * (kUnit / 2) + l * 4;
+          const int el = 16 * ue + 8 * half + g, dl = 16 * ud + 2 * t;
+          float* dst = MODE == 1 ? sB + el * (kT + 4) + dl : sB + el * kGR + dl;
+          cp_async8(dst, src, ok);  // d, d + 1
+          cp_async8(dst + 8, src + 2, ok);  // d + 8, d + 9: 8 floats on in either layout
+        }
+      }
+    } else {
+      const int s0 = (st - n1) * kGD;
+      if (MODE == 0) {  // A: dS [i][j = s0 ..]
+        const float* M = op.dS + p * cc;
+        for (int x = tid; x < kMaxChunk * (kGD / 4); x += kGradThreads) {
+          const int r = x / (kGD / 4), col = (x % (kGD / 4)) * 4;
+          copy4(sA + r * kGR + col, M + static_cast<long long>(r) * cp + s0 + col, M,
+                r < cp ? s0 + col : cp, cp, true);
+        }
+      } else {  // A: dS^T or W^T, [f = i = s0 ..][j]
+        const float* M = (MODE == 1 ? op.dS : op.W) + p * cc;
+        for (int x = tid; x < kGD * (kMaxChunk / 4); x += kGradThreads) {
+          const int r = x / (kMaxChunk / 4), col = (x % (kMaxChunk / 4)) * 4;
+          copy4(sA + r * (kMaxChunk + 4) + col, M + static_cast<long long>(s0 + r) * cp + col, M,
+                s0 + r < cp ? col : cp, cp, true);
+        }
+      }
+      // B: k (dq), q (dk, scaled as it lands) or dnum (dv) of positions s0 .., [f][col]
+      for (int x = tid; x < kGD * (kT / 4); x += kGradThreads) {
+        const int r = x / (kT / 4), col = (x % (kT / 4)) * 4;
+        const long long row = row0 + static_cast<long long>(s0 + r) * H;
+        if (MODE == 2)
+          copy4(sB + r * (kT + 4) + col, op.dnum + row * dkp + c0 + col, op.dnum,
+                s0 + r < c ? c0 + col : dkp, dkp, true);
+        else
+          copy4(sB + r * (kT + 4) + col, (MODE == 0 ? k : q) + row * dk + c0 + col, q,
+                s0 + r < c ? c0 + col : dk, dk, vec);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  for (int r = tid; r < kMaxChunk; r += kGradThreads) {
     const long long row = row0 + static_cast<long long>(r) * H;
     const bool ok = r < c;
-    s_inter[r] = ok ? sc.inter[row] : 0.f;
-    s_lim[r] = ok ? sc.lim[row] : 1.f;
-    s_dden[r] = ok ? sc.dden[row] : 0.f;
-    s_w[r] = ok ? sc.w[row] : 0.f;
+    sInter[r] = ok ? sc.inter[row] : 0.f;
+    sDden[r] = ok ? sc.dden[row] : 0.f;
+    sW[r] = ok ? sc.w[row] : 0.f;
   }
-  for (int d = tid; d < kTile; d += kThreads) {
-    const bool ok = c0 + d < dk;
-    s_n[d] = ok && carry_in ? wsc.n[p * dkp + c0 + d] : 0.f;
-    s_dn[d] = ok ? dnG[c0 + d] : 0.f;
+  for (int d = tid; d < kT; d += kGradThreads) {
+    const bool ok = carry && c0 + d < dk;
+    sN[d] = !ok ? 0.f : MODE == 0 ? wsc.n[p * dkp + c0 + d] : MODE == 1 ? sc.dn[p * dkp + c0 + d] : 0.f;
   }
-  // a c x 64 column tile of x (times xs), rows past c and columns past dk zero
-  auto col_tile = [&](const auto* x, float* dst, bool by_lim, float xs) {
-    for (int i = tid; i < kMaxChunk * kTile; i += kThreads) {
-      const int r = i / kTile, col = i - r * kTile;
-      const bool ok = r < c && c0 + col < dk;
-      float val = ok ? ld(x, head0 + r * tstride + c0 + col) * xs : 0.f;
-      if (by_lim && ok) val /= s_lim[r];
-      dst[r * kLdC + col] = val;
-    }
-  };
-  auto mat = [&](const float* src) {  // a c x c matrix of the scratch
-    for (int x = tid; x < kMaxChunk * kMaxChunk; x += kThreads) {
-      const int i = x / kMaxChunk, j = x - i * kMaxChunk;
-      sM[i * kLdM + j] = i < c && j < c ? src[i * c + j] : 0.f;
-    }
-  };
-  float acc[8][4], acc2[8][4];
-  auto zero = [&](float (&t)[8][4]) {
+  __syncthreads();
+  float acc[8][8];
 #pragma unroll
-    for (int a = 0; a < 8; ++a)
+  for (int a = 0; a < 8; ++a)
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) t[a][bb] = 0.f;
-  };
-  // acc2[i][col] += sum over the second axis f of A(i, f) B(col, f), A from
-  // `a_of(r, f)` (c x F) and B from `b_of(col, f)` (64 x F), staged 32 at a time
-  auto cross = [&](int F, auto a_of, auto b_of) {
-    for (int f0 = 0; f0 < F; f0 += kTD) {
-      __syncthreads();
-      for (int i = tid; i < kMaxChunk * kTD; i += kThreads) {
-        const int r = i / kTD, ff = i - r * kTD;
-        sA[r * (kTD + 1) + ff] = r < c && f0 + ff < F ? a_of(r, f0 + ff) : 0.f;
-      }
-      for (int i = tid; i < kTile * kTD; i += kThreads) {
-        const int col = i / kTD, ff = i - col * kTD;
-        sB[col * (kTD + 1) + ff] = c0 + col < dk && f0 + ff < F ? b_of(c0 + col, f0 + ff) : 0.f;
-      }
-      __syncthreads();
-      for (int ff = 0; ff < kTD; ++ff) {
-        float xa[8], yb[4];
+    for (int y = 0; y < 8; ++y) acc[a][y] = 0.f;
+
+  for (int st = 0;; ++st) {
+    if (st == n1) {
+      // the carry's product is whole.  MODE 0: dinter's share, acc = inter (C
+      // dnum + dden n); 1: dw's share, acc = w (G v + dn); 2: acc = w G^T k
 #pragma unroll
-        for (int a = 0; a < 8; ++a) xa[a] = sA[(ty + 16 * a) * (kTD + 1) + ff];
+      for (int a = 0; a < 8; ++a) {
+        const int i = tr + 16 * a;
+        const bool ok = i < c;
+        const float* xr = (MODE == 0 ? q : k) + (row0 + static_cast<long long>(i) * H) * dk + c0;
+        float part = 0.f;
 #pragma unroll
-        for (int bb = 0; bb < 4; ++bb) yb[bb] = sB[(tx + 16 * bb) * (kTD + 1) + ff];
-#pragma unroll
-        for (int a = 0; a < 8; ++a)
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) acc2[a][bb] = fmaf(xa[a], yb[bb], acc2[a][bb]);
+        for (int y = 0; y < 8; ++y) {
+          const int col = tc + 8 * y;
+          if (MODE == 0) {
+            const float xe = ok && c0 + col < dk ? xr[col] : 0.f;
+            const float t = fmaf(sDden[i], sN[col], acc[a][y]);
+            part = fmaf(xe * sh.scale, t, part);
+            acc[a][y] = sInter[i] * t;
+          } else if (MODE == 1) {
+            const float xe = ok && c0 + col < dk ? xr[col] : 0.f;
+            const float t = acc[a][y] + sN[col];
+            part = fmaf(xe, t, part);
+            acc[a][y] = sW[i] * t;
+          } else {
+            acc[a][y] = sW[i] * acc[a][y];
+          }
+        }
+        if (MODE != 2) {  // the row's 64 columns: 8 lanes, 8 columns each
+          part += __shfl_xor_sync(kFull, part, 1);
+          part += __shfl_xor_sync(kFull, part, 2);
+          part += __shfl_xor_sync(kFull, part, 4);
+          if (tc == 0 && ok)
+            (MODE == 0 ? sc.pinter : sc.pw)[static_cast<long long>(ct) * sh.rows + row0 +
+                                            static_cast<long long>(i) * H] = part;
+        }
       }
     }
-  };
-  // sum over the 16 threads of a row group (a half warp) of a per-row value, in a fixed order
-  auto row_sum = [&](float x) {
-#pragma unroll
-    for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(kFull, x, o);
-    return x;
-  };
-  float* pinter = sc.pinter + (static_cast<long long>(ct) * gridDim.x * nc + p) * c;
-  float* pw = sc.pw + (static_cast<long long>(ct) * gridDim.x * nc + p) * c;
-
-  // 1. dq = scale (dS k + inter C dnum + dden inter n); pinter = q . (C dnum) + dden q . n
-  __syncthreads();
-  mat(dSg);
-  col_tile(k, sXc, false, 1.f);
-  col_tile(q, sYc, false, scale);
-  __syncthreads();
-  zero(acc);
-  for (int j = 0; j < c; ++j) {
-    float kb[4];
-#pragma unroll
-    for (int bb = 0; bb < 4; ++bb) kb[bb] = sXc[j * kLdC + tx + 16 * bb];
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float ds = sM[(ty + 16 * a) * kLdM + j];
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) acc[a][bb] = fmaf(ds, kb[bb], acc[a][bb]);
+    if (st == nsteps) break;
+    cp_async_wait_all();
+    const float* sA = smem + (st & 1) * kGBuf;
+    const float* sB = sA + kGA;
+    if (MODE == 1 && st >= n1)  // scale this thread's own pieces of q as they land
+      for (int x = tid; x < kGD * (kT / 4); x += kGradThreads) {
+        float4* y = reinterpret_cast<float4*>(const_cast<float*>(sB) + (x / (kT / 4)) * (kT + 4) +
+                                              (x % (kT / 4)) * 4);
+        float4 z = *y;
+        z.x *= sh.scale;
+        z.y *= sh.scale;
+        z.z *= sh.scale;
+        z.w *= sh.scale;
+        *y = z;
+      }
+    __syncthreads();  // step st has landed everywhere; step st - 1's buffer is consumed
+    if (st + 1 < nsteps) issue(st + 1);
+    if (st < n1) {
+      if (MODE == 1)
+        grads_fma<true, false>(acc, sA, sB, tr, tc, 0, 7);
+      else
+        grads_fma<true, true>(acc, sA, sB, tr, tc, 0, 7);
+      continue;
     }
+    // the chunk's product: MODE 0 rows i take j <= i (bands a >= s0 / 16);
+    // 1, 2 rows j take i >= j (bands a <= (s0 + 31) / 16)
+    const int s0 = (st - n1) * kGD;
+    if (MODE == 0)
+      grads_fma<true, false>(acc, sA, sB, tr, tc, s0 / 16, 7);
+    else
+      grads_fma<false, false>(acc, sA, sB, tr, tc, 0, (s0 + kGD - 1) / 16);
   }
-  zero(acc2);
-  if (carry_in)
-    cross(dk, [&](int r, int e) { return dh[head0 + r * tstride + e] / s_lim[r]; },
-          [&](int d, int e) { return carry_at(Cg, frag, dk, nkb, d, e); });
+
+  // dq = scale acc, dk = acc, dv = acc
 #pragma unroll
   for (int a = 0; a < 8; ++a) {
-    const int i = ty + 16 * a;
-    const float inter = s_inter[i], dd = s_dden[i];
-    float part = 0.f;
+    const int i = tr + 16 * a;
+    if (i >= c) continue;
+    float* o = out + (row0 + static_cast<long long>(i) * H) * dk + c0;
 #pragma unroll
-    for (int bb = 0; bb < 4; ++bb) {
-      const int col = tx + 16 * bb;
-      const float qv = sYc[i * kLdC + col];
-      part = fmaf(qv, acc2[a][bb] + dd * s_n[col], part);
-      if (i < c && c0 + col < dk)
-        dq[head0 + i * tstride + c0 + col] =
-            scale * (acc[a][bb] + inter * acc2[a][bb] + dd * inter * s_n[col]);
-    }
-    part = row_sum(part);
-    if (tx == 0 && i < c) pinter[i] = part;
-  }
-
-  // 2. dk = dS^T q + w (G v + dn); pw = k . (G v + dn)
-  zero(acc);
-  for (int i = 0; i < c; ++i) {
-    float qb[4];
-#pragma unroll
-    for (int bb = 0; bb < 4; ++bb) qb[bb] = sYc[i * kLdC + tx + 16 * bb];
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float ds = sM[i * kLdM + ty + 16 * a];
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) acc[a][bb] = fmaf(ds, qb[bb], acc[a][bb]);
-    }
-  }
-  zero(acc2);
-  cross(dk, [&](int r, int e) { return ld(v, head0 + r * tstride + e); },
-        [&](int d, int e) { return G[static_cast<long long>(d) * dk + e]; });
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int j = ty + 16 * a;
-    const float w = s_w[j];
-    float part = 0.f;
-#pragma unroll
-    for (int bb = 0; bb < 4; ++bb) {
-      const int col = tx + 16 * bb;
-      const float y = acc2[a][bb] + s_dn[col];
-      part = fmaf(sXc[j * kLdC + col], y, part);
-      if (j < c && c0 + col < dk) dkk[head0 + j * tstride + c0 + col] = acc[a][bb] + w * y;
-    }
-    part = row_sum(part);
-    if (tx == 0 && j < c) pw[j] = part;
-  }
-
-  // 3. dv = W^T dnum + w G^T k (this block's columns are value columns)
-  __syncthreads();
-  mat(Wg);
-  col_tile(dh, sYc, true, 1.f);
-  __syncthreads();
-  zero(acc);
-  for (int i = 0; i < c; ++i) {
-    float nb[4];
-#pragma unroll
-    for (int bb = 0; bb < 4; ++bb) nb[bb] = sYc[i * kLdC + tx + 16 * bb];
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float wv = sM[i * kLdM + ty + 16 * a];
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) acc[a][bb] = fmaf(wv, nb[bb], acc[a][bb]);
-    }
-  }
-  zero(acc2);
-  cross(dk, [&](int r, int d) { return ld(k, head0 + r * tstride + d); },
-        [&](int e, int d) { return G[static_cast<long long>(d) * dk + e]; });
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int j = ty + 16 * a;
-#pragma unroll
-    for (int bb = 0; bb < 4; ++bb) {
-      const int col = tx + 16 * bb;
-      if (j < c && c0 + col < dk)
-        dv[head0 + j * tstride + c0 + col] = acc[a][bb] + s_w[j] * acc2[a][bb];
-    }
-  }
-
-  // 4. this block's rows of <G, C> + dn . n
-  float part = 0.f;
-  if (carry_in) {
-    for (int x = tid; x < kTile * dk; x += kThreads) {
-      const int dl = x / dk, e = x - dl * dk, d = c0 + dl;
-      if (d < dk)
-        part = fmaf(G[static_cast<long long>(d) * dk + e], carry_at(Cg, frag, dk, nkb, d, e), part);
-    }
-    if (tid < kTile) part = fmaf(s_dn[tid], s_n[tid], part);
-  }
-  part = warp_sum(part);
-  if (lane == 0) sRed[warp] = part;
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += sRed[w];
-    sc.pdecay[static_cast<long long>(ct) * gridDim.x * nc + p] = s;
-  }
-}
-
-// ------------------------------------------------------------------ gates
-
-// One warp per (batch x head, chunk): the partials of the column blocks
-// summed in order, then
-//   dcs_i = dinter_i inter_i + rowD_i - colD_i - dw_i w_i (+ dtotal at c - 1),
-//   dlog_i_j = colD_j + dw_j w_j,  dlog_f_j = sum_{i >= j} dcs_i,
-// with dtotal = ddecay decay + sum_j dw_j w_j.
-__global__ void __launch_bounds__(32)
-mlstm_bwd_gates(Scratch sc, float* __restrict__ dlog_i, float* __restrict__ dlog_f, int S, int H,
-                int c, int ntiles) {
-  __shared__ double dcs[kMaxChunk];
-  const int bh = blockIdx.x, chunk = blockIdx.y, nc = gridDim.y, nbh = gridDim.x;
-  const int b = bh / H, hh = bh - b * H;
-  const int lane = threadIdx.x;
-  const long long p = static_cast<long long>(bh) * nc + chunk;
-  const long long row0 = chunk_row(b, S, chunk, c, H, hh);
-  double wsum = 0.0;  // the gates' few adds in f64, as the tensor-core variant's
-  for (int i = lane; i < c; i += 32) {
-    const long long row = row0 + static_cast<long long>(i) * H;
-    double di = 0.0, dw = 0.0;
-    for (int t = 0; t < ntiles; ++t) {
-      const long long base = (static_cast<long long>(t) * nbh * nc + p) * c + i;
-      di += sc.pinter[base];
-      dw += sc.pw[base];
-    }
-    const double ww = dw * sc.w[row];
-    wsum += ww;
-    dcs[i] = di * sc.inter[row] + sc.rowD[row] - sc.colD[row] - ww;
-    dlog_i[row] = static_cast<float>(sc.colD[row] + ww);
-  }
-  for (int o = 16; o > 0; o >>= 1) wsum += __shfl_xor_sync(kFull, wsum, o);
-  __syncwarp();
-  if (lane == 0) {
-    double dd = 0.0;
-    for (int t = 0; t < ntiles; ++t) dd += sc.pdecay[static_cast<long long>(t) * nbh * nc + p];
-    dcs[c - 1] += dd * sc.decay[p] + wsum;
-    double run = 0.0;
-    for (int j = c - 1; j >= 0; --j) {
-      run += dcs[j];
-      dlog_f[row0 + static_cast<long long>(j) * H] = static_cast<float>(run);
+    for (int y = 0; y < 8; ++y) {
+      const int col = tc + 8 * y;
+      if (c0 + col < dk) o[col] = MODE == 0 ? acc[a][y] * sh.scale : acc[a][y];
     }
   }
 }
 
-// ----------------------------------------------------------------- launch
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+__global__ void __launch_bounds__(kGradThreads, 3)
+mlstm_bwd_grads_f32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ ws, F32 op, Scratch sc,
+                    float* __restrict__ dq, float* __restrict__ dk_out, float* __restrict__ dv,
+                    Shape sh, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int mode = blockIdx.z / sh.ntile, ct = blockIdx.z - mode * sh.ntile;
+  if (mode == 0)
+    grads_f32_body<0>(q, k, v, ws, op, sc, dq, sh, ct, vec, smem);
+  else if (mode == 1)
+    grads_f32_body<1>(q, k, v, ws, op, sc, dk_out, sh, ct, vec, smem);
+  else
+    grads_f32_body<2>(q, k, v, ws, op, sc, dv, sh, ct, vec, smem);
 }
-
-template <typename T>
-cudaError_t launch(const T* q, const T* k, const T* v, const float* li, const float* lf,
-                   const float* ws, bool frag, const float* den, const float* h, const float* dh,
-                   float* dq, float* dk_out, float* dv, float* dli, float* dlf, float* gws,
-                   Scratch sc, int B, int S, int H, int dk, int c, float scale,
-                   cudaStream_t stream) {
-  const int nc = S / c, tiles = ceil_div(dk, kTile);
-  cudaError_t err = allow_smem(mlstm_bwd_state<T>, sizeof(StateSmem));
-  if (err != cudaSuccess) return err;
-  const size_t score_smem = score_layout().total * sizeof(float);
-  err = allow_smem(mlstm_bwd_scores<T>, score_smem);
-  if (err != cudaSuccess) return err;
-  const size_t grad_smem = grad_layout().total * sizeof(float);
-  err = allow_smem(mlstm_bwd_grads<T>, grad_smem);
-  if (err != cudaSuccess) return err;
-  mlstm_bwd_rows<<<dim3(B * H, nc), 128, 0, stream>>>(li, lf, ws, den, h, dh, sc, S, H, dk, c);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  mlstm_bwd_state<T><<<dim3(B * H, tiles, tiles), kThreads, sizeof(StateSmem), stream>>>(
-      q, dh, sc, gws, S, H, dk, c, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  mlstm_bwd_scores<T><<<dim3(B * H, nc), kThreads, score_smem, stream>>>(q, k, v, li, lf, dh, sc,
-                                                                         S, H, dk, c, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  mlstm_bwd_grads<T><<<dim3(B * H, nc, tiles), kThreads, grad_smem, stream>>>(
-      q, k, v, ws, frag, gws, dh, sc, dq, dk_out, dv, S, H, dk, c, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  mlstm_bwd_gates<<<dim3(B * H, nc), 32, 0, stream>>>(sc, dli, dlf, S, H, c, tiles);
-  return cudaGetLastError();
-}
-
 
 }  // namespace cc
+
+// The f32 entry: rows, moves, state, scores, grads, gates on the bf16
+// path's scratch and grids.
+cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* li,
+                       const float* lf, const float* ws, const float* den, const float* h,
+                       const float* dh, float* dq, float* dk_out, float* dv, float* dli,
+                       float* dlf, unsigned char* scratch, int B, int S, int H, int dk, int c,
+                       float scale, cudaStream_t stream) {
+  const Shape sh = shape_of(B, S, H, dk, c, scale);
+  const Scratch sc = scratch_of(scratch, layout(B, S, H, dk, c));
+  const cc::F32 op = cc::f32_of(sc);
+  const bool vec = dk % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(ws)) & 15u) == 0;
+  const int BH = B * H, nc = sh.nc, nt = sh.ntile;
+  cudaError_t err = allow_smem(cc::mlstm_bwd_scores_f32, cc::kScSmem);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(cc::mlstm_bwd_grads_f32, cc::kGSmem);
+  if (err != cudaSuccess) return err;
+  cc::mlstm_bwd_rows_f32<<<dim3(BH, nc, ceil_div(c, kRowGroup)), kRowWarps * 32, 0, stream>>>(
+      li, lf, ws, den, h, dh, sc, op, sh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (nc > 1) {
+    cc::mlstm_bwd_moves_f32<<<dim3(BH, nc - 1, nt * nt), cc::kMovesThreads, 0, stream>>>(q, op, sc,
+                                                                                        sh, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  mlstm_bwd_state<<<dim3(BH, nt, nt), kThreads, 0, stream>>>(ws, false, sc, sh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  cc::mlstm_bwd_scores_f32<<<dim3(BH, nc, kScoreBlocks), cc::kScoreThreads, cc::kScSmem, stream>>>(
+      q, k, v, li, lf, op, sc, sh, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  cc::mlstm_bwd_grads_f32<<<dim3(BH, nc, 3 * nt), cc::kGradThreads, cc::kGSmem, stream>>>(
+      q, k, v, ws, op, sc, dq, dk_out, dv, sh, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mlstm_bwd_gates<<<dim3(BH, nc), 32, 0, stream>>>(sc, dli, dlf, sh);
+  return cudaGetLastError();
+}
 
 }  // namespace
 }  // namespace repro
 
 // Bytes of scratch the backward needs (repro_mlstm_chunk_bwd's `scratch`,
-// 256-byte aligned).  bf16: the rows' and chunks' scalars and partials, the
-// bf16 planes of its operands and each chunk's W, dS and G.  f32 (the CUDA
-// cores): G and dn for every chunk (B * H * (S / c) * (dk^2 + dk) floats),
-// then the rows' and chunks' scalars, W and dS, and the column blocks'
-// partials.
-extern "C" long long repro_mlstm_chunk_bwd_scratch(int B, int S, int H, int dk, int c, int dtype) {
-  if (dtype != repro::kFloat32)
-    return static_cast<long long>(repro::layout(B, S, H, dk, c).total);
-  const long long rows = static_cast<long long>(B) * S * H, chunks = rows / c;
-  const long long tiles = repro::ceil_div(dk, repro::cc::kTile);
-  const long long gws = chunks * (static_cast<long long>(dk) * dk + dk);
-  return 4 * (gws + 7 * rows + chunks + 2 * chunks * c * c + tiles * (2 * rows + chunks));
+// 256-byte aligned), for either dtype: the rows' and chunks' scalars and
+// partials, each chunk's moves U and G, and the operands (bf16: dnum, u, W
+// and dS in three bf16 planes; f32: the same in f32, in the planes' room).
+extern "C" long long repro_mlstm_chunk_bwd_scratch(int B, int S, int H, int dk, int c) {
+  return static_cast<long long>(repro::layout(B, S, H, dk, c).total);
 }
-
-namespace repro {
-namespace {
-
-// The f32 entry: the CUDA-core kernels on their scratch (repro_mlstm_chunk_bwd_scratch).
-cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* li,
-                       const float* lf, const float* ws, const float* den, const float* h,
-                       const float* dh, float* dq, float* dk_out, float* dv, float* dli,
-                       float* dlf, float* scratch, int B, int S, int H, int dk, int c, float scale,
-                       cudaStream_t stream) {
-  const long long rows = static_cast<long long>(B) * S * H, chunks = rows / c;
-  const long long tiles = ceil_div(dk, cc::kTile);
-  float* gws = scratch;
-  float* f = gws + chunks * (static_cast<long long>(dk) * dk + dk);
-  cc::Scratch sc;
-  sc.mi = f;
-  sc.inter = sc.mi + rows;
-  sc.lim = sc.inter + rows;
-  sc.dden = sc.lim + rows;
-  sc.w = sc.dden + rows;
-  sc.rowD = sc.w + rows;
-  sc.colD = sc.rowD + rows;
-  sc.decay = sc.colD + rows;
-  sc.W = sc.decay + chunks;
-  sc.dS = sc.W + chunks * c * c;
-  sc.pinter = sc.dS + chunks * c * c;
-  sc.pw = sc.pinter + tiles * rows;
-  sc.pdecay = sc.pw + tiles * rows;
-  return cc::launch(q, k, v, li, lf, ws, false, den, h, dh, dq, dk_out, dv, dli, dlf, gws, sc, B,
-                    S, H, dk, c, scale, stream);
-}
-
-}  // namespace
-}  // namespace repro
 
 // q, k, v (B, S, H, dk) in `dtype` as the forward took them; log_i, log_f
 // (B, S, H) f32 as the forward took them (log_f already a log sigmoid);
@@ -1889,9 +1845,9 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
 // dlog_f (B, S, H) f32.  scratch: repro_mlstm_chunk_bwd_scratch bytes,
 // 256-byte aligned.  `col_tiles`, `row_groups` and `score_blocks` are the
 // wrapper's plan (mlstm_chunk._bwd_plan: ceil(dk / 64), ceil(c / 16), 4);
-// another plan is refused.  bf16: six kernels (the tensor cores); f32: five
-// (the CUDA cores), on `stream`.  Returns the CUDA error of the launches (0
-// on success).
+// another plan is refused.  Six kernels (five for one chunk) on `stream`:
+// bf16 on the tensor cores, f32 on the CUDA cores.  Returns the CUDA error
+// of the launches (0 on success).
 extern "C" int repro_mlstm_chunk_bwd(int device, int dtype, const void* q, const void* k,
                                      const void* v, const void* log_i, const void* log_f,
                                      const void* ws, const void* den, const void* h,
@@ -1922,8 +1878,7 @@ extern "C" int repro_mlstm_chunk_bwd(int device, int dtype, const void* q, const
     return repro::launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                              static_cast<const float*>(v), li, lf, wsf, dn, hp, dhp,
                              static_cast<float*>(dq), static_cast<float*>(dk),
-                             static_cast<float*>(dv), dlip, dlfp, static_cast<float*>(scratch), B,
-                             S, H, dk_, c, scale, s);
+                             static_cast<float*>(dv), dlip, dlfp, sp, B, S, H, dk_, c, scale, s);
   if (dtype == repro::kBFloat16)
     return repro::launch(static_cast<const repro::bf16*>(q), static_cast<const repro::bf16*>(k),
                          static_cast<const repro::bf16*>(v), li, lf, wsf, true, dn, hp, dhp,

@@ -24,9 +24,10 @@ workspace that this wrapper allocates, and an output pass reads it.  The
 grids and the workspace come from the shapes alone (``_plan``).  Under
 autograd the workspace and each row's denominator stay for the backward,
 which reads the carries from it rather than running the recurrence again.
-The backward writes dq, dk, dv in q's dtype itself: bf16 inputs run six
-passes on the tensor cores (grids from ``_bwd_plan``), f32 inputs five on
-the CUDA cores; the library sizes the scratch for either.
+The backward writes dq, dk, dv in q's dtype itself, in six passes on the
+grids of ``_bwd_plan`` (five for a single chunk): bf16 inputs on the
+tensor cores, f32 inputs on the CUDA cores, both on one scratch the
+library sizes.
 """
 
 from __future__ import annotations
@@ -41,9 +42,12 @@ from .ref import mlstm_chunk_ref
 
 # as in csrc/mlstm_chunk.cu: a state-pass block holds a STATE_TILE[0] x
 # STATE_TILE[1] tile of C (dk rows x value columns); an output-pass block
-# writes VALUE_TILE value columns of h
+# writes VALUE_TILE value columns of h for the rows of its row part: bf16
+# blocks take a whole chunk, f32 ones (ROW_PARTS of them a chunk and value
+# tile) the chunk's 32-row tiles p and 3 - p
 STATE_TILE = {torch.bfloat16: (64, 96), torch.float32: (64, 64)}
-VALUE_TILE = {torch.bfloat16: 192, torch.float32: 32}
+VALUE_TILE = {torch.bfloat16: 192, torch.float32: 192}
+ROW_PARTS = {torch.bfloat16: 1, torch.float32: 2}
 # as in csrc/mlstm_chunk_bwd.cu, which refuses another plan: the backward's
 # column tile of dk, the rows of a rows-pass block, and the scores pass's
 # blocks a chunk
@@ -54,14 +58,19 @@ def _plan(B: int, S: int, H: int, dk: int, c: int, dtype) -> tuple:
     """``(state_tiles, state_e_tiles, value_tiles, workspace_floats)`` for
     chunks of ``c``: the state pass's grid is (B * H, state_tiles,
     state_e_tiles) tiles of C, the output pass's (B * H, S / c,
-    value_tiles); the workspace holds, for every (batch, head, chunk), the
-    carry entering that chunk with dk rounded up to 16 (dkp): C (dkp^2
-    floats: row-major for f32 inputs, in mma fragment order for bf16), n
-    (dkp) and m."""
+    value_tiles * ROW_PARTS[dtype]); the workspace holds, for every
+    (batch, head, chunk), the carry entering that chunk with dk rounded up
+    to 16 (dkp): C (dkp^2 floats: row-major for f32 inputs, in mma fragment
+    order for bf16), n (dkp) and m; for f32 inputs then the state pass's
+    ticket counter and a flag for every (chunk, batch x head, tile of C),
+    as int32 in float slots (its chained scan: one block per chunk and
+    tile, grid (S / c) * B * H * state_tiles^2 with the final carry)."""
     dkp = -(-dk // 16) * 16
     rows, cols = STATE_TILE[dtype]
-    return (-(-dk // rows), -(-dk // cols), -(-dk // VALUE_TILE[dtype]),
-            B * H * (S // c) * (dkp * dkp + dkp + 1))
+    tiles = -(-dk // rows)
+    sync = 1 + B * H * (S // c) * tiles * tiles if dtype == torch.float32 else 0
+    return (tiles, -(-dk // cols), -(-dk // VALUE_TILE[dtype]),
+            B * H * (S // c) * (dkp * dkp + dkp + 1) + sync)
 
 
 def _bwd_plan(B: int, S: int, H: int, dk: int, c: int) -> dict:
@@ -162,7 +171,7 @@ def mlstm_chunk_bwd(q, k, v, log_i, log_f, ws, den, h, dh, *,
     dlog = [torch.empty((B, S, H), dtype=torch.float32, device=dev)
             for _ in range(2)]
     code = _build.DTYPE_CODES[q.dtype]
-    scratch = torch.empty(lib.repro_mlstm_chunk_bwd_scratch(B, S, H, dk, c, code),
+    scratch = torch.empty(lib.repro_mlstm_chunk_bwd_scratch(B, S, H, dk, c),
                           dtype=torch.uint8, device=dev)
     plan = _bwd_plan(B, S, H, dk, c)
     err = lib.repro_mlstm_chunk_bwd(

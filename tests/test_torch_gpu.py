@@ -708,6 +708,38 @@ def test_mlstm_chunk_kernel(cuda, B, S, H, dk, chunk, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlstm_chunk_kernel_is_deterministic(cuda, dtype):
+    """Two calls give equal bits: the forward with its final carry at
+    xlstm-125m's prefill shape, and for f32 inputs the backward at its
+    training shape on the forward's workspace (every sum of both kernels
+    has one fixed order, with no atomics)."""
+    import importlib
+
+    mod = importlib.import_module("repro_torch.kernels.mlstm_chunk")
+    rng = np.random.default_rng(41)
+    inputs = _mlstm_inputs(rng, 1, 2048, 4, 384, cuda, dtype)
+    h, final = kernels.mlstm_chunk(*inputs, chunk=128, return_final=True)
+    h2, final2 = kernels.mlstm_chunk(*inputs, chunk=128, return_final=True)
+    torch.cuda.synchronize()
+    assert torch.equal(h, h2) and all(torch.equal(x, y) for x, y in zip(final, final2))
+    if dtype != "float32":
+        return
+    B, S, H, dk, chunk = 2, 1024, 4, 384, 128
+    q, k, v = (_randn(rng, (B, S, H, dk), cuda, dtype) for _ in range(3))
+    log_i = _randn(rng, (B, S, H), cuda, "float32") - 2.0
+    log_f = torch.nn.functional.logsigmoid(_randn(rng, (B, S, H), cuda, "float32") + 3.0)
+    dh = _randn(rng, (B, S, H, dk), cuda, "float32")
+    h, _, (ws, den) = mod.mlstm_chunk_fwd(q, k, v, log_i, log_f, chunk=chunk, keep=True)
+    args = (q, k, v, log_i, log_f, ws, den, h, dh)
+    got = kernels.mlstm_chunk_bwd(*args, chunk=chunk)
+    again = kernels.mlstm_chunk_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in got)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,KV,D,window", [
     (1, 200, 4, 1, 64, 64),      # S off the tiles, window on them
     (2, 256, 8, 2, 128, 100),    # window off the tiles

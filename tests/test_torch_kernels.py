@@ -6,6 +6,7 @@ numpy inputs go through both.  ``test_torch_gpu.py`` holds the CUDA kernels
 against the plain versions on the card.
 """
 
+import collections
 import math
 
 import jax
@@ -653,7 +654,7 @@ def test_mlstm_plan_covers_every_column_and_chunk(B, S, H, dk, chunk, dtype):
     of C once, the output pass's every value column of h, and the
     workspace holds one carry (C, n, m) for every (batch, head, chunk), with
     dk rounded up to whole 16 x 16 units of C."""
-    from repro_torch.kernels.mlstm_chunk import STATE_TILE, VALUE_TILE, _plan
+    from repro_torch.kernels.mlstm_chunk import ROW_PARTS, STATE_TILE, VALUE_TILE, _plan
     tdt = TDT[dtype]
     c = min(chunk, S)
     state_tiles, state_e_tiles, value_tiles, ws_floats = _plan(B, S, H, dk, c, tdt)
@@ -664,7 +665,60 @@ def test_mlstm_plan_covers_every_column_and_chunk(B, S, H, dk, chunk, dtype):
         assert tiles * width >= dk > (tiles - 1) * width
     assert S % c == 0 and (S // c) * c == S  # the output grid's chunks tile S
     dkp = -(-dk // 16) * 16  # C in whole 16 x 16 units
-    assert ws_floats == B * H * (S // c) * (dkp * dkp + dkp + 1)
+    # f32: then the chained state pass's ticket counter and one flag per
+    # (chunk, batch x head, tile of C)
+    sync = 1 + B * H * (S // c) * state_tiles ** 2 if dtype == "float32" else 0
+    assert ws_floats == B * H * (S // c) * (dkp * dkp + dkp + 1) + sync
+    # the output pass's row parts (f32: the 32-row tiles p and 3 - p) take
+    # every row of a chunk once; a chunk's q k^T is formed once a value tile
+    parts = [_f32_out_rows(p, c) for p in range(ROW_PARTS[tdt])] if dtype == "float32" else [
+        list(range(c))]
+    assert sorted(r for part in parts for r in part) == list(range(c))
+    assert value_tiles == -(-dk // 192)
+    if dtype == "float32":
+        for p in range(ROW_PARTS[tdt]):
+            tiles = _causal_tiles(p, 3 - p, 32)
+            assert len(tiles) == 68  # threads 192 .. 259 of csrc/mlstm_chunk.cu's output pass
+            _assert_covers_causal(tiles, [rr for rr in _f32_out_rows(p, 128)], 32)
+        if c == 128:  # the two parts' causal work is equal
+            assert len({sum(r + 1 for r in _f32_out_rows(p, c)) for p in range(2)}) == 1
+        if (B, S, H, dk, chunk) == (1, 2048, 4, 384, 128):  # xlstm's prefill fills the card
+            assert (S // c) * B * H * state_tiles * state_e_tiles >= 132
+            assert B * H * (S // c) * value_tiles * ROW_PARTS[tdt] >= 132
+
+
+def _f32_out_rows(p: int, c: int) -> list:
+    """The chunk rows of f32 output-pass row part p (csrc/mlstm_chunk.cu):
+    its local rows 0 .. 31 are 32-row tile p, 32 .. 63 tile 3 - p; rows
+    past c are idle."""
+    return [r for r in list(range(32 * p, 32 * p + 32)) + list(range(32 * (3 - p), 128 - 32 * p))
+            if r < c]
+
+
+def _causal_tiles(lo: int, hi: int, tile: int) -> list:
+    """The 8 x 8 tiles (local row band, column band) of the causal scores
+    of two row tiles of ``tile`` rows, lo then hi, in the order the f32
+    kernels hand them to their threads: each 8-row band up to its diagonal
+    band."""
+    out = []
+    for half, t in enumerate((lo, hi)):
+        for band in range(tile // 8):
+            out += [((tile // 8) * half + band, cb) for cb in range(t * tile // 8 + band + 1)]
+    return out
+
+
+def _assert_covers_causal(tiles: list, rows: list, tile: int) -> None:
+    """Every (local row r, column j <= chunk row of r) lies in exactly one
+    8 x 8 tile, and no tile lies wholly above the diagonal."""
+    seen = collections.Counter()
+    for rb, cb in tiles:
+        assert 8 * cb <= rows[8 * rb + 7] if 8 * rb + 7 < len(rows) else True
+        for r in range(8 * rb, 8 * rb + 8):
+            for j in range(8 * cb, 8 * cb + 8):
+                if r < len(rows) and j <= rows[r]:
+                    seen[(r, j)] += 1
+    want = {(r, j) for r in range(len(rows)) for j in range(rows[r] + 1)}
+    assert set(seen) == want and set(seen.values()) == {1}
 
 
 @pytest.mark.parametrize("B,S,H,dk,chunk", [
@@ -701,6 +755,19 @@ def test_mlstm_bwd_plan_covers_every_column_and_chunk(B, S, H, dk, chunk):
     if (B, S, H, dk, chunk) == (2, 1024, 4, 384, 128):
         for name in ("rows", "moves", "state", "scores", "grads"):
             assert math.prod(plan[name]) >= 132, (name, plan[name])
+    # f32 inputs run the same grids; a scores block's 34 threads of S (and
+    # 34 of P) hold the causal 8 x 8 tiles of its two 16-row tiles, every
+    # (i, j <= i) once; a grads block's 128 threads, rows tr + 16 a and
+    # columns tc + 8 b, hold its 128 x 64 output once
+    for z in range(BWD_SCORE_BLOCKS):
+        tiles = _causal_tiles(z, 7 - z, 16)
+        assert len(tiles) == 34
+        _assert_covers_causal(tiles, list(range(16 * z, 16 * z + 16))
+                              + list(range(16 * (7 - z), 16 * (8 - z))), 16)
+    cells = collections.Counter((tr + 16 * a, tc + 8 * b) for tr in range(16) for tc in range(8)
+                                for a in range(8) for b in range(8))
+    assert set(cells) == {(r, col) for r in range(128) for col in range(BWD_TILE)}
+    assert set(cells.values()) == {1}
 
 
 # ------------------------ split-bf16 error model of the mLSTM backward
@@ -790,15 +857,15 @@ def _mlstm_bwd_equations(q, k, v, log_i, log_f, h, den, carries, dh, c, tq, tf):
         mm=lambda a, b, ka, kb: _mm_split(a, b, terms[ka], terms[kb]))
 
 
-def _mlstm_bwd_inputs(dtype: str, seed: int = 2):
-    """(1, 256, 2, 64), chunk 64: test_mlstm_chunk_sweep's gates (i_pre ~ N
-    - 2, f_pre ~ N + 3) with q scaled by 1000, so the normalizers cancel;
-    q, k, v rounded to ``dtype`` and held as f32."""
+def _mlstm_bwd_inputs(dtype: str, seed: int = 2, H: int = 2):
+    """(1, 256, H, 64): test_mlstm_chunk_sweep's gates (i_pre ~ N - 2,
+    f_pre ~ N + 3) with q scaled by 1000, so the normalizers cancel; q, k,
+    v rounded to ``dtype`` and held as f32."""
     rng = np.random.default_rng(seed)
-    q, k, v, dh = (torch.from_numpy(rng.standard_normal((1, 256, 2, 64)).astype(np.float32))
+    q, k, v, dh = (torch.from_numpy(rng.standard_normal((1, 256, H, 64)).astype(np.float32))
                    for _ in range(4))
-    i_pre = torch.from_numpy((rng.standard_normal((1, 256, 2)) - 2.0).astype(np.float32))
-    f_pre = torch.from_numpy((rng.standard_normal((1, 256, 2)) + 3.0).astype(np.float32))
+    i_pre = torch.from_numpy((rng.standard_normal((1, 256, H)) - 2.0).astype(np.float32))
+    f_pre = torch.from_numpy((rng.standard_normal((1, 256, H)) + 3.0).astype(np.float32))
     q, k, v = ((x * s).to(TDT[dtype]).float() for x, s in ((q, 1000.0), (k, 1.0), (v, 1.0)))
     return q, k, v, i_pre, torch.nn.functional.logsigmoid(f_pre), dh
 
@@ -861,3 +928,208 @@ def test_split_bf16_mlstm_bwd_needs_three_terms(dtype):
         assert _rel(three[i], exact[i]) <= max(2 * _rel(f32[i], exact[i]), 1e-6), name
         if i < 3:
             assert _rel(two[i], exact[i]) > max(2 * _rel(f32[i], exact[i]), 1e-6), name
+
+
+# ------------------------- f32 summation orders of the mLSTM CUDA kernels
+#
+# f32 inputs run both mLSTM kernels on the CUDA cores, every product an f32
+# FMA chain in a fixed order (csrc/mlstm_chunk.cu, csrc/mlstm_chunk_bwd.cu,
+# "f32 passes" and namespace cc).  The emulation below forms each sum in
+# that order, one rounding an FMA (the product of two f32 is exact in f64),
+# and holds it, at xlstm-125m's reduced width (4 heads of 64, chunk 128),
+# on inputs whose normalizers cancel (q scaled by 1000), against f64: no
+# farther than twice plain f32's distance, as the split-bf16 emulation
+# above is held.
+
+
+def _fma(acc, a, b):
+    """acc + a b in f32 with one rounding."""
+    return (acc.astype(np.float64) + a.astype(np.float64) * b).astype(np.float32)
+
+
+def _chunks_np(x, c):
+    """(B, S, H, ...) torch -> (S / c) numpy arrays (B, H, c, ...)."""
+    return [t.numpy() for t in tk.ref._by_chunk(x, c)]
+
+
+def _blocked(acc, step, n, term):
+    """acc plus the terms term(0 .. n - 1), each run of ``step`` of them an
+    FMA chain from 0 added to acc."""
+    for t0 in range(0, n, step):
+        part = np.zeros_like(acc)
+        for t in range(t0, min(n, t0 + step)):
+            part = _fma(part, *term(t))
+        acc = (acc + part).astype(np.float32)
+    return acc
+
+
+def _mlstm_fwd_f32_order(q, k, v, log_i, log_f, c):
+    """h (B, S, H, dk) and the final (C, n) as the f32 kernels sum them:
+    the state pass's C' = fma(decay, C, u), u = sum_j k_j (w_j v_j)^T in
+    32-term FMA chains added to a running sum, n likewise; the output
+    pass's q k^T, q C and q.n over dk (q scaled first)
+    in 16-term FMA chains added to running sums, inter q C plus W v in
+    32-term chains likewise, the row sums as 16 chains of 8 (lane j mod 4,
+    then runs of 8) added in pairs, den = fma(inter, q.n, rowsum)."""
+    B, S, H, dk = q.shape
+    f32 = np.float32
+    scale = f32(1.0 / math.sqrt(dk))
+    tri = np.tril(np.ones((c, c), dtype=bool))
+    C, n, m = (np.zeros(s, f32) for s in ((B, H, dk, dk), (B, H, dk), (B, H)))
+    hs = []
+    for Q, K, V, LI, LF in zip(*(_chunks_np(x, c) for x in (q, k, v, log_i, log_f))):
+        Q = (Q * scale).astype(f32)
+        cs = np.cumsum(LF, -1, dtype=f32)
+        D = np.where(tri, cs[..., :, None] - cs[..., None, :] + LI[..., None, :], -np.inf)
+        mi = np.maximum(D.max(-1), cs + m[..., None]).astype(f32)
+        E = np.where(tri, np.exp((D - mi[..., None]).astype(f32)), f32(0)).astype(f32)
+        inter = np.exp((cs + m[..., None] - mi).astype(f32)).astype(f32)
+        Sm = _blocked(np.zeros((B, H, c, c), f32), 16, dk,
+                      lambda d: (Q[..., :, None, d], K[..., None, :, d]))
+        qc = _blocked(np.zeros((B, H, c, dk), f32), 16, dk,
+                      lambda d: (Q[..., :, d, None], C[..., None, d, :]))
+        qn = _blocked(np.zeros((B, H, c), f32), 16, dk, lambda d: (Q[..., d], n[..., None, d]))
+        W = (Sm * E).astype(f32)
+        acc = _blocked((qc * inter[..., None]).astype(f32), 32, c,
+                       lambda j: (W[..., :, j, None], V[..., None, j, :]))
+        lanes = []
+        for r in range(4):  # lane r: j = r + 4 (8 x + y), four chains of 8 added in pairs
+            ch = []
+            for x in range(4):
+                y8 = np.zeros((B, H, c), f32)
+                for y in range(8):
+                    if r + 4 * (8 * x + y) < c:
+                        y8 = (y8 + W[..., r + 4 * (8 * x + y)]).astype(f32)
+                ch.append(y8)
+            lanes.append(((ch[0] + ch[1]).astype(f32) + (ch[2] + ch[3]).astype(f32)).astype(f32))
+        rs = ((lanes[0] + lanes[1]).astype(f32) + (lanes[2] + lanes[3]).astype(f32)).astype(f32)
+        den = _fma(rs, inter, qn)
+        lim = np.maximum(np.abs(den), np.exp(-mi).astype(f32))
+        hs.append(torch.from_numpy((acc / lim[..., None]).astype(f32)))
+        total = cs[..., -1]
+        dec = (total[..., None] - cs + LI).astype(f32)
+        mn = np.maximum(m + total, dec.max(-1)).astype(f32)
+        w = np.exp((dec - mn[..., None]).astype(f32)).astype(f32)
+        decay = np.exp((m + total - mn).astype(f32)).astype(f32)
+        ve = (w[..., None] * V).astype(f32)
+        u = _blocked(np.zeros((B, H, dk, dk), f32), 32, c,
+                     lambda j: (K[..., j, :, None], ve[..., j, None, :]))
+        un = _blocked(np.zeros((B, H, dk), f32), 32, c, lambda j: (w[..., j, None], K[..., j, :]))
+        C = _fma(u, decay[..., None, None], C)
+        n = _fma(un, decay[..., None], n)
+        m = mn
+    return tk.ref._unchunk(hs), torch.from_numpy(C), torch.from_numpy(n)
+
+
+def test_f32_mlstm_forward_summation_order_near_f64():
+    """The f32 forward kernel's summation orders (h, the final C and n) no
+    farther from f64 than twice plain f32's (``mlstm_chunk_ref``)."""
+    q, k, v, _log_i, _log_f, _dh = _mlstm_bwd_inputs("float32", seed=5, H=4)
+    rng = np.random.default_rng(6)
+    i_pre = torch.from_numpy((rng.standard_normal((1, 256, 4)) - 2.0).astype(np.float32))
+    f_pre = torch.from_numpy((rng.standard_normal((1, 256, 4)) + 3.0).astype(np.float32))
+    got = _mlstm_fwd_f32_order(q, k, v, i_pre, torch.nn.functional.logsigmoid(f_pre), 128)
+    h, (C, n, _m) = tk.ref.mlstm_chunk_ref(q, k, v, i_pre, f_pre, chunk=128, return_final=True)
+    he, (Ce, ne, _me) = tk.ref.mlstm_chunk_ref(*(x.double() for x in (q, k, v, i_pre, f_pre)),
+                                               chunk=128, return_final=True)
+    assert 1e3 <= he.abs().max().item()  # the normalizers cancel
+    for name, g, p, e in zip(("h", "C", "n"), got, (h, C, n), (he, Ce, ne)):
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, e) <= 2 * _rel(p, e), (name, _rel(g, e), _rel(p, e))
+
+
+def _mlstm_bwd_f32_order(q, k, v, log_i, log_f, h, den, carries, dh, c):
+    """dq, dk, dv as the f32 backward kernels sum them, from the forward's
+    f32 state: G's moves U = u^T q and dn's as FMA chains over positions,
+    walked back as fma(decay, G, U); S = q k^T and P = dnum v^T as FMA
+    chains over dk; then each grads output an FMA chain over dk (dq: C
+    dnum; dk: G v; dv: G^T k), turned into inter (. + dden n), w (. + dn)
+    or w ., and the chain carried on over positions (dS k; dS^T (scale q);
+    W^T dnum)."""
+    B, S, H, dk = q.shape
+    f32 = np.float32
+    scale = f32(1.0 / math.sqrt(dk))
+    nc = S // c
+    tri = np.tril(np.ones((c, c), dtype=bool))
+    Q, K, V, LI, LF, DEN, Hh, DH = (_chunks_np(x, c) for x in (q, k, v, log_i, log_f, den, h, dh))
+    rows = []
+    for t in range(nc):
+        cs, m = np.cumsum(LF[t], -1, dtype=f32), carries[t][2].numpy()
+        D = np.where(tri, cs[..., :, None] - cs[..., None, :] + LI[t][..., None, :], -np.inf)
+        mi = np.maximum(D.max(-1), cs + m[..., None]).astype(f32)
+        floor = np.exp(-mi).astype(f32)
+        lim = np.maximum(np.abs(DEN[t]), floor)
+        on = (np.abs(DEN[t]) >= floor) & (DEN[t] != 0)
+        dden = np.where(on, -(DH[t] * Hh[t]).sum(-1, dtype=f32) / np.where(on, DEN[t], 1), 0)
+        if t + 1 < nc:
+            mn = carries[t + 1][2].numpy()
+            w = np.exp((cs[..., -1:] - cs + LI[t] - mn[..., None]).astype(f32)).astype(f32)
+            decay = np.exp((m + cs[..., -1] - mn).astype(f32)).astype(f32)
+        else:
+            w, decay = np.zeros_like(cs), np.zeros_like(m)
+        inter = np.exp((cs + m[..., None] - mi).astype(f32)).astype(f32)
+        rows.append(dict(inter=inter, dden=dden.astype(f32), dnum=(DH[t] / lim[..., None]).astype(f32),
+                         w=w, decay=decay,
+                         E=np.where(tri, np.exp((D - mi[..., None]).astype(f32)), 0).astype(f32)))
+    Gs, G, dn = [None] * nc, np.zeros((B, H, dk, dk), f32), np.zeros((B, H, dk), f32)
+    for t in range(nc - 1, -1, -1):
+        Gs[t] = (G, dn)
+        if t == 0:
+            break
+        r = rows[t]
+        u = (r["dnum"] * (scale * r["inter"]).astype(f32)[..., None]).astype(f32)
+        U, un = np.zeros((B, H, dk, dk), f32), np.zeros((B, H, dk), f32)
+        for i in range(c):
+            U = _fma(U, Q[t][..., i, :, None], u[..., i, None, :])
+            un = _fma(un, r["dden"][..., i, None],
+                      (r["inter"][..., i, None] * (Q[t][..., i, :] * scale).astype(f32)).astype(f32))
+        G = _fma(U, r["decay"][..., None, None], G)
+        dn = _fma(un, r["decay"][..., None], dn)
+    out = [[] for _ in range(3)]
+    for t in range(nc):
+        r, (C, n, _m), (G, dnv) = rows[t], carries[t], Gs[t]
+        C, n = C.numpy(), n.numpy()
+        Sm, P = np.zeros((B, H, c, c), f32), np.zeros((B, H, c, c), f32)
+        for d in range(dk):
+            Sm = _fma(Sm, Q[t][..., :, None, d], K[t][..., None, :, d])
+            P = _fma(P, r["dnum"][..., :, None, d], V[t][..., None, :, d])
+        W = ((Sm * scale).astype(f32) * r["E"]).astype(f32)
+        dW = np.where(tri, (P + r["dden"][..., None]).astype(f32), 0).astype(f32)
+        dS = (dW * r["E"]).astype(f32)
+        qs = (Q[t] * scale).astype(f32)
+        a0, a1, a2 = (np.zeros((B, H, c, dk), f32) for _ in range(3))
+        for f in range(dk):
+            a0 = _fma(a0, r["dnum"][..., :, f, None], C[..., None, :, f])  # C dnum: C[d][e]
+            a1 = _fma(a1, V[t][..., :, f, None], G[..., None, :, f])        # G v
+            a2 = _fma(a2, K[t][..., :, f, None], G[..., None, f, :])        # G^T k
+        a0 = (r["inter"][..., None] * _fma(a0, r["dden"][..., None], n[..., None, :])).astype(f32)
+        a1 = (r["w"][..., None] * (a1 + dnv[..., None, :]).astype(f32)).astype(f32)
+        a2 = (r["w"][..., None] * a2).astype(f32)
+        for j in range(c):
+            a0 = _fma(a0, dS[..., :, j, None], K[t][..., None, j, :])
+            a1 = _fma(a1, dS[..., j, :, None], qs[..., None, j, :])
+            a2 = _fma(a2, W[..., j, :, None], r["dnum"][..., None, j, :])
+        out[0].append(torch.from_numpy((a0 * scale).astype(f32)))
+        out[1].append(torch.from_numpy(a1))
+        out[2].append(torch.from_numpy(a2))
+    return [tk.ref._unchunk(x) for x in out]
+
+
+def test_f32_mlstm_backward_summation_order_near_f64():
+    """From one forward's f32 den and carries, the f32 backward kernels'
+    summation orders for dq, dk and dv no farther from the f64 evaluation
+    of the same equations than twice the plain f32 evaluation
+    (``ref.mlstm_chunk_bwd_state_ref``)."""
+    c = 128
+    q, k, v, log_i, log_f, dh = _mlstm_bwd_inputs("float32", seed=7, H=4)
+    h, den, carries = _mlstm_fwd_state(q, k, v, log_i, log_f, c)
+    assert 1e3 <= h.abs().max().item()  # the normalizers cancel
+    got = _mlstm_bwd_f32_order(q, k, v, log_i, log_f, h, den, carries, dh, c)
+    plain = tk.ref.mlstm_chunk_bwd_state_ref(q, k, v, log_i, log_f, h, den, carries, dh, chunk=c)
+    wide = lambda x: x.double() if torch.is_tensor(x) else x  # noqa: E731
+    exact = tk.ref.mlstm_chunk_bwd_state_ref(
+        *(x.double() for x in (q, k, v, log_i, log_f, h, den)),
+        [tuple(wide(y) for y in cr) for cr in carries], dh.double(), chunk=c)
+    for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, e) <= 2 * _rel(p, e), (name, _rel(g, e), _rel(p, e))
