@@ -116,6 +116,10 @@ from dataclasses import replace
 # the trainer PE's deterministic mode needs cuBLAS's fixed workspace, which
 # cuBLAS reads when its first handle is made: set before any CUDA call
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# the recurrent f64 gradient check (phase 15) runs near the card's memory
+# with 8 GB tensors: segments that grow, rather than fixed cached blocks,
+# keep it from failing on fragmentation left by earlier phases
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -131,6 +135,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     CUDA_CORE_PLAN,
     TC_PLAN,
+    _paged_cuda_core_splits,
     _paged_splits,
     _splits,
 )
@@ -422,9 +427,13 @@ def check_paged(gen, B, H, KV, D, bs, max_len, dtype) -> dict:
     ops = 4 * sum(lens) * H * D
     b_ms, b_by = bound(nbytes, ops, dtype)
     del pools
-    chunk, tile, nsplit = _paged_splits(
-        B, KV, tables.shape[1], bs, _build.library().repro_paged_decode_max_tile(),
-        _build.sm_count(0))
+    if dtype == torch.float32:  # the CUDA-core split body: 32-key stages
+        (chunk, nsplit), tile = _paged_cuda_core_splits(
+            B, KV, tables.shape[1], bs, _build.sm_count(0)), CUDA_CORE_PLAN[0]
+    else:
+        chunk, tile, nsplit = _paged_splits(
+            B, KV, tables.shape[1], bs, _build.library().repro_paged_decode_max_tile(),
+            _build.sm_count(0))
     return {
         "shape": {"B": B, "H": H, "KV": KV, "D": D, "bs": bs,
                   "max_len": max_len}, "dtype": str(dtype),
@@ -1010,6 +1019,13 @@ def counts() -> dict:
     return {fn.__name__: fn.launches for fn in kernels.KERNELS}
 
 
+def decode_launches_since(before: dict) -> dict:
+    """The dense and paged decode kernels' launches since ``counts()`` gave
+    ``before``."""
+    now = counts()
+    return {k: now[k] - before[k] for k in ("decode_attention", "paged_decode_attention")}
+
+
 def tick_inputs(cfg, opts, trace, C: int):
     """A fresh pool and one tick's inputs: 8 slots, each advancing through
     the first ``C`` tokens of its prompt."""
@@ -1378,6 +1394,7 @@ def check_recurrent(arch: str, n_layers: int, seed: int, smi: str) -> None:
 
     n0, n1 = 2560, 2688
     launched = mlstm_mod.mlstm_chunk.launches  # (capture's window is not in the count)
+    decode0 = counts()
     full, _ = forward(params32, cfg, tokens[:, :n1], opts=opts32)
     pre, cache = forward_with_cache(params32, cfg, tokens[:, :n0], max_len=n1,
                                     opts=opts32)
@@ -1407,6 +1424,12 @@ def check_recurrent(arch: str, n_layers: int, seed: int, smi: str) -> None:
         f"({sum(map(len, got.values()))} tokens)")
     assert got == want, (got, want)
     del paged, fixed
+    f32_decode = decode_launches_since(decode0)
+    log(f"   f32 decode kernel launches in the prefill + decode and the two engines: "
+        f"{f32_decode}")
+    # (the recurrent families' paged engine keeps its windowed layers in
+    # per-slot rings, which the dense kernel reads)
+    assert f32_decode["decode_attention"] > 0 or "local" not in cfg.layer_kinds, f32_decode
     if seen32:
         log(f"   f32 mlstm_chunk launches in these checks: {len(seen32)} in the kernel-path "
             f"forward over 4096 tokens, {mlstm_mod.mlstm_chunk.launches - launched} in the "
@@ -2674,6 +2697,9 @@ def main() -> int:
     for B, H, Smax in ((4, 8, 256), (1, 8, 1024), (1, 16, 2048)):
         results["decode_attention"].append(check_decode(
             gen, B, H, 1, 256, Smax, torch.bfloat16))
+    # and f32 at recurrentgemma-9b's ring: the f32 decode of check_recurrent
+    results["decode_attention"].append(check_decode(gen, 1, 16, 1, 256, 2048,
+                                                    torch.float32))
     # the recurrent families' prefill shapes: recurrentgemma-9b (d_rnn 4096;
     # 16 heads, MQA, head_dim 256, window 2048 over 4096 tokens), xlstm-125m
     # (4 heads of dk 384, chunk 128, 2048 tokens; bf16 first: the model's)
@@ -2909,6 +2935,7 @@ def main() -> int:
     # prefill + decode against forward over the whole sequence, f32
     opts32 = ModelOptions(compute_dtype="float32")
     n0, n1 = 256, 320
+    decode0 = counts()
     full, _ = forward(params32, cfg2, tokens[:, :n1], opts=opts32)
     pre, cache = forward_with_cache(params32, cfg2, tokens[:, :n0], max_len=n1,
                                     opts=opts32)
@@ -2941,6 +2968,10 @@ def main() -> int:
         f"fixed-slot engine give the same "
         f"{sum(map(len, tokens_by['kernel'].values()))} tokens")
     del e
+    f32_decode = decode_launches_since(decode0)
+    log(f"   f32 decode kernel launches in the prefill + decode and the engines: "
+        f"{f32_decode}")
+    assert all(n > 0 for n in f32_decode.values()), f32_decode
 
     # one train step, kernels vs plain: f32 at 2 layers, bf16 at 1; then two
     # kernel-path steps from one state, bit for bit (bf16, 2 layers)

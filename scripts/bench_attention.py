@@ -17,16 +17,23 @@ in bf16:
   recurrentgemma-9b's local ring (B 1, Smax 2048, 16 heads), each from as
   many copies of the cache as exceed the L2 cache together;
 - ``repro_torch.kernels.paged_decode_attention`` at its two shapes (it shares
-  the combine pass with the dense kernel);
+  the combine pass with the dense kernel), from as many copies of the pools;
 
 with the largest error against the plain version, and SDPA on the same
-inputs (causal, band mask or length mask) as the yardstick.  Each ROOT runs
-in its own process, so two versions can be compared on one card in one
-call: give them in turns (A B B A).  Prints the card's name and power
-limit, then one JSON line per ROOT.  With ``--f32`` it times the flash
-forward only, on f32 inputs, at gemma-2b's, qwen3-14b's, the trainer PE's
-(2, 512, 8, 1, 256) and recurrentgemma-9b's windowed shapes, and names the
-variant that ran (``route``, where the checkout has it).
+inputs (causal, band mask or length mask) as the yardstick.  Every decode
+row also carries a SHA-256 of its output (``sha256``, the first 16 hex
+digits) and the device time of each of its kernels in one call
+(``device_ms``, split pass and combine, from ``torch.profiler``).  Each ROOT
+runs in its own process, so two versions can be compared on one card in
+one call: give them in turns (A B B A).  Prints the card's name and power
+limit, then one JSON line per ROOT.  With ``--f32`` it times f32 inputs
+instead: the flash forward at gemma-2b's, qwen3-14b's, the trainer PE's
+(2, 512, 8, 1, 256) and recurrentgemma-9b's windowed shapes, naming the
+variant that ran (``route``, where the checkout has it), and the dense and
+paged decode at the shapes above; and it adds, untimed, the digests of the
+bf16 decode outputs at the same shapes (``bf16 ...`` rows), so that one
+``--f32 A B B A`` call shows both the f32 times and whether the bf16
+outputs kept their bits.
 
     python3 scripts/bench_attention.py --gates [ROOT ...]
 
@@ -40,6 +47,7 @@ than the plain version leaves (``chip_smoke.check_forward_flash``'s gate).
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -92,32 +100,109 @@ def measure(root: str, f32: bool = False) -> dict:
                 iters=5),
             "max_abs_err": err, "route": route}
         del q, k, v, qt, kt, vt
-    if f32:
-        return res
+    res.update(decode_rows(gen, bf, timed=True))
+    if f32:  # the bf16 outputs' digests, from inputs of their own
+        res.update({f"bf16 {k}": v for k, v in decode_rows(
+            torch.Generator(device="cuda").manual_seed(1), torch.bfloat16,
+            timed=False).items()})
+    return res
+
+
+def digest(x) -> str:
+    """The first 16 hex digits of a SHA-256 of a tensor's bytes."""
+    import torch
+
+    raw = x.contiguous().view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+    return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def device_ms(fn, calls: int = 10) -> dict:
+    """Device ms a call of each kernel that ``fn`` launches, by kernel name
+    (``torch.profiler``; names cut at their argument list)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.split("::")[-1]
+            out[name] = out.get(name, 0.0) + us / 1e3 / calls
+    return out
+
+
+def decode_rows(gen, dtype, timed: bool) -> dict:
+    """The dense decode at ``DECODE`` and the paged decode at ``PAGED``
+    (16-token pages, lengths up to 1024) in ``dtype``: each output's
+    digest and largest error against the plain version; with ``timed``, the
+    kernel's and SDPA's times from as many copies of the cache as exceed the
+    L2 cache together, and the device time of each kernel of one call."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from repro_torch import kernels
+
+    res = {}
+    es = torch.tensor([], dtype=dtype).element_size()
     for B, H, KV, D, Smax in DECODE:
         lens = [Smax + 1] + [max(1, Smax - (Smax * i) // B) for i in range(1, B)]
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        q = torch.randn(B, H, D, generator=gen, device="cuda").to(bf)
-        kc, vc = (torch.randn(B, Smax, KV, D, generator=gen, device="cuda").to(bf)
+        q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+        kc, vc = (torch.randn(B, Smax, KV, D, generator=gen, device="cuda").to(dtype)
                   for _ in range(2))
-        err = (kernels.decode_attention(q, kc, vc, lengths).float()
-               - kernels.ref.decode_attention_ref(q, kc, vc, lengths).float()).abs().max().item()
-        copies = max(1, min(64, math.ceil(2 * chip_smoke.L2_BYTES / (2 * kc.numel() * 2))))
-        caches = [(kc.clone(), vc.clone()) for _ in range(copies)]
-        transposed = [tuple(c.transpose(1, 2).contiguous() for c in pair) for pair in caches]
-        mask = (torch.arange(Smax, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-        res[f"decode B{B} H{H} KV{KV} D{D} Smax{Smax}"] = {
-            "ms": chip_smoke.time_ms(lambda i: kernels.decode_attention(
-                q, *caches[i % copies], lengths), iters=copies if copies > 20 else 20),
-            "sdpa_ms": chip_smoke.time_ms(lambda i: F.scaled_dot_product_attention(
+        out = kernels.decode_attention(q, kc, vc, lengths)
+        row = {"sha256": digest(out), "max_abs_err": (
+            out.float() - kernels.ref.decode_attention_ref(q, kc, vc, lengths).float()
+        ).abs().max().item()}
+        if timed:
+            copies = max(1, min(64, math.ceil(2 * chip_smoke.L2_BYTES / (2 * kc.numel() * es))))
+            iters = max(20, copies)
+            caches = [(kc.clone(), vc.clone()) for _ in range(copies)]
+            transposed = [tuple(c.transpose(1, 2).contiguous() for c in pair)
+                          for pair in caches]
+            mask = (torch.arange(Smax, device="cuda")[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            row["ms"] = chip_smoke.time_ms(lambda i: kernels.decode_attention(
+                q, *caches[i % copies], lengths), iters=iters)
+            row["sdpa_ms"] = chip_smoke.time_ms(lambda i: F.scaled_dot_product_attention(
                 q[:, :, None, :], *transposed[i % copies], attn_mask=mask, enable_gqa=True),
-                iters=copies if copies > 20 else 20),
-            "max_abs_err": err}
-        del caches, transposed
+                iters=iters)
+            row["device_ms"] = device_ms(lambda: kernels.decode_attention(q, kc, vc, lengths))
+            del caches, transposed
+        res[f"decode B{B} H{H} KV{KV} D{D} Smax{Smax}"] = row
     for B, H, KV, D in PAGED:
-        r = chip_smoke.check_paged(gen, B, H, KV, D, 16, 1024, bf)
-        res[f"paged B{B} H{H} KV{KV} D{D}"] = {
-            "ms": r["ms"], "sdpa_ms": r["library_ms"], "max_abs_err": r["max_abs_err"]}
+        q, kp, vp, tables, lengths, lens = chip_smoke.paged_inputs(
+            gen, B, H, KV, D, 16, 1024, dtype)
+        out = kernels.paged_decode_attention(q, kp, vp, tables, lengths)
+        row = {"sha256": digest(out), "max_abs_err": (
+            out.float() - kernels.ref.paged_decode_attention_ref(
+                q, kp, vp, tables, lengths).float()).abs().max().item()}
+        if timed:
+            copies = max(1, min(16, math.ceil(2 * chip_smoke.L2_BYTES / (2 * kp.numel() * es))))
+            pools = [(kp.clone(), vp.clone()) for _ in range(copies)]
+            S = tables.shape[1] * 16
+            tab = tables.long()
+            gathered = [tuple(p[tab].reshape(B, S, KV, D).transpose(1, 2).contiguous()
+                              for p in pool) for pool in pools]
+            mask = (torch.arange(S, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+            row["ms"] = chip_smoke.time_ms(lambda i: kernels.paged_decode_attention(
+                q, *pools[i % copies], tables, lengths))
+            row["sdpa_ms"] = chip_smoke.time_ms(lambda i: F.scaled_dot_product_attention(
+                q[:, :, None, :], *gathered[i % copies], attn_mask=mask, enable_gqa=True))
+            row["device_ms"] = device_ms(lambda: kernels.paged_decode_attention(
+                q, kp, vp, tables, lengths))
+            del pools, gathered
+        res[f"paged B{B} H{H} KV{KV} D{D}"] = row
     return res
 
 

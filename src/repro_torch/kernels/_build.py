@@ -37,7 +37,7 @@ _SIGNATURES = {
         [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
          _int, _int, _int, _int, _int, _int, _int, _float, _vp],
         ctypes.c_int),
-    "repro_paged_decode_smem_bytes": ([_int, _int, _int, _int, _int],
+    "repro_paged_decode_smem_bytes": ([_int, _int, _int, _int, _int, _int],
                                       ctypes.c_longlong),
     "repro_paged_decode_max_tile": ([], ctypes.c_int),
     "repro_decode_attention": (

@@ -20,17 +20,17 @@
 //   positions, and one thread block takes one (chunk, KV head, sequence).
 //   The wrapper plans the chunks from the shapes alone (never from
 //   `lengths`, which would sync the host), for the variant that runs
-//   (`repro_decode_attention_tensor_cores`).  Tensor-core chunks are whole
-//   16-key steps, at least one 64-key tile, as short as keep the grid
-//   within one wave of one block per SM: (B 8, Smax 1024, KV 1) 16 chunks
-//   of 64 = 128 blocks; qwen3-14b's (B 8, KV 8) 3 of 352 = 192.  At the
-//   serving shapes the tile is the floor: the fixed-slot serve's (B 4, Smax
-//   256) and the decode after a 1024-token prefill (B 1) take 16 blocks,
-//   recurrentgemma's ring (B 1, Smax 2048) 32.  Chunks of 16 or 32
-//   positions filled 64-128 SMs there and measured slower.  A block reads
-//   its own length, and loops only over the valid positions of its chunk
-//   (a tensor-core block whose chunk starts past it writes only (m, l) =
-//   (-1e30, 0) and stops).  No padding: the ragged end is masked;
+//   (`repro_decode_attention_tensor_cores`).  Both variants' chunks are
+//   whole 16-key steps, at least 64 keys, as short as keep the grid within
+//   one wave of one block per SM: (B 8, Smax 1024, KV 1) 16 chunks of 64 =
+//   128 blocks; qwen3-14b's (B 8, KV 8) 3 of 352 = 192.  At the serving
+//   shapes the floor holds: the fixed-slot serve's (B 4, Smax 256) and the
+//   decode after a 1024-token prefill (B 1) take 16 blocks, recurrentgemma's
+//   ring (B 1, Smax 2048) 32.  Tensor-core chunks of 16 or 32 positions
+//   filled 64-128 SMs there and measured slower.  A block reads its own
+//   length, and loops only over the valid positions of its chunk (a block
+//   whose chunk starts past it writes only (m, l) = (-1e30, 0) and stops).
+//   No padding: the ragged end is masked;
 // - each block leaves its unnormalised (acc, m, l), and a second kernel
 //   (decode_combine.cuh, shared with the paged kernel) combines the chunks
 //   of one (sequence, head), skipping the empty ones, in split order:
@@ -60,173 +60,23 @@
 // - shared memory at D = 256: 76,032 bytes for a one-tile chunk, 143,616
 //   for a longer one.
 //
-// The CUDA-core variant (f32, or bf16 the tensor-core one refuses): the K/V
-// rows are staged in shared memory as f32, 32 keys a tile; each warp
-// computes G x 32 scores as shuffled dot products; one warp per query head
-// updates (m, l); the f32 accumulator (G x D) stays in shared memory, each
-// element owned by one thread.  Products in f32 keep f32 inputs' accuracy.
-// Its chunks are whole 32-key tiles, planned for two blocks per SM.
+// The CUDA-core variant (f32, and bf16 the tensor-core one refuses: G > 16,
+// D not a multiple of 16 or over 256, unaligned rows) is the split body of
+// decode_split.cuh, shared with the paged kernel's f32 path: a cp.async ring
+// of 16-key tiles, q and O in registers, f32 FMA.  Its chunks are whole
+// 16-key tiles, at least four, planned for one block per SM
+// (CUDA_CORE_PLAN).
 #include <cstdint>
 
 #include "common.cuh"
 #include "decode_combine.cuh"
+#include "decode_split.cuh"
 #include "mma.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kTile = 32;  // tokens per tile; <= 32 (one lane per token in the softmax)
-constexpr int kThreads = 256;
 constexpr float kMaskValue = -1e30f;  // the reference's mask value
-
-__host__ __device__ inline size_t smem_floats(int G, int D) {
-  // q, acc (G*D each); K, V tiles (kTile*D each); scores (G*kTile); m, l, corr (G each)
-  return 2 * static_cast<size_t>(G) * D + 2 * static_cast<size_t>(kTile) * D +
-         static_cast<size_t>(G) * kTile + 3 * static_cast<size_t>(G);
-}
-
-// 16 bytes of `src` (4 f32 or 8 bf16 values), widened to f32 in `dst`.
-__device__ __forceinline__ void load16_f32(const float* src, float* dst) {
-  const float4 x = *reinterpret_cast<const float4*>(src);
-  dst[0] = x.x;
-  dst[1] = x.y;
-  dst[2] = x.z;
-  dst[3] = x.w;
-}
-__device__ __forceinline__ void load16_f32(const __nv_bfloat16* src, float* dst) {
-  const uint4 x = *reinterpret_cast<const uint4*>(src);
-  const auto* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    dst[2 * j] = f.x;
-    dst[2 * j + 1] = f.y;
-  }
-}
-
-// kVec: every cache row is whole 16-byte pieces from a 16-byte aligned base.
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                    const T* __restrict__ v_cache, const int* __restrict__ lengths,
-                    float* __restrict__ part_acc, float* __restrict__ part_ml, int H, int KV,
-                    int D, int Smax, int chunk, float scale) {
-  extern __shared__ float smem[];
-  const int G = H / KV;
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int nsplit = gridDim.x;
-  float* sq = smem;              // (G, D) query heads of this KV head
-  float* sacc = sq + G * D;      // (G, D) running numerator
-  float* sk = sacc + G * D;      // (kTile, D)
-  float* sv = sk + kTile * D;    // (kTile, D)
-  float* ss = sv + kTile * D;    // (G, kTile) scores, then probabilities
-  float* sm = ss + G * kTile;    // (G,) running max
-  float* sl = sm + G;            // (G,) running denominator
-  float* scorr = sl + G;         // (G,) rescale of this tile
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-
-  int len = lengths[b];
-  len = len < 0 ? 0 : (len > Smax ? Smax : len);
-  const int start = split * chunk;
-  const int end = start + chunk < len ? start + chunk : len;
-  const long long head0 = (static_cast<long long>(b) * H + static_cast<long long>(kvh) * G) * D;
-
-  for (int i = tid; i < G * D; i += blockDim.x) {
-    sq[i] = start < end ? to_f32(q[head0 + i]) : 0.f;
-    sacc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += blockDim.x) {
-    sm[g] = kMaskValue;
-    sl[g] = 0.f;
-  }
-  __syncthreads();
-
-  for (int t0 = start; t0 < end; t0 += kTile) {
-    const int n = end - t0 < kTile ? end - t0 : kTile;
-    if (kVec) {
-      constexpr int kPer = 16 / sizeof(T);  // elements in a 16-byte piece
-#pragma unroll 4
-      for (int i = tid * kPer; i < n * D; i += blockDim.x * kPer) {
-        const int r = i / D, e = i - r * D;
-        const long long row = (static_cast<long long>(b) * Smax + t0 + r) * KV + kvh;
-        load16_f32(k_cache + row * D + e, sk + i);
-        load16_f32(v_cache + row * D + e, sv + i);
-      }
-    } else {
-      for (int i = tid; i < n * D; i += blockDim.x) {
-        const int r = i / D, e = i - r * D;
-        const long long row = (static_cast<long long>(b) * Smax + t0 + r) * KV + kvh;
-        sk[i] = to_f32(k_cache[row * D + e]);
-        sv[i] = to_f32(v_cache[row * D + e]);
-      }
-    }
-    __syncthreads();
-    for (int pair = warp; pair < G * n; pair += nwarps) {
-      const int g = pair / n, r = pair - g * n;
-      float dot = 0.f;
-      for (int e = lane; e < D; e += 32) dot += sq[g * D + e] * sk[r * D + e];
-      dot = warp_sum(dot);
-      if (lane == 0) ss[g * kTile + r] = dot * scale;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += nwarps) {
-      const float s = lane < n ? ss[g * kTile + lane] : kMaskValue;
-      const float m_prev = sm[g];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float p = lane < n ? expf(s - m_new) : 0.f;
-      const float psum = warp_sum(p);
-      if (lane < n) ss[g * kTile + lane] = p;
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        scorr[g] = corr;
-        sl[g] = sl[g] * corr + psum;
-        sm[g] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < G * D; i += blockDim.x) {
-      const int g = i / D, e = i - g * D;
-      float a = sacc[i] * scorr[g];
-      for (int r = 0; r < n; ++r) a += ss[g * kTile + r] * sv[r * D + e];
-      sacc[i] = a;
-    }
-    __syncthreads();  // the next tile overwrites sk, sv and ss
-  }
-
-  // partials of head h = kvh*G + g at [(b*H + h) * nsplit + split]
-  for (int i = tid; i < G * D; i += blockDim.x) {
-    const int g = i / D, e = i - g * D;
-    const long long slot = (static_cast<long long>(b) * H + kvh * G + g) * nsplit + split;
-    part_acc[slot * D + e] = sacc[i];
-  }
-  for (int g = tid; g < G; g += blockDim.x) {
-    const long long slot = (static_cast<long long>(b) * H + kvh * G + g) * nsplit + split;
-    part_ml[2 * slot] = sm[g];
-    part_ml[2 * slot + 1] = sl[g];
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* q, const void* k_cache, const void* v_cache, const int* lengths,
-                   float* part_acc, float* part_ml, void* out, int B, int H, int KV, int D,
-                   int Smax, int chunk, int nsplit, float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats(H / KV, D) * sizeof(float);
-  const auto bits = reinterpret_cast<uintptr_t>(k_cache) | reinterpret_cast<uintptr_t>(v_cache);
-  const bool vec = (D * sizeof(T)) % 16 == 0 && bits % 16 == 0;
-  auto kernel = vec ? decode_split_kernel<T, true> : decode_split_kernel<T, false>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<dim3(nsplit, KV, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_cache), static_cast<const T*>(v_cache),
-      lengths, part_acc, part_ml, H, KV, D, Smax, chunk, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_decode_combine<T>(part_acc, part_ml, out, B, H, D, nsplit, stream);
-}
 
 // ------------------------------------------------------ tensor-core variant
 
@@ -487,9 +337,12 @@ cudaError_t launch_tc(const void* q, const void* k_cache, const void* v_cache, c
 }  // namespace repro
 
 // Bytes of dynamic shared memory one split block needs, whichever variant
-// the arguments pick (the wrapper checks it against the device's limit).
+// the arguments pick (the wrapper checks it against the device's limit;
+// -1: a head dim the CUDA-core body does not take).
 extern "C" long long repro_decode_attention_smem_bytes(int dtype, int G, int D, int chunk) {
-  const long long cuda_core = static_cast<long long>(repro::smem_floats(G, D) * sizeof(float));
+  const long long cuda_core =
+      repro::split::smem_bytes(dtype == repro::kBFloat16 ? 2 : 4, G, D, chunk, 0);
+  if (cuda_core < 0) return -1;
   if (dtype != repro::kBFloat16 || D % 16 || D > 256 || G > repro::kTcHeads) return cuda_core;
   const long long tc = static_cast<long long>(repro::tc_layout(D, chunk).total);
   return tc > cuda_core ? tc : cuda_core;  // unaligned rows take the CUDA-core variant
@@ -506,7 +359,7 @@ extern "C" int repro_decode_attention_tensor_cores(int dtype, int G, int D, cons
 // q and out (B, H, D), caches (B, Smax, KV, D) in `dtype`; lengths (B,)
 // int32; scratch: part_acc (B, H, nsplit, D) and part_ml (B, H, nsplit, 2)
 // f32, with nsplit * chunk >= Smax.  bf16 that the tensor-core variant takes
-// goes to it, the rest to the CUDA-core variant.  Returns the CUDA error of
+// goes to it, the rest to the CUDA-core split body (decode_split.cuh).  Returns the CUDA error of
 // the launches (0 on success).
 extern "C" int repro_decode_attention(int device, int dtype, const void* q, const void* k_cache,
                                       const void* v_cache, const void* lengths, void* part_acc,
@@ -526,11 +379,22 @@ extern "C" int repro_decode_attention(int device, int dtype, const void* q, cons
   if (repro::use_tc(dtype, H / KV, D, chunk, q, k_cache, v_cache))
     return repro::launch_tc(q, k_cache, v_cache, len, pa, pml, out, B, H, KV, D, Smax, chunk,
                             nsplit, scale, s);
-  if (dtype == repro::kFloat32)
-    return repro::launch<float>(q, k_cache, v_cache, len, pa, pml, out, B, H, KV, D, Smax, chunk,
-                                nsplit, scale, s);
+  repro::split::Args a{};
+  a.q = q;
+  a.k = k_cache;
+  a.v = v_cache;
+  a.lengths = len;
+  a.part_acc = pa;
+  a.part_ml = pml;
+  a.out = out;
+  a.H = H;
+  a.KV = KV;
+  a.D = D;
+  a.cap = Smax;
+  a.chunk = chunk;
+  a.scale = scale;
+  if (dtype == repro::kFloat32) return repro::split::launch<float, false>(a, B, nsplit, s);
   if (dtype == repro::kBFloat16)
-    return repro::launch<__nv_bfloat16>(q, k_cache, v_cache, len, pa, pml, out, B, H, KV, D,
-                                        Smax, chunk, nsplit, scale, s);
+    return repro::split::launch<__nv_bfloat16, false>(a, B, nsplit, s);
   return cudaErrorInvalidValue;
 }

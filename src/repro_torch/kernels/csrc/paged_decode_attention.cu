@@ -37,10 +37,17 @@
 //   one warp per query head updates (m, l) over the tile's keys; the f32
 //   accumulator (G x D) stays in shared memory, each 16-byte piece owned by
 //   one thread, which adds p * V over the tile's keys.
+//
+// That body was written and tuned for bf16.  f32 pools take the CUDA-core
+// split body of decode_split.cuh instead, the one the dense kernel's f32
+// path runs, with the page lookup as its row address: a cp.async ring of
+// 16-key tiles, q and O in registers, f32 FMA, chunks of whole pages and at
+// least 64 keys planned for one block per SM (_paged_cuda_core_splits).
 #include <cstdint>
 
 #include "common.cuh"
 #include "decode_combine.cuh"
+#include "decode_split.cuh"
 
 namespace repro {
 namespace {
@@ -327,12 +334,14 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const 
 }  // namespace
 }  // namespace repro
 
-// Bytes of dynamic shared memory one split block needs (the wrapper checks
-// it against the device's limit before launching).
-extern "C" long long repro_paged_decode_smem_bytes(int dtype, int G, int D, int tile,
-                                                   int pages) {
-  const int es = dtype == repro::kBFloat16 ? 2 : 4;
-  return static_cast<long long>(repro::layout(es, G, D, tile, pages).total);
+// Bytes of dynamic shared memory one split block needs for chunks of
+// `chunk` positions, pages of `bs` (the wrapper checks it against the
+// device's limit before launching; -1: a head dim the f32 body does not
+// take).  `tile` is the bf16 kernel's; f32 ignores it.
+extern "C" long long repro_paged_decode_smem_bytes(int dtype, int G, int D, int tile, int chunk,
+                                                   int bs) {
+  if (dtype == repro::kFloat32) return repro::split::smem_bytes(4, G, D, chunk, chunk / bs);
+  return static_cast<long long>(repro::layout(2, G, D, tile, chunk / bs).total);
 }
 
 // The most tokens a tile may hold (the wrapper picks tile <= this).
@@ -340,9 +349,10 @@ extern "C" int repro_paged_decode_max_tile() { return repro::kTileMax; }
 
 // q and out (B, H, D), pools (N, bs, KV, D) in `dtype`; tables (B, T) and
 // lengths (B,) int32; scratch: part_acc (B, H, nsplit, D) and part_ml
-// (B, H, nsplit, 2) f32.  chunk is a multiple of bs and of tile (tile <= 32),
-// and nsplit * chunk >= T * bs.  Returns the CUDA error of the launches (0 on
-// success).
+// (B, H, nsplit, 2) f32.  chunk is a multiple of bs and nsplit * chunk >=
+// T * bs; for bf16, chunk is also a multiple of tile (tile <= 32).  f32
+// takes the split body of decode_split.cuh, bf16 the kernel above.  Returns
+// the CUDA error of the launches (0 on success).
 extern "C" int repro_paged_decode_attention(int device, int dtype, const void* q,
                                             const void* k_pool, const void* v_pool,
                                             const void* tables, const void* lengths,
@@ -353,19 +363,38 @@ extern "C" int repro_paged_decode_attention(int device, int dtype, const void* q
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || H == 0) return cudaSuccess;
-  if (bs < 1 || tile < 1 || tile > repro::kTileMax || chunk % bs || chunk % tile ||
-      nsplit < 1 || static_cast<long long>(nsplit) * chunk < static_cast<long long>(T_blocks) * bs)
+  if (bs < 1 || KV < 1 || H % KV || chunk < 1 || chunk % bs || nsplit < 1 ||
+      static_cast<long long>(nsplit) * chunk < static_cast<long long>(T_blocks) * bs)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto tab = static_cast<const int*>(tables);
   auto len = static_cast<const int*>(lengths);
   auto pa = static_cast<float*>(part_acc);
   auto pml = static_cast<float*>(part_ml);
-  if (dtype == repro::kFloat32)
-    return repro::launch<float>(q, k_pool, v_pool, tab, len, pa, pml, out, B, H, KV, D, bs,
-                                T_blocks, chunk, tile, nsplit, scale, s);
-  if (dtype == repro::kBFloat16)
+  if (dtype == repro::kFloat32) {
+    repro::split::Args a{};
+    a.q = q;
+    a.k = k_pool;
+    a.v = v_pool;
+    a.lengths = len;
+    a.tables = tab;
+    a.part_acc = pa;
+    a.part_ml = pml;
+    a.out = out;
+    a.H = H;
+    a.KV = KV;
+    a.D = D;
+    a.cap = T_blocks * bs;
+    a.bs = bs;
+    a.T_blocks = T_blocks;
+    a.chunk = chunk;
+    a.scale = scale;
+    return repro::split::launch<float, true>(a, B, nsplit, s);
+  }
+  if (dtype == repro::kBFloat16) {
+    if (tile < 1 || tile > repro::kTileMax || chunk % tile) return cudaErrorInvalidValue;
     return repro::launch<__nv_bfloat16>(q, k_pool, v_pool, tab, len, pa, pml, out, B, H, KV, D,
                                         bs, T_blocks, chunk, tile, nsplit, scale, s);
+  }
   return cudaErrorInvalidValue;
 }

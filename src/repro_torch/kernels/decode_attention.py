@@ -4,7 +4,9 @@
 ``decode_attention`` replaces the Pallas TPU kernel
 ``repro/kernels/decode_attention.py::decode_attention``: one token per
 sequence against a dense cache ``(B, Smax, KV, D)``, split along the cache
-axis across thread blocks and combined in a second pass.
+axis across thread blocks and combined in a second pass.  bf16 that the
+tensor cores take runs on them; f32, and the rest of bf16, run the CUDA-core
+split body ``csrc/decode_split.cuh``, which the paged f32 path shares.
 
 ``paged_decode_attention`` replaces
 ``repro/kernels/decode_attention.py::paged_decode_attention``.  K/V live in
@@ -12,9 +14,10 @@ a block pool ``(num_blocks, block_size, KV, D)``; each sequence names its
 blocks through a row of ``block_tables``.  Block 0 is the engine's scratch
 block: unused table entries point at it, and ``lengths`` masks whatever it
 holds.  It is split along the table's positions as the dense kernel is
-along the cache axis, and shares its combine pass.  Both split plans are
-made from the shapes alone: reading ``lengths`` on the host would sync
-every decode step.
+along the cache axis, and shares its combine pass; f32 pools run the dense
+kernel's CUDA-core split body, with the page lookup as the row address.
+Every split plan is made from the shapes alone: reading ``lengths`` on the
+host would sync every decode step.
 
 A tensor on the CPU takes the plain version (``ref.decode_attention_ref``,
 ``ref.paged_decode_attention_ref``); a CUDA tensor launches the kernel or
@@ -31,14 +34,17 @@ import torch
 from . import _build
 from .ref import decode_attention_ref, paged_decode_attention_ref
 
-BLOCKS_PER_SM = 2  # paged: split the table until the grid holds this many blocks per SM
+BLOCKS_PER_SM = 2  # paged bf16: split the table until the grid holds this many blocks per SM
 # the dense kernel's split plans: (step: chunks are whole multiples of it,
 # the fewest steps a chunk takes, blocks per SM the grid aims at).  The
 # tensor-core variant: 16-key mma steps, one 64-key tile a block or more,
 # one block per SM (chunks of one or two steps filled more SMs at the
 # serving shapes and measured slower: scripts/bench_attention.py,
-# PERF.md).  The CUDA-core variant (f32, or bf16 the tensor cores do not
-# take): its 32-key tiles, two blocks per SM.
+# PERF.md).  The CUDA-core split body (f32, or bf16 the tensor cores do not
+# take; csrc/decode_split.cuh): stages of 32 keys (a 16-key tile for each
+# of its two key groups), one or more a block, two blocks per SM (chunks
+# of 64 keys or more were no faster at gemma-2b's and qwen3-14b's shapes
+# and slower at the serving shapes: PERF.md).
 TC_PLAN = (16, 4, 1)
 CUDA_CORE_PLAN = (32, 1, 2)
 
@@ -70,6 +76,15 @@ def _paged_splits(B: int, KV: int, T: int, bs: int, tile_max: int,
         step = math.lcm(bs, tile_max)
         chunk = max(step, chunk // step * step)
     return chunk, min(chunk, tile_max), max(1, -(-(T * bs) // chunk))
+
+
+def _paged_cuda_core_splits(B: int, KV: int, T: int, bs: int, sms: int) -> tuple:
+    """``(chunk, nsplit)`` of the paged f32 path (the CUDA-core split body):
+    ``CUDA_CORE_PLAN`` over the table's ``T * bs`` positions with pages as
+    the step, so a chunk is whole pages and at least as many keys as the
+    dense plan's fewest."""
+    step, min_steps, per_sm = CUDA_CORE_PLAN
+    return _splits(B, KV, T * bs, sms, (bs, -(-step * min_steps // bs), per_sm))
 
 
 def decode_attention(q, k_cache, v_cache, lengths):
@@ -108,8 +123,8 @@ def decode_attention(q, k_cache, v_cache, lengths):
         code, H // KV, D, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
     chunk, nsplit = _splits(B, KV, Smax, _build.sm_count(q.device.index),
                             TC_PLAN if tc else CUDA_CORE_PLAN)
-    if (lib.repro_decode_attention_smem_bytes(code, H // KV, D, chunk)
-            > _build.MAX_SMEM_BYTES):
+    if not 0 <= lib.repro_decode_attention_smem_bytes(
+            code, H // KV, D, chunk) <= _build.MAX_SMEM_BYTES:
         raise ValueError(f"{name}: G={H // KV}, D={D} needs more shared "
                          "memory than one block has")
     part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32,
@@ -161,12 +176,15 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, tables "
             f"{tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
     lib = _build.library()
-    chunk, tile, nsplit = _paged_splits(B, KV, T, bs,
-                                        lib.repro_paged_decode_max_tile(),
-                                        _build.sm_count(q.device.index))
+    sms = _build.sm_count(q.device.index)
+    if q.dtype == torch.float32:  # the CUDA-core split body (no tiles to plan)
+        (chunk, nsplit), tile = _paged_cuda_core_splits(B, KV, T, bs, sms), 0
+    else:
+        chunk, tile, nsplit = _paged_splits(
+            B, KV, T, bs, lib.repro_paged_decode_max_tile(), sms)
     code = _build.DTYPE_CODES[q.dtype]
-    if (lib.repro_paged_decode_smem_bytes(code, H // KV, D, tile, chunk // bs)
-            > _build.MAX_SMEM_BYTES):
+    if not 0 <= lib.repro_paged_decode_smem_bytes(
+            code, H // KV, D, tile, chunk, bs) <= _build.MAX_SMEM_BYTES:
         raise ValueError(f"{name}: G={H // KV}, D={D} needs more shared "
                          "memory than one block has")
     part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32,

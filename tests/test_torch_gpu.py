@@ -143,11 +143,15 @@ def test_paged_decode_kernel(cuda, B, H, KV, D, bs, T, lengths, dtype):
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_decode_kernel_split_edges(cuda, B, H, KV, D, bs, T, dtype):
-    """Lengths on and beside the split plan's chunk edges, 0 beside a full
+    """Lengths on and beside the split plan's chunk edges (the plan of the
+    variant that runs: the CUDA-core split body for f32), 0 beside a full
     table, past the table, and a single token, each length in every slot."""
-    from repro_torch.kernels.decode_attention import _paged_splits
+    from repro_torch.kernels.decode_attention import _paged_cuda_core_splits, _paged_splits
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    chunk, _tile, _n = _paged_splits(B, KV, T, bs, 32, sms)
+    if dtype == "float32":
+        chunk, _n = _paged_cuda_core_splits(B, KV, T, bs, sms)
+    else:
+        chunk, _tile, _n = _paged_splits(B, KV, T, bs, 32, sms)
     edges = [chunk, chunk - 1, chunk + 1, 2 * chunk, 0, T * bs, T * bs + 7, 1]
     rng = np.random.default_rng(8)
     n = B * T + 1
@@ -319,6 +323,81 @@ def test_decode_attention_kernel(cuda, B, H, KV, D, Smax, lengths, dtype):
     _close(got, kernels.ref.decode_attention_ref(q, kc, vc, lens), dtype)
     if 0 in lengths:  # an empty row attends to nothing: 0
         assert not got[lengths.index(0)].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KV,D,Smax,dtype", [
+    (8, 8, 1, 256, 1024, "float32"),    # gemma-2b
+    (8, 40, 8, 128, 1024, "float32"),   # qwen3-14b
+    (1, 16, 1, 256, 2048, "float32"),   # recurrentgemma-9b's ring
+    (4, 8, 1, 256, 256, "float32"),     # the fixed-slot serve
+    (3, 8, 2, 512, 300, "float32"),     # D 512: 8-key tiles
+    (2, 2, 1, 879, 100, "float32"),     # D 879: one key group, 32 elements a lane
+    (4, 8, 1, 36, 300, "bfloat16"),     # D 36: the tensor cores refuse it
+    (4, 64, 2, 64, 300, "bfloat16"),    # G 32: refused too; two passes a chunk
+])
+def test_decode_attention_kernel_split_edges(cuda, B, H, KV, D, Smax, dtype):
+    """The CUDA-core split body at lengths on and beside its plan's chunk
+    edges: 0, 1, chunk +- 1, 2 chunk, Smax, past Smax, each in every slot."""
+    from repro_torch.kernels.decode_attention import CUDA_CORE_PLAN, _splits
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunk, _n = _splits(B, KV, Smax, sms, CUDA_CORE_PLAN)
+    edges = [0, 1, chunk - 1, chunk, chunk + 1, 2 * chunk, Smax, Smax + 9]
+    rng = np.random.default_rng(B * H + D)
+    q = _randn(rng, (B, H, D), cuda, dtype)
+    kc, vc = (_randn(rng, (B, Smax, KV, D), cuda, dtype) for _ in range(2))
+    for shift in range(len(edges)):
+        lens = torch.tensor([edges[(i + shift) % len(edges)] for i in range(B)],
+                            dtype=torch.int32, device=cuda)
+        got = kernels.decode_attention(q, kc, vc, lens)
+        _close(got, kernels.ref.decode_attention_ref(q, kc, vc, lens), dtype)
+        assert not got[lens == 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D", [("float32", 256), ("float32", 128), ("bfloat16", 36)])
+def test_cuda_core_decode_gives_the_same_bits_twice(cuda, dtype, D):
+    """The CUDA-core split body, dense and (f32) paged: no atomics, sums in
+    a fixed order, so a second call gives the same bits."""
+    rng = np.random.default_rng(D)
+    B, H, KV, Smax, bs = 8, 8, 1, 1024, 16
+    q = _randn(rng, (B, H, D), cuda, dtype)
+    kc, vc = (_randn(rng, (B, Smax, KV, D), cuda, dtype) for _ in range(2))
+    lens = torch.tensor([1025, 1024, 900, 700, 513, 300, 33, 1], dtype=torch.int32,
+                        device=cuda)
+    assert torch.equal(kernels.decode_attention(q, kc, vc, lens),
+                       kernels.decode_attention(q, kc, vc, lens))
+    if dtype == "float32":
+        T = Smax // bs
+        tables = (torch.from_numpy(rng.permutation(B * T) + 1).view(B, T)
+                  .to(cuda, torch.int32))
+        pool_k, pool_v = (_randn(rng, (B * T + 1, bs, KV, D), cuda, dtype) for _ in range(2))
+        assert torch.equal(kernels.paged_decode_attention(q, pool_k, pool_v, tables, lens),
+                           kernels.paged_decode_attention(q, pool_k, pool_v, tables, lens))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KV,D,bs,T", [
+    (8, 8, 1, 256, 16, 64),    # gemma-2b
+    (8, 40, 8, 128, 16, 64),   # qwen3-14b
+    (3, 4, 2, 64, 2, 40),      # pages of 2
+    (2, 8, 1, 128, 48, 6),     # pages of 48
+])
+def test_paged_f32_matches_dense_f32_on_the_same_rows(cuda, B, H, KV, D, bs, T):
+    """f32 K/V rows in shuffled pages give what the dense f32 kernel gives on
+    the same rows gathered into a cache, within 2e-5: the two entry points
+    share one split body."""
+    rng = np.random.default_rng(T + bs)
+    q = _randn(rng, (B, H, D), cuda, "float32")
+    pool_k, pool_v = (_randn(rng, (B * T + 1, bs, KV, D), cuda, "float32") for _ in range(2))
+    tables = (torch.from_numpy(rng.permutation(B * T) + 1).view(B, T).to(cuda, torch.int32))
+    lens = torch.tensor([max(1, (T * bs) // (i + 1) - 3) for i in range(B)],
+                        dtype=torch.int32, device=cuda)
+    kc, vc = (p[tables.long()].reshape(B, T * bs, KV, D).contiguous() for p in (pool_k, pool_v))
+    before = kernels.paged_decode_attention.launches
+    got = kernels.paged_decode_attention(q, pool_k, pool_v, tables, lens)
+    assert kernels.paged_decode_attention.launches == before + 1
+    _close(got, kernels.decode_attention(q, kc, vc, lens), "float32")
 
 
 @pytest.mark.gpu

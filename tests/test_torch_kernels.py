@@ -170,16 +170,75 @@ def test_dense_split_plan_at_the_serving_shapes():
     from repro_torch.kernels.decode_attention import CUDA_CORE_PLAN, TC_PLAN, _splits
     # (B, KV, Smax) -> (chunk, blocks) of the tensor-core variant: one
     # 64-key tile a block where the cache is short (the plan before this
-    # one: 32, 32, 64 and 256 blocks, which the CUDA-core variant keeps)
+    # one: 32, 32, 64 and 256 blocks)
     for (B, KV, Smax), want in {(4, 1, 256): (64, 16), (1, 1, 1024): (64, 16),
                                 (1, 1, 2048): (64, 32), (8, 1, 1024): (64, 128),
                                 (8, 8, 1024): (352, 192)}.items():
         chunk, nsplit = _splits(B, KV, Smax, H100_SMS, TC_PLAN)
         assert (chunk, nsplit * B * KV) == want, (B, KV, Smax)
+    # the CUDA-core split body (f32): one 32-key stage a block or more, two
+    # blocks per SM
     for (B, KV, Smax), want in {(4, 1, 256): (32, 32), (1, 1, 1024): (32, 32),
                                 (1, 1, 2048): (32, 64), (8, 1, 1024): (32, 256)}.items():
         chunk, nsplit = _splits(B, KV, Smax, H100_SMS, CUDA_CORE_PLAN)
         assert (chunk, nsplit * B * KV) == want, (B, KV, Smax)
+
+
+@pytest.mark.parametrize("B,KV,T,bs", [
+    (8, 1, 64, 16),     # gemma-2b, 1024 positions
+    (8, 8, 64, 16),     # qwen3-14b
+    (8, 1, 255, 16),    # the paged serve's table (256 blocks)
+    (4, 1, 16, 16),     # the f32 engine checks' 256 positions
+    (1, 1, 1, 16),      # a single page
+    (2, 1, 8, 2),       # block size 2
+    (4, 1, 64, 2),
+    (3, 2, 4, 32),      # block size 32
+    (1, 1, 40, 64),     # pages of 64
+    (2, 1, 10, 48),     # pages of 48: no whole number of them makes 32 keys
+    (64, 8, 2048, 16),  # a batch that fills the card without splitting
+])
+def test_paged_cuda_core_plan_covers_the_table(B, KV, T, bs):
+    """The paged f32 plan: chunks of whole pages, at least one 32-key stage
+    (or the whole table), that cover the table with no empty tail, as short
+    as keep the grid within one wave of two blocks per SM."""
+    from repro_torch.kernels.decode_attention import CUDA_CORE_PLAN, _paged_cuda_core_splits
+    tile, min_tiles, per_sm = CUDA_CORE_PLAN
+    chunk, nsplit = _paged_cuda_core_splits(B, KV, T, bs, H100_SMS)
+    assert chunk % bs == 0  # whole pages
+    assert chunk >= min(tile * min_tiles, T * bs) or nsplit == 1
+    assert chunk - bs < tile * min_tiles or nsplit == 1 or (
+        -(-T * bs // (chunk - bs)) * B * KV > per_sm * H100_SMS)  # no shorter chunk keeps one wave
+    assert nsplit * chunk >= T * bs > (nsplit - 1) * chunk  # covers, no empty tail
+    assert nsplit == 1 or (nsplit - 1) * B * KV < per_sm * H100_SMS
+
+
+def test_cuda_core_split_plans_at_the_f32_shapes():
+    """(chunk, blocks) of the f32 split body, dense and paged, at gemma-2b's
+    and qwen3-14b's kernel shapes and the f32 engine checks' shapes: the
+    fixed-slot serve (B 4, Smax 256), decode after a 1024-token prefill (B
+    1), recurrentgemma-9b's ring (B 1, Smax 2048, 16 heads); paged with
+    16-token pages."""
+    from repro_torch.kernels.decode_attention import (
+        CUDA_CORE_PLAN,
+        _paged_cuda_core_splits,
+        _paged_splits,
+        _splits,
+    )
+    dense = {(8, 1, 1024): (32, 256), (8, 8, 1024): (224, 320), (4, 1, 256): (32, 32),
+             (1, 1, 1024): (32, 32), (1, 1, 2048): (32, 64)}
+    paged = {(8, 1, 1024): (32, 256), (8, 8, 1024): (208, 320), (4, 1, 256): (32, 32),
+             (1, 1, 1024): (32, 32), (1, 1, 2048): (32, 64)}
+    for (B, KV, Smax), want in dense.items():
+        chunk, nsplit = _splits(B, KV, Smax, H100_SMS, CUDA_CORE_PLAN)
+        assert (chunk, nsplit * B * KV) == want, (B, KV, Smax)
+    for (B, KV, Smax), want in paged.items():  # qwen3-14b: whole pages of 16
+        chunk, nsplit = _paged_cuda_core_splits(B, KV, Smax // 16, 16, H100_SMS)
+        assert (chunk, nsplit * B * KV) == want, (B, KV, Smax)
+    # the bf16 paged plan is unchanged: one page a block at gemma-2b's shape
+    assert _paged_splits(8, 1, 64, 16, PAGED_TILE_MAX, H100_SMS) == (16, 16, 64)
+    # pages of 48 and of 2
+    assert _paged_cuda_core_splits(2, 1, 10, 48, H100_SMS) == (48, 10)
+    assert _paged_cuda_core_splits(4, 1, 64, 2, H100_SMS) == (32, 4)
 
 
 @pytest.mark.parametrize("B,S,H,KV", [
@@ -381,6 +440,179 @@ def test_decode_attention_lengths_past_the_cache_match_the_model_layer():
     zero = tk.decode_attention(*(torch.from_numpy(a) for a in (q, kc, vc)),
                                torch.zeros(B, dtype=torch.int32))
     assert not zero.any()  # an empty row attends to nothing: 0
+
+
+# ------------------------ f32 summation order of the CUDA-core decode body
+#
+# ``csrc/decode_split.cuh``'s arithmetic in numpy: each lane's partial dot
+# product over its slice of D (pieces of min(E, 4) elements at lane + 32 j)
+# as one FMA chain, the 32 lanes added in the butterfly's fixed tree (lane
+# pairs by bits 2, 1, 0, 3, 4), the online softmax per 16-key tile (p summed
+# over kb on each of 8 lanes, then by lane bits 0, 1, 2), P V as a 16-term
+# FMA chain a tile and O = fma(O, corr, pv); two key groups, each taking
+# every other 16-key tile of a chunk, merged (O = fma(O1, w1, O0 w0)); the
+# splits' partials, then the combine pass in split order.  The paged path runs the same arithmetic on
+# rows it looks up, so the emulation gathers its pages into a cache.
+
+
+def _pairs(x, axis):
+    """x's two halves along ``axis`` added in f32."""
+    return (np.take(x, 0, axis=axis) + np.take(x, 1, axis=axis)).astype(np.float32)
+
+def _decode_split_order(q, kc, vc, lens, chunk):
+    """(B, H, D) f32 as the CUDA-core split body with chunks of ``chunk``
+    positions and the combine pass compute it (``_fma`` as above)."""
+    f32 = np.float32
+    B, H, D = q.shape
+    S, KV = kc.shape[1:3]
+    G = H // KV
+    E = 1
+    while 32 * E < D:
+        E *= 2
+    W, TK = min(E, 4), (16 if E <= 8 else 8)
+    Dp = 32 * E
+    idx = np.array([[W * (l + 32 * j) + w for j in range(E // W) for w in range(W)]
+                    for l in range(32)])
+    Sp = -(-max(S, 1) // TK) * TK + chunk
+    pad = lambda x, n: np.concatenate([x, np.zeros(x.shape[:-1] + (n - x.shape[-1],), f32)], -1)
+    qg = pad(q, Dp).reshape(B, KV, G, Dp)
+    kp = np.zeros((B, KV, Sp, Dp), f32)
+    kp[:, :, :S, :D] = kc.transpose(0, 2, 1, 3)
+    vp = np.zeros((B, KV, Sp, D), f32)
+    vp[:, :, :S] = vc.transpose(0, 2, 1, 3)
+    acc = np.zeros((B, KV, G, Sp, 32), f32)
+    for e in range(E):
+        acc = _fma(acc, qg[..., idx[:, e]][:, :, :, None, :], kp[..., idx[:, e]][:, :, None])
+    x = acc.reshape(B, KV, G, Sp, 2, 2, 2, 2, 2)  # lane bits 4 3 2 1 0
+    x = _pairs(x, -3)   # bit 2
+    x = _pairs(x, -2)   # bit 1
+    x = _pairs(x, -1)   # bit 0
+    x = _pairs(x, -1)   # bit 3
+    s = (_pairs(x, -1) * f32(1.0 / math.sqrt(D))).astype(f32)  # bit 4, then the scale
+    L = np.minimum(np.maximum(np.asarray(lens), 0), S)[:, None, None]
+    groups = 2 if E <= 16 else 1
+    stage = groups * TK
+    nsplit = -(-S // chunk)
+    parts = []
+    for c in range(nsplit):
+        start = c * chunk
+        end = np.minimum(start + chunk, L)  # (B, 1, 1)
+        states = []
+        for kg in range(groups):  # key group kg: keys kg TK .. + TK - 1 of each stage
+            m = np.full((B, KV, G), -1e30, f32)
+            l = np.zeros((B, KV, G), f32)
+            o = np.zeros((B, KV, G, D), f32)
+            for t0 in range(start + kg * TK, start + chunk, stage):
+                live = t0 < end
+                if not live.any():
+                    break
+                valid = (t0 + np.arange(TK))[None, None, None, :] < end[..., None]
+                sc = np.where(valid, s[..., t0:t0 + TK], f32(-1e30))
+                mn = np.maximum(m, sc.max(-1))
+                corr = np.exp((m - mn).astype(f32)).astype(f32)
+                p = np.where(valid, np.exp((sc - mn[..., None]).astype(f32)), f32(0)).astype(f32)
+                lane = p[..., 0:8]
+                for kb in range(1, TK // 8):
+                    lane = (lane + p[..., 8 * kb:8 * kb + 8]).astype(f32)
+                y = lane.reshape(B, KV, G, 2, 2, 2)  # bits 2 1 0
+                ps = _pairs(_pairs(_pairs(y, -1), -1), -1)
+                pv = np.zeros_like(o)
+                for r in range(TK):
+                    pv = _fma(pv, p[..., r, None], vp[:, :, None, t0 + r])
+                lv = live[..., None]
+                o = np.where(lv, _fma(pv, o, corr[..., None]), o)
+                l = np.where(live, _fma(ps, l, corr), l)
+                m = np.where(live, mn, m)
+            states.append((o, m, l))
+        o, m, l = states[0]
+        for o1, m1, l1 in states[1:]:  # key group 1 merged into key group 0
+            mn = np.maximum(m, m1)
+            w0 = np.exp((m - mn).astype(f32)).astype(f32)
+            w1 = np.exp((m1 - mn).astype(f32)).astype(f32)
+            o = _fma((o * w0[..., None]).astype(f32), o1, w1[..., None])
+            l = _fma((l * w0).astype(f32), l1, w1)
+            m = mn
+        parts.append((o, m, l))
+    m_all = np.max([m for _, m, _ in parts], axis=0)
+    den = np.zeros((B, KV, G), f32)
+    num = np.zeros((B, KV, G, D), f32)
+    for o, m, l in parts:
+        full = l > 0
+        w = np.exp((m - m_all).astype(f32)).astype(f32)
+        den = np.where(full, _fma(den, l, w), den)
+        num = np.where(full[..., None], _fma(num, o, w[..., None]), num)
+    out = (num / np.maximum(den, f32(1e-30))[..., None]).astype(f32)
+    return out.reshape(B, H, D)
+
+
+def _f64_decode(q, kc, vc, lens):
+    """The decode of ``ref.decode_attention_ref`` in f64."""
+    B, H, D = q.shape
+    S, KV = kc.shape[1:3]
+    k, v = (np.repeat(x.astype(np.float64), H // KV, axis=2) for x in (kc, vc))
+    s = np.einsum("bhd,bkhd->bhk", q.astype(np.float64), k) / math.sqrt(D)
+    valid = (np.arange(S)[None, :] < np.asarray(lens)[:, None])[:, None, :]
+    s = np.where(valid, s, -np.inf)
+    top = s.max(-1, keepdims=True)
+    p = np.exp(s - np.where(np.isfinite(top), top, 0))
+    p = p / np.maximum(p.sum(-1, keepdims=True), 1e-300)
+    return np.einsum("bhk,bkhd->bhd", p, v)
+
+
+@pytest.mark.parametrize("B,H,KV,D,Smax,lengths", [
+    (2, 8, 2, 64, 100, [100, 33]),         # GQA, ragged, off the tiles
+    (3, 10, 2, 36, 70, [70, 0, 17]),       # G = 5, D 36 (two elements a lane), empty
+    (2, 4, 1, 512, 40, [40, 9]),           # D 512: 8-key tiles
+    (1, 32, 1, 64, 200, [129]),            # G = 32: two passes over the chunk
+    (4, 8, 1, 256, 256, [256, 0, 63, 65]),  # the fixed-slot serve's shape
+])
+def test_f32_decode_split_order_matches_pallas(B, H, KV, D, Smax, lengths):
+    """The CUDA-core body's sum order, at its plan's chunk and at a chunk of
+    one tile, against the JAX kernel within f32's 2e-5."""
+    from repro_torch.kernels.decode_attention import CUDA_CORE_PLAN, _splits
+    rng = np.random.default_rng(B * H + D)
+    q, kc, vc = (rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, H, D), (B, Smax, KV, D), (B, Smax, KV, D)))
+    lens = np.asarray(lengths, np.int32)
+    want = jk.decode_attention(*(jnp.asarray(a) for a in (q, kc, vc, lens)), block_k=32,
+                               interpret=True)
+    for chunk in (_splits(B, KV, Smax, H100_SMS, CUDA_CORE_PLAN)[0], 16):
+        got = _decode_split_order(q, kc, vc, lens, chunk)
+        np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
+        assert not got[lens == 0].any()
+
+
+@pytest.mark.parametrize("B,H,KV,D,bs,T,lengths", PAGED_CASES)
+def test_f32_paged_split_order_matches_pallas(B, H, KV, D, bs, T, lengths):
+    """The same body over a paged pool (its rows gathered by the table, at
+    the paged f32 plan's chunk) against the JAX paged kernel."""
+    from repro_torch.kernels.decode_attention import _paged_cuda_core_splits
+    q, kp, vp, tables, lens = _paged_inputs(B, H, KV, D, bs, T, B * H + bs, lengths)
+    want = jk.paged_decode_attention(*(jnp.asarray(a) for a in (q, kp, vp, tables, lens)),
+                                     interpret=True)
+    kc, vc = (x[tables].reshape(B, T * bs, KV, D) for x in (kp, vp))
+    chunk, _ = _paged_cuda_core_splits(B, KV, T, bs, H100_SMS)
+    got = _decode_split_order(q, kc, vc, lens, chunk)
+    np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,H,KV,D", [(8, 8, 1, 256), (8, 40, 8, 128)])
+def test_f32_decode_split_order_near_f64(B, H, KV, D):
+    """At gemma-2b's and qwen3-14b's shapes (Smax 1024, ragged lengths as
+    ``chip_smoke.check_decode``'s), the body's sum order leaves no more
+    elements off the correctly rounded f64 result than plain f32 does."""
+    from repro_torch.kernels.decode_attention import CUDA_CORE_PLAN, _splits
+    Smax = 1024
+    rng = np.random.default_rng(D)
+    q, kc, vc = (rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, H, D), (B, Smax, KV, D), (B, Smax, KV, D)))
+    lens = np.asarray([Smax + 1] + [max(1, Smax - (Smax * i) // B) for i in range(1, B)],
+                      np.int32)
+    got = _decode_split_order(q, kc, vc, lens, _splits(B, KV, Smax, H100_SMS, CUDA_CORE_PLAN)[0])
+    plain = tk.decode_attention(*(torch.from_numpy(a) for a in (q, kc, vc, lens))).numpy()
+    exact = _f64_decode(q, kc, vc, np.minimum(lens, Smax)).astype(np.float32)
+    assert np.isfinite(got).all()
+    assert (got != exact).sum() <= (plain != exact).sum()
 
 
 # ---------------------------------------------------- local (windowed) flash
