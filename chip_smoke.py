@@ -92,7 +92,15 @@ tolerance miss:
    ``repro_torch.launch.train.main`` with ``--mesh 1,1,1`` (as phase 7),
    its peak memory within 5% of phase 7's; and the compressed combine's
    bytes and time;
-18. the kernels line (JSON), the run's wall, the card's name and power
+18. analysis: the dry-run (``repro_torch.launch.dryrun``) of gemma-2b's
+   applicable cells on both production meshes, (16, 16) and (2, 16, 16),
+   on fake tensors; phase 6's prefill and one phase-7 train step, counted
+   in kernel mode on the card (``repro_torch.launch.op_analysis``; the
+   counts are taken in those phases), must equal the same steps counted on
+   fake tensors (FLOPs, bytes, each kernel's calls and work), and the
+   counted FLOPs over each step's time by CUDA events, as a share of the
+   card's 989 TFLOP/s, must not read over 1.05 (the count would be wrong);
+19. the kernels line (JSON), the run's wall, the card's name and power
    limit, and the result line ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -128,7 +136,7 @@ import torch.nn.functional as F  # noqa: E402
 # the port, from this checkout (outside one, this import fails)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 from repro_torch import kernels  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import SHAPES, get_config  # noqa: E402
 from repro_torch.convert import cast_params, map_params  # noqa: E402
 from repro_torch.data import StreamSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -138,11 +146,22 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     _paged_cuda_core_splits,
     _paged_splits,
     _splits,
+    decode_attention_cost,
+    paged_decode_attention_cost,
 )
 from repro_torch.ckpt import CheckpointStore  # noqa: E402
-from repro_torch.kernels.flash_attention import _dkv_splits  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    _dkv_splits,
+    flash_attention_bwd_cost,
+    flash_attention_cost,
+)
+from repro_torch.kernels.mlstm_chunk import mlstm_chunk_bwd_cost, mlstm_chunk_cost  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cost, rglru_scan_cost  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm_cost  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.mesh import HW, make_mesh  # noqa: E402
+from repro_torch.launch.op_analysis import count as count_ops  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     ModelOptions,
     decode_step,
@@ -184,8 +203,9 @@ from repro_torch.train import (  # noqa: E402
 from repro_torch.train.compress import compressed_mean_over_axis, ef_quantize_mean  # noqa: E402
 from repro_torch.train.optim import leaves  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+HBM_BYTES_PER_S = HW["hbm_bw"]  # H100 SXM
+PEAK_OPS_PER_S = {"torch.bfloat16": HW["peak_flops_bf16"],
+                  "torch.float32": HW["peak_flops_f32"]}
 # f32 products as split TF32 on the tensor cores (the f32 flash variants):
 # three TF32 products each, at a third of the 495 TFLOP/s TF32 rate
 SPLIT_TF32_OPS_PER_S = 495e12 / 3
@@ -339,9 +359,12 @@ def abs_rel_err(got, want, atol: float, rtol: float, what: str) -> float:
     return err.max().item()
 
 
-def bound(nbytes: float, ops: float, dtype) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[str(dtype)] * 1e3
+def bound(cost: _build.Cost, dtype) -> tuple:
+    """The least time in ms the card could take for a kernel call's work
+    (its wrapper module's ``*_cost``): its bytes over the memory rate or
+    its operations over the peak rate of ``dtype``, the larger, and which."""
+    t_bytes = cost.bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = cost.flops / PEAK_OPS_PER_S[str(dtype)] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -363,8 +386,7 @@ def check_rmsnorm(gen, rows_shape, dtype) -> dict:
     err = max_err_within(got, want, TOL[str(dtype)],
                          f"rmsnorm {rows_shape} {dtype}")
     weight = (1.0 + scale).to(dtype)
-    nbytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
-    b_ms, b_by = bound(nbytes, 4 * x.numel(), dtype)
+    b_ms, b_by = bound(rmsnorm_cost(x.numel() // d, d, dtype), dtype)
     # every call reads the same x, as the model's norm reads the x that the
     # op before it has just written: from L2 where it fits in its 50 MB
     return {
@@ -420,12 +442,9 @@ def check_paged(gen, B, H, KV, D, bs, max_len, dtype) -> dict:
     library_ms = time_ms(lambda i: F.scaled_dot_product_attention(
         q[:, :, None, :], *gathered[i % copies], attn_mask=mask, enable_gqa=True))
     del gathered
-    es = q.element_size()
-    pages = sum(-(-n // bs) for n in lens)  # only the pages the lengths need
-    nbytes = (2 * q.numel() * es + 2 * pages * bs * KV * D * es
-              + 4 * (pages + B))
-    ops = 4 * sum(lens) * H * D
-    b_ms, b_by = bound(nbytes, ops, dtype)
+    # only the pages the lengths need
+    b_ms, b_by = bound(paged_decode_attention_cost(B, H, KV, D, bs, tables.shape[1], dtype,
+                                                   lengths=lens), dtype)
     del pools
     if dtype == torch.float32:  # the CUDA-core split body: 32-key stages
         (chunk, nsplit), tile = _paged_cuda_core_splits(
@@ -478,9 +497,9 @@ def check_decode(gen, B, H, KV, D, Smax, dtype) -> dict:
         q[:, :, None, :], *transposed[i % copies], attn_mask=mask, enable_gqa=True),
         iters=iters)
     del transposed
-    valid = sum(min(n, Smax) for n in lens)  # only the rows the lengths need
-    nbytes = 2 * q.numel() * es + 2 * valid * KV * D * es + 4 * B
-    b_ms, b_by = bound(nbytes, 4 * valid * H * D, dtype)
+    # only the rows the lengths need
+    b_ms, b_by = bound(decode_attention_cost(B, H, KV, D, Smax, dtype, lengths=lens),
+                       dtype)
     del caches
     tc = _build.library().repro_decode_attention_tensor_cores(
         _build.DTYPE_CODES[dtype], H // KV, D, q.data_ptr(), kc.data_ptr(), vc.data_ptr())
@@ -493,12 +512,6 @@ def check_decode(gen, B, H, KV, D, Smax, dtype) -> dict:
         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
         "bound_by": b_by,
     }
-
-
-def band_pairs(S: int, window: int) -> int:
-    """(query, key) pairs of causal attention, within ``window`` if > 0."""
-    w = min(window, S) if window else S
-    return w * (w + 1) // 2 + (S - w) * w
 
 
 def check_flash(gen, B, S, H, KV, D, dtype, window: int = 0) -> dict:
@@ -529,13 +542,13 @@ def check_flash(gen, B, S, H, KV, D, dtype, window: int = 0) -> dict:
     # yardstick: SDPA, causal, or with a boolean band mask
     band = ((i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
             if window else None)
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    ops = 4 * B * H * D * band_pairs(S, window)
-    b_ms, b_by = bound(nbytes, ops, dtype)
+    # with the LSE, as the timed call writes it
+    cost = flash_attention_cost(B, S, H, KV, D, dtype, window=window, lse=True)
+    b_ms, b_by = bound(cost, dtype)
     return {
         "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "window": window},
         "dtype": str(dtype), "max_abs_err": err, "route": route,
-        "bound_split_tf32_ms": (ops / SPLIT_TF32_OPS_PER_S * 1e3
+        "bound_split_tf32_ms": (cost.flops / SPLIT_TF32_OPS_PER_S * 1e3
                                 if dtype == torch.float32 else None),
         # with the LSE, as the prefill and train paths launch it (through
         # flash_attention_train)
@@ -618,11 +631,8 @@ def check_flash_bwd(gen, B, S, H, KV, D, dtype, window: int = 0) -> dict:
     fwd_ms = time_ms(sdpa_fwd, iters=5)
     library_ms = time_ms(sdpa_fwd_bwd, iters=5) - fwd_ms
     del qt, kt, vt, dot
-    es = q.element_size()
-    nbytes = ((3 * q.numel() + 2 * k.numel()) * es + lse.numel() * 4  # read
-              + (q.numel() + 2 * k.numel()) * es)  # dq, dk, dv written
-    ops = 5 * 2 * B * H * band_pairs(S, window) * D
-    b_ms, b_by = bound(nbytes, ops, dtype)
+    cost = flash_attention_bwd_cost(B, S, H, KV, D, dtype, window=window)
+    b_ms, b_by = bound(cost, dtype)
     lib = _build.library()
     tile = {"bf16-tensor-cores": lib.repro_flash_attention_bwd_key_tile(),
             "f32-tensor-cores": lib.repro_flash_attention_bwd_f32_key_tile()}.get(route)
@@ -631,7 +641,7 @@ def check_flash_bwd(gen, B, S, H, KV, D, dtype, window: int = 0) -> dict:
     return {
         "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "window": window},
         "dtype": str(dtype), "max_abs_err": err, "route": route,
-        "bound_split_tf32_ms": (ops / SPLIT_TF32_OPS_PER_S * 1e3
+        "bound_split_tf32_ms": (cost.flops / SPLIT_TF32_OPS_PER_S * 1e3
                                 if dtype == torch.float32 else None),
         "plan": f"dk/dv pass in {nsplit} query ranges; max error {rel:.3g} of the "
                 "output's largest entry",
@@ -721,8 +731,7 @@ def check_rglru(gen, B, S, C) -> dict:
     torch.cuda.synchronize()
     err = max_err_within(got, want, RGLRU_TOL, f"rglru_scan ({B}, {S}, {C})")
     del got, want
-    # each input read once, h written once; exp, multiply, add per element
-    b_ms, b_by = bound(3 * log_a.numel() * 4, 3 * log_a.numel(), torch.float32)
+    b_ms, b_by = bound(rglru_scan_cost(log_a.numel()), torch.float32)
     return {
         "shape": [B, S, C], "dtype": "torch.float32", "max_abs_err": err,
         "ms": time_ms(lambda i: kernels.rglru_scan(log_a, b), iters=10),
@@ -732,14 +741,6 @@ def check_rglru(gen, B, S, C) -> dict:
         "library_ms": None,  # no PyTorch call computes a linear recurrence
         "bound_ms": b_ms, "bound_by": b_by,
     }
-
-
-def mlstm_flops(B, S, H, dk, chunk) -> float:
-    """The mLSTM's operations that the data needs: per chunk and (batch,
-    head), q k^T and W v over the lower triangle (2 c (c + 1) dk), q C and
-    the C update (4 c dk^2)."""
-    c = min(chunk, S)
-    return (S // c) * B * H * (2 * c * (c + 1) * dk + 4 * c * dk * dk)
 
 
 def check_mlstm(gen, B, S, H, dk, chunk, dtype) -> dict:
@@ -757,13 +758,12 @@ def check_mlstm(gen, B, S, H, dk, chunk, dtype) -> dict:
     err = max(abs_rel_err(g, w, MLSTM_ATOL, MLSTM_RTOL, f"{what} {name}")
               for name, g, w in zip(("h", "C", "n", "m"), (got, *final), (want, *wfinal)))
     del got, final, want, wfinal
-    nbytes = (3 * q.numel() * q.element_size() + 2 * i_pre.numel() * 4
-              + q.numel() * 4 + B * H * (dk * dk + dk + 1) * 4)
     # the products' rate follows the input type: bf16 q, k, v run them on
     # the tensor cores (989 TFLOP/s; the kernel's split of its f32 operands
     # into bf16 terms is its own choice, not the work's), f32 ones on the
     # CUDA cores (67 TFLOP/s)
-    b_ms, b_by = bound(nbytes, mlstm_flops(B, S, H, dk, chunk), dtype)
+    b_ms, b_by = bound(mlstm_chunk_cost(B, S, H, dk, dtype, chunk=chunk, final=True),
+                       dtype)
     return {
         "shape": {"B": B, "S": S, "H": H, "dk": dk, "chunk": chunk},
         "dtype": str(dtype), "max_abs_err": err,
@@ -796,9 +796,7 @@ def check_rglru_bwd(gen, B, S, C) -> dict:
               for name, g, w in zip(("dlog_a", "db"), got, want))
     del got, again, want
     n = log_a.numel()
-    # log_a, h, dh read once, dlog_a and db written once; exp, FMA and two
-    # multiplies an element
-    b_ms, b_by = bound(5 * n * 4, 5 * n, torch.float32)
+    b_ms, b_by = bound(rglru_scan_bwd_cost(n), torch.float32)
     # a same-bytes yardstick: one torch.add moving 5 n floats (2 reads, 1 write)
     x = torch.randn(5 * n // 3, generator=gen, device="cuda")
     y, z = torch.randn_like(x), torch.empty_like(x)
@@ -813,18 +811,6 @@ def check_rglru_bwd(gen, B, S, C) -> dict:
         "plan": f"torch.add over the same bytes {add_ms:.4f} ms",
         "bound_ms": b_ms, "bound_by": b_by,
     }
-
-
-def mlstm_bwd_flops(B, S, H, dk, chunk) -> float:
-    """The mLSTM backward's operations that the data needs: per chunk and
-    (batch, head), five products over the lower triangle (S, dh v^T, dS k,
-    dS^T q, W^T dnum: 5 c (c + 1) dk), three of c dk^2 (C dnum, G v, G^T k:
-    6 c dk^2) and the carry gradient's move (2 c dk^2, all chunks but the
-    first)."""
-    c = min(chunk, S)
-    nc = S // c
-    return B * H * (nc * (5 * c * (c + 1) * dk + 6 * c * dk * dk)
-                    + (nc - 1) * 2 * c * dk * dk)
 
 
 def mlstm_bwd_close(got, want, dtype, what: str) -> float:
@@ -868,19 +854,14 @@ def check_mlstm_bwd(gen, B, S, H, dk, chunk, dtype) -> dict:
         raise AssertionError(f"{what}: two launches differ")
     err = mlstm_bwd_close(got, want, dtype, what)
     del got, again, want
-    es = q.element_size()
-    nbytes = (3 * q.numel() * es + 2 * log_i.numel() * 4   # q, k, v, the gates
-              + 2 * h.numel() * 4 + den.numel() * 4          # h, dh, den
-              + ws.numel() * 4                               # the carries
-              + 3 * q.numel() * es + 2 * log_i.numel() * 4)  # the gradients
     # the products' rate follows the input type, as check_mlstm's: bf16 q,
     # k, v run them on the tensor cores (989 TFLOP/s; the kernel's split of
     # its f32 operands into bf16 terms is its own choice, not the work's),
     # f32 ones at the CUDA cores' 67 TFLOP/s; the plan keeps the f32-rate
-    # figure beside it
-    flops = mlstm_bwd_flops(B, S, H, dk, chunk)
-    b_ms, b_by = bound(nbytes, flops, dtype)
-    f32_ms, f32_by = bound(nbytes, flops, torch.float32)
+    # figure beside it.  The carries read are the forward's workspace.
+    cost = mlstm_chunk_bwd_cost(B, S, H, dk, dtype, chunk=chunk)
+    b_ms, b_by = bound(cost, dtype)
+    f32_ms, f32_by = bound(cost, torch.float32)
     return {
         "shape": {"B": B, "S": S, "H": H, "dk": dk, "chunk": chunk},
         "dtype": str(dtype), "max_abs_err": err,
@@ -1142,6 +1123,83 @@ def prefill_then_decode(cfg, params, opts, tokens, n_decode: int):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     return last, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def card_count(fn, *args) -> dict:
+    """``fn(*args)`` counted once in kernel mode on the card (each kernel's
+    launch counts by its cost, through the wrappers' hook), then timed:
+    the least of 3 runs by CUDA events, ms."""
+    _, totals = count_ops(fn, *args)
+    times = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"totals": totals, "ms": min(times)}
+
+
+def fake_counts(cfg, opts, prefill_tokens, batch: int, seq: int) -> dict:
+    """Phase 6's prefill and a phase-7 train step counted as the dry-run
+    counts, in kernel mode on fake tensors of the same shapes and dtypes
+    (nothing allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    fake = FakeTensorMode()
+    with fake:
+        params = cast_params(init_params(cfg, seed=0, device="cpu"), opts.dtype, "cpu")
+        tokens = torch.empty(prefill_tokens.shape, dtype=prefill_tokens.dtype)
+        prefill = make_prefill_step(cfg, opts, max_len=tokens.shape[1])
+        with torch.no_grad():
+            _, pre = count_ops(prefill, params, {"tokens": tokens}, shapes_only=True)
+        del params
+        tcfg = TrainConfig(remat=True)
+        state = init_train_state(cfg, tcfg, device="cpu")
+        state["step"] = 0  # a fake 0-dim step cannot be read on the host
+        tb = {k: torch.empty((batch, seq), dtype=torch.int32) for k in ("tokens", "labels")}
+        _, train = count_ops(make_train_step(cfg, tcfg, opts), state, tb, shapes_only=True)
+    return {"prefill": pre, "train": train}
+
+
+def analysis_phase(analysis: dict, cfg, opts, prefill_tokens, batch: int, seq: int,
+                   smi: str) -> None:
+    """Phase 18 (see the module's docstring)."""
+    t0 = time.perf_counter()
+    log(f"== analysis: the dry-run of {cfg.name} on fake tensors, per device")
+    for multi_pod in (False, True):
+        for shape_name in SHAPES:
+            rec = dryrun.run_cell(cfg.name, shape_name, multi_pod=multi_pod, verbose=False)
+            assert rec["status"] in ("ok", "skipped"), rec
+            if rec["status"] == "skipped":
+                log(f"   {shape_name} {rec['mesh']}: skipped ({rec['reason']})")
+                continue
+            r, m = rec["roofline"], rec["memory"]
+            log(f"   {shape_name} {rec['mesh']} ({rec['kind']}, {rec['rows']} rows a "
+                f"rank over {rec['batch_axes']}, model axis {rec['model_axis']}): "
+                f"{r['flops_per_device']:.6g} FLOP, {r['bytes_per_device']:.6g} B, "
+                f"collectives {r['collective_bytes_per_device']:.6g} B, peak "
+                f"{m['peak_bytes'] / 1e9:.2f} GB (fits 80 GB: {m['fits']}); "
+                f"compute {r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} "
+                f"ms, collective {r['collective_s'] * 1e3:.3f} ms, dominant "
+                f"{r['dominant']}; model FLOPs / counted {r['model_vs_counted_flops']:.4f}")
+    fake = fake_counts(cfg, opts, prefill_tokens, batch, seq)
+    for name, what in (("prefill", f"prefill {tuple(prefill_tokens.shape)}"),
+                       ("train", f"train step {batch} x {seq}")):
+        card, ms = analysis[name]["totals"], analysis[name]["ms"]
+        want = fake[name]
+        for key in ("flops", "bytes", "by_kernel"):
+            assert getattr(card, key) == getattr(want, key), \
+                (name, key, getattr(card, key), getattr(want, key))
+        share = card.flops / (ms / 1e3) / HW["peak_flops_bf16"]
+        log(f"   {what}, kernel mode: {card.flops:.6g} FLOP, {card.bytes:.6g} B on the "
+            f"card = on fake tensors; kernels {card.by_kernel}; bytes_raw "
+            f"{card.bytes_raw:.6g} (fake {want.bytes_raw:.6g}); counted peak "
+            f"{card.peak_bytes / 2**30:.2f} GiB (fake {want.peak_bytes / 2**30:.2f}); "
+            f"{ms:.3f} ms by CUDA events: {share:.4f} of 989 TFLOP/s ({smi})")
+        assert 0 < share <= 1.05, (name, share)
+    log(f"   analysis phase: {time.perf_counter() - t0:.1f} s")
 
 
 def take_layers(params, n: int):
@@ -2851,6 +2909,8 @@ def main() -> int:
     prefill = make_prefill_step(cfg, opts, max_len=S)
     log_profile(f"prefill ({S} tokens x {cfg.num_layers} layers)",
                 profiled(lambda: prefill(params, {"tokens": tokens})), smi)
+    # the prefill counted on the card for phase 18
+    analysis = {"prefill": card_count(prefill, params, {"tokens": tokens})}
     _, cache = prefill(params, {"tokens": tokens[:, :S - 1]})
     step = make_decode_step(cfg, opts)
     log_profile(f"decode step (context {S - 1})",
@@ -2907,6 +2967,8 @@ def main() -> int:
     del before
     log_profile(f"train step ({batch} x {seq} tokens x {L} layers, remat)",
                 profiled(lambda: step(state, src.batch_at(1)), by_op=True), smi)
+    # one step counted on the card for phase 18
+    analysis["train"] = card_count(step, state, src.batch_at(2))
     del state, step
     log(f"   train phase: {time.perf_counter() - t_train:.1f} s")
 
@@ -3036,7 +3098,12 @@ def main() -> int:
     mesh_phase(args.seed, smi, phase7)
 
     log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
-    # 18. the kernels line, the card, the result.  Each kernel's launches are
+    # 18. analysis: the dry-run on fake tensors, and the card's counts of
+    # phases 6 and 7 against the same steps' fake counts
+    analysis_phase(analysis, cfg, opts, tokens, batch, seq, smi)
+
+    log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
+    # 19. the kernels line, the card, the result.  Each kernel's launches are
     # those of the path that runs it: the paged serve run (RMSNorm, paged
     # decode), the fixed-slot serve run (dense decode), the prefill (flash),
     # the train run (flash backward), the recurrent prefills (RG-LRU,

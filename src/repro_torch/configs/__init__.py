@@ -7,7 +7,7 @@ same-family config for CPU tests.
 
 from __future__ import annotations
 
-from .base import ArchConfig, MoECfg
+from .base import SHAPES, ArchConfig, MoECfg, ShapeCfg, shape_applicable
 from . import (
     deepseek_moe_16b,
     gemma_2b,
@@ -84,4 +84,5 @@ def reduced_config(name: str) -> ArchConfig:
     )
 
 
-__all__ = ["ARCH_IDS", "ArchConfig", "MoECfg", "get_config", "reduced_config"]
+__all__ = ["ARCH_IDS", "ArchConfig", "MoECfg", "SHAPES", "ShapeCfg", "get_config",
+           "reduced_config", "shape_applicable"]

@@ -158,3 +158,33 @@ def _count_params(cfg: ArchConfig, active_only: bool) -> int:
                     mult = 3 if cfg.gated_mlp else 2
                     total += mult * d * ff
     return total
+
+
+@dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeCfg) -> tuple[bool, str]:
+    """Whether (arch, shape) is a runnable cell; reason if not.
+
+    long_500k needs sub-quadratic sequence handling: only archs whose
+    attention footprint is bounded (pure SSM, or hybrid with *local*
+    attention only) qualify.  Full-attention archs skip it.
+    """
+    if shape.name == "long_500k":
+        full_attn = any(k == "attn" for k in cfg.layer_kinds)
+        if full_attn:
+            return False, "full quadratic attention cannot serve a 524k-token context"
+    return True, ""

@@ -1,3 +1,3 @@
-from .stream import StreamSource
+from .stream import StreamSource, batch_specs
 
-__all__ = ["StreamSource"]
+__all__ = ["StreamSource", "batch_specs"]

@@ -13,6 +13,9 @@ Two token generators:
 - ``lcg``: a noisy affine next-token process, ``x' = (a*x + c) mod V``
   with iid corruption at rate ``noise``: learnable, so training runs show
   a falling loss.
+
+``batch_specs`` gives a batch's shapes and dtypes as fake tensors, the
+dry-run's stand-ins (``repro_torch.launch.cells``).
 """
 
 from __future__ import annotations
@@ -64,3 +67,23 @@ class StreamSource:
             batch["frontend_embeds"] = torch.randn(
                 (self.batch, self.frontend_len, self.frontend_dim), generator=gen)
         return batch
+
+
+def batch_specs(vocab_size: int, batch: int, seq_len: int,
+                frontend_len: int = 0, frontend_dim: int = 0, *, mode=None) -> dict:
+    """A training batch of shapes and dtypes only (fake CPU tensors: nothing
+    is drawn or allocated), as ``batch_at`` would return it: ``tokens`` and
+    ``labels`` (batch, seq_len) int32, ``frontend_embeds`` (batch,
+    frontend_len, frontend_dim) f32 when ``frontend_len``.  ``mode`` is the
+    ``FakeTensorMode`` to make them in (that of the state they meet; a new
+    one by default).  ``vocab_size`` is taken for the reference's
+    signature: a fake tensor holds no ids."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with mode or FakeTensorMode():
+        specs = {"tokens": torch.empty((batch, seq_len), dtype=torch.int32),
+                 "labels": torch.empty((batch, seq_len), dtype=torch.int32)}
+        if frontend_len:
+            specs["frontend_embeds"] = torch.empty(
+                (batch, frontend_len, frontend_dim), dtype=torch.float32)
+    return specs

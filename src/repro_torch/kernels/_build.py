@@ -6,10 +6,16 @@ interface.  The library lands in ``build/kernels/<hash>/`` at the root of
 the checkout, keyed by a hash of the sources and the flags, so an edit
 rebuilds and an unchanged tree reuses the last build.  Nothing is built
 when the module is imported.  A failed build raises.
+
+``counted`` is the one hook through which every wrapper reports a kernel
+call, with its ``Cost``, to the op counters of
+``repro_torch.launch.op_analysis``: on CPU tensors (the plain version) and
+on a real launch alike.  It only counts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -18,6 +24,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -169,6 +176,64 @@ def on_cpu(name: str, **tensors) -> bool:
                          "not; the kernel takes CUDA tensors and the plain "
                          "version CPU tensors")
     return False
+
+
+class Cost(NamedTuple):
+    """The work one kernel call's function needs, whichever implementation
+    runs: ``flops`` (a multiply-add counts two) and ``bytes`` of device
+    memory (each input read once, each output written once).  Each wrapper
+    module's ``*_cost`` functions reckon it from shapes (and, where the
+    caller knows them, the valid lengths)."""
+
+    flops: float
+    bytes: float
+
+
+# the op counters counting now (repro_torch.launch.op_analysis.OpCounter),
+# innermost last
+COUNTERS: list = []
+
+
+@contextlib.contextmanager
+def counted(name: str, cost):
+    """One call of kernel ``name``, whose work is ``cost()`` (a ``Cost``),
+    reported to every counter that is counting; one in kernel mode sets
+    aside the ops run within (the plain version's, on CPU tensors) and
+    counts the cost instead.  With no counter it does nothing; either way
+    the call launches or raises as it would."""
+    if not COUNTERS:
+        yield
+        return
+    work = cost()
+    for counter in COUNTERS:
+        counter.enter_kernel(name, work)
+    try:
+        yield
+    finally:
+        for counter in reversed(COUNTERS):
+            counter.exit_kernel(name)
+
+
+def shapes_only() -> bool:
+    """True when every counter counting is a dry-run's (kernel mode on fake
+    tensors, ``shapes_only``): a wrapper then returns outputs of the right
+    shapes and dtypes without running its plain version (its ``Cost`` is
+    the count), and a loop of like steps runs one step counted as all of
+    them (``repeated``)."""
+    return bool(COUNTERS) and all(c.shapes_only for c in COUNTERS)
+
+
+@contextlib.contextmanager
+def repeated(n: int):
+    """The ops within count ``n`` times: one step standing for a loop of
+    ``n`` like steps under ``shapes_only``."""
+    for counter in COUNTERS:
+        counter.scale *= n
+    try:
+        yield
+    finally:
+        for counter in COUNTERS:
+            counter.scale /= n
 
 
 def refuse_grad(name: str, **tensors) -> None:

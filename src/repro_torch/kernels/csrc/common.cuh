@@ -1,5 +1,6 @@
 // Helpers shared by the port's kernels: element conversion to and from the
-// f32 that every kernel computes in, warp-level reductions, and cp.async.
+// f32 that every kernel computes in, warp-level reductions, cp.async, and the
+// opt-in to more than 48 KB of dynamic shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -69,6 +70,19 @@ __device__ __forceinline__ void cp_async_wait_group() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Let `kernel` launch with `bytes` of dynamic shared memory (a no-op up to
+// the 48 KB every kernel may take).  A failure is cleared from the runtime's
+// last error before it is returned: left set, the next launch's
+// cudaGetLastError would report it as its own.
+template <typename Kernel>
+cudaError_t set_max_dynamic_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 }  // namespace repro

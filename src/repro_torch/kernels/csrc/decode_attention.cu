@@ -305,17 +305,13 @@ cudaError_t launch_tc_d(const void* q, const void* k_cache, const void* v_cache,
                         int H, int KV, int D, int Smax, int chunk, int nsplit, float scale,
                         cudaStream_t stream) {
   const size_t smem = tc_layout(D, chunk).total;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(decode_tc_kernel<DMAX>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = set_max_dynamic_smem(decode_tc_kernel<DMAX>, smem);
+  if (err != cudaSuccess) return err;
   decode_tc_kernel<DMAX><<<dim3(nsplit, KV, B), kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k_cache),
       static_cast<const bf16*>(v_cache), lengths, part_acc, part_ml, H, KV, D, Smax, chunk,
       scale);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_decode_combine<bf16>(part_acc, part_ml, out, B, H, D, nsplit, stream);
 }

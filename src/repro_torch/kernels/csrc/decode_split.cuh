@@ -508,16 +508,10 @@ cudaError_t launch_e(Args a, int B, int nsplit, cudaStream_t stream) {
   const size_t smem =
       layout(sizeof(T), E, a.H / a.KV, a.stages, kPaged ? a.chunk / a.bs : 0).total;
   auto kernel = split_kernel<T, E, kPaged>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it: the next launch must not report it as its own
-      return err;
-    }
-  }
+  cudaError_t err = set_max_dynamic_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   kernel<<<dim3(nsplit, a.KV, B), threads(E), smem, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_decode_combine<T>(a.part_acc, a.part_ml, a.out, B, a.H, a.D, nsplit, stream);
 }

@@ -521,9 +521,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, flo
   const int GC = G < kRows ? G : kRows;
   const int BQ = kRows / GC;
   const size_t smem = smem_floats(D) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DMAX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = set_max_dynamic_smem(flash_fwd_kernel<T, DMAX>, smem);
   if (err != cudaSuccess) return err;
   // 16-byte copies and stores: f32 rows of whole pieces on 16-byte boundaries
   const int vec = sizeof(T) == 4 && D % 4 == 0 && aligned16(q, k, v, out);
@@ -542,12 +540,8 @@ cudaError_t launch_tc_d(const void* q, const void* k, const void* v, void* out, 
   const int GC = G < kTcRows ? G : kTcRows;
   const int BQ = kTcRows / GC;
   const size_t smem = tc_layout(D).total;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<DMAX>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = set_max_dynamic_smem(flash_fwd_tc_kernel<DMAX>, smem);
+  if (err != cudaSuccess) return err;
   // one dimension: the kernel orders its blocks heaviest q tile first
   const long long blocks =
       static_cast<long long>((S + BQ - 1) / BQ) * B * KV * ((G + GC - 1) / GC);

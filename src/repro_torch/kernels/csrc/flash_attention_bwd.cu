@@ -383,13 +383,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-template <typename Kernel>
-cudaError_t opt_in_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 template <typename T, int DMAX>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* dout,
                      const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
@@ -404,7 +397,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* do
   const auto* tdo = static_cast<const T*>(dout);
 
   const size_t dq_smem = dq_smem_floats(D) * sizeof(float);
-  cudaError_t err = opt_in_smem(flash_bwd_dq_kernel<T, DMAX>, dq_smem);
+  cudaError_t err = set_max_dynamic_smem(flash_bwd_dq_kernel<T, DMAX>, dq_smem);
   if (err != cudaSuccess) return err;
   dim3 dq_grid((S + BQ - 1) / BQ, B * KV, (G + GC - 1) / GC);
   flash_bwd_dq_kernel<T, DMAX><<<dq_grid, kThreads, dq_smem, stream>>>(
@@ -414,7 +407,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* do
   if (err != cudaSuccess) return err;
 
   const size_t dkv_smem = dkv_smem_floats(D) * sizeof(float);
-  err = opt_in_smem(flash_bwd_dkv_kernel<T, DMAX>, dkv_smem);
+  err = set_max_dynamic_smem(flash_bwd_dkv_kernel<T, DMAX>, dkv_smem);
   if (err != cudaSuccess) return err;
   dim3 dkv_grid((S + kKvKeys - 1) / kKvKeys, B * KV);
   flash_bwd_dkv_kernel<T, DMAX><<<dkv_grid, kThreads, dkv_smem, stream>>>(
@@ -903,7 +896,7 @@ cudaError_t launch_tc_d(const void* q, const void* k, const void* v, const void*
   const auto* tdo = static_cast<const bf16*>(dout);
 
   const size_t dq_smem = dq_layout(D).total;
-  cudaError_t err = opt_in_smem(flash_bwd_dq_tc_kernel<DMAX>, dq_smem);
+  cudaError_t err = set_max_dynamic_smem(flash_bwd_dq_tc_kernel<DMAX>, dq_smem);
   if (err != cudaSuccess) return err;
   dim3 dq_grid((S + BQ - 1) / BQ, B * KV, (G + GC - 1) / GC);
   flash_bwd_dq_tc_kernel<DMAX><<<dq_grid, kTcThreads, dq_smem, stream>>>(
@@ -913,7 +906,7 @@ cudaError_t launch_tc_d(const void* q, const void* k, const void* v, const void*
   if (err != cudaSuccess) return err;
 
   const size_t dkv_smem = dkv_layout(D).total;
-  err = opt_in_smem(flash_bwd_dkv_tc_kernel<DMAX>, dkv_smem);
+  err = set_max_dynamic_smem(flash_bwd_dkv_tc_kernel<DMAX>, dkv_smem);
   if (err != cudaSuccess) return err;
   const long long n = static_cast<long long>(B) * S * KV * D;
   float* part_dk = nsplit > 1 ? part : nullptr;
@@ -1372,7 +1365,7 @@ cudaError_t launch_f32_d(const void* q, const void* k, const void* v, const void
   const auto* fdo = static_cast<const float*>(dout);
 
   const size_t dq_smem = dq_f32_layout(D).total;
-  cudaError_t err = opt_in_smem(flash_bwd_dq_f32_kernel<DMAX>, dq_smem);
+  cudaError_t err = set_max_dynamic_smem(flash_bwd_dq_f32_kernel<DMAX>, dq_smem);
   if (err != cudaSuccess) return err;
   // one dimension: the kernel orders its blocks heaviest q tile first
   const long long dq_blocks =
@@ -1391,7 +1384,7 @@ cudaError_t launch_f32_d(const void* q, const void* k, const void* v, const void
   }
 
   const size_t dkv_smem = dkv_f32_layout(D).total;
-  err = opt_in_smem(flash_bwd_dkv_f32_kernel<DMAX>, dkv_smem);
+  err = set_max_dynamic_smem(flash_bwd_dkv_f32_kernel<DMAX>, dkv_smem);
   if (err != cudaSuccess) return err;
   const long long n = static_cast<long long>(B) * S * KV * D;
   float* part_dk = nsplit > 1 ? part : nullptr;

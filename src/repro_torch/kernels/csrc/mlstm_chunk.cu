@@ -1222,12 +1222,6 @@ mlstm_out_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* li,
                         const float* lf, float* h, float* den, float* C, float* n, float* m,
                         float* ws, int B, int S, int H, int dk, int c, int tiles, int e_tiles,
@@ -1235,10 +1229,10 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float
   const bool vec = dk % 8 == 0 &&
                    ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(ws)) & 15u) == 0;
-  cudaError_t err = allow_smem(mlstm_state_tc, sizeof(StateTC));
+  cudaError_t err = set_max_dynamic_smem(mlstm_state_tc, sizeof(StateTC));
   if (err != cudaSuccess) return err;
   const size_t out_smem = out_layout(dk).total;
-  err = allow_smem(mlstm_out_tc, out_smem);
+  err = set_max_dynamic_smem(mlstm_out_tc, out_smem);
   if (err != cudaSuccess) return err;
   mlstm_state_tc<<<dim3(B * H, tiles, e_tiles), kStateWarps * 32, sizeof(StateTC), stream>>>(
       k, v, li, lf, ws, C, n, m, S, H, dk, c, vec);
@@ -1257,7 +1251,7 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
                    ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(h) |
                      reinterpret_cast<uintptr_t>(C) | reinterpret_cast<uintptr_t>(ws)) & 15u) == 0;
-  cudaError_t err = allow_smem(mlstm_out_f32, kOFSmem);
+  cudaError_t err = set_max_dynamic_smem(mlstm_out_f32, kOFSmem);
   if (err != cudaSuccess) return err;
   // the state pass's ticket counter and flags, after the carries (the plan's
   // workspace), zeroed on the stream

@@ -1112,12 +1112,6 @@ inline Layout layout(int B, int S, int H, int dk, int c) {
   return L;
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 // An input q, k or v as an operand: bf16 read in place, in 16-byte pieces
 // when dk is a multiple of 8 and the rows aligned.
 inline Op input_op(const bf16* x, int dk) {
@@ -1164,11 +1158,11 @@ cudaError_t launch(const T* q, const T* k, const T* v, const float* li, const fl
       (3 + TQ) * kMaxChunk * kP * sizeof(bf16) + 2 * kMaxChunk * sizeof(float);
   const size_t score_smem =
       2 * score_buffer<TQ>() * sizeof(bf16) + (2 + kScoreWarps) * kMaxChunk * sizeof(float);
-  cudaError_t err = allow_smem(mlstm_bwd_moves<T>, moves_smem);
+  cudaError_t err = set_max_dynamic_smem(mlstm_bwd_moves<T>, moves_smem);
   if (err != cudaSuccess) return err;
-  err = allow_smem(mlstm_bwd_scores<T>, score_smem);
+  err = set_max_dynamic_smem(mlstm_bwd_scores<T>, score_smem);
   if (err != cudaSuccess) return err;
-  err = allow_smem(mlstm_bwd_grads<T>, kGradSmem);
+  err = set_max_dynamic_smem(mlstm_bwd_grads<T>, kGradSmem);
   if (err != cudaSuccess) return err;
   mlstm_bwd_rows<<<dim3(BH, nc, ceil_div(c, kRowGroup)), kRowWarps * 32, 0, stream>>>(
       li, lf, ws, den, h, dh, sc, sh);
@@ -1796,9 +1790,9 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
                    ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(ws)) & 15u) == 0;
   const int BH = B * H, nc = sh.nc, nt = sh.ntile;
-  cudaError_t err = allow_smem(cc::mlstm_bwd_scores_f32, cc::kScSmem);
+  cudaError_t err = set_max_dynamic_smem(cc::mlstm_bwd_scores_f32, cc::kScSmem);
   if (err != cudaSuccess) return err;
-  err = allow_smem(cc::mlstm_bwd_grads_f32, cc::kGSmem);
+  err = set_max_dynamic_smem(cc::mlstm_bwd_grads_f32, cc::kGSmem);
   if (err != cudaSuccess) return err;
   cc::mlstm_bwd_rows_f32<<<dim3(BH, nc, ceil_div(c, kRowGroup)), kRowWarps * 32, 0, stream>>>(
       li, lf, ws, den, h, dh, sc, op, sh);

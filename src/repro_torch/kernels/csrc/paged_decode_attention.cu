@@ -318,15 +318,12 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const 
   const auto bits = reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool);
   const bool vec = (D * sizeof(T)) % 16 == 0 && bits % 16 == 0;
   auto kernel = vec ? paged_split_kernel<T, true> : paged_split_kernel<T, false>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = set_max_dynamic_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   kernel<<<dim3(nsplit, KV, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
       tables, lengths, part_acc, part_ml, H, KV, D, bs, T_blocks, chunk, tile, scale);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_decode_combine<T>(part_acc, part_ml, out, B, H, D, nsplit, stream);
 }

@@ -155,8 +155,7 @@ template <int kVec>
 cudaError_t launch(const float* log_a, const float* b, float* h, int B, int S, int C,
                    cudaStream_t stream) {
   auto kernel = rglru_scan_kernel<kVec>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
+  cudaError_t err = set_max_dynamic_smem(kernel, kSmemBytes);
   if (err != cudaSuccess) return err;
   dim3 grid((C + kLanes - 1) / kLanes, B);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(log_a, b, h, S, C);

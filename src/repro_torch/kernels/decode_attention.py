@@ -87,6 +87,48 @@ def _paged_cuda_core_splits(B: int, KV: int, T: int, bs: int, sms: int) -> tuple
     return _splits(B, KV, T * bs, sms, (bs, -(-step * min_steps // bs), per_sm))
 
 
+def decode_attention_cost(B: int, H: int, KV: int, D: int, Smax: int, dtype,
+                          lengths=None) -> _build.Cost:
+    """q read and out written (B,H,D), the K and V rows below each length
+    read (B,Smax,KV,D), in ``dtype``, and the int32 lengths; q k and p v, 2
+    D flops each, a valid position and head.  ``lengths`` are the rows'
+    lengths where the caller knows them (ints); without them every row
+    reads its whole cache, as a count from shapes alone must take it."""
+    es = dtype.itemsize
+    valid = B * Smax if lengths is None else sum(min(int(n), Smax) for n in lengths)
+    return _build.Cost(4 * valid * H * D,
+                       2 * B * H * D * es + 2 * valid * KV * D * es + 4 * B)
+
+
+def paged_decode_attention_cost(B: int, H: int, KV: int, D: int, bs: int, T: int,
+                                dtype, lengths=None) -> _build.Cost:
+    """As ``decode_attention_cost`` over a table of T pages of ``bs``
+    positions: the K and V pages each length needs, their table entries
+    and the lengths read (every page of every row without ``lengths``)."""
+    es = dtype.itemsize
+    if lengths is None:
+        pages, valid = B * T, B * T * bs
+    else:
+        used = [min(int(n), T * bs) for n in lengths]
+        pages, valid = sum(-(-n // bs) for n in used), sum(used)
+    return _build.Cost(4 * valid * H * D, 2 * B * H * D * es
+                       + 2 * pages * bs * KV * D * es + 4 * (pages + B))
+
+
+def _dims(x: torch.Tensor, n: int) -> tuple:
+    """The shape of an n-dim tensor, zeros for any other (which the
+    wrappers refuse)."""
+    return tuple(x.shape) if x.dim() == n else (0,) * n
+
+
+def _call_cost(q, kv, tables=None) -> _build.Cost:
+    """A wrapper call's cost from its shapes: dense with ``tables`` None."""
+    (B, H, D), (_, s, KV, _) = _dims(q, 3), _dims(kv, 4)
+    if tables is None:
+        return decode_attention_cost(B, H, KV, D, s, q.dtype)
+    return paged_decode_attention_cost(B, H, KV, D, s, _dims(tables, 2)[1], q.dtype)
+
+
 def decode_attention(q, k_cache, v_cache, lengths):
     """q (B,H,D); caches (B,Smax,KV,D) in q's dtype; lengths (B,) int32 ->
     (B,H,D) in q's dtype.
@@ -96,53 +138,55 @@ def decode_attention(q, k_cache, v_cache, lengths):
     length of 0 gives 0."""
     name = "decode_attention"
     _build.refuse_grad(name, q=q, k_cache=k_cache, v_cache=v_cache)
-    if _build.on_cpu(name, q=q, k_cache=k_cache, v_cache=v_cache,
-                     lengths=lengths):
-        return decode_attention_ref(q, k_cache, v_cache, lengths)
-    _build.check_inputs(name, q.device, q=q, k_cache=k_cache, v_cache=v_cache,
-                        lengths=lengths)
-    if q.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"{name}: q dtype {q.dtype} is not float32/bfloat16")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise TypeError(f"{name}: caches must have q's dtype {q.dtype}")
-    if lengths.dtype != torch.int32:
-        raise TypeError(f"{name}: lengths must be int32")
-    if q.dim() != 3 or k_cache.dim() != 4:
-        raise ValueError(f"{name}: q must be (B,H,D) and caches (B,Smax,KV,D)")
-    B, H, D = q.shape
-    Smax, KV = k_cache.shape[1], k_cache.shape[2]
-    if (k_cache.shape != (B, Smax, KV, D) or v_cache.shape != k_cache.shape
-            or KV == 0 or H % KV or lengths.shape != (B,)):
-        raise ValueError(
-            f"{name}: shapes do not fit: q {tuple(q.shape)}, caches "
-            f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, lengths "
-            f"{tuple(lengths.shape)}")
-    lib = _build.library()
-    code = _build.DTYPE_CODES[q.dtype]
-    tc = lib.repro_decode_attention_tensor_cores(
-        code, H // KV, D, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
-    chunk, nsplit = _splits(B, KV, Smax, _build.sm_count(q.device.index),
-                            TC_PLAN if tc else CUDA_CORE_PLAN)
-    if not 0 <= lib.repro_decode_attention_smem_bytes(
-            code, H // KV, D, chunk) <= _build.MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: G={H // KV}, D={D} needs more shared "
-                         "memory than one block has")
-    part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
-                          device=q.device)
-    out = torch.empty_like(q)
-    err = lib.repro_decode_attention(
-        q.device.index, code, q.data_ptr(),
-        k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, H, KV, D,
-        Smax, chunk, nsplit, 1.0 / math.sqrt(D), _build.stream(q.device))
-    _build.check(err, name)
-    decode_attention.launches += 1
-    return out
+    with _build.counted(name, lambda: _call_cost(q, k_cache)):
+        if _build.on_cpu(name, q=q, k_cache=k_cache, v_cache=v_cache,
+                         lengths=lengths):
+            return decode_attention_ref(q, k_cache, v_cache, lengths)
+        _build.check_inputs(name, q.device, q=q, k_cache=k_cache, v_cache=v_cache,
+                            lengths=lengths)
+        if q.dtype not in _build.DTYPE_CODES:
+            raise TypeError(f"{name}: q dtype {q.dtype} is not float32/bfloat16")
+        if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+            raise TypeError(f"{name}: caches must have q's dtype {q.dtype}")
+        if lengths.dtype != torch.int32:
+            raise TypeError(f"{name}: lengths must be int32")
+        if q.dim() != 3 or k_cache.dim() != 4:
+            raise ValueError(f"{name}: q must be (B,H,D) and caches (B,Smax,KV,D)")
+        B, H, D = q.shape
+        Smax, KV = k_cache.shape[1], k_cache.shape[2]
+        if (k_cache.shape != (B, Smax, KV, D) or v_cache.shape != k_cache.shape
+                or KV == 0 or H % KV or lengths.shape != (B,)):
+            raise ValueError(
+                f"{name}: shapes do not fit: q {tuple(q.shape)}, caches "
+                f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, lengths "
+                f"{tuple(lengths.shape)}")
+        lib = _build.library()
+        code = _build.DTYPE_CODES[q.dtype]
+        tc = lib.repro_decode_attention_tensor_cores(
+            code, H // KV, D, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
+        chunk, nsplit = _splits(B, KV, Smax, _build.sm_count(q.device.index),
+                                TC_PLAN if tc else CUDA_CORE_PLAN)
+        if not 0 <= lib.repro_decode_attention_smem_bytes(
+                code, H // KV, D, chunk) <= _build.MAX_SMEM_BYTES:
+            raise ValueError(f"{name}: G={H // KV}, D={D} needs more shared "
+                             "memory than one block has")
+        part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
+                              device=q.device)
+        out = torch.empty_like(q)
+        err = lib.repro_decode_attention(
+            q.device.index, code, q.data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, H, KV, D,
+            Smax, chunk, nsplit, 1.0 / math.sqrt(D), _build.stream(q.device))
+        _build.check(err, name)
+        decode_attention.launches += 1
+        return out
 
 
 decode_attention.launches = 0  # kernel launches since the last reset
+decode_attention.cost = decode_attention_cost
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
@@ -154,53 +198,55 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     name a block of the pool."""
     name = "paged_decode_attention"
     _build.refuse_grad(name, q=q, k_pool=k_pool, v_pool=v_pool)
-    if _build.on_cpu(name, q=q, k_pool=k_pool, v_pool=v_pool,
-                     block_tables=block_tables, lengths=lengths):
-        return paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
-                                          lengths)
-    _build.check_inputs(name, q.device, q=q, k_pool=k_pool, v_pool=v_pool,
-                        block_tables=block_tables, lengths=lengths)
-    if q.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"{name}: q dtype {q.dtype} is not float32/bfloat16")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"{name}: pools must have q's dtype {q.dtype}")
-    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise TypeError(f"{name}: block_tables and lengths must be int32")
-    B, H, D = q.shape
-    _, bs, KV, Dk = k_pool.shape
-    T = block_tables.shape[1] if block_tables.dim() == 2 else -1
-    if (v_pool.shape != k_pool.shape or Dk != D or H % KV
-            or block_tables.shape != (B, T) or lengths.shape != (B,)):
-        raise ValueError(
-            f"{name}: shapes do not fit: q {tuple(q.shape)}, pools "
-            f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, tables "
-            f"{tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
-    lib = _build.library()
-    sms = _build.sm_count(q.device.index)
-    if q.dtype == torch.float32:  # the CUDA-core split body (no tiles to plan)
-        (chunk, nsplit), tile = _paged_cuda_core_splits(B, KV, T, bs, sms), 0
-    else:
-        chunk, tile, nsplit = _paged_splits(
-            B, KV, T, bs, lib.repro_paged_decode_max_tile(), sms)
-    code = _build.DTYPE_CODES[q.dtype]
-    if not 0 <= lib.repro_paged_decode_smem_bytes(
-            code, H // KV, D, tile, chunk, bs) <= _build.MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: G={H // KV}, D={D} needs more shared "
-                         "memory than one block has")
-    part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
-                          device=q.device)
-    out = torch.empty_like(q)
-    err = lib.repro_paged_decode_attention(
-        q.device.index, code, q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, H, KV, D,
-        bs, T, chunk, tile, nsplit, 1.0 / math.sqrt(D),
-        _build.stream(q.device))
-    _build.check(err, name)
-    paged_decode_attention.launches += 1
-    return out
+    with _build.counted(name, lambda: _call_cost(q, k_pool, block_tables)):
+        if _build.on_cpu(name, q=q, k_pool=k_pool, v_pool=v_pool,
+                         block_tables=block_tables, lengths=lengths):
+            return paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
+                                              lengths)
+        _build.check_inputs(name, q.device, q=q, k_pool=k_pool, v_pool=v_pool,
+                            block_tables=block_tables, lengths=lengths)
+        if q.dtype not in _build.DTYPE_CODES:
+            raise TypeError(f"{name}: q dtype {q.dtype} is not float32/bfloat16")
+        if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+            raise TypeError(f"{name}: pools must have q's dtype {q.dtype}")
+        if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+            raise TypeError(f"{name}: block_tables and lengths must be int32")
+        B, H, D = q.shape
+        _, bs, KV, Dk = k_pool.shape
+        T = block_tables.shape[1] if block_tables.dim() == 2 else -1
+        if (v_pool.shape != k_pool.shape or Dk != D or H % KV
+                or block_tables.shape != (B, T) or lengths.shape != (B,)):
+            raise ValueError(
+                f"{name}: shapes do not fit: q {tuple(q.shape)}, pools "
+                f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, tables "
+                f"{tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
+        lib = _build.library()
+        sms = _build.sm_count(q.device.index)
+        if q.dtype == torch.float32:  # the CUDA-core split body (no tiles to plan)
+            (chunk, nsplit), tile = _paged_cuda_core_splits(B, KV, T, bs, sms), 0
+        else:
+            chunk, tile, nsplit = _paged_splits(
+                B, KV, T, bs, lib.repro_paged_decode_max_tile(), sms)
+        code = _build.DTYPE_CODES[q.dtype]
+        if not 0 <= lib.repro_paged_decode_smem_bytes(
+                code, H // KV, D, tile, chunk, bs) <= _build.MAX_SMEM_BYTES:
+            raise ValueError(f"{name}: G={H // KV}, D={D} needs more shared "
+                             "memory than one block has")
+        part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
+                              device=q.device)
+        out = torch.empty_like(q)
+        err = lib.repro_paged_decode_attention(
+            q.device.index, code, q.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, H, KV, D,
+            bs, T, chunk, tile, nsplit, 1.0 / math.sqrt(D),
+            _build.stream(q.device))
+        _build.check(err, name)
+        paged_decode_attention.launches += 1
+        return out
 
 
 paged_decode_attention.launches = 0  # kernel launches since the last reset
+paged_decode_attention.cost = paged_decode_attention_cost

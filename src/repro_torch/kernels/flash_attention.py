@@ -115,6 +115,47 @@ def route(q, k, v, do=None, *, backward: bool = False) -> str:
     return ROUTES[code]
 
 
+def attention_pairs(S: int, causal: bool = True, window: int = 0) -> int:
+    """The (query, key) pairs that attention over S positions computes:
+    causal, within ``window`` if > 0 (query i sees keys j with i - window <
+    j); the masked rest is not work."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2 if causal else S * S
+    if causal:
+        return window * (window + 1) // 2 + (S - window) * window
+    return S * S - (S - window) * (S - window + 1) // 2
+
+
+def flash_attention_cost(B: int, S: int, H: int, KV: int, D: int, dtype, *,
+                         causal: bool = True, window: int = 0,
+                         lse: bool = False) -> _build.Cost:
+    """q read and out written (B,S,H,D), k, v read (B,S,KV,D), in
+    ``dtype``, and the f32 lse (B,S,H) written with ``lse``; q k^T and P v,
+    2 D flops each, over the pairs the mask leaves."""
+    es = dtype.itemsize
+    nbytes = (2 * B * S * H + 2 * B * S * KV) * D * es + (4 * B * S * H if lse else 0)
+    return _build.Cost(4 * B * H * D * attention_pairs(S, causal, window), nbytes)
+
+
+def flash_attention_bwd_cost(B: int, S: int, H: int, KV: int, D: int, dtype, *,
+                             causal: bool = True, window: int = 0) -> _build.Cost:
+    """q, out, do, k, v and the f32 lse read, dq, dk, dv written; five
+    products of 2 D flops each (the scores again, dP, dV, dQ, dK) over the
+    forward's pairs.  ``delta = rowsum(do * out)``, which the wrapper takes
+    outside the kernel, is not counted."""
+    es = dtype.itemsize
+    q, kv = B * S * H * D, B * S * KV * D
+    nbytes = (3 * q + 2 * kv) * es + 4 * B * S * H + (q + 2 * kv) * es
+    return _build.Cost(10 * B * H * D * attention_pairs(S, causal, window), nbytes)
+
+
+def _cost_args(q, k) -> tuple:
+    """(B, S, H, KV, D, dtype) of 4-dim q, k (zeros where they are not)."""
+    if q.dim() != 4 or k.dim() != 4:
+        return 0, 0, 0, 0, 0, q.dtype
+    return (*q.shape[:3], k.shape[2], q.shape[3], q.dtype)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, return_lse: bool = False,
                     window: int = 0):
     """q (B,S,H,D); k, v (B,S,KV,D), all in one dtype -> out (B,S,H,D) in
@@ -123,26 +164,29 @@ def flash_attention(q, k, v, *, causal: bool = True, return_lse: bool = False,
     name = "flash_attention"
     if window < 0:
         raise ValueError(f"{name}: window {window} is negative")
-    if _build.on_cpu(name, q=q, k=k, v=v):
-        out = causal_attention_ref(q, k, v, causal, window)
-        return ((out, attention_lse_ref(q, k, causal, window)) if return_lse
-                else out)
-    _build.check_inputs(name, q.device, q=q, k=k, v=v)
-    B, S, H, KV, D = _check_shapes(name, q, k, v)
-    out = torch.empty_like(q)
-    lse = (torch.empty((B, S, H), dtype=torch.float32, device=q.device)
-           if return_lse else None)
-    err = _build.library().repro_flash_attention(
-        q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-        B, S, H, KV, D, int(causal), int(window), 1.0 / math.sqrt(D),
-        _build.stream(q.device))
-    _build.check(err, name)
-    flash_attention.launches += 1
-    return (out, lse) if return_lse else out
+    with _build.counted(name, lambda: flash_attention_cost(
+            *_cost_args(q, k), causal=causal, window=window, lse=return_lse)):
+        if _build.on_cpu(name, q=q, k=k, v=v):
+            out = causal_attention_ref(q, k, v, causal, window)
+            return ((out, attention_lse_ref(q, k, causal, window)) if return_lse
+                    else out)
+        _build.check_inputs(name, q.device, q=q, k=k, v=v)
+        B, S, H, KV, D = _check_shapes(name, q, k, v)
+        out = torch.empty_like(q)
+        lse = (torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+               if return_lse else None)
+        err = _build.library().repro_flash_attention(
+            q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+            B, S, H, KV, D, int(causal), int(window), 1.0 / math.sqrt(D),
+            _build.stream(q.device))
+        _build.check(err, name)
+        flash_attention.launches += 1
+        return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0  # kernel launches since the count was last reset
+flash_attention.cost = flash_attention_cost
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
@@ -159,50 +203,53 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
     name = "flash_attention_bwd"
     if window < 0:
         raise ValueError(f"{name}: window {window} is negative")
-    if _build.on_cpu(name, q=q, k=k, v=v, out=out, lse=lse, do=do):
-        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window)
-    _build.check_inputs(name, q.device, q=q, k=k, v=v, out=out, lse=lse, do=do)
-    B, S, H, KV, D = _check_shapes(name, q, k, v)
-    if out.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"{name}: out {tuple(out.shape)} and do "
-                         f"{tuple(do.shape)} must have q's shape {tuple(q.shape)}")
-    if out.dtype != q.dtype or do.dtype != q.dtype:
-        raise TypeError(f"{name}: out and do must have q's dtype {q.dtype}")
-    if lse.shape != (B, S, H) or lse.dtype != torch.float32:
-        raise ValueError(f"{name}: lse must be float32 of shape {(B, S, H)}, "
-                         f"got {lse.dtype} {tuple(lse.shape)}")
-    delta = (do.float() * out.float()).sum(dim=-1)  # (B,S,H) f32
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = _build.library()
-    sms = _build.sm_count(q.device.index)
-    nsplit, part, nsplit_dq, part_dq = 1, None, 1, None
-    variant = route(q, k, v, do, backward=True)
-    if variant == "bf16-tensor-cores":
-        nsplit = _dkv_splits(B, S, H, KV, lib.repro_flash_attention_bwd_key_tile(), sms,
-                             window)
-    elif variant == "f32-tensor-cores":
-        tile = lib.repro_flash_attention_bwd_f32_key_tile()
-        nsplit = _dkv_splits(B, S, H, KV, tile, sms, window, paired=True)
-        nsplit_dq = _dq_splits(B, S, H, KV, tile, sms, causal, window)
-        if nsplit_dq > 1:  # f32 partial dq of each key range
-            part_dq = torch.empty((nsplit_dq, B, S, H, D), dtype=torch.float32,
-                                  device=q.device)
-    if nsplit > 1:  # f32 partial dk, dv of each split
-        part = torch.empty((2, nsplit, B, S, KV, D), dtype=torch.float32,
-                           device=q.device)
-    err = lib.repro_flash_attention_bwd(
-        q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        None if part is None else part.data_ptr(), nsplit,
-        None if part_dq is None else part_dq.data_ptr(), nsplit_dq, B, S, H, KV, D,
-        int(causal), int(window), 1.0 / math.sqrt(D), _build.stream(q.device))
-    _build.check(err, name)
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    with _build.counted(name, lambda: flash_attention_bwd_cost(
+            *_cost_args(q, k), causal=causal, window=window)):
+        if _build.on_cpu(name, q=q, k=k, v=v, out=out, lse=lse, do=do):
+            return flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window)
+        _build.check_inputs(name, q.device, q=q, k=k, v=v, out=out, lse=lse, do=do)
+        B, S, H, KV, D = _check_shapes(name, q, k, v)
+        if out.shape != q.shape or do.shape != q.shape:
+            raise ValueError(f"{name}: out {tuple(out.shape)} and do "
+                             f"{tuple(do.shape)} must have q's shape {tuple(q.shape)}")
+        if out.dtype != q.dtype or do.dtype != q.dtype:
+            raise TypeError(f"{name}: out and do must have q's dtype {q.dtype}")
+        if lse.shape != (B, S, H) or lse.dtype != torch.float32:
+            raise ValueError(f"{name}: lse must be float32 of shape {(B, S, H)}, "
+                             f"got {lse.dtype} {tuple(lse.shape)}")
+        delta = (do.float() * out.float()).sum(dim=-1)  # (B,S,H) f32
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        lib = _build.library()
+        sms = _build.sm_count(q.device.index)
+        nsplit, part, nsplit_dq, part_dq = 1, None, 1, None
+        variant = route(q, k, v, do, backward=True)
+        if variant == "bf16-tensor-cores":
+            nsplit = _dkv_splits(B, S, H, KV, lib.repro_flash_attention_bwd_key_tile(), sms,
+                                 window)
+        elif variant == "f32-tensor-cores":
+            tile = lib.repro_flash_attention_bwd_f32_key_tile()
+            nsplit = _dkv_splits(B, S, H, KV, tile, sms, window, paired=True)
+            nsplit_dq = _dq_splits(B, S, H, KV, tile, sms, causal, window)
+            if nsplit_dq > 1:  # f32 partial dq of each key range
+                part_dq = torch.empty((nsplit_dq, B, S, H, D), dtype=torch.float32,
+                                      device=q.device)
+        if nsplit > 1:  # f32 partial dk, dv of each split
+            part = torch.empty((2, nsplit, B, S, KV, D), dtype=torch.float32,
+                               device=q.device)
+        err = lib.repro_flash_attention_bwd(
+            q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), nsplit,
+            None if part_dq is None else part_dq.data_ptr(), nsplit_dq, B, S, H, KV, D,
+            int(causal), int(window), 1.0 / math.sqrt(D), _build.stream(q.device))
+        _build.check(err, name)
+        flash_attention_bwd.launches += 1
+        return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0  # calls that launched the kernel's two passes
+flash_attention_bwd.cost = flash_attention_bwd_cost
 
 
 class _FlashAttentionTrain(torch.autograd.Function):

@@ -88,6 +88,54 @@ def _bwd_plan(B: int, S: int, H: int, dk: int, c: int) -> dict:
             "gates": (B * H, S // c, 1)}
 
 
+def mlstm_chunk_flops(B: int, S: int, H: int, dk: int, chunk: int) -> float:
+    """The forward's products that the data needs: per chunk and (batch,
+    head), q k^T and W v over the lower triangle (2 c (c + 1) dk), q C and
+    the C update (4 c dk^2)."""
+    c = max(1, min(chunk, S))
+    return (S // c) * B * H * (2 * c * (c + 1) * dk + 4 * c * dk * dk)
+
+
+def mlstm_chunk_cost(B: int, S: int, H: int, dk: int, dtype, *, chunk: int = 128,
+                     final: bool = False) -> _build.Cost:
+    """q, k, v (B,S,H,dk) in ``dtype`` and the f32 gates (B,S,H) read, h
+    (B,S,H,dk) f32 written, and with ``final`` the final carry (C, n, m);
+    ``mlstm_chunk_flops`` of work, whose rate follows ``dtype``."""
+    n, g = B * S * H * dk, B * S * H
+    nbytes = (3 * n * dtype.itemsize + 2 * g * 4 + 4 * n
+              + (B * H * (dk * dk + dk + 1) * 4 if final else 0))
+    return _build.Cost(mlstm_chunk_flops(B, S, H, dk, chunk), nbytes)
+
+
+def mlstm_chunk_bwd_flops(B: int, S: int, H: int, dk: int, chunk: int) -> float:
+    """The backward's products that the data needs: per chunk and (batch,
+    head), five over the lower triangle (S, dh v^T, dS k, dS^T q, W^T dnum:
+    5 c (c + 1) dk), three of c dk^2 (C dnum, G v, G^T k: 6 c dk^2) and the
+    carry gradient's move (2 c dk^2, all chunks but the first)."""
+    c = max(1, min(chunk, S))
+    nc = S // c
+    return B * H * (nc * (5 * c * (c + 1) * dk + 6 * c * dk * dk)
+                    + max(0, nc - 1) * 2 * c * dk * dk)
+
+
+def mlstm_chunk_bwd_cost(B: int, S: int, H: int, dk: int, dtype, *,
+                         chunk: int = 128) -> _build.Cost:
+    """q, k, v in ``dtype``, the f32 gates, h, dh, the denominators and the
+    forward's carries (its workspace, ``_plan``) read; dq, dk, dv in
+    ``dtype`` and the gates' f32 gradients written."""
+    n, g = B * S * H * dk, B * S * H
+    c = max(1, min(chunk, S))
+    ws = _plan(B, S, H, dk, c, dtype if dtype in STATE_TILE else torch.float32)[3]
+    es = dtype.itemsize
+    nbytes = 6 * n * es + 4 * g * 4 + 2 * n * 4 + g * 4 + ws * 4
+    return _build.Cost(mlstm_chunk_bwd_flops(B, S, H, dk, chunk), nbytes)
+
+
+def _cost_args(q) -> tuple:
+    """(B, S, H, dk, dtype) of a 4-dim q (zeros for another)."""
+    return (*(q.shape if q.dim() == 4 else (0, 0, 0, 0)), q.dtype)
+
+
 def _check(name, q, k, v, i_pre, f_pre, chunk: int) -> tuple:
     """(B, S, H, dk, c) of CUDA inputs the kernels take; raises otherwise."""
     _build.check_inputs(name, q.device, q=q, k=k, v=v, i_pre=i_pre,
@@ -159,30 +207,31 @@ def mlstm_chunk_bwd(q, k, v, log_i, log_f, ws, den, h, dh, *,
     (B,S,H,dk) f32 -> (dq, dk, dv in q's dtype, written by the kernel;
     dlog_i, dlog_f f32)."""
     name = "mlstm_chunk_bwd"
-    B, S, H, dk, c = _check(name, q, k, v, log_i, log_f, chunk)
-    _build.check_inputs(name, q.device, ws=ws, den=den, h=h, dh=dh)
-    if dh.shape != h.shape or dh.dtype != torch.float32:
-        raise ValueError(f"{name}: dh must be float32 of h's shape "
-                         f"{tuple(h.shape)}, got {dh.dtype} {tuple(dh.shape)}")
-    dev = q.device
-    lib = _build.library()
-    grads = [torch.empty((B, S, H, dk), dtype=q.dtype, device=dev)
-             for _ in range(3)]
-    dlog = [torch.empty((B, S, H), dtype=torch.float32, device=dev)
-            for _ in range(2)]
-    code = _build.DTYPE_CODES[q.dtype]
-    scratch = torch.empty(lib.repro_mlstm_chunk_bwd_scratch(B, S, H, dk, c),
-                          dtype=torch.uint8, device=dev)
-    plan = _bwd_plan(B, S, H, dk, c)
-    err = lib.repro_mlstm_chunk_bwd(
-        dev.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        log_i.data_ptr(), log_f.data_ptr(), ws.data_ptr(), den.data_ptr(),
-        h.data_ptr(), dh.data_ptr(), *(t.data_ptr() for t in grads + dlog),
-        scratch.data_ptr(), B, S, H, dk, c, plan["state"][1], plan["rows"][2],
-        plan["scores"][2], 1.0 / math.sqrt(dk), _build.stream(dev))
-    _build.check(err, name)
-    mlstm_chunk_bwd.launches += 1
-    return (*grads, *dlog)
+    with _build.counted(name, lambda: mlstm_chunk_bwd_cost(*_cost_args(q), chunk=chunk)):
+        B, S, H, dk, c = _check(name, q, k, v, log_i, log_f, chunk)
+        _build.check_inputs(name, q.device, ws=ws, den=den, h=h, dh=dh)
+        if dh.shape != h.shape or dh.dtype != torch.float32:
+            raise ValueError(f"{name}: dh must be float32 of h's shape "
+                             f"{tuple(h.shape)}, got {dh.dtype} {tuple(dh.shape)}")
+        dev = q.device
+        lib = _build.library()
+        grads = [torch.empty((B, S, H, dk), dtype=q.dtype, device=dev)
+                 for _ in range(3)]
+        dlog = [torch.empty((B, S, H), dtype=torch.float32, device=dev)
+                for _ in range(2)]
+        code = _build.DTYPE_CODES[q.dtype]
+        scratch = torch.empty(lib.repro_mlstm_chunk_bwd_scratch(B, S, H, dk, c),
+                              dtype=torch.uint8, device=dev)
+        plan = _bwd_plan(B, S, H, dk, c)
+        err = lib.repro_mlstm_chunk_bwd(
+            dev.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            log_i.data_ptr(), log_f.data_ptr(), ws.data_ptr(), den.data_ptr(),
+            h.data_ptr(), dh.data_ptr(), *(t.data_ptr() for t in grads + dlog),
+            scratch.data_ptr(), B, S, H, dk, c, plan["state"][1], plan["rows"][2],
+            plan["scores"][2], 1.0 / math.sqrt(dk), _build.stream(dev))
+        _build.check(err, name)
+        mlstm_chunk_bwd.launches += 1
+        return (*grads, *dlog)
 
 
 class _MlstmChunk(torch.autograd.Function):
@@ -205,19 +254,52 @@ class _MlstmChunk(torch.autograd.Function):
         return (*grads, None)
 
 
+class _ShapesOnly(torch.autograd.Function):
+    """The dry-run's stand-in (``_build.shapes_only``): h of its shape and
+    dtype, and in backward the inputs' gradients, counted as one call of
+    the backward kernel, as the card runs it; nothing is computed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_pre, f_pre, chunk):
+        ctx.chunk, ctx.inputs = chunk, [(x.shape, x.dtype) for x in (q, k, v, i_pre, f_pre)]
+        return q.new_empty(q.shape, dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dh):
+        (shape, dtype), chunk = ctx.inputs[0], ctx.chunk
+        with _build.counted("mlstm_chunk_bwd", lambda: mlstm_chunk_bwd_cost(
+                *shape, dtype, chunk=chunk)):
+            return (*(dh.new_empty(s, dtype=d) for s, d in ctx.inputs), None)
+
+
 def mlstm_chunk(q, k, v, i_pre, f_pre, *, chunk: int = 128,
                 return_final: bool = False):
     """q, k, v (B,S,H,dk) in one dtype (f32 or bf16); i_pre, f_pre (B,S,H)
     -> h (B,S,H,dk) f32 [, (C (B,H,dk,dk), n (B,H,dk), m (B,H)) f32],
     differentiable in all five inputs (h only)."""
     name = "mlstm_chunk"
+    with _build.counted(name, lambda: mlstm_chunk_cost(*_cost_args(q), chunk=chunk,
+                                                       final=return_final)):
+        return _mlstm_chunk(q, k, v, i_pre, f_pre, chunk, return_final)
+
+
+def _mlstm_chunk(q, k, v, i_pre, f_pre, chunk: int, return_final: bool):
+    name = "mlstm_chunk"
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v, i_pre, f_pre))
     if _build.on_cpu(name, q=q, k=k, v=v, i_pre=i_pre, f_pre=f_pre):
+        if _build.shapes_only():
+            h = _ShapesOnly.apply(q, k, v, i_pre, f_pre, chunk)
+            if not return_final:
+                return h
+            B, _, H, dk = q.shape
+            return h, (q.new_empty((B, H, dk, dk), dtype=torch.float32),
+                       q.new_empty((B, H, dk), dtype=torch.float32),
+                       q.new_empty((B, H), dtype=torch.float32))
         return mlstm_chunk_ref(q, k, v, i_pre, f_pre, chunk=chunk,
                                return_final=return_final)
     log_i = i_pre.float().contiguous()
     log_f = F.logsigmoid(f_pre.float()).contiguous()
-    grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v, i_pre, f_pre))
     if not grad:
         h, final, _ = mlstm_chunk_fwd(q, k, v, log_i, log_f, chunk=chunk,
                                       return_final=return_final)
@@ -230,3 +312,5 @@ def mlstm_chunk(q, k, v, i_pre, f_pre, *, chunk: int = 128,
 
 mlstm_chunk.launches = 0  # forward kernel launches since the count was last reset
 mlstm_chunk_bwd.launches = 0  # backward kernel launches likewise
+mlstm_chunk.cost = mlstm_chunk_cost
+mlstm_chunk_bwd.cost = mlstm_chunk_bwd_cost

@@ -38,38 +38,54 @@ def _check(name: str, **tensors) -> None:
                          f"shape, got {sorted(shapes)}")
 
 
+def rglru_scan_cost(n: int) -> _build.Cost:
+    """Over n = B * S * C elements: log_a and b read, h written, f32; exp,
+    multiply and add an element."""
+    return _build.Cost(3 * n, 3 * n * 4)
+
+
+def rglru_scan_bwd_cost(n: int) -> _build.Cost:
+    """Over n = B * S * C elements: log_a, h and dh read, dlog_a and db
+    written, f32; exp, FMA and two multiplies an element."""
+    return _build.Cost(5 * n, 5 * n * 4)
+
+
 def rglru_scan_fwd(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The forward kernel: log_a, b (B,S,C) f32 -> h (B,S,C) f32."""
-    name = "rglru_scan"
-    if _build.on_cpu(name, log_a=log_a, b=b):
-        return rglru_scan_ref(log_a, b)
-    _check(name, log_a=log_a, b=b)
-    B, S, C = log_a.shape
-    h = torch.empty_like(b)
-    err = _build.library().repro_rglru_scan(
-        log_a.device.index, log_a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S,
-        C, _build.stream(log_a.device))
-    _build.check(err, name)
-    rglru_scan.launches += 1
-    return h
+    with _build.counted("rglru_scan", lambda: rglru_scan_cost(log_a.numel())):
+        name = "rglru_scan"
+        if _build.on_cpu(name, log_a=log_a, b=b):
+            return torch.empty_like(b) if _build.shapes_only() else rglru_scan_ref(log_a, b)
+        _check(name, log_a=log_a, b=b)
+        B, S, C = log_a.shape
+        h = torch.empty_like(b)
+        err = _build.library().repro_rglru_scan(
+            log_a.device.index, log_a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S,
+            C, _build.stream(log_a.device))
+        _build.check(err, name)
+        rglru_scan.launches += 1
+        return h
 
 
 def rglru_scan_bwd(log_a: torch.Tensor, h: torch.Tensor,
                    dh: torch.Tensor) -> tuple:
     """The backward kernel: log_a, the forward's h and the output's
     gradient dh (B,S,C) f32 -> (dlog_a, db) (B,S,C) f32."""
-    name = "rglru_scan_bwd"
-    if _build.on_cpu(name, log_a=log_a, h=h, dh=dh):
-        return rglru_scan_bwd_ref(log_a, h, dh)
-    _check(name, log_a=log_a, h=h, dh=dh)
-    B, S, C = log_a.shape
-    dlog_a, db = torch.empty_like(h), torch.empty_like(h)
-    err = _build.library().repro_rglru_scan_bwd(
-        log_a.device.index, log_a.data_ptr(), h.data_ptr(), dh.data_ptr(),
-        dlog_a.data_ptr(), db.data_ptr(), B, S, C, _build.stream(log_a.device))
-    _build.check(err, name)
-    rglru_scan_bwd.launches += 1
-    return dlog_a, db
+    with _build.counted("rglru_scan_bwd", lambda: rglru_scan_bwd_cost(log_a.numel())):
+        name = "rglru_scan_bwd"
+        if _build.on_cpu(name, log_a=log_a, h=h, dh=dh):
+            if _build.shapes_only():
+                return torch.empty_like(h), torch.empty_like(h)
+            return rglru_scan_bwd_ref(log_a, h, dh)
+        _check(name, log_a=log_a, h=h, dh=dh)
+        B, S, C = log_a.shape
+        dlog_a, db = torch.empty_like(h), torch.empty_like(h)
+        err = _build.library().repro_rglru_scan_bwd(
+            log_a.device.index, log_a.data_ptr(), h.data_ptr(), dh.data_ptr(),
+            dlog_a.data_ptr(), db.data_ptr(), B, S, C, _build.stream(log_a.device))
+        _build.check(err, name)
+        rglru_scan_bwd.launches += 1
+        return dlog_a, db
 
 
 class _RglruScan(torch.autograd.Function):
@@ -95,3 +111,5 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 rglru_scan.launches = 0  # forward kernel launches since the count was last reset
 rglru_scan_bwd.launches = 0  # backward kernel launches likewise
+rglru_scan.cost = rglru_scan_cost
+rglru_scan_bwd.cost = rglru_scan_bwd_cost

@@ -48,12 +48,23 @@ class _RMSNorm(torch.autograd.Function):
         return dx, dscale, None
 
 
+def rmsnorm_cost(rows: int, d: int, dtype) -> _build.Cost:
+    """x (rows, d) read and the output written in ``dtype``, the f32 scale
+    read; a square, a sum, a scale and a multiply an element."""
+    n = rows * d
+    return _build.Cost(4 * n, 2 * n * dtype.itemsize + 4 * d)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x (..., d) f32 or bf16; scale (d,) f32 -> same shape and dtype as x."""
-    if _build.on_cpu("rmsnorm", x=x, scale=scale):
-        return rmsnorm_ref(x, scale, eps)
-    return _RMSNorm.apply(x, scale, eps)
+    d = x.shape[-1]
+    with _build.counted("rmsnorm", lambda: rmsnorm_cost(x.numel() // max(d, 1), d,
+                                                        x.dtype)):
+        if _build.on_cpu("rmsnorm", x=x, scale=scale):
+            return rmsnorm_ref(x, scale, eps)
+        return _RMSNorm.apply(x, scale, eps)
 
 
 rmsnorm.launches = 0  # kernel launches since the count was last reset
+rmsnorm.cost = rmsnorm_cost

@@ -1,0 +1,164 @@
+"""Cell construction: (arch x shape x mesh) -> a step to count, the port's
+counterpart of ``repro/launch/cells.py``.
+
+A *cell* is one entry of the dry-run / roofline matrix.  Where the
+reference lowers a sharded program over the whole mesh, the port runs its
+own step as one rank of it, on fake tensors (nothing is drawn or
+allocated), and ``repro_torch.launch.dryrun`` counts the ops it runs
+(``launch.op_analysis``):
+
+- **train**: the port's mesh train step (``train.step._mesh_step``) as rank
+  0 of an abstract mesh (``launch.mesh.abstract_mesh``: its collectives
+  count the bytes they would move), on a fake train state that holds rank
+  0's shards and on the global batch of ``batch_specs``, of which the step
+  takes rank 0's rows;
+- **prefill** and **decode**: the port's single-device
+  ``serve.engine.make_prefill_step`` and ``models.lm.decode_step`` on rank
+  0's rows of the batch, the model held whole in the compute dtype: the
+  port has no sharded serving (``"model_axis": "replicated"``).
+
+The reference's ``tree_attention``, ``sequence_parallel`` and
+``shard_cache_seq`` have no counterpart in the port: ``build_cell`` raises
+on them (ROADMAP item G2, tensor-parallel compute over ``model``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass, field
+
+import torch
+
+from ..configs import SHAPES, ArchConfig, ShapeCfg, get_config, shape_applicable
+from ..convert import cast_params
+from ..data.stream import batch_specs
+from ..models.lm import ModelOptions, decode_step, init_cache, init_params
+from ..serve.engine import make_prefill_step
+from ..sharding.ctx import activation_rules
+from ..sharding.specs import PARAM_RULES
+from ..train.step import TrainConfig, init_train_state, make_train_step
+from .mesh import BATCH_AXES
+
+
+@dataclass(frozen=True)
+class CellOptions:
+    """The port's knobs of a cell.  ``dp_layout``: the batch over the
+    ``model`` axis too and every parameter replicated (the reference's
+    layout for small archs).  The last three are the reference's, which the
+    port does not have: ``build_cell`` raises when one is set."""
+
+    model: ModelOptions = ModelOptions()
+    train: TrainConfig = TrainConfig()
+    dp_layout: bool = False
+    param_rules: dict = field(default_factory=lambda: dict(PARAM_RULES))
+    tree_attention: bool = False
+    sequence_parallel: bool = False
+    shard_cache_seq: bool = False
+
+
+def data_axes_for(mesh, global_batch: int, include_model: bool = False) -> tuple:
+    """Largest prefix of (pod, data[, model]) that divides the batch."""
+    names = ("pod", "data", "model") if include_model else ("pod", "data")
+    axes = [a for a in names if a in mesh.axis_names]
+    size = 1
+    chosen = []
+    for a in axes:
+        n = mesh.shape[a]
+        if global_batch % (size * n) == 0:
+            chosen.append(a)
+            size *= n
+    return tuple(chosen)
+
+
+@dataclass
+class Cell:
+    arch: str
+    shape: ShapeCfg
+    cfg: ArchConfig
+    kind: str  # train | prefill | decode
+    fn: object  # the step callable
+    args: tuple  # fake tensors: rank 0's
+    meta: dict
+    fake_mode: object  # the FakeTensorMode of args, in which the step runs
+
+
+def token_count(cfg: ArchConfig, shape: ShapeCfg) -> int:
+    if shape.kind in ("train", "prefill"):
+        return shape.global_batch * shape.seq_len
+    return shape.global_batch  # decode: one token per sequence
+
+
+def build_cell(arch: str, shape_name: str, mesh, opts: CellOptions = CellOptions()) -> Cell:
+    """The cell's step and its fake arguments, as rank ``mesh.rank`` of
+    ``mesh`` (an abstract mesh for train cells)."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    ok, why = shape_applicable(cfg, shape)
+    if not ok:
+        raise ValueError(f"cell ({arch}, {shape_name}) skipped: {why}")
+    missing = [k for k in ("tree_attention", "sequence_parallel", "shard_cache_seq")
+               if getattr(opts, k)]
+    if missing:
+        raise NotImplementedError(
+            f"{', '.join(missing)}: the port has no tensor- or sequence-parallel "
+            "compute over the model axis yet (ROADMAP item G2)")
+
+    batch_axes = data_axes_for(mesh, shape.global_batch, include_model=opts.dp_layout)
+    rows = shape.global_batch // mesh.size(batch_axes)
+    ftok = cfg.frontend_len if cfg.frontend else 0
+    seq_tok = shape.seq_len - ftok
+    meta = {"batch_axes": batch_axes, "rows": rows}
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    fake = FakeTensorMode()
+
+    if shape.kind == "train":
+        tcfg = opts.train
+        if tcfg.compress_pod_grads:  # across pods: a mesh of one pod has none
+            tcfg = TrainConfig(optimizer=tcfg.optimizer, accum_steps=tcfg.accum_steps,
+                               compress_pod_grads="pod" in mesh.axis_names,
+                               num_pods=mesh.shape.get("pod", 1), remat=tcfg.remat)
+        rules = {} if opts.dp_layout else opts.param_rules
+        act_rules = activation_rules()
+        if opts.dp_layout:  # as the reference: no tensor-axis names
+            act_rules = {k: (v if k in ("batch", "dp") else None)
+                         for k, v in act_rules.items()}
+        with fake:
+            state = init_train_state(cfg, tcfg, device="cpu", mesh=mesh, rules=rules)
+        # a fake 0-dim step cannot be read on the host, where AdamW reads it
+        state["step"] = 0
+        batch = batch_specs(cfg.vocab_size, shape.global_batch, seq_tok, ftok,
+                            cfg.frontend_dim, mode=fake)
+        step = make_train_step(cfg, tcfg, opts.model, mesh=mesh, act_rules=act_rules,
+                               param_rules=rules,
+                               batch_axes=batch_axes if opts.dp_layout else BATCH_AXES)
+        meta["model_axis"] = "replicated compute, sharded state"
+        return Cell(arch, shape, cfg, "train", step, (state, batch), meta, fake)
+
+    meta["model_axis"] = "replicated"
+    with fake:
+        params = cast_params(init_params(cfg, device="cpu"), opts.model.dtype, "cpu")
+        if shape.kind == "prefill":
+            batch = batch_specs(cfg.vocab_size, rows, seq_tok, ftok, cfg.frontend_dim,
+                                mode=fake)
+            del batch["labels"]
+            step = make_prefill_step(cfg, opts.model, max_len=shape.seq_len)
+            return Cell(arch, shape, cfg, "prefill", step, (params, batch), meta, fake)
+        # decode: one new token against a cache of seq_len
+        cache = init_cache(cfg, rows, shape.seq_len, opts.model.dtype, "cpu")
+        tokens = torch.empty((rows,), dtype=torch.int32)
+
+    def step(params, cache, tokens):
+        return decode_step(params, cfg, cache, tokens, opts.model)
+
+    return Cell(arch, shape, cfg, "decode", step, (params, cache, tokens), meta, fake)
+
+
+def run_step(cell: Cell, mode: str = "kernel") -> tuple:
+    """Run the cell's step once on its fake arguments under an op counter
+    (in kernel mode, shapes only): ``(result, Totals)``."""
+    from .op_analysis import count
+
+    grad = contextlib.nullcontext() if cell.kind == "train" else torch.no_grad()
+    with cell.fake_mode, grad:
+        return count(cell.fn, *cell.args, mode=mode, shapes_only=mode == "kernel")

@@ -14,6 +14,13 @@ starts one from ``init_method`` and ``rank``, from torchrun's environment
 (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), or, for a
 world of one rank, on a free local port; ``Mesh.close`` ends a world the
 mesh started.
+
+``abstract_mesh`` is the dry-run's mesh (``repro_torch.launch.cells``): one
+rank's view of a mesh of any size whose groups are ``AbstractGroup``
+markers, with no process group behind them; the collectives over them
+count the bytes they would move (``sharding.collectives``).
+``production_mesh_shape`` names the reference's production meshes and
+``HW`` the card's peaks that the roofline divides by.
 """
 
 from __future__ import annotations
@@ -26,10 +33,33 @@ import socket
 import torch
 import torch.distributed as dist
 
+from typing import NamedTuple
+
 from ..device import resolve_device
 
 AXES = ("pod", "data", "model")
 BATCH_AXES = ("pod", "data")
+
+# one NVIDIA H100 SXM5 80GB: the peaks of NVIDIA's H100 Tensor Core GPU
+# datasheet (dense, without sparsity), and the links of a DGX H100 node
+HW = {
+    "peak_flops_bf16": 989e12,  # BF16 tensor cores, FLOP/s (datasheet)
+    "peak_flops_f32": 67e12,  # FP32 CUDA cores, FLOP/s (datasheet)
+    "hbm_bw": 3.35e12,  # HBM3, B/s (datasheet)
+    "hbm_bytes": 80e9,  # HBM3 capacity, B (datasheet)
+    "nvlink_bw": 450e9,  # NVLink 4, B/s each way: 900 GB/s both ways (datasheet)
+    # the link between nodes, B/s each way: one 400 Gb/s ConnectX-7
+    # InfiniBand NDR port a card (DGX H100 user guide)
+    "internode_bw": 50e9,
+}
+
+
+def production_mesh_shape(multi_pod: bool = False) -> tuple:
+    """The reference's production meshes: (16, 16) over (data, model), or
+    (2, 16, 16) over (pod, data, model)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
 
 
 def free_port() -> int:
@@ -82,7 +112,8 @@ class Mesh:
         return r
 
     def size(self, axes: tuple) -> int:
-        return math.prod(self.shape[a] for a in axes)
+        """The ranks along ``axes``; an axis the mesh lacks counts as one."""
+        return math.prod(self.shape.get(a, 1) for a in axes)
 
     def index(self, axes: tuple) -> int:
         """This rank's block index over ``axes``, the first axis major."""
@@ -99,6 +130,36 @@ class Mesh:
         if self._owns_world and dist.is_initialized():
             dist.destroy_process_group()
         self._owns_world = False
+
+
+class AbstractGroup(NamedTuple):
+    """The group of the ``size`` ranks along ``axes`` in an abstract mesh: a
+    marker, with no process group behind it."""
+
+    axes: tuple
+    size: int
+
+
+class AbstractMesh(Mesh):
+    """A ``Mesh`` on the CPU whose groups are ``AbstractGroup`` markers,
+    over any axes; it starts and joins no world."""
+
+    def _make_groups(self, key: tuple) -> None:
+        pass
+
+    def group(self, axes: tuple):
+        axes = tuple(axes)
+        return AbstractGroup(axes, self.size(axes)) if self.size(axes) > 1 else None
+
+
+def abstract_mesh(shape, axes=None, rank: int = 0) -> AbstractMesh:
+    """Rank ``rank``'s view of a mesh of ``prod(shape)`` ranks (axes as in
+    ``make_mesh``), for counting a step without running its world."""
+    shape = tuple(int(s) for s in shape)
+    axes = tuple(axes) if axes is not None else AXES[-len(shape):]
+    if len(axes) != len(shape):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+    return AbstractMesh(shape, axes, rank, torch.device("cpu"), owns_world=False)
 
 
 def make_mesh(shape, axes=None, *, device=None, init_method=None,

@@ -9,8 +9,11 @@ frontend families serve tokens only, as the reference's engines do).  It
 runs on CUDA in bf16;
 ``--device cpu`` runs the plain path in f32 on the CPU.  Weights are random,
 drawn from a torch generator, so the tokens differ from the JAX launcher's.
-``--platform`` (serving inside the control plane) comes with the port's
-trainer and platform slice.
+``--platform`` (serving inside the control plane) is not ported: the control
+plane is ``repro.platform``, which imports JAX, and the card's machine has
+none; ``examples/torch_serving_engine.py`` runs the port's two engines, and
+``examples/torch_fault_tolerant_training.py`` wires the port's trainer PE
+into that platform on a machine that has both.
 """
 
 from __future__ import annotations
@@ -35,8 +38,11 @@ def main(argv=None) -> None:
 
     if args.platform:
         raise NotImplementedError(
-            "--platform (serving inside the control plane) comes with the "
-            "port's trainer PE and platform slice")
+            "--platform (serving inside the control plane) is not ported: the "
+            "control plane is repro.platform, which imports JAX, and the card's "
+            "machine has none; see examples/torch_serving_engine.py for the "
+            "port's engines and examples/torch_fault_tolerant_training.py for "
+            "its trainer PE under that platform")
 
     from ..configs import get_config, reduced_config
     from ..device import resolve_device

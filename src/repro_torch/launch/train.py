@@ -24,8 +24,11 @@ each process joins that world; otherwise the launcher starts the world
 itself, one process per rank on a local port (gloo on the CPU, NCCL on
 CUDA, one card per rank), or runs a world of one rank in its own process.
 Rank 0 prints the per-step lines.  ``--platform`` (a job on the control
-plane) is not ported; the trainer PE that such a job runs is
-``repro_torch.platform.run_trainer``.
+plane) is not ported: the control plane is ``repro.platform``, which imports
+JAX, and the card's machine has none.  The trainer PE that such a job runs
+is ``repro_torch.platform.run_trainer``;
+``examples/torch_fault_tolerant_training.py`` wires it into that platform
+on a machine that has both.
 """
 
 from __future__ import annotations
@@ -57,8 +60,11 @@ def main(argv=None) -> list:
 
     if args.platform:
         raise NotImplementedError(
-            "--platform (a training job on the control plane) is not ported; "
-            "the trainer PE it runs is repro_torch.platform.run_trainer")
+            "--platform (a training job on the control plane) is not ported: the "
+            "control plane is repro.platform, which imports JAX, and the card's "
+            "machine has none; the trainer PE it runs is "
+            "repro_torch.platform.run_trainer, which "
+            "examples/torch_fault_tolerant_training.py wires into that platform")
     from ..device import resolve_device
 
     device = resolve_device(args.device)

@@ -29,6 +29,7 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 
+from ..kernels import _build
 from ..kernels import decode_attention as decode_attention_kernel
 from ..kernels import flash_attention_train
 from ..kernels import rmsnorm as rmsnorm_kernel
@@ -59,6 +60,13 @@ class _MatmulF32(torch.autograd.Function):
         return da, db
 
 
+def _card_path(a: torch.Tensor) -> bool:
+    """Whether the products take the card's path: on CUDA tensors, and in a
+    dry-run (``kernels._build.shapes_only``), which counts the card's ops
+    on fake CPU tensors."""
+    return a.is_cuda or _build.shapes_only()
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for 2-D ``b``, accumulated and returned in f32: the
     reference's ``preferred_element_type=jnp.float32``.  bf16 operands on the
@@ -66,7 +74,7 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     widened first.  f32 or f64 operands of one dtype multiply as they are."""
     if a.dtype == b.dtype and a.dtype in (torch.float32, torch.float64):
         return a @ b
-    if a.is_cuda:
+    if _card_path(a):
         lead = a.shape[:-1]
         out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*lead, b.shape[-1])
@@ -78,7 +86,7 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     returned in f32, as ``matmul_f32``."""
     if a.dtype == b.dtype and a.dtype in (torch.float32, torch.float64):
         return torch.bmm(a, b)
-    if a.is_cuda:
+    if _card_path(a):
         return _MatmulF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 

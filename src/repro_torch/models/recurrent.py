@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..kernels import _build
 from ..kernels.ref import mlstm_chunk_ref, rglru_scan_ref
 from .layers import act_fn, dense_init, init_rmsnorm, rmsnorm
 
@@ -372,12 +373,17 @@ class _SlstmScan(torch.autograd.Function):
                  for k, v in slstm_init_state(B, d, device=pre.device).items()}
         # the other state sequences only when a backward will read them
         kept = ("h", "c", "n", "m") if any(ctx.needs_input_grad) else ("h",)
-        seqs = {name: [] for name in kept}
-        for t in range(S):
-            state = _slstm_cell(R, pre[:, :, t], state)
-            for name in kept:
-                seqs[name].append(state[name])
-        seqs = {name: torch.stack(vals) for name, vals in seqs.items()}
+        if _build.shapes_only():  # a dry-run: one step counted as S
+            with _build.repeated(S):
+                state = _slstm_cell(R, pre[:, :, 0], state)
+            seqs = {name: state[name].new_empty((S, B, d)) for name in kept}
+        else:
+            seqs = {name: [] for name in kept}
+            for t in range(S):
+                state = _slstm_cell(R, pre[:, :, t], state)
+                for name in kept:
+                    seqs[name].append(state[name])
+            seqs = {name: torch.stack(vals) for name, vals in seqs.items()}
         if len(kept) > 1:
             ctx.save_for_backward(R, pre, *(seqs[name] for name in kept))
         return seqs["h"].transpose(0, 1)
@@ -412,29 +418,31 @@ class _SlstmScan(torch.autograd.Function):
         Dc_c = torch.zeros((B, d), dtype=pre.dtype, device=pre.device)
         Dn_c, Dm_c, Dh_c = (torch.zeros_like(Dc_c) for _ in range(3))
         Das = torch.empty((S, 4, B, d), dtype=pre.dtype, device=pre.device)
-        for t in range(S - 1, -1, -1):
-            Dh = dhs[t] + Dh_c
-            Da_o = Dh * u[t] * o[t] * (1.0 - o[t])
-            Dc = Dc_c + Dh * o[t] / n_seq[t]
-            Dn_pre = (Dn_c - Dh * o[t] * u[t] / n_seq[t]) * uncl[t]
-            Df = Dc * c_prev[t] + Dn_pre * n_prev[t]  # onto f_sc
-            Di = Dc * z[t] + Dn_pre  # onto i_sc
-            Dz = Dc * i_sc[t]
-            Dc_c = Dc * f_sc[t]
-            Dn_c = Dn_pre * f_sc[t]
-            # i_sc = exp(a_i - m_t); f_sc = exp(lf + m_prev - m_t)
-            Da_i = Di * i_sc[t]
-            Dm_t = Dm_c - Di * i_sc[t] - Df * f_sc[t]
-            Dlf = Df * f_sc[t] + Dm_t * mxl[t]
-            Dm_c = Df * f_sc[t] + Dm_t * mxl[t]
-            Da_i = Da_i + Dm_t * (1.0 - mxl[t])
-            Das[t, 0] = Dz * (1.0 - z[t] * z[t])
-            Das[t, 1] = Da_i
-            Das[t, 2] = Dlf * sg_naf[t]
-            Das[t, 3] = Da_o
-            # h_{t-1} through the recurrent products (R constant here)
-            Dh_c = torch.einsum("gbhy,ghxy->bhx", Das[t].view(4, B, H, dh_),
-                                R).reshape(B, d)
+        dry = _build.shapes_only()  # a dry-run: the last step, counted as S
+        with _build.repeated(S if dry else 1):
+            for t in [S - 1] if dry else range(S - 1, -1, -1):
+                Dh = dhs[t] + Dh_c
+                Da_o = Dh * u[t] * o[t] * (1.0 - o[t])
+                Dc = Dc_c + Dh * o[t] / n_seq[t]
+                Dn_pre = (Dn_c - Dh * o[t] * u[t] / n_seq[t]) * uncl[t]
+                Df = Dc * c_prev[t] + Dn_pre * n_prev[t]  # onto f_sc
+                Di = Dc * z[t] + Dn_pre  # onto i_sc
+                Dz = Dc * i_sc[t]
+                Dc_c = Dc * f_sc[t]
+                Dn_c = Dn_pre * f_sc[t]
+                # i_sc = exp(a_i - m_t); f_sc = exp(lf + m_prev - m_t)
+                Da_i = Di * i_sc[t]
+                Dm_t = Dm_c - Di * i_sc[t] - Df * f_sc[t]
+                Dlf = Df * f_sc[t] + Dm_t * mxl[t]
+                Dm_c = Df * f_sc[t] + Dm_t * mxl[t]
+                Da_i = Da_i + Dm_t * (1.0 - mxl[t])
+                Das[t, 0] = Dz * (1.0 - z[t] * z[t])
+                Das[t, 1] = Da_i
+                Das[t, 2] = Dlf * sg_naf[t]
+                Das[t, 3] = Da_o
+                # h_{t-1} through the recurrent products (R constant here)
+                Dh_c = torch.einsum("gbhy,ghxy->bhx", Das[t].view(4, B, H, dh_),
+                                    R).reshape(B, d)
         # the weight gradient: one batch and time contraction
         DR = torch.einsum("sbhx,sgbhy->ghxy", h_prev.view(S, B, H, dh_),
                           Das.view(S, 4, B, H, dh_))
@@ -454,6 +462,10 @@ def slstm_seq(params: dict, x: torch.Tensor, num_heads: int,
     if not return_state:
         return _slstm_out(params, _SlstmScan.apply(R, pre), x)
     state = slstm_init_state(B, d, device=x.device)
+    if _build.shapes_only():  # a dry-run: one step counted as S
+        with _build.repeated(S):
+            state = _slstm_cell(R, pre[:, :, 0], state)
+        return _slstm_out(params, state["h"].new_empty((B, S, d)), x), state
     hs = []
     for t in range(S):
         state = _slstm_cell(R, pre[:, :, t], state)

@@ -4,7 +4,10 @@ Every sum over ranks is taken in rank order from gathered copies, as the
 platform's collective (``allreduce_mean``) sums its contributions, so a
 rerun gives the same bits whatever the transport's reduction order.  A
 group is ``None`` where one rank makes it up: then nothing is sent and
-nothing is copied.
+nothing is copied.  A group of an abstract mesh (``launch.mesh.
+AbstractGroup``) sends nothing either: a gather over it returns a fake
+tensor of the gathered shape and records the bytes this rank would receive
+with the op counters (``launch.op_analysis``).
 """
 
 from __future__ import annotations
@@ -14,16 +17,29 @@ import functools
 import torch
 import torch.distributed as dist
 
+from ..launch.mesh import AbstractGroup
+from ..launch.op_analysis import record_collective
 from .specs import spec_axes
 
 # torch renamed all_gather_into_tensor; both names take (out, in, group)
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
+def group_size(group) -> int:
+    """The ranks of ``group``: 1 for None, an abstract group's size, or the
+    process group's."""
+    if group is None:
+        return 1
+    return group.size if isinstance(group, AbstractGroup) else dist.get_world_size(group)
+
+
 def gather_stack(x: torch.Tensor, group, n: int) -> torch.Tensor:
     """(n, *x.shape): every rank's ``x``, in rank order."""
     if group is None:
         return x[None]
+    if isinstance(group, AbstractGroup):  # the n - 1 other ranks' copies arrive
+        record_collective("all_gather", group.axes, n, (n - 1) * x.numel() * x.element_size())
+        return x.detach().new_empty((n, *x.shape))
     out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
     with torch.no_grad():
         _all_gather(out, x.detach().reshape(-1), group=group)

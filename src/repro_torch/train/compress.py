@@ -17,10 +17,9 @@ tensor ops.  Rounding is to nearest, ties to even, as ``jnp.round``.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from ..convert import map_params, zip_params
-from ..sharding.collectives import gather_stack
+from ..sharding.collectives import gather_stack, group_size
 
 
 def quantize_int8(g: torch.Tensor):
@@ -58,7 +57,7 @@ def compressed_mean_over_axis(grads, ef, group):
     is corrected by its buffer and quantized whole; the int8 payloads and
     the scales are all-gathered and the mean is taken locally in pod order.
     Returns (mean grads f32, new ef)."""
-    n = 1 if group is None else dist.get_world_size(group)
+    n = group_size(group)
 
     def one(g, e):
         corrected = g.float() + e

@@ -63,12 +63,13 @@ class TrainConfig:
 
 
 def init_train_state(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig(), *,
-                     seed: int = 0, device=None, params=None, mesh=None) -> dict:
+                     seed: int = 0, device=None, params=None, mesh=None,
+                     rules: dict = PARAM_RULES) -> dict:
     """A fresh train state: ``params`` if given (f32 tensors, e.g. the
     reference's through ``repro_torch.convert``), else ``init_params(cfg,
     seed, device)``; zero moments; step 0.  On a ``mesh`` (whose device
-    is the default) it keeps this rank's shard of each leaf, and its
-    pod's EF buffers under ``compress_pod_grads``."""
+    is the default) it keeps this rank's shard of each leaf (partitioned
+    by ``rules``), and its pod's EF buffers under ``compress_pod_grads``."""
     if params is None:
         if device is None and mesh is not None:
             device = mesh.device
@@ -78,7 +79,7 @@ def init_train_state(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig(), *,
             raise TypeError(f"train parameters must be float32, got {p.dtype}")
     num_pods = tcfg.num_pods
     if mesh is not None:
-        specs = param_specs(params, mesh, mesh_rules(mesh))
+        specs = param_specs(params, mesh, mesh_rules(mesh, rules))
         params = zip_params(lambda p, s: _own(local_block(p, s, mesh), p), params, specs)
         if tcfg.compress_pod_grads:
             if mesh.shape.get("pod") != tcfg.num_pods:
@@ -183,16 +184,22 @@ def _mean(x: torch.Tensor, group, n: int) -> torch.Tensor:
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig(),
                     opts: ModelOptions = ModelOptions(),
                     mesh: Optional[object] = None,
-                    act_rules: Optional[dict] = None):
+                    act_rules: Optional[dict] = None, *,
+                    param_rules: dict = PARAM_RULES,
+                    batch_axes: tuple = BATCH_AXES):
     """Returns ``step(state, batch) -> (state, metrics)``.  ``batch`` holds
     ``tokens`` and ``labels`` (B,S) on any device (on a mesh, the global
     batch); they move to the parameters' device.  ``metrics``: ``loss``,
     ``grad_norm``, ``ce_loss``, ``aux_loss``, ``tokens`` (tensors on that
-    device).  ``act_rules`` is bound around the loss on a mesh."""
+    device).  ``act_rules`` is bound around the loss on a mesh; there the
+    state is partitioned by ``param_rules`` (as ``init_train_state`` took
+    them) and the batch split over the mesh's ``batch_axes``, which must
+    have a group (a real mesh makes (pod, data) and each axis alone)."""
     if tcfg.compress_pod_grads and (mesh is None or "pod" not in mesh.axis_names):
         raise ValueError("compress_pod_grads needs a mesh with a 'pod' axis")
     if mesh is not None:
-        return _mesh_step(cfg, tcfg, opts, mesh, act_rules or {})
+        return _mesh_step(cfg, tcfg, opts, mesh, act_rules or {}, param_rules,
+                          batch_axes)
     ocfg = tcfg.optimizer
 
     def step(state, batch):
@@ -213,14 +220,17 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig(),
     return step
 
 
-def _mesh_step(cfg, tcfg, opts, mesh, act_rules):
+def _mesh_step(cfg, tcfg, opts, mesh, act_rules, param_rules, batch_axes):
     ocfg = tcfg.optimizer
     compress = tcfg.compress_pod_grads
-    specs = param_specs(abstract_train_state(cfg)["params"], mesh, mesh_rules(mesh))
-    batch_axes = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
+    specs = param_specs(abstract_train_state(cfg)["params"], mesh,
+                        mesh_rules(mesh, param_rules))
+    batch_axes = tuple(a for a in batch_axes if a in mesh.axis_names)
     # the ranks whose rows make up one loss: the batch's, or a pod's
     loss_axes = tuple(a for a in batch_axes if a != "pod") if compress else batch_axes
     loss_group, n_loss = mesh.group(loss_axes), mesh.size(loss_axes)
+    if n_loss > 1 and loss_group is None:
+        raise ValueError(f"the mesh has no group over {loss_axes}")
     pod_group, n_pods = mesh.group(("pod",)), mesh.shape.get("pod", 1)
     # as the reference, the compressed step takes each pod's gradient in
     # one pass (its accum_steps is not read)
