@@ -91,7 +91,13 @@ tolerance miss:
    launch counts; then full-depth gemma-2b through
    ``repro_torch.launch.train.main`` with ``--mesh 1,1,1`` (as phase 7),
    its peak memory within 5% of phase 7's; and the compressed combine's
-   bytes and time;
+   bytes and time; then the tensor-parallel step on a (1, 1, 2) mesh of
+   two processes sharing the card over gloo (``--tp-rank`` runs one):
+   gemma-2b at full width and 2 layers in f32, two steps of 2 x 1024 (4
+   query heads a rank), its first step's loss and gradients held to the
+   one-device f32 step (leaves past the tolerance: both held to the plain
+   path in f64), the leaves every rank holds whole equal on both ranks,
+   the flash kernels run at the local head count, equal launch counts;
 18. analysis: the dry-run (``repro_torch.launch.dryrun``) of gemma-2b's
    applicable cells on both production meshes, (16, 16) and (2, 16, 16),
    on fake tensors; phase 6's prefill and one phase-7 train step, counted
@@ -100,6 +106,9 @@ tolerance miss:
    fake tensors (FLOPs, bytes, each kernel's calls and work), and the
    counted FLOPs over each step's time by CUDA events, as a share of the
    card's 989 TFLOP/s, must not read over 1.05 (the count would be wrong);
+   rank 0's count of a tensor-parallel step on the card (collective bytes
+   by key too) must equal rank 0's on fake tensors of an abstract (1, 1,
+   2) mesh;
 19. the kernels line (JSON), the run's wall, the card's name and power
    limit, and the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -118,6 +127,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -137,7 +147,7 @@ import torch.nn.functional as F  # noqa: E402
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import SHAPES, get_config  # noqa: E402
-from repro_torch.convert import cast_params, map_params  # noqa: E402
+from repro_torch.convert import cast_params, map_params, zip_params  # noqa: E402
 from repro_torch.data import StreamSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -160,7 +170,7 @@ from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cost, rglru_scan_cost 
 from repro_torch.kernels.rmsnorm import rmsnorm_cost  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
-from repro_torch.launch.mesh import HW, make_mesh  # noqa: E402
+from repro_torch.launch.mesh import HW, abstract_mesh, free_port, make_mesh  # noqa: E402
 from repro_torch.launch.op_analysis import count as count_ops  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     ModelOptions,
@@ -202,6 +212,9 @@ from repro_torch.train import (  # noqa: E402
 )
 from repro_torch.train.compress import compressed_mean_over_axis, ef_quantize_mean  # noqa: E402
 from repro_torch.train.optim import leaves  # noqa: E402
+from repro_torch.train.step import abstract_train_state, train_state_specs  # noqa: E402
+
+step_mod = importlib.import_module("repro_torch.train.step")
 
 HBM_BYTES_PER_S = HW["hbm_bw"]  # H100 SXM
 PEAK_OPS_PER_S = {"torch.bfloat16": HW["peak_flops_bf16"],
@@ -286,6 +299,17 @@ TRAIN_BF16 = {"loss": 2e-2, "leaf": 2e-2}
 TRAIN_CHECK_OPT = OptimizerConfig(lr=1e-2, warmup_steps=4)
 # the full-depth --mesh 1,1,1 run's peak memory against phase 7's
 MESH_PEAK_RTOL = 0.05
+# the tensor-parallel sub-phase: a (1, 1, 2) mesh, two processes on one card
+# over gloo (whose all-to-all and all-gather take CUDA tensors), gemma-2b at
+# full width and 2 layers in f32, two steps of 2 x 1024 tokens (4 query
+# heads a rank, MQA's one KV head whole, ff 8192 and vocab 128000 a rank);
+# its first step's loss and gradients held to the one-device f32 step by
+# TRAIN_F32, as phase 8 holds the kernel path to the plain one (leaves past
+# it: both held to the plain path in f64).  The second step is logged: its
+# parameters moved by the first AdamW step, whose direction g / (|g| + eps)
+# flips wherever two correct f32 runs give a gradient entry opposite signs
+TP_MESH = (1, 1, 2)
+TP_WORKER_TIMEOUT_S = 600
 
 
 def log(*args) -> None:
@@ -1164,7 +1188,7 @@ def fake_counts(cfg, opts, prefill_tokens, batch: int, seq: int) -> dict:
 
 
 def analysis_phase(analysis: dict, cfg, opts, prefill_tokens, batch: int, seq: int,
-                   smi: str) -> None:
+                   smi: str, tp: dict) -> None:
     """Phase 18 (see the module's docstring)."""
     t0 = time.perf_counter()
     log(f"== analysis: the dry-run of {cfg.name} on fake tensors, per device")
@@ -1199,6 +1223,15 @@ def analysis_phase(analysis: dict, cfg, opts, prefill_tokens, batch: int, seq: i
             f"{card.peak_bytes / 2**30:.2f} GiB (fake {want.peak_bytes / 2**30:.2f}); "
             f"{ms:.3f} ms by CUDA events: {share:.4f} of 989 TFLOP/s ({smi})")
         assert 0 < share <= 1.05, (name, share)
+    # the tensor-parallel step: rank 0's count on the card (gloo collectives
+    # included) against rank 0's on fake tensors of an abstract (1, 1, 2) mesh
+    card, want = tp["count"], tp_fake_count(tp)
+    for key in ("flops", "bytes", "by_kernel", "coll_by_key"):
+        assert card[key] == want[key], ("tensor-parallel step", key, card[key], want[key])
+    log(f"   tensor-parallel train step {tp['batch']} on {TP_MESH}, rank 0, kernel mode: "
+        f"{card['flops']:.6g} FLOP, {card['bytes']:.6g} B, collective bytes received "
+        f"{card['coll_by_key']} on the card = on fake tensors of an abstract mesh; kernels "
+        f"{card['by_kernel']}")
     log(f"   analysis phase: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2696,10 +2729,208 @@ def mesh_phase(seed: int, smi: str, phase7: dict) -> dict:
     return launches
 
 
+def tp_setup(seed: int) -> tuple:
+    """The tensor-parallel sub-phase's model, options, step config and
+    batches (on the card): the same in the parent and in each rank."""
+    cfg2 = get_config("gemma-2b").with_(num_layers=2)
+    opts = ModelOptions(compute_dtype="float32")
+    tcfg = TrainConfig(optimizer=TRAIN_CHECK_OPT)
+    src = StreamSource(vocab_size=cfg2.vocab_size, batch=2, seq_len=1024, seed=seed)
+    batches = [{k: v.to("cuda") for k, v in src.batch_at(i).items()} for i in range(2)]
+    return cfg2, opts, tcfg, batches
+
+
+def tp_worker(rank: int, port: int, out: str, seed: int) -> None:
+    """One rank of the tensor-parallel sub-phase (``--tp-rank``): its two
+    steps' metrics and launches, its block of the first step's mean
+    gradient and of the parameters after both steps (on the host), and a
+    third step counted in kernel mode (``launch.op_analysis``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg2, opts, tcfg, batches = tp_setup(seed)
+    params = init_params(cfg2, seed=seed, device="cuda")
+    mesh = make_mesh(TP_MESH, device="cuda", backend="gloo",
+                     init_method=f"tcp://127.0.0.1:{port}", rank=rank)
+    try:
+        state = init_train_state(cfg2, tcfg, params=params, mesh=mesh)
+        del params
+        step = make_train_step(cfg2, tcfg, opts, mesh=mesh, act_rules=activation_rules())
+        seen = {}
+        real_clip = step_mod.clip_by_global_norm
+
+        def clip(grads, c, **kw):  # the mean gradient, before clipping
+            seen.setdefault("grads", [g.detach().cpu() for g in leaves(grads)])
+            return real_clip(grads, c, **kw)
+
+        step_mod.clip_by_global_norm = clip
+        torch.cuda.reset_peak_memory_stats()
+        records = []
+        for b in batches:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            records.append({"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                            "wall_s": time.perf_counter() - t0, "launches": counts()})
+        step_mod.clip_by_global_norm = real_clip
+        peak = torch.cuda.max_memory_allocated()
+        res = {"records": records, "peak_bytes": peak, "grads": seen["grads"],
+               "params": [p.detach().cpu() for p in leaves(state["params"])]}
+        _, totals = count_ops(step, state, batches[0])
+        res["count"] = {k: getattr(totals, k) for k in ("flops", "bytes", "by_kernel",
+                                                         "coll_by_key")}
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        mesh.close()
+
+
+def tp_whole(blocks: list, spec: tuple, name: str) -> torch.Tensor:
+    """A leaf whole from the ranks' blocks (``spec`` splits at most one dim
+    over ``model``); a leaf the ranks hold whole must be equal on every
+    rank, bit for bit."""
+    dims = [d for d, part in enumerate(spec) if part == "model"]
+    if not dims:
+        assert all(torch.equal(b, blocks[0]) for b in blocks), f"{name} differs across ranks"
+        return blocks[0]
+    return torch.cat(blocks, dims[0])
+
+
+def tp_phase(seed: int, smi: str) -> dict:
+    """Phase 17's tensor-parallel sub-phase: a (1, 1, 2) mesh of two
+    processes on this card over gloo (NCCL refuses two ranks on one GPU),
+    against the one-device f32 step.  Returns rank 0's counted step and the
+    config, for phase 18."""
+    t0 = time.perf_counter()
+    cfg2, opts, tcfg, batches = tp_setup(seed)
+    params32 = init_params(cfg2, seed=seed, device="cuda")
+    names = leaf_names(params32)
+    log(f"== tensor-parallel: mesh {TP_MESH} (pod, data, model) of two processes on this "
+        f"card over gloo; gemma-2b full width at 2 layers, f32, {tcfg.optimizer}, two "
+        f"steps of 2 x 1024, against the one-device f32 step ({smi})")
+    # the one-device reference: the first step's loss and gradients, and both
+    # steps' metrics and launches
+    loss1, grads1 = train_grads(params32, cfg2, batches[0], opts)
+    state = init_train_state(cfg2, tcfg, params=clone_params(params32))
+    one = make_train_step(cfg2, tcfg, opts)
+    want = []
+    for b in batches:
+        kernels.reset_launch_counts()
+        state, m = one(state, b)
+        want.append({"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                     "launches": counts()})
+    params2 = [p.detach() for p in leaves(state["params"])]
+    del state
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    port = free_port()
+    me = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, me, "--seed", str(seed), "--tp-rank", str(r),
+                               "--tp-port", str(port), "--tp-dir", out])
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=TP_WORKER_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert rcs == [0, 0], f"tensor-parallel ranks exited with {rcs}"
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    for r in range(2):
+        os.remove(os.path.join(out, f"rank{r}.pt"))
+    os.rmdir(out)
+    specs = train_state_specs(abstract_train_state(cfg2, tcfg), dict(zip(
+        ("pod", "data", "model"), TP_MESH)))["params"]
+    spec_list = []  # one spec per leaf, in leaves order
+    zip_params(lambda _p, s: spec_list.append(s), params32, specs)
+    tp_grads = [tp_whole([r["grads"][i] for r in ranks], s, n).to("cuda")
+                for i, (s, n) in enumerate(zip(spec_list, names))]
+    tp_params = [tp_whole([r["params"][i] for r in ranks], s, n).to("cuda")
+                 for i, (s, n) in enumerate(zip(spec_list, names))]
+    got = ranks[0]["records"]
+    g_rel, g_at = leaf_rel(tp_grads, grads1, names)
+    l_rel = abs(got[0]["loss"] - loss1) / abs(loss1)
+    rels = [(abs(g["loss"] - w["loss"]) / abs(w["loss"]),
+             abs(g["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"]))
+            for g, w in zip(got, want)]
+    p0 = leaves(params32)
+    c_rel, c_at = leaf_rel([p - q for p, q in zip(tp_params, p0)],
+                           [p - q for p, q in zip(params2, p0)], names)
+    log(f"   per step (loss, grad norm, wall s), rank 0: " + "; ".join(
+        f"{r['loss']:.6f} {r['grad_norm']:.6f} {r['wall_s']:.3f}" for r in got)
+        + "; one device: " + "; ".join(f"{w['loss']:.6f} {w['grad_norm']:.6f}" for w in want))
+    log(f"   first step: loss rel {l_rel:.3g} (tolerance {TRAIN_F32['loss']}), gradients "
+        f"{g_rel:.3g} of the leaf's largest entry (worst {g_at}; tolerance "
+        f"{TRAIN_F32['leaf']}); not held: (loss, grad norm) rel {rels} by step, each leaf's "
+        f"change after both steps {c_rel:.3g} of the largest (worst {c_at}); peak memory a "
+        f"rank {ranks[0]['peak_bytes'] / 2**30:.2f} / {ranks[1]['peak_bytes'] / 2**30:.2f} "
+        f"GiB; the gloo collectives on CUDA tensors, none staged by the port ({smi})")
+    if g_rel > TRAIN_F32["leaf"]:
+        # the init's chaos: hold both runs to the plain path in f64
+        _, grads64 = f64_grads(params32, cfg2, batches[0])
+        held = held_to_f64(tp_grads, grads1, grads64, names)
+        log_f64(held, len(names), "tensor-parallel first-step gradients (the one-device "
+                "step's as the plain path)", smi)
+        assert not held["failed"], held["failed"]
+        del grads64
+    else:
+        assert g_rel <= TRAIN_F32["leaf"], (g_rel, g_at)
+    assert l_rel <= TRAIN_F32["loss"], l_rel
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in got), got
+    for r in ranks:
+        for g, w in zip(r["records"], want):
+            for name in ("rmsnorm", "flash_attention", "flash_attention_bwd"):
+                assert g["launches"][name] == w["launches"][name] > 0, (name, g, w)
+    # the flash kernels ran at the local head count: their counted work is
+    # that of 4 query heads and the one KV head
+    card = ranks[0]["count"]
+    B, S = batches[0]["tokens"].shape
+    local = cfg2.num_heads // TP_MESH[2]
+    for name, cost in (("flash_attention", flash_attention_cost(
+            B, S, local, 1, cfg2.head_dim, torch.float32, lse=True)),
+                       ("flash_attention_bwd", flash_attention_bwd_cost(
+            B, S, local, 1, cfg2.head_dim, torch.float32))):
+        k = card["by_kernel"][name]
+        assert k["flops"] == k["calls"] * cost.flops, (name, k, cost)
+    log(f"   launches a step {got[0]['launches']} (one device {want[0]['launches']}); the "
+        f"flash kernels' counted work that of {local} local heads; tensor-parallel "
+        f"sub-phase: {time.perf_counter() - t0:.1f} s")
+    del tp_grads, tp_params, grads1, params2, params32
+    torch.cuda.empty_cache()
+    return {"count": card, "cfg": cfg2, "opts": opts, "tcfg": tcfg,
+            "batch": tuple(batches[0]["tokens"].shape)}
+
+
+def tp_fake_count(tp: dict) -> dict:
+    """Rank 0's kernel-mode count of the tensor-parallel step on fake
+    tensors, on an abstract (1, 1, 2) mesh (as the dry-run counts)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cfg2, tcfg = tp["cfg"], tp["tcfg"]
+    mesh = abstract_mesh(TP_MESH)
+    fake = FakeTensorMode()
+    with fake:
+        state = init_train_state(cfg2, tcfg, device="cpu", mesh=mesh)
+        batch = {k: torch.empty(tp["batch"], dtype=torch.int32) for k in ("tokens", "labels")}
+    state["step"] = 0  # a fake 0-dim step cannot be read on the host
+    step = make_train_step(cfg2, tcfg, tp["opts"], mesh=mesh, act_rules=activation_rules())
+    with fake:
+        _, totals = count_ops(step, state, batch, shapes_only=True)
+    return {k: getattr(totals, k) for k in ("flops", "bytes", "by_kernel", "coll_by_key")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of phase 17's tensor-parallel sub-phase (the phase starts them)
+    ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.tp_rank is not None:
+        tp_worker(args.tp_rank, args.tp_port, args.tp_dir, args.seed)
+        return 0
     t_run = time.perf_counter()
 
     # 1. device
@@ -3094,13 +3325,15 @@ def main() -> int:
     trainer_pe_phase(args.seed, smi)
 
     log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
-    # 17. the mesh train step at world size 1 over NCCL
+    # 17. the mesh train step at world size 1 over NCCL, then tensor-parallel
+    # on a (1, 1, 2) mesh of two processes over gloo
     mesh_phase(args.seed, smi, phase7)
+    tp = tp_phase(args.seed, smi)
 
     log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
     # 18. analysis: the dry-run on fake tensors, and the card's counts of
     # phases 6 and 7 against the same steps' fake counts
-    analysis_phase(analysis, cfg, opts, tokens, batch, seq, smi)
+    analysis_phase(analysis, cfg, opts, tokens, batch, seq, smi, tp)
 
     log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
     # 19. the kernels line, the card, the result.  Each kernel's launches are

@@ -11,7 +11,13 @@ allocated), and ``repro_torch.launch.dryrun`` counts the ops it runs
   0 of an abstract mesh (``launch.mesh.abstract_mesh``: its collectives
   count the bytes they would move), on a fake train state that holds rank
   0's shards and on the global batch of ``batch_specs``, of which the step
-  takes rank 0's rows;
+  takes rank 0's rows.  Its compute is tensor-parallel over ``model``
+  (``"model_axis"`` names the parts): dense attention where the axis
+  divides the heads, dense MLPs where it divides ``d_ff``, the embedding
+  and the head where it divides the vocabulary; experts and the RG-LRU,
+  mLSTM and sLSTM widths, and any part the axis does not divide, run whole
+  on every rank of the group.  With ``dp_layout`` every parameter is
+  replicated and the batch spans ``model`` too;
 - **prefill** and **decode**: the port's single-device
   ``serve.engine.make_prefill_step`` and ``models.lm.decode_step`` on rank
   0's rows of the batch, the model held whole in the compute dtype: the
@@ -19,7 +25,7 @@ allocated), and ``repro_torch.launch.dryrun`` counts the ops it runs
 
 The reference's ``tree_attention``, ``sequence_parallel`` and
 ``shard_cache_seq`` have no counterpart in the port: ``build_cell`` raises
-on them (ROADMAP item G2, tensor-parallel compute over ``model``).
+on them (ROADMAP, Queue 1).
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from ..convert import cast_params
 from ..data.stream import batch_specs
 from ..models.lm import ModelOptions, decode_step, init_cache, init_params
 from ..serve.engine import make_prefill_step
-from ..sharding.ctx import activation_rules
+from ..sharding.ctx import activation_rules, tensor_axis
 from ..sharding.specs import PARAM_RULES
 from ..train.step import TrainConfig, init_train_state, make_train_step
 from .mesh import BATCH_AXES
@@ -82,6 +88,25 @@ class Cell:
     fake_mode: object  # the FakeTensorMode of args, in which the step runs
 
 
+def train_model_axis(cfg: ArchConfig, n: int) -> str:
+    """What a train step's compute splits over a model axis of n ranks, and
+    what runs whole on each of them."""
+    kinds = set(cfg.layer_kinds)
+    parts = (("attention", any(k in kinds for k in ("attn", "local")),
+              cfg.num_heads % n == 0),
+             ("MLP", cfg.d_ff > 0 and (cfg.moe is None or cfg.first_dense > 0)
+              and not kinds <= {"mlstm", "slstm"}, cfg.d_ff % n == 0),
+             ("embedding and head", True, cfg.padded_vocab % n == 0),
+             ("experts", cfg.moe is not None, False),
+             ("RG-LRU", "rglru" in kinds, False),
+             ("mLSTM", "mlstm" in kinds, False),
+             ("sLSTM", "slstm" in kinds, False))
+    split = [name for name, has, ok in parts if has and ok]
+    whole = [name for name, has, ok in parts if has and not ok]
+    return ("tensor-parallel: " + (", ".join(split) or "nothing")
+            + (f"; whole on every rank: {', '.join(whole)}" if whole else ""))
+
+
 def token_count(cfg: ArchConfig, shape: ShapeCfg) -> int:
     if shape.kind in ("train", "prefill"):
         return shape.global_batch * shape.seq_len
@@ -100,8 +125,8 @@ def build_cell(arch: str, shape_name: str, mesh, opts: CellOptions = CellOptions
                if getattr(opts, k)]
     if missing:
         raise NotImplementedError(
-            f"{', '.join(missing)}: the port has no tensor- or sequence-parallel "
-            "compute over the model axis yet (ROADMAP item G2)")
+            f"{', '.join(missing)}: the port has no sequence-parallel compute, "
+            "sharded decode cache or tree attention yet (ROADMAP, Queue 1)")
 
     batch_axes = data_axes_for(mesh, shape.global_batch, include_model=opts.dp_layout)
     rows = shape.global_batch // mesh.size(batch_axes)
@@ -132,7 +157,9 @@ def build_cell(arch: str, shape_name: str, mesh, opts: CellOptions = CellOptions
         step = make_train_step(cfg, tcfg, opts.model, mesh=mesh, act_rules=act_rules,
                                param_rules=rules,
                                batch_axes=batch_axes if opts.dp_layout else BATCH_AXES)
-        meta["model_axis"] = "replicated compute, sharded state"
+        tp = tensor_axis(act_rules, mesh, batch_axes)
+        meta["model_axis"] = (train_model_axis(cfg, mesh.shape[tp]) if tp
+                              else "replicated compute, sharded state")
         return Cell(arch, shape, cfg, "train", step, (state, batch), meta, fake)
 
     meta["model_axis"] = "replicated"

@@ -4,11 +4,13 @@
 A mesh lays the world's ranks out row-major over named axes ``("pod",
 "data", "model")`` (or the last ones of them) and holds one process group
 per axis, plus the group of the batch axes (``pod`` x ``data``): the
-groups the mesh train step gathers parameters and averages gradients
-over.  A group is made only where it joins more than one rank.
+groups the mesh train step gathers parameters, sums tensor-parallel
+partials and averages gradients over.  A group is made only where it
+joins more than one rank; its description names its axes.
 
-The backend follows the device: NCCL on CUDA, gloo on the CPU; a CUDA
-mesh where NCCL is missing raises.  ``make_mesh`` joins a world already
+The backend follows the device: NCCL on CUDA, gloo on the CPU (or gloo
+on CUDA when asked, for ranks that share one card); a CUDA mesh where NCCL
+is missing raises.  ``make_mesh`` joins a world already
 started (``torch.distributed`` initialized, e.g. by the launcher), or
 starts one from ``init_method`` and ``rank``, from torchrun's environment
 (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), or, for a
@@ -101,7 +103,8 @@ class Mesh:
             for moving in itertools.product(*(range(self.shape[a]) for a in key)):
                 at.update(zip(key, moving))
                 ranks.append(self._rank_at(at))
-            group = dist.new_group(ranks)
+            # the description names the axes, for the collectives' byte counts
+            group = dist.new_group(ranks, group_desc=",".join(key))
             if self.rank in ranks:
                 self._groups[key] = group
 
@@ -163,16 +166,22 @@ def abstract_mesh(shape, axes=None, rank: int = 0) -> AbstractMesh:
 
 
 def make_mesh(shape, axes=None, *, device=None, init_method=None,
-              rank=None) -> Mesh:
+              rank=None, backend=None) -> Mesh:
     """A mesh of ``prod(shape)`` ranks on ``device`` (CUDA unless the caller
     asks for the CPU).  ``axes`` default to the last ``len(shape)`` of
-    ``("pod", "data", "model")``, as the reference's launcher names them."""
+    ``("pod", "data", "model")``, as the reference's launcher names them.
+    ``backend`` defaults to the device's (NCCL on CUDA, gloo on the CPU);
+    ``"gloo"`` on CUDA lets several ranks share one card, which NCCL
+    refuses."""
     shape = tuple(int(s) for s in shape)
     axes = tuple(axes) if axes is not None else AXES[-len(shape):]
     if len(axes) != len(shape):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
     dev = resolve_device(device)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    elif backend not in ("nccl", "gloo") or (backend == "nccl" and dev.type != "cuda"):
+        raise ValueError(f"backend {backend!r} on {dev.type}: NCCL needs CUDA, or gloo")
     if backend == "nccl" and not dist.is_nccl_available():
         raise RuntimeError("a CUDA mesh needs NCCL, which this torch lacks")
     world = math.prod(shape)

@@ -16,9 +16,10 @@ rank and per execution:
 - ``bytes_raw``: every op's inputs plus outputs (views excepted), an upper
   bound: a fused or cached step moves less;
 - ``coll_bytes`` and ``coll_by_key``: the bytes each rank receives over
-  the mesh's collectives (``record_collective``, from the abstract mesh's
-  gathers, ``sharding.collectives``), keyed as ``all_gather/pod,data/g32``
-  (the kind, the mesh axes, the group size);
+  the mesh's collectives (``record_collective``, from every collective of
+  ``sharding.collectives``, over an abstract mesh's groups or real ones),
+  keyed as ``ordered_sum/model/g16`` (the kind, the mesh axes, the group
+  size);
 - ``peak_bytes``: the high-water mark of live storage, the storages alive
   when the count began (``argument_bytes``) plus those the step made (each
   tracked from the op that made it to a weakref finalizer on its storage);
@@ -204,7 +205,7 @@ class OpCounter(TorchDispatchMode):
 
 def record_collective(kind: str, axes: tuple, group_size: int, wire_bytes: float) -> None:
     """Report one collective's bytes received by this rank to every counter
-    that is counting (``sharding.collectives`` under an abstract mesh)."""
+    that is counting (``sharding.collectives``)."""
     for counter in _build.COUNTERS:
         counter.collective(kind, tuple(axes), group_size, wire_bytes)
 

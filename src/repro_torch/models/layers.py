@@ -2,8 +2,9 @@
 
 Ported from ``repro/models/layers.py``.  Parameters are plain nested dicts
 of tensors; compute runs in the compute dtype with f32 accumulation where
-the reference asks for it (``preferred_element_type=float32``).  The
-reference's sharding annotations have no counterpart here.
+the reference asks for it (``preferred_element_type=float32``).  Where the
+reference annotates activations for XLA's partitioner, the MLP takes the
+tensor-parallel group explicitly (``mlp_apply``).
 
 Attention goes to the CUDA kernels: full-sequence causal attention to
 ``kernels.flash_attention_train`` (the flash forward kernel, and its
@@ -34,6 +35,7 @@ from ..kernels import decode_attention as decode_attention_kernel
 from ..kernels import flash_attention_train
 from ..kernels import rmsnorm as rmsnorm_kernel
 from ..kernels.ref import causal_attention_ref
+from ..sharding.collectives import copy_to_model, sum_over_model
 
 NEG_INF = -1e30
 ATTN_IMPLS = ("kernel", "plain")
@@ -222,16 +224,23 @@ def act_fn(name: str):
     return {"silu": F.silu, "gelu": partial(F.gelu, approximate="tanh")}[name]
 
 
-def mlp_apply(params: dict, x: torch.Tensor, act: str,
-              gated: bool) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, act: str, gated: bool,
+              group=None, n: int = 1) -> torch.Tensor:
+    """The MLP on x (..., d) in its dtype.  With a model ``group`` of n
+    ranks, ``params`` hold this rank's columns of ``w_up``/``w_gate`` and
+    rows of ``w_down`` (column- then row-parallel): the f32 partial
+    products are summed over the group in rank order and rounded once."""
     dt = x.dtype
+    x = copy_to_model(x, group, n)
     u = matmul_f32(x, params["w_up"].to(dt))
     if gated:
         g = matmul_f32(x, params["w_gate"].to(dt))
         h = (act_fn(act)(g) * u).to(dt)
     else:
         h = act_fn(act)(u).to(dt)
-    return h @ params["w_down"].to(dt)
+    if group is None:
+        return h @ params["w_down"].to(dt)
+    return sum_over_model(matmul_f32(h, params["w_down"].to(dt)), group, n).to(dt)
 
 
 def init_mlp(gen: torch.Generator, d: int, d_ff: int, gated: bool,

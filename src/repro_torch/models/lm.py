@@ -41,8 +41,13 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..convert import cast_params, map_params
 from ..device import resolve_device
-from ..sharding.collectives import ordered_sum
-from ..sharding.ctx import loss_group
+from ..sharding.collectives import (
+    copy_to_model,
+    ordered_max,
+    ordered_sum,
+    sum_over_model,
+)
+from ..sharding.ctx import loss_group, model_group, rebind
 from . import recurrent as rec
 from .moe import IMPLS as MOE_IMPLS
 from .moe import init_moe, moe_apply
@@ -242,12 +247,25 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     return params
 
 
-def _mask_padded_vocab(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Padded vocab columns are masked to -1e30: function-preserving padding."""
+def _mask_padded_vocab(logits: torch.Tensor, cfg: ArchConfig,
+                       offset: int = 0) -> torch.Tensor:
+    """Padded vocab columns are masked to -1e30: function-preserving padding.
+    ``logits`` hold the columns from ``offset`` on (a rank's vocab block)."""
     if cfg.padded_vocab == cfg.vocab_size:
         return logits
-    col = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
+    col = torch.arange(offset, offset + logits.shape[-1],
+                       device=logits.device) < cfg.vocab_size
     return torch.where(col, logits, torch.full((), -1e30, device=logits.device))
+
+
+def _vocab_group(cfg: ArchConfig, local_vocab: int) -> tuple:
+    """(group, n, the first column) of a vocab-parallel embedding or head
+    whose leaf holds ``local_vocab`` of the padded vocabulary: (None, 1, 0)
+    where it holds all of it."""
+    group, n, idx = model_group()
+    if group is None or local_vocab == cfg.padded_vocab:
+        return None, 1, 0
+    return group, n, idx * local_vocab
 
 
 def _group(tree, g: int):
@@ -276,10 +294,12 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     head = (params["embed"]["table"].T if cfg.tie_embeddings
             else params["head"]["w"])
-    logits = matmul_f32(x, head.to(x.dtype))
+    # vocab-parallel: this rank's columns of the head
+    group, n, offset = _vocab_group(cfg, head.shape[1])
+    logits = matmul_f32(copy_to_model(x, group, n), head.to(x.dtype))
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return _mask_padded_vocab(logits, cfg)
+    return _mask_padded_vocab(logits, cfg, offset)
 
 
 # ------------------------------------------------------------------ forward
@@ -296,7 +316,16 @@ def embed_inputs(params, cfg: ArchConfig, tokens, frontend_embeds,
     # F.embedding, not indexing: on the CPU the backward of indexing adds
     # rows in an order that depends on threads, so two equal train steps
     # could part in the last bits
-    x = F.embedding(tokens.long(), params["embed"]["table"]).to(dtype)
+    table = params["embed"]["table"]
+    group, n, offset = _vocab_group(cfg, table.shape[0])
+    if group is None:
+        x = F.embedding(tokens.long(), table)
+    else:  # vocab-parallel: each token's row comes from the one rank that holds it
+        local = tokens.long() - offset
+        own = (local >= 0) & (local < table.shape[0])
+        x = F.embedding(torch.where(own, local, 0), table) * own[..., None]
+        x = sum_over_model(x, group, n)
+    x = x.to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=x.device)
     if cfg.frontend:
@@ -317,27 +346,69 @@ def _attention_block(aparams, cfg: ArchConfig, x, sin, cos,
     config's window).  x (B,S,d) in the compute dtype.  Returns the output
     projection and the compact (B,S,KV,hd) K/V for the cache.  q/k/v are
     accumulated in f32 and rounded to the compute dtype; the output
-    projection comes out in the compute dtype, as in the reference."""
+    projection comes out in the compute dtype, as in the reference.
+
+    Tensor-parallel (a bound model group, and ``wq`` holding part of the
+    heads): Q, K and V are column-parallel, the output projection
+    row-parallel (f32 partials summed over the group in rank order, rounded
+    once).  Where ``wk``/``wv`` hold every KV head, this rank reads the KV
+    heads its query heads map to; the gradients of the leaves every rank
+    reads whole (those K/V weights and biases, the qk-norm scales) are
+    summed over the group."""
     dt = x.dtype
     B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = matmul_f32(x, aparams["wq"].flatten(1).to(dt)).to(dt).view(B, S, H, hd)
-    k = matmul_f32(x, aparams["wk"].flatten(1).to(dt)).to(dt).view(B, S, KV, hd)
-    v = matmul_f32(x, aparams["wv"].flatten(1).to(dt)).to(dt).view(B, S, KV, hd)
-    if "bq" in aparams:
-        q = q + aparams["bq"].to(dt)
-        k = k + aparams["bk"].to(dt)
-        v = v + aparams["bv"].to(dt)
-    if "q_norm" in aparams:
-        q = rmsnorm(q, aparams["q_norm"]["scale"], cfg.norm_eps)
-        k = rmsnorm(k, aparams["k_norm"]["scale"], cfg.norm_eps)
+    H, KV, hd = aparams["wq"].shape[1], aparams["wk"].shape[1], cfg.head_dim
+    group, n, idx = model_group()
+    if H == cfg.num_heads:  # the heads are not split: the block runs whole
+        group, n = None, 1
+    ap = dict(aparams)
+    if group is not None:
+        x = copy_to_model(x, group, n)
+        for name in ("q_norm", "k_norm"):
+            if name in ap:
+                ap[name] = {"scale": copy_to_model(ap[name]["scale"], group, n)}
+        if KV == cfg.num_kv_heads:  # KV whole: the KV heads of this rank's queries
+            heads = range(idx * H, (idx + 1) * H)
+            sel = _kv_heads(heads, cfg.num_heads // cfg.num_kv_heads)
+            for name in ("wk", "wv", "bk", "bv"):
+                if name in ap:
+                    leaf = copy_to_model(ap[name], group, n)
+                    dim = 1 if name[0] == "w" else 0
+                    ap[name] = (leaf.narrow(dim, sel.start, len(sel)) if isinstance(sel, range)
+                                else leaf.index_select(dim, sel.to(leaf.device)))
+            KV = len(sel)
+    q = matmul_f32(x, ap["wq"].flatten(1).to(dt)).to(dt).view(B, S, H, hd)
+    k = matmul_f32(x, ap["wk"].flatten(1).to(dt)).to(dt).view(B, S, KV, hd)
+    v = matmul_f32(x, ap["wv"].flatten(1).to(dt)).to(dt).view(B, S, KV, hd)
+    if "bq" in ap:
+        q = q + ap["bq"].to(dt)
+        k = k + ap["bk"].to(dt)
+        v = v + ap["bv"].to(dt)
+    if "q_norm" in ap:
+        q = rmsnorm(q, ap["q_norm"]["scale"], cfg.norm_eps)
+        k = rmsnorm(k, ap["k_norm"]["scale"], cfg.norm_eps)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     # the kernel reads the compact K/V through h // G: no GQA repeat
     window = cfg.window if kind == "local" else 0
-    out = causal_attention(q, k, v, opts.attn_impl, window)
-    proj = out.reshape(B, S, H * hd) @ aparams["wo"].flatten(0, 1).to(dt)
-    return proj, (k, v)
+    out = causal_attention(q, k, v, opts.attn_impl, window).reshape(B, S, H * hd)
+    wo = ap["wo"].flatten(0, 1).to(dt)
+    if group is None:
+        return out @ wo, (k, v)
+    return sum_over_model(matmul_f32(out, wo), group, n).to(dt), (k, v)
+
+
+def _kv_heads(heads: range, G: int):
+    """The KV heads that query ``heads`` read (head h reads h // G), as this
+    rank's compact K/V: a range where the local heads read them in the
+    kernel's h // (local G) order, else one KV head per query head (a
+    tensor of indices)."""
+    kv = [h // G for h in heads]
+    lo, n_kv = kv[0], kv[-1] - kv[0] + 1
+    g = len(kv) // n_kv
+    if len(kv) % n_kv == 0 and kv == [lo + i // g for i in range(len(kv))]:
+        return range(lo, lo + n_kv)
+    return torch.tensor(kv)
 
 
 def _pack_kv_cache(k, v, kind: str, cfg: ArchConfig, max_len: int) -> dict:
@@ -407,7 +478,10 @@ def ffn_block(lparams, cfg: ArchConfig, spec: LayerSpec, x, opts: ModelOptions):
         return x + (out if seq else out[:, 0]), aux
     if spec.d_ff > 0:
         h2 = rmsnorm(x, lparams["norm2"]["scale"], cfg.norm_eps)
-        x = x + mlp_apply(lparams["mlp"], h2, cfg.act, cfg.gated_mlp)
+        group, n, _ = model_group()
+        if lparams["mlp"]["w_up"].shape[-1] == spec.d_ff:  # ff not split: whole
+            group, n = None, 1
+        x = x + mlp_apply(lparams["mlp"], h2, cfg.act, cfg.gated_mlp, group, n)
     return x, None
 
 
@@ -448,7 +522,7 @@ def _run_seq(params, cfg: ArchConfig, tokens, frontend_embeds,
     x, aux_total = run(params["prefix"], plan.prefix, "prefix", x, aux_total)
     for group in _unstack(params["main"], plan.num_groups):
         if remat:  # the reference's jax.checkpoint around its scan body
-            x, aux_total = checkpoint(run, group, plan.pattern, "main", x,
+            x, aux_total = checkpoint(rebind(run), group, plan.pattern, "main", x,
                                       aux_total, use_reentrant=False)
         else:
             x, aux_total = run(group, plan.pattern, "main", x, aux_total)
@@ -642,6 +716,39 @@ def decode_step(params, cfg: ArchConfig, cache, tokens,
 # --------------------------------------------------------------------- loss
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """The summed f32 cross-entropy of rows whose vocab columns are split
+    over a model group: logits (T, V_local) from column ``offset`` on,
+    labels (T,) (negative: masked, no loss and no gradient).  The row max
+    and the sum of exponentials are taken over the group in rank order, and
+    the label's logit comes from the one rank that holds it; every rank
+    returns the same bits.  Backward: softmax minus one-hot on the local
+    columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group, n, offset):
+        V = logits.shape[1]
+        m = ordered_max(logits.amax(dim=1), group, n)
+        s = ordered_sum(torch.exp(logits - m[:, None]).sum(dim=1), group, n)
+        local = labels - offset
+        own = (local >= 0) & (local < V)
+        local = torch.where(own, local, 0)
+        picked = torch.where(own, logits.gather(1, local[:, None])[:, 0], 0.0)
+        picked = ordered_sum(picked, group, n)
+        mask = labels >= 0
+        nll = torch.where(mask, torch.log(s) + m - picked, 0.0).sum()
+        ctx.save_for_backward(logits, m, s, local, own & mask, mask)
+        return nll
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, m, s, local, hit, mask = ctx.saved_tensors
+        p = torch.exp(logits - m[:, None]) / s[:, None]
+        rows = torch.arange(p.shape[0], device=p.device)
+        p[rows, local] -= hit.to(p.dtype)
+        return p * (mask[:, None] * grad), None, None, None, None
+
+
 def loss_fn(params, cfg: ArchConfig, batch: dict,
             opts: ModelOptions = ModelOptions(), remat: bool = True):
     """batch: tokens (B,S), labels (B,S) with negative labels masked.
@@ -658,11 +765,16 @@ def loss_fn(params, cfg: ArchConfig, batch: dict,
         logits = logits[:, cfg.frontend_len:]
     labels = batch["labels"].long()
     mask = labels >= 0
-    # log-softmax and the label's entry in one call, summed over unmasked
-    # tokens (the ignored ones give exactly 0 and no gradient)
-    nll = F.cross_entropy(logits.flatten(0, 1),
-                          labels.masked_fill(~mask, -100).flatten(),
-                          ignore_index=-100, reduction="sum")
+    group, n, offset = _vocab_group(cfg, logits.shape[-1])
+    if group is None:
+        # log-softmax and the label's entry in one call, summed over
+        # unmasked tokens (the ignored ones give exactly 0 and no gradient)
+        nll = F.cross_entropy(logits.flatten(0, 1),
+                              labels.masked_fill(~mask, -100).flatten(),
+                              ignore_index=-100, reduction="sum")
+    else:
+        nll = _VocabParallelNLL.apply(logits.flatten(0, 1), labels.flatten(),
+                                      group, n, offset)
     count = mask.sum().float()
     group, n = loss_group()
     if group is None:

@@ -1,13 +1,29 @@
 """Collectives of the mesh train step over ``torch.distributed`` groups.
 
-Every sum over ranks is taken in rank order from gathered copies, as the
-platform's collective (``allreduce_mean``) sums its contributions, so a
-rerun gives the same bits whatever the transport's reduction order.  A
-group is ``None`` where one rank makes it up: then nothing is sent and
+Every sum over ranks adds the ranks' contributions in rank order, as the
+platform's collective (``allreduce_mean``) sums them, so a rerun gives the
+same bits whatever the transport's reduction order.  ``ordered_sum`` does
+it in two steps that move 2 (n - 1) / n of the tensor to each rank: an
+all-to-all of n blocks, after which each rank adds its block of every
+rank's copy in rank order (``ordered_reduce_scatter``, the half the
+gradient mean keeps), and an all-gather of the summed blocks.  Each element
+is added in the same order as a gather of the n copies followed by their
+sum in rank order, so the bits are those.  ``ordered_max`` takes the
+elementwise max of the gathered copies.
+
+``copy_to_model`` and ``sum_over_model`` are the two conjugate operators of
+tensor-parallel blocks (Megatron-LM's f and g): the identity forward with
+a rank-ordered sum backward at a block's input, and a rank-ordered sum
+forward with the identity backward after its row-parallel product.
+
+A group is ``None`` where one rank makes it up: then nothing is sent and
 nothing is copied.  A group of an abstract mesh (``launch.mesh.
-AbstractGroup``) sends nothing either: a gather over it returns a fake
-tensor of the gathered shape and records the bytes this rank would receive
-with the op counters (``launch.op_analysis``).
+AbstractGroup``) sends nothing either: a collective over it returns a fake
+tensor of the result's shape.  Over either kind of group each collective
+reports the bytes this rank receives to the op counters that are counting
+(``launch.op_analysis.record_collective``), under its own kind and the
+group's mesh axes: ``all_gather``, ``ordered_sum``,
+``ordered_reduce_scatter``, ``ordered_max``.
 """
 
 from __future__ import annotations
@@ -16,6 +32,7 @@ import functools
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from ..launch.mesh import AbstractGroup
 from ..launch.op_analysis import record_collective
@@ -33,12 +50,19 @@ def group_size(group) -> int:
     return group.size if isinstance(group, AbstractGroup) else dist.get_world_size(group)
 
 
-def gather_stack(x: torch.Tensor, group, n: int) -> torch.Tensor:
-    """(n, *x.shape): every rank's ``x``, in rank order."""
-    if group is None:
-        return x[None]
+def _record(kind: str, group, n: int, nbytes: int) -> None:
+    """Report ``nbytes`` received by this rank over ``group``: its mesh axes
+    are an abstract group's own, or the process group's description, which
+    ``launch.mesh.Mesh`` sets to them."""
+    axes = group.axes if isinstance(group, AbstractGroup) else tuple(
+        group.group_desc.split(","))
+    record_collective(kind, axes, n, nbytes)
+
+
+def _gather(x: torch.Tensor, group, n: int, kind: str) -> torch.Tensor:
+    """(n, *x.shape): every rank's ``x``, in rank order (group not None)."""
+    _record(kind, group, n, (n - 1) * x.numel() * x.element_size())
     if isinstance(group, AbstractGroup):  # the n - 1 other ranks' copies arrive
-        record_collective("all_gather", group.axes, n, (n - 1) * x.numel() * x.element_size())
         return x.detach().new_empty((n, *x.shape))
     out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
     with torch.no_grad():
@@ -46,11 +70,73 @@ def gather_stack(x: torch.Tensor, group, n: int) -> torch.Tensor:
     return out.view(n, *x.shape)
 
 
+def gather_stack(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """(n, *x.shape): every rank's ``x``, in rank order."""
+    if group is None:
+        return x[None]
+    return _gather(x, group, n, "all_gather")
+
+
+def _blocks(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` flattened and zero-padded to n equal blocks: (n, m)."""
+    flat = x.detach().reshape(-1)
+    m = -(-flat.numel() // n)
+    if m * n != flat.numel():
+        flat = F.pad(flat, (0, m * n - flat.numel()))
+    return flat.view(n, m)
+
+
+def _all_to_all(send: torch.Tensor, group) -> torch.Tensor:
+    """(n, m) -> (n, m): row j of the result is row ``index`` of rank j's
+    ``send``."""
+    recv = torch.empty_like(send)
+    with torch.no_grad():
+        dist.all_to_all_single(recv, send.contiguous(), group=group)
+    return recv
+
+
+def _reduce_scatter_rows(rows: torch.Tensor, group, n: int, kind: str) -> torch.Tensor:
+    """Row ``index`` of the rank-ordered sum of every rank's ``rows`` (n, m),
+    added in rank order: (m,)."""
+    m = rows.shape[1]
+    _record(kind, group, n, (n - 1) * m * rows.element_size())
+    if isinstance(group, AbstractGroup):
+        return rows.new_empty((m,))
+    return functools.reduce(torch.add, _all_to_all(rows, group).unbind(0))
+
+
+def ordered_reduce_scatter(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """This rank's block of the rank-ordered sum of every rank's ``x``:
+    ``x`` flattened and zero-padded to n equal blocks, block ``index`` of
+    the sum, (ceil(numel / n),).  A rank receives (n - 1) / n of ``x``."""
+    if group is None:
+        return x.reshape(-1)
+    return _reduce_scatter_rows(_blocks(x, n), group, n, "ordered_reduce_scatter")
+
+
 def ordered_sum(x: torch.Tensor, group, n: int) -> torch.Tensor:
-    """The sum of every rank's ``x``, added in rank order."""
+    """The sum of every rank's ``x``, added in rank order: a reduce-scatter
+    of n blocks and an all-gather of the sums, 2 (n - 1) / n of ``x`` to
+    each rank."""
     if group is None:
         return x
-    return functools.reduce(torch.add, gather_stack(x, group, n).unbind(0))
+    rows = _blocks(x, n)
+    m = rows.shape[1]
+    part = _reduce_scatter_rows(rows, group, n, "ordered_sum")
+    _record("ordered_sum", group, n, (n - 1) * m * rows.element_size())
+    if isinstance(group, AbstractGroup):
+        return x.detach().new_empty(x.shape)
+    out = torch.empty(n * m, dtype=x.dtype, device=x.device)
+    with torch.no_grad():
+        _all_gather(out, part, group=group)
+    return out[:x.numel()].view(x.shape)
+
+
+def ordered_max(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The elementwise max of every rank's ``x``, taken in rank order."""
+    if group is None:
+        return x
+    return functools.reduce(torch.maximum, _gather(x, group, n, "ordered_max").unbind(0))
 
 
 class _OrderedSum(torch.autograd.Function):
@@ -70,6 +156,46 @@ class _OrderedSum(torch.autograd.Function):
 def sum_over(x: torch.Tensor, group, n: int) -> torch.Tensor:
     """``ordered_sum`` through which gradients flow."""
     return x if group is None else _OrderedSum.apply(x, group, n)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity; backward, the rank-ordered sum of the ranks'
+    gradients (each rank's columns of a block read the same input)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ordered_sum(grad.contiguous(), ctx.group, ctx.n), None, None
+
+
+class _SumOverModel(torch.autograd.Function):
+    """The rank-ordered sum of the ranks' partial results; backward, the
+    identity (every rank's loss is the whole loss, computed alike)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        return ordered_sum(x.detach(), group, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def copy_to_model(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """A tensor-parallel block's input (or a replicated leaf it reads): the
+    identity, whose gradient is summed over the model group in rank
+    order."""
+    return x if group is None else _CopyToModel.apply(x, group, n)
+
+
+def sum_over_model(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The model group's partial results summed in rank order, with the
+    identity for gradient."""
+    return x if group is None else _SumOverModel.apply(x, group, n)
 
 
 def gather_leaf(shard: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:

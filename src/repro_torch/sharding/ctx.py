@@ -2,14 +2,22 @@
 
 Model code may annotate activations with *logical* axis names through
 ``shard(x, axes)``; the train step binds logical names to mesh axes with
-``use_rules``.  The port's tensors are rank-local (each rank computes on
-its own rows with whole parameters), so there is no layout constraint to
-apply and ``shard`` is the identity.  What the binding does carry is the
-mesh's process groups: the loss terms that the reference takes over the
-global batch (the cross-entropy's token count, the MoE load-balance
-fractions) read the group of ranks that share one loss through
-``loss_group``.  Outside a binding (unit tests, one device) nothing
-changes.
+``use_rules``.  Where the reference lets XLA lay activations out by those
+names, the port's model code computes on what each rank holds, so
+``shard`` is the identity and the binding carries what that code reads:
+
+- ``loss_group``: the ranks that share one loss (its rows split over the
+  batch axes), whose terms the reference takes over the global batch (the
+  cross-entropy's token count, the MoE load-balance fractions);
+- ``model_group``: the tensor-parallel group, the mesh axis that the rules
+  map ``heads``, ``ff`` and ``vocab`` to.  Dense attention (heads), dense
+  MLPs (ff), the embedding and the head (vocab) run on the local leaves of
+  that axis where the partition splits them (``models.lm``,
+  ``models.layers``): column-parallel products in, row-parallel out,
+  summed over the group in rank order.  Experts, the RG-LRU, mLSTM and
+  sLSTM widths run whole on every rank of the group.
+
+Outside a binding (unit tests, one device, serving) nothing changes.
 
 Rule sets are plain dicts: logical name -> mesh axis (str), tuple of mesh
 axes, or None.  Unknown names map to None (replicated).
@@ -25,32 +33,75 @@ from typing import Optional
 _state = threading.local()
 
 
+TP_NAMES = ("heads", "ff", "vocab")
+
+
 @dataclass(frozen=True)
 class Binding:
     mesh: object  # a ``repro_torch.launch.mesh.Mesh``
     rules: dict
     batch_axes: tuple  # the mesh axes whose ranks' rows make up one loss
+    model_axis: Optional[str]  # the tensor-parallel axis, or None
 
 
 def current() -> Optional[Binding]:
     return getattr(_state, "binding", None)
 
 
+def _rule_batch_axes(rules: dict, mesh) -> tuple:
+    """The axes ``rules["batch"]`` names that the mesh has."""
+    batch = rules.get("batch") or ()
+    batch = batch if isinstance(batch, tuple) else (batch,)
+    return tuple(a for a in batch if a in mesh.axis_names)
+
+
+def tensor_axis(rules: dict, mesh, batch_axes: Optional[tuple] = None) -> Optional[str]:
+    """The tensor-parallel axis that ``use_rules(mesh, rules, batch_axes)``
+    binds: the mesh axis that ``rules`` map ``heads``, ``ff`` and ``vocab``
+    to, where they all name one axis of more than one rank that splits no
+    batch (neither ``batch_axes`` nor ``rules["batch"]``); else None."""
+    names = {rules.get(k) for k in TP_NAMES}
+    axis = names.pop() if len(names) == 1 else None
+    batch = _rule_batch_axes(rules, mesh) + tuple(batch_axes or ())
+    if (not isinstance(axis, str) or axis not in mesh.axis_names or axis in batch
+            or mesh.shape[axis] == 1):
+        return None
+    return axis
+
+
 @contextmanager
 def use_rules(mesh, rules: dict, batch_axes: Optional[tuple] = None):
     """Bind ``rules`` on ``mesh`` for the calls inside.  ``batch_axes``:
     the mesh axes over which one loss's rows are split (by default the
-    axes ``rules["batch"]`` names that the mesh has)."""
+    axes ``rules["batch"]`` names that the mesh has).  The tensor-parallel
+    axis is ``tensor_axis(rules, mesh, batch_axes)``."""
+    model_axis = tensor_axis(rules, mesh, batch_axes)
     if batch_axes is None:
-        batch = rules.get("batch") or ()
-        batch = batch if isinstance(batch, tuple) else (batch,)
-        batch_axes = tuple(a for a in batch if a in mesh.axis_names)
+        batch_axes = _rule_batch_axes(rules, mesh)
     prev = current()
-    _state.binding = Binding(mesh, dict(rules), tuple(batch_axes))
+    _state.binding = Binding(mesh, dict(rules), tuple(batch_axes), model_axis)
     try:
         yield
     finally:
         _state.binding = prev
+
+
+def rebind(fn):
+    """``fn`` that runs under the binding current now, on whatever thread
+    calls it.  A rematerialised block's forward reruns in the backward
+    pass, and on the card autograd runs that on its own device thread,
+    which a thread-local binding does not reach."""
+    binding = current()
+
+    def call(*args, **kwargs):
+        prev = current()
+        _state.binding = binding
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _state.binding = prev
+
+    return call
 
 
 def loss_group() -> tuple:
@@ -64,13 +115,24 @@ def loss_group() -> tuple:
     return (b.mesh.group(b.batch_axes) if n > 1 else None), n
 
 
+def model_group() -> tuple:
+    """(process group, rank count, this rank's index) of the bound
+    tensor-parallel axis; (None, 1, 0) outside a binding or without one."""
+    b = current()
+    if b is None or b.model_axis is None:
+        return None, 1, 0
+    axes = (b.model_axis,)
+    return b.mesh.group(axes), b.mesh.size(axes), b.mesh.index(axes)
+
+
 def resolve(axes: tuple, rules: dict) -> tuple:
     return tuple(None if a is None else rules.get(a) for a in axes)
 
 
 def shard(x, axes: tuple):
-    """The identity: the port's tensors are rank-local, so a logical
-    layout has nothing to constrain (``axes`` is documentation)."""
+    """The identity: the port's model code computes on each rank's own
+    rows and local leaves, so a logical layout has nothing to constrain
+    (``axes`` is documentation)."""
     return x
 
 

@@ -158,12 +158,28 @@ def mesh_sizes(mesh) -> Mapping[str, int]:
     return mesh if isinstance(mesh, Mapping) else mesh.shape
 
 
+def map_specs(fn, params, mesh, rules: dict = PARAM_RULES):
+    """A tree like ``params`` (leaves need only a ``shape``) holding
+    ``fn(names, spec)`` for every leaf: its path's dict keys and the spec
+    ``param_specs`` gives it."""
+    sizes = mesh_sizes(mesh)
+    return _map_with_names(
+        lambda names, leaf: fn(names, fit_spec(
+            logical_to_spec(_axes_of(names, leaf), rules), tuple(leaf.shape), sizes)),
+        params)
+
+
+def tensor_parallel(names: list) -> bool:
+    """Whether the model computes on a leaf's local block where its
+    ``heads``, ``ff`` or ``vocab`` dim is split over the tensor axis
+    (``sharding.ctx.model_group``): dense attention, dense MLPs, the
+    embedding table and the head.  The other leaves split over it (experts,
+    the RG-LRU, mLSTM and sLSTM widths) are gathered whole for compute."""
+    return ("attn" in names or "mlp" in names
+            or names[-2:] in (["embed", "table"], ["head", "w"]))
+
+
 def param_specs(params, mesh, rules: dict = PARAM_RULES):
     """Tree of spec tuples for a parameter tree (leaves need only a
     ``shape``), on a mesh or a mapping of axis sizes."""
-    sizes = mesh_sizes(mesh)
-    return _map_with_names(
-        lambda names, leaf: fit_spec(
-            logical_to_spec(_axes_of(names, leaf), rules), tuple(leaf.shape), sizes),
-        params)
-
+    return map_specs(lambda _names, spec: spec, params, mesh, rules)

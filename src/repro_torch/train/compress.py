@@ -19,13 +19,17 @@ from __future__ import annotations
 import torch
 
 from ..convert import map_params, zip_params
-from ..sharding.collectives import gather_stack, group_size
+from ..sharding.collectives import gather_stack, group_size, ordered_max
 
 
-def quantize_int8(g: torch.Tensor):
-    """Symmetric per-tensor int8.  Returns (q int8, scale f32 scalar)."""
+def quantize_int8(g: torch.Tensor, amax=None):
+    """Symmetric per-tensor int8.  Returns (q int8, scale f32 scalar).
+    ``amax``: the tensor's largest magnitude, where ``g`` is a block of it
+    (by default ``g``'s own)."""
     g32 = g.float()
-    scale = torch.clamp(g32.abs().max(), min=1e-12) / 127.0
+    if amax is None:
+        amax = g32.abs().max()
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -51,17 +55,26 @@ def _map_pairs(fn, a, b):
     return firsts, zip_params(lambda _x, _y: next(it), a, b)
 
 
-def compressed_mean_over_axis(grads, ef, group):
+def compressed_mean_over_axis(grads, ef, group, splits=None):
     """The EF-compressed mean over the pods of ``group`` (None for one
     pod): grads/ef are matching trees of this pod's values.  Each leaf
-    is corrected by its buffer and quantized whole; the int8 payloads and
-    the scales are all-gathered and the mean is taken locally in pod order.
-    Returns (mean grads f32, new ef)."""
+    is corrected by its buffer and quantized; the int8 payloads and the
+    scales are all-gathered and the mean is taken locally in pod order.
+    ``splits``, if given: per leaf (in ``leaves`` order) the (group, n)
+    pairs over which this pod's ranks hold blocks of it, over which the
+    largest magnitude is taken, so that each block takes the whole leaf's
+    scale.  Returns (mean grads f32, new ef)."""
     n = group_size(group)
+    splits = iter(splits) if splits is not None else None
 
     def one(g, e):
         corrected = g.float() + e
-        q, scale = quantize_int8(corrected)
+        amax = None
+        if splits is not None:
+            amax = corrected.abs().max()
+            for split_group, k in next(splits):
+                amax = ordered_max(amax, split_group, k)
+        q, scale = quantize_int8(corrected, amax)
         new_e = corrected - q.float() * scale
         qs = gather_stack(q, group, n)  # int8 on the wire
         ss = gather_stack(scale.reshape(1), group, n)

@@ -52,10 +52,12 @@ def global_norm(tree) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
-def clip_by_global_norm(grads, clip: float):
-    """Scale ``grads`` in place so their global norm is at most ``clip``.
-    Returns (grads, the norm before clipping)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, clip: float, norm=None):
+    """Scale ``grads`` in place so their global norm (``norm``, by default
+    ``global_norm(grads)``) is at most ``clip``.  Returns (grads, the norm
+    before clipping)."""
+    if norm is None:
+        norm = global_norm(grads)
     factor = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
     with torch.no_grad():
         for g in leaves(grads):

@@ -13,20 +13,29 @@ the CPU, so the update's step-dependent scalars need no device sync; with
 ``compress_pod_grads`` also ``ef``, the error-feedback buffers.
 
 On a mesh (``repro_torch.launch.mesh``, axes ``pod``, ``data``,
-``model``) the step is data-parallel over ``pod`` x ``data``.  Every
-parameter, moment and EF buffer is held at rest as this rank's shard
-(``train_state_specs``: the reference's partition, dims the mesh axes do
-not divide left whole).  ``step(state, global_batch)`` takes this rank's
-rows (``batch_sharding``), gathers each leaf whole, computes the gradients
-on its rows, and takes their mean over the batch ranks in rank order; it
-clips on the whole tree and applies AdamW to the shard.  Compute within a
-``model`` group is replicated: tensor-parallel compute is not ported.  The
-loss is the global batch's (``sharding.ctx.loss_group``).  The compressed
-variant takes each pod's gradient (the mean over its data ranks, the loss
-over its rows, as the reference's per-pod ``vmap``), adds the pod's EF
-buffer and combines the pods in int8 (``train.compress``).  Where one rank
-holds every leaf whole, the step copies nothing: no gather buffer and no
-second parameter tree.
+``model``) the step is data-parallel over ``pod`` x ``data`` and
+tensor-parallel over ``model``.  Every parameter, moment and EF buffer is
+held at rest as this rank's shard (``train_state_specs``: the reference's
+partition, dims the mesh axes do not divide left whole).  ``step(state,
+global_batch)`` takes this rank's rows (``batch_sharding``) and gathers
+each leaf over the batch axes (``data``, from ``embed_p``).  Leaves of
+dense attention, dense MLPs, the embedding and the head stay split over
+``model``: the model computes on them as column- and row-parallel blocks
+and a vocab-parallel cross-entropy (``sharding.ctx.model_group``); the
+other leaves split over ``model`` (experts, the RG-LRU, mLSTM and sLSTM
+widths) are gathered whole, and their compute is replicated within a
+``model`` group.  The gradient mean over the batch ranks is a
+reduce-scatter whose sums run in rank order (``_mean_block``): each rank
+keeps its own block.  The step clips by the global norm over the blocks
+(each leaf's squares summed over the ranks that split it, once for a
+replicated leaf) and applies AdamW to the block.  The loss is the global
+batch's (``sharding.ctx.loss_group``).  The compressed variant takes each
+pod's gradient (the mean over its data ranks, the loss over its rows, as
+the reference's per-pod ``vmap``), adds the pod's EF buffer block and
+combines the pods in int8 (``train.compress``), each block at its whole
+leaf's scale.  Where one rank holds every leaf whole, the step copies
+nothing: no gather buffer and no second parameter tree, and it computes
+what the one-device step computes, bit for bit.
 """
 
 from __future__ import annotations
@@ -40,9 +49,21 @@ from ..configs.base import ArchConfig
 from ..convert import map_params, zip_params
 from ..launch.mesh import BATCH_AXES
 from ..models.lm import ModelOptions, init_params, loss_fn
-from ..sharding.collectives import gather_leaf, local_block, ordered_sum
-from ..sharding.ctx import use_rules
-from ..sharding.specs import PARAM_RULES, param_specs, spec_axes
+from ..sharding.collectives import (
+    gather_leaf,
+    gather_stack,
+    local_block,
+    ordered_reduce_scatter,
+    ordered_sum,
+)
+from ..sharding.ctx import tensor_axis, use_rules
+from ..sharding.specs import (
+    PARAM_RULES,
+    map_specs,
+    param_specs,
+    spec_axes,
+    tensor_parallel,
+)
 from .compress import compressed_mean_over_axis, init_ef_state
 from .optim import (
     OptimizerConfig,
@@ -220,11 +241,83 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig(),
     return step
 
 
+@dataclass(frozen=True)
+class _LeafPlan:
+    """How the mesh step moves one leaf: ``gather``, the spec it is
+    gathered over for compute (every split dim but those that
+    tensor-parallel compute keeps local), and ``split``, the mesh axes of
+    more than one rank that split it at rest, in the mesh's order."""
+
+    gather: tuple
+    split: tuple
+
+
+def _leaf_plans(cfg, mesh, param_rules, tp):
+    """A tree of ``_LeafPlan`` like the parameters, for tensor-parallel
+    compute over ``tp`` (None: none)."""
+    def plan(names, spec):
+        local = tp is not None and tensor_parallel(names)
+        axes = {a for part in spec for a in spec_axes(part) if mesh.shape[a] > 1}
+        return _LeafPlan(tuple(None if local and part == tp else part for part in spec),
+                         tuple(a for a in mesh.axis_names if a in axes))
+    return map_specs(plan, abstract_train_state(cfg)["params"], mesh,
+                     mesh_rules(mesh, param_rules))
+
+
+def _mean_block(g, spec, mesh, loss_axes, group, n):
+    """This rank's block (by ``spec``) of the mean of every loss rank's
+    ``g``, summed in rank order.  A dim split over the loss group's minor
+    axis (``data``) is reduce-scattered, each rank keeping its own block
+    (and its major axis's ranks, ``pod``, sharing theirs by an
+    all-gather); the sum is taken whole where the spec splits otherwise."""
+    if group is None:
+        return local_block(g, spec, mesh)
+    dims = [d for d, part in enumerate(spec) if set(spec_axes(part)) & set(loss_axes)]
+    axis, major = loss_axes[-1], loss_axes[:-1]
+    if len(dims) != 1 or spec_axes(spec[dims[0]]) != (axis,) or len(major) > 1:
+        return local_block(ordered_sum(g, group, n) / n, spec, mesh)
+    k = dims[0]
+    n_a = mesh.shape[axis]
+    n_o = n // n_a
+    y = g.movedim(k, 0)
+    block_shape = (y.shape[0] // n_a, *y.shape[1:])
+    R = g.numel() // n_a
+    m = -(-R // n_o)
+    rows = y.reshape(n_a, R)
+    if m * n_o != R:
+        rows = torch.nn.functional.pad(rows, (0, m * n_o - R))
+    # group rank o * n_a + a keeps piece o of block a
+    piece = ordered_reduce_scatter(rows.view(n_a, n_o, m).transpose(0, 1).reshape(n, m),
+                                   group, n)
+    if n_o > 1:
+        piece = gather_stack(piece, mesh.group(major), n_o).reshape(-1)
+    block = (piece[:R].view(block_shape) / n).movedim(0, k)
+    rest = tuple(None if d == k else part for d, part in enumerate(spec))
+    return local_block(block, rest, mesh)
+
+
+def _sharded_norm(grads, plan: list, mesh) -> torch.Tensor:
+    """The global norm of gradients held as blocks: each leaf's squares
+    summed over the axes that split it (one rank-ordered sum per axis, in
+    the mesh's order, for all leaves split alike), a leaf that is
+    replicated counted once; every rank gets the same bits."""
+    sq = [torch.linalg.vector_norm(g.float()).square() for g in leaves(grads)]
+    by_split = {}
+    for i, q in enumerate(plan):
+        if q.split:
+            by_split.setdefault(q.split, []).append(i)
+    for axes, idx in by_split.items():
+        v = torch.stack([sq[i] for i in idx])
+        for a in axes:
+            v = ordered_sum(v, mesh.group((a,)), mesh.shape[a])
+        for j, i in enumerate(idx):
+            sq[i] = v[j]
+    return torch.sqrt(sum(sq))
+
+
 def _mesh_step(cfg, tcfg, opts, mesh, act_rules, param_rules, batch_axes):
     ocfg = tcfg.optimizer
     compress = tcfg.compress_pod_grads
-    specs = param_specs(abstract_train_state(cfg)["params"], mesh,
-                        mesh_rules(mesh, param_rules))
     batch_axes = tuple(a for a in batch_axes if a in mesh.axis_names)
     # the ranks whose rows make up one loss: the batch's, or a pod's
     loss_axes = tuple(a for a in batch_axes if a != "pod") if compress else batch_axes
@@ -232,41 +325,47 @@ def _mesh_step(cfg, tcfg, opts, mesh, act_rules, param_rules, batch_axes):
     if n_loss > 1 and loss_group is None:
         raise ValueError(f"the mesh has no group over {loss_axes}")
     pod_group, n_pods = mesh.group(("pod",)), mesh.shape.get("pod", 1)
+    tp = tensor_axis(act_rules, mesh, loss_axes)
+    plans = _leaf_plans(cfg, mesh, param_rules, tp)
     # as the reference, the compressed step takes each pod's gradient in
     # one pass (its accum_steps is not read)
     accum = 1 if compress else tcfg.accum_steps
 
     def step(state, batch):
         params = state["params"]
+        plan = leaves(zip_params(lambda _p, q: q, params, plans))  # in params' order
         batch = batch_sharding(mesh, batch, batch_axes, accum)
-        full = zip_params(lambda p, s: gather_leaf(p, s, mesh), params, specs)
+        full = zip_params(lambda p, q: gather_leaf(p, q.gather, mesh), params, plans)
         for p in leaves(full):
             p.requires_grad_(True)
             p.grad = None
         with use_rules(mesh, act_rules, batch_axes=loss_axes):
             grads, loss, metrics = _grads_and_metrics(
                 full, batch, cfg, opts, tcfg.remat, accum)
-        grads = map_params(lambda _k, g: _mean(g, loss_group, n_loss), grads)
+        grads = zip_params(lambda g, q: _mean_block(g, q.gather, mesh, loss_axes,
+                                                    loss_group, n_loss), grads, plans)
         loss = _mean(loss, loss_group, n_loss)
         metrics = {k: _mean(v, loss_group, n_loss) for k, v in metrics.items()}
         if compress:
-            # this pod's EF buffers, gathered whole within the pod
-            ef = zip_params(lambda e, s: gather_leaf(e, (None,) + s, mesh)[0],
-                            state["ef"], specs)
-            grads, new_ef = compressed_mean_over_axis(grads, ef, pod_group)
+            # this pod's EF buffers, this rank's blocks of them
+            ef = map_params(lambda _k, e: e[0], state["ef"])
+            # each block's scale is the whole leaf's: the max over the ranks
+            # that split it within the pod
+            grads, new_ef = compressed_mean_over_axis(grads, ef, pod_group, [
+                [(mesh.group((a,)), mesh.shape[a]) for a in q.split if a != "pod"]
+                for q in plan])
             del ef
-            state["ef"] = zip_params(
-                lambda ne, s: _own(local_block(ne, s, mesh), ne)[None], new_ef, specs)
+            state["ef"] = map_params(lambda _k, e: e[None], new_ef)
             del new_ef
             loss = _mean(loss, pod_group, n_pods)
             zero = torch.zeros((), device=loss.device)
             metrics = {"ce_loss": loss, "aux_loss": zero, "tokens": zero}
-        grads, gnorm = clip_by_global_norm(grads, ocfg.clip_norm)
-        local = zip_params(lambda g, s: local_block(g, s, mesh), grads, specs)
-        adamw_update(ocfg, params, local, state["opt"], state["step"])
+        grads, gnorm = clip_by_global_norm(grads, ocfg.clip_norm,
+                                           norm=_sharded_norm(grads, plan, mesh))
+        adamw_update(ocfg, params, grads, state["opt"], state["step"])
         for p in leaves(full):  # free the gradients and the gathered copies
             p.grad = None
-        del full, grads, local
+        del full, grads
         state["step"] += 1
         return state, {"loss": loss, "grad_norm": gnorm, **metrics}
 

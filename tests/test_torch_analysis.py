@@ -36,7 +36,6 @@ from repro.models import ModelOptions as JaxModelOptions
 from repro.models import forward as jax_forward
 from repro.models import init_params as jax_init_params
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, reduced_config, shape_applicable
-from repro_torch.convert import zip_params
 from repro_torch.data import batch_specs
 from repro_torch.kernels import (decode_attention, flash_attention, flash_attention_bwd,
                                  mlstm_chunk, mlstm_chunk_bwd, paged_decode_attention,
@@ -47,8 +46,9 @@ from repro_torch.launch.op_analysis import count
 from repro_torch.launch.roofline import roofline_terms
 from repro_torch.models import ModelOptions, forward, init_params
 from repro_torch.sharding import activation_rules
-from repro_torch.sharding.specs import param_specs, spec_axes
+from repro_torch.sharding.specs import map_specs, spec_axes, tensor_parallel
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
+from repro_torch.train.optim import leaves
 from repro_torch.train.step import mesh_rules
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -171,10 +171,10 @@ def test_roofline_terms_and_dominant():
 
 
 def _gather_bytes(nbytes: int, spec: tuple, mesh) -> dict:
-    """Bytes this rank receives gathering a leaf of ``nbytes`` whole from
-    its shard, by key: a dim split over (a, b) gathers over b, then a."""
-    got = {}
-    size = nbytes // math.prod(mesh.size(spec_axes(part)) for part in spec)
+    """Bytes this rank receives gathering a leaf from its shard of
+    ``nbytes`` over ``spec``'s axes, by key: a dim split over (a, b)
+    gathers over b, then a."""
+    got, size = {}, nbytes
     for part in spec:
         for axis in reversed(spec_axes(part)):
             n = mesh.shape[axis]
@@ -185,12 +185,21 @@ def _gather_bytes(nbytes: int, spec: tuple, mesh) -> dict:
     return got
 
 
-def test_abstract_mesh_train_step_collectives_follow_the_specs():
-    """Rank 0 of an abstract (2, 2, 2) mesh: each leaf gathered whole over
-    its spec's axes, then every gradient and the step's scalars gathered
-    from the 4 batch ranks for their sums in rank order."""
-    cfg = reduced_config("qwen3-14b")
-    mesh = abstract_mesh((2, 2, 2))
+def _sum_bytes(numel: int, n: int, es: int = 4) -> int:
+    """Bytes a rank receives in ``ordered_sum`` of ``numel`` elements over n
+    ranks: the all-to-all's and the all-gather's n - 1 blocks each."""
+    return 2 * (n - 1) * -(-numel // n) * es
+
+
+def _add(d: dict, key: str, v) -> None:
+    d[key] = d.get(key, 0) + v
+
+
+def _step_count(cfg, shape):
+    """Rank 0's kernel-mode count of one mesh train step (f32, no remat) of
+    8 x 32 tokens on an abstract mesh of ``shape``: (the step's metrics,
+    Totals, the whole parameters, the mesh)."""
+    mesh = abstract_mesh(shape)
     tcfg = TrainConfig(remat=False)
     fake = FakeTensorMode()
     with fake:
@@ -202,22 +211,93 @@ def test_abstract_mesh_train_step_collectives_follow_the_specs():
                            act_rules=activation_rules())
     with fake:
         (_, metrics), totals = count(step, state, batch)
-    specs = param_specs(whole, mesh, mesh_rules(mesh))
-    want, leaves = {}, []
+    return metrics, totals, whole, mesh
 
-    def add(p, s):
-        leaves.append(p)
-        for k, v in _gather_bytes(p.numel() * 4, s, mesh).items():
-            want[k] = want.get(k, 0) + v
-        return p
 
-    zip_params(add, whole, specs)
+def test_abstract_mesh_train_step_collectives_follow_the_specs():
+    """Rank 0 of an abstract (2, 2, 2) mesh, reduced qwen3-14b (heads, KV
+    heads, ff and vocab all split over model), byte for byte by key:
+
+    - ``all_gather/data``: each leaf gathered over ``data`` only (its
+      ``model`` block is what the tensor-parallel compute reads);
+    - ``ordered_reduce_scatter/pod,data`` and ``all_gather/pod``: each
+      gradient split over ``data`` reduce-scattered over the 4 batch ranks
+      into this rank's (pod's share of its) data block, then gathered
+      across the 2 pods; ``ordered_sum/pod,data`` the leaves not split over
+      ``data`` summed whole, and the step's scalars (the global token
+      count, the loss and each metric);
+    - ``ordered_sum/data`` and ``ordered_sum/model``: the global norm's
+      squares of the leaves split over each axis, one vector a split;
+    - ``ordered_sum/model``: the activations: the embedding's lookup
+      (forward), each attention and MLP block's input (backward) and output
+      (forward), the head's input (backward), the qk-norm scales' gradients
+      (backward), and the cross-entropy's sums of exponentials and label
+      logits; ``ordered_max/model`` its row maxima."""
+    cfg = reduced_config("qwen3-14b")
+    metrics, totals, whole, mesh = _step_count(cfg, (2, 2, 2))
+    want, split = {}, {}
+    n_model, n_data, n_pod = mesh.shape["model"], mesh.shape["data"], mesh.shape["pod"]
+
+    def add(names, p, s):
+        tp = tensor_parallel(names)
+        gspec = tuple(None if tp and part == "model" else part for part in s)
+        at_rest = p.numel() // math.prod(mesh.size(spec_axes(part)) for part in s)
+        for k, v in _gather_bytes(at_rest * 4, gspec, mesh).items():
+            _add(want, k, v)
+        numel = p.numel() // (n_model if "model" in s and tp else 1)  # the computed leaf
+        if "data" in gspec:
+            m = -(-numel // n_data // n_pod)
+            _add(want, "ordered_reduce_scatter/pod,data/g4", 3 * m * 4)
+            _add(want, "all_gather/pod/g2", (n_pod - 1) * m * 4)
+        else:
+            _add(want, "ordered_sum/pod,data/g4", _sum_bytes(numel, 4))
+        axes = tuple(a for a in ("data", "model") if a in s)
+        split[axes] = split.get(axes, 0) + 1
+
+    named = []
+    map_specs(lambda names, s: named.append((names, s)), whole, mesh, mesh_rules(mesh))
+    for (names, s), p in zip(named, leaves(whole)):
+        add(names, p, s)
+    for axes, k in split.items():
+        for a in axes:
+            _add(want, f"ordered_sum/{a}/g2", _sum_bytes(k, 2))
     # scalars: the global token count (loss_fn), the loss and each metric
     scalars = 2 + len([k for k in metrics if k not in ("loss", "grad_norm")])
-    batch_key = "all_gather/pod,data/g4"
-    want[batch_key] = want.get(batch_key, 0) + 3 * (sum(p.numel() for p in leaves) + scalars) * 4
+    _add(want, "ordered_sum/pod,data/g4", scalars * _sum_bytes(1, 4))
+    # activations over the model group: 8 x 32 rows over 4 batch ranks
+    T = 8 * 32 // 4
+    act = _sum_bytes(T * cfg.d_model, n_model)
+    L = cfg.num_layers
+    _add(want, "ordered_sum/model/g2", (1 + 4 * L + 1) * act
+         + 2 * L * _sum_bytes(cfg.head_dim, n_model) + 2 * _sum_bytes(T, n_model))
+    _add(want, "ordered_max/model/g2", (n_model - 1) * T * 4)
     assert totals.coll_by_key == pytest.approx(want)
     assert totals.coll_bytes == pytest.approx(sum(want.values()))
+
+
+def test_tensor_parallel_flops_drop_by_the_split_products():
+    """Rank 0's counted FLOPs of reduced qwen3-14b's step (8 x 32 tokens,
+    f32, no remat) on an abstract (1, 1, 4) mesh against (1, 1, 1): lower
+    by 3/4 of the MLP's and the head's products and of the query and
+    output projections, half the K/V projections (the 2 KV heads stay
+    whole, and a rank reads the one its query head maps to), each forward
+    product counted with its two backward ones; and by the flash kernels'
+    and the qk-norms' costs at 4 heads against 1."""
+    cfg = reduced_config("qwen3-14b")
+    _, one, _, _ = _step_count(cfg, (1, 1, 1))
+    _, tp, _, _ = _step_count(cfg, (1, 1, 4))
+    T, d, hd, L = 8 * 32, cfg.d_model, cfg.head_dim, cfg.num_layers
+    H, KV, ff, V = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff, cfg.padded_vocab
+    mm = 2 * T * d  # flops of a product of the tokens by one output column
+    saved = 3 * L * mm * (0.75 * (2 * H * hd + 3 * ff) + 0.5 * 2 * KV * hd) + 3 * mm * 0.75 * V
+    for h, kv, sign in ((H, KV, 1), (H // 4, 1, -1)):
+        saved += sign * L * (flash_attention.cost(8, 32, h, kv, hd, torch.float32,
+                                                  lse=True).flops
+                             + flash_attention_bwd.cost(8, 32, h, kv, hd, torch.float32).flops
+                             + rmsnorm.cost(T * h, hd, torch.float32).flops
+                             + rmsnorm.cost(T * kv, hd, torch.float32).flops)
+    assert one.flops - tp.flops == pytest.approx(saved, rel=FLOPS_RTOL)
+    assert tp.flops < one.flops
 
 
 def _one_group(arch: str):
