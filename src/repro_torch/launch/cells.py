@@ -14,10 +14,12 @@ allocated), and ``repro_torch.launch.dryrun`` counts the ops it runs
   takes rank 0's rows.  Its compute is tensor-parallel over ``model``
   (``"model_axis"`` names the parts): dense attention where the axis
   divides the heads, dense MLPs where it divides ``d_ff``, the embedding
-  and the head where it divides the vocabulary; experts and the RG-LRU,
-  mLSTM and sLSTM widths, and any part the axis does not divide, run whole
-  on every rank of the group.  With ``dp_layout`` every parameter is
-  replicated and the batch spans ``model`` too;
+  and the head where it divides the vocabulary, the routed experts
+  (expert-parallel) where it divides their number, the shared experts
+  where it divides their width; the RG-LRU, mLSTM and sLSTM widths, and
+  any part the axis does not divide (qwen2-moe-a2.7b's 60 experts over
+  16 ranks), run whole on every rank of the group.  With ``dp_layout``
+  every parameter is replicated and the batch spans ``model`` too;
 - **prefill** and **decode**: the port's single-device
   ``serve.engine.make_prefill_step`` and ``models.lm.decode_step`` on rank
   0's rows of the batch, the model held whole in the compute dtype: the
@@ -91,13 +93,15 @@ class Cell:
 def train_model_axis(cfg: ArchConfig, n: int) -> str:
     """What a train step's compute splits over a model axis of n ranks, and
     what runs whole on each of them."""
-    kinds = set(cfg.layer_kinds)
+    kinds, moe = set(cfg.layer_kinds), cfg.moe
     parts = (("attention", any(k in kinds for k in ("attn", "local")),
               cfg.num_heads % n == 0),
-             ("MLP", cfg.d_ff > 0 and (cfg.moe is None or cfg.first_dense > 0)
+             ("MLP", cfg.d_ff > 0 and (moe is None or cfg.first_dense > 0)
               and not kinds <= {"mlstm", "slstm"}, cfg.d_ff % n == 0),
              ("embedding and head", True, cfg.padded_vocab % n == 0),
-             ("experts", cfg.moe is not None, False),
+             ("experts", moe is not None, moe is not None and moe.num_experts % n == 0),
+             ("shared experts", moe is not None and moe.num_shared > 0,
+              moe is not None and moe.num_shared * moe.d_expert % n == 0),
              ("RG-LRU", "rglru" in kinds, False),
              ("mLSTM", "mlstm" in kinds, False),
              ("sLSTM", "slstm" in kinds, False))

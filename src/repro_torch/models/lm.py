@@ -469,7 +469,10 @@ def ffn_block(lparams, cfg: ArchConfig, spec: LayerSpec, x, opts: ModelOptions):
     """x plus the layer's second sub-block: RMSNorm, then the MoE or the
     dense MLP (none where ``d_ff`` is 0).  x is a sequence (B,S,d) or one
     token per row (B,d); an MoE routes one row's tokens, or all rows'
-    tokens, together.  Returns (x, the MoE's aux loss or None)."""
+    tokens, together.  Returns (x, the MoE's aux loss or None).  Under a
+    bound model group the dense MLP, and the MoE's routed and shared experts
+    (``moe_apply`` reads the group itself), run on the leaves' local blocks
+    where the partition splits them."""
     if spec.use_moe:
         h2 = rmsnorm(x, lparams["norm2"]["scale"], cfg.norm_eps)
         seq = x.dim() == 3

@@ -17,9 +17,22 @@ same drops, selected by ``MoECfg.impl``:
   (a fixed order: no atomics, the same bits on every call).
 
 Both run every slot of every expert through the experts' gated MLPs
-(``bmm`` over the expert axis).  The reference's ``shard`` constraints
-have no counterpart on one device.  No TPU kernel lies behind this layer:
-its products are plain einsums in the reference.
+(``bmm`` over the expert axis).  No TPU kernel lies behind this layer: its
+products are plain einsums in the reference.
+
+Expert-parallel (a bound model group of n ranks, and ``w_gate`` holding
+E / n of the experts): where the reference's ``shard`` constraints put the
+slot buffers on ``("dp", "expert", ...)`` while a group's tokens stay whole
+on every rank, each rank routes its groups as one device does (the router
+is whole: the same logits, softmax and top k on every rank), takes the
+slots over all E experts with the global capacity, keeps its own experts'
+block of them and runs only those experts.  Its combine, and its terms of
+the aux loss, are partials summed over the group in rank order (f32,
+rounded once): the reference's "cross-shard psum" of the combine.  The
+tokens and the router reach the routed part through ``copy_to_model``, so
+their gradients are the sums of every rank's terms.  The shared experts are
+column- then row-parallel where their width is split (``mlp_apply``);
+qwen2's gate reads the block input whole and scales the summed output.
 """
 
 from __future__ import annotations
@@ -30,8 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import MoECfg
-from ..sharding.collectives import ordered_sum, sum_over
-from ..sharding.ctx import loss_group
+from ..sharding.collectives import copy_to_model, ordered_sum, sum_over, sum_over_model
+from ..sharding.ctx import loss_group, model_group
 from .layers import act_fn, bmm_f32, dense_init, matmul_f32, mlp_apply
 
 IMPLS = ("einsum", "sort")
@@ -77,11 +90,13 @@ def _route(params, xg, m: MoECfg):
     return vals[..., :m.top_k], idx[..., :m.top_k], probs
 
 
-def _aux_loss(probs, idx, m: MoECfg) -> torch.Tensor:
-    """Load-balance loss: E * sum_e f_e * P_e (Switch/GShard form).  Under
-    a mesh binding f and P are the means over the bound loss's global
-    batch (every rank holds as many groups), taken before the product,
-    with P's gradient flowing back to each rank's own probabilities."""
+def _aux_loss(probs, idx, m: MoECfg, lo: int = 0, El: int = 0) -> torch.Tensor:
+    """Load-balance loss: E * sum_e f_e * P_e (Switch/GShard form), over
+    the experts ``[lo, lo + El)`` where ``El`` is given (an expert-parallel
+    rank's terms).  Under a mesh binding f and P are the means over the
+    bound loss's global batch (every rank holds as many groups), taken
+    before the product, with P's gradient flowing back to each rank's own
+    probabilities."""
     E = m.num_experts
     f = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
     P = probs.mean(dim=(0, 1))
@@ -89,6 +104,8 @@ def _aux_loss(probs, idx, m: MoECfg) -> torch.Tensor:
     if group is not None:
         f = ordered_sum(f, group, n) / n
         P = sum_over(P, group, n) / n
+    if El:
+        f, P = f[lo:lo + El], P[lo:lo + El]
     return E * torch.sum(f * P)
 
 
@@ -105,6 +122,15 @@ def _slots(idx, C: int, E: int):
     pos = counts.gather(2, seq[..., None])[..., 0] - 1
     pos = pos.view(n, k, g).transpose(1, 2)
     return pos, pos < C
+
+
+def _local_slots(idx, pos, keep, C: int, lo: int, El: int):
+    """The slots of the experts ``[lo, lo + El)``: (slot (n,g,k), local
+    (n,g,k) bool).  ``local`` marks the kept assignments to those experts,
+    ``slot`` their place in the block's (El * C) slots, El * C (a spare
+    slot, cut off) for every other assignment."""
+    local = keep & (idx >= lo) & (idx < lo + El)
+    return torch.where(local, (idx - lo) * C + pos, El * C), local
 
 
 def _experts_gemm(params, xe, act: str) -> torch.Tensor:
@@ -128,40 +154,52 @@ def _run_experts(params, xs, act: str) -> torch.Tensor:
     return ye.view(E, n, EC // E, d).transpose(0, 1).reshape(n, EC, d)
 
 
-def _moe_einsum(params, xg, m: MoECfg, act: str):
+def _moe_einsum(params, xg, m: MoECfg, act: str, lo: int = 0):
     """The GShard dense dispatch.  xg (n,g,d) -> (out (n,g,d), aux).
 
     ``combine`` (n, g, E*C) holds each kept assignment's gate at its slot.
     The reference sums a one-hot (n,g,k,E,C) tensor over k to build it;
     every token's k experts differ, so each of its slots gets one gate and
     a scatter gives the same numbers without that tensor.  Dropped
-    assignments go to a spare column that is cut off."""
+    assignments go to a spare column that is cut off.
+
+    Where ``params`` hold El < E experts (``lo`` the first), ``combine``
+    and ``dispatch`` span their El * C slots only, every other assignment
+    going to the spare column, and ``out`` and ``aux`` are this block's
+    f32 partials."""
     n, g, d = xg.shape
-    E = m.num_experts
+    E, El = m.num_experts, params["w_gate"].shape[0]
     C = _capacity(m, g)
     gate_vals, idx, probs = _route(params, xg, m)
     pos, keep = _slots(idx, C, E)
-    slot = torch.where(keep, idx * C + pos, E * C)
-    combine = gate_vals.new_zeros((n, g, E * C + 1)).scatter(
-        2, slot, gate_vals)[..., :E * C]
+    slot, _ = _local_slots(idx, pos, keep, C, lo, El)
+    combine = gate_vals.new_zeros((n, g, El * C + 1)).scatter(
+        2, slot, gate_vals)[..., :El * C]
     dispatch = (combine > 0).to(xg.dtype)
     # each slot receives one token at most: the product is exact in any dtype
-    xs = torch.bmm(dispatch.transpose(1, 2), xg)  # (n, E*C, d)
+    xs = torch.bmm(dispatch.transpose(1, 2), xg)  # (n, El*C, d)
     ys = _run_experts(params, xs, act)
+    if El < E:
+        return bmm_f32(combine.to(xg.dtype), ys), _aux_loss(probs, idx, m, lo, El)
     out = torch.bmm(combine.to(xg.dtype), ys)
     return out, _aux_loss(probs, idx, m)
 
 
-def _moe_sort(params, xg, m: MoECfg, act: str):
+def _moe_sort(params, xg, m: MoECfg, act: str, lo: int = 0):
     """The argsort dispatch.  xg (n,g,d) -> (out (n,g,d), aux).
 
     The same slots as the einsum path: a stable sort of the choice-major
     sequence by expert gives each assignment its place in its expert's
     run.  Tokens move by scatter and gather; a dropped assignment's index
     points at a spare row (written and never read on scatter, zero on
-    gather), since torch faults where JAX drops or fills out of range."""
+    gather), since torch faults where JAX drops or fills out of range.
+
+    Where ``params`` hold El < E experts (``lo`` the first), the buffer
+    holds their El * C slots, an assignment to any other expert points at
+    the spare row too, and ``out`` and ``aux`` are this block's f32
+    partials."""
     n, g, d = xg.shape
-    E, k = m.num_experts, m.top_k
+    E, k, El = m.num_experts, m.top_k, params["w_gate"].shape[0]
     C = _capacity(m, g)
     gate_vals, idx, probs = _route(params, xg, m)
     a = g * k
@@ -174,26 +212,27 @@ def _moe_sort(params, xg, m: MoECfg, act: str):
     pos_sorted = ar - starts.gather(1, e_sorted)
     pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
     pos = pos.view(n, k, g).transpose(1, 2)  # (n, g, k)
-    keep = pos < C
-    slot = torch.where(keep, idx * C + pos, E * C)  # (n, g, k)
+    slot, local = _local_slots(idx, pos, pos < C, C, lo, El)  # (n, g, k)
 
     rows = torch.arange(n, device=xg.device)[:, None]
     tok = ar % g  # the token of sequence entry j
-    buf = xg.new_zeros((n, E * C + 1, d))
+    buf = xg.new_zeros((n, El * C + 1, d))
     buf = buf.index_put((rows, slot.transpose(1, 2).reshape(n, a)),
                         xg[:, tok])
-    ys = _run_experts(params, buf[:, :E * C], act)
+    ys = _run_experts(params, buf[:, :El * C], act)
     ys = torch.cat([ys, ys.new_zeros((n, 1, d))], dim=1)
 
     # each token's k contributions, summed in f32 in ascending expert order
     # (the order of the reference's scatter-add over the sorted sequence)
     by_expert = torch.argsort(idx, dim=2)
     slot = slot.gather(2, by_expert)
-    gates = (gate_vals * keep).gather(2, by_expert)
+    gates = (gate_vals * local).gather(2, by_expert)
     out = None
     for c in range(k):
         vals = ys[rows, slot[..., c]] * gates[..., c:c + 1]
         out = vals if out is None else out + vals
+    if El < E:
+        return out, _aux_loss(probs, idx, m, lo, El)
     return out.to(xg.dtype), _aux_loss(probs, idx, m)
 
 
@@ -206,24 +245,43 @@ def moe_apply(params: dict, x: torch.Tensor, m: MoECfg, act: str):
     global batch: capacity couples a group's tokens, so where this rank's
     tokens are not whole groups it raises rather than route otherwise.  The
     shared experts run as a gated MLP on every token; qwen2's sigmoid gate
-    on them is f32."""
+    on them is f32.
+
+    Under a bound model group (``sharding.ctx.model_group``) of n ranks:
+    where ``params`` hold this rank's E / n routed experts, the layer is
+    expert-parallel, and where they hold its columns of the shared experts,
+    those are column- then row-parallel; a part whose leaves are whole runs
+    whole."""
     B, S, d = x.shape
     T = B * S
-    _, n = loss_group()
-    g = min(m.group_size, T * n)
+    _, n_loss = loss_group()
+    g = min(m.group_size, T * n_loss)
     if T % g:
         raise ValueError(
             f"MoE: {T} tokens do not split into groups of {g}" + (
-                f" (the routing groups of the global batch of {T * n} tokens "
-                f"over {n} ranks)" if n > 1 else ""))
+                f" (the routing groups of the global batch of {T * n_loss} tokens "
+                f"over {n_loss} ranks)" if n_loss > 1 else ""))
     if m.impl not in IMPLS:
         raise ValueError(f"MoE impl must be one of {IMPLS}, got {m.impl!r}")
     xg = x.reshape(T // g, g, d)
     dispatch = _moe_sort if m.impl == "sort" else _moe_einsum
-    out, aux = dispatch(params, xg, m, act)
+    group, n, index = model_group()
+    El = params["w_gate"].shape[0]
+    if El < m.num_experts:  # expert-parallel: this rank's block of experts
+        if El * n != m.num_experts:
+            raise ValueError(f"MoE: {El} of {m.num_experts} experts a rank over "
+                             f"{n} ranks")
+        rp = {**params, "router": copy_to_model(params["router"], group, n)}
+        out, aux = dispatch(rp, copy_to_model(xg, group, n), m, act, index * El)
+        out = sum_over_model(out, group, n).to(x.dtype)
+        aux = sum_over_model(aux, group, n)
+    else:
+        out, aux = dispatch(params, xg, m, act)
     out = out.reshape(B, S, d)
     if "shared" in params:
-        y = mlp_apply(params["shared"], x, act, gated=True)
+        if params["shared"]["w_up"].shape[-1] == m.num_shared * m.d_expert:
+            group, n = None, 1  # the shared width not split: whole
+        y = mlp_apply(params["shared"], x, act, gated=True, group=group, n=n)
         if "shared_gate" in params:
             gate = torch.sigmoid(x.float() @ params["shared_gate"].float())
             y = (y.float() * gate).to(x.dtype)

@@ -11,11 +11,13 @@ names, the port's model code computes on what each rank holds, so
   cross-entropy's token count, the MoE load-balance fractions);
 - ``model_group``: the tensor-parallel group, the mesh axis that the rules
   map ``heads``, ``ff`` and ``vocab`` to.  Dense attention (heads), dense
-  MLPs (ff), the embedding and the head (vocab) run on the local leaves of
-  that axis where the partition splits them (``models.lm``,
-  ``models.layers``): column-parallel products in, row-parallel out,
-  summed over the group in rank order.  Experts, the RG-LRU, mLSTM and
-  sLSTM widths run whole on every rank of the group.
+  MLPs (ff), the embedding and the head (vocab), the routed experts
+  (expert) and the shared experts (ff) run on the local leaves of that
+  axis where the partition splits them (``models.lm``, ``models.layers``,
+  ``models.moe``): column-parallel products in, row-parallel out (each
+  rank's own experts, its partial combine), summed over the group in rank
+  order.  The RG-LRU, mLSTM and sLSTM widths run whole on every rank of
+  the group.
 
 Outside a binding (unit tests, one device, serving) nothing changes.
 

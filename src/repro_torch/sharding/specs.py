@@ -171,11 +171,14 @@ def map_specs(fn, params, mesh, rules: dict = PARAM_RULES):
 
 def tensor_parallel(names: list) -> bool:
     """Whether the model computes on a leaf's local block where its
-    ``heads``, ``ff`` or ``vocab`` dim is split over the tensor axis
-    (``sharding.ctx.model_group``): dense attention, dense MLPs, the
-    embedding table and the head.  The other leaves split over it (experts,
-    the RG-LRU, mLSTM and sLSTM widths) are gathered whole for compute."""
+    ``heads``, ``ff``, ``vocab`` or ``expert`` dim is split over the tensor
+    axis (``sharding.ctx.model_group``): dense attention, dense MLPs, the
+    embedding table and the head, the routed experts (expert-parallel) and
+    the shared experts (column- and row-parallel).  The MoE's router and
+    qwen2's shared gate, and the RG-LRU, mLSTM and sLSTM widths, are
+    gathered whole for compute."""
     return ("attn" in names or "mlp" in names
+            or ("moe" in names and names[-1] not in ("router", "shared_gate"))
             or names[-2:] in (["embed", "table"], ["head", "w"]))
 
 

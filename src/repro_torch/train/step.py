@@ -19,10 +19,11 @@ held at rest as this rank's shard (``train_state_specs``: the reference's
 partition, dims the mesh axes do not divide left whole).  ``step(state,
 global_batch)`` takes this rank's rows (``batch_sharding``) and gathers
 each leaf over the batch axes (``data``, from ``embed_p``).  Leaves of
-dense attention, dense MLPs, the embedding and the head stay split over
-``model``: the model computes on them as column- and row-parallel blocks
-and a vocab-parallel cross-entropy (``sharding.ctx.model_group``); the
-other leaves split over ``model`` (experts, the RG-LRU, mLSTM and sLSTM
+dense attention, dense MLPs, the embedding, the head, the routed experts
+and the shared experts stay split over ``model``: the model computes on
+them as column- and row-parallel blocks, a vocab-parallel cross-entropy
+and expert-parallel MoE layers (``sharding.ctx.model_group``); the other
+leaves split over ``model`` (the MoE router, the RG-LRU, mLSTM and sLSTM
 widths) are gathered whole, and their compute is replicated within a
 ``model`` group.  The gradient mean over the batch ranks is a
 reduce-scatter whose sums run in rank order (``_mean_block``): each rank

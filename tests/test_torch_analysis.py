@@ -45,11 +45,12 @@ from repro_torch.launch.mesh import HW, abstract_mesh
 from repro_torch.launch.op_analysis import count
 from repro_torch.launch.roofline import roofline_terms
 from repro_torch.models import ModelOptions, forward, init_params
+from repro_torch.models.moe import _capacity as moe_capacity
 from repro_torch.sharding import activation_rules
-from repro_torch.sharding.specs import map_specs, spec_axes, tensor_parallel
-from repro_torch.train import TrainConfig, init_train_state, make_train_step
+from repro_torch.sharding.specs import PARAM_RULES, map_specs, spec_axes, tensor_parallel
+from repro_torch.train import TrainConfig, abstract_train_state, init_train_state, make_train_step
 from repro_torch.train.optim import leaves
-from repro_torch.train.step import mesh_rules
+from repro_torch.train.step import _leaf_plans, mesh_rules
 
 ROOT = Path(__file__).resolve().parents[1]
 FLOPS_RTOL = 1e-6  # the counter against the reference's HLO walk
@@ -298,6 +299,63 @@ def test_tensor_parallel_flops_drop_by_the_split_products():
                              + rmsnorm.cost(T * kv, hd, torch.float32).flops)
     assert one.flops - tp.flops == pytest.approx(saved, rel=FLOPS_RTOL)
     assert tp.flops < one.flops
+
+
+def test_expert_parallel_flops_drop_by_the_expert_products():
+    """Rank 0's counted FLOPs of reduced deepseek-moe-16b's step (8 x 32
+    tokens in 4 routing groups of 64, capacity 20; f32, no remat) on an
+    abstract (1, 1, 4) mesh against (1, 1, 1): lower by 3/4 of the routed
+    experts' products (2 of the 8 experts a rank), of the dispatch and
+    combine products (over a rank's 2 x 20 slots a group), and of the
+    shared experts' products (a quarter of their width), each forward
+    product with its backward ones (two, and one for the dispatch, whose
+    0/1 operand has no gradient); and by the tensor-parallel products
+    and flash costs of the attention, the dense MLP and the head.  The
+    router is whole on every rank."""
+    cfg = reduced_config("deepseek-moe-16b")
+    _, one, _, _ = _step_count(cfg, (1, 1, 1))
+    _, tp, _, _ = _step_count(cfg, (1, 1, 4))
+    T, d, hd, L = 8 * 32, cfg.d_model, cfg.head_dim, cfg.num_layers
+    H, KV, ff, V = cfg.num_heads, cfg.num_kv_heads, cfg.first_dense_ff, cfg.padded_vocab
+    m = cfg.moe
+    E, de, ds, g = m.num_experts, m.d_expert, m.num_shared * m.d_expert, m.group_size
+    groups, C = T // g, moe_capacity(m, g)
+    mm = 2 * T * d  # flops of a product of the tokens by one output column
+    saved = 3 * mm * 0.75 * (L * 2 * (H + KV) * hd + 3 * ff + V)
+    for h, kv, sign in ((H, KV, 1), (H // 4, KV // 4, -1)):
+        saved += sign * L * (flash_attention.cost(8, 32, h, kv, hd, torch.float32,
+                                                  lse=True).flops
+                             + flash_attention_bwd.cost(8, 32, h, kv, hd, torch.float32).flops)
+    slots = 2 * groups * E * C  # 2 x the rows of a product over every group's slots
+    saved += 0.75 * (3 * 3 * slots * d * de + (2 + 3) * slots * g * d + 3 * 3 * mm * ds)
+    assert one.flops - tp.flops == pytest.approx(saved, rel=FLOPS_RTOL)
+    assert tp.flops < one.flops / 3
+
+
+def test_whole_experts_where_the_model_axis_does_not_divide_them():
+    """Full width on the (16, 16) mesh: qwen2-moe-a2.7b's 60 routed experts
+    do not split over 16 ranks, so ``fit_spec`` keeps them whole (as the
+    reference's does) and every rank computes on them whole, while its
+    shared experts (width 5632) are model-local; deepseek-moe-16b's 64
+    routed experts are model-local too.  The router is gathered whole."""
+    mesh = abstract_mesh((16, 16), ("data", "model"))
+    for arch, routed_split in (("qwen2-moe-a2.7b", False), ("deepseek-moe-16b", True)):
+        cfg = get_config(arch).with_(num_layers=2)
+        at_rest = []
+        map_specs(lambda names, s: at_rest.append((names, s)),
+                  abstract_train_state(cfg)["params"], mesh, mesh_rules(mesh))
+        plans = leaves(_leaf_plans(cfg, mesh, PARAM_RULES, "model"))
+        local = {}  # the MoE leaves' model-local dims
+        for (names, spec), plan in zip(at_rest, plans):
+            if "moe" in names:
+                local["/".join(names[-2:])] = [i for i, (a, b) in enumerate(
+                    zip(spec, plan.gather)) if a != b]
+        assert local["moe/router"] == []
+        for name in ("w_gate", "w_up", "w_down"):
+            assert bool(local[f"moe/{name}"]) == routed_split, (arch, name, local)
+            assert local[f"shared/{name}"], (arch, name, local)
+        said = cells.train_model_axis(cfg, 16)
+        assert ("whole on every rank: experts" in said) != routed_split, said
 
 
 def _one_group(arch: str):

@@ -1,10 +1,12 @@
 """The port's MoE layer (``repro_torch.models.moe``) against the JAX
 package's, on the same numpy inputs and the same weights (the reference's
 ``init_params`` through ``repro_torch.convert``), in f32 on the CPU: both
-dispatch paths, their drops and the aux loss; and the paged engine on a
-decode group whose idle rows make the experts drop assignments."""
+dispatch paths, their drops and the aux loss; expert-parallel ranks,
+emulated in one process, against the whole layer; and the paged engine on
+a decode group whose idle rows make the experts drop assignments."""
 
 import functools
+from dataclasses import replace
 
 import jax
 import jax.numpy as jnp
@@ -124,6 +126,54 @@ def test_route_breaks_ties_toward_the_lower_expert():
     assert idx[0, 0].tolist() == [2, 5]
     assert idx[0, 1].tolist() == [0, 1]  # all equal: the lowest indices
     assert torch.equal(gates[0, 0, 0], gates[0, 0, 1])
+
+
+# the one-process emulation of expert-parallel ranks: each rank's partials
+# summed in rank order against the whole layer, f32, of its largest entry
+EP_TOL = 1e-6
+
+
+@pytest.mark.parametrize("impl", ["einsum", "sort"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_expert_parallel_ranks_sum_to_the_whole_layer(n, impl):
+    """n ranks emulated in one process, at a capacity factor of 1 (two
+    groups of 64 tokens, capacity 16 of 128 assignments): each rank's block of
+    the slots keeps exactly the whole layer's kept assignments to its
+    experts, at the whole layer's slots; its routed output and aux terms,
+    from its block of the experts, are f32 partials whose sum in rank
+    order is the whole layer's within 1e-6."""
+    _, tcfg, _, tparams = _moe_params("deepseek-moe-16b")
+    m = replace(tcfg.moe, impl=impl, capacity_factor=1.0)
+    E, El = m.num_experts, m.num_experts // n
+    x = np.random.default_rng(9).standard_normal((2, 64, tcfg.d_model)).astype(np.float32)
+    xg = torch.from_numpy(x)
+    _, idx, _ = tmoe._route(tparams, xg, m)
+    C = tmoe._capacity(m, xg.shape[1])
+    pos, keep = tmoe._slots(idx, C, E)
+    assert (~keep).sum() > 0
+    owned = torch.zeros_like(idx)
+    for r in range(n):
+        slot, local = tmoe._local_slots(idx, pos, keep, C, r * El, El)
+        owned += local
+        assert torch.equal(local, keep & (idx // El == r))
+        assert torch.equal(torch.where(local, slot + r * El * C, -1),
+                           torch.where(local, idx * C + pos, -1))
+        assert bool((slot[~local] == El * C).all())
+    assert torch.equal(owned, keep.long())  # each kept assignment on one rank
+
+    dispatch = tmoe._moe_sort if impl == "sort" else tmoe._moe_einsum
+    want, want_aux = dispatch(tparams, xg, m, tcfg.act)
+    outs, auxs = [], []
+    for r in range(n):
+        block = {k: v[r * El:(r + 1) * El] if k in ("w_gate", "w_up", "w_down") else v
+                 for k, v in tparams.items()}
+        out, aux = dispatch(block, xg, m, tcfg.act, r * El)
+        assert out.dtype == aux.dtype == torch.float32
+        outs.append(out)
+        auxs.append(aux)
+    got, aux = functools.reduce(torch.add, outs), functools.reduce(torch.add, auxs)
+    assert float((got - want).abs().max()) <= EP_TOL * float(want.abs().max())
+    assert abs(float(aux) - float(want_aux)) <= EP_TOL * abs(float(want_aux))
 
 
 # the paged engine with more slots than requests: the idle rows all read

@@ -20,9 +20,12 @@ converted weights and batches:
   and the routing groups a rank cannot hold whole, refused;
 - tensor-parallel compute on (1, 1, 4): reduced qwen3-14b (query heads
   split, its 2 KV heads whole), musicgen-large (heads split, a plain MLP,
-  the audio frontend) and deepseek-moe-16b (attention and the dense MLP
-  split, experts whole) against both single-device steps, reruns equal
-  bit for bit, each rank's compute leaves model-local; and the
+  the audio frontend), deepseek-moe-16b (attention and the dense MLP
+  split, expert-parallel: 2 of the 8 experts a rank, the shared experts
+  column- and row-parallel; the einsum dispatch, and the sort dispatch
+  with remat and the backward on another thread) and qwen2-moe-a2.7b (the
+  sigmoid shared gate, QKV bias) against the single-device steps, reruns
+  equal bit for bit, each rank's compute leaves model-local; and the
   rank-ordered collectives against a gather of every rank's copy.
 """
 
@@ -55,8 +58,8 @@ from repro.train import compress as jax_compress
 from repro.train import init_train_state as jax_init_train_state
 from repro.train import make_train_step as jax_make_train_step
 from repro_torch.configs import reduced_config
-from repro_torch.convert import params_from_numpy, params_to_numpy
-from repro_torch.models import ModelOptions
+from repro_torch.convert import map_params, params_from_numpy, params_to_numpy
+from repro_torch.models import ModelOptions, loss_fn
 from repro_torch.sharding import ctx, specs
 from repro_torch.train import (
     OptimizerConfig,
@@ -76,6 +79,9 @@ AXES = ("pod", "data", "model")
 # uncompressed one (:120-124)
 LOSS_TOL, PARAM_TOL = 1e-3, 1e-4
 COMP_LOSS_TOL, COMP_GNORM_RTOL = 1e-2, 0.1
+# a mesh step's first mean gradient against the single-device one, each
+# leaf of its largest entry (f32 sums in another order)
+GRAD_RTOL = 1e-4
 # the compressed combine against the reference's on the same per-pod
 # gradients: within one int8 quantum (scale / npods) everywhere, and within
 # REL_TOL relative on all but a share under OFF_SHARE of the elements (those
@@ -331,10 +337,12 @@ WORKER = textwrap.dedent("""
                            num_pods=mesh.shape["pod"] if job["compress"] else 1)
         params = map_params(lambda _k, p: p.clone(), spec["params"][job["arch"]])
         state = init_train_state(cfg, tcfg, params=params, mesh=mesh)
-        step = make_train_step(cfg, tcfg, ModelOptions(compute_dtype="float32"),
+        step = make_train_step(cfg, tcfg, ModelOptions(compute_dtype="float32",
+                                                       moe_impl=job.get("moe_impl")),
                                mesh=mesh, act_rules=activation_rules())
         res = {"shapes": map_params(lambda _k, p: tuple(p.shape), state["params"]),
                "m_shapes": map_params(lambda _k, p: tuple(p.shape), state["opt"]["m"])}
+        specs = train_state_specs(abstract_train_state(cfg, tcfg), mesh, mesh_rules(mesh))
         if job.get("backward_thread"):  # as autograd's device thread runs it on the card
             torch.Tensor.backward = backward_on_a_thread
         try:
@@ -346,8 +354,10 @@ WORKER = textwrap.dedent("""
                 if i == 0 and len(job["batches"]) > 1:
                     res["params_1"] = zip_params(
                         lambda p, s: gather_leaf(p.detach(), s, mesh).clone(), state["params"],
-                        train_state_specs(abstract_train_state(cfg, tcfg), mesh,
-                                          mesh_rules(mesh))["params"])
+                        specs["params"])
+                if i == 0 and job.get("grads"):  # the first step's mean gradient, whole
+                    res["grads_1"] = zip_params(lambda g, s: gather_leaf(g, s, mesh),
+                                                seen["mean_grads"], specs["params"])
             res["compute_shapes"] = seen["compute_shapes"]
         except ValueError as e:
             res["error"] = str(e)
@@ -355,7 +365,6 @@ WORKER = textwrap.dedent("""
             continue
         finally:
             torch.Tensor.backward = real_backward
-        specs = train_state_specs(abstract_train_state(cfg, tcfg), mesh, mesh_rules(mesh))
         res["metrics"] = metrics
         res["params"] = zip_params(lambda p, s: gather_leaf(p.detach(), s, mesh),
                                    state["params"], specs["params"])
@@ -436,12 +445,12 @@ def _jax_steps(arch, batches, opt):
     return metrics, jax.device_get(state["params"])
 
 
-def _port_steps(arch, params_np, batches, opt):
+def _port_steps(arch, params_np, batches, opt, moe_impl=None):
     """The port's single-device train step from the same parameters."""
     cfg = reduced_config(arch)
     tcfg = TrainConfig(optimizer=OptimizerConfig(**opt), remat=False)
     state = init_train_state(cfg, tcfg, params=params_from_numpy(params_np, device="cpu"))
-    step = make_train_step(cfg, tcfg, ModelOptions(compute_dtype="float32"))
+    step = make_train_step(cfg, tcfg, ModelOptions(compute_dtype="float32", moe_impl=moe_impl))
     metrics = []
     for b in batches:
         state, m = step(state, _torch_batch(b))
@@ -449,16 +458,39 @@ def _port_steps(arch, params_np, batches, opt):
     return metrics, params_to_numpy(state["params"])
 
 
-# the tensor-parallel world's jobs: job -> arch
-TP_JOBS = {"qwen": "qwen3-14b", "musicgen": "musicgen-large", "moe": "deepseek-moe-16b"}
+def _port_grads(arch, params_np, batch, moe_impl=None):
+    """The gradient of the port's single-device loss on one batch."""
+    params = map_params(lambda _k, p: p.requires_grad_(True),
+                        params_from_numpy(params_np, device="cpu"))
+    loss, _ = loss_fn(params, reduced_config(arch), _torch_batch(batch),
+                      ModelOptions(compute_dtype="float32", moe_impl=moe_impl), remat=False)
+    loss.backward()
+    return map_params(lambda _k, p: p.grad, params)
+
+
+# the tensor-parallel world's jobs: job -> arch (the MoE jobs expert-parallel:
+# 2 of the 8 experts a rank, a quarter of the shared experts' width)
+TP_JOBS = {"qwen": "qwen3-14b", "musicgen": "musicgen-large", "moe": "deepseek-moe-16b",
+           "moe_sort": "deepseek-moe-16b", "qwen2moe": "qwen2-moe-a2.7b"}
+# the jobs' options besides the arch: the sort dispatch, with remat and the
+# backward pass on another thread (as qwen_remat); the MoE jobs record their
+# first step's mean gradient, held leaf by leaf to the single-device one (the
+# router's and qwen2's shared gate's among them: a term summed over the
+# model group that every rank computes alike would count n times)
+TP_JOB_OPTS = {"moe": {"grads": True},
+               "moe_sort": {"moe_impl": "sort", "remat": True, "backward_thread": True,
+                            "grads": True},
+               "qwen2moe": {"grads": True}}
 # the steps through which each job's grad norm is held to both references,
 # and its parameters to JAX's (to the port's single-device step after both
 # steps; the losses of both steps to both): the port's own single-device
 # step parts from JAX's in the second step by more than the bounds for the
 # frontend and MoE families (parameters 1.1e-4 and 1.4e-4 off, musicgen's
 # grad norm 2.3e-3: rounding that their first step amplifies), so they are
-# held after the first, as tests/test_torch_train.py holds their train steps
-JAX_STEPS = {"qwen": 2, "musicgen": 1, "moe": 1}
+# held after the first, as tests/test_torch_train.py holds their train steps;
+# the sort job is held to the port's single-device sort step alone
+JAX_STEPS = {"qwen": 2, "musicgen": 1, "moe": 1, "moe_sort": 1, "qwen2moe": 1}
+PORT_ONLY = {"moe_sort"}
 # element counts of the collectives' check, which the 4 ranks do not divide
 COLLECTIVE_NUMELS = (7, 10_001)
 
@@ -470,10 +502,11 @@ def worlds(tmp_path_factory):
     with compression; (2, 2, 1) runs reduced deepseek-moe-16b for two steps
     of 8 x 32 tokens (2 rows, 64 tokens, one routing group a rank), then a
     step of 4 x 16 (16 tokens a rank of a 64-token group); (1, 1, 4), one
-    tensor-parallel group, runs ``TP_JOBS`` for two steps (qwen3-14b twice)
+    tensor-parallel group, runs ``TP_JOBS`` for two steps (qwen3-14b thrice)
     and the collectives' check."""
     batches = {arch: _jax_batches(jax_reduced_config(arch), 2)
-               for arch in ("qwen3-14b", "gemma-2b", "deepseek-moe-16b", "musicgen-large")}
+               for arch in ("qwen3-14b", "gemma-2b", "deepseek-moe-16b", "musicgen-large",
+                            "qwen2-moe-a2.7b")}
     params = {arch: params_from_numpy(_jax_params(arch), device="cpu") for arch in batches}
     tb = {arch: [_torch_batch(b) for b in bs] for arch, bs in batches.items()}
     qwen = {"arch": "qwen3-14b", "opt": STEP_OPT, "compress": False,
@@ -494,7 +527,8 @@ def worlds(tmp_path_factory):
         (1, 1, 4): _World(tmp_path_factory.mktemp("world_114"), (1, 1, 4),
                           {a: params[a] for a in TP_JOBS.values()},
                           {**{job: {"arch": a, "opt": STEP_OPT, "compress": False,
-                                    "batches": tb[a]} for job, a in TP_JOBS.items()},
+                                    "batches": tb[a], **TP_JOB_OPTS.get(job, {})}
+                              for job, a in TP_JOBS.items()},
                            "qwen_again": {**qwen},
                            "qwen_remat": {**qwen, "remat": True, "backward_thread": True},
                            "collectives": {"numels": COLLECTIVE_NUMELS}}),
@@ -661,9 +695,11 @@ def test_moe_mesh_step_refuses_split_routing_groups(worlds):
 
 def _tp_local(path: str) -> bool:
     """Whether a leaf's compute keeps its model-axis block: the dense
-    attention, the dense MLPs, the embedding table and the head."""
+    attention, the dense MLPs, the embedding table and the head, the routed
+    and the shared experts (not the router or qwen2's shared gate)."""
     return any(k in path for k in ("['attn']", "['mlp']", "['embed']['table']",
-                                   "['head']['w']"))
+                                   "['head']['w']")) or (
+        "['moe']" in path and not path.endswith(("['router']", "['shared_gate']")))
 
 
 @pytest.mark.parametrize("job", list(TP_JOBS))
@@ -673,29 +709,43 @@ def test_tensor_parallel_step_matches_single_device(worlds, job):
     norm through ``JAX_STEPS`` too, and every parameter within 1e-4 of the
     port's after both steps and of JAX's after ``JAX_STEPS``; each rank's
     parameters and moments at rest its ``fit_spec`` shards, and the leaves
-    it computes on model-local: the attention, MLP, embedding and head
-    leaves split over ``model`` where ``fit_spec`` splits them, the rest
-    whole."""
+    it computes on model-local: the attention, MLP, embedding, head, routed
+    and shared expert leaves split over ``model`` where ``fit_spec`` splits
+    them, the rest (the router among them) whole.  The sort job is held to
+    the port's single-device sort step."""
     started, batches = worlds
     arch, n_jax = TP_JOBS[job], JAX_STEPS[job]
-    jax_metrics, jax_params = _jax_steps(arch, batches[arch], STEP_OPT)
-    if n_jax == 1:
-        jax_params = _jax_steps(arch, batches[arch][:1], STEP_OPT)[1]
-    port_metrics, port_params = _port_steps(arch, _jax_params(arch), batches[arch], STEP_OPT)
+    moe_impl = TP_JOB_OPTS.get(job, {}).get("moe_impl")
+    port_metrics, port_params = _port_steps(arch, _jax_params(arch), batches[arch], STEP_OPT,
+                                            moe_impl)
+    refs = [(port_metrics, port_params, 2)]
+    if job not in PORT_ONLY:
+        jax_metrics, jax_params = _jax_steps(arch, batches[arch], STEP_OPT)
+        if n_jax == 1:
+            jax_params = _jax_steps(arch, batches[arch][:1], STEP_OPT)[1]
+        refs.append((jax_metrics, jax_params, n_jax))
     ranks = started[1, 1, 4].ranks()
     got = ranks[0][job]
-    for ref in (port_metrics, jax_metrics):
+    for ref, _, _ in refs:
         for i, (g, w) in enumerate(zip(got["metrics"], ref)):
             assert abs(g["loss"] - w["loss"]) < LOSS_TOL, (g, w)
             if i < n_jax:
                 assert abs(g["grad_norm"] - w["grad_norm"]) < LOSS_TOL, (g, w)
-    for ref_params, have in ((port_params, got["params"]),
-                             (jax_params, got["params"] if n_jax == 2 else got["params_1"])):
+    for _, ref_params, n_steps in refs:
+        have = got["params"] if n_steps == 2 else got["params_1"]
         want, have = _np_flat(ref_params), _np_flat(have)
         assert have.keys() == want.keys()
         worst = max(np.abs(have[k] - want[k]).max() for k in want)
         print(f"{arch}: worst parameter difference {worst:.3g}")
         assert worst < PARAM_TOL, worst
+    if "grads_1" in got:
+        want = _np_flat(_port_grads(arch, _jax_params(arch), batches[arch][0], moe_impl))
+        have = _np_flat(got["grads_1"])
+        assert have.keys() == want.keys()
+        rel = {k: np.abs(have[k] - want[k]).max() / np.abs(want[k]).max() for k in want}
+        worst = max(rel, key=rel.get)
+        print(f"{arch}: worst first-step gradient {rel[worst]:.3g} of its largest ({worst})")
+        assert rel[worst] < GRAD_RTOL, (worst, rel[worst])
     sizes = dict(zip(AXES, (1, 1, 4)))
     abstract = _jax_abstract(arch)
     logical = _flat(jax_specs.param_logical_axes(abstract))
