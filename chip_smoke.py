@@ -15,7 +15,11 @@ tolerance miss:
    took: at D a multiple of 8 the f32 backward must take the f32
    tensor-core one, and the f32 forward the CUDA-core one), and hold the
    f32 flash backward at scores in the hundreds no farther from an f64
-   run than the CUDA-core variant (``check_flash_near_hard``);
+   run than the CUDA-core variant (``check_flash_near_hard``); the dense
+   decode kernel's log-sum-exp output (its output bits unchanged by it,
+   and its time with and without) and the rank-ordered merge of a
+   sequence-split decode's partials (``merge_partials``, over 16 and 2
+   slices of a cache) at the serving shapes, in bf16 and f32;
 4. paged serve: full-width gemma-2b in bf16 through ``PagedServeEngine``
    (random weights from ``--seed``), 16 requests with prefix sharing and
    copy-on-write, with the kernels' launch counts read around the run and
@@ -101,7 +105,15 @@ tolerance miss:
    routed as rank 0 routed; leaves past the tolerance: both held to the
    plain path in f64), the leaves every rank holds whole equal on both
    ranks, the flash kernels run at the local head count, equal launch
-   counts;
+   counts; then, on the same two processes, tensor-parallel serving at
+   full width and 2 layers in f32 (``make_prefill_step`` and
+   ``make_decode_step`` with the mesh, a prefill of (1, 1024) and 16
+   greedy decode steps): gemma-2b (4 query heads a rank, its MQA cache
+   split over the sequence, the partials merged) and qwen3-14b (20 query
+   and 4 KV heads a rank, the cache split over its KV heads), each rank's
+   logits held to the one-device f32 steps (or, past that, both to the
+   plain path in f64), greedy tokens equal, one decode kernel a layer and
+   step and one merge where the sequence splits;
 18. analysis: the dry-run (``repro_torch.launch.dryrun``) of gemma-2b's
    applicable cells on both production meshes, (16, 16) and (2, 16, 16),
    on fake tensors; phase 6's prefill and one phase-7 train step, counted
@@ -112,7 +124,9 @@ tolerance miss:
    card's 989 TFLOP/s, must not read over 1.05 (the count would be wrong);
    rank 0's count of each tensor-parallel job's step on the card
    (collective bytes by key too) must equal rank 0's on fake tensors of an
-   abstract (1, 1, 2) mesh;
+   abstract (1, 1, 2) mesh, and so must each serving job's prefill and
+   decode step (rank 0's shards and its block of the cache, placed by
+   ``cache_specs``);
 19. the kernels line (JSON), the run's wall, the card's name and power
    limit, and the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -161,6 +175,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     _paged_splits,
     _splits,
     decode_attention_cost,
+    merge_partials_cost,
     paged_decode_attention_cost,
 )
 from repro_torch.ckpt import CheckpointStore  # noqa: E402
@@ -181,6 +196,7 @@ from repro_torch.models import (  # noqa: E402
     decode_step,
     forward,
     forward_with_cache,
+    init_cache,
     init_params,
     layers,
     loss_fn,
@@ -204,6 +220,14 @@ from repro_torch.serve import (  # noqa: E402
     paged_model,
 )
 from repro_torch.sharding import activation_rules  # noqa: E402
+from repro_torch.sharding.collectives import gather_stack  # noqa: E402
+from repro_torch.sharding.ctx import data_axes_for  # noqa: E402
+from repro_torch.sharding.specs import (  # noqa: E402
+    cache_specs,
+    kv_cache_split,
+    local_cache,
+    local_params,
+)
 from repro_torch.train import (  # noqa: E402
     OptimizerConfig,
     TrainConfig,
@@ -268,6 +292,11 @@ WHERE = {  # kernel -> (CUDA source, the TPU kernel it replaces)
                        "src/repro/kernels/rglru_scan.py:45"),
     "mlstm_chunk_bwd": ("src/repro_torch/kernels/csrc/mlstm_chunk_bwd.cu",
                         "src/repro/kernels/mlstm_chunk.py:83"),
+    # the rank-ordered merge of a sequence-split decode's partial outputs:
+    # the dense decode kernel's combine pass with the ranks as its splits
+    # (the TPU program's counterpart is XLA's, around the decode kernel)
+    "merge_partials": ("src/repro_torch/kernels/csrc/decode_combine.cuh",
+                       "src/repro/kernels/decode_attention.py:82"),
 }
 # the recurrent kernels against their plain versions: RG-LRU f32 1e-5 abs +
 # rel and mLSTM 5e-5 abs + 5e-4 rel, as tests/test_kernels.py; the windowed
@@ -320,6 +349,18 @@ MESH_PEAK_RTOL = 0.05
 TP_MESH = (1, 1, 2)
 TP_JOBS = {"gemma-2b": (2, 1024), "deepseek-moe-16b": (2, 512)}
 TP_WORKER_TIMEOUT_S = 600
+# the sub-phase's serving jobs, on the same two processes: the sharded
+# prefill of (1, prompt) tokens and greedy decode steps at full width and 2
+# layers in f32, max_len prompt + steps (2 divides it): gemma-2b (4 query
+# heads a rank, its MQA cache split over the sequence: a decode kernel and a
+# merge a layer and step) and qwen3-14b (20 query heads and 4 of the 8 KV
+# heads a rank: the cache split over its KV heads).  Each rank's logits,
+# gathered over the vocabulary, are held to the one-device f32 steps within
+# SERVE_TP_RTOL of the largest logit (tests/test_torch_models.py's
+# LOGITS_TOL); where they miss, both are held to the plain path in f64, as
+# the TP train jobs' gradients; greedy tokens equal
+TP_SERVE_JOBS = {"gemma-2b": (1024, 16), "qwen3-14b": (1024, 16)}
+SERVE_TP_RTOL = 1e-4
 
 
 def log(*args) -> None:
@@ -546,6 +587,69 @@ def check_decode(gen, B, H, KV, D, Smax, dtype) -> dict:
         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
         "bound_by": b_by,
     }
+
+
+def check_decode_lse(gen, B, H, KV, D, Smax, dtype) -> dict:
+    """The dense decode kernel's log-sum-exp output (``return_lse``) against
+    its plain version, over ``check_decode``'s ragged lengths with the last
+    row empty (-1e30); its output equal bit for bit to the call without it,
+    and both timed on the same copies of the caches (the store's cost)."""
+    lens = [Smax + 1] + [max(1, Smax - (Smax * i) // B) for i in range(1, B - 1)] + [0]
+    lengths = torch.tensor(lens[:B], dtype=torch.int32, device="cuda")
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(B, Smax, KV, D, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(B, Smax, KV, D, generator=gen, device="cuda").to(dtype)
+    got, lse = kernels.decode_attention(q, kc, vc, lengths, return_lse=True)
+    base = kernels.decode_attention(q, kc, vc, lengths)
+    want, want_lse = kernels.ref.decode_attention_ref(q, kc, vc, lengths, return_lse=True)
+    torch.cuda.synchronize()
+    what = f"decode_attention lse B={B} H={H} KV={KV} D={D} Smax={Smax} {dtype}"
+    assert torch.equal(got, base), f"{what}: the output changed with the lse"
+    err = max_err_within(got, want, TOL[str(dtype)], what)
+    lse_err = max_err_within(lse, want_lse, TOL["torch.float32"], what + " (lse)")
+    copies = max(1, min(64, math.ceil(2 * L2_BYTES / (2 * kc.numel() * q.element_size()))))
+    caches = [(kc.clone(), vc.clone()) for _ in range(copies)]
+    iters = max(20, copies)
+    ms = time_ms(lambda i: kernels.decode_attention(q, *caches[i % copies], lengths,
+                                                    return_lse=True), iters=iters)
+    ms_without = time_ms(lambda i: kernels.decode_attention(q, *caches[i % copies], lengths),
+                         iters=iters)
+    del caches
+    return {"shape": {"B": B, "H": H, "KV": KV, "D": D, "Smax": Smax}, "dtype": str(dtype),
+            "max_abs_err": err, "lse_err": lse_err, "ms": ms, "ms_without": ms_without}
+
+
+def check_merge(gen, n, B, H, KV, D, Smax, dtype) -> dict:
+    """``merge_partials`` over n slices of one cache (each slice's decode
+    kernel output and log-sum-exp, at local lengths as a rank of a
+    sequence split holds them; short rows leave the last slices empty)
+    against its plain version on the same partials, and the merge against
+    the plain decode over the whole cache; timed against the plain
+    merge."""
+    lens = [Smax + 1] + [max(1, Smax - (Smax * i) // B) for i in range(1, B)]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(B, Smax, KV, D, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(B, Smax, KV, D, generator=gen, device="cuda").to(dtype)
+    size = Smax // n
+    parts = [kernels.decode_attention(
+        q, kc[:, r * size:(r + 1) * size].contiguous(), vc[:, r * size:(r + 1) * size]
+        .contiguous(), torch.clamp(torch.clamp(lengths, max=Smax) - r * size, 0, size)
+        .to(torch.int32), return_lse=True) for r in range(n)]
+    o = torch.stack([p[0] for p in parts])
+    lse = torch.stack([p[1] for p in parts])
+    got = kernels.merge_partials(o, lse)
+    want = kernels.ref.merge_partials_ref(o, lse)
+    whole = kernels.ref.decode_attention_ref(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    what = f"merge_partials n={n} B={B} H={H} KV={KV} D={D} Smax={Smax} {dtype}"
+    err = max_err_within(got, want, TOL[str(dtype)], what)
+    max_err_within(got, whole, TOL[str(dtype)], what + " (against the whole cache)")
+    b_ms, b_by = bound(merge_partials_cost(n, B, H, D, dtype), dtype)
+    return {"shape": {"n": n, "B": B, "H": H, "D": D}, "dtype": str(dtype),
+            "max_abs_err": err, "ms": time_ms(lambda i: kernels.merge_partials(o, lse)),
+            "plain_ms": time_ms(lambda i: kernels.ref.merge_partials_ref(o, lse)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_flash(gen, B, S, H, KV, D, dtype, window: int = 0) -> dict:
@@ -1235,7 +1339,19 @@ def analysis_phase(analysis: dict, cfg, opts, prefill_tokens, batch: int, seq: i
         assert 0 < share <= 1.05, (name, share)
     # the tensor-parallel steps: rank 0's count on the card (gloo collectives
     # included) against rank 0's on fake tensors of an abstract (1, 1, 2) mesh
-    for job in tp:
+    for job in tp["serve"]:
+        want = tp_serve_fake_count(job)
+        for what in ("prefill", "decode"):
+            card = job["count"][what]
+            for key in ("flops", "bytes", "by_kernel", "coll_by_key"):
+                assert card[key] == want[what][key], (job["cfg"].name, "tensor-parallel", what,
+                                                      key, card[key], want[what][key])
+            log(f"   {job['cfg'].name} tensor-parallel {what} ({job['tokens']} prompt, "
+                f"max_len {job['max_len']}) on {TP_MESH}, rank 0, kernel mode: "
+                f"{card['flops']:.6g} FLOP, {card['bytes']:.6g} B, collective bytes received "
+                f"{card['coll_by_key']} on the card = on fake tensors of an abstract mesh; "
+                f"kernels {card['by_kernel']}")
+    for job in tp["train"]:
         card, want = job["count"], tp_fake_count(job)
         name = job["cfg"].name
         for key in ("flops", "bytes", "by_kernel", "coll_by_key"):
@@ -1392,7 +1508,7 @@ def recurrent_phase(arch: str, S: int, seed: int, smi: str) -> dict:
             "decode_attention": kinds.count("local") * n_decode,
             "rmsnorm": norm_sites(cfg) * (1 + n_decode),
             "paged_decode_attention": 0, "flash_attention_bwd": 0,
-            "rglru_scan_bwd": 0, "mlstm_chunk_bwd": 0}
+            "rglru_scan_bwd": 0, "mlstm_chunk_bwd": 0, "merge_partials": 0}
     assert got == want, (got, want)
     prefill = make_prefill_step(cfg, opts, max_len=S + 1)
     log_profile(f"prefill ({S} tokens x {cfg.num_layers} layers)",
@@ -1867,7 +1983,7 @@ def moe_phase(arch: str, seed: int, smi: str) -> dict:
     want = {"rmsnorm": norm_sites(cfg) * (1 + n_decode), "paged_decode_attention": 0,
             "decode_attention": L * n_decode, "flash_attention": L,
             "flash_attention_bwd": 0, "rglru_scan": 0, "mlstm_chunk": 0,
-            "rglru_scan_bwd": 0, "mlstm_chunk_bwd": 0}
+            "rglru_scan_bwd": 0, "mlstm_chunk_bwd": 0, "merge_partials": 0}
     assert got == want, (got, want)
     # the logits (0.78 GiB for deepseek) and the cache (0.45 GiB) are the
     # largest; one MoE layer's dispatch tensors are a few hundred MB
@@ -2193,7 +2309,7 @@ def remat_step_launches(cfg) -> dict:
             "rglru_scan": fwd(lambda sp: sp.kind == "rglru"),
             "rglru_scan_bwd": per_layer(lambda sp: sp.kind == "rglru"),
             "mlstm_chunk": fwd(lambda sp: sp.kind == "mlstm"),
-            "mlstm_chunk_bwd": per_layer(lambda sp: sp.kind == "mlstm")}
+            "mlstm_chunk_bwd": per_layer(lambda sp: sp.kind == "mlstm"), "merge_partials": 0}
 
 
 def recurrent_train_phase(arch: str, n_layers, batch: int, seq: int, seed: int,
@@ -2764,6 +2880,8 @@ def tp_worker(rank: int, port: int, out: str, seed: int) -> None:
     try:
         for arch in TP_JOBS:
             tp_job(arch, mesh, rank, out, seed)
+        for arch in TP_SERVE_JOBS:
+            tp_serve_job(arch, mesh, rank, out, seed)
     finally:
         mesh.close()
 
@@ -2812,6 +2930,173 @@ def tp_job(arch: str, mesh, rank: int, out: str, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+def tp_serve_setup(arch: str, seed: int) -> tuple:
+    """A serving job's model, options, prompt (on the card), decode steps
+    and max_len: the same in the parent and in each rank."""
+    prompt, steps = TP_SERVE_JOBS[arch]
+    cfg2 = get_config(arch).with_(num_layers=2)
+    rng = np.random.default_rng(seed + 17)
+    tokens = torch.from_numpy(rng.integers(0, cfg2.vocab_size, (1, prompt))).to("cuda")
+    return cfg2, ModelOptions(compute_dtype="float32"), tokens, steps, prompt + steps
+
+
+def serve_greedy(prefill, step, params, tokens, steps: int, whole=lambda x: x,
+                 feed=None) -> tuple:
+    """A prefill of ``tokens``, then ``steps`` greedy decode steps (or steps
+    fed ``feed``'s tokens): each step's logits (the prefill's last row
+    first; ``whole`` gathers a rank's vocab block) on the host, the tokens
+    fed, and the cache."""
+    logits, cache = prefill(params, {"tokens": tokens})
+    out = [whole(logits[:, -1]).cpu()]
+    del logits
+    fed = []
+    for t in range(steps):
+        nxt = (out[-1].argmax(-1) if feed is None else feed[t]).to("cuda", torch.int32)
+        fed.append(nxt.cpu())
+        lg, cache = step(params, cache, nxt)
+        out.append(whole(lg).cpu())
+    return torch.stack(out), torch.stack(fed), cache
+
+
+def tp_serve_job(arch: str, mesh, rank: int, out: str, seed: int) -> None:
+    """One serving job on one rank: the sharded prefill and greedy decode
+    steps on this rank's shards (``local_params``), the logits gathered
+    over the vocabulary, the launches of the run, the cache's shapes, and
+    a prefill and a decode step counted in kernel mode (phase 18)."""
+    cfg2, opts, tokens, steps, max_len = tp_serve_setup(arch, seed)
+    params = init_params(cfg2, seed=seed, device="cuda")
+    local = local_params(params, mesh)
+    del params
+    rules = activation_rules(data_axes=data_axes_for(mesh, tokens.shape[0]))
+    prefill = make_prefill_step(cfg2, opts, max_len=max_len, mesh=mesh, act_rules=rules)
+    step = make_decode_step(cfg2, opts, mesh=mesh, act_rules=rules)
+    group, n = mesh.group(("model",)), mesh.shape["model"]
+
+    def whole(lg):
+        return torch.cat(gather_stack(lg, group, n).unbind(0), -1)
+
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, fed, cache = serve_greedy(prefill, step, local, tokens, steps, whole)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        shapes = [tuple(e["k"].shape) for e in cache["prefix"] + cache["main"] + cache["tail"]
+                  if "k" in e]
+        _, pre = count_ops(prefill, local, {"tokens": tokens})
+        _, dec = count_ops(step, local, cache, fed[-1].to("cuda"))
+    res = {"logits": logits, "tokens": fed, "launches": launches, "wall_s": wall,
+           "cache_shapes": shapes, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "count": {name: {k: getattr(t, k) for k in ("flops", "bytes", "by_kernel",
+                                                       "coll_by_key")}
+                     for name, t in (("prefill", pre), ("decode", dec))}}
+    torch.save(res, os.path.join(out, f"serve-{arch}.rank{rank}.pt"))
+    del local, cache, res
+    torch.cuda.empty_cache()
+
+
+def tp_serve_check(arch: str, seed: int, smi: str, out: str) -> dict:
+    """A serving job against the one-device f32 steps: every rank's logits
+    (the same bits on both) within SERVE_TP_RTOL of the largest logit of
+    the one-device run, or else both runs held to the plain path in f64 fed
+    the same tokens; the same greedy tokens; one decode kernel per
+    attention layer and step, and one merge where the cache splits over the
+    sequence; the flash kernel once per layer in the prefill."""
+    t0 = time.perf_counter()
+    cfg2, opts, tokens, steps, max_len = tp_serve_setup(arch, seed)
+    ranks = []
+    for r in range(2):
+        path = os.path.join(out, f"serve-{arch}.rank{r}.pt")
+        ranks.append(torch.load(path, weights_only=False))
+        os.remove(path)
+    got = ranks[0]
+    assert torch.equal(ranks[1]["logits"], got["logits"]), f"{arch}: the ranks' logits differ"
+    params32 = init_params(cfg2, seed=seed, device="cuda")
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        want, fed, _ = serve_greedy(make_prefill_step(cfg2, opts, max_len=max_len),
+                                    make_decode_step(cfg2, opts), params32, tokens, steps)
+        one_launches = counts()
+    scale = want.abs().max().item()
+    rel = ((got["logits"] - want).abs().max() / scale).item()
+    same = torch.equal(got["tokens"], fed)
+    split = kv_split(cfg2, max_len, TP_MESH[2])
+    log(f"   {arch} serving (prefill of {tuple(tokens.shape)}, {steps} greedy decode steps, "
+        f"max_len {max_len}; cache over {split}, a rank's attention caches "
+        f"{got['cache_shapes'][0]}): logits rel {rel:.3g} of the largest (tolerance "
+        f"{SERVE_TP_RTOL}), greedy tokens {'equal' if same else 'DIFFER'}; rank-0 wall "
+        f"{got['wall_s']:.3f} s (host clock, gloo on one shared card); peak memory a rank "
+        f"{ranks[0]['peak_bytes'] / 2**30:.2f} / {ranks[1]['peak_bytes'] / 2**30:.2f} GiB "
+        f"({smi})")
+    assert same, (got["tokens"].tolist(), fed.tolist())
+    assert torch.isfinite(got["logits"]).all()
+    if rel > SERVE_TP_RTOL:  # both held to the plain path in f64, fed the same tokens
+        params64 = map_params(lambda _k, p: p.double(), params32)
+        o64 = ModelOptions(compute_dtype="float64", attn_impl="plain")
+        with f64_plain(), torch.no_grad():
+            want64, _, _ = serve_greedy(make_prefill_step(cfg2, o64, max_len=max_len),
+                                        make_decode_step(cfg2, o64), params64, tokens, steps,
+                                        feed=fed)
+        s64 = want64.abs().max()
+        e_tp = ((got["logits"].double() - want64).abs().max() / s64).item()
+        e_one = ((want.double() - want64).abs().max() / s64).item()
+        log(f"   {arch} serving held to the plain path in f64: tensor-parallel {e_tp:.4g} "
+            f"of the largest logit, one device {e_one:.4g} (held: within "
+            f"{SERVE_TP_RTOL} or twice the one-device distance) ({smi})")
+        assert e_tp <= max(SERVE_TP_RTOL, 2 * e_one), (e_tp, e_one)
+        del params64, want64
+    L = cfg2.num_layers
+    merges = L * steps if split == "sequence" else 0
+    for r in ranks:
+        lr = r["launches"]
+        assert lr["decode_attention"] == L * steps == one_launches["decode_attention"], lr
+        assert lr["merge_partials"] == merges, (lr, merges)
+        assert lr["flash_attention"] == L == one_launches["flash_attention"], lr
+    log(f"   launches a rank {got['launches']} (one device {one_launches}); "
+        f"{arch} serving checked in {time.perf_counter() - t0:.1f} s")
+    del params32
+    torch.cuda.empty_cache()
+    return {"count": got["count"], "cfg": cfg2, "opts": opts, "tokens": tuple(tokens.shape),
+            "max_len": max_len, "launches": got["launches"]}
+
+
+def kv_split(cfg, positions: int, n: int) -> str:
+    """Where the reference's placement splits an attention cache of
+    ``positions`` over n ranks, in words."""
+    return {"kv": "KV heads", "seq": "sequence", "whole": "whole"}[
+        kv_cache_split(positions, cfg.num_kv_heads, n)]
+
+
+def tp_serve_fake_count(job: dict) -> dict:
+    """Rank 0's kernel-mode count of a serving job's prefill and decode
+    step on fake tensors of an abstract (1, 1, 2) mesh: rank 0's parameter
+    shards and its block of the cache (``cache_specs``, ``local_cache``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cfg2, opts, max_len = job["cfg"], job["opts"], job["max_len"]
+    mesh = abstract_mesh(TP_MESH)
+    B = job["tokens"][0]
+    rules = activation_rules(data_axes=data_axes_for(mesh, B))
+    fake = FakeTensorMode()
+    with fake:
+        params = local_params(init_params(cfg2, device="cpu"), mesh)
+        tokens = torch.empty(job["tokens"], dtype=torch.int64)
+        whole = init_cache(cfg2, B, max_len, torch.float32, "cpu")
+        cache = local_cache(whole, cache_specs(whole, cfg2, mesh, data_axes_for(mesh, B),
+                                               rules), mesh)
+        del whole
+        nxt = torch.empty((B,), dtype=torch.int32)
+        prefill = make_prefill_step(cfg2, opts, max_len=max_len, mesh=mesh, act_rules=rules)
+        step = make_decode_step(cfg2, opts, mesh=mesh, act_rules=rules)
+        with torch.no_grad():
+            _, pre = count_ops(prefill, params, {"tokens": tokens}, shapes_only=True)
+            _, dec = count_ops(step, params, cache, nxt, shapes_only=True)
+    return {name: {k: getattr(t, k) for k in ("flops", "bytes", "by_kernel", "coll_by_key")}
+            for name, t in (("prefill", pre), ("decode", dec))}
+
+
 def tp_whole(blocks: list, spec: tuple, name: str) -> torch.Tensor:
     """A leaf whole from the ranks' blocks (``spec`` splits at most one dim
     over ``model``); a leaf the ranks hold whole must be equal on every
@@ -2849,7 +3134,8 @@ def tp_phase(seed: int, smi: str) -> list:
                 p.wait()
     assert rcs == [0, 0], f"tensor-parallel ranks exited with {rcs}"
     log(f"   the ranks' jobs: {time.perf_counter() - t0:.1f} s")
-    jobs = [tp_check(arch, seed, smi, out) for arch in TP_JOBS]
+    jobs = {"train": [tp_check(arch, seed, smi, out) for arch in TP_JOBS],
+            "serve": [tp_serve_check(arch, seed, smi, out) for arch in TP_SERVE_JOBS]}
     os.rmdir(out)
     log(f"   tensor-parallel sub-phase: {time.perf_counter() - t0:.1f} s")
     return jobs
@@ -3076,6 +3362,19 @@ def main() -> int:
     mha["paged_decode_attention"].append(check_paged(gen, 8, 16, 16, 128, 16, 1024,
                                                      torch.bfloat16))
     mha["decode_attention"].append(check_decode(gen, 4, 16, 16, 128, 256, torch.bfloat16))
+    # the dense decode kernel's log-sum-exp and the rank-ordered merge of a
+    # sequence-split decode's partials, at rows 3, 3q and 3s's shapes in
+    # both types: the merge over the production meshes' 16 ranks and the
+    # (1, 1, 2) mesh's 2 (gemma-2b's bf16 row first: the kernels line's)
+    lse_rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, H, KV, D, Smax in ((8, 8, 1, 256, 1024), (8, 40, 8, 128, 1024),
+                                  (4, 8, 1, 256, 256), (1, 8, 1, 256, 1024),
+                                  (1, 16, 1, 256, 2048)):
+            lse_rows.append(check_decode_lse(gen, B, H, KV, D, Smax, dtype))
+            for n in (16, 2):
+                results["merge_partials"].append(check_merge(gen, n, B, H, KV, D, Smax,
+                                                             dtype))
     log(f"== kernels ({smi}; {time.perf_counter() - t0:.1f} s)")
     for name, rows in [*results.items(), ("flash_attention (window)", windowed),
                        *((f"{k} (MHA)", v) for k, v in mha.items())]:
@@ -3089,6 +3388,10 @@ def main() -> int:
                 f"{r['plain_ms']:.4f} ms, library {lib}, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}{tf32})"
                 + (f"; {r['plan']}" if "plan" in r else ""))
+    for r in lse_rows:
+        log(f"   decode_attention with lse {r['shape']} {r['dtype']}: max_abs_err "
+            f"{r['max_abs_err']:.3g}, lse {r['lse_err']:.3g}; output bits as without it; "
+            f"kernel {r['ms']:.4f} ms with the lse store, {r['ms_without']:.4f} ms without")
     for r in near_hard:
         log(f"   flash f32 at scores in the hundreds {r['shape']}, max error over the "
             f"largest f64 entry: out {r['out']:.3g}, lse {r['lse']:.3g}; backward on "
@@ -3395,7 +3698,8 @@ def main() -> int:
     # the train run (flash backward), the recurrent prefills (RG-LRU,
     # mLSTM; the windowed flash is logged with the recurrentgemma phase),
     # the recurrent train runs (the windowed flash backward and the RG-LRU
-    # backward in recurrentgemma-9b's, the mLSTM backward in xlstm-125m's)
+    # backward in recurrentgemma-9b's, the mLSTM backward in xlstm-125m's),
+    # the merge rank 0's in phase 17's sequence-split serving job (gemma-2b)
     launches = {"rmsnorm": paged_launches["rmsnorm"],
                 "paged_decode_attention": paged_launches["paged_decode_attention"],
                 "decode_attention": fixed_launches["decode_attention"],
@@ -3405,7 +3709,8 @@ def main() -> int:
                 "mlstm_chunk": xl_launches["mlstm_chunk"],
                 "flash_attention_bwd_window": rg_train["flash_attention_bwd"],
                 "rglru_scan_bwd": rg_train["rglru_scan_bwd"],
-                "mlstm_chunk_bwd": xl_train["mlstm_chunk_bwd"]}
+                "mlstm_chunk_bwd": xl_train["mlstm_chunk_bwd"],
+                "merge_partials": tp["serve"][0]["launches"]["merge_partials"]}
     assert all(n > 0 for n in launches.values()), launches
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": WHERE[name][0],

@@ -8,15 +8,15 @@ sources with ``nvcc`` at first use.
 """
 
 from . import ref
-from .decode_attention import decode_attention, paged_decode_attention
+from .decode_attention import decode_attention, merge_partials, paged_decode_attention
 from .flash_attention import flash_attention, flash_attention_bwd, flash_attention_train
 from .flash_attention import route as flash_route
 from .mlstm_chunk import mlstm_chunk, mlstm_chunk_bwd
 from .rglru_scan import rglru_scan, rglru_scan_bwd
 from .rmsnorm import rmsnorm
 
-KERNELS = (rmsnorm, paged_decode_attention, decode_attention, flash_attention,
-           flash_attention_bwd, rglru_scan, rglru_scan_bwd, mlstm_chunk,
+KERNELS = (rmsnorm, paged_decode_attention, decode_attention, merge_partials,
+           flash_attention, flash_attention_bwd, rglru_scan, rglru_scan_bwd, mlstm_chunk,
            mlstm_chunk_bwd)
 
 
@@ -27,6 +27,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "decode_attention", "flash_attention",
-           "flash_attention_bwd", "flash_attention_train", "flash_route", "mlstm_chunk",
-           "mlstm_chunk_bwd", "paged_decode_attention", "ref",
+           "flash_attention_bwd", "flash_attention_train", "flash_route", "merge_partials",
+           "mlstm_chunk", "mlstm_chunk_bwd", "paged_decode_attention", "ref",
            "reset_launch_counts", "rglru_scan", "rglru_scan_bwd", "rmsnorm"]

@@ -48,8 +48,10 @@ _SIGNATURES = {
                                       ctypes.c_longlong),
     "repro_paged_decode_max_tile": ([], ctypes.c_int),
     "repro_decode_attention": (
-        [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
+        [_int, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
          _int, _int, _int, _int, _float, _vp], ctypes.c_int),
+    "repro_decode_merge": ([_int, _int, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
+                           ctypes.c_int),
     "repro_decode_attention_smem_bytes": ([_int, _int, _int, _int],
                                           ctypes.c_longlong),
     "repro_decode_attention_tensor_cores": ([_int, _int, _int, _vp, _vp, _vp],

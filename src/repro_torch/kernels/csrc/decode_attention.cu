@@ -301,9 +301,9 @@ bool use_tc(int dtype, int G, int D, int chunk, const void* q, const void* k, co
 
 template <int DMAX>
 cudaError_t launch_tc_d(const void* q, const void* k_cache, const void* v_cache,
-                        const int* lengths, float* part_acc, float* part_ml, void* out, int B,
-                        int H, int KV, int D, int Smax, int chunk, int nsplit, float scale,
-                        cudaStream_t stream) {
+                        const int* lengths, float* part_acc, float* part_ml, void* out,
+                        float* lse, int B, int H, int KV, int D, int Smax, int chunk,
+                        int nsplit, float scale, cudaStream_t stream) {
   const size_t smem = tc_layout(D, chunk).total;
   cudaError_t err = set_max_dynamic_smem(decode_tc_kernel<DMAX>, smem);
   if (err != cudaSuccess) return err;
@@ -313,20 +313,21 @@ cudaError_t launch_tc_d(const void* q, const void* k_cache, const void* v_cache,
       scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_decode_combine<bf16>(part_acc, part_ml, out, B, H, D, nsplit, stream);
+  return launch_decode_combine<bf16>(part_acc, part_ml, out, B, H, D, nsplit, stream, lse);
 }
 
 cudaError_t launch_tc(const void* q, const void* k_cache, const void* v_cache, const int* lengths,
-                      float* part_acc, float* part_ml, void* out, int B, int H, int KV, int D,
-                      int Smax, int chunk, int nsplit, float scale, cudaStream_t stream) {
+                      float* part_acc, float* part_ml, void* out, float* lse, int B, int H,
+                      int KV, int D, int Smax, int chunk, int nsplit, float scale,
+                      cudaStream_t stream) {
   if (D <= 64)
-    return launch_tc_d<64>(q, k_cache, v_cache, lengths, part_acc, part_ml, out, B, H, KV, D,
-                           Smax, chunk, nsplit, scale, stream);
+    return launch_tc_d<64>(q, k_cache, v_cache, lengths, part_acc, part_ml, out, lse, B, H, KV,
+                           D, Smax, chunk, nsplit, scale, stream);
   if (D <= 128)
-    return launch_tc_d<128>(q, k_cache, v_cache, lengths, part_acc, part_ml, out, B, H, KV, D,
-                            Smax, chunk, nsplit, scale, stream);
-  return launch_tc_d<256>(q, k_cache, v_cache, lengths, part_acc, part_ml, out, B, H, KV, D, Smax,
-                          chunk, nsplit, scale, stream);
+    return launch_tc_d<128>(q, k_cache, v_cache, lengths, part_acc, part_ml, out, lse, B, H, KV,
+                            D, Smax, chunk, nsplit, scale, stream);
+  return launch_tc_d<256>(q, k_cache, v_cache, lengths, part_acc, part_ml, out, lse, B, H, KV, D,
+                          Smax, chunk, nsplit, scale, stream);
 }
 
 }  // namespace
@@ -353,15 +354,16 @@ extern "C" int repro_decode_attention_tensor_cores(int dtype, int G, int D, cons
 }
 
 // q and out (B, H, D), caches (B, Smax, KV, D) in `dtype`; lengths (B,)
-// int32; scratch: part_acc (B, H, nsplit, D) and part_ml (B, H, nsplit, 2)
-// f32, with nsplit * chunk >= Smax.  bf16 that the tensor-core variant takes
+// int32; lse (B, H) f32 or null: each row's log-sum-exp (decode_combine.cuh);
+// scratch: part_acc (B, H, nsplit, D) and part_ml (B, H, nsplit, 2) f32,
+// with nsplit * chunk >= Smax.  bf16 that the tensor-core variant takes
 // goes to it, the rest to the CUDA-core split body (decode_split.cuh).  Returns the CUDA error of
 // the launches (0 on success).
 extern "C" int repro_decode_attention(int device, int dtype, const void* q, const void* k_cache,
                                       const void* v_cache, const void* lengths, void* part_acc,
-                                      void* part_ml, void* out, int B, int H, int KV, int D,
-                                      int Smax, int chunk, int nsplit, float scale,
-                                      void* stream) {
+                                      void* part_ml, void* out, void* lse, int B, int H,
+                                      int KV, int D, int Smax, int chunk, int nsplit,
+                                      float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || H == 0) return cudaSuccess;
@@ -372,9 +374,10 @@ extern "C" int repro_decode_attention(int device, int dtype, const void* q, cons
   auto len = static_cast<const int*>(lengths);
   auto pa = static_cast<float*>(part_acc);
   auto pml = static_cast<float*>(part_ml);
+  auto plse = static_cast<float*>(lse);
   if (repro::use_tc(dtype, H / KV, D, chunk, q, k_cache, v_cache))
-    return repro::launch_tc(q, k_cache, v_cache, len, pa, pml, out, B, H, KV, D, Smax, chunk,
-                            nsplit, scale, s);
+    return repro::launch_tc(q, k_cache, v_cache, len, pa, pml, out, plse, B, H, KV, D, Smax,
+                            chunk, nsplit, scale, s);
   repro::split::Args a{};
   a.q = q;
   a.k = k_cache;
@@ -383,6 +386,7 @@ extern "C" int repro_decode_attention(int device, int dtype, const void* q, cons
   a.part_acc = pa;
   a.part_ml = pml;
   a.out = out;
+  a.lse = plse;
   a.H = H;
   a.KV = KV;
   a.D = D;
@@ -392,5 +396,27 @@ extern "C" int repro_decode_attention(int device, int dtype, const void* q, cons
   if (dtype == repro::kFloat32) return repro::split::launch<float, false>(a, B, nsplit, s);
   if (dtype == repro::kBFloat16)
     return repro::split::launch<__nv_bfloat16, false>(a, B, nsplit, s);
+  return cudaErrorInvalidValue;
+}
+
+// The rank-ordered merge of n partial decode outputs, each over a slice of
+// the cache: part_acc (B, H, n, D) f32 holds rank r's normalised output at
+// [b, h, r], part_ml (B, H, n, 2) f32 its (log-sum-exp, 1), or (-1e30, 0)
+// for a rank whose slice held no valid position; out (B, H, D) in `dtype`.
+// The combine pass of the split kernels, with the ranks as its splits.
+extern "C" int repro_decode_merge(int device, int dtype, const void* part_acc,
+                                  const void* part_ml, void* out, int B, int H, int D, int n,
+                                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (B == 0 || H == 0) return cudaSuccess;
+  if (n < 1 || D < 1) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto pa = static_cast<const float*>(part_acc);
+  auto pml = static_cast<const float*>(part_ml);
+  if (dtype == repro::kFloat32)
+    return repro::launch_decode_combine<float>(pa, pml, out, B, H, D, n, s);
+  if (dtype == repro::kBFloat16)
+    return repro::launch_decode_combine<__nv_bfloat16>(pa, pml, out, B, H, D, n, s);
   return cudaErrorInvalidValue;
 }

@@ -6,6 +6,12 @@
 // its weight is 0 and its acc is never read.
 //   out = sum_c acc_c e^(m_c - M) / max(sum_c l_c e^(m_c - M), 1e-30),
 // summed over c in order, so the result does not depend on the launch.
+// Where `lse` (B, H) f32 is given, it also writes M + log(sum_c l_c e^(m_c -
+// M)), the log-sum-exp of the row's scaled scores, or -1e30 for a row with
+// no valid position.  The same pass merges the partials of ranks that each
+// attended a slice of the cache (decode_attention.cu's repro_decode_merge):
+// a rank's normalised output as acc, m its log-sum-exp and l 1 (0 for an
+// empty slice) give sum_r o_r e^(lse_r - M) / sum_r e^(lse_r - M).
 #pragma once
 
 #include "common.cuh"
@@ -22,7 +28,8 @@ constexpr int kCombineThreads = 256;
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
 decode_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                      T* __restrict__ out, int H, int D, int nsplit) {
+                      T* __restrict__ out, float* __restrict__ lse, int H, int D,
+                      int nsplit) {
   extern __shared__ float sw[];  // (nsplit,) weights of the listed splits
   int* sidx = reinterpret_cast<int*>(sw + nsplit);  // (nsplit,) their indices, in order
   __shared__ int s_count;
@@ -52,6 +59,7 @@ decode_combine_kernel(const float* __restrict__ part_acc, const float* __restric
       for (int i = 0; i < count; ++i) l_all += ml[2 * sidx[i] + 1] * sw[i];
       s_den = fmaxf(l_all, 1e-30f);
       s_count = count;
+      if (lse != nullptr) lse[bh] = count > 0 ? m_all + logf(l_all) : -1e30f;
     }
   }
   __syncthreads();
@@ -68,9 +76,10 @@ decode_combine_kernel(const float* __restrict__ part_acc, const float* __restric
 
 template <typename T>
 cudaError_t launch_decode_combine(const float* part_acc, const float* part_ml, void* out, int B,
-                                  int H, int D, int nsplit, cudaStream_t stream) {
+                                  int H, int D, int nsplit, cudaStream_t stream,
+                                  float* lse = nullptr) {
   decode_combine_kernel<T><<<dim3(H, B), kCombineThreads, 2 * nsplit * sizeof(float), stream>>>(
-      part_acc, part_ml, static_cast<T*>(out), H, D, nsplit);
+      part_acc, part_ml, static_cast<T*>(out), lse, H, D, nsplit);
   return cudaGetLastError();
 }
 

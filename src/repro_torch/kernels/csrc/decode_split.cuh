@@ -129,6 +129,7 @@ struct Args {
   float* part_acc;    // (B, H, nsplit, D)
   float* part_ml;     // (B, H, nsplit, 2)
   void* out;
+  float* lse;  // (B, H) or null: the combine's log-sum-exp (dense only)
   int H, KV, D;
   int cap;  // positions a sequence can hold: Smax, or T_blocks * bs
   int bs, T_blocks, chunk, copy;
@@ -513,7 +514,8 @@ cudaError_t launch_e(Args a, int B, int nsplit, cudaStream_t stream) {
   kernel<<<dim3(nsplit, a.KV, B), threads(E), smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_decode_combine<T>(a.part_acc, a.part_ml, a.out, B, a.H, a.D, nsplit, stream);
+  return launch_decode_combine<T>(a.part_acc, a.part_ml, a.out, B, a.H, a.D, nsplit, stream,
+                                  a.lse);
 }
 
 // Bytes of dynamic shared memory a block needs (-1: D wider than the body

@@ -8,6 +8,13 @@ axis across thread blocks and combined in a second pass.  bf16 that the
 tensor cores take runs on them; f32, and the rest of bf16, run the CUDA-core
 split body ``csrc/decode_split.cuh``, which the paged f32 path shares.
 
+``decode_attention(..., return_lse=True)`` also returns each row's
+log-sum-exp, which the combine pass writes, and ``merge_partials`` merges
+the outputs of ranks that each attended a slice of one cache (the
+flash-decode split of a decode cache over the sequence, which XLA writes
+into the reference's sharded program): it launches the same combine pass,
+the ranks as its splits.
+
 ``paged_decode_attention`` replaces
 ``repro/kernels/decode_attention.py::paged_decode_attention``.  K/V live in
 a block pool ``(num_blocks, block_size, KV, D)``; each sequence names its
@@ -32,7 +39,12 @@ import math
 import torch
 
 from . import _build
-from .ref import decode_attention_ref, paged_decode_attention_ref
+from .ref import (
+    NEG_INF,
+    decode_attention_ref,
+    merge_partials_ref,
+    paged_decode_attention_ref,
+)
 
 BLOCKS_PER_SM = 2  # paged bf16: split the table until the grid holds this many blocks per SM
 # the dense kernel's split plans: (step: chunks are whole multiples of it,
@@ -88,16 +100,25 @@ def _paged_cuda_core_splits(B: int, KV: int, T: int, bs: int, sms: int) -> tuple
 
 
 def decode_attention_cost(B: int, H: int, KV: int, D: int, Smax: int, dtype,
-                          lengths=None) -> _build.Cost:
+                          lengths=None, lse: bool = False) -> _build.Cost:
     """q read and out written (B,H,D), the K and V rows below each length
-    read (B,Smax,KV,D), in ``dtype``, and the int32 lengths; q k and p v, 2
-    D flops each, a valid position and head.  ``lengths`` are the rows'
-    lengths where the caller knows them (ints); without them every row
-    reads its whole cache, as a count from shapes alone must take it."""
+    read (B,Smax,KV,D), in ``dtype``, and the int32 lengths (and the f32
+    log-sum-exps written, with ``lse``); q k and p v, 2 D flops each, a
+    valid position and head.  ``lengths`` are the rows' lengths where the
+    caller knows them (ints); without them every row reads its whole cache,
+    as a count from shapes alone must take it."""
     es = dtype.itemsize
     valid = B * Smax if lengths is None else sum(min(int(n), Smax) for n in lengths)
-    return _build.Cost(4 * valid * H * D,
-                       2 * B * H * D * es + 2 * valid * KV * D * es + 4 * B)
+    return _build.Cost(4 * valid * H * D, 2 * B * H * D * es + 2 * valid * KV * D * es
+                       + 4 * B + (4 * B * H if lse else 0))
+
+
+def merge_partials_cost(n: int, B: int, H: int, D: int, dtype) -> _build.Cost:
+    """n partial outputs (n,B,H,D) in ``dtype`` and their f32 log-sum-exps
+    read, the (B,H,D) merge written; a multiply and an add an element of
+    each partial."""
+    es = dtype.itemsize
+    return _build.Cost(2 * n * B * H * D, n * B * H * (D * es + 4) + B * H * D * es)
 
 
 def paged_decode_attention_cost(B: int, H: int, KV: int, D: int, bs: int, T: int,
@@ -121,27 +142,28 @@ def _dims(x: torch.Tensor, n: int) -> tuple:
     return tuple(x.shape) if x.dim() == n else (0,) * n
 
 
-def _call_cost(q, kv, tables=None) -> _build.Cost:
+def _call_cost(q, kv, tables=None, lse: bool = False) -> _build.Cost:
     """A wrapper call's cost from its shapes: dense with ``tables`` None."""
     (B, H, D), (_, s, KV, _) = _dims(q, 3), _dims(kv, 4)
     if tables is None:
-        return decode_attention_cost(B, H, KV, D, s, q.dtype)
+        return decode_attention_cost(B, H, KV, D, s, q.dtype, lse=lse)
     return paged_decode_attention_cost(B, H, KV, D, s, _dims(tables, 2)[1], q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, lengths):
+def decode_attention(q, k_cache, v_cache, lengths, return_lse: bool = False):
     """q (B,H,D); caches (B,Smax,KV,D) in q's dtype; lengths (B,) int32 ->
-    (B,H,D) in q's dtype.
+    (B,H,D) in q's dtype, and with ``return_lse`` each row's log-sum-exp of
+    its scaled scores, (B,H) f32 (-1e30 for a row with no valid position).
 
     Positions below ``min(length, Smax)`` are valid, as in the model's plain
     decode layer: a length above Smax attends to the whole cache, and a
     length of 0 gives 0."""
     name = "decode_attention"
     _build.refuse_grad(name, q=q, k_cache=k_cache, v_cache=v_cache)
-    with _build.counted(name, lambda: _call_cost(q, k_cache)):
+    with _build.counted(name, lambda: _call_cost(q, k_cache, lse=return_lse)):
         if _build.on_cpu(name, q=q, k_cache=k_cache, v_cache=v_cache,
                          lengths=lengths):
-            return decode_attention_ref(q, k_cache, v_cache, lengths)
+            return decode_attention_ref(q, k_cache, v_cache, lengths, return_lse)
         _build.check_inputs(name, q.device, q=q, k_cache=k_cache, v_cache=v_cache,
                             lengths=lengths)
         if q.dtype not in _build.DTYPE_CODES:
@@ -175,18 +197,59 @@ def decode_attention(q, k_cache, v_cache, lengths):
         part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
                               device=q.device)
         out = torch.empty_like(q)
+        lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+               if return_lse else None)
         err = lib.repro_decode_attention(
             q.device.index, code, q.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, H, KV, D,
+            part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, KV, D,
             Smax, chunk, nsplit, 1.0 / math.sqrt(D), _build.stream(q.device))
         _build.check(err, name)
         decode_attention.launches += 1
-        return out
+        return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0  # kernel launches since the last reset
 decode_attention.cost = decode_attention_cost
+
+
+def merge_partials(o, lse):
+    """o (n,B,H,D) f32 or bf16, lse (n,B,H) f32: rank r's output and
+    log-sum-exp over its slice of the cache (``decode_attention(...,
+    return_lse=True)``) -> (B,H,D) in o's dtype, their rank-ordered merge
+    (``ref.merge_partials_ref``).  On the card, the combine pass of the
+    decode kernels with the ranks as its splits: o_r as a split's
+    normalised accumulator, ``m = lse_r``, ``l = 1`` (0 for an empty
+    slice), so every rank that merges the same partials gets the same
+    bits."""
+    name = "merge_partials"
+    _build.refuse_grad(name, o=o)
+    with _build.counted(name, lambda: merge_partials_cost(*_dims(o, 4), o.dtype)):
+        if _build.on_cpu(name, o=o, lse=lse):
+            return merge_partials_ref(o, lse)
+        _build.check_inputs(name, o.device, o=o, lse=lse)
+        if o.dtype not in _build.DTYPE_CODES or lse.dtype != torch.float32:
+            raise TypeError(f"{name}: o must be float32/bfloat16 and lse float32, got "
+                            f"{o.dtype} and {lse.dtype}")
+        if o.dim() != 4 or lse.shape != o.shape[:3]:
+            raise ValueError(f"{name}: shapes do not fit: o {tuple(o.shape)}, lse "
+                             f"{tuple(lse.shape)}")
+        n, B, H, D = o.shape
+        # the combine pass's layout: (B, H, splits, D) and (B, H, splits, 2)
+        acc = o.permute(1, 2, 0, 3).float().contiguous()
+        ml = torch.stack([lse, (lse > NEG_INF).float()], -1).permute(1, 2, 0, 3).contiguous()
+        out = torch.empty((B, H, D), dtype=o.dtype, device=o.device)
+        err = _build.library().repro_decode_merge(
+            o.device.index, _build.DTYPE_CODES[o.dtype], acc.data_ptr(), ml.data_ptr(),
+            out.data_ptr(), B, H, D, n, _build.stream(o.device))
+        _build.check(err, name)
+        merge_partials.launches += 1
+        return out
+
+
+merge_partials.launches = 0  # kernel launches since the last reset
+merge_partials.cost = merge_partials_cost
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+NEG_INF = -1e30  # the decode kernels' mask value
+
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
                 eps: float = 1e-6) -> torch.Tensor:
@@ -104,12 +106,14 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def decode_attention_ref(q, k_cache, v_cache, lengths):
+def decode_attention_ref(q, k_cache, v_cache, lengths, return_lse: bool = False):
     """q (B,H,D); caches (B,Smax,KV,D); lengths (B,) -> (B,H,D).
 
     A row with length 0 gives 0, as the decode kernels do
     (``acc / max(l, 1e-30)`` with ``acc == 0``); a plain softmax over an
-    all-masked row would give NaN there."""
+    all-masked row would give NaN there.  ``return_lse`` also returns each
+    row's log-sum-exp of its scaled scores, (B,H) f32: -1e30 (the kernels'
+    mask value) for a row with no valid position."""
     B, H, D = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
@@ -118,9 +122,31 @@ def decode_attention_ref(q, k_cache, v_cache, lengths):
     s = torch.einsum("bhd,bkhd->bhk", q.float(), kf) / math.sqrt(D)
     valid = (torch.arange(Smax, device=q.device)[None, :]
              < lengths.to(q.device)[:, None])[:, None, :]
-    p = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    masked = s.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(masked, dim=-1)
     p = torch.where(valid, p, torch.zeros((), device=q.device))
-    return torch.einsum("bhk,bkhd->bhd", p, vf).to(q.dtype)
+    out = torch.einsum("bhk,bkhd->bhd", p, vf).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(valid.any(-1), torch.logsumexp(masked, dim=-1),
+                      torch.full((), NEG_INF, dtype=s.dtype, device=q.device))
+    return out, lse
+
+
+def merge_partials_ref(o, lse):
+    """The rank-ordered merge of n partial decode outputs, each over a slice
+    of the cache: o (n,B,H,D), lse (n,B,H) as ``decode_attention_ref`` gives
+    them -> (B,H,D) in o's dtype, ``sum_r o_r e^(lse_r - M) / sum_r
+    e^(lse_r - M)`` with M the largest lse, each sum added in rank order; a
+    rank with no valid position (lse -1e30) weighs 0, and a row where no
+    rank has one gives 0 (the combine pass's ``max(den, 1e-30)``)."""
+    w = torch.where(lse > NEG_INF, torch.exp(lse - lse.amax(0)), 0.0)
+    of = o.to(w.dtype)
+    acc, den = of[0] * w[0, ..., None], w[0]
+    for r in range(1, o.shape[0]):
+        acc = acc + of[r] * w[r, ..., None]
+        den = den + w[r]
+    return (acc / torch.clamp(den, min=1e-30)[..., None]).to(o.dtype)
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths):

@@ -20,14 +20,20 @@ allocated), and ``repro_torch.launch.dryrun`` counts the ops it runs
   any part the axis does not divide (qwen2-moe-a2.7b's 60 experts over
   16 ranks), run whole on every rank of the group.  With ``dp_layout``
   every parameter is replicated and the batch spans ``model`` too;
-- **prefill** and **decode**: the port's single-device
-  ``serve.engine.make_prefill_step`` and ``models.lm.decode_step`` on rank
-  0's rows of the batch, the model held whole in the compute dtype: the
-  port has no sharded serving (``"model_axis": "replicated"``).
+- **prefill** and **decode**: the port's sharded serving steps
+  (``serve.engine.make_prefill_step`` and ``make_decode_step`` with the
+  mesh) as rank 0, on rank 0's shards of the parameters in the compute
+  dtype (``sharding.specs.local_params``) and, for decode, rank 0's block
+  of the cache as the reference's ``cache_specs`` places it
+  (``sharding.specs.local_cache``: recurrent states whole over ``model``);
+  the steps take rank 0's rows of the global batch.  Their compute is
+  tensor-parallel over ``model`` as the train step's, the decode cache's
+  attention layers split over their KV heads or, where ``model`` does not
+  divide those, over the sequence (``"model_axis"`` names which).
 
 The reference's ``tree_attention``, ``sequence_parallel`` and
 ``shard_cache_seq`` have no counterpart in the port: ``build_cell`` raises
-on them (ROADMAP, Queue 1).
+on them (ROADMAP, Queue 1, G6).
 """
 
 from __future__ import annotations
@@ -40,10 +46,10 @@ import torch
 from ..configs import SHAPES, ArchConfig, ShapeCfg, get_config, shape_applicable
 from ..convert import cast_params
 from ..data.stream import batch_specs
-from ..models.lm import ModelOptions, decode_step, init_cache, init_params
-from ..serve.engine import make_prefill_step
-from ..sharding.ctx import activation_rules, tensor_axis
-from ..sharding.specs import PARAM_RULES
+from ..models.lm import ModelOptions, init_cache, init_params
+from ..serve.engine import make_decode_step, make_prefill_step
+from ..sharding.ctx import activation_rules, data_axes_for, tensor_axis
+from ..sharding.specs import PARAM_RULES, cache_specs, kv_cache_split, local_cache, local_params
 from ..train.step import TrainConfig, init_train_state, make_train_step
 from .mesh import BATCH_AXES
 
@@ -62,20 +68,6 @@ class CellOptions:
     tree_attention: bool = False
     sequence_parallel: bool = False
     shard_cache_seq: bool = False
-
-
-def data_axes_for(mesh, global_batch: int, include_model: bool = False) -> tuple:
-    """Largest prefix of (pod, data[, model]) that divides the batch."""
-    names = ("pod", "data", "model") if include_model else ("pod", "data")
-    axes = [a for a in names if a in mesh.axis_names]
-    size = 1
-    chosen = []
-    for a in axes:
-        n = mesh.shape[a]
-        if global_batch % (size * n) == 0:
-            chosen.append(a)
-            size *= n
-    return tuple(chosen)
 
 
 @dataclass
@@ -109,6 +101,24 @@ def train_model_axis(cfg: ArchConfig, n: int) -> str:
     whole = [name for name, has, ok in parts if has and not ok]
     return ("tensor-parallel: " + (", ".join(split) or "nothing")
             + (f"; whole on every rank: {', '.join(whole)}" if whole else ""))
+
+
+def serve_model_axis(cfg: ArchConfig, n: int, shape: ShapeCfg) -> str:
+    """``train_model_axis`` for a serving step, and where its decode cache
+    splits over the n ranks: each attention kind's cache (global attention
+    of ``seq_len`` positions, a local layer's ring) over its KV heads, its
+    sequence or whole (``sharding.specs.kv_cache_split``); the recurrent
+    states whole."""
+    kinds = set(cfg.layer_kinds)
+    where = {"kv": "KV heads", "seq": "sequence", "whole": "whole"}
+    cache = [f"{name} over {where[kv_cache_split(positions, cfg.num_kv_heads, n)]}"
+             for kind, name, positions in (
+                 ("attn", "attention", shape.seq_len),
+                 ("local", "local ring", min(cfg.window, shape.seq_len)))
+             if kind in kinds]
+    if kinds - {"attn", "local"}:
+        cache.append("recurrent states whole")
+    return train_model_axis(cfg, n) + "; cache: " + ", ".join(cache)
 
 
 def token_count(cfg: ArchConfig, shape: ShapeCfg) -> int:
@@ -166,22 +176,30 @@ def build_cell(arch: str, shape_name: str, mesh, opts: CellOptions = CellOptions
                               else "replicated compute, sharded state")
         return Cell(arch, shape, cfg, "train", step, (state, batch), meta, fake)
 
-    meta["model_axis"] = "replicated"
+    act_rules = activation_rules(data_axes=batch_axes)
+    rules = opts.param_rules
+    if opts.dp_layout:  # as the train cells: no tensor-axis names
+        act_rules = {k: (v if k in ("batch", "dp") else None) for k, v in act_rules.items()}
+        rules = {}
+    tp = tensor_axis(act_rules, mesh, batch_axes)
+    meta["model_axis"] = (serve_model_axis(cfg, mesh.shape[tp], shape) if tp
+                          else "replicated compute, sharded state")
     with fake:
-        params = cast_params(init_params(cfg, device="cpu"), opts.model.dtype, "cpu")
+        params = local_params(cast_params(init_params(cfg, device="cpu"), opts.model.dtype,
+                                          "cpu"), mesh, rules)
         if shape.kind == "prefill":
-            batch = batch_specs(cfg.vocab_size, rows, seq_tok, ftok, cfg.frontend_dim,
-                                mode=fake)
+            batch = batch_specs(cfg.vocab_size, shape.global_batch, seq_tok, ftok,
+                                cfg.frontend_dim, mode=fake)
             del batch["labels"]
-            step = make_prefill_step(cfg, opts.model, max_len=shape.seq_len)
+            step = make_prefill_step(cfg, opts.model, max_len=shape.seq_len, mesh=mesh,
+                                     act_rules=act_rules, param_rules=rules)
             return Cell(arch, shape, cfg, "prefill", step, (params, batch), meta, fake)
-        # decode: one new token against a cache of seq_len
-        cache = init_cache(cfg, rows, shape.seq_len, opts.model.dtype, "cpu")
-        tokens = torch.empty((rows,), dtype=torch.int32)
-
-    def step(params, cache, tokens):
-        return decode_step(params, cfg, cache, tokens, opts.model)
-
+        # decode: one new token a row against rank 0's block of a cache of seq_len
+        whole = init_cache(cfg, shape.global_batch, shape.seq_len, opts.model.dtype, "cpu")
+        cache = local_cache(whole, cache_specs(whole, cfg, mesh, batch_axes, act_rules), mesh)
+        del whole
+        tokens = torch.empty((shape.global_batch,), dtype=torch.int32)
+    step = make_decode_step(cfg, opts.model, mesh=mesh, act_rules=act_rules, param_rules=rules)
     return Cell(arch, shape, cfg, "decode", step, (params, cache, tokens), meta, fake)
 
 

@@ -19,7 +19,10 @@ ported, because the kernel and its plain version take their place.
 ``local_band_attention`` is the reference's band decomposition of local
 attention, the plain path of local layers.  ``decode_attention`` here is
 the plain decode layer, which the paged engine's gather path and
-``impl="plain"`` run.
+``impl="plain"`` run.  ``seq_split_decode_attention`` is decode over a
+cache whose positions a model group splits: each rank attends its slice,
+and the partial outputs are merged by their log-sum-exps in rank order
+(``kernels.merge_partials``).
 """
 
 from __future__ import annotations
@@ -32,10 +35,10 @@ import torch.nn.functional as F
 
 from ..kernels import _build
 from ..kernels import decode_attention as decode_attention_kernel
-from ..kernels import flash_attention_train
+from ..kernels import flash_attention_train, merge_partials
 from ..kernels import rmsnorm as rmsnorm_kernel
-from ..kernels.ref import causal_attention_ref
-from ..sharding.collectives import copy_to_model, sum_over_model
+from ..kernels.ref import causal_attention_ref, decode_attention_ref, merge_partials_ref
+from ..sharding.collectives import all_to_all, copy_to_model, gather_stack, sum_over_model
 
 NEG_INF = -1e30
 ATTN_IMPLS = ("kernel", "plain")
@@ -203,18 +206,58 @@ def causal_attention(q, k, v, impl: str = "kernel",
                                  window=window)
 
 
-def cached_decode_attention(q, k_cache, v_cache, lengths,
-                            impl: str = "kernel", window: int = 0) -> torch.Tensor:
+def cached_decode_attention(q, k_cache, v_cache, lengths, impl: str = "kernel",
+                            window: int = 0, return_lse: bool = False):
     """One token per row against a dense cache, positions below
     ``min(lengths, Smax)`` valid: the dense decode kernel
     (``impl="kernel"``) or the plain layer ``decode_attention``.  A local
     layer's ring buffer (``window`` > 0) takes the same kernel: its valid
     slots are those below ``min(lengths, Smax)`` too, and the softmax does
-    not depend on the order of the slots."""
+    not depend on the order of the slots.  ``return_lse``: also each row's
+    log-sum-exp (B,H) f32, from the kernel or from its plain version
+    ``decode_attention_ref``."""
     if impl == "plain":
+        if return_lse:
+            return decode_attention_ref(q, k_cache, v_cache, lengths, return_lse=True)
         return decode_attention(q, k_cache, v_cache, lengths, window)
     return decode_attention_kernel(q.contiguous(), k_cache, v_cache,
-                                   lengths.to(torch.int32))
+                                   lengths.to(torch.int32), return_lse)
+
+
+def seq_split_decode_attention(q, k_slice, v_slice, lengths, positions: int, group,
+                               n: int, idx: int, impl: str = "kernel",
+                               heads_split: bool = False) -> torch.Tensor:
+    """One token per row against rank ``idx``'s slice of a cache whose
+    ``positions`` a model group of n ranks splits (flash-decode, split-K
+    over the cache sequence): it holds positions (or a ring buffer's slots)
+    [idx P / n, (idx + 1) P / n) of P, and positions below
+    ``min(lengths, P)`` are valid.  q: this rank's query heads (B,H,D),
+    every head unless ``heads_split``; slices (B, P / n, KV, D) with every
+    KV head.  Returns (B,H,D) in q's dtype.
+
+    The rank attends over its slice with local lengths ``clamp(min(lengths,
+    P) - idx P / n, 0, P / n)``, keeping each row's log-sum-exp; a slice
+    with no valid position gives 0 and weighs nothing.  Heads whole: every
+    rank gathers every rank's (output, log-sum-exp) and merges them in rank
+    order, so every rank holds the same bits.  Heads split: the ranks'
+    query heads are gathered first, each rank attends all of them over its
+    slice and sends each rank its heads' partials (an all-to-all), which
+    that rank merges.  The partials travel as f32, their collectives
+    counted under ``merge_partials``."""
+    B, H, D = q.shape
+    size = k_slice.shape[1]
+    local = torch.clamp(torch.clamp(lengths, max=positions) - idx * size, 0, size)
+    if heads_split:  # (n, B, H, D) -> (B, n H, D): every head, in order
+        q = gather_stack(q, group, n).permute(1, 0, 2, 3).reshape(B, n * H, D)
+    o, lse = cached_decode_attention(q, k_slice, v_slice, local, impl, return_lse=True)
+    part = torch.cat([o.to(lse.dtype), lse[..., None]], dim=-1)
+    if heads_split:  # block j (rank j's heads) to rank j
+        part = all_to_all(part.view(B, n, H, D + 1).transpose(0, 1).contiguous(), group, n,
+                          "merge_partials")
+    else:
+        part = gather_stack(part, group, n, "merge_partials")
+    merge = merge_partials if impl == "kernel" else merge_partials_ref
+    return merge(part[..., :D].contiguous(), part[..., D].contiguous()).to(q.dtype)
 
 
 # ----------------------------------------------------------------------- mlp

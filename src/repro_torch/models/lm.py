@@ -48,6 +48,7 @@ from ..sharding.collectives import (
     sum_over_model,
 )
 from ..sharding.ctx import loss_group, model_group, rebind
+from ..sharding.specs import kv_cache_split
 from . import recurrent as rec
 from .moe import IMPLS as MOE_IMPLS
 from .moe import init_moe, moe_apply
@@ -63,6 +64,7 @@ from .layers import (
     mlp_apply,
     rmsnorm,
     rope_table,
+    seq_split_decode_attention,
 )
 
 
@@ -305,6 +307,29 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------ forward
 
 
+def _embed_tokens(params, cfg: ArchConfig, tokens, dtype) -> torch.Tensor:
+    """The embedding rows of ``tokens`` (any shape) in ``dtype``, scaled
+    where the config asks.  Vocab-parallel under a bound model group whose
+    ranks hold vocab blocks of the table: each token's row comes from the
+    one rank that holds it, summed over the group (adding zeros: exact)."""
+    # F.embedding, not indexing: on the CPU the backward of indexing adds
+    # rows in an order that depends on threads, so two equal train steps
+    # could part in the last bits
+    table = params["embed"]["table"]
+    group, n, offset = _vocab_group(cfg, table.shape[0])
+    if group is None:
+        x = F.embedding(tokens.long(), table)
+    else:
+        local = tokens.long() - offset
+        own = (local >= 0) & (local < table.shape[0])
+        x = F.embedding(torch.where(own, local, 0), table) * own[..., None]
+        x = sum_over_model(x, group, n)
+    x = x.to(dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=x.device)
+    return x
+
+
 def embed_inputs(params, cfg: ArchConfig, tokens, frontend_embeds,
                  dtype) -> torch.Tensor:
     """tokens (B,S) int -> (B,S,d) in ``dtype``.  The scale is rounded to
@@ -313,21 +338,7 @@ def embed_inputs(params, cfg: ArchConfig, tokens, frontend_embeds,
     projects them by ``frontend.w`` in ``dtype`` and puts them ahead of
     the (scaled) tokens: (B, F+S, d).  Other configs ignore them, as the
     reference does."""
-    # F.embedding, not indexing: on the CPU the backward of indexing adds
-    # rows in an order that depends on threads, so two equal train steps
-    # could part in the last bits
-    table = params["embed"]["table"]
-    group, n, offset = _vocab_group(cfg, table.shape[0])
-    if group is None:
-        x = F.embedding(tokens.long(), table)
-    else:  # vocab-parallel: each token's row comes from the one rank that holds it
-        local = tokens.long() - offset
-        own = (local >= 0) & (local < table.shape[0])
-        x = F.embedding(torch.where(own, local, 0), table) * own[..., None]
-        x = sum_over_model(x, group, n)
-    x = x.to(dtype)
-    if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=x.device)
+    x = _embed_tokens(params, cfg, tokens, dtype)
     if cfg.frontend:
         if frontend_embeds is None:
             raise ValueError(f"{cfg.name} takes frontend_embeds "
@@ -341,7 +352,7 @@ def embed_inputs(params, cfg: ArchConfig, tokens, frontend_embeds,
 
 
 def _attention_block(aparams, cfg: ArchConfig, x, sin, cos,
-                     opts: ModelOptions, kind: str = "attn"):
+                     opts: ModelOptions, kind: str = "attn", whole_kv: bool = False):
     """Self-attention over the sequence (``kind`` "local": within the
     config's window).  x (B,S,d) in the compute dtype.  Returns the output
     projection and the compact (B,S,KV,hd) K/V for the cache.  q/k/v are
@@ -362,6 +373,7 @@ def _attention_block(aparams, cfg: ArchConfig, x, sin, cos,
     if H == cfg.num_heads:  # the heads are not split: the block runs whole
         group, n = None, 1
     ap = dict(aparams)
+    sel = None  # the KV heads of this rank's queries, where wk holds every one
     if group is not None:
         x = copy_to_model(x, group, n)
         for name in ("q_norm", "k_norm"):
@@ -373,10 +385,9 @@ def _attention_block(aparams, cfg: ArchConfig, x, sin, cos,
             for name in ("wk", "wv", "bk", "bv"):
                 if name in ap:
                     leaf = copy_to_model(ap[name], group, n)
-                    dim = 1 if name[0] == "w" else 0
-                    ap[name] = (leaf.narrow(dim, sel.start, len(sel)) if isinstance(sel, range)
-                                else leaf.index_select(dim, sel.to(leaf.device)))
-            KV = len(sel)
+                    ap[name] = leaf if whole_kv else _pick(leaf, sel, 1 if name[0] == "w" else 0)
+            if not whole_kv:
+                KV = len(sel)
     q = matmul_f32(x, ap["wq"].flatten(1).to(dt)).to(dt).view(B, S, H, hd)
     k = matmul_f32(x, ap["wk"].flatten(1).to(dt)).to(dt).view(B, S, KV, hd)
     v = matmul_f32(x, ap["wv"].flatten(1).to(dt)).to(dt).view(B, S, KV, hd)
@@ -391,11 +402,20 @@ def _attention_block(aparams, cfg: ArchConfig, x, sin, cos,
     k = apply_rope(k, sin, cos)
     # the kernel reads the compact K/V through h // G: no GQA repeat
     window = cfg.window if kind == "local" else 0
-    out = causal_attention(q, k, v, opts.attn_impl, window).reshape(B, S, H * hd)
+    ka, va = (_pick(k, sel, 2), _pick(v, sel, 2)) if whole_kv and sel is not None else (k, v)
+    out = causal_attention(q, ka, va, opts.attn_impl, window).reshape(B, S, H * hd)
     wo = ap["wo"].flatten(0, 1).to(dt)
     if group is None:
         return out @ wo, (k, v)
     return sum_over_model(matmul_f32(out, wo), group, n).to(dt), (k, v)
+
+
+def _pick(x: torch.Tensor, sel, dim: int) -> torch.Tensor:
+    """The entries ``sel`` (a range or a tensor of indices) of ``x`` along
+    ``dim``."""
+    if isinstance(sel, range):
+        return x.narrow(dim, sel.start, len(sel))
+    return x.index_select(dim, sel.to(x.device))
 
 
 def _kv_heads(heads: range, G: int):
@@ -414,23 +434,45 @@ def _kv_heads(heads: range, G: int):
 def _pack_kv_cache(k, v, kind: str, cfg: ArchConfig, max_len: int) -> dict:
     """Full-sequence K/V (B,S,KV,hd) as the decode cache.  Global attention:
     zero-padded to (B, max_len, KV, hd).  Local attention: a ring buffer of
-    ``min(window, max_len)`` slots, position p in slot p % w."""
+    ``min(window, max_len)`` slots, position p in slot p % w.  Under a bound
+    model group whose cache splits over the sequence (every KV head here,
+    ``kv_cache_split`` "seq"), this rank's block of the positions or slots:
+    rank r holds [r P / n, (r + 1) P / n) of the P the whole cache has."""
     B, S = k.shape[:2]
+    group, n, idx = model_group()
     if kind == "local":
         w = min(cfg.window, max_len)
-        n = min(S, w)
-        slots = (torch.arange(S - n, S, device=k.device) % w).long()
+        m = min(S, w)
+        slots = (torch.arange(S - m, S, device=k.device) % w).long()
         buf_k = k.new_zeros((B, w, *k.shape[2:]))
         buf_v = v.new_zeros((B, w, *v.shape[2:]))
-        buf_k[:, slots] = k[:, S - n:]
-        buf_v[:, slots] = v[:, S - n:]
+        buf_k[:, slots] = k[:, S - m:]
+        buf_v[:, slots] = v[:, S - m:]
+        if group is not None and _seq_split(cfg, k.shape[2], w, n):
+            size = w // n
+            buf_k, buf_v = (b.narrow(1, idx * size, size).clone() for b in (buf_k, buf_v))
         return {"k": buf_k, "v": buf_v}
     pad = max_len - S
     if pad < 0:
         raise ValueError(f"max_len {max_len} is shorter than the sequence "
                          f"{k.shape[1]}")
+    if group is not None and _seq_split(cfg, k.shape[2], max_len, n):
+        size = max_len // n
+        lo = min(idx * size, S)
+        hi = min(lo + size, S)
+        return {name: F.pad(t[:, lo:hi], (0, 0, 0, 0, 0, size - (hi - lo)))
+                for name, t in (("k", k), ("v", v))}
     return {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
             "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+
+
+def _seq_split(cfg: ArchConfig, kv_heads: int, positions: int, n: int) -> bool:
+    """Whether a model group of n ranks splits an attention cache of
+    ``positions`` whose K/V hold ``kv_heads`` heads over the sequence: they
+    hold every KV head, and the reference's placement splits the positions
+    (``sharding.specs.kv_cache_split``)."""
+    return (kv_heads == cfg.num_kv_heads
+            and kv_cache_split(positions, cfg.num_kv_heads, n) == "seq")
 
 
 def _apply_layer_seq(lparams, cfg: ArchConfig, spec: LayerSpec, x, sin, cos,
@@ -443,7 +485,7 @@ def _apply_layer_seq(lparams, cfg: ArchConfig, spec: LayerSpec, x, sin, cos,
     h = rmsnorm(x, lparams["norm1"]["scale"], cfg.norm_eps)
     if spec.kind in ("attn", "local"):
         mix, (k, v) = _attention_block(lparams["attn"], cfg, h, sin, cos, opts,
-                                       spec.kind)
+                                       spec.kind, whole_kv=want_state)
         state = _pack_kv_cache(k, v, spec.kind, cfg, max_len) if want_state else None
     else:
         if spec.kind == "rglru":
@@ -555,7 +597,11 @@ def forward_with_cache(params, cfg: ArchConfig, tokens, frontend_embeds=None,
     Returns (logits (B,S,V) f32, cache) with global-attention caches padded
     to ``max(max_len, S)`` positions, local ones as ring buffers, recurrent
     layers' final states, and ``cache['len']`` set to S (a frontend's
-    positions included)."""
+    positions included).  Under a bound model group the logits are this
+    rank's vocab block (where the head splits the vocabulary) and the cache
+    this rank's, placed as ``sharding.specs.cache_specs`` places it
+    (recurrent states whole), with ``cache["max_len"]`` the whole cache's
+    positions, as ``sharding.specs.local_cache`` gives it."""
     B, S = tokens.shape
     if cfg.frontend and frontend_embeds is not None:
         S += frontend_embeds.shape[1]
@@ -569,6 +615,8 @@ def forward_with_cache(params, cfg: ArchConfig, tokens, frontend_embeds=None,
         "tail": states["tail"],
         "len": torch.full((B,), S, dtype=torch.int32, device=logits.device),
     }
+    if model_group()[0] is not None:
+        cache["max_len"] = max_len
     return logits, cache
 
 
@@ -623,7 +671,7 @@ def _keep_rows(new: torch.Tensor, old: torch.Tensor, advance) -> torch.Tensor:
 
 
 def _decode_layer(lparams, cfg: ArchConfig, spec: LayerSpec, state, x, sin,
-                  cos, lengths, advance, opts: ModelOptions):
+                  cos, lengths, advance, opts: ModelOptions, positions=None):
     """One layer, one token per row.  x (B,d).  Updates ``state`` in place
     (rows where ``advance`` is False keep every leaf bit for bit) and
     returns the new x.  Every row computes as if it advanced, as the
@@ -633,7 +681,7 @@ def _decode_layer(lparams, cfg: ArchConfig, spec: LayerSpec, state, x, sin,
     h = rmsnorm(x, lparams["norm1"]["scale"], cfg.norm_eps)
     if spec.kind in ("attn", "local"):
         mix = _decode_attention(lparams["attn"], cfg, spec.kind, state, h, sin,
-                                cos, lengths, advance, opts)
+                                cos, lengths, advance, opts, positions)
     else:
         if spec.kind == "rglru":
             mix, new = rec.rglru_step(lparams["rglru"], h, state)
@@ -647,13 +695,38 @@ def _decode_layer(lparams, cfg: ArchConfig, spec: LayerSpec, state, x, sin,
 
 
 def _decode_attention(ap, cfg: ArchConfig, kind: str, state, h, sin, cos,
-                      lengths, advance, opts: ModelOptions):
+                      lengths, advance, opts: ModelOptions, positions=None):
     """The attention mix of one decode token per row: writes its K/V into
     ``state`` in place and attends over the cache (global) or the ring
-    buffer (local)."""
+    buffer (local).
+
+    Under a bound model group, this rank's query heads where ``wq`` holds
+    part of them (column-parallel, the output projection row-parallel and
+    summed over the group in rank order), and its block of the cache as
+    ``sharding.specs.cache_specs`` places it, read off its shape against
+    the whole cache's positions (``positions``, ``cache["max_len"]``): KV
+    heads split, each rank attends its heads over its own; positions
+    split, only the rank that holds the new token's slot writes it, and the
+    ranks' partial outputs are merged (``layers.seq_split_decode_attention``);
+    a whole cache, each rank attends its heads over the KV heads they
+    read."""
     dt = h.dtype
     B = h.shape[0]
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, KV, hd = ap["wq"].shape[1], ap["wk"].shape[1], cfg.head_dim
+    group, n, idx = model_group()
+    heads_split = group is not None and H != cfg.num_heads
+    split = "whole"
+    Smax = state["k"].shape[1]
+    if group is not None:
+        if state["k"].shape[2] != KV:
+            raise ValueError(f"the cache holds {state['k'].shape[2]} KV heads and wk {KV}")
+        S = Smax
+        if positions is not None:
+            S = min(cfg.window, positions) if kind == "local" else positions
+        if S not in (Smax, Smax * n):
+            raise ValueError(f"a cache of {S} positions, of which this rank holds {Smax} "
+                             f"over {n} ranks")
+        split = "kv" if KV != cfg.num_kv_heads else "seq" if S != Smax else "whole"
     # the reference's einsums name no accumulation type here: the
     # projections come out in the compute dtype
     q = (h @ ap["wq"].flatten(1).to(dt)).view(B, H, hd)
@@ -667,26 +740,46 @@ def _decode_attention(ap, cfg: ArchConfig, kind: str, state, h, sin, cos,
         k = rmsnorm(k, ap["k_norm"]["scale"], cfg.norm_eps)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
-    Smax = state["k"].shape[1]
     # local: the ring buffer's slot; global: a row past the end writes the
     # last slot (the reference clamps too)
-    slot = (lengths % Smax if kind == "local"
-            else torch.clamp(lengths, max=Smax - 1)).long()
+    S = Smax * n if split == "seq" else Smax
+    slot = (lengths % S if kind == "local"
+            else torch.clamp(lengths, max=S - 1)).long()
+    own = None
+    if split == "seq":  # the slot lies in one rank's block: only it writes
+        own = slot // Smax == idx
+        slot = torch.clamp(slot - idx * Smax, 0, Smax - 1)
     rows = torch.arange(B, device=h.device)
-    if advance is not None:
+    if advance is not None or own is not None:
         old = (state["k"][rows, slot], state["v"][rows, slot])
     # every row attends over its new K/V, as in the reference's batched
     # step; then the rows that stay get their old K/V back (_merge_slot)
-    state["k"][rows, slot] = k
-    state["v"][rows, slot] = v
+    if own is None:
+        state["k"][rows, slot] = k
+        state["v"][rows, slot] = v
+    else:
+        state["k"][rows, slot] = torch.where(own[:, None, None], k, old[0])
+        state["v"][rows, slot] = torch.where(own[:, None, None], v, old[1])
     window = cfg.window if kind == "local" else 0
-    out = cached_decode_attention(q, state["k"], state["v"], lengths + 1,
-                                  opts.attn_impl, window)
+    if split == "seq":
+        out = seq_split_decode_attention(q, state["k"], state["v"], lengths + 1, S, group,
+                                         n, idx, opts.attn_impl, heads_split)
+    elif split == "whole" and heads_split:  # the KV heads this rank's queries read
+        sel = _kv_heads(range(idx * H, (idx + 1) * H), cfg.num_heads // cfg.num_kv_heads)
+        out = cached_decode_attention(q, _pick(state["k"], sel, 2).contiguous(),
+                                      _pick(state["v"], sel, 2).contiguous(), lengths + 1,
+                                      opts.attn_impl, window)
+    else:
+        out = cached_decode_attention(q, state["k"], state["v"], lengths + 1,
+                                      opts.attn_impl, window)
     if advance is not None:
-        go = advance[:, None, None]
+        go = advance[:, None, None] if own is None else (advance & own)[:, None, None]
         state["k"][rows, slot] = torch.where(go, k, old[0])
         state["v"][rows, slot] = torch.where(go, v, old[1])
-    return out.reshape(B, H * hd) @ ap["wo"].flatten(0, 1).to(dt)
+    wo = ap["wo"].flatten(0, 1).to(dt)
+    if not heads_split:
+        return out.reshape(B, H * hd) @ wo
+    return sum_over_model(matmul_f32(out.reshape(B, H * hd), wo), group, n).to(dt)
 
 
 def decode_step(params, cfg: ArchConfig, cache, tokens,
@@ -699,18 +792,21 @@ def decode_step(params, cfg: ArchConfig, cache, tokens,
     their length bit for bit (their logits are computed and meaningless).
     That is the reference's batched step followed by ``_merge_slot``,
     without a second copy of the cache; recurrent states are merged row by
-    row the same way."""
+    row the same way.
+
+    Under a bound model group (``make_decode_step`` with a mesh) the
+    parameters and the cache are this rank's (``_decode_attention``), the
+    embedding lookup and the logits vocab-parallel: the logits are this
+    rank's vocab block where the head splits the vocabulary."""
     plan = stack_plan(cfg)
     dt = opts.dtype
     lengths = cache["len"]
-    x = params["embed"]["table"][tokens.long()].to(dt)
-    if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
+    x = _embed_tokens(params, cfg, tokens, dt)
     sin, cos = rope_table(lengths, cfg.head_dim, cfg.rope_theta)
     for (spec, _, lp), (_, _, state) in zip(_layers(params, plan),
                                             _layers(cache, plan)):
         x = _decode_layer(lp, cfg, spec, state, x, sin, cos, lengths, advance,
-                          opts)
+                          opts, cache.get("max_len"))
     cache["len"] = (lengths + 1 if advance is None
                     else torch.where(advance, lengths + 1, lengths))
     return _logits(params, cfg, x), cache

@@ -43,8 +43,14 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import MoECfg
-from ..sharding.collectives import copy_to_model, ordered_sum, sum_over, sum_over_model
-from ..sharding.ctx import loss_group, model_group
+from ..sharding.collectives import (
+    copy_to_model,
+    gather_stack,
+    ordered_sum,
+    sum_over,
+    sum_over_model,
+)
+from ..sharding.ctx import loss_group, loss_index, model_group, whole_batch
 from .layers import act_fn, bmm_f32, dense_init, matmul_f32, mlp_apply
 
 IMPLS = ("einsum", "sort")
@@ -243,9 +249,12 @@ def moe_apply(params: dict, x: torch.Tensor, m: MoECfg, act: str):
     divide B*S (the reference asserts it).  Under a mesh binding x is this
     rank's rows of the bound loss's batch, and the groups are those of the
     global batch: capacity couples a group's tokens, so where this rank's
-    tokens are not whole groups it raises rather than route otherwise.  The
-    shared experts run as a gated MLP on every token; qwen2's sigmoid gate
-    on them is f32.
+    tokens are not whole groups of their own, a group spans the ranks (a
+    serving step's few rows a rank): outside autograd, every rank gathers
+    the global batch's tokens, routes them as one device would, and keeps
+    its own rows' outputs; a step that differentiates raises rather than
+    route otherwise.  The shared experts run as a gated MLP on every token;
+    qwen2's sigmoid gate on them is f32.
 
     Under a bound model group (``sharding.ctx.model_group``) of n ranks:
     where ``params`` hold this rank's E / n routed experts, the layer is
@@ -254,8 +263,14 @@ def moe_apply(params: dict, x: torch.Tensor, m: MoECfg, act: str):
     whole."""
     B, S, d = x.shape
     T = B * S
-    _, n_loss = loss_group()
+    lgroup, n_loss = loss_group()
     g = min(m.group_size, T * n_loss)
+    if T % g and not g % T and not (torch.is_grad_enabled() and x.requires_grad):
+        i = loss_index()
+        xs = gather_stack(x, lgroup, n_loss).reshape(n_loss * B, S, d)
+        with whole_batch():  # the gathered rows are the global batch's
+            out, aux = moe_apply(params, xs, m, act)
+        return out[i * B:(i + 1) * B], aux
     if T % g:
         raise ValueError(
             f"MoE: {T} tokens do not split into groups of {g}" + (

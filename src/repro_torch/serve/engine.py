@@ -2,7 +2,12 @@
 ported from ``repro/serve/engine.py``.
 
 ``make_prefill_step`` / ``make_decode_step`` wrap ``forward_with_cache``
-and ``decode_step``.  ``ServeEngine`` is the fixed-slot driver: every slot
+and ``decode_step``; given a mesh (``launch.mesh``) and activation rules,
+as the reference's take them, they run tensor-parallel over its ``model``
+axis, on this rank's shards of the parameters and its block of the cache.
+The engines take no mesh, as the reference's do not.
+
+``ServeEngine`` is the fixed-slot driver: every slot
 owns a dense cache row of ``max_len`` positions, and a prompt is admitted
 token by token through the batched decode step with only the admitted row
 advancing (the reference's ``_merge_slot``, without copying the cache).
@@ -28,6 +33,9 @@ from ..configs.base import ArchConfig
 from ..convert import cast_params
 from ..device import resolve_device
 from ..models.lm import ModelOptions, decode_step, forward_with_cache, init_cache
+from ..sharding.ctx import tensor_axis, use_rules
+from ..sharding.specs import PARAM_RULES, spec_axes
+from ..train.step import batch_sharding, compute_gather
 from .paged_model import (
     all_attention,
     init_paged_state,
@@ -47,25 +55,73 @@ class Request:
     done: bool = False
 
 
+def _mesh_binding(cfg: ArchConfig, mesh, act_rules: dict, param_rules: dict):
+    """(gather, rows, bind) of a serving step on ``mesh``: ``gather(params)``
+    the tree the model computes on from this rank's shards (gathered over
+    the batch axes, and over ``model`` for the leaves tensor-parallel
+    compute does not split: ``train.step.compute_gather``), ``rows(x)``
+    this rank's rows of a global batch tensor (split over the axes
+    ``act_rules["batch"]`` names), and ``bind()`` the binding the model
+    reads."""
+    batch_axes = tuple(a for a in spec_axes(act_rules.get("batch")) if a in mesh.axis_names)
+    gather = compute_gather(cfg, mesh, tensor_axis(act_rules, mesh, batch_axes), param_rules)
+
+    def rows(x):
+        return None if x is None else batch_sharding(mesh, {"x": x}, batch_axes)["x"]
+
+    return gather, rows, lambda: use_rules(mesh, act_rules, batch_axes)
+
+
 def make_prefill_step(cfg: ArchConfig, opts: ModelOptions = ModelOptions(),
-                      max_len: int = 0):
+                      max_len: int = 0, mesh=None, act_rules=None,
+                      param_rules: dict = PARAM_RULES):
     """``prefill(params, batch) -> (logits, cache)``: ``forward_with_cache``
-    over ``batch["tokens"]`` (B,S), the cache padded to ``max(max_len, S)``."""
+    over ``batch["tokens"]`` (B,S), the cache padded to ``max(max_len, S)``.
+
+    With a ``mesh`` and ``act_rules`` (``sharding.activation_rules``, its
+    ``batch`` the axes the rows split over: ``sharding.ctx.data_axes_for``)
+    ``params`` are this rank's shards (``sharding.specs.local_params`` by
+    ``param_rules``) and ``batch`` the global batch: the step takes this
+    rank's rows and returns their logits (this rank's vocab block where the
+    head splits it) and this rank's cache, placed as
+    ``sharding.specs.cache_specs`` places it.  Without them it is the
+    one-device step."""
     def prefill(params, batch):
         return forward_with_cache(params, cfg, batch["tokens"],
                                   batch.get("frontend_embeds"),
                                   max_len=max_len, opts=opts)
 
-    return prefill
+    if mesh is None or not act_rules:
+        return prefill
+    gather, rows, bind = _mesh_binding(cfg, mesh, act_rules, param_rules)
+
+    def mesh_prefill(params, batch):
+        with bind():
+            return prefill(gather(params), {k: rows(v) for k, v in batch.items()})
+
+    return mesh_prefill
 
 
-def make_decode_step(cfg: ArchConfig, opts: ModelOptions = ModelOptions()):
+def make_decode_step(cfg: ArchConfig, opts: ModelOptions = ModelOptions(),
+                     mesh=None, act_rules=None, param_rules: dict = PARAM_RULES):
     """``step(params, cache, tokens, advance=None) -> (logits, cache)``:
-    ``decode_step``, the cache updated in place."""
+    ``decode_step``, the cache updated in place.  With a ``mesh`` and
+    ``act_rules`` (as ``make_prefill_step``) ``params`` are this rank's
+    shards, ``cache`` this rank's block (``sharding.specs.local_cache``, or
+    the sharded prefill's), and ``tokens`` and ``advance`` the global
+    batch's, of which the step takes this rank's rows."""
     def step(params, cache, tokens, advance=None):
         return decode_step(params, cfg, cache, tokens, opts, advance)
 
-    return step
+    if mesh is None or not act_rules:
+        return step
+    gather, rows, bind = _mesh_binding(cfg, mesh, act_rules, param_rules)
+
+    def mesh_step(params, cache, tokens, advance=None):
+        with bind():
+            return step(gather(params), cache, rows(tokens), rows(advance))
+
+    return mesh_step
 
 
 class ServeEngine:

@@ -23,7 +23,9 @@ tensor of the result's shape.  Over either kind of group each collective
 reports the bytes this rank receives to the op counters that are counting
 (``launch.op_analysis.record_collective``), under its own kind and the
 group's mesh axes: ``all_gather``, ``ordered_sum``,
-``ordered_reduce_scatter``, ``ordered_max``.
+``ordered_reduce_scatter``, ``ordered_max``, and ``merge_partials`` for the
+exchange of a sequence-split decode's partial outputs (``gather_stack``
+or ``all_to_all`` under that kind).
 """
 
 from __future__ import annotations
@@ -70,11 +72,12 @@ def _gather(x: torch.Tensor, group, n: int, kind: str) -> torch.Tensor:
     return out.view(n, *x.shape)
 
 
-def gather_stack(x: torch.Tensor, group, n: int) -> torch.Tensor:
-    """(n, *x.shape): every rank's ``x``, in rank order."""
+def gather_stack(x: torch.Tensor, group, n: int, kind: str = "all_gather") -> torch.Tensor:
+    """(n, *x.shape): every rank's ``x``, in rank order (its bytes counted
+    under ``kind``)."""
     if group is None:
         return x[None]
-    return _gather(x, group, n, "all_gather")
+    return _gather(x, group, n, kind)
 
 
 def _blocks(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -93,6 +96,17 @@ def _all_to_all(send: torch.Tensor, group) -> torch.Tensor:
     with torch.no_grad():
         dist.all_to_all_single(recv, send.contiguous(), group=group)
     return recv
+
+
+def all_to_all(x: torch.Tensor, group, n: int, kind: str) -> torch.Tensor:
+    """(n, ...) -> (n, ...): block j of the result is block ``index`` of
+    rank j's ``x`` (its bytes counted under ``kind``)."""
+    if group is None:
+        return x
+    _record(kind, group, n, (n - 1) * (x.numel() // n) * x.element_size())
+    if isinstance(group, AbstractGroup):
+        return x.detach().new_empty(x.shape)
+    return _all_to_all(x.reshape(n, -1), group).view(x.shape)
 
 
 def _reduce_scatter_rows(rows: torch.Tensor, group, n: int, kind: str) -> torch.Tensor:
@@ -210,17 +224,4 @@ def gather_leaf(shard: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
             n = mesh.shape[axis]
             if n > 1:
                 x = torch.cat(gather_stack(x, mesh.group((axis,)), n).unbind(0), dim)
-    return x
-
-
-def local_block(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
-    """This rank's block of a whole leaf (a view; ``full`` itself where no
-    dim is split)."""
-    x = full
-    for dim, part in enumerate(spec):
-        axes = spec_axes(part)
-        n = mesh.size(axes)
-        if n > 1:
-            size = x.shape[dim] // n
-            x = x.narrow(dim, mesh.index(axes) * size, size)
     return x

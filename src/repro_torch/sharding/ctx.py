@@ -17,9 +17,15 @@ names, the port's model code computes on what each rank holds, so
   ``models.moe``): column-parallel products in, row-parallel out (each
   rank's own experts, its partial combine), summed over the group in rank
   order.  The RG-LRU, mLSTM and sLSTM widths run whole on every rank of
-  the group.
+  the group.  The serving steps bind the same: the rows of a prefill or
+  decode batch split over ``data_axes_for`` (the loss group's axes, which
+  an MoE's load-balance terms read), heads, ff and vocab over ``model``,
+  and a decode cache placed as the reference's ``cache_specs``
+  (``sharding.specs``): an attention layer's KV heads over ``model``, or
+  else its positions, whose partial outputs the ranks merge
+  (``models.layers.seq_split_decode_attention``).
 
-Outside a binding (unit tests, one device, serving) nothing changes.
+Outside a binding (unit tests, one device) nothing changes.
 
 Rule sets are plain dicts: logical name -> mesh axis (str), tuple of mesh
 axes, or None.  Unknown names map to None (replicated).
@@ -117,6 +123,28 @@ def loss_group() -> tuple:
     return (b.mesh.group(b.batch_axes) if n > 1 else None), n
 
 
+def loss_index() -> int:
+    """This rank's index among the ranks of the bound loss's group (its
+    block of the global batch's rows); 0 outside a binding."""
+    b = current()
+    return 0 if b is None else b.mesh.index(b.batch_axes)
+
+
+@contextmanager
+def whole_batch():
+    """Within: the bound loss's group is this rank alone (the model axis
+    stays bound), for work on the global batch's rows gathered whole."""
+    b = current()
+    if b is None:
+        yield
+        return
+    _state.binding = Binding(b.mesh, b.rules, (), b.model_axis)
+    try:
+        yield
+    finally:
+        _state.binding = b
+
+
 def model_group() -> tuple:
     """(process group, rank count, this rank's index) of the bound
     tensor-parallel axis; (None, 1, 0) outside a binding or without one."""
@@ -125,6 +153,21 @@ def model_group() -> tuple:
         return None, 1, 0
     axes = (b.model_axis,)
     return b.mesh.group(axes), b.mesh.size(axes), b.mesh.index(axes)
+
+
+def data_axes_for(mesh, global_batch: int, include_model: bool = False) -> tuple:
+    """Largest prefix of (pod, data[, model]) that divides the batch: the
+    axes a cell's or a serving step's rows split over."""
+    names = ("pod", "data", "model") if include_model else ("pod", "data")
+    axes = [a for a in names if a in mesh.axis_names]
+    size = 1
+    chosen = []
+    for a in axes:
+        n = mesh.shape[a]
+        if global_batch % (size * n) == 0:
+            chosen.append(a)
+            size *= n
+    return tuple(chosen)
 
 
 def resolve(axes: tuple, rules: dict) -> tuple:

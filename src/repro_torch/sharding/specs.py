@@ -8,6 +8,10 @@ recomputable.  A spec is a plain tuple with one entry per dim: ``None``
 (replicated), a mesh axis name, or a tuple of names (the dim split over
 their product, the first name major).
 
+``cache_specs`` places a decode cache as the reference's dry-run does
+(``repro/launch/cells.py``), and ``local_params`` / ``local_cache`` cut
+this rank's blocks out of whole trees.
+
 Param logical-axis vocabulary:
   embed_p — model width dim of params      -> FSDP axis ("data")
   vocab   — vocabulary dim                 -> tensor axis ("model")
@@ -20,6 +24,8 @@ Param logical-axis vocabulary:
 from __future__ import annotations
 
 from typing import Mapping
+
+from ..convert import zip_params
 
 PARAM_RULES = {
     "embed_p": "data",
@@ -186,3 +192,133 @@ def param_specs(params, mesh, rules: dict = PARAM_RULES):
     """Tree of spec tuples for a parameter tree (leaves need only a
     ``shape``), on a mesh or a mapping of axis sizes."""
     return map_specs(lambda _names, spec: spec, params, mesh, rules)
+
+
+def mesh_rules(mesh, rules: dict = PARAM_RULES) -> dict:
+    """The rules whose mesh axes ``mesh`` has, as the reference's
+    compressed step filters them."""
+    return {k: v for k, v in rules.items()
+            if all(a in mesh.axis_names for a in spec_axes(v))}
+
+
+def local_block(full, spec: tuple, mesh):
+    """This rank's block of a whole leaf (a view; ``full`` itself where no
+    dim is split)."""
+    x = full
+    for dim, part in enumerate(spec):
+        axes = spec_axes(part)
+        n = mesh.size(axes)
+        if n > 1:
+            size = x.shape[dim] // n
+            x = x.narrow(dim, mesh.index(axes) * size, size)
+    return x
+
+
+def own_block(full, spec: tuple, mesh):
+    """``local_block`` in storage of its own (the whole leaf where it is
+    one), so the whole leaf can be freed."""
+    block = local_block(full, spec, mesh)
+    return full if block is full else block.clone()
+
+
+def local_params(params, mesh, rules: dict = PARAM_RULES):
+    """This rank's shard of each leaf of a whole parameter tree, as
+    ``param_specs`` partitions it (by the rules whose axes the mesh has)."""
+    specs = param_specs(params, mesh, mesh_rules(mesh, rules))
+    return zip_params(lambda p, s: own_block(p, s, mesh), params, specs)
+
+
+# ------------------------------------------------------------- decode cache
+
+
+def kv_cache_split(positions: int, kv_heads: int, n: int) -> str:
+    """Where an attention layer's (B, S, KV, hd) decode cache of S =
+    ``positions`` splits over a model axis of n ranks, as the reference's
+    ``cache_specs`` places it: ``"kv"``, its KV heads, where n divides them;
+    else ``"seq"``, its positions, where n divides them (flash-decode:
+    split-K over the cache sequence, so the cache is never replicated
+    across the axis); else ``"whole"``."""
+    if n > 1 and kv_heads % n == 0:
+        return "kv"
+    if n > 1 and positions % n == 0:
+        return "seq"
+    return "whole"
+
+
+def _batch_entry(batch_axes: tuple):
+    """A spec entry for the rows: None, one axis, or a tuple of axes."""
+    batch_axes = tuple(batch_axes)
+    if not batch_axes:
+        return None
+    return batch_axes[0] if len(batch_axes) == 1 else batch_axes
+
+
+def cache_specs(cache, cfg, mesh, batch_axes: tuple, rules: dict) -> dict:
+    """Spec tuples for a whole decode cache (leaves need only a ``shape``)
+    on a mesh or a mapping of axis sizes, ported from the reference's
+    ``repro/launch/cells.py::cache_specs``: read off each leaf's shape, the
+    rows over ``batch_axes``, an attention layer's cache as
+    ``kv_cache_split`` says (``rules["kv_heads"]`` the model axis, and
+    ``rules["cache_seq"]`` the sequence's otherwise), recurrent states'
+    heads or channels over the model axis, dims the axes do not divide
+    whole (``fit_spec``).  The port computes the recurrent layers whole
+    (ROADMAP G4), so ``local_cache`` keeps their states whole over the
+    model axis."""
+    sizes = mesh_sizes(mesh)
+    B = cache["len"].shape[0]
+    model_ax, cache_seq_ax = rules.get("kv_heads"), rules.get("cache_seq")
+    kv, hd, num_heads = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    model_size = sizes[model_ax] if model_ax else 1
+    batch = _batch_entry(batch_axes)
+
+    def spec_for(shape: tuple) -> tuple:
+        # strip the stacked main-group leading dim: (groups, B, ...)
+        lead = ()
+        if len(shape) >= 2 and shape[0] != B and shape[1] == B:
+            lead, shape = (None,), shape[1:]
+        if not shape or shape[0] != B:
+            return ()
+        rest = shape[1:]
+        if len(rest) == 3 and rest[-2:] == (kv, hd):  # (B, S, KV, hd) kv cache
+            seq_ax, kv_ax = cache_seq_ax, model_ax
+            if kv_cache_split(rest[0], kv, model_size) != "kv":
+                kv_ax = None
+                if rest[0] % model_size == 0:
+                    seq_ax = model_ax
+            return (*lead, batch, seq_ax, kv_ax, None)
+        if len(rest) == 3 and rest[0] == num_heads:  # mLSTM C (B, H, dk, dv)
+            return (*lead, batch, model_ax, None, None)
+        if len(rest) == 2 and rest[0] == num_heads:  # (B, H, dk)
+            return (*lead, batch, model_ax, None)
+        if len(rest) == 2:  # conv state (B, W-1, C)
+            return (*lead, batch, None, model_ax)
+        return (*lead, batch, model_ax) if len(rest) == 1 else (*lead, batch)
+
+    return _map_with_names(
+        lambda _names, x: fit_spec(spec_for(tuple(x.shape)), tuple(x.shape), sizes), cache)
+
+
+def local_cache(cache, specs, mesh) -> dict:
+    """This rank's block of a whole decode cache placed by ``specs``
+    (``cache_specs``), each block in storage of its own: its rows, and an
+    attention layer's KV heads or positions where the specs split them.
+    Recurrent states keep every dim but their rows whole (the port runs the
+    recurrent layers whole on each rank of the model axis until G4; the
+    reference splits them).  ``"max_len"`` records the whole cache's
+    positions (its longest attention cache), from which the model reads
+    which attention caches the model axis splits over the sequence."""
+    def block(seg: str, entry: dict, spec: dict) -> dict:
+        rows = 1 if seg == "main" else 0  # main-group leaves: (groups, B, ...)
+        attention = set(entry) == {"k", "v"}
+        return {k: own_block(x, spec[k] if attention else tuple(
+            p if d == rows else None for d, p in enumerate(spec[k])), mesh)
+            for k, x in entry.items()}
+
+    out = {seg: [block(seg, e, s) for e, s in zip(cache[seg], specs[seg])]
+           for seg in ("prefix", "main", "tail")}
+    out["len"] = own_block(cache["len"], specs["len"], mesh)
+    positions = [e["k"].shape[2 if seg == "main" else 1]
+                 for seg in ("prefix", "main", "tail") for e in cache[seg] if "k" in e]
+    if positions:
+        out["max_len"] = max(positions)
+    return out

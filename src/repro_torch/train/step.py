@@ -53,14 +53,16 @@ from ..models.lm import ModelOptions, init_params, loss_fn
 from ..sharding.collectives import (
     gather_leaf,
     gather_stack,
-    local_block,
     ordered_reduce_scatter,
     ordered_sum,
 )
 from ..sharding.ctx import tensor_axis, use_rules
 from ..sharding.specs import (
     PARAM_RULES,
+    local_block,
+    local_params,
     map_specs,
+    mesh_rules,
     param_specs,
     spec_axes,
     tensor_parallel,
@@ -101,8 +103,7 @@ def init_train_state(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig(), *,
             raise TypeError(f"train parameters must be float32, got {p.dtype}")
     num_pods = tcfg.num_pods
     if mesh is not None:
-        specs = param_specs(params, mesh, mesh_rules(mesh, rules))
-        params = zip_params(lambda p, s: _own(local_block(p, s, mesh), p), params, specs)
+        params = local_params(params, mesh, rules)
         if tcfg.compress_pod_grads:
             if mesh.shape.get("pod") != tcfg.num_pods:
                 raise ValueError(f"num_pods {tcfg.num_pods} is not the mesh's "
@@ -117,11 +118,6 @@ def init_train_state(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig(), *,
     return state
 
 
-def _own(block: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
-    """A block that owns its storage (the whole leaf where it is one)."""
-    return whole if block is whole else block.clone()
-
-
 def abstract_train_state(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig()) -> dict:
     """A train state of shapes and dtypes only (fake tensors: nothing is
     drawn or allocated)."""
@@ -129,13 +125,6 @@ def abstract_train_state(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig()) -> 
 
     with FakeTensorMode():
         return init_train_state(cfg, tcfg, device="cpu")
-
-
-def mesh_rules(mesh, rules: dict = PARAM_RULES) -> dict:
-    """The rules whose mesh axes ``mesh`` has, as the reference's
-    compressed step filters them."""
-    return {k: v for k, v in rules.items()
-            if all(a in mesh.axis_names for a in spec_axes(v))}
 
 
 def train_state_specs(state, mesh, rules: dict = PARAM_RULES) -> dict:
@@ -263,6 +252,17 @@ def _leaf_plans(cfg, mesh, param_rules, tp):
                          tuple(a for a in mesh.axis_names if a in axes))
     return map_specs(plan, abstract_train_state(cfg)["params"], mesh,
                      mesh_rules(mesh, param_rules))
+
+
+def compute_gather(cfg, mesh, tp, param_rules: dict = PARAM_RULES):
+    """``gather(params)``: the tree the model computes on, from this rank's
+    shards (``local_params`` by ``param_rules``): each leaf gathered over
+    the batch axes, and over ``tp`` (the tensor-parallel axis, or None)
+    unless tensor-parallel compute keeps its block there
+    (``specs.tensor_parallel``)."""
+    plans = _leaf_plans(cfg, mesh, param_rules, tp)
+    return lambda params: zip_params(lambda p, q: gather_leaf(p, q.gather, mesh),
+                                     params, plans)
 
 
 def _mean_block(g, spec, mesh, loss_axes, group, n):

@@ -326,6 +326,57 @@ def test_decode_attention_kernel(cuda, B, H, KV, D, Smax, lengths, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KV,D,Smax,lengths", [
+    (4, 8, 2, 64, 512, [512, 0, 37, 700]),     # full, empty, ragged, past Smax
+    (8, 8, 1, 256, 1024, [1025, 1024, 900, 700, 513, 300, 33, 0]),  # gemma-2b
+    (8, 40, 8, 128, 1024, [1025, 1024, 900, 700, 513, 300, 33, 1]),  # qwen3-14b
+    (2, 32, 2, 64, 200, [0, 129]),             # G = 16: the CUDA-core body in bf16
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_lse(cuda, B, H, KV, D, Smax, lengths, dtype):
+    """The log-sum-exp output of either decode body against the plain
+    version's (-1e30 for an empty row), and the output's bits the call's
+    without it."""
+    rng = np.random.default_rng(B + H + D + 1)
+    q = _randn(rng, (B, H, D), cuda, dtype)
+    kc, vc = (_randn(rng, (B, Smax, KV, D), cuda, dtype) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got, lse = kernels.decode_attention(q, kc, vc, lens, return_lse=True)
+    want, want_lse = kernels.ref.decode_attention_ref(q, kc, vc, lens, return_lse=True)
+    assert torch.equal(got, kernels.decode_attention(q, kc, vc, lens))
+    _close(got, want, dtype)
+    _close(lse, want_lse, "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,lengths", [(2, [512, 0, 37, 700]), (16, [512, 1, 37, 300])])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_merge_partials_kernel(cuda, n, lengths, dtype):
+    """The merge of n slices' decode outputs and log-sum-exps (empty slices
+    among them) against the plain merge and the plain decode over the
+    whole cache; two launches give the same bits."""
+    rng = np.random.default_rng(n)
+    B, H, KV, D, Smax = 4, 8, 2, 64, 512
+    q = _randn(rng, (B, H, D), cuda, dtype)
+    kc, vc = (_randn(rng, (B, Smax, KV, D), cuda, dtype) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    size = Smax // n
+    parts = [kernels.decode_attention(
+        q, kc[:, r * size:(r + 1) * size].contiguous(), vc[:, r * size:(r + 1) * size]
+        .contiguous(), torch.clamp(torch.clamp(lens, max=Smax) - r * size, 0, size)
+        .to(torch.int32), return_lse=True) for r in range(n)]
+    o, lse = torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
+    before = kernels.merge_partials.launches
+    got = kernels.merge_partials(o, lse)
+    assert kernels.merge_partials.launches == before + 1
+    assert torch.equal(got, kernels.merge_partials(o, lse))
+    _close(got, kernels.ref.merge_partials_ref(o, lse), dtype)
+    _close(got, kernels.ref.decode_attention_ref(q, kc, vc, lens), dtype)
+    if 0 in lengths:  # every slice empty: 0
+        assert not got[lengths.index(0)].any()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,H,KV,D,Smax,dtype", [
     (8, 8, 1, 256, 1024, "float32"),    # gemma-2b
     (8, 40, 8, 128, 1024, "float32"),   # qwen3-14b

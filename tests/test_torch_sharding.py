@@ -26,7 +26,19 @@ converted weights and batches:
   with remat and the backward on another thread) and qwen2-moe-a2.7b (the
   sigmoid shared gate, QKV bias) against the single-device steps, reruns
   equal bit for bit, each rank's compute leaves model-local; and the
-  rank-ordered collectives against a gather of every rank's copy.
+  rank-ordered collectives against a gather of every rank's copy;
+- tensor-parallel serving on the same (1, 1, 4) world (``SERVE_JOBS``):
+  the sharded prefill and decode steps with the decode cache placed as the
+  reference's ``cache_specs``, one reduced config per placement (KV heads
+  split; the sequence split with the query heads whole; the sequence split
+  with the query heads split, a GQA config and a wrapped ring buffer), each
+  rank's logits gathered over the vocabulary against JAX's and the port's
+  single-device steps, greedy tokens equal, the heads-whole merge equal
+  bit for bit on every rank;
+- the port's ``cache_specs`` against the reference's leaf by leaf for
+  every arch's decode cells on both production meshes, and
+  ``local_cache``'s blocks against the reference's shards, the recurrent
+  states (whole over ``model`` in the port until G4) the one difference.
 """
 
 import functools
@@ -46,8 +58,16 @@ from repro.configs import ARCH_IDS
 from repro.configs import reduced_config as jax_reduced_config
 from repro.data import StreamSource as JaxStreamSource
 from repro.models import ModelOptions as JaxModelOptions
+from repro.configs import SHAPES as JAX_SHAPES
+from repro.configs import get_config as jax_get_config
+from repro.configs import shape_applicable as jax_shape_applicable
+from repro.launch import cells as jax_cells
+from repro.models import decode_step as jax_decode_step
+from repro.models import forward_with_cache as jax_forward_with_cache
+from repro.models import init_cache as jax_init_cache
 from repro.models import init_params as jax_init_params
 from repro.models import loss_fn as jax_loss_fn
+from repro.serve.engine import _merge_slot as jax_merge_slot
 from repro.sharding import ctx as jax_ctx
 from repro.sharding import specs as jax_specs
 from repro.train import OptimizerConfig as JaxOptimizerConfig
@@ -57,9 +77,11 @@ from repro.train import clip_by_global_norm as jax_clip_by_global_norm
 from repro.train import compress as jax_compress
 from repro.train import init_train_state as jax_init_train_state
 from repro.train import make_train_step as jax_make_train_step
+from repro_torch.configs import get_config as get_config_port
 from repro_torch.configs import reduced_config
 from repro_torch.convert import map_params, params_from_numpy, params_to_numpy
-from repro_torch.models import ModelOptions, loss_fn
+from repro_torch.launch.mesh import abstract_mesh
+from repro_torch.models import ModelOptions, decode_step, forward_with_cache, init_cache, loss_fn
 from repro_torch.sharding import ctx, specs
 from repro_torch.train import (
     OptimizerConfig,
@@ -263,7 +285,10 @@ WORKER = textwrap.dedent("""
     from repro_torch.models import ModelOptions
     from repro_torch.sharding.collectives import (gather_leaf, gather_stack, ordered_max,
                                                   ordered_reduce_scatter, ordered_sum)
-    from repro_torch.sharding.ctx import activation_rules
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.sharding.ctx import activation_rules, data_axes_for
+    from repro_torch.sharding.specs import local_params
     from repro_torch.train import (OptimizerConfig, TrainConfig, abstract_train_state,
                                    init_train_state, make_train_step, train_state_specs)
     from repro_torch.train.step import mesh_rules
@@ -328,6 +353,46 @@ WORKER = textwrap.dedent("""
                                 [rank * m:(rank + 1) * m]),
                     "max": (ordered_max(x, group, n), copies.amax(0)),
                 }
+            out[name] = res
+            continue
+        if job.get("serve"):  # the sharded prefill, then greedy decode steps
+            cfg = reduced_config(job["arch"]).with_(**job["mods"])
+            opts = ModelOptions(compute_dtype="float32")
+            batch_axes = data_axes_for(mesh, job["tokens"].shape[0])
+            rules = activation_rules(data_axes=batch_axes)
+            params = local_params(spec["params"][name], mesh)
+            prefill = make_prefill_step(cfg, opts, max_len=job["max_len"], mesh=mesh,
+                                        act_rules=rules)
+            decode = make_decode_step(cfg, opts, mesh=mesh, act_rules=rules)
+            group, n = mesh.group(("model",)), mesh.shape["model"]
+            merged = []
+            real_split = lm_mod.seq_split_decode_attention
+
+            def split(*args, **kwargs):  # the merged attention outputs, in call order
+                merged.append(real_split(*args, **kwargs))
+                return merged[-1]
+
+            def whole(lg):  # this rank's rows and vocab block -> all of them
+                lg = torch.cat(gather_stack(lg, group, n).unbind(0), -1)
+                rows = mesh.group(batch_axes), mesh.size(batch_axes)
+                return torch.cat(gather_stack(lg, *rows).unbind(0), 0)
+
+            lm_mod.seq_split_decode_attention = split
+            try:
+                with torch.no_grad():
+                    lg, cache = prefill(params, {"tokens": job["tokens"]})
+                    logits, tokens = [whole(lg)], []
+                    res = {"cache_shapes": [tuple(e["k"].shape) for e in cache["tail"]
+                                            + cache["main"] + cache["prefix"] if "k" in e]}
+                    for t in range(job["steps"]):
+                        tokens.append(logits[-1][:, -1].argmax(-1) if t == 0
+                                      else logits[-1].argmax(-1))
+                        adv = job["advance"] if t == job["masked_step"] else None
+                        lg, cache = decode(params, cache, tokens[-1].to(torch.int32), adv)
+                        logits.append(whole(lg))
+            finally:
+                lm_mod.seq_split_decode_attention = real_split
+            res.update(logits=logits, tokens=tokens, merged=merged, len=cache["len"])
             out[name] = res
             continue
         cfg = reduced_config(job["arch"])
@@ -468,6 +533,66 @@ def _port_grads(arch, params_np, batch, moe_impl=None):
     return map_params(lambda _k, p: p.grad, params)
 
 
+def _serve_cfgs(job):
+    """(JAX's config, the port's) of a serving job."""
+    arch, mods = SERVE_JOBS[job][:2]
+    return jax_reduced_config(arch).with_(**mods), reduced_config(arch).with_(**mods)
+
+
+def _serve_tokens(job) -> np.ndarray:
+    """The job's prompts: 2 x 32 tokens from a seed."""
+    rng = np.random.default_rng(len(job))
+    return rng.integers(0, _serve_cfgs(job)[0].vocab_size, SERVE_JOBS[job][4]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _serve_params(job):
+    return jax.device_get(jax_init_params(jax.random.key(0), _serve_cfgs(job)[0]))
+
+
+def _jax_serve(job) -> tuple:
+    """JAX's single-device prefill and greedy decode steps (the masked step
+    followed by the reference engine's ``_merge_slot`` of each advancing
+    row): the logits of each, and the tokens fed."""
+    cfg, max_len = _serve_cfgs(job)[0], SERVE_JOBS[job][2]
+    opts = JaxModelOptions(compute_dtype="float32")
+    params = _serve_params(job)
+    logits, cache = jax.jit(lambda p, t: jax_forward_with_cache(
+        p, cfg, t, max_len=max_len, opts=opts))(params, _serve_tokens(job))
+    step = jax.jit(lambda p, c, t: jax_decode_step(p, cfg, c, t, opts))
+    out, tokens = [np.asarray(logits)], []
+    for t in range(SERVE_STEPS):
+        tok = out[-1][:, -1].argmax(-1) if t == 0 else out[-1].argmax(-1)
+        tokens.append(tok.tolist())
+        lg, new = step(params, cache, jnp.asarray(tok, jnp.int32))
+        if t == SERVE_MASKED:
+            for row in np.flatnonzero(_serve_advance(job).numpy()):
+                cache = jax_merge_slot(cache, new, int(row))
+        else:
+            cache = new
+        out.append(np.asarray(lg))
+    return out, tokens
+
+
+def _port_serve(job) -> tuple:
+    """The port's one-device prefill and greedy decode steps on the same
+    weights (the masked step through ``advance``)."""
+    cfg, max_len = _serve_cfgs(job)[1], SERVE_JOBS[job][2]
+    opts = ModelOptions(compute_dtype="float32")
+    params = params_from_numpy(_serve_params(job), device="cpu")
+    with torch.no_grad():
+        logits, cache = forward_with_cache(params, cfg, torch.from_numpy(_serve_tokens(job)),
+                                           max_len=max_len, opts=opts)
+        out, tokens = [logits], []
+        for t in range(SERVE_STEPS):
+            tok = out[-1][:, -1].argmax(-1) if t == 0 else out[-1].argmax(-1)
+            tokens.append(tok.tolist())
+            lg, cache = decode_step(params, cfg, cache, tok.to(torch.int32), opts,
+                                    _serve_advance(job) if t == SERVE_MASKED else None)
+            out.append(lg)
+    return [o.numpy() for o in out], tokens, cache["len"]
+
+
 # the tensor-parallel world's jobs: job -> arch (the MoE jobs expert-parallel:
 # 2 of the 8 experts a rank, a quarter of the shared experts' width)
 TP_JOBS = {"qwen": "qwen3-14b", "musicgen": "musicgen-large", "moe": "deepseek-moe-16b",
@@ -493,6 +618,29 @@ JAX_STEPS = {"qwen": 2, "musicgen": 1, "moe": 1, "moe_sort": 1, "qwen2moe": 1}
 PORT_ONLY = {"moe_sort"}
 # element counts of the collectives' check, which the 4 ranks do not divide
 COLLECTIVE_NUMELS = (7, 10_001)
+# the serving jobs: job -> (arch, changes to its reduced config, max_len,
+# each attention cache's (positions, KV heads) a rank, the prompts' shape).
+# On the (1, 1, 4) world, one a placement of the decode cache:
+# deepseek-moe-16b, its 4 KV heads split (an MoE decode group too); gemma-2b
+# with 6 query heads, which 4 does not divide (wq whole): the MQA cache's 64
+# positions split, rank 3's 16 never valid; qwen3-14b, 4 query heads split,
+# its 2 KV heads whole: the 48 positions split; recurrentgemma-9b with a
+# window of 16, its ring of 16 slots split, wrapped by the prefill, its
+# recurrent states whole.  On the (2, 2, 1) world: deepseek-moe-16b with one
+# row a rank, whose routing groups span the 4 ranks (gathered whole)
+SERVE_JOBS = {"serve_kv": ("deepseek-moe-16b", {}, 48, (48, 1), (2, 32)),
+              "serve_seq_whole": ("gemma-2b", {"num_heads": 6}, 64, (16, 1), (2, 32)),
+              "serve_seq_split": ("qwen3-14b", {}, 48, (12, 2), (2, 32)),
+              "serve_ring": ("recurrentgemma-9b", {"window": 16}, 64, (4, 1), (2, 32)),
+              "serve_dp": ("deepseek-moe-16b", {}, 24, (24, 4), (4, 16))}
+SERVE_WORLD = {"serve_dp": (2, 2, 1)}
+# a prefill, then greedy decode steps, the masked one leaving row 1 where it
+# was (``advance``)
+SERVE_STEPS, SERVE_MASKED = 4, 2
+
+
+def _serve_advance(job) -> torch.Tensor:
+    return torch.arange(SERVE_JOBS[job][4][0]) != 1
 
 
 @pytest.fixture(scope="module")
@@ -501,14 +649,21 @@ def worlds(tmp_path_factory):
     for two steps, twice, and reduced gemma-2b for one step without and
     with compression; (2, 2, 1) runs reduced deepseek-moe-16b for two steps
     of 8 x 32 tokens (2 rows, 64 tokens, one routing group a rank), then a
-    step of 4 x 16 (16 tokens a rank of a 64-token group); (1, 1, 4), one
-    tensor-parallel group, runs ``TP_JOBS`` for two steps (qwen3-14b thrice)
-    and the collectives' check."""
+    step of 4 x 16 (16 tokens a rank of a 64-token group), after its
+    serving job; (1, 1, 4), one
+    tensor-parallel group, runs ``SERVE_JOBS``, then ``TP_JOBS`` for two
+    steps (qwen3-14b thrice) and the collectives' check."""
     batches = {arch: _jax_batches(jax_reduced_config(arch), 2)
                for arch in ("qwen3-14b", "gemma-2b", "deepseek-moe-16b", "musicgen-large",
                             "qwen2-moe-a2.7b")}
     params = {arch: params_from_numpy(_jax_params(arch), device="cpu") for arch in batches}
     tb = {arch: [_torch_batch(b) for b in bs] for arch, bs in batches.items()}
+    serve = {job: {"serve": True, "arch": arch, "mods": mods, "max_len": max_len,
+                   "tokens": torch.from_numpy(_serve_tokens(job)), "steps": SERVE_STEPS,
+                   "masked_step": SERVE_MASKED, "advance": _serve_advance(job)}
+             for job, (arch, mods, max_len, *_) in SERVE_JOBS.items()}
+    serve_params = {job: params_from_numpy(_serve_params(job), device="cpu")
+                    for job in SERVE_JOBS}
     qwen = {"arch": "qwen3-14b", "opt": STEP_OPT, "compress": False,
             "batches": tb["qwen3-14b"]}
     gemma = {"arch": "gemma-2b", "opt": {}, "batches": tb["gemma-2b"][:1]}
@@ -521,12 +676,17 @@ def worlds(tmp_path_factory):
                            "gemma": {**gemma, "compress": False},
                            "gemma_compressed": {**gemma, "compress": True}}),
         (2, 2, 1): _World(tmp_path_factory.mktemp("world_221"), (2, 2, 1),
-                          {"deepseek-moe-16b": params["deepseek-moe-16b"]},
-                          {"moe": {**moe, "batches": tb["deepseek-moe-16b"]},
+                          {"deepseek-moe-16b": params["deepseek-moe-16b"],
+                           "serve_dp": serve_params["serve_dp"]},
+                          {"serve_dp": serve["serve_dp"],
+                           "moe": {**moe, "batches": tb["deepseek-moe-16b"]},
                            "moe_split_group": {**moe, "batches": [_torch_batch(small)]}}),
         (1, 1, 4): _World(tmp_path_factory.mktemp("world_114"), (1, 1, 4),
-                          {a: params[a] for a in TP_JOBS.values()},
-                          {**{job: {"arch": a, "opt": STEP_OPT, "compress": False,
+                          {**{a: params[a] for a in TP_JOBS.values()},
+                           **{job: serve_params[job] for job in SERVE_JOBS
+                              if job not in SERVE_WORLD}},
+                          {**{job: serve[job] for job in SERVE_JOBS if job not in SERVE_WORLD},
+                           **{job: {"arch": a, "opt": STEP_OPT, "compress": False,
                                     "batches": tb[a], **TP_JOB_OPTS.get(job, {})}
                               for job, a in TP_JOBS.items()},
                            "qwen_again": {**qwen},
@@ -787,6 +947,108 @@ def test_ordered_collectives_equal_gather_and_add(worlds, numel):
     for r in worlds[0][1, 1, 4].ranks():
         for what, (got, want) in r["collectives"][numel].items():
             assert got.shape == want.shape and torch.equal(got, want), (what, numel)
+
+
+@pytest.mark.parametrize("job", list(SERVE_JOBS))
+def test_tensor_parallel_serving_matches_single_device(worlds, job):
+    """(1, 1, 4) (``serve_dp``: (2, 2, 1), one row a rank), the sharded
+    prefill of 2 x 32 tokens (4 x 16) and 4 greedy decode steps (one
+    leaving row 1 where it was), on each rank's shards of the parameters
+    and its block of the cache: every rank's logits, gathered over the
+    vocabulary and the rows, within 1e-4 of the largest logit
+    (``tests/test_torch_models.py``'s LOGITS_TOL) of JAX's single-device
+    ``forward_with_cache`` / ``decode_step`` (the masked step merged as the
+    reference engine merges a slot) and of the port's one-device steps;
+    the same greedy tokens; each rank's attention caches placed as the
+    reference's ``cache_specs`` places them (``SERVE_JOBS``); under a
+    sequence split one merge per attention layer and step, which where the
+    query heads are whole gives every rank the same bits."""
+    want_jax, tok_jax = _jax_serve(job)
+    want_port, tok_port, lengths = _port_serve(job)
+    assert tok_jax == tok_port
+    cfg = _serve_cfgs(job)[1]
+    ranks = worlds[0][SERVE_WORLD.get(job, (1, 1, 4))].ranks()
+    for rank, r in enumerate(ranks):
+        got = r[job]
+        assert [t.tolist() for t in got["tokens"]] == tok_port
+        rows = got["len"].shape[0]
+        i = rank % (lengths.shape[0] // rows)  # this rank's block of the rows
+        assert torch.equal(got["len"], lengths[i * rows:(i + 1) * rows])
+        for want in (want_jax, want_port):
+            for g, w in zip(got["logits"], want, strict=True):
+                np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                           atol=1e-4 * max(np.abs(w).max(), 1.0))
+        assert got["cache_shapes"] and all(
+            s[-3:-1] == SERVE_JOBS[job][3] for s in got["cache_shapes"]), got["cache_shapes"]
+    attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
+    n_merged = len(ranks[0][job]["merged"])
+    assert n_merged == (0 if job in ("serve_kv", "serve_dp") else SERVE_STEPS * attn), n_merged
+    if cfg.num_heads % 4:  # heads whole: the merged output is every rank's, bit for bit
+        for r in ranks[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(r[job]["merged"],
+                                                          ranks[0][job]["merged"]))
+
+
+def _spec_norm(spec) -> tuple:
+    """A spec's entries with a one-axis tuple as the axis and an empty one
+    as None (how ``PartitionSpec`` writes them)."""
+    def entry(p):
+        if isinstance(p, tuple):
+            return None if not p else p[0] if len(p) == 1 else p
+        return p
+    return tuple(entry(p) for p in spec)
+
+
+SERVE_MESHES = {"pod16x16": ((16, 16), ("data", "model")),
+                "pod2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+@pytest.mark.parametrize("mesh_name", list(SERVE_MESHES))
+@pytest.mark.parametrize("arch,shape", [
+    (a, s) for a in ARCH_IDS for s in ("decode_32k", "long_500k")
+    if jax_shape_applicable(jax_get_config(a), JAX_SHAPES[s])[0]])
+def test_cache_specs_match_reference(arch, shape, mesh_name):
+    """The port's ``cache_specs`` against the reference's
+    (``repro.launch.cells.cache_specs`` on an abstract mesh) leaf by leaf,
+    for every arch's applicable decode shapes at full size on both
+    production meshes; and ``local_cache``'s rank-0 blocks (fake tensors)
+    shaped as the reference's shards, but for the recurrent states, which
+    the port keeps whole over ``model`` (their rows split): the one known
+    difference until G4."""
+    cfg, jcfg, sh = get_config_port(arch), jax_get_config(arch), JAX_SHAPES[shape]
+    dims, axes = SERVE_MESHES[mesh_name]
+    mesh = jax.sharding.AbstractMesh(dims, axes)
+    ba = jax_cells.data_axes_for(mesh, sh.global_batch)
+    assert ba == ctx.data_axes_for(abstract_mesh(dims, axes), sh.global_batch)
+    rules = jax_ctx.activation_rules(data_axes=ba)
+    whole_j = jax.eval_shape(lambda: jax_init_cache(jcfg, sh.global_batch, sh.seq_len,
+                                                    dtype=jnp.bfloat16))
+    want = {k: _spec_norm(v.spec) for k, v in
+            _flat(jax_cells.cache_specs(whole_j, jcfg, mesh, ba, rules)).items()}
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    sizes = dict(zip(axes, dims))
+    with FakeTensorMode():
+        whole = init_cache(cfg, sh.global_batch, sh.seq_len, torch.bfloat16, "cpu")
+        got = specs.cache_specs(whole, cfg, sizes, ba, ctx.activation_rules(data_axes=ba))
+        assert {k: _spec_norm(v) for k, v in _flat(got).items()} == want
+        local = specs.local_cache(whole, got, abstract_mesh(dims, axes))
+    shapes = {k: tuple(v.shape) for k, v in _flat(local).items() if k != "['max_len']"}
+    positions = [e["k"].shape[-3] for seg in ("prefix", "main", "tail")
+                 for e in whole[seg] if "k" in e]
+    assert local.get("max_len") == (max(positions) if positions else None)
+    differ = set()
+    for k, x in _flat(whole_j).items():
+        shard = tuple(d // int(np.prod([sizes[a] for a in specs.spec_axes(p)]))
+                      for d, p in zip(x.shape, want[k] + (None,) * len(x.shape)))
+        if shapes[k] != shard:
+            differ.add(k)
+            assert not k.endswith(("['k']", "['v']", "['len']")), (k, shapes[k], shard)
+            model = [d for d, p in enumerate(want[k]) if "model" in specs.spec_axes(p)]
+            assert model and all(shapes[k][d] == x.shape[d] for d in model), k
+    recurrent = {k for k, v in want.items() if not k.endswith(("['k']", "['v']", "['len']"))
+                 and any("model" in specs.spec_axes(p) for p in v)}
+    assert differ == recurrent
 
 
 @pytest.mark.parametrize("heads,G,want", [
