@@ -46,10 +46,12 @@ tolerance miss:
 9. recurrentgemma-9b (RG-LRU + local attention) at full width and depth in
    bf16: ``make_prefill_step`` over 4096 tokens (past its 2048 window) and
    16 decode steps with exact launch counts, one profiled prefill, then
-   ``PagedServeEngine`` over 8 requests of 160 + 32 tokens;
+   at its first 18 layers ``PagedServeEngine`` over 8 requests of 160 +
+   32 tokens;
 10. xlstm-125m (mLSTM + sLSTM) at full width and depth in bf16: a prefill
    of 2048 tokens and 16 decode steps with exact launch counts, one
-   profiled prefill, then ``ServeEngine`` over 8 requests on 4 slots;
+   profiled prefill, then at its first 4 layers ``ServeEngine`` over 8
+   requests on 4 slots;
 11. checks of both families at full width and one pattern group (3 and 4
    layers): in f32 the kernel path's logits against the plain path's,
    prefill plus decode against ``forward`` past the window, the paged
@@ -60,9 +62,9 @@ tolerance miss:
    and depth in bf16, drawn and cast layer by layer: a prefill of 2048
    tokens and 16 decode steps with exact launch counts and peak memory,
    one profiled prefill and decode step with the MoE layers' routing,
-   dispatch and expert time apart; then deepseek through
-   ``PagedServeEngine`` (the gemma trace) and qwen2 through
-   ``ServeEngine`` (4 slots);
+   dispatch and expert time apart; then, at half depth (the first 14 and
+   12 layers), deepseek through ``PagedServeEngine`` (the gemma trace)
+   and qwen2 through ``ServeEngine`` (4 slots);
 13. checks of both at full width and 2 layers: in f32 the kernel path's
    logits and cache against the plain path's, the sort dispatch against
    the einsum one, each MoE layer against an f64 MoE on the same routing
@@ -76,8 +78,8 @@ tolerance miss:
    + 960), frontend embeddings from the stream), internvl2-26b at full
    width and 4 layers (a forward of (1, 256 + 768) and 2 train steps);
 15. training the recurrent families at full width in bf16 with remat:
-   recurrentgemma-9b at 3 layers over 1 x 4096 tokens, xlstm-125m at full
-   depth over 2 x 1024, 2 warm-up and 3 timed steps with exact launch
+   recurrentgemma-9b at 3 layers over 1 x 4096 tokens, xlstm-125m at 8
+   layers over 2 x 1024, 2 warm-up and 3 timed steps with exact launch
    counts, one step profiled; their checks: the first step in f32,
    kernels against plain (leaves past the tolerance held to the plain path
    in f64), each backward kernel (windowed flash, RG-LRU, mLSTM) on its
@@ -97,23 +99,33 @@ tolerance miss:
    its peak memory within 5% of phase 7's; and the compressed combine's
    bytes and time; then the tensor-parallel step on a (1, 1, 2) mesh of
    two processes sharing the card over gloo (``--tp-rank`` runs one),
-   at full width and 2 layers in f32: gemma-2b, two steps of 2 x 1024 (4
-   query heads a rank), then deepseek-moe-16b expert-parallel (its dense
-   layer and one MoE layer, 32 of the 64 routed experts a rank, the shared
-   experts column- and row-parallel), two steps of 2 x 512; each first
-   step's loss and gradients held to the one-device f32 step (the MoE's
-   routed as rank 0 routed; leaves past the tolerance: both held to the
-   plain path in f64), the leaves every rank holds whole equal on both
-   ranks, the flash kernels run at the local head count, equal launch
+   at full width in f32: gemma-2b at 2 layers, two steps of 2 x 1024 (4
+   query heads a rank), then deepseek-moe-16b expert-parallel at 2 layers
+   (its dense layer and one MoE layer, 32 of the 64 routed experts a rank,
+   the shared experts column- and row-parallel), recurrentgemma-9b at 2
+   layers (two RG-LRU layers, 2048 of the 4096 channels a rank) and
+   xlstm-125m at 4 layers (three mLSTM layers, 768 of the 1536 inner
+   width and 2 of the 4 heads a rank, and one sLSTM layer, its FFN split),
+   two steps of 2 x 512 each; each first step's loss and gradients held to
+   the one-device f32 step (the MoE's routed as rank 0 routed; leaves past
+   the tolerance: both held to the plain path in f64), the leaves every
+   rank holds whole equal on both ranks, the flash and recurrent kernels
+   run at the local heads' and channels' counted work, equal launch
    counts; then, on the same two processes, tensor-parallel serving at
-   full width and 2 layers in f32 (``make_prefill_step`` and
-   ``make_decode_step`` with the mesh, a prefill of (1, 1024) and 16
-   greedy decode steps): gemma-2b (4 query heads a rank, its MQA cache
-   split over the sequence, the partials merged) and qwen3-14b (20 query
-   and 4 KV heads a rank, the cache split over its KV heads), each rank's
+   full width in f32 (``make_prefill_step`` and ``make_decode_step`` with
+   the mesh): gemma-2b and qwen3-14b at 2 layers, a prefill of (1, 1024)
+   and 16 greedy decode steps (gemma's 4 query heads a rank, its MQA cache
+   split over the sequence, the partials merged; qwen3's 20 query and 4 KV
+   heads a rank, the cache split over its KV heads), then
+   recurrentgemma-9b at 3 layers (two RG-LRU layers, their states split
+   by channel, and a local layer, its ring split over the sequence) and
+   xlstm-125m at 4 layers (the mLSTM states split by head, the sLSTM's by
+   channel), a prefill of (1, 256) and 8 greedy decode steps; each rank's
    logits held to the one-device f32 steps (or, past that, both to the
-   plain path in f64), greedy tokens equal, one decode kernel a layer and
-   step and one merge where the sequence splits;
+   plain path in f64), greedy tokens equal, each rank's cache placed as
+   ``cache_specs`` places it, every kernel launched as often as on one
+   device (one merge more a local or global attention layer and step where
+   the sequence splits);
 18. analysis: the dry-run (``repro_torch.launch.dryrun``) of gemma-2b's
    applicable cells on both production meshes, (16, 16) and (2, 16, 16),
    on fake tensors; phase 6's prefill and one phase-7 train step, counted
@@ -334,12 +346,15 @@ TRAIN_CHECK_OPT = OptimizerConfig(lr=1e-2, warmup_steps=4)
 MESH_PEAK_RTOL = 0.05
 # the tensor-parallel sub-phase: a (1, 1, 2) mesh, two processes on one card
 # over gloo (whose all-to-all and all-gather take CUDA tensors), each job at
-# full width and 2 layers in f32, two steps of (batch, seq) tokens:
+# full width and (layers) in f32, two steps of (batch, seq) tokens:
 # gemma-2b (4 query heads a rank, MQA's one KV head whole, ff 8192 and vocab
 # 128000 a rank), then deepseek-moe-16b (its dense layer and one MoE layer:
 # 8 query and KV heads, ff 5472, 32 of the 64 routed experts, 1408 of the
 # shared experts' width and half the vocab a rank; two routing groups of
-# 512, capacity 60).  Each first step's loss and gradients are held to the
+# 512, capacity 60), recurrentgemma-9b (two RG-LRU layers: 2048 channels,
+# ff 6144 and 128000 of the vocab a rank) and xlstm-125m (three mLSTM layers
+# and an sLSTM layer: 768 of the inner width's 1536, 2 of the 4 heads and
+# 512 of the sLSTM FFN's 1024 a rank).  Each first step's loss and gradients are held to the
 # one-device f32 step by TRAIN_F32, as phase 8 holds the kernel path to the
 # plain one (leaves past it: both held to the plain path in f64); the
 # one-device MoE step routed as rank 0 routed (``routing_log``).  The second
@@ -347,19 +362,25 @@ MESH_PEAK_RTOL = 0.05
 # direction g / (|g| + eps) flips wherever two correct f32 runs give a
 # gradient entry opposite signs
 TP_MESH = (1, 1, 2)
-TP_JOBS = {"gemma-2b": (2, 1024), "deepseek-moe-16b": (2, 512)}
+TP_JOBS = {"gemma-2b": (2, 1024, 2), "deepseek-moe-16b": (2, 512, 2),
+           "recurrentgemma-9b": (2, 512, 2), "xlstm-125m": (2, 512, 4)}
 TP_WORKER_TIMEOUT_S = 600
 # the sub-phase's serving jobs, on the same two processes: the sharded
-# prefill of (1, prompt) tokens and greedy decode steps at full width and 2
-# layers in f32, max_len prompt + steps (2 divides it): gemma-2b (4 query
+# prefill of (1, prompt) tokens and greedy decode steps at full width and
+# (layers) in f32, max_len prompt + steps (2 divides it): gemma-2b (4 query
 # heads a rank, its MQA cache split over the sequence: a decode kernel and a
-# merge a layer and step) and qwen3-14b (20 query heads and 4 of the 8 KV
-# heads a rank: the cache split over its KV heads).  Each rank's logits,
+# merge a layer and step), qwen3-14b (20 query heads and 4 of the 8 KV
+# heads a rank: the cache split over its KV heads), recurrentgemma-9b (two
+# RG-LRU layers, their states' 2048 channels a rank, and a local layer, its
+# ring of 264 slots split over the sequence) and xlstm-125m (three mLSTM
+# layers, 2 heads of their states a rank, and an sLSTM layer, 384 of its
+# state's 768 channels a rank).  Each rank's logits,
 # gathered over the vocabulary, are held to the one-device f32 steps within
 # SERVE_TP_RTOL of the largest logit (tests/test_torch_models.py's
 # LOGITS_TOL); where they miss, both are held to the plain path in f64, as
 # the TP train jobs' gradients; greedy tokens equal
-TP_SERVE_JOBS = {"gemma-2b": (1024, 16), "qwen3-14b": (1024, 16)}
+TP_SERVE_JOBS = {"gemma-2b": (1024, 16, 2), "qwen3-14b": (1024, 16, 2),
+                 "recurrentgemma-9b": (256, 8, 3), "xlstm-125m": (256, 8, 4)}
 SERVE_TP_RTOL = 1e-4
 
 
@@ -1337,8 +1358,14 @@ def analysis_phase(analysis: dict, cfg, opts, prefill_tokens, batch: int, seq: i
             f"{card.peak_bytes / 2**30:.2f} GiB (fake {want.peak_bytes / 2**30:.2f}); "
             f"{ms:.3f} ms by CUDA events: {share:.4f} of 989 TFLOP/s ({smi})")
         assert 0 < share <= 1.05, (name, share)
-    # the tensor-parallel steps: rank 0's count on the card (gloo collectives
-    # included) against rank 0's on fake tensors of an abstract (1, 1, 2) mesh
+    tp_counts_phase(tp)
+    log(f"   analysis phase: {time.perf_counter() - t0:.1f} s")
+
+
+def tp_counts_phase(tp: dict) -> None:
+    """Phase 18's tensor-parallel part: each job's rank-0 count on the card
+    (gloo collectives included) against rank 0's on fake tensors of an
+    abstract (1, 1, 2) mesh."""
     for job in tp["serve"]:
         want = tp_serve_fake_count(job)
         for what in ("prefill", "decode"):
@@ -1361,7 +1388,6 @@ def analysis_phase(analysis: dict, cfg, opts, prefill_tokens, batch: int, seq: i
             f"kernel mode: {card['flops']:.6g} FLOP, {card['bytes']:.6g} B, collective bytes "
             f"received {card['coll_by_key']} on the card = on fake tensors of an abstract "
             f"mesh; kernels {card['by_kernel']}")
-    log(f"   analysis phase: {time.perf_counter() - t0:.1f} s")
 
 
 def take_layers(params, n: int):
@@ -1370,6 +1396,17 @@ def take_layers(params, n: int):
         return ({k: cut(v) for k, v in tree.items()} if isinstance(tree, dict)
                 else tree[:n])
     return {**params, "main": [cut(g) for g in params["main"]]}
+
+
+def half_depth(cfg, params) -> tuple:
+    """(config, parameters) of the model's first layers, half its depth or
+    less: its dense prefix and the whole pattern groups that fit (views, no
+    copy; no tail).  The engines' ticks are host-bound, so a serve run's
+    wall follows the layers."""
+    P = len(cfg.block_pattern)
+    groups = max(1, (cfg.num_layers // 2 - cfg.first_dense) // P)
+    return (cfg.with_(num_layers=cfg.first_dense + groups * P),
+            {**take_layers(params, groups), "tail": []})
 
 
 def capture(module, name: str, seen: list):
@@ -1474,7 +1511,8 @@ def recurrent_phase(arch: str, S: int, seed: int, smi: str) -> dict:
     """Full-width, full-depth ``arch`` in bf16: random f32 weights cast to
     bf16 (the f32 copy dropped), ``make_prefill_step`` over (1, S) tokens
     and 16 decode steps with exact launch counts, one profiled prefill and
-    one profiled decode step, then serving: recurrentgemma-9b through
+    one profiled decode step, then serving at half depth or less
+    (``half_depth``: 18 and 4 layers): recurrentgemma-9b through
     ``PagedServeEngine`` (8 requests of 160 + 32 tokens; per-slot rings
     and states, no prefix cache), xlstm-125m through ``ServeEngine`` (8
     requests of 47-49 + 32 tokens on 4 slots).  Returns the prefill run's
@@ -1522,6 +1560,7 @@ def recurrent_phase(arch: str, S: int, seed: int, smi: str) -> dict:
                 smi)
     del cache
 
+    cfg, params = half_depth(cfg, params)
     if arch == "recurrentgemma-9b":
         trace = [(rid, rng.integers(0, cfg.vocab_size, 160).tolist(), 32)
                  for rid in range(8)]
@@ -1538,9 +1577,9 @@ def recurrent_phase(arch: str, S: int, seed: int, smi: str) -> dict:
     eng = make()
     kernels.reset_launch_counts()
     m = drive(eng, trace)
-    log(f"== serve: {arch} bf16, {label}, {len(trace)} requests of "
-        f"{min(len(p) for _r, p, _n in trace)}-{max(len(p) for _r, p, _n in trace)} "
-        f"prompt tokens + {trace[0][2]} new")
+    log(f"== serve: {arch} bf16 at {cfg.num_layers} layers, {label}, {len(trace)} "
+        f"requests of {min(len(p) for _r, p, _n in trace)}-"
+        f"{max(len(p) for _r, p, _n in trace)} prompt tokens + {trace[0][2]} new")
     log_serve(m, smi)
     log(f"   launches {counts()}; metrics {eng.metrics()}")
     check_finished(eng, trace, cfg.vocab_size)
@@ -1956,11 +1995,12 @@ def build_bf16(arch: str, seed: int, smi: str, num_layers: int = 0):
 def moe_phase(arch: str, seed: int, smi: str) -> dict:
     """Full-width, full-depth MoE family in bf16: prefill of (1, 2048) and
     16 decode steps with exact launch counts and peak memory, one profiled
-    prefill and decode step with the MoE breakdown; then serving:
-    deepseek-moe-16b through ``PagedServeEngine`` (gemma-2b's trace: block
-    16, 8 active, chunk 16, prefix cache), qwen2-moe-a2.7b through
-    ``ServeEngine`` (4 slots, max_len 256, 8 requests of 47-49 + 32).
-    Returns the prefill run's launch counts."""
+    prefill and decode step with the MoE breakdown; then serving at half
+    depth (its first layers: the engines' ticks are host-bound, so their
+    wall follows the layers): deepseek-moe-16b through ``PagedServeEngine``
+    (gemma-2b's trace: block 16, 8 active, chunk 16, prefix cache),
+    qwen2-moe-a2.7b through ``ServeEngine`` (4 slots, max_len 256, 8
+    requests of 47-49 + 32).  Returns the prefill run's launch counts."""
     cfg, params, base, weights = build_bf16(arch, seed, smi)
     opts = ModelOptions(compute_dtype="bfloat16")
     S, n_decode = 2048, 16
@@ -2001,6 +2041,8 @@ def moe_phase(arch: str, seed: int, smi: str) -> dict:
         log_moe_breakdown(p, smi)
     del cache
 
+    cfg, params = half_depth(cfg, params)
+    L = cfg.num_layers
     if arch == "deepseek-moe-16b":
         trace = serve_trace(cfg.vocab_size, seed)
         make = functools.partial(PagedServeEngine, cfg, params, num_blocks=256,
@@ -2017,7 +2059,7 @@ def moe_phase(arch: str, seed: int, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     m = drive(eng, trace)
     served = counts()
-    log(f"== serve: {arch} bf16, {label}, {len(trace)} requests of "
+    log(f"== serve: {arch} bf16 at {L} layers, {label}, {len(trace)} requests of "
         f"{min(len(p) for _r, p, _n in trace)}-{max(len(p) for _r, p, _n in trace)} "
         f"prompt tokens + {trace[0][2]} new")
     log_serve(m, smi)
@@ -2861,8 +2903,8 @@ def mesh_phase(seed: int, smi: str, phase7: dict) -> dict:
 def tp_setup(arch: str, seed: int) -> tuple:
     """A tensor-parallel job's model, options, step config and batches (on
     the card): the same in the parent and in each rank."""
-    batch, seq = TP_JOBS[arch]
-    cfg2 = get_config(arch).with_(num_layers=2)
+    batch, seq, layers = TP_JOBS[arch]
+    cfg2 = get_config(arch).with_(num_layers=layers)
     opts = ModelOptions(compute_dtype="float32")
     tcfg = TrainConfig(optimizer=TRAIN_CHECK_OPT)
     src = StreamSource(vocab_size=cfg2.vocab_size, batch=batch, seq_len=seq, seed=seed)
@@ -2933,8 +2975,8 @@ def tp_job(arch: str, mesh, rank: int, out: str, seed: int) -> None:
 def tp_serve_setup(arch: str, seed: int) -> tuple:
     """A serving job's model, options, prompt (on the card), decode steps
     and max_len: the same in the parent and in each rank."""
-    prompt, steps = TP_SERVE_JOBS[arch]
-    cfg2 = get_config(arch).with_(num_layers=2)
+    prompt, steps, layers = TP_SERVE_JOBS[arch]
+    cfg2 = get_config(arch).with_(num_layers=layers)
     rng = np.random.default_rng(seed + 17)
     tokens = torch.from_numpy(rng.integers(0, cfg2.vocab_size, (1, prompt))).to("cuda")
     return cfg2, ModelOptions(compute_dtype="float32"), tokens, steps, prompt + steps
@@ -2983,8 +3025,7 @@ def tp_serve_job(arch: str, mesh, rank: int, out: str, seed: int) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = counts()
-        shapes = [tuple(e["k"].shape) for e in cache["prefix"] + cache["main"] + cache["tail"]
-                  if "k" in e]
+        shapes = cache_leaf_shapes(cache)
         _, pre = count_ops(prefill, local, {"tokens": tokens})
         _, dec = count_ops(step, local, cache, fed[-1].to("cuda"))
     res = {"logits": logits, "tokens": fed, "launches": launches, "wall_s": wall,
@@ -2997,13 +3038,45 @@ def tp_serve_job(arch: str, mesh, rank: int, out: str, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+def cache_leaf_shapes(cache) -> dict:
+    """Each leaf's shape of a decode cache, by segment, layer and name."""
+    return {f"{seg}/{i}/{k}": tuple(x.shape) for seg in ("prefix", "main", "tail")
+            for i, e in enumerate(cache[seg]) for k, x in e.items()}
+
+
+def placed_cache_shapes(cfg2, B: int, max_len: int) -> dict:
+    """A rank's cache leaves' shapes on the abstract (1, 1, 2) mesh, as the
+    reference's ``cache_specs`` places the whole cache (``local_cache``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    mesh = abstract_mesh(TP_MESH)
+    axes = data_axes_for(mesh, B)
+    with FakeTensorMode():
+        whole = init_cache(cfg2, B, max_len, torch.float32, "cpu")
+        local = local_cache(whole, cache_specs(whole, cfg2, mesh, axes,
+                                               activation_rules(data_axes=axes)), mesh)
+        return cache_leaf_shapes(local)
+
+
+def attention_split(cfg2, max_len: int) -> tuple:
+    """(attention layers, where their caches split over the model axis in
+    words, merges a decode step): global attention over ``max_len``
+    positions, a local layer over its ring."""
+    splits = [kv_split(cfg2, min(cfg2.window, max_len) if k == "local" else max_len,
+                       TP_MESH[2]) for k in cfg2.layer_kinds if k in ("attn", "local")]
+    return len(splits), ", ".join(sorted(set(splits))) or "none", splits.count("sequence")
+
+
 def tp_serve_check(arch: str, seed: int, smi: str, out: str) -> dict:
     """A serving job against the one-device f32 steps: every rank's logits
     (the same bits on both) within SERVE_TP_RTOL of the largest logit of
     the one-device run, or else both runs held to the plain path in f64 fed
-    the same tokens; the same greedy tokens; one decode kernel per
-    attention layer and step, and one merge where the cache splits over the
-    sequence; the flash kernel once per layer in the prefill."""
+    the same tokens; the same greedy tokens; the rank's cache placed as
+    ``cache_specs`` places the whole; every kernel launched as often as on
+    one device (a decode kernel per attention layer and step, the flash
+    kernel per attention layer and the recurrent kernels per layer in the
+    prefill), and one merge per attention layer and step whose cache
+    splits over the sequence."""
     t0 = time.perf_counter()
     cfg2, opts, tokens, steps, max_len = tp_serve_setup(arch, seed)
     ranks = []
@@ -3022,11 +3095,12 @@ def tp_serve_check(arch: str, seed: int, smi: str, out: str) -> dict:
     scale = want.abs().max().item()
     rel = ((got["logits"] - want).abs().max() / scale).item()
     same = torch.equal(got["tokens"], fed)
-    split = kv_split(cfg2, max_len, TP_MESH[2])
+    n_attn, split, merges_a_step = attention_split(cfg2, max_len)
+    placed = placed_cache_shapes(cfg2, tokens.shape[0], max_len)
     log(f"   {arch} serving (prefill of {tuple(tokens.shape)}, {steps} greedy decode steps, "
-        f"max_len {max_len}; cache over {split}, a rank's attention caches "
-        f"{got['cache_shapes'][0]}): logits rel {rel:.3g} of the largest (tolerance "
-        f"{SERVE_TP_RTOL}), greedy tokens {'equal' if same else 'DIFFER'}; rank-0 wall "
+        f"max_len {max_len}; attention caches over {split}; a rank's cache leaves "
+        f"{sorted(set(got['cache_shapes'].values()))}): logits rel {rel:.3g} of the largest "
+        f"(tolerance {SERVE_TP_RTOL}), greedy tokens {'equal' if same else 'DIFFER'}; rank-0 wall "
         f"{got['wall_s']:.3f} s (host clock, gloo on one shared card); peak memory a rank "
         f"{ranks[0]['peak_bytes'] / 2**30:.2f} / {ranks[1]['peak_bytes'] / 2**30:.2f} GiB "
         f"({smi})")
@@ -3047,13 +3121,19 @@ def tp_serve_check(arch: str, seed: int, smi: str, out: str) -> dict:
             f"{SERVE_TP_RTOL} or twice the one-device distance) ({smi})")
         assert e_tp <= max(SERVE_TP_RTOL, 2 * e_one), (e_tp, e_one)
         del params64, want64
-    L = cfg2.num_layers
-    merges = L * steps if split == "sequence" else 0
+    merges = merges_a_step * steps
+    used = {"rmsnorm"} | ({"decode_attention", "flash_attention"} if n_attn else set()) | {
+        name for kind, name in (("rglru", "rglru_scan"), ("mlstm", "mlstm_chunk"))
+        if kind in cfg2.layer_kinds}
     for r in ranks:
         lr = r["launches"]
-        assert lr["decode_attention"] == L * steps == one_launches["decode_attention"], lr
+        assert r["cache_shapes"] == placed, (r["cache_shapes"], placed)
+        assert lr["decode_attention"] == n_attn * steps, lr
         assert lr["merge_partials"] == merges, (lr, merges)
-        assert lr["flash_attention"] == L == one_launches["flash_attention"], lr
+        assert lr["flash_attention"] == n_attn, lr
+        assert {k: v for k, v in lr.items() if k != "merge_partials"} == {
+            k: v for k, v in one_launches.items() if k != "merge_partials"}, (lr, one_launches)
+        assert all(lr[name] > 0 for name in used), (lr, used)
     log(f"   launches a rank {got['launches']} (one device {one_launches}); "
         f"{arch} serving checked in {time.perf_counter() - t0:.1f} s")
     del params32
@@ -3116,9 +3196,15 @@ def tp_phase(seed: int, smi: str) -> list:
     phase 18."""
     t0 = time.perf_counter()
     log(f"== tensor-parallel: mesh {TP_MESH} (pod, data, model) of two processes on this "
-        f"card over gloo; " + ", ".join(f"{a} ({b} x {s})" for a, (b, s) in TP_JOBS.items())
-        + f" at full width and 2 layers, f32, {TRAIN_CHECK_OPT}, two steps each, against "
-        f"the one-device f32 step ({smi})")
+        f"card over gloo; " + ", ".join(f"{a} ({b} x {s}, {n} layers)"
+                                        for a, (b, s, n) in TP_JOBS.items())
+        + f" at full width, f32, {TRAIN_CHECK_OPT}, two steps each, against the one-device "
+        f"f32 step ({smi})")
+    # the ranks share the card with this process: hand back what its
+    # allocator keeps cached from earlier phases (the launcher run's 46 GiB)
+    torch.cuda.empty_cache()
+    log(f"   this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"({torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved) as the ranks start")
     out = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     port = free_port()
     me = os.path.abspath(__file__)
@@ -3145,8 +3231,9 @@ def tp_check(arch: str, seed: int, smi: str, out: str) -> dict:
     """A tensor-parallel job against the one-device f32 step: the first
     step's loss and gradients (an MoE's one-device run routed as rank 0
     routed; both ranks must have routed alike), the leaves held whole equal
-    on both ranks, equal launch counts, and the flash kernels' counted work
-    that of the local heads."""
+    on both ranks, equal launch counts (every kernel the arch's layers use
+    launched), and the flash and recurrent kernels' counted work that of
+    the local heads and channels."""
     t0 = time.perf_counter()
     cfg2, opts, tcfg, batches = tp_setup(arch, seed)
     ranks = []
@@ -3216,29 +3303,47 @@ def tp_check(arch: str, seed: int, smi: str, out: str) -> dict:
         del grads64
     assert l_rel <= TRAIN_F32["loss"], l_rel
     assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in got), got
+    kinds = set(cfg2.layer_kinds)
+    used = {"rmsnorm"} | {name for kind, pair in (
+        ("attn", ("flash_attention", "flash_attention_bwd")),
+        ("local", ("flash_attention", "flash_attention_bwd")),
+        ("rglru", ("rglru_scan", "rglru_scan_bwd")),
+        ("mlstm", ("mlstm_chunk", "mlstm_chunk_bwd"))) if kind in kinds for name in pair}
     for r in ranks:
         for g, w in zip(r["records"], want):
-            for name in ("rmsnorm", "flash_attention", "flash_attention_bwd"):
-                assert g["launches"][name] == w["launches"][name] > 0, (name, g, w)
-    # the flash kernels ran at the local head count: their counted work is
-    # that of the local query heads and the KV heads they read
+            assert g["launches"] == w["launches"], (g, w)
+            assert all(g["launches"][name] > 0 for name in used), (used, g)
+    # the flash and recurrent kernels ran at the local heads and channels:
+    # their counted work is that of the local query heads and the KV heads
+    # they read, of the rank's RG-LRU channels and of its mLSTM heads
     card = ranks[0]["count"]
     B, S = batches[0]["tokens"].shape
-    local = cfg2.num_heads // TP_MESH[2]
+    n = TP_MESH[2]
+    local = cfg2.num_heads // n
     kv = max(1, cfg2.num_kv_heads * local // cfg2.num_heads)
-    for name, cost in (("flash_attention", flash_attention_cost(
-            B, S, local, kv, cfg2.head_dim, torch.float32, lse=True)),
-                       ("flash_attention_bwd", flash_attention_bwd_cost(
-            B, S, local, kv, cfg2.head_dim, torch.float32))):
+    costs = {"flash_attention": flash_attention_cost(
+        B, S, local, kv, cfg2.head_dim, torch.float32, lse=True,
+        window=cfg2.window if "local" in kinds else 0),
+        "flash_attention_bwd": flash_attention_bwd_cost(
+            B, S, local, kv, cfg2.head_dim, torch.float32,
+            window=cfg2.window if "local" in kinds else 0),
+        "rglru_scan": rglru_scan_cost(B * S * (cfg2.d_rnn or cfg2.d_model) // n),
+        "rglru_scan_bwd": rglru_scan_bwd_cost(B * S * (cfg2.d_rnn or cfg2.d_model) // n),
+        "mlstm_chunk": mlstm_chunk_cost(B, S, local, 2 * cfg2.d_model // cfg2.num_heads,
+                                        torch.float32, chunk=opts.mlstm_chunk),
+        "mlstm_chunk_bwd": mlstm_chunk_bwd_cost(B, S, local, 2 * cfg2.d_model // cfg2.num_heads,
+                                                torch.float32, chunk=opts.mlstm_chunk)}
+    for name in used - {"rmsnorm"}:
         k = card["by_kernel"][name]
-        assert k["flops"] == k["calls"] * cost.flops, (name, k, cost)
+        assert k["flops"] == k["calls"] * costs[name].flops, (name, k, costs[name])
     log(f"   launches a step {got[0]['launches']} (one device {want[0]['launches']}); the "
-        f"flash kernels' counted work that of {local} local query heads and {kv} KV "
-        f"head(s); {arch} checked in {time.perf_counter() - t0:.1f} s")
+        f"counted work of {', '.join(sorted(used - {'rmsnorm'}))} that of {local} local query "
+        f"head(s) and {kv} KV head(s), {(cfg2.d_rnn or cfg2.d_model) // n} RG-LRU channels; "
+        f"{arch} checked in {time.perf_counter() - t0:.1f} s")
     del tp_grads, tp_params, grads1, params2, params32, ranks
     torch.cuda.empty_cache()
     return {"count": card, "cfg": cfg2, "opts": opts, "tcfg": tcfg,
-            "batch": tuple(batches[0]["tokens"].shape)}
+            "batch": tuple(batches[0]["tokens"].shape), "launches": got[0]["launches"]}
 
 
 def tp_fake_count(tp: dict) -> dict:
@@ -3668,10 +3773,11 @@ def main() -> int:
     log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
     # 15. training the recurrent families at full width: recurrentgemma-9b
     # at one pattern group (3 layers; its 38 do not fit in f32 with AdamW)
-    # over 1 x 4096 tokens, twice its window; xlstm-125m at full depth over
-    # 2 x 1024; then their checks
+    # over 1 x 4096 tokens, twice its window; xlstm-125m at two pattern
+    # groups (8 of its 12 layers: its host-bound sLSTM loops' wall follows
+    # the layers) over 2 x 1024; then their checks
     rg_train = recurrent_train_phase("recurrentgemma-9b", 3, 1, 4096, args.seed, smi)
-    xl_train = recurrent_train_phase("xlstm-125m", None, 2, 1024, args.seed, smi)
+    xl_train = recurrent_train_phase("xlstm-125m", 8, 2, 1024, args.seed, smi)
     check_recurrent_train("recurrentgemma-9b", 3, 1, 4096, args.seed, smi)
     check_recurrent_train("xlstm-125m", 4, 2, 1024, args.seed, smi)
 
@@ -3695,22 +3801,27 @@ def main() -> int:
     # 19. the kernels line, the card, the result.  Each kernel's launches are
     # those of the path that runs it: the paged serve run (RMSNorm, paged
     # decode), the fixed-slot serve run (dense decode), the prefill (flash),
-    # the train run (flash backward), the recurrent prefills (RG-LRU,
-    # mLSTM; the windowed flash is logged with the recurrentgemma phase),
-    # the recurrent train runs (the windowed flash backward and the RG-LRU
-    # backward in recurrentgemma-9b's, the mLSTM backward in xlstm-125m's),
-    # the merge rank 0's in phase 17's sequence-split serving job (gemma-2b)
+    # the train run (flash backward), the recurrent train run's windowed
+    # flash backward (recurrentgemma-9b's; the windowed flash is logged with
+    # its prefill phase), the merge rank 0's in phase 17's sequence-split
+    # serving job (gemma-2b), and the recurrent kernels forward and backward
+    # rank 0's in the first step of phase 17's tensor-parallel
+    # recurrentgemma-9b and xlstm-125m jobs (the recurrent prefills' and
+    # train runs' own launches are asserted in their phases)
+    tp_train = {job["cfg"].name: job["launches"] for job in tp["train"]}
     launches = {"rmsnorm": paged_launches["rmsnorm"],
                 "paged_decode_attention": paged_launches["paged_decode_attention"],
                 "decode_attention": fixed_launches["decode_attention"],
                 "flash_attention": prefill_launches["flash_attention"],
                 "flash_attention_bwd": train_launches["flash_attention_bwd"],
-                "rglru_scan": rg_launches["rglru_scan"],
-                "mlstm_chunk": xl_launches["mlstm_chunk"],
+                "rglru_scan": tp_train["recurrentgemma-9b"]["rglru_scan"],
+                "mlstm_chunk": tp_train["xlstm-125m"]["mlstm_chunk"],
                 "flash_attention_bwd_window": rg_train["flash_attention_bwd"],
-                "rglru_scan_bwd": rg_train["rglru_scan_bwd"],
-                "mlstm_chunk_bwd": xl_train["mlstm_chunk_bwd"],
+                "rglru_scan_bwd": tp_train["recurrentgemma-9b"]["rglru_scan_bwd"],
+                "mlstm_chunk_bwd": tp_train["xlstm-125m"]["mlstm_chunk_bwd"],
                 "merge_partials": tp["serve"][0]["launches"]["merge_partials"]}
+    log(f"   the recurrent prefills' launches (phases 9-10) {rg_launches} and {xl_launches}; "
+        f"the recurrent train runs' (phase 15) {rg_train} and {xl_train}")
     assert all(n > 0 for n in launches.values()), launches
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": WHERE[name][0],

@@ -16,20 +16,24 @@ allocated), and ``repro_torch.launch.dryrun`` counts the ops it runs
   divides the heads, dense MLPs where it divides ``d_ff``, the embedding
   and the head where it divides the vocabulary, the routed experts
   (expert-parallel) where it divides their number, the shared experts
-  where it divides their width; the RG-LRU, mLSTM and sLSTM widths, and
-  any part the axis does not divide (qwen2-moe-a2.7b's 60 experts over
-  16 ranks), run whole on every rank of the group.  With ``dp_layout``
+  where it divides their width, the RG-LRU where it divides ``d_rnn``, the
+  mLSTM where it divides its inner width (its recurrence on the rank's
+  heads where it divides them too), the sLSTM's FFN where it divides its
+  width; the sLSTM's cell (whole in the reference's partition too), and any
+  part the axis does not divide (qwen2-moe-a2.7b's 60 experts over 16
+  ranks), run whole on every rank of the group.  With ``dp_layout``
   every parameter is replicated and the batch spans ``model`` too;
 - **prefill** and **decode**: the port's sharded serving steps
   (``serve.engine.make_prefill_step`` and ``make_decode_step`` with the
   mesh) as rank 0, on rank 0's shards of the parameters in the compute
   dtype (``sharding.specs.local_params``) and, for decode, rank 0's block
   of the cache as the reference's ``cache_specs`` places it
-  (``sharding.specs.local_cache``: recurrent states whole over ``model``);
-  the steps take rank 0's rows of the global batch.  Their compute is
-  tensor-parallel over ``model`` as the train step's, the decode cache's
-  attention layers split over their KV heads or, where ``model`` does not
-  divide those, over the sequence (``"model_axis"`` names which).
+  (``sharding.specs.local_cache``); the steps take rank 0's rows of the
+  global batch.  Their compute is tensor-parallel over ``model`` as the
+  train step's, the decode cache's attention layers split over their KV
+  heads or, where ``model`` does not divide those, over the sequence, and
+  its recurrent states over their heads or channels (``"model_axis"``
+  names which).
 
 The reference's ``tree_attention``, ``sequence_parallel`` and
 ``shard_cache_seq`` have no counterpart in the port: ``build_cell`` raises
@@ -47,6 +51,7 @@ from ..configs import SHAPES, ArchConfig, ShapeCfg, get_config, shape_applicable
 from ..convert import cast_params
 from ..data.stream import batch_specs
 from ..models.lm import ModelOptions, init_cache, init_params
+from ..models.recurrent import slstm_ff
 from ..serve.engine import make_decode_step, make_prefill_step
 from ..sharding.ctx import activation_rules, data_axes_for, tensor_axis
 from ..sharding.specs import PARAM_RULES, cache_specs, kv_cache_split, local_cache, local_params
@@ -94,9 +99,11 @@ def train_model_axis(cfg: ArchConfig, n: int) -> str:
              ("experts", moe is not None, moe is not None and moe.num_experts % n == 0),
              ("shared experts", moe is not None and moe.num_shared > 0,
               moe is not None and moe.num_shared * moe.d_expert % n == 0),
-             ("RG-LRU", "rglru" in kinds, False),
-             ("mLSTM", "mlstm" in kinds, False),
-             ("sLSTM", "slstm" in kinds, False))
+             ("RG-LRU", "rglru" in kinds, (cfg.d_rnn or cfg.d_model) % n == 0),
+             ("mLSTM", "mlstm" in kinds, 2 * cfg.d_model % n == 0),
+             ("mLSTM recurrence", "mlstm" in kinds, cfg.num_heads % n == 0),
+             ("sLSTM FFN", "slstm" in kinds, slstm_ff(cfg.d_model) % n == 0),
+             ("sLSTM cell", "slstm" in kinds, False))
     split = [name for name, has, ok in parts if has and ok]
     whole = [name for name, has, ok in parts if has and not ok]
     return ("tensor-parallel: " + (", ".join(split) or "nothing")
@@ -107,8 +114,9 @@ def serve_model_axis(cfg: ArchConfig, n: int, shape: ShapeCfg) -> str:
     """``train_model_axis`` for a serving step, and where its decode cache
     splits over the n ranks: each attention kind's cache (global attention
     of ``seq_len`` positions, a local layer's ring) over its KV heads, its
-    sequence or whole (``sharding.specs.kv_cache_split``); the recurrent
-    states whole."""
+    sequence or whole (``sharding.specs.kv_cache_split``); each recurrent
+    kind's state over its heads or channels, or whole, as
+    ``sharding.specs.cache_specs`` places it."""
     kinds = set(cfg.layer_kinds)
     where = {"kv": "KV heads", "seq": "sequence", "whole": "whole"}
     cache = [f"{name} over {where[kv_cache_split(positions, cfg.num_kv_heads, n)]}"
@@ -116,8 +124,15 @@ def serve_model_axis(cfg: ArchConfig, n: int, shape: ShapeCfg) -> str:
                  ("attn", "attention", shape.seq_len),
                  ("local", "local ring", min(cfg.window, shape.seq_len)))
              if kind in kinds]
-    if kinds - {"attn", "local"}:
-        cache.append("recurrent states whole")
+    d, di = cfg.d_model, 2 * cfg.d_model
+    for kind, name, parts in (
+            ("rglru", "RG-LRU state", (("channels", (cfg.d_rnn or d) % n == 0),)),
+            ("mlstm", "mLSTM state", (("heads", cfg.num_heads % n == 0),
+                                      ("conv channels", di % n == 0))),
+            ("slstm", "sLSTM state", (("channels", d % n == 0),))):
+        if kind in kinds:
+            over = [what for what, ok in parts if ok]
+            cache.append(f"{name} over {' and '.join(over)}" if over else f"{name} whole")
     return train_model_axis(cfg, n) + "; cache: " + ", ".join(cache)
 
 

@@ -599,9 +599,10 @@ def forward_with_cache(params, cfg: ArchConfig, tokens, frontend_embeds=None,
     layers' final states, and ``cache['len']`` set to S (a frontend's
     positions included).  Under a bound model group the logits are this
     rank's vocab block (where the head splits the vocabulary) and the cache
-    this rank's, placed as ``sharding.specs.cache_specs`` places it
-    (recurrent states whole), with ``cache["max_len"]`` the whole cache's
-    positions, as ``sharding.specs.local_cache`` gives it."""
+    this rank's, placed as ``sharding.specs.cache_specs`` places it (the
+    recurrent states' heads or channels split too), with
+    ``cache["max_len"]`` the whole cache's positions, as
+    ``sharding.specs.local_cache`` gives it."""
     B, S = tokens.shape
     if cfg.frontend and frontend_embeds is not None:
         S += frontend_embeds.shape[1]

@@ -29,6 +29,32 @@ cannot see:
   state are f32.
 
 ``repro_torch.convert.cast_params`` keeps all of those leaves in f32.
+
+Under a bound model group (``sharding.ctx.model_group``) whose ranks hold
+blocks of a layer's width, as the reference's partition places them
+(``sharding.specs``), each layer computes on its rank's block; every sum
+over the ranks adds in rank order and is rounded once:
+
+- RG-LRU over ``rnn``: ``w_x`` and ``w_g`` column-parallel, the conv, the
+  gates' biases, ``lam`` and the scan on the rank's channels; the gate
+  products read every channel of the conv output (``w_a``/``w_i`` split
+  only their outputs), so the ranks' blocks are gathered in the compute
+  dtype before the f32 cast; ``w_o`` row-parallel.  The decode state
+  ``h``/``conv`` is the rank's channels;
+- mLSTM over its inner width ``di`` (``ff``): ``w_up`` at rest splits
+  ``[x_inner | z]`` as one dim, so its columns are re-paired first
+  (``collectives.pair_columns``: the rank's blocks of ``x_inner`` and of
+  ``z``); the conv on the rank's channels; q, k, v and the gate
+  pre-activations are row-parallel f32 partials, summed, and where the
+  model axis divides the heads (as the decode cache then splits them)
+  each rank keeps its heads' block of the sum and runs the recurrence on
+  them, its output gathered for the group norm over the whole ``di``;
+  else every rank runs every head.  The output gate and ``w_down``
+  row-parallel on the rank's ``di`` block;
+- sLSTM: its gates and cell whole on every rank, as the reference's
+  partition leaves them; its FFN column- then row-parallel.  Its decode
+  state ``h``/``c``/``n``/``m`` rests split by channel: the step gathers
+  it, runs the cell and keeps its block; the prefill returns its block.
 """
 
 from __future__ import annotations
@@ -41,7 +67,15 @@ import torch.nn.functional as F
 from .. import kernels
 from ..kernels import _build
 from ..kernels.ref import mlstm_chunk_ref, rglru_scan_ref
-from .layers import act_fn, dense_init, init_rmsnorm, rmsnorm
+from ..sharding.collectives import (
+    copy_to_model,
+    gather_over_model,
+    pair_columns,
+    scatter_sum_over_model,
+    sum_over_model,
+)
+from ..sharding.ctx import model_group
+from .layers import act_fn, dense_init, init_rmsnorm, matmul_f32, rmsnorm
 
 RGLRU_C = 8.0  # Griffin's fixed gate sharpness constant
 SLSTM_GATES = ("z", "i", "f", "o")
@@ -109,29 +143,56 @@ def init_rglru(gen: torch.Generator, d: int, d_rnn: int,
     }
 
 
-def _rglru_gates(params: dict, xr: torch.Tensor):
-    """xr (..., d_rnn) post-conv input -> (log_a, b), both f32."""
+def _split(local: int, whole: int) -> tuple:
+    """(group, n, this rank's index) of the bound model group where a
+    leaf's dim holds ``local`` of ``whole``; (None, 1, 0) where it is
+    whole."""
+    group, n, idx = model_group()
+    if group is None or local == whole:
+        return None, 1, 0
+    if local * n != whole:
+        raise ValueError(f"a block of {local} of {whole} over {n} ranks")
+    return group, n, idx
+
+
+def _rglru_gates(params: dict, xr: torch.Tensor, group=None, n: int = 1):
+    """xr (..., d_rnn) post-conv input -> (log_a, b), both f32.  With a
+    model ``group``, xr is this rank's channels: the gate products read
+    the ranks' channels joined."""
     x32 = xr.float()
-    r = torch.sigmoid(x32 @ params["w_a"].float() + params["b_a"])
-    i = torch.sigmoid(x32 @ params["w_i"].float() + params["b_i"])
+    xa = x32 if group is None else gather_over_model(xr, group, n).float()
+    r = torch.sigmoid(xa @ params["w_a"].float() + params["b_a"])
+    i = torch.sigmoid(xa @ params["w_i"].float() + params["b_i"])
     log_a = -RGLRU_C * F.softplus(params["lam"]) * r  # <= 0
     a2 = torch.exp(2.0 * log_a)
     b = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * x32)
     return log_a, b
 
 
+def _rglru_out(params: dict, h: torch.Tensor, gate: torch.Tensor, dt, group,
+               n: int) -> torch.Tensor:
+    """The gated state through ``w_o`` (row-parallel with a model group)."""
+    y = h.to(dt) * gate
+    if group is None:
+        return (y @ params["w_o"].to(dt)).to(dt)
+    return sum_over_model(matmul_f32(y, params["w_o"].to(dt)), group, n).to(dt)
+
+
 def rglru_seq(params: dict, x: torch.Tensor, return_state: bool = False,
               impl: str = "kernel"):
     """The RG-LRU mix over a sequence.  x (B,S,d), already normed ->
-    (B,S,d) [, state {h (B,d_rnn) f32, conv (B,W-1,d_rnn)}]."""
+    (B,S,d) [, state {h (B,d_rnn) f32, conv (B,W-1,d_rnn)}, this rank's
+    channels under a model group]."""
     dt = x.dtype
+    group, n, _ = _split(params["w_a"].shape[1], params["w_a"].shape[0])
+    x = copy_to_model(x, group, n)
     gate = act_fn("gelu")(x @ params["w_g"].to(dt))
     xr_pre = x @ params["w_x"].to(dt)
     xr = causal_conv_seq(xr_pre, params["conv_w"], params["conv_b"])
-    log_a, b = _rglru_gates(params, xr)
+    log_a, b = _rglru_gates(params, xr, group, n)
     scan = kernels.rglru_scan if impl == "kernel" else rglru_scan_ref
     h = scan(log_a.contiguous(), b.contiguous())  # (B,S,d_rnn) f32
-    out = ((h.to(dt) * gate) @ params["w_o"].to(dt)).to(dt)
+    out = _rglru_out(params, h, gate, dt, group, n)
     if return_state:
         state = {"h": h[:, -1].float(),
                  "conv": _conv_tail(xr_pre, params["conv_w"].shape[0])}
@@ -141,16 +202,18 @@ def rglru_seq(params: dict, x: torch.Tensor, return_state: bool = False,
 
 def rglru_step(params: dict, x: torch.Tensor, state: dict):
     """One decode step.  x (B,d); state {h (B,d_rnn) f32, conv
-    (B,W-1,d_rnn)} -> (out (B,d), the new state)."""
+    (B,W-1,d_rnn)}, this rank's channels under a model group -> (out
+    (B,d), the new state)."""
     dt = x.dtype
+    group, n, _ = _split(params["w_a"].shape[1], params["w_a"].shape[0])
+    x = copy_to_model(x, group, n)
     gate = act_fn("gelu")(x @ params["w_g"].to(dt))
     xr = x @ params["w_x"].to(dt)
     xr, conv_state = causal_conv_step(xr, state["conv"], params["conv_w"],
                                       params["conv_b"])
-    log_a, b = _rglru_gates(params, xr)
+    log_a, b = _rglru_gates(params, xr, group, n)
     h = state["h"] * torch.exp(log_a) + b
-    out = ((h.to(dt) * gate) @ params["w_o"].to(dt)).to(dt)
-    return out, {"h": h, "conv": conv_state}
+    return _rglru_out(params, h, gate, dt, group, n), {"h": h, "conv": conv_state}
 
 
 def rglru_init_state(batch: int, d_rnn: int, conv_width: int,
@@ -187,58 +250,112 @@ def init_mlstm(gen: torch.Generator, d: int, num_heads: int,
     }
 
 
+def _mlstm_split(params: dict, num_heads: int) -> tuple:
+    """(group, n, this rank's index, whether the ranks split the heads) of
+    an mLSTM layer whose leaves hold a block of the inner width under a
+    bound model group; (None, 1, 0, False) where they hold all of it."""
+    di, local = params["gn"]["scale"].shape[-1], params["conv_b"].shape[-1]
+    group, n, idx = _split(local, di)
+    if group is not None and params["w_up"].shape[-1] != 2 * local:
+        raise ValueError(f"w_up holds {params['w_up'].shape[-1]} columns of the "
+                         f"{2 * di} and the conv {local} channels of {di}")
+    return group, n, idx, group is not None and num_heads % n == 0
+
+
+_WHOLE = (None, 1, 0, False)
+
+
 def _mlstm_qkvif(params: dict, xc: torch.Tensor, x_inner: torch.Tensor,
-                 num_heads: int):
+                 num_heads: int, tp: tuple = _WHOLE):
     """Per-head q, k, v in the compute dtype and the f32 gate
-    pre-activations, from the conv output and the inner stream."""
+    pre-activations, from the conv output and the inner stream.  Under a
+    model group (``tp``, from ``_mlstm_split``) the inputs are the rank's
+    channels, whose products are f32 partials summed over the ranks: all
+    of it, or the rank's heads where they split."""
     dt = xc.dtype
     lead = xc.shape[:-1]
+    group, n, idx, heads_split = tp
+    if group is None:
+        def heads(x, w):
+            return (x @ w.flatten(1).to(dt)).view(*lead, num_heads, -1)
+
+        q = heads(xc, params["wq"])
+        k = heads(xc, params["wk"])
+        v = heads(x_inner, params["wv"])
+        x32 = xc.float()
+        i_pre = x32 @ params["w_i"] + params["b_i"]
+        f_pre = x32 @ params["w_f"] + params["b_f"]
+        return q, k, v, i_pre, f_pre
+    reduce = scatter_sum_over_model if heads_split else sum_over_model
+    H = num_heads // n if heads_split else num_heads
 
     def heads(x, w):
-        return (x @ w.flatten(1).to(dt)).view(*lead, num_heads, -1)
+        return reduce(matmul_f32(x, w.flatten(1).to(dt)), group, n).to(dt).view(*lead, H, -1)
+
+    def bias(b):  # every rank reads the whole leaf, or its heads' block
+        return copy_to_model(b, group, n)[idx * H:(idx + 1) * H] if heads_split else b
 
     q = heads(xc, params["wq"])
     k = heads(xc, params["wk"])
     v = heads(x_inner, params["wv"])
     x32 = xc.float()
-    i_pre = x32 @ params["w_i"] + params["b_i"]
-    f_pre = x32 @ params["w_f"] + params["b_f"]
+    i_pre = reduce(x32 @ params["w_i"], group, n) + bias(params["b_i"])
+    f_pre = reduce(x32 @ params["w_f"], group, n) + bias(params["b_f"])
     return q, k, v, i_pre, f_pre
 
 
-def _mlstm_up(params: dict, x: torch.Tensor):
-    """The up projection split into the inner stream and the z gate."""
-    di = 2 * x.shape[-1]
-    up = x @ params["w_up"].to(x.dtype)
-    return up[..., :di], up[..., di:]
+def _mlstm_up(params: dict, x: torch.Tensor, tp: tuple = _WHOLE):
+    """The up projection split into the inner stream and the z gate (the
+    rank's blocks of both under a model group)."""
+    group, n, idx, _ = tp
+    w = params["w_up"].to(x.dtype)
+    if group is not None:
+        x = copy_to_model(x, group, n)
+        w = pair_columns(w, group, n, idx)
+    up = x @ w
+    c = w.shape[-1] // 2
+    return up[..., :c], up[..., c:]
 
 
 def _mlstm_out(params: dict, h: torch.Tensor, z: torch.Tensor,
-               dt) -> torch.Tensor:
+               dt, tp: tuple = _WHOLE) -> torch.Tensor:
     """Group norm of the f32 recurrence output rounded to ``dt``, the z gate,
-    the down projection."""
-    h = rmsnorm(h.to(dt), params["gn"]["scale"])
-    h = h * F.silu(z)
-    return (h @ params["w_down"].to(dt)).to(dt)
+    the down projection.  Under a model group the norm reads the whole
+    width (the ranks' heads joined, where they split them), and the rank
+    gates its block and takes its rows of ``w_down``."""
+    group, n, idx, heads_split = tp
+    scale = params["gn"]["scale"]
+    h = h.to(dt)
+    if group is None:
+        h = rmsnorm(h, scale) * F.silu(z)
+        return (h @ params["w_down"].to(dt)).to(dt)
+    if heads_split:
+        h = rmsnorm(gather_over_model(h, group, n), copy_to_model(scale, group, n))
+    else:
+        h = copy_to_model(rmsnorm(h, scale), group, n)
+    c = z.shape[-1]
+    h = h[..., idx * c:(idx + 1) * c] * F.silu(z)
+    return sum_over_model(matmul_f32(h, params["w_down"].to(dt)), group, n).to(dt)
 
 
 def mlstm_seq(params: dict, x: torch.Tensor, num_heads: int, *,
               chunk: int = 128, return_state: bool = False,
               impl: str = "kernel"):
     """The mLSTM mix over a sequence.  x (B,S,d), normed -> (B,S,d) [, state
-    {C, n, m (f32), conv}].  The prefill takes the final carry from the
-    same kernel."""
+    {C, n, m (f32), conv}, the rank's heads and channels under a model
+    group].  The prefill takes the final carry from the same kernel."""
     dt = x.dtype
     B, S, d = x.shape
-    x_inner, z = _mlstm_up(params, x)
+    tp = _mlstm_split(params, num_heads)
+    x_inner, z = _mlstm_up(params, x, tp)
     xc = F.silu(causal_conv_seq(x_inner, params["conv_w"], params["conv_b"]))
-    q, k, v, i_pre, f_pre = _mlstm_qkvif(params, xc, x_inner, num_heads)
+    q, k, v, i_pre, f_pre = _mlstm_qkvif(params, xc, x_inner, num_heads, tp)
     rec = kernels.mlstm_chunk if impl == "kernel" else mlstm_chunk_ref
     out = rec(q.contiguous(), k.contiguous(), v.contiguous(),
               i_pre.contiguous(), f_pre.contiguous(), chunk=chunk,
               return_final=return_state)
     h, final = out if return_state else (out, None)
-    out = _mlstm_out(params, h.reshape(B, S, 2 * d), z, dt)
+    out = _mlstm_out(params, h.reshape(B, S, -1), z, dt, tp)
     if return_state:
         C, n, m = final
         return out, {"C": C, "n": n, "m": m,
@@ -248,14 +365,16 @@ def mlstm_seq(params: dict, x: torch.Tensor, num_heads: int, *,
 
 def mlstm_step(params: dict, x: torch.Tensor, state: dict, num_heads: int):
     """One decode step.  x (B,d); state {C (B,H,dk,dk), n (B,H,dk), m (B,H)
-    f32, conv (B,W-1,di)} -> (out (B,d), the new state)."""
+    f32, conv (B,W-1,di)}, the rank's heads and channels under a model
+    group -> (out (B,d), the new state)."""
     dt = x.dtype
-    B, d = x.shape
-    x_inner, z = _mlstm_up(params, x)
+    B = x.shape[0]
+    tp = _mlstm_split(params, num_heads)
+    x_inner, z = _mlstm_up(params, x, tp)
     xc, conv_state = causal_conv_step(x_inner, state["conv"],
                                       params["conv_w"], params["conv_b"])
     xc = F.silu(xc)
-    q, k, v, i_pre, f_pre = _mlstm_qkvif(params, xc, x_inner, num_heads)
+    q, k, v, i_pre, f_pre = _mlstm_qkvif(params, xc, x_inner, num_heads, tp)
     q, k, v = q.float(), k.float(), v.float()
     log_f = F.logsigmoid(f_pre)
     q = q / math.sqrt(q.shape[-1])
@@ -269,7 +388,7 @@ def mlstm_step(params: dict, x: torch.Tensor, state: dict, num_heads: int):
     num = torch.einsum("bhd,bhde->bhe", q, C_next)
     den = torch.einsum("bhd,bhd->bh", q, n_next)
     h = num / torch.maximum(den.abs(), torch.exp(-m_next))[..., None]
-    out = _mlstm_out(params, h.reshape(B, 2 * d), z, dt)
+    out = _mlstm_out(params, h.reshape(B, -1), z, dt, tp)
     return out, {"C": C_next, "n": n_next, "m": m_next, "conv": conv_state}
 
 
@@ -290,6 +409,11 @@ def mlstm_init_state(batch: int, d: int, num_heads: int, conv_width: int,
 # ------------------------------------------------------------------------ slstm
 
 
+def slstm_ff(d: int) -> int:
+    """The width of the sLSTM's FFN: 4/3 of ``d``, rounded to 64."""
+    return max(int(round(d * 4 / 3 / 64) * 64), 64)
+
+
 def init_slstm(gen: torch.Generator, d: int, num_heads: int) -> dict:
     dev = gen.device
     dh = d // num_heads
@@ -301,7 +425,7 @@ def init_slstm(gen: torch.Generator, d: int, num_heads: int) -> dict:
                           else torch.zeros(d, device=dev))
     p["gn"] = init_rmsnorm(d, dev)
     p["w_o_proj"] = dense_init(gen, (d, d))
-    d_ff = max(int(round(d * 4 / 3 / 64) * 64), 64)
+    d_ff = slstm_ff(d)
     p["ffn"] = {
         "norm": init_rmsnorm(d, dev),
         "w_gate": dense_init(gen, (d, d_ff)),
@@ -340,16 +464,41 @@ def _slstm_cell(R: torch.Tensor, pre: torch.Tensor, state: dict) -> dict:
 
 def _slstm_out(params: dict, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Group norm, output projection and the gated FFN sub-layer (its
-    residual inside; the caller adds the block-input residual)."""
+    residual inside; the caller adds the block-input residual).  The FFN
+    is column- then row-parallel where the leaves hold a block of its
+    width under a bound model group."""
     dt = x.dtype
     h = rmsnorm(h.to(dt), params["gn"]["scale"])
     out = (h @ params["w_o_proj"].to(dt)).to(dt)
     ffn = params["ffn"]
-    y = rmsnorm(out + x, ffn["norm"]["scale"])
+    group, n, _ = _split(ffn["w_up"].shape[-1], slstm_ff(x.shape[-1]))
+    y = copy_to_model(rmsnorm(out + x, ffn["norm"]["scale"]), group, n)
     g = act_fn("gelu")((y @ ffn["w_gate"].to(dt)).float())
     u = (y @ ffn["w_up"].to(dt)).float()
-    ff = ((g * u).to(dt) @ ffn["w_down"].to(dt)).to(dt)
-    return out + ff
+    gu = (g * u).to(dt)
+    if group is None:
+        return out + (gu @ ffn["w_down"].to(dt)).to(dt)
+    return out + sum_over_model(matmul_f32(gu, ffn["w_down"].to(dt)), group, n).to(dt)
+
+
+def _state_group(d: int) -> tuple:
+    """(group, n, this rank's index) of the bound model group where it
+    splits an sLSTM state of width ``d`` by channel, as the decode cache
+    places it; (None, 1, 0) otherwise."""
+    group, n, idx = model_group()
+    if group is None or d % n:
+        return None, 1, 0
+    return group, n, idx
+
+
+def _state_block(state: dict, d: int) -> dict:
+    """This rank's channels of a whole sLSTM state, where the model group
+    splits it."""
+    group, n, idx = _state_group(d)
+    if group is None:
+        return state
+    c = d // n
+    return {k: v[..., idx * c:(idx + 1) * c].contiguous() for k, v in state.items()}
 
 
 def _slstm_R(params: dict) -> torch.Tensor:
@@ -461,22 +610,31 @@ def slstm_seq(params: dict, x: torch.Tensor, num_heads: int,
     R = _slstm_R(params)
     if not return_state:
         return _slstm_out(params, _SlstmScan.apply(R, pre), x)
-    state = slstm_init_state(B, d, device=x.device)
+    state = {k: v.to(pre.dtype) for k, v in slstm_init_state(B, d, device=x.device).items()}
     if _build.shapes_only():  # a dry-run: one step counted as S
         with _build.repeated(S):
             state = _slstm_cell(R, pre[:, :, 0], state)
-        return _slstm_out(params, state["h"].new_empty((B, S, d)), x), state
+        return _slstm_out(params, state["h"].new_empty((B, S, d)), x), _state_block(state, d)
     hs = []
     for t in range(S):
         state = _slstm_cell(R, pre[:, :, t], state)
         hs.append(state["h"])
-    return _slstm_out(params, torch.stack(hs, dim=1), x), state
+    return _slstm_out(params, torch.stack(hs, dim=1), x), _state_block(state, d)
 
 
 def slstm_step(params: dict, x: torch.Tensor, state: dict, num_heads: int):
-    """One decode step.  x (B,d); state {h, c, n, m} (B,d) f32."""
+    """One decode step.  x (B,d); state {h, c, n, m} (B,d) f32, or this
+    rank's channels of it (B,d/n) where the model group splits it: the
+    ranks' blocks are gathered, the cell runs whole, the rank keeps its
+    block."""
+    d = x.shape[-1]
+    split = state["h"].shape[-1] != d
+    if split:
+        group, n, _ = _state_group(d)
+        state = {k: gather_over_model(v, group, n) for k, v in state.items()}
     new_state = _slstm_cell(_slstm_R(params), _slstm_pre(params, x), state)
-    return _slstm_out(params, new_state["h"], x), new_state
+    return _slstm_out(params, new_state["h"], x), (_state_block(new_state, d) if split
+                                                  else new_state)
 
 
 def slstm_init_state(batch: int, d: int, device=None, groups=()) -> dict:

@@ -15,6 +15,14 @@ elementwise max of the gathered copies.
 tensor-parallel blocks (Megatron-LM's f and g): the identity forward with
 a rank-ordered sum backward at a block's input, and a rank-ordered sum
 forward with the identity backward after its row-parallel product.
+``gather_over_model`` and ``scatter_sum_over_model`` are the other pair,
+for a block split along one dim: the ranks' blocks gathered in rank order
+(backward, the rank's block of the rank-ordered sum of the ranks'
+gradients), and the rank's block of the rank-ordered sum of the ranks'
+partials (backward, the ranks' gradient blocks gathered).
+``pair_columns`` moves blocks of columns between the ranks
+(``_move_blocks``, an all-to-all of uneven parts), the mLSTM's ``w_up``
+from the reference's partition to the blocks a rank computes on.
 
 A group is ``None`` where one rank makes it up: then nothing is sent and
 nothing is copied.  A group of an abstract mesh (``launch.mesh.
@@ -23,9 +31,11 @@ tensor of the result's shape.  Over either kind of group each collective
 reports the bytes this rank receives to the op counters that are counting
 (``launch.op_analysis.record_collective``), under its own kind and the
 group's mesh axes: ``all_gather``, ``ordered_sum``,
-``ordered_reduce_scatter``, ``ordered_max``, and ``merge_partials`` for the
+``ordered_reduce_scatter``, ``ordered_max``, ``merge_partials`` for the
 exchange of a sequence-split decode's partial outputs (``gather_stack``
-or ``all_to_all`` under that kind).
+or ``all_to_all`` under that kind), ``gather_activations`` for
+``gather_over_model`` and the backward of ``scatter_sum_over_model``, and
+``pair_columns``.
 """
 
 from __future__ import annotations
@@ -92,9 +102,10 @@ def _blocks(x: torch.Tensor, n: int) -> torch.Tensor:
 def _all_to_all(send: torch.Tensor, group) -> torch.Tensor:
     """(n, m) -> (n, m): row j of the result is row ``index`` of rank j's
     ``send``."""
-    recv = torch.empty_like(send)
+    send = send.contiguous()
+    recv = torch.empty_like(send)  # contiguous too, as the transport fills it
     with torch.no_grad():
-        dist.all_to_all_single(recv, send.contiguous(), group=group)
+        dist.all_to_all_single(recv, send, group=group)
     return recv
 
 
@@ -225,3 +236,126 @@ def gather_leaf(shard: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
             if n > 1:
                 x = torch.cat(gather_stack(x, mesh.group((axis,)), n).unbind(0), dim)
     return x
+
+
+def _gather_dim(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in rank order."""
+    return torch.cat(gather_stack(x.contiguous(), group, n, "gather_activations").unbind(0), dim)
+
+
+def _scatter_sum_dim(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` (n equal blocks) of the sum of every
+    rank's ``x``, added in rank order."""
+    y = x.unflatten(dim, (n, -1)).movedim(dim, 0)  # (n, ..., block, ...)
+    part = _reduce_scatter_rows(y.reshape(n, -1), group, n, "ordered_reduce_scatter")
+    return part.view(y.shape[1:])
+
+
+class _GatherOverModel(torch.autograd.Function):
+    """The ranks' blocks joined along ``dim`` in rank order; backward, this
+    rank's block of the rank-ordered sum of the ranks' gradients (each
+    rank's own compute reads the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return _gather_dim(x.detach(), group, n, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _scatter_sum_dim(grad, ctx.group, ctx.n, ctx.dim), None, None, None
+
+
+class _ScatterSumOverModel(torch.autograd.Function):
+    """This rank's block along ``dim`` of the rank-ordered sum of the
+    ranks' partials; backward, the ranks' gradient blocks joined in rank
+    order (each rank's partial reaches every block)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return _scatter_sum_dim(x.detach(), group, n, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_dim(grad, ctx.group, ctx.n, ctx.dim), None, None, None
+
+
+def gather_over_model(x: torch.Tensor, group, n: int, dim: int = -1) -> torch.Tensor:
+    """The model group's blocks of a tensor split along ``dim``, joined in
+    rank order, whose gradient is this rank's block of the ranks'
+    gradients summed in rank order."""
+    return x if group is None else _GatherOverModel.apply(x, group, n, dim % x.dim())
+
+
+def scatter_sum_over_model(x: torch.Tensor, group, n: int, dim: int = -1) -> torch.Tensor:
+    """This rank's block along ``dim`` of the model group's partials summed
+    in rank order, whose gradient is the ranks' gradient blocks joined."""
+    return x if group is None else _ScatterSumOverModel.apply(x, group, n, dim % x.dim())
+
+
+def _all_to_all_v(send: torch.Tensor, in_splits: list, out_splits: list,
+                  group) -> torch.Tensor:
+    """Rows ``in_splits[j]`` of ``send`` (in order) to rank j; the rows from
+    each rank j (``out_splits[j]``) joined in rank order."""
+    recv = send.new_empty((sum(out_splits), *send.shape[1:]))
+    with torch.no_grad():
+        dist.all_to_all_single(recv, send.contiguous(), out_splits, in_splits, group=group)
+    return recv
+
+
+def _move_blocks(x: torch.Tensor, group, n: int, idx: int, have_of, want_of,
+                kind: str) -> torch.Tensor:
+    """Blocks of rows between the ranks: ``x`` holds, in order, the equal
+    blocks ``have_of(idx)`` (their ids); the result the blocks
+    ``want_of(idx)``, in order, each from the rank that has it."""
+    have, want = list(have_of(idx)), list(want_of(idx))
+    m = x.shape[0] // len(have)
+    blocks = dict(zip(have, x.split(m)))
+    send = [b for j in range(n) for b in want_of(j) if b in blocks]
+    from_rank = [[b for b in want if b in set(have_of(j))] for j in range(n)]
+    received = [b for ids in from_rank for b in ids]
+    others = sum(len(ids) for j, ids in enumerate(from_rank) if j != idx)
+    _record(kind, group, n, others * blocks[have[0]].numel() * x.element_size())
+    if isinstance(group, AbstractGroup):
+        return x.detach().new_empty((m * len(want), *x.shape[1:]))
+    recv = _all_to_all_v(torch.cat([blocks[b] for b in send]),
+                         [m * sum(b in blocks for b in want_of(j)) for j in range(n)],
+                         [m * len(ids) for ids in from_rank], group)
+    parts = dict(zip(received, recv.split(m)))
+    return torch.cat([parts[b] for b in want])
+
+
+def _pairing(n: int) -> tuple:
+    """(held, paired): the column blocks rank j holds at rest of a leaf of
+    2n blocks split over n ranks as one dim, and the blocks it computes on."""
+    return (lambda j: (2 * j, 2 * j + 1)), (lambda j: (j, n + j))
+
+
+class _PairColumns(torch.autograd.Function):
+    """``pair_columns``; backward, the gradient's blocks sent back to the
+    ranks that hold them at rest."""
+
+    @staticmethod
+    def forward(ctx, w, group, n, idx):
+        ctx.group, ctx.n, ctx.idx = group, n, idx
+        held, paired = _pairing(n)
+        return _move_blocks(w.detach().movedim(-1, 0), group, n, idx, held, paired,
+                           "pair_columns").movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        held, paired = _pairing(ctx.n)
+        return _move_blocks(grad.movedim(-1, 0), ctx.group, ctx.n, ctx.idx, paired, held,
+                           "pair_columns").movedim(0, -1), None, None, None
+
+
+def pair_columns(w: torch.Tensor, group, n: int, idx: int) -> torch.Tensor:
+    """Rank ``idx``'s columns of a leaf ``[a | b]`` whose 2n equal column
+    blocks split over the n ranks as one dim (rank j holds blocks 2j and
+    2j + 1): block ``idx`` of ``a`` and block ``idx`` of ``b``, side by
+    side, each from the rank that holds it (the mLSTM's ``w_up``, ``[x_inner
+    | z]``, whose rank computes on its block of the inner width)."""
+    if group is None:
+        return w
+    return _PairColumns.apply(w, group, n, idx)

@@ -12,18 +12,21 @@ names, the port's model code computes on what each rank holds, so
 - ``model_group``: the tensor-parallel group, the mesh axis that the rules
   map ``heads``, ``ff`` and ``vocab`` to.  Dense attention (heads), dense
   MLPs (ff), the embedding and the head (vocab), the routed experts
-  (expert) and the shared experts (ff) run on the local leaves of that
-  axis where the partition splits them (``models.lm``, ``models.layers``,
-  ``models.moe``): column-parallel products in, row-parallel out (each
-  rank's own experts, its partial combine), summed over the group in rank
-  order.  The RG-LRU, mLSTM and sLSTM widths run whole on every rank of
-  the group.  The serving steps bind the same: the rows of a prefill or
-  decode batch split over ``data_axes_for`` (the loss group's axes, which
-  an MoE's load-balance terms read), heads, ff and vocab over ``model``,
-  and a decode cache placed as the reference's ``cache_specs``
-  (``sharding.specs``): an attention layer's KV heads over ``model``, or
-  else its positions, whose partial outputs the ranks merge
-  (``models.layers.seq_split_decode_attention``).
+  (expert), the shared experts and the sLSTM's FFN (ff), the RG-LRU's
+  channels (rnn) and the mLSTM's inner width (ff) run on the local leaves
+  of that axis where the partition splits them (``models.lm``,
+  ``models.layers``, ``models.moe``, ``models.recurrent``):
+  column-parallel products in, row-parallel out (each rank's own experts,
+  its partial combine), summed over the group in rank order.  The sLSTM's
+  gates and cell run whole on every rank of the group, as the reference's
+  partition leaves them.  The serving steps bind the same: the rows of a
+  prefill or decode batch split over ``data_axes_for`` (the loss group's
+  axes, which an MoE's load-balance terms read), heads, ff, rnn and vocab
+  over ``model``, and a decode cache placed as the reference's
+  ``cache_specs`` (``sharding.specs``): an attention layer's KV heads over
+  ``model``, or else its positions, whose partial outputs the ranks merge
+  (``models.layers.seq_split_decode_attention``), and the recurrent
+  states' heads or channels over ``model``.
 
 Outside a binding (unit tests, one device) nothing changes.
 

@@ -148,14 +148,21 @@ def spec_axes(part) -> tuple:
 
 def fit_spec(spec: tuple, shape: tuple, sizes: Mapping[str, int]) -> tuple:
     """Drop sharding on dims the mesh axes don't divide (e.g. MQA kv=1 over a
-    16-way tensor axis -> replicate that dim).  ``sizes`` maps each mesh
-    axis name to its size."""
-    parts = []
+    16-way tensor axis -> replicate that dim), then on a dim whose mesh axes
+    an earlier dim already names: a spec names each mesh axis at most once,
+    the only placement the reference's ``NamedSharding`` accepts (the
+    mLSTM's ``wq (ff, heads, dk)`` splits ``ff`` over ``model``, its heads
+    whole).  ``sizes`` maps each mesh axis name to its size."""
+    parts, used = [], set()
     for i, p in enumerate(tuple(spec)[: len(shape)]):
         size = 1
         for a in spec_axes(p):
             size *= sizes[a]
-        parts.append(p if p is not None and shape[i] % size == 0 else None)
+        if p is None or shape[i] % size or used & set(spec_axes(p)):
+            parts.append(None)
+            continue
+        parts.append(p)
+        used.update(spec_axes(p))
     return tuple(parts)
 
 
@@ -177,13 +184,15 @@ def map_specs(fn, params, mesh, rules: dict = PARAM_RULES):
 
 def tensor_parallel(names: list) -> bool:
     """Whether the model computes on a leaf's local block where its
-    ``heads``, ``ff``, ``vocab`` or ``expert`` dim is split over the tensor
-    axis (``sharding.ctx.model_group``): dense attention, dense MLPs, the
-    embedding table and the head, the routed experts (expert-parallel) and
-    the shared experts (column- and row-parallel).  The MoE's router and
-    qwen2's shared gate, and the RG-LRU, mLSTM and sLSTM widths, are
-    gathered whole for compute."""
-    return ("attn" in names or "mlp" in names
+    ``heads``, ``ff``, ``vocab``, ``expert`` or ``rnn`` dim is split over the
+    tensor axis (``sharding.ctx.model_group``): dense attention, dense MLPs,
+    the embedding table and the head, the routed experts (expert-parallel),
+    the shared experts and the sLSTM's FFN (column- and row-parallel), the
+    RG-LRU's channels and the mLSTM's inner width.  The MoE's router,
+    qwen2's shared gate and the sLSTM's recurrent weights are gathered whole
+    for compute."""
+    return ("attn" in names or "mlp" in names or "rglru" in names or "mlstm" in names
+            or ("slstm" in names and "ffn" in names)
             or ("moe" in names and names[-1] not in ("router", "shared_gate"))
             or names[-2:] in (["embed", "table"], ["head", "w"]))
 
@@ -261,9 +270,10 @@ def cache_specs(cache, cfg, mesh, batch_axes: tuple, rules: dict) -> dict:
     ``kv_cache_split`` says (``rules["kv_heads"]`` the model axis, and
     ``rules["cache_seq"]`` the sequence's otherwise), recurrent states'
     heads or channels over the model axis, dims the axes do not divide
-    whole (``fit_spec``).  The port computes the recurrent layers whole
-    (ROADMAP G4), so ``local_cache`` keeps their states whole over the
-    model axis."""
+    whole (``fit_spec``).  A main-group leaf's leading group dim is known
+    by its path: the reference reads it off the shape, (groups, B, ...)
+    against (B, ...), and so takes the groups for the rows where they
+    number the rows alike."""
     sizes = mesh_sizes(mesh)
     B = cache["len"].shape[0]
     model_ax, cache_seq_ax = rules.get("kv_heads"), rules.get("cache_seq")
@@ -271,10 +281,10 @@ def cache_specs(cache, cfg, mesh, batch_axes: tuple, rules: dict) -> dict:
     model_size = sizes[model_ax] if model_ax else 1
     batch = _batch_entry(batch_axes)
 
-    def spec_for(shape: tuple) -> tuple:
+    def spec_for(main: bool, shape: tuple) -> tuple:
         # strip the stacked main-group leading dim: (groups, B, ...)
         lead = ()
-        if len(shape) >= 2 and shape[0] != B and shape[1] == B:
+        if main:
             lead, shape = (None,), shape[1:]
         if not shape or shape[0] != B:
             return ()
@@ -295,26 +305,20 @@ def cache_specs(cache, cfg, mesh, batch_axes: tuple, rules: dict) -> dict:
         return (*lead, batch, model_ax) if len(rest) == 1 else (*lead, batch)
 
     return _map_with_names(
-        lambda _names, x: fit_spec(spec_for(tuple(x.shape)), tuple(x.shape), sizes), cache)
+        lambda names, x: fit_spec(spec_for(names[0] == "main", tuple(x.shape)),
+                                  tuple(x.shape), sizes), cache)
 
 
 def local_cache(cache, specs, mesh) -> dict:
     """This rank's block of a whole decode cache placed by ``specs``
-    (``cache_specs``), each block in storage of its own: its rows, and an
-    attention layer's KV heads or positions where the specs split them.
-    Recurrent states keep every dim but their rows whole (the port runs the
-    recurrent layers whole on each rank of the model axis until G4; the
-    reference splits them).  ``"max_len"`` records the whole cache's
-    positions (its longest attention cache), from which the model reads
-    which attention caches the model axis splits over the sequence."""
-    def block(seg: str, entry: dict, spec: dict) -> dict:
-        rows = 1 if seg == "main" else 0  # main-group leaves: (groups, B, ...)
-        attention = set(entry) == {"k", "v"}
-        return {k: own_block(x, spec[k] if attention else tuple(
-            p if d == rows else None for d, p in enumerate(spec[k])), mesh)
-            for k, x in entry.items()}
-
-    out = {seg: [block(seg, e, s) for e, s in zip(cache[seg], specs[seg])]
+    (``cache_specs``), each block in storage of its own: its rows, an
+    attention layer's KV heads or positions, and a recurrent layer's heads
+    or channels, where the specs split them.  ``"max_len"`` records the
+    whole cache's positions (its longest attention cache), from which the
+    model reads which attention caches the model axis splits over the
+    sequence."""
+    out = {seg: [{k: own_block(x, spec[k], mesh) for k, x in entry.items()}
+                 for entry, spec in zip(cache[seg], specs[seg])]
            for seg in ("prefix", "main", "tail")}
     out["len"] = own_block(cache["len"], specs["len"], mesh)
     positions = [e["k"].shape[2 if seg == "main" else 1]

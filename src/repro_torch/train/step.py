@@ -19,17 +19,18 @@ held at rest as this rank's shard (``train_state_specs``: the reference's
 partition, dims the mesh axes do not divide left whole).  ``step(state,
 global_batch)`` takes this rank's rows (``batch_sharding``) and gathers
 each leaf over the batch axes (``data``, from ``embed_p``).  Leaves of
-dense attention, dense MLPs, the embedding, the head, the routed experts
-and the shared experts stay split over ``model``: the model computes on
-them as column- and row-parallel blocks, a vocab-parallel cross-entropy
-and expert-parallel MoE layers (``sharding.ctx.model_group``); the other
-leaves split over ``model`` (the MoE router, the RG-LRU, mLSTM and sLSTM
-widths) are gathered whole, and their compute is replicated within a
-``model`` group.  The gradient mean over the batch ranks is a
-reduce-scatter whose sums run in rank order (``_mean_block``): each rank
-keeps its own block.  The step clips by the global norm over the blocks
-(each leaf's squares summed over the ranks that split it, once for a
-replicated leaf) and applies AdamW to the block.  The loss is the global
+dense attention, dense MLPs, the embedding, the head, the routed experts,
+the shared experts, the RG-LRU and mLSTM layers and the sLSTM's FFN stay
+split over ``model``: the model computes on them as column- and
+row-parallel blocks, a vocab-parallel cross-entropy and expert-parallel
+MoE layers (``sharding.ctx.model_group``); the other leaves split over
+``model`` (the MoE router, the sLSTM's recurrent weights) are gathered
+whole, and their compute is replicated within a ``model`` group.  The
+gradient mean over the batch ranks is a reduce-scatter whose sums run in
+rank order (``_mean_block``): each rank keeps its own block.  The step
+clips by the global norm over the blocks (each leaf's squares summed over
+the ranks that split it, once for a replicated leaf) and applies AdamW to
+the block.  The loss is the global
 batch's (``sharding.ctx.loss_group``).  The compressed variant takes each
 pod's gradient (the mean over its data ranks, the loss over its rows, as
 the reference's per-pod ``vmap``), adds the pod's EF buffer block and

@@ -50,7 +50,9 @@ from repro_torch.sharding import activation_rules
 from repro_torch.sharding.specs import PARAM_RULES, map_specs, spec_axes, tensor_parallel
 from repro_torch.train import TrainConfig, abstract_train_state, init_train_state, make_train_step
 from repro_torch.train.optim import leaves
+from repro_torch.train import step as step_mod
 from repro_torch.train.step import _leaf_plans, mesh_rules
+from repro_torch.models.recurrent import slstm_ff
 
 ROOT = Path(__file__).resolve().parents[1]
 FLOPS_RTOL = 1e-6  # the counter against the reference's HLO walk
@@ -356,6 +358,86 @@ def test_whole_experts_where_the_model_axis_does_not_divide_them():
             assert local[f"shared/{name}"], (arch, name, local)
         said = cells.train_model_axis(cfg, 16)
         assert ("whole on every rank: experts" in said) != routed_split, said
+
+
+def _whole_recurrent(names: list) -> bool:
+    """``specs.tensor_parallel`` with the RG-LRU and mLSTM layers and the
+    sLSTM's FFN gathered whole for compute, as before they split."""
+    return tensor_parallel(names) and not any(k in names for k in ("rglru", "mlstm", "slstm"))
+
+
+def _recurrent_weights(cfg) -> int:
+    """The weight elements of the products that split over the model axis
+    in one pattern group's recurrent layers: the RG-LRU's five, the mLSTM's
+    (its up projection, q, k, v, the gates' and the down projection), the
+    sLSTM's FFN."""
+    d, rnn, di, H = cfg.d_model, cfg.d_rnn or cfg.d_model, 2 * cfg.d_model, cfg.num_heads
+    per = {"rglru": 3 * d * rnn + 2 * rnn * rnn,
+           "mlstm": 2 * d * di + 3 * di * di + 2 * di * H + di * d,
+           "slstm": 3 * d * slstm_ff(d)}
+    return sum(per.get(k, 0) for k in cfg.block_pattern)
+
+
+def _states_whole(local_cache):
+    """``local_cache`` keeping the recurrent states whole over the model
+    axis (only their rows split), as before they split."""
+    def place(cache, specs, mesh):
+        specs = {seg: ([{k: s if set(e) == {"k", "v"} else tuple(
+            None if p == "model" else p for p in s) for k, s in e.items()} for e in specs[seg]]
+            if seg in ("prefix", "main", "tail") else specs[seg]) for seg in specs}
+        return local_cache(cache, specs, mesh)
+    return place
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "decode_32k"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m"])
+def test_recurrent_widths_split_over_the_model_axis(arch, shape_name, monkeypatch):
+    """The dry-run's cell on (16, 16) at full width, one pattern group:
+    rank 0's FLOPs drop, against the same cell with the recurrent layers
+    gathered whole (their leaves over ``model``, and a decode cache's
+    states), by 15/16 of the split products (the RG-LRU's channels, the
+    mLSTM's inner width, the sLSTM's FFN; a train step's two backward
+    products each, without remat, whose recompute skips a main group's
+    last product where nothing saved reads it; a decode step's depthwise
+    conv too) and of the RG-LRU scan kernels' work; ``all_gather/model``
+    carries no recurrent weight (a
+    decode step's is its queries' gather, less than one RG-LRU leaf); the
+    model axis names the parts split, the mLSTM's recurrence over 4 heads
+    and the sLSTM's cell whole."""
+    cut = _one_group(arch)
+    monkeypatch.setattr(cells, "get_config", lambda _a: cut)
+    mesh = abstract_mesh((16, 16), ("data", "model"))
+    shape = SHAPES[shape_name]
+    opts = cells.CellOptions(train=TrainConfig(remat=False))
+    cell = cells.build_cell(arch, shape_name, mesh, opts)
+    _, split = cells.run_step(cell)
+    with monkeypatch.context() as m:
+        m.setattr(step_mod, "tensor_parallel", _whole_recurrent)
+        m.setattr(cells, "local_cache", _states_whole(cells.local_cache))
+        _, whole = cells.run_step(cells.build_cell(arch, shape_name, mesh, opts))
+    rows = shape.global_batch // 16
+    if shape.kind == "train":
+        T = rows * shape.seq_len
+        saved = 15 / 16 * 2 * T * _recurrent_weights(cut) * 3
+        if "rglru" in cut.block_pattern:
+            n = cut.block_pattern.count("rglru") * T * cut.d_rnn
+            saved += 15 / 16 * (rglru_scan.cost(n).flops + rglru_scan_bwd.cost(n).flops)
+    else:  # the products and each recurrent layer's step conv (W taps a channel)
+        conv = sum({"rglru": cut.d_rnn, "mlstm": 2 * cut.d_model}.get(k, 0)
+                   for k in cut.block_pattern)
+        saved = 15 / 16 * 2 * rows * (_recurrent_weights(cut) + cut.conv_width * conv)
+    assert whole.flops - split.flops == pytest.approx(saved, rel=FLOPS_RTOL)
+    d_rnn = cut.d_rnn or cut.d_model
+    assert split.coll_by_key.get("all_gather/model/g16", 0) < 15 / 16 * d_rnn * d_rnn * 2
+    said = cell.meta["model_axis"]
+    assert ("RG-LRU" in said.split(";")[0]) == ("rglru" in cut.block_pattern), said
+    assert "whole on every rank: RG-LRU" not in said, said
+    if arch == "xlstm-125m":
+        assert "mLSTM, sLSTM FFN; whole on every rank: mLSTM recurrence, sLSTM cell" in said, said
+        if shape.kind == "decode":
+            assert "mLSTM state over conv channels, sLSTM state over channels" in said, said
+    elif shape.kind == "decode":
+        assert said.endswith("RG-LRU state over channels"), said
 
 
 def _one_group(arch: str):

@@ -5,6 +5,8 @@ same numpy inputs and the same weights (the reference's ``init_*`` through
 The port's kernel wrappers run their plain versions here."""
 
 import functools
+import threading
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -15,9 +17,10 @@ import torch
 from repro.models import recurrent as jr
 from repro_torch import kernels
 from repro_torch.configs import reduced_config
-from repro_torch.convert import params_from_numpy
+from repro_torch.convert import map_params, params_from_numpy
 from repro_torch.kernels import ref as kernels_ref
 from repro_torch.models import recurrent as tr
+from repro_torch.sharding import collectives, ctx, specs
 
 # f32, the same arithmetic summed in another order (matmuls of width <=
 # 512; a sequential scan against JAX's associative scan; the chunkwise
@@ -441,3 +444,191 @@ def test_recurrent_block_gradients_match_jax(block):
     jleaves = dict(_leaves(jgp))
     for path, leaf in _leaves(tp):
         _close(leaf.grad, jleaves[path], 1e-4)
+
+
+# ------------------------------------------------- tensor-parallel ranks
+
+# each rank's output, state and gradient blocks, gathered in rank order,
+# against the whole layer's, of the largest entry: both run in f64, so only
+# the order of the sums over ranks differs
+SPLIT_TOL = 1e-6
+_rank = threading.local()
+
+
+class _Ranks:
+    """n ranks of one model group emulated by n threads of this process:
+    ``collectives``' transport (all-gather, all-to-all of equal and of
+    uneven parts) exchanges through a barrier, so the layers run their own
+    collectives, forward and backward."""
+
+    group_desc = "model"  # the group's mesh axes, for the byte counts
+
+    def __init__(self, n: int):
+        self.n, self.barrier, self.slots = n, threading.Barrier(n), [None] * n
+
+    def exchange(self, x):
+        self.slots[_rank.index] = x
+        self.barrier.wait()
+        out = list(self.slots)
+        self.barrier.wait()
+        return out
+
+    # the transport, as collectives calls it
+    def all_gather(self, out, x, group):
+        out.copy_(torch.cat([o.reshape(-1) for o in group.exchange(x.clone())]))
+
+    def all_to_all(self, send, group):
+        return torch.stack([o[_rank.index] for o in group.exchange(send.contiguous())])
+
+    def all_to_all_v(self, send, in_splits, out_splits, group):
+        sent = group.exchange((send.clone(), list(in_splits)))
+        return torch.cat([x.split(splits)[_rank.index] for x, splits in sent])
+
+    def mesh(self, r: int):
+        return SimpleNamespace(axis_names=("model",), shape={"model": self.n},
+                               size=lambda axes: self.n if tuple(axes) == ("model",) else 1,
+                               index=lambda axes: r if tuple(axes) == ("model",) else 0,
+                               group=lambda axes: self if tuple(axes) == ("model",) else None)
+
+    def run(self, fn) -> list:
+        """``fn(rank, mesh)`` on every rank at once, each under its binding."""
+        out, failed = [None] * self.n, []
+
+        def work(r):
+            _rank.index = r
+            try:
+                with ctx.use_rules(self.mesh(r), ctx.activation_rules(data_axes=())):
+                    out[r] = fn(r, self.mesh(r))
+            except BaseException as e:  # noqa: BLE001 - raised again below
+                failed.append(e)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=work, args=(r,)) for r in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if failed:
+            raise failed[0]
+        return out
+
+
+def _compute_blocks(name: str, params: dict, mesh):
+    """A layer's leaves as the mesh step computes on them: the rank's
+    block where tensor-parallel compute keeps it, else whole; and each
+    leaf's split dim (None: whole)."""
+    plan = specs.map_specs(lambda names, s: s if specs.tensor_parallel(names) else (),
+                           {name: params}, mesh, specs.mesh_rules(mesh))[name]
+
+    def dim(s):
+        return next((i for i, p in enumerate(s) if p is not None), None)
+
+    return (_map_paths(lambda k, p: specs.local_block(p, _at(plan, k), mesh), params),
+            _map_paths(lambda k, p: dim(_at(plan, k)), params))
+
+
+def _map_paths(fn, tree, path=()):
+    """``fn(path, leaf)`` on every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _at(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _joined(blocks: list, whole: torch.Tensor, dim) -> torch.Tensor:
+    """The ranks' blocks of ``whole`` joined in rank order along ``dim``, or
+    (``dim`` None) the one value every rank holds, bit for bit."""
+    if dim is None:
+        assert all(torch.equal(b, blocks[0]) for b in blocks), "ranks differ"
+        return blocks[0]
+    return torch.cat(blocks, dim)
+
+
+def _state_dim(block: torch.Tensor, whole: torch.Tensor):
+    return next((i for i, (a, b) in enumerate(zip(block.shape, whole.shape)) if a != b), None)
+
+
+SPLIT_LAYERS = {  # name -> (init, its args, the layer's key, heads)
+    "rglru": (jr.init_rglru, (RG.d_model, RG.d_rnn, RG.conv_width), "rglru", 0),
+    "mlstm": (jr.init_mlstm, (XL.d_model, XL.num_heads, XL.conv_width), "mlstm", XL.num_heads),
+    # two heads: split over 2 ranks, whole on each of 4
+    "mlstm_2_heads": (jr.init_mlstm, (XL.d_model, 2, XL.conv_width), "mlstm", 2),
+    "slstm": (jr.init_slstm, (XL.d_model, XL.num_heads), "slstm", XL.num_heads),
+}
+
+
+def _split_layer(key: str, heads: int):
+    """(seq(params, x, state?), step(params, x, state)) of a layer kind,
+    plain and kernel paths alike on the CPU."""
+    def seq(p, x, state=False):
+        if key == "rglru":
+            return tr.rglru_seq(p, x, return_state=state)
+        if key == "mlstm":
+            return tr.mlstm_seq(p, x, heads, chunk=16, return_state=state)
+        return tr.slstm_seq(p, x, heads, return_state=state)
+
+    def step(p, x, state):
+        if key == "rglru":
+            return tr.rglru_step(p, x, state)
+        if key == "mlstm":
+            return tr.mlstm_step(p, x, state, heads)
+        return tr.slstm_step(p, x, state, heads)
+
+    return seq, step
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("layer", list(SPLIT_LAYERS))
+def test_model_parallel_ranks_give_the_whole_layer(layer, n, monkeypatch):
+    """n ranks of a model group emulated in one process (``_Ranks``), each
+    on its block of the reference's weights as the mesh step computes on
+    them (``specs.tensor_parallel``): the RG-LRU over its channels, the
+    mLSTM over its inner width (``w_up`` re-paired; its heads split where
+    n divides them, else whole on every rank), the sLSTM's FFN over its
+    width.  Each rank's output over 2 x 32 tokens, its gradients of a
+    weighted sum of the outputs (a rank's blocks joined in rank order, a
+    leaf it reads whole equal on every rank), its prefill state and a
+    decode step's output and new state from it (the heads' or channels'
+    blocks joined) equal the whole layer's within 1e-6 of the largest
+    entry.  Both run in f64 (``test_torch_gpu._f64_plain``), so a sum
+    taken twice, or missed, shows and rounding does not."""
+    from test_torch_gpu import _f64_plain
+
+    init, args, key, heads = SPLIT_LAYERS[layer]
+    ranks = _Ranks(n)
+    for name in ("all_gather", "all_to_all", "all_to_all_v"):
+        monkeypatch.setattr(collectives, f"_{name}", getattr(ranks, name))
+    params = map_params(lambda _k, p: p.double(), _params(init, *args)[1])
+    x = torch.from_numpy(_x((2, 32, XL.d_model), 3)).double()
+    x_step = torch.from_numpy(_x((2, XL.d_model), 4)).double()
+    weight = torch.from_numpy(_x((2, 32, XL.d_model), 5)).double()
+    seq, step = _split_layer(key, heads)
+
+    def run(p):  # output, gradients, prefill state, step output and state
+        p = map_params(lambda _k, t: t.clone().requires_grad_(True), p)
+        out = seq(p, x)
+        (out * weight).sum().backward()
+        with torch.no_grad():
+            _, state = seq(p, x, True)
+            s_out, s_state = step(p, x_step, {k: v.clone() for k, v in state.items()})
+        return out.detach(), map_params(lambda _k, t: t.grad, p), state, s_out, s_state
+
+    with _f64_plain():
+        want = run(params)
+        got = ranks.run(lambda r, mesh: run(_compute_blocks(key, params, mesh)[0]))
+    dims = _compute_blocks(key, params, ranks.mesh(0))[1]
+    for r in got:
+        _close(r[0], want[0], SPLIT_TOL)
+        _close(r[3], want[3], SPLIT_TOL)
+    for path, g in _leaves(want[1]):
+        _close(_joined([_at(r[1], path) for r in got], g, _at(dims, path)), g, SPLIT_TOL)
+    for i in (2, 4):  # the prefill's and the step's states
+        for k, w in want[i].items():
+            blocks = [r[i][k] for r in got]
+            _close(_joined(blocks, w, _state_dim(blocks[0], w)), w, SPLIT_TOL)
+    assert any(got[0][2][k].shape != w.shape for k, w in want[2].items())  # split states

@@ -18,29 +18,36 @@ converted weights and batches:
 - reduced deepseek-moe-16b on (2, 2, 1): the loss with its load-balance
   term, which is nonlinear in the batch, against JAX's single-device step;
   and the routing groups a rank cannot hold whole, refused;
+- every leaf's partition names each mesh axis once, and every rank's
+  block of it, gathered as the mesh step gathers it, gives it back;
 - tensor-parallel compute on (1, 1, 4): reduced qwen3-14b (query heads
   split, its 2 KV heads whole), musicgen-large (heads split, a plain MLP,
   the audio frontend), deepseek-moe-16b (attention and the dense MLP
   split, expert-parallel: 2 of the 8 experts a rank, the shared experts
   column- and row-parallel; the einsum dispatch, and the sort dispatch
-  with remat and the backward on another thread) and qwen2-moe-a2.7b (the
-  sigmoid shared gate, QKV bias) against the single-device steps, reruns
-  equal bit for bit, each rank's compute leaves model-local; and the
-  rank-ordered collectives against a gather of every rank's copy;
+  with remat and the backward on another thread), qwen2-moe-a2.7b (the
+  sigmoid shared gate, QKV bias), recurrentgemma-9b (the RG-LRU's
+  channels split) and xlstm-125m (the mLSTM's inner width and heads split,
+  the sLSTM's FFN; with remat and the backward on another thread) against
+  the single-device steps, reruns equal bit for bit, each rank's compute
+  leaves model-local; and the rank-ordered collectives against a gather of
+  every rank's copy;
 - tensor-parallel serving on the same (1, 1, 4) world (``SERVE_JOBS``):
   the sharded prefill and decode steps with the decode cache placed as the
   reference's ``cache_specs``, one reduced config per placement (KV heads
   split; the sequence split with the query heads whole; the sequence split
-  with the query heads split, a GQA config and a wrapped ring buffer), each
-  rank's logits gathered over the vocabulary against JAX's and the port's
-  single-device steps, greedy tokens equal, the heads-whole merge equal
-  bit for bit on every rank;
+  with the query heads split, a GQA config and a wrapped ring buffer with
+  RG-LRU states split by channel; xlstm-125m's mLSTM states split by head
+  and its sLSTM's by channel), each rank's logits gathered over the
+  vocabulary against JAX's and the port's single-device steps, greedy
+  tokens equal, the heads-whole merge equal bit for bit on every rank,
+  each rank's cache shaped as the reference's shards;
 - the port's ``cache_specs`` against the reference's leaf by leaf for
   every arch's decode cells on both production meshes, and
-  ``local_cache``'s blocks against the reference's shards, the recurrent
-  states (whole over ``model`` in the port until G4) the one difference.
+  ``local_cache``'s blocks shaped as the reference's shards.
 """
 
+import contextlib
 import functools
 import os
 import subprocess
@@ -92,6 +99,7 @@ from repro_torch.train import (
     make_train_step,
     train_state_specs,
 )
+from repro_torch.train.optim import leaves
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = [(2, 2, 2), (1, 2, 4), (4, 2, 1)]
@@ -136,6 +144,23 @@ def _flat(tree, path="") -> dict:
     return {path: tree}
 
 
+def _ref_spec(logical: tuple, shape: tuple, sizes: dict) -> tuple:
+    """The reference's ``fit_spec`` of a leaf, each mesh axis left on the
+    first dim that names it (``specs.fit_spec``)."""
+    spec, used = [], set()
+    for p in tuple(jax_specs.fit_spec(jax_specs.logical_to_spec(logical, jax_specs.PARAM_RULES),
+                                      shape, SimpleNamespace(shape=sizes))):
+        axes = set(specs.spec_axes(p))
+        spec.append(None if axes & used else p)
+        used |= axes
+    return tuple(spec)
+
+
+def _shard_shape(shape: tuple, spec: tuple, sizes: dict) -> tuple:
+    return tuple(d // int(np.prod([sizes[a] for a in specs.spec_axes(p)]))
+                 for d, p in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_abstract(arch):
     return jax.eval_shape(lambda: jax_init_params(jax.random.key(0),
@@ -157,20 +182,74 @@ def test_logical_axes_match_reference(arch):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_partition_specs_match_reference(arch, shape):
     """``param_specs`` and ``train_state_specs`` against the reference's
-    ``fit_spec`` (which reads only ``mesh.shape``) leaf by leaf."""
+    ``fit_spec`` (which reads only ``mesh.shape``) leaf by leaf, a mesh axis
+    that it leaves on two dims (the mLSTM's ``wq (ff, heads, dk)`` where
+    ``model`` divides both) kept on the first only: the reference's own
+    ``NamedSharding`` refuses the spec that names it twice."""
     sizes = dict(zip(AXES, shape))
     mesh = SimpleNamespace(shape=sizes)
     abstract = _jax_abstract(arch)
     logical = _flat(jax_specs.param_logical_axes(abstract))
-    want = {k: tuple(jax_specs.fit_spec(
-        jax_specs.logical_to_spec(logical[k], jax_specs.PARAM_RULES), leaf.shape, mesh))
-        for k, leaf in _flat(abstract).items()}
+    want = {k: _ref_spec(logical[k], leaf.shape, sizes) for k, leaf in _flat(abstract).items()}
+    for k, leaf in _flat(abstract).items():
+        fitted = jax_specs.fit_spec(jax_specs.logical_to_spec(logical[k], jax_specs.PARAM_RULES),
+                                    leaf.shape, mesh)
+        if tuple(fitted) != want[k]:
+            with pytest.raises(Exception) as refused:
+                jax.sharding.NamedSharding(jax.sharding.AbstractMesh(shape, AXES), fitted)
+            assert type(refused.value).__name__ == "DuplicateSpecError", refused.value
     state = abstract_train_state(reduced_config(arch),
                                  TrainConfig(compress_pod_grads=True, num_pods=shape[0]))
     got = train_state_specs(state, sizes)
     assert _flat(specs.param_specs(state["params"], sizes)) == want
     assert _flat(got["params"]) == want and _flat(got["opt"]["m"]) == want
     assert _flat(got["ef"]) == {k: ("pod",) + v for k, v in want.items()}
+
+
+class _Ranks:
+    """Every rank's view of an abstract mesh, and ``gather_leaf`` run on all
+    of them at once, in one process."""
+
+    def __init__(self, shape):
+        self.meshes = [abstract_mesh(shape, AXES, rank=r) for r in range(int(np.prod(shape)))]
+
+    def blocks(self, full, spec) -> list:
+        return [specs.local_block(full, spec, m) for m in self.meshes]
+
+    def gather(self, blocks: list, spec) -> list:
+        """What each rank's ``collectives.gather_leaf`` of its block
+        returns: over each split dim, the minor axis first, the blocks of
+        the ranks that differ only along the axis joined in its order."""
+        x = list(blocks)
+        for dim, part in enumerate(spec):
+            for axis in reversed(specs.spec_axes(part)):
+                def peers(m):
+                    return sorted((q for q in self.meshes if all(
+                        q.coords[a] == m.coords[a] for a in AXES if a != axis)),
+                        key=lambda q: q.coords[axis])
+                x = [torch.cat([x[q.rank] for q in peers(m)], dim) for m in self.meshes]
+        return x
+
+
+@pytest.mark.parametrize("shape", MESHES + [(1, 1, 2)])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_partition_names_each_axis_once_and_gathers_back(arch, shape):
+    """Every leaf's partition names each mesh axis at most once, and every
+    rank's block of a leaf (``local_block``), gathered as the mesh step
+    gathers it (``gather_leaf``, emulated on all ranks at once), gives the
+    leaf back exactly on every rank."""
+    ranks = _Ranks(shape)
+    state = abstract_train_state(reduced_config(arch))
+    named = []
+    specs.map_specs(lambda names, s: named.append(("/".join(names), s)), state["params"],
+                    ranks.meshes[0], specs.mesh_rules(ranks.meshes[0]))
+    gen = torch.Generator().manual_seed(0)
+    for (name, spec), leaf in zip(named, leaves(state["params"])):
+        axes = [a for p in spec for a in specs.spec_axes(p)]
+        assert len(axes) == len(set(axes)), (name, spec)
+        full = torch.randn(tuple(leaf.shape), generator=gen)
+        for got in ranks.gather(ranks.blocks(full, spec), spec):
+            assert torch.equal(got, full), (name, spec)
 
 
 def test_activation_rules_and_resolve_match_reference():
@@ -383,7 +462,11 @@ WORKER = textwrap.dedent("""
                     lg, cache = prefill(params, {"tokens": job["tokens"]})
                     logits, tokens = [whole(lg)], []
                     res = {"cache_shapes": [tuple(e["k"].shape) for e in cache["tail"]
-                                            + cache["main"] + cache["prefix"] if "k" in e]}
+                                            + cache["main"] + cache["prefix"] if "k" in e],
+                           "leaf_shapes": {f"{seg}/{i}/{k}": tuple(x.shape)
+                                           for seg in ("prefix", "main", "tail")
+                                           for i, e in enumerate(cache[seg])
+                                           for k, x in e.items()}}
                     for t in range(job["steps"]):
                         tokens.append(logits[-1][:, -1].argmax(-1) if t == 0
                                       else logits[-1].argmax(-1))
@@ -492,44 +575,55 @@ def _torch_batch(b):
     return {k: torch.from_numpy(np.array(v)) for k, v in b.items()}
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_params(arch):
     return jax.device_get(jax_init_params(jax.random.key(0), jax_reduced_config(arch)))
 
 
 def _jax_steps(arch, batches, opt):
     """JAX's single-device train step from ``jax.random.key(0)``: per step
-    its metrics, and the final parameters."""
+    its metrics and the parameters after it."""
     cfg = jax_reduced_config(arch)
     tcfg = JaxTrainConfig(optimizer=JaxOptimizerConfig(**opt), remat=False)
     state = jax_init_train_state(jax.random.key(0), cfg, tcfg)
     step = jax.jit(jax_make_train_step(cfg, tcfg, JaxModelOptions(compute_dtype="float32")))
-    metrics = []
+    metrics, params = [], []
     for b in batches:
         state, m = step(state, b)
         metrics.append({k: float(v) for k, v in m.items()})
-    return metrics, jax.device_get(state["params"])
+        params.append(jax.device_get(state["params"]))
+    return metrics, params
 
 
 def _port_steps(arch, params_np, batches, opt, moe_impl=None):
-    """The port's single-device train step from the same parameters."""
+    """The port's single-device train step from the same parameters: per
+    step its metrics and the parameters after it."""
     cfg = reduced_config(arch)
     tcfg = TrainConfig(optimizer=OptimizerConfig(**opt), remat=False)
     state = init_train_state(cfg, tcfg, params=params_from_numpy(params_np, device="cpu"))
     step = make_train_step(cfg, tcfg, ModelOptions(compute_dtype="float32", moe_impl=moe_impl))
-    metrics = []
+    metrics, params = [], []
     for b in batches:
         state, m = step(state, _torch_batch(b))
         metrics.append({k: float(v) for k, v in m.items()})
-    return metrics, params_to_numpy(state["params"])
+        # a copy: the arrays share the parameters' storage, which steps update
+        params.append(map_params(lambda _k, a: a.copy(), params_to_numpy(state["params"])))
+    return metrics, params
 
 
-def _port_grads(arch, params_np, batch, moe_impl=None):
-    """The gradient of the port's single-device loss on one batch."""
-    params = map_params(lambda _k, p: p.requires_grad_(True),
+def _port_grads(arch, params_np, batch, moe_impl=None, f64=False):
+    """The gradient of the port's single-device loss on one batch; with
+    ``f64``, of its plain path run in f64 on the same weights (every
+    ``.float()`` leaving f64 tensors f64: ``test_torch_gpu._f64_plain``)."""
+    from test_torch_gpu import _f64_plain
+
+    params = map_params(lambda _k, p: (p.double() if f64 else p).requires_grad_(True),
                         params_from_numpy(params_np, device="cpu"))
-    loss, _ = loss_fn(params, reduced_config(arch), _torch_batch(batch),
-                      ModelOptions(compute_dtype="float32", moe_impl=moe_impl), remat=False)
-    loss.backward()
+    opts = ModelOptions(compute_dtype="float64", attn_impl="plain") if f64 else ModelOptions(
+        compute_dtype="float32", moe_impl=moe_impl)
+    with _f64_plain() if f64 else contextlib.nullcontext():
+        loss, _ = loss_fn(params, reduced_config(arch), _torch_batch(batch), opts, remat=False)
+        loss.backward()
     return map_params(lambda _k, p: p.grad, params)
 
 
@@ -596,25 +690,42 @@ def _port_serve(job) -> tuple:
 # the tensor-parallel world's jobs: job -> arch (the MoE jobs expert-parallel:
 # 2 of the 8 experts a rank, a quarter of the shared experts' width)
 TP_JOBS = {"qwen": "qwen3-14b", "musicgen": "musicgen-large", "moe": "deepseek-moe-16b",
-           "moe_sort": "deepseek-moe-16b", "qwen2moe": "qwen2-moe-a2.7b"}
+           "moe_sort": "deepseek-moe-16b", "qwen2moe": "qwen2-moe-a2.7b",
+           "rglru": "recurrentgemma-9b", "xlstm": "xlstm-125m"}
 # the jobs' options besides the arch: the sort dispatch, with remat and the
 # backward pass on another thread (as qwen_remat); the MoE jobs record their
 # first step's mean gradient, held leaf by leaf to the single-device one (the
 # router's and qwen2's shared gate's among them: a term summed over the
-# model group that every rank computes alike would count n times)
+# model group that every rank computes alike would count n times); so do the
+# recurrent jobs, xlstm with remat and the backward on another thread
 TP_JOB_OPTS = {"moe": {"grads": True},
                "moe_sort": {"moe_impl": "sort", "remat": True, "backward_thread": True,
                             "grads": True},
-               "qwen2moe": {"grads": True}}
+               "qwen2moe": {"grads": True},
+               "rglru": {"grads": True},
+               "xlstm": {"remat": True, "backward_thread": True, "grads": True}}
 # the steps through which each job's grad norm is held to both references,
 # and its parameters to JAX's (to the port's single-device step after both
 # steps; the losses of both steps to both): the port's own single-device
 # step parts from JAX's in the second step by more than the bounds for the
-# frontend and MoE families (parameters 1.1e-4 and 1.4e-4 off, musicgen's
-# grad norm 2.3e-3: rounding that their first step amplifies), so they are
-# held after the first, as tests/test_torch_train.py holds their train steps;
-# the sort job is held to the port's single-device sort step alone
-JAX_STEPS = {"qwen": 2, "musicgen": 1, "moe": 1, "moe_sort": 1, "qwen2moe": 1}
+# frontend, MoE and recurrent families (parameters 1.1e-4 and 1.4e-4 off,
+# musicgen's grad norm 2.3e-3; recurrentgemma's and xlstm's parameters 6.1e-4
+# and 4.8e-3, their grad norms 0.04 and 0.28: rounding that their first step
+# amplifies), so they are held after the first, as tests/test_torch_train.py
+# holds their train steps; the sort job is held to the port's single-device
+# sort step alone
+JAX_STEPS = {"qwen": 2, "musicgen": 1, "moe": 1, "moe_sort": 1, "qwen2moe": 1, "rglru": 1,
+             "xlstm": 1}
+# the steps after which each job's parameters are held to the port's
+# single-device step (2 where not named): the recurrent families' second
+# step amplifies the tensor-parallel sums' rounding as it does JAX's (above)
+PORT_STEPS = {"rglru": 1, "xlstm": 1}
+# the jobs whose first-step gradient is held to the port's f64 run: the
+# recurrent families' f32 gradients part from their exact ones by up to
+# 3e-4 of a leaf's largest entry, an sLSTM input-gate bias's by far more
+# (tests/test_torch_train.py::test_recurrent_loss_and_grads_match_jax), so
+# GRAD_RTOL against the single-device f32 gradient would hold rounding
+GRAD_F64 = {"rglru", "xlstm"}
 PORT_ONLY = {"moe_sort"}
 # element counts of the collectives' check, which the 4 ranks do not divide
 COLLECTIVE_NUMELS = (7, 10_001)
@@ -626,17 +737,42 @@ COLLECTIVE_NUMELS = (7, 10_001)
 # positions split, rank 3's 16 never valid; qwen3-14b, 4 query heads split,
 # its 2 KV heads whole: the 48 positions split; recurrentgemma-9b with a
 # window of 16, its ring of 16 slots split, wrapped by the prefill, its
-# recurrent states whole.  On the (2, 2, 1) world: deepseek-moe-16b with one
-# row a rank, whose routing groups span the 4 ranks (gathered whole)
+# RG-LRU states split by channel; xlstm-125m (no attention cache), its mLSTM
+# states split by head (one a rank) and its sLSTM states by channel.  On the
+# (2, 2, 1) world: deepseek-moe-16b with one row a rank, whose routing groups
+# span the 4 ranks (gathered whole)
 SERVE_JOBS = {"serve_kv": ("deepseek-moe-16b", {}, 48, (48, 1), (2, 32)),
               "serve_seq_whole": ("gemma-2b", {"num_heads": 6}, 64, (16, 1), (2, 32)),
               "serve_seq_split": ("qwen3-14b", {}, 48, (12, 2), (2, 32)),
               "serve_ring": ("recurrentgemma-9b", {"window": 16}, 64, (4, 1), (2, 32)),
+              "serve_xlstm": ("xlstm-125m", {}, 48, None, (2, 32)),
               "serve_dp": ("deepseek-moe-16b", {}, 24, (24, 4), (4, 16))}
 SERVE_WORLD = {"serve_dp": (2, 2, 1)}
 # a prefill, then greedy decode steps, the masked one leaving row 1 where it
 # was (``advance``)
 SERVE_STEPS, SERVE_MASKED = 4, 2
+
+
+def _cache_shards(job) -> dict:
+    """Each decode-cache leaf's shard on a rank of the job's world, as the
+    reference's ``cache_specs`` places the whole cache.  The reference reads
+    a main-group leaf's group dim off its shape, so it takes the groups for
+    the rows where they number the rows alike (recurrentgemma-9b's and
+    xlstm-125m's two groups here): its placement is read off a cache of
+    more rows, over the same batch axes."""
+    jcfg, (B, _), max_len = _serve_cfgs(job)[0], SERVE_JOBS[job][4], SERVE_JOBS[job][2]
+    dims = SERVE_WORLD.get(job, (1, 1, 4))
+    mesh = jax.sharding.AbstractMesh(dims, AXES)
+    ba = jax_cells.data_axes_for(mesh, B)
+    groups = (jcfg.num_layers - jcfg.first_dense) // len(jcfg.block_pattern)
+    whole = jax.eval_shape(lambda: jax_init_cache(jcfg, B, max_len, dtype=jnp.float32))
+    wide = jax.eval_shape(lambda: jax_init_cache(jcfg, B * (groups + 1), max_len,
+                                                 dtype=jnp.float32))
+    placed = jax_cells.cache_specs(wide, jcfg, mesh, ba, jax_ctx.activation_rules(data_axes=ba))
+    sizes = dict(zip(AXES, dims))
+    return {f"{seg}/{i}/{k}": _shard_shape(x.shape, _spec_norm(placed[seg][i][k].spec), sizes)
+            for seg in ("prefix", "main", "tail") for i, e in enumerate(whole[seg])
+            for k, x in e.items()}
 
 
 def _serve_advance(job) -> torch.Tensor:
@@ -654,8 +790,7 @@ def worlds(tmp_path_factory):
     tensor-parallel group, runs ``SERVE_JOBS``, then ``TP_JOBS`` for two
     steps (qwen3-14b thrice) and the collectives' check."""
     batches = {arch: _jax_batches(jax_reduced_config(arch), 2)
-               for arch in ("qwen3-14b", "gemma-2b", "deepseek-moe-16b", "musicgen-large",
-                            "qwen2-moe-a2.7b")}
+               for arch in ("qwen3-14b", "gemma-2b", *TP_JOBS.values())}
     params = {arch: params_from_numpy(_jax_params(arch), device="cpu") for arch in batches}
     tb = {arch: [_torch_batch(b) for b in bs] for arch, bs in batches.items()}
     serve = {job: {"serve": True, "arch": arch, "mods": mods, "max_len": max_len,
@@ -713,6 +848,7 @@ def test_mesh_step_matches_single_device(worlds):
     jax_metrics, jax_params = _jax_steps("qwen3-14b", qb, STEP_OPT)
     port_metrics, port_params = _port_steps("qwen3-14b", _jax_params("qwen3-14b"), qb,
                                             STEP_OPT)
+    jax_params, port_params = jax_params[-1], port_params[-1]
     ranks = started[2, 2, 2].ranks()
     got = ranks[0]["qwen"]
     for ref_metrics, ref_params in ((jax_metrics, jax_params), (port_metrics, port_params)):
@@ -733,10 +869,7 @@ def test_mesh_step_matches_single_device(worlds):
     for rank in ranks:
         shapes, m_shapes = _flat(rank["qwen"]["shapes"]), _flat(rank["qwen"]["m_shapes"])
         for k, leaf in _flat(abstract).items():
-            spec = jax_specs.fit_spec(jax_specs.logical_to_spec(
-                logical[k], jax_specs.PARAM_RULES), leaf.shape, SimpleNamespace(shape=sizes))
-            want = tuple(d // int(np.prod([sizes[a] for a in specs.spec_axes(p)]))
-                         for d, p in zip(leaf.shape, tuple(spec) + (None,) * leaf.ndim))
+            want = _shard_shape(leaf.shape, _ref_spec(logical[k], leaf.shape, sizes), sizes)
             assert shapes[k] == m_shapes[k] == want, (k, shapes[k], want)
 
 
@@ -856,9 +989,11 @@ def test_moe_mesh_step_refuses_split_routing_groups(worlds):
 def _tp_local(path: str) -> bool:
     """Whether a leaf's compute keeps its model-axis block: the dense
     attention, the dense MLPs, the embedding table and the head, the routed
-    and the shared experts (not the router or qwen2's shared gate)."""
+    and the shared experts (not the router or qwen2's shared gate), the
+    RG-LRU and mLSTM layers, the sLSTM's FFN (not its recurrent weights)."""
     return any(k in path for k in ("['attn']", "['mlp']", "['embed']['table']",
-                                   "['head']['w']")) or (
+                                   "['head']['w']", "['rglru']", "['mlstm']",
+                                   "['slstm']['ffn']")) or (
         "['moe']" in path and not path.endswith(("['router']", "['shared_gate']")))
 
 
@@ -867,23 +1002,27 @@ def test_tensor_parallel_step_matches_single_device(worlds, job):
     """(1, 1, 4), two steps with model-local compute: each step's loss
     within 1e-3 of the port's single-device step and of JAX's, the grad
     norm through ``JAX_STEPS`` too, and every parameter within 1e-4 of the
-    port's after both steps and of JAX's after ``JAX_STEPS``; each rank's
-    parameters and moments at rest its ``fit_spec`` shards, and the leaves
-    it computes on model-local: the attention, MLP, embedding, head, routed
-    and shared expert leaves split over ``model`` where ``fit_spec`` splits
-    them, the rest (the router among them) whole.  The sort job is held to
-    the port's single-device sort step."""
+    port's after both steps (``PORT_STEPS``) and of JAX's after
+    ``JAX_STEPS``; the first step's mean gradient, where a job records it,
+    leaf by leaf within GRAD_RTOL of the port's single-device one (of the
+    port's f64 run for ``GRAD_F64``, or no farther from it than twice the
+    port's own f32 gradient); each rank's parameters and moments at rest
+    its ``fit_spec`` shards, and the leaves it computes on model-local: the
+    attention, MLP, embedding, head, routed and shared expert, RG-LRU,
+    mLSTM and sLSTM FFN leaves split over ``model`` where ``fit_spec``
+    splits them, the rest (the router and the sLSTM's recurrent weights
+    among them) whole.  The sort job is held to the port's single-device
+    sort step."""
     started, batches = worlds
     arch, n_jax = TP_JOBS[job], JAX_STEPS[job]
     moe_impl = TP_JOB_OPTS.get(job, {}).get("moe_impl")
     port_metrics, port_params = _port_steps(arch, _jax_params(arch), batches[arch], STEP_OPT,
                                             moe_impl)
-    refs = [(port_metrics, port_params, 2)]
+    n_port = PORT_STEPS.get(job, 2)
+    refs = [(port_metrics, port_params[n_port - 1], n_port)]
     if job not in PORT_ONLY:
         jax_metrics, jax_params = _jax_steps(arch, batches[arch], STEP_OPT)
-        if n_jax == 1:
-            jax_params = _jax_steps(arch, batches[arch][:1], STEP_OPT)[1]
-        refs.append((jax_metrics, jax_params, n_jax))
+        refs.append((jax_metrics, jax_params[n_jax - 1], n_jax))
     ranks = started[1, 1, 4].ranks()
     got = ranks[0][job]
     for ref, _, _ in refs:
@@ -902,10 +1041,17 @@ def test_tensor_parallel_step_matches_single_device(worlds, job):
         want = _np_flat(_port_grads(arch, _jax_params(arch), batches[arch][0], moe_impl))
         have = _np_flat(got["grads_1"])
         assert have.keys() == want.keys()
-        rel = {k: np.abs(have[k] - want[k]).max() / np.abs(want[k]).max() for k in want}
+        bound = {k: GRAD_RTOL for k in want}
+        if job in GRAD_F64:  # held to the f64 run, beside the f32 one's own distance
+            exact = _np_flat(_port_grads(arch, _jax_params(arch), batches[arch][0], f64=True))
+            bound = {k: max(GRAD_RTOL, 2 * np.abs(want[k] - exact[k]).max()
+                            / np.abs(exact[k]).max()) for k in want}
+            want = exact
+        rel = {k: np.abs(have[k] - want[k]).max() / np.abs(want[k]).max() / bound[k]
+               for k in want}
         worst = max(rel, key=rel.get)
-        print(f"{arch}: worst first-step gradient {rel[worst]:.3g} of its largest ({worst})")
-        assert rel[worst] < GRAD_RTOL, (worst, rel[worst])
+        print(f"{arch}: worst first-step gradient {rel[worst]:.3g} of its bound ({worst})")
+        assert rel[worst] < 1, (worst, rel[worst], bound[worst])
     sizes = dict(zip(AXES, (1, 1, 4)))
     abstract = _jax_abstract(arch)
     logical = _flat(jax_specs.param_logical_axes(abstract))
@@ -913,10 +1059,7 @@ def test_tensor_parallel_step_matches_single_device(worlds, job):
     for rank in ranks:
         shapes, compute = _flat(rank[job]["shapes"]), _flat(rank[job]["compute_shapes"])
         for k, leaf in _flat(abstract).items():
-            spec = jax_specs.fit_spec(jax_specs.logical_to_spec(
-                logical[k], jax_specs.PARAM_RULES), leaf.shape, SimpleNamespace(shape=sizes))
-            at_rest = tuple(d // int(np.prod([sizes[a] for a in specs.spec_axes(p)]))
-                            for d, p in zip(leaf.shape, tuple(spec) + (None,) * leaf.ndim))
+            at_rest = _shard_shape(leaf.shape, _ref_spec(logical[k], leaf.shape, sizes), sizes)
             assert shapes[k] == at_rest, (k, shapes[k], at_rest)
             want = at_rest if _tp_local(k) else tuple(leaf.shape)
             assert compute[k] == want, (k, compute[k], want)
@@ -967,6 +1110,7 @@ def test_tensor_parallel_serving_matches_single_device(worlds, job):
     want_port, tok_port, lengths = _port_serve(job)
     assert tok_jax == tok_port
     cfg = _serve_cfgs(job)[1]
+    shards = _cache_shards(job)
     ranks = worlds[0][SERVE_WORLD.get(job, (1, 1, 4))].ranks()
     for rank, r in enumerate(ranks):
         got = r[job]
@@ -978,8 +1122,10 @@ def test_tensor_parallel_serving_matches_single_device(worlds, job):
             for g, w in zip(got["logits"], want, strict=True):
                 np.testing.assert_allclose(g.numpy(), w, rtol=0,
                                            atol=1e-4 * max(np.abs(w).max(), 1.0))
-        assert got["cache_shapes"] and all(
-            s[-3:-1] == SERVE_JOBS[job][3] for s in got["cache_shapes"]), got["cache_shapes"]
+        assert all(s[-3:-1] == SERVE_JOBS[job][3] for s in got["cache_shapes"]), \
+            got["cache_shapes"]
+        assert bool(got["cache_shapes"]) == (SERVE_JOBS[job][3] is not None)
+        assert got["leaf_shapes"] == shards, (got["leaf_shapes"], shards)
     attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
     n_merged = len(ranks[0][job]["merged"])
     assert n_merged == (0 if job in ("serve_kv", "serve_dp") else SERVE_STEPS * attn), n_merged
@@ -1012,9 +1158,8 @@ def test_cache_specs_match_reference(arch, shape, mesh_name):
     (``repro.launch.cells.cache_specs`` on an abstract mesh) leaf by leaf,
     for every arch's applicable decode shapes at full size on both
     production meshes; and ``local_cache``'s rank-0 blocks (fake tensors)
-    shaped as the reference's shards, but for the recurrent states, which
-    the port keeps whole over ``model`` (their rows split): the one known
-    difference until G4."""
+    shaped as the reference's shards, every leaf: the attention caches, the
+    recurrent states and the lengths."""
     cfg, jcfg, sh = get_config_port(arch), jax_get_config(arch), JAX_SHAPES[shape]
     dims, axes = SERVE_MESHES[mesh_name]
     mesh = jax.sharding.AbstractMesh(dims, axes)
@@ -1037,18 +1182,8 @@ def test_cache_specs_match_reference(arch, shape, mesh_name):
     positions = [e["k"].shape[-3] for seg in ("prefix", "main", "tail")
                  for e in whole[seg] if "k" in e]
     assert local.get("max_len") == (max(positions) if positions else None)
-    differ = set()
-    for k, x in _flat(whole_j).items():
-        shard = tuple(d // int(np.prod([sizes[a] for a in specs.spec_axes(p)]))
-                      for d, p in zip(x.shape, want[k] + (None,) * len(x.shape)))
-        if shapes[k] != shard:
-            differ.add(k)
-            assert not k.endswith(("['k']", "['v']", "['len']")), (k, shapes[k], shard)
-            model = [d for d, p in enumerate(want[k]) if "model" in specs.spec_axes(p)]
-            assert model and all(shapes[k][d] == x.shape[d] for d in model), k
-    recurrent = {k for k, v in want.items() if not k.endswith(("['k']", "['v']", "['len']"))
-                 and any("model" in specs.spec_axes(p) for p in v)}
-    assert differ == recurrent
+    want_shapes = {k: _shard_shape(x.shape, want[k], sizes) for k, x in _flat(whole_j).items()}
+    assert shapes == want_shapes
 
 
 @pytest.mark.parametrize("heads,G,want", [
