@@ -125,7 +125,13 @@ tolerance miss:
    plain path in f64), greedy tokens equal, each rank's cache placed as
    ``cache_specs`` places it, every kernel launched as often as on one
    device (one merge more a local or global attention layer and step where
-   the sequence splits);
+   the sequence splits); and the reference's mesh options on the same
+   processes: sequence parallelism (the residual stream split over the
+   sequence between blocks) in the gemma-2b and deepseek-moe-16b train
+   jobs and the gemma-2b serving prefill, and ``shard_cache_seq`` in the
+   qwen3-14b serving job (its cache over the sequence with every KV head a
+   rank: a decode kernel and a merge a layer and step), each held as its
+   plain tensor-parallel job is;
 18. analysis: the dry-run (``repro_torch.launch.dryrun``) of gemma-2b's
    applicable cells on both production meshes, (16, 16) and (2, 16, 16),
    on fake tensors; phase 6's prefill and one phase-7 train step, counted
@@ -363,7 +369,8 @@ MESH_PEAK_RTOL = 0.05
 # gradient entry opposite signs
 TP_MESH = (1, 1, 2)
 TP_JOBS = {"gemma-2b": (2, 1024, 2), "deepseek-moe-16b": (2, 512, 2),
-           "recurrentgemma-9b": (2, 512, 2), "xlstm-125m": (2, 512, 4)}
+           "recurrentgemma-9b": (2, 512, 2), "xlstm-125m": (2, 512, 4),
+           "gemma-2b+sp": (2, 1024, 2), "deepseek-moe-16b+sp": (2, 512, 2)}
 TP_WORKER_TIMEOUT_S = 600
 # the sub-phase's serving jobs, on the same two processes: the sharded
 # prefill of (1, prompt) tokens and greedy decode steps at full width and
@@ -380,8 +387,22 @@ TP_WORKER_TIMEOUT_S = 600
 # LOGITS_TOL); where they miss, both are held to the plain path in f64, as
 # the TP train jobs' gradients; greedy tokens equal
 TP_SERVE_JOBS = {"gemma-2b": (1024, 16, 2), "qwen3-14b": (1024, 16, 2),
-                 "recurrentgemma-9b": (256, 8, 3), "xlstm-125m": (256, 8, 4)}
+                 "recurrentgemma-9b": (256, 8, 3), "xlstm-125m": (256, 8, 4),
+                 "gemma-2b+sp": (1024, 16, 2), "qwen3-14b+cache-seq": (1024, 16, 2)}
 SERVE_TP_RTOL = 1e-4
+# a job named "arch+option" runs its arch with one of the reference's mesh
+# options: "sp", sequence parallelism (the residual stream split over the
+# sequence between blocks, 512 or 256 positions a rank; the train jobs and
+# the prefill), and "cache-seq", ``shard_cache_seq`` (qwen3-14b's cache
+# over its 1040 positions with all 8 KV heads a rank, where its heads split
+# without it)
+JOB_OPTIONS = {"sp": {"sequence_parallel": True}, "cache-seq": {"shard_cache_seq": True}}
+
+
+def job_arch(job: str) -> tuple:
+    """(arch, the activation rules' options) of a tensor-parallel job."""
+    arch, _, option = job.partition("+")
+    return arch, JOB_OPTIONS[option] if option else {}
 
 
 def log(*args) -> None:
@@ -1371,16 +1392,16 @@ def tp_counts_phase(tp: dict) -> None:
         for what in ("prefill", "decode"):
             card = job["count"][what]
             for key in ("flops", "bytes", "by_kernel", "coll_by_key"):
-                assert card[key] == want[what][key], (job["cfg"].name, "tensor-parallel", what,
+                assert card[key] == want[what][key], (job["job"], "tensor-parallel", what,
                                                       key, card[key], want[what][key])
-            log(f"   {job['cfg'].name} tensor-parallel {what} ({job['tokens']} prompt, "
+            log(f"   {job['job']} tensor-parallel {what} ({job['tokens']} prompt, "
                 f"max_len {job['max_len']}) on {TP_MESH}, rank 0, kernel mode: "
                 f"{card['flops']:.6g} FLOP, {card['bytes']:.6g} B, collective bytes received "
                 f"{card['coll_by_key']} on the card = on fake tensors of an abstract mesh; "
                 f"kernels {card['by_kernel']}")
     for job in tp["train"]:
         card, want = job["count"], tp_fake_count(job)
-        name = job["cfg"].name
+        name = job["job"]
         for key in ("flops", "bytes", "by_kernel", "coll_by_key"):
             assert card[key] == want[key], (name, "tensor-parallel step", key, card[key],
                                             want[key])
@@ -2900,11 +2921,11 @@ def mesh_phase(seed: int, smi: str, phase7: dict) -> dict:
     return launches
 
 
-def tp_setup(arch: str, seed: int) -> tuple:
+def tp_setup(job: str, seed: int) -> tuple:
     """A tensor-parallel job's model, options, step config and batches (on
     the card): the same in the parent and in each rank."""
-    batch, seq, layers = TP_JOBS[arch]
-    cfg2 = get_config(arch).with_(num_layers=layers)
+    batch, seq, layers = TP_JOBS[job]
+    cfg2 = get_config(job_arch(job)[0]).with_(num_layers=layers)
     opts = ModelOptions(compute_dtype="float32")
     tcfg = TrainConfig(optimizer=TRAIN_CHECK_OPT)
     src = StreamSource(vocab_size=cfg2.vocab_size, batch=batch, seq_len=seq, seed=seed)
@@ -2912,33 +2933,37 @@ def tp_setup(arch: str, seed: int) -> tuple:
     return cfg2, opts, tcfg, batches
 
 
-def tp_worker(rank: int, port: int, out: str, seed: int) -> None:
-    """One rank of the tensor-parallel sub-phase (``--tp-rank``): each job of
-    ``TP_JOBS`` in turn on one mesh (``tp_job``)."""
+def tp_worker(rank: int, port: int, out: str, seed: int, jobs: tuple) -> None:
+    """One rank of the tensor-parallel sub-phase (``--tp-rank``): each of
+    ``jobs`` (train jobs of ``TP_JOBS``, then serving jobs of
+    ``TP_SERVE_JOBS``, as "serve:" + name) in turn on one mesh
+    (``tp_job``, ``tp_serve_job``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh(TP_MESH, device="cuda", backend="gloo",
                      init_method=f"tcp://127.0.0.1:{port}", rank=rank)
     try:
-        for arch in TP_JOBS:
-            tp_job(arch, mesh, rank, out, seed)
-        for arch in TP_SERVE_JOBS:
-            tp_serve_job(arch, mesh, rank, out, seed)
+        for job in jobs:
+            if job.startswith("serve:"):
+                tp_serve_job(job[len("serve:"):], mesh, rank, out, seed)
+            else:
+                tp_job(job, mesh, rank, out, seed)
     finally:
         mesh.close()
 
 
-def tp_job(arch: str, mesh, rank: int, out: str, seed: int) -> None:
+def tp_job(job: str, mesh, rank: int, out: str, seed: int) -> None:
     """One job on one rank: its two steps' metrics and launches, its block of
     the first step's mean gradient and of the parameters after both steps
     (on the host), the first step's routes of an MoE (``routing_log``, in
     call order: forward, then remat's recompute), and a third step counted
     in kernel mode (``launch.op_analysis``)."""
-    cfg2, opts, tcfg, batches = tp_setup(arch, seed)
+    cfg2, opts, tcfg, batches = tp_setup(job, seed)
     params = init_params(cfg2, seed=seed, device="cuda")
     state = init_train_state(cfg2, tcfg, params=params, mesh=mesh)
     del params
-    step = make_train_step(cfg2, tcfg, opts, mesh=mesh, act_rules=activation_rules())
+    step = make_train_step(cfg2, tcfg, opts, mesh=mesh,
+                           act_rules=activation_rules(**job_arch(job)[1]))
     seen = {}
     real_clip = step_mod.clip_by_global_norm
 
@@ -2967,16 +2992,16 @@ def tp_job(arch: str, mesh, rank: int, out: str, seed: int) -> None:
     _, totals = count_ops(step, state, batches[0])
     res["count"] = {k: getattr(totals, k) for k in ("flops", "bytes", "by_kernel",
                                                      "coll_by_key")}
-    torch.save(res, os.path.join(out, f"{arch}.rank{rank}.pt"))
+    torch.save(res, os.path.join(out, f"{job}.rank{rank}.pt"))
     del state, step, res, seen
     torch.cuda.empty_cache()
 
 
-def tp_serve_setup(arch: str, seed: int) -> tuple:
+def tp_serve_setup(job: str, seed: int) -> tuple:
     """A serving job's model, options, prompt (on the card), decode steps
     and max_len: the same in the parent and in each rank."""
-    prompt, steps, layers = TP_SERVE_JOBS[arch]
-    cfg2 = get_config(arch).with_(num_layers=layers)
+    prompt, steps, layers = TP_SERVE_JOBS[job]
+    cfg2 = get_config(job_arch(job)[0]).with_(num_layers=layers)
     rng = np.random.default_rng(seed + 17)
     tokens = torch.from_numpy(rng.integers(0, cfg2.vocab_size, (1, prompt))).to("cuda")
     return cfg2, ModelOptions(compute_dtype="float32"), tokens, steps, prompt + steps
@@ -3000,16 +3025,16 @@ def serve_greedy(prefill, step, params, tokens, steps: int, whole=lambda x: x,
     return torch.stack(out), torch.stack(fed), cache
 
 
-def tp_serve_job(arch: str, mesh, rank: int, out: str, seed: int) -> None:
+def tp_serve_job(job: str, mesh, rank: int, out: str, seed: int) -> None:
     """One serving job on one rank: the sharded prefill and greedy decode
     steps on this rank's shards (``local_params``), the logits gathered
     over the vocabulary, the launches of the run, the cache's shapes, and
     a prefill and a decode step counted in kernel mode (phase 18)."""
-    cfg2, opts, tokens, steps, max_len = tp_serve_setup(arch, seed)
+    cfg2, opts, tokens, steps, max_len = tp_serve_setup(job, seed)
     params = init_params(cfg2, seed=seed, device="cuda")
     local = local_params(params, mesh)
     del params
-    rules = activation_rules(data_axes=data_axes_for(mesh, tokens.shape[0]))
+    rules = activation_rules(data_axes=data_axes_for(mesh, tokens.shape[0]), **job_arch(job)[1])
     prefill = make_prefill_step(cfg2, opts, max_len=max_len, mesh=mesh, act_rules=rules)
     step = make_decode_step(cfg2, opts, mesh=mesh, act_rules=rules)
     group, n = mesh.group(("model",)), mesh.shape["model"]
@@ -3033,7 +3058,7 @@ def tp_serve_job(arch: str, mesh, rank: int, out: str, seed: int) -> None:
            "count": {name: {k: getattr(t, k) for k in ("flops", "bytes", "by_kernel",
                                                        "coll_by_key")}
                      for name, t in (("prefill", pre), ("decode", dec))}}
-    torch.save(res, os.path.join(out, f"serve-{arch}.rank{rank}.pt"))
+    torch.save(res, os.path.join(out, f"serve-{job}.rank{rank}.pt"))
     del local, cache, res
     torch.cuda.empty_cache()
 
@@ -3044,30 +3069,32 @@ def cache_leaf_shapes(cache) -> dict:
             for i, e in enumerate(cache[seg]) for k, x in e.items()}
 
 
-def placed_cache_shapes(cfg2, B: int, max_len: int) -> dict:
+def placed_cache_shapes(cfg2, B: int, max_len: int, options: dict) -> dict:
     """A rank's cache leaves' shapes on the abstract (1, 1, 2) mesh, as the
-    reference's ``cache_specs`` places the whole cache (``local_cache``)."""
+    reference's ``cache_specs`` places the whole cache (``local_cache``)
+    under the job's ``options``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     mesh = abstract_mesh(TP_MESH)
     axes = data_axes_for(mesh, B)
     with FakeTensorMode():
         whole = init_cache(cfg2, B, max_len, torch.float32, "cpu")
-        local = local_cache(whole, cache_specs(whole, cfg2, mesh, axes,
-                                               activation_rules(data_axes=axes)), mesh)
+        local = local_cache(whole, cache_specs(whole, cfg2, mesh, axes, activation_rules(
+            data_axes=axes, **options)), mesh)
         return cache_leaf_shapes(local)
 
 
-def attention_split(cfg2, max_len: int) -> tuple:
+def attention_split(cfg2, max_len: int, options: dict) -> tuple:
     """(attention layers, where their caches split over the model axis in
     words, merges a decode step): global attention over ``max_len``
     positions, a local layer over its ring."""
+    cache_seq = options.get("shard_cache_seq", False)
     splits = [kv_split(cfg2, min(cfg2.window, max_len) if k == "local" else max_len,
-                       TP_MESH[2]) for k in cfg2.layer_kinds if k in ("attn", "local")]
+                       TP_MESH[2], cache_seq) for k in cfg2.layer_kinds if k in ("attn", "local")]
     return len(splits), ", ".join(sorted(set(splits))) or "none", splits.count("sequence")
 
 
-def tp_serve_check(arch: str, seed: int, smi: str, out: str) -> dict:
+def tp_serve_check(job: str, seed: int, smi: str, out: str) -> dict:
     """A serving job against the one-device f32 steps: every rank's logits
     (the same bits on both) within SERVE_TP_RTOL of the largest logit of
     the one-device run, or else both runs held to the plain path in f64 fed
@@ -3078,14 +3105,15 @@ def tp_serve_check(arch: str, seed: int, smi: str, out: str) -> dict:
     prefill), and one merge per attention layer and step whose cache
     splits over the sequence."""
     t0 = time.perf_counter()
-    cfg2, opts, tokens, steps, max_len = tp_serve_setup(arch, seed)
+    cfg2, opts, tokens, steps, max_len = tp_serve_setup(job, seed)
+    options = job_arch(job)[1]
     ranks = []
     for r in range(2):
-        path = os.path.join(out, f"serve-{arch}.rank{r}.pt")
+        path = os.path.join(out, f"serve-{job}.rank{r}.pt")
         ranks.append(torch.load(path, weights_only=False))
         os.remove(path)
     got = ranks[0]
-    assert torch.equal(ranks[1]["logits"], got["logits"]), f"{arch}: the ranks' logits differ"
+    assert torch.equal(ranks[1]["logits"], got["logits"]), f"{job}: the ranks' logits differ"
     params32 = init_params(cfg2, seed=seed, device="cuda")
     with torch.no_grad():
         kernels.reset_launch_counts()
@@ -3095,9 +3123,9 @@ def tp_serve_check(arch: str, seed: int, smi: str, out: str) -> dict:
     scale = want.abs().max().item()
     rel = ((got["logits"] - want).abs().max() / scale).item()
     same = torch.equal(got["tokens"], fed)
-    n_attn, split, merges_a_step = attention_split(cfg2, max_len)
-    placed = placed_cache_shapes(cfg2, tokens.shape[0], max_len)
-    log(f"   {arch} serving (prefill of {tuple(tokens.shape)}, {steps} greedy decode steps, "
+    n_attn, split, merges_a_step = attention_split(cfg2, max_len, options)
+    placed = placed_cache_shapes(cfg2, tokens.shape[0], max_len, options)
+    log(f"   {job} serving (prefill of {tuple(tokens.shape)}, {steps} greedy decode steps, "
         f"max_len {max_len}; attention caches over {split}; a rank's cache leaves "
         f"{sorted(set(got['cache_shapes'].values()))}): logits rel {rel:.3g} of the largest "
         f"(tolerance {SERVE_TP_RTOL}), greedy tokens {'equal' if same else 'DIFFER'}; rank-0 wall "
@@ -3116,7 +3144,7 @@ def tp_serve_check(arch: str, seed: int, smi: str, out: str) -> dict:
         s64 = want64.abs().max()
         e_tp = ((got["logits"].double() - want64).abs().max() / s64).item()
         e_one = ((want.double() - want64).abs().max() / s64).item()
-        log(f"   {arch} serving held to the plain path in f64: tensor-parallel {e_tp:.4g} "
+        log(f"   {job} serving held to the plain path in f64: tensor-parallel {e_tp:.4g} "
             f"of the largest logit, one device {e_one:.4g} (held: within "
             f"{SERVE_TP_RTOL} or twice the one-device distance) ({smi})")
         assert e_tp <= max(SERVE_TP_RTOL, 2 * e_one), (e_tp, e_one)
@@ -3135,18 +3163,19 @@ def tp_serve_check(arch: str, seed: int, smi: str, out: str) -> dict:
             k: v for k, v in one_launches.items() if k != "merge_partials"}, (lr, one_launches)
         assert all(lr[name] > 0 for name in used), (lr, used)
     log(f"   launches a rank {got['launches']} (one device {one_launches}); "
-        f"{arch} serving checked in {time.perf_counter() - t0:.1f} s")
+        f"{job} serving checked in {time.perf_counter() - t0:.1f} s")
     del params32
     torch.cuda.empty_cache()
     return {"count": got["count"], "cfg": cfg2, "opts": opts, "tokens": tuple(tokens.shape),
-            "max_len": max_len, "launches": got["launches"]}
+            "max_len": max_len, "launches": got["launches"], "job": job, "options": options}
 
 
-def kv_split(cfg, positions: int, n: int) -> str:
+def kv_split(cfg, positions: int, n: int, cache_seq: bool = False) -> str:
     """Where the reference's placement splits an attention cache of
-    ``positions`` over n ranks, in words."""
+    ``positions`` over n ranks, in words (the sequence first with
+    ``cache_seq``)."""
     return {"kv": "KV heads", "seq": "sequence", "whole": "whole"}[
-        kv_cache_split(positions, cfg.num_kv_heads, n)]
+        kv_cache_split(positions, cfg.num_kv_heads, n, cache_seq)]
 
 
 def tp_serve_fake_count(job: dict) -> dict:
@@ -3158,7 +3187,7 @@ def tp_serve_fake_count(job: dict) -> dict:
     cfg2, opts, max_len = job["cfg"], job["opts"], job["max_len"]
     mesh = abstract_mesh(TP_MESH)
     B = job["tokens"][0]
-    rules = activation_rules(data_axes=data_axes_for(mesh, B))
+    rules = activation_rules(data_axes=data_axes_for(mesh, B), **job["options"])
     fake = FakeTensorMode()
     with fake:
         params = local_params(init_params(cfg2, device="cpu"), mesh)
@@ -3188,16 +3217,18 @@ def tp_whole(blocks: list, spec: tuple, name: str) -> torch.Tensor:
     return torch.cat(blocks, dims[0])
 
 
-def tp_phase(seed: int, smi: str) -> list:
+def tp_phase(seed: int, smi: str, train_jobs=tuple(TP_JOBS),
+             serve_jobs=tuple(TP_SERVE_JOBS)) -> dict:
     """Phase 17's tensor-parallel sub-phase: a (1, 1, 2) mesh of two
     processes on this card over gloo (NCCL refuses two ranks on one GPU),
-    running ``TP_JOBS``; each job is then held to the one-device f32 step
-    (``tp_check``).  Returns each job's rank-0 counted step and config, for
-    phase 18."""
+    running ``train_jobs`` of ``TP_JOBS`` and ``serve_jobs`` of
+    ``TP_SERVE_JOBS`` (all by default); each job is then held to the
+    one-device f32 steps (``tp_check``, ``tp_serve_check``).  Returns each
+    job's rank-0 counts and config, for phase 18."""
     t0 = time.perf_counter()
     log(f"== tensor-parallel: mesh {TP_MESH} (pod, data, model) of two processes on this "
-        f"card over gloo; " + ", ".join(f"{a} ({b} x {s}, {n} layers)"
-                                        for a, (b, s, n) in TP_JOBS.items())
+        f"card over gloo; " + ", ".join(f"{a} ({TP_JOBS[a][0]} x {TP_JOBS[a][1]}, "
+                                        f"{TP_JOBS[a][2]} layers)" for a in train_jobs)
         + f" at full width, f32, {TRAIN_CHECK_OPT}, two steps each, against the one-device "
         f"f32 step ({smi})")
     # the ranks share the card with this process: hand back what its
@@ -3208,8 +3239,9 @@ def tp_phase(seed: int, smi: str) -> list:
     out = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     port = free_port()
     me = os.path.abspath(__file__)
+    jobs = ",".join([*train_jobs, *(f"serve:{j}" for j in serve_jobs)])
     procs = [subprocess.Popen([sys.executable, me, "--seed", str(seed), "--tp-rank", str(r),
-                               "--tp-port", str(port), "--tp-dir", out])
+                               "--tp-port", str(port), "--tp-dir", out, "--tp-jobs", jobs])
              for r in range(2)]
     try:
         rcs = [p.wait(timeout=TP_WORKER_TIMEOUT_S) for p in procs]
@@ -3220,14 +3252,14 @@ def tp_phase(seed: int, smi: str) -> list:
                 p.wait()
     assert rcs == [0, 0], f"tensor-parallel ranks exited with {rcs}"
     log(f"   the ranks' jobs: {time.perf_counter() - t0:.1f} s")
-    jobs = {"train": [tp_check(arch, seed, smi, out) for arch in TP_JOBS],
-            "serve": [tp_serve_check(arch, seed, smi, out) for arch in TP_SERVE_JOBS]}
+    jobs = {"train": [tp_check(job, seed, smi, out) for job in train_jobs],
+            "serve": [tp_serve_check(job, seed, smi, out) for job in serve_jobs]}
     os.rmdir(out)
     log(f"   tensor-parallel sub-phase: {time.perf_counter() - t0:.1f} s")
     return jobs
 
 
-def tp_check(arch: str, seed: int, smi: str, out: str) -> dict:
+def tp_check(job: str, seed: int, smi: str, out: str) -> dict:
     """A tensor-parallel job against the one-device f32 step: the first
     step's loss and gradients (an MoE's one-device run routed as rank 0
     routed; both ranks must have routed alike), the leaves held whole equal
@@ -3235,10 +3267,10 @@ def tp_check(arch: str, seed: int, smi: str, out: str) -> dict:
     launched), and the flash and recurrent kernels' counted work that of
     the local heads and channels."""
     t0 = time.perf_counter()
-    cfg2, opts, tcfg, batches = tp_setup(arch, seed)
+    cfg2, opts, tcfg, batches = tp_setup(job, seed)
     ranks = []
     for r in range(2):
-        path = os.path.join(out, f"{arch}.rank{r}.pt")
+        path = os.path.join(out, f"{job}.rank{r}.pt")
         ranks.append(torch.load(path, weights_only=False))
         os.remove(path)
     params32 = init_params(cfg2, seed=seed, device="cuda")
@@ -3252,7 +3284,7 @@ def tp_check(arch: str, seed: int, smi: str, out: str) -> dict:
     with routing_log(routes) if routes else contextlib.nullcontext([]) as flips:
         loss1, grads1 = train_grads(params32, cfg2, batches[0], opts)
     if routes:
-        log(f"   {arch}: the one-device step routed as rank 0 routed (both ranks alike): "
+        log(f"   {job}: the one-device step routed as rank 0 routed (both ranks alike): "
             f"its own expert sets differed at {sum(flips)} of "
             f"{sum(r.shape[0] * r.shape[1] for r in routes)} routed positions over "
             f"{len(routes)} routings (forward and remat)")
@@ -3284,7 +3316,7 @@ def tp_check(arch: str, seed: int, smi: str, out: str) -> dict:
     p0 = leaves(params32)
     c_rel, c_at = leaf_rel([p - q for p, q in zip(tp_params, p0)],
                            [p - q for p, q in zip(params2, p0)], names)
-    log(f"   {arch}: per step (loss, grad norm, wall s), rank 0: " + "; ".join(
+    log(f"   {job}: per step (loss, grad norm, wall s), rank 0: " + "; ".join(
         f"{r['loss']:.6f} {r['grad_norm']:.6f} {r['wall_s']:.3f}" for r in got)
         + "; one device: " + "; ".join(f"{w['loss']:.6f} {w['grad_norm']:.6f}" for w in want))
     log(f"   first step: loss rel {l_rel:.3g} (tolerance {TRAIN_F32['loss']}), gradients "
@@ -3297,7 +3329,7 @@ def tp_check(arch: str, seed: int, smi: str, out: str) -> dict:
         # the init's chaos: hold both runs to the plain path in f64
         _, grads64 = f64_grads(params32, cfg2, batches[0], routes)
         held = held_to_f64(tp_grads, grads1, grads64, names)
-        log_f64(held, len(names), f"{arch}: tensor-parallel first-step gradients (the "
+        log_f64(held, len(names), f"{job}: tensor-parallel first-step gradients (the "
                 "one-device step's as the plain path)", smi)
         assert not held["failed"], held["failed"]
         del grads64
@@ -3339,11 +3371,12 @@ def tp_check(arch: str, seed: int, smi: str, out: str) -> dict:
     log(f"   launches a step {got[0]['launches']} (one device {want[0]['launches']}); the "
         f"counted work of {', '.join(sorted(used - {'rmsnorm'}))} that of {local} local query "
         f"head(s) and {kv} KV head(s), {(cfg2.d_rnn or cfg2.d_model) // n} RG-LRU channels; "
-        f"{arch} checked in {time.perf_counter() - t0:.1f} s")
+        f"{job} checked in {time.perf_counter() - t0:.1f} s")
     del tp_grads, tp_params, grads1, params2, params32, ranks
     torch.cuda.empty_cache()
     return {"count": card, "cfg": cfg2, "opts": opts, "tcfg": tcfg,
-            "batch": tuple(batches[0]["tokens"].shape), "launches": got[0]["launches"]}
+            "batch": tuple(batches[0]["tokens"].shape), "launches": got[0]["launches"],
+            "job": job, "options": job_arch(job)[1]}
 
 
 def tp_fake_count(tp: dict) -> dict:
@@ -3358,7 +3391,8 @@ def tp_fake_count(tp: dict) -> dict:
         state = init_train_state(cfg2, tcfg, device="cpu", mesh=mesh)
         batch = {k: torch.empty(tp["batch"], dtype=torch.int32) for k in ("tokens", "labels")}
     state["step"] = 0  # a fake 0-dim step cannot be read on the host
-    step = make_train_step(cfg2, tcfg, tp["opts"], mesh=mesh, act_rules=activation_rules())
+    step = make_train_step(cfg2, tcfg, tp["opts"], mesh=mesh,
+                           act_rules=activation_rules(**tp["options"]))
     with fake:
         _, totals = count_ops(step, state, batch, shapes_only=True)
     return {k: getattr(totals, k) for k in ("flops", "bytes", "by_kernel", "coll_by_key")}
@@ -3371,9 +3405,11 @@ def main() -> int:
     ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-jobs", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.tp_rank is not None:
-        tp_worker(args.tp_rank, args.tp_port, args.tp_dir, args.seed)
+        tp_worker(args.tp_rank, args.tp_port, args.tp_dir, args.seed,
+                  tuple(args.tp_jobs.split(",")))
         return 0
     t_run = time.perf_counter()
 
@@ -3800,28 +3836,34 @@ def main() -> int:
     log(f"-- {time.perf_counter() - t_run:.1f} s into the run")
     # 19. the kernels line, the card, the result.  Each kernel's launches are
     # those of the path that runs it: the paged serve run (RMSNorm, paged
-    # decode), the fixed-slot serve run (dense decode), the prefill (flash),
-    # the train run (flash backward), the recurrent train run's windowed
-    # flash backward (recurrentgemma-9b's; the windowed flash is logged with
-    # its prefill phase), the merge rank 0's in phase 17's sequence-split
-    # serving job (gemma-2b), and the recurrent kernels forward and backward
-    # rank 0's in the first step of phase 17's tensor-parallel
-    # recurrentgemma-9b and xlstm-125m jobs (the recurrent prefills' and
-    # train runs' own launches are asserted in their phases)
-    tp_train = {job["cfg"].name: job["launches"] for job in tp["train"]}
+    # decode), the recurrent train run's windowed flash backward
+    # (recurrentgemma-9b's; the windowed flash is logged with its prefill
+    # phase), the recurrent kernels forward and backward rank 0's in the
+    # first step of phase 17's tensor-parallel recurrentgemma-9b and
+    # xlstm-125m jobs, and since the reference's mesh options: the flash
+    # forward and backward rank 0's in the first step of phase 17's
+    # sequence-parallel gemma-2b job, the dense decode and the merge rank
+    # 0's in its qwen3-14b serving job with the cache over the sequence (the
+    # fixed-slot run's, the prefill's and the train run's own launches are
+    # asserted in their phases and logged here)
+    tp_train = {job["job"]: job["launches"] for job in tp["train"]}
+    tp_serve = {job["job"]: job["launches"] for job in tp["serve"]}
     launches = {"rmsnorm": paged_launches["rmsnorm"],
                 "paged_decode_attention": paged_launches["paged_decode_attention"],
-                "decode_attention": fixed_launches["decode_attention"],
-                "flash_attention": prefill_launches["flash_attention"],
-                "flash_attention_bwd": train_launches["flash_attention_bwd"],
+                "decode_attention": tp_serve["qwen3-14b+cache-seq"]["decode_attention"],
+                "flash_attention": tp_train["gemma-2b+sp"]["flash_attention"],
+                "flash_attention_bwd": tp_train["gemma-2b+sp"]["flash_attention_bwd"],
                 "rglru_scan": tp_train["recurrentgemma-9b"]["rglru_scan"],
                 "mlstm_chunk": tp_train["xlstm-125m"]["mlstm_chunk"],
                 "flash_attention_bwd_window": rg_train["flash_attention_bwd"],
                 "rglru_scan_bwd": tp_train["recurrentgemma-9b"]["rglru_scan_bwd"],
                 "mlstm_chunk_bwd": tp_train["xlstm-125m"]["mlstm_chunk_bwd"],
-                "merge_partials": tp["serve"][0]["launches"]["merge_partials"]}
+                "merge_partials": tp_serve["qwen3-14b+cache-seq"]["merge_partials"]}
     log(f"   the recurrent prefills' launches (phases 9-10) {rg_launches} and {xl_launches}; "
-        f"the recurrent train runs' (phase 15) {rg_train} and {xl_train}")
+        f"the recurrent train runs' (phase 15) {rg_train} and {xl_train}; the fixed-slot "
+        f"run's dense decode {fixed_launches['decode_attention']}, the prefill's flash "
+        f"{prefill_launches['flash_attention']}, the train run's flash backward "
+        f"{train_launches['flash_attention_bwd']}")
     assert all(n > 0 for n in launches.values()), launches
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": WHERE[name][0],

@@ -35,9 +35,15 @@ allocated), and ``repro_torch.launch.dryrun`` counts the ops it runs
   its recurrent states over their heads or channels (``"model_axis"``
   names which).
 
-The reference's ``tree_attention``, ``sequence_parallel`` and
-``shard_cache_seq`` have no counterpart in the port: ``build_cell`` raises
-on them (ROADMAP, Queue 1, G6).
+The reference's three options carry over: ``sequence_parallel`` (the rule
+``seq`` on ``model``: between blocks the train and prefill steps hold the
+residual stream by blocks of positions where the axis divides its length),
+``shard_cache_seq`` (the rule ``cache_seq`` on ``model``: every attention
+cache over its positions where the axis divides them, its KV heads whole)
+and ``tree_attention`` (``ModelOptions.tree_attention``: the plain path's
+exact-causal tree; the kernel path, which already does only the causal
+work, counts as it does without it).  ``"model_axis"`` says where the
+stream and the cache split over the sequence.
 """
 
 from __future__ import annotations
@@ -63,14 +69,15 @@ from .mesh import BATCH_AXES
 class CellOptions:
     """The port's knobs of a cell.  ``dp_layout``: the batch over the
     ``model`` axis too and every parameter replicated (the reference's
-    layout for small archs).  The last three are the reference's, which the
-    port does not have: ``build_cell`` raises when one is set."""
+    layout for small archs), which strips the sequence rules as it strips
+    every tensor-axis name.  ``sequence_parallel`` and ``shard_cache_seq``
+    are the reference's, which go to ``activation_rules``; its third,
+    ``tree_attention``, is ``model``'s, as in the reference."""
 
     model: ModelOptions = ModelOptions()
     train: TrainConfig = TrainConfig()
     dp_layout: bool = False
     param_rules: dict = field(default_factory=lambda: dict(PARAM_RULES))
-    tree_attention: bool = False
     sequence_parallel: bool = False
     shard_cache_seq: bool = False
 
@@ -87,9 +94,11 @@ class Cell:
     fake_mode: object  # the FakeTensorMode of args, in which the step runs
 
 
-def train_model_axis(cfg: ArchConfig, n: int) -> str:
+def train_model_axis(cfg: ArchConfig, n: int, stream_positions: int = 0) -> str:
     """What a train step's compute splits over a model axis of n ranks, and
-    what runs whole on each of them."""
+    what runs whole on each of them; and, where sequence parallelism splits
+    a residual stream of ``stream_positions`` (0: it is off), that the
+    stream does so where n divides them."""
     kinds, moe = set(cfg.layer_kinds), cfg.moe
     parts = (("attention", any(k in kinds for k in ("attn", "local")),
               cfg.num_heads % n == 0),
@@ -106,20 +115,26 @@ def train_model_axis(cfg: ArchConfig, n: int) -> str:
              ("sLSTM cell", "slstm" in kinds, False))
     split = [name for name, has, ok in parts if has and ok]
     whole = [name for name, has, ok in parts if has and not ok]
+    stream = ""
+    if stream_positions:
+        stream = "; residual stream " + ("over the sequence" if stream_positions % n == 0
+                                         else "whole")
     return ("tensor-parallel: " + (", ".join(split) or "nothing")
-            + (f"; whole on every rank: {', '.join(whole)}" if whole else ""))
+            + (f"; whole on every rank: {', '.join(whole)}" if whole else "") + stream)
 
 
-def serve_model_axis(cfg: ArchConfig, n: int, shape: ShapeCfg) -> str:
+def serve_model_axis(cfg: ArchConfig, n: int, shape: ShapeCfg, cache_seq: bool = False,
+                     stream_positions: int = 0) -> str:
     """``train_model_axis`` for a serving step, and where its decode cache
     splits over the n ranks: each attention kind's cache (global attention
     of ``seq_len`` positions, a local layer's ring) over its KV heads, its
-    sequence or whole (``sharding.specs.kv_cache_split``); each recurrent
-    kind's state over its heads or channels, or whole, as
-    ``sharding.specs.cache_specs`` places it."""
+    sequence or whole (``sharding.specs.kv_cache_split``, the sequence
+    first with ``cache_seq``); each recurrent kind's state over its heads
+    or channels, or whole, as ``sharding.specs.cache_specs`` places it."""
     kinds = set(cfg.layer_kinds)
     where = {"kv": "KV heads", "seq": "sequence", "whole": "whole"}
-    cache = [f"{name} over {where[kv_cache_split(positions, cfg.num_kv_heads, n)]}"
+    cache = [f"{name} over "
+             f"{where[kv_cache_split(positions, cfg.num_kv_heads, n, cache_seq)]}"
              for kind, name, positions in (
                  ("attn", "attention", shape.seq_len),
                  ("local", "local ring", min(cfg.window, shape.seq_len)))
@@ -133,7 +148,7 @@ def serve_model_axis(cfg: ArchConfig, n: int, shape: ShapeCfg) -> str:
         if kind in kinds:
             over = [what for what, ok in parts if ok]
             cache.append(f"{name} over {' and '.join(over)}" if over else f"{name} whole")
-    return train_model_axis(cfg, n) + "; cache: " + ", ".join(cache)
+    return train_model_axis(cfg, n, stream_positions) + "; cache: " + ", ".join(cache)
 
 
 def token_count(cfg: ArchConfig, shape: ShapeCfg) -> int:
@@ -150,12 +165,7 @@ def build_cell(arch: str, shape_name: str, mesh, opts: CellOptions = CellOptions
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         raise ValueError(f"cell ({arch}, {shape_name}) skipped: {why}")
-    missing = [k for k in ("tree_attention", "sequence_parallel", "shard_cache_seq")
-               if getattr(opts, k)]
-    if missing:
-        raise NotImplementedError(
-            f"{', '.join(missing)}: the port has no sequence-parallel compute, "
-            "sharded decode cache or tree attention yet (ROADMAP, Queue 1)")
+    stream = shape.seq_len if opts.sequence_parallel and shape.kind != "decode" else 0
 
     batch_axes = data_axes_for(mesh, shape.global_batch, include_model=opts.dp_layout)
     rows = shape.global_batch // mesh.size(batch_axes)
@@ -173,7 +183,8 @@ def build_cell(arch: str, shape_name: str, mesh, opts: CellOptions = CellOptions
                                compress_pod_grads="pod" in mesh.axis_names,
                                num_pods=mesh.shape.get("pod", 1), remat=tcfg.remat)
         rules = {} if opts.dp_layout else opts.param_rules
-        act_rules = activation_rules()
+        act_rules = activation_rules(sequence_parallel=opts.sequence_parallel,
+                                     shard_cache_seq=opts.shard_cache_seq)
         if opts.dp_layout:  # as the reference: no tensor-axis names
             act_rules = {k: (v if k in ("batch", "dp") else None)
                          for k, v in act_rules.items()}
@@ -187,17 +198,19 @@ def build_cell(arch: str, shape_name: str, mesh, opts: CellOptions = CellOptions
                                param_rules=rules,
                                batch_axes=batch_axes if opts.dp_layout else BATCH_AXES)
         tp = tensor_axis(act_rules, mesh, batch_axes)
-        meta["model_axis"] = (train_model_axis(cfg, mesh.shape[tp]) if tp
+        meta["model_axis"] = (train_model_axis(cfg, mesh.shape[tp], stream) if tp
                               else "replicated compute, sharded state")
         return Cell(arch, shape, cfg, "train", step, (state, batch), meta, fake)
 
-    act_rules = activation_rules(data_axes=batch_axes)
+    act_rules = activation_rules(data_axes=batch_axes, sequence_parallel=opts.sequence_parallel,
+                                 shard_cache_seq=opts.shard_cache_seq)
     rules = opts.param_rules
     if opts.dp_layout:  # as the train cells: no tensor-axis names
         act_rules = {k: (v if k in ("batch", "dp") else None) for k, v in act_rules.items()}
         rules = {}
     tp = tensor_axis(act_rules, mesh, batch_axes)
-    meta["model_axis"] = (serve_model_axis(cfg, mesh.shape[tp], shape) if tp
+    meta["model_axis"] = (serve_model_axis(cfg, mesh.shape[tp], shape,
+                                           opts.shard_cache_seq, stream) if tp
                           else "replicated compute, sharded state")
     with fake:
         params = local_params(cast_params(init_params(cfg, device="cpu"), opts.model.dtype,

@@ -12,6 +12,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out results/dryrun_torch.json
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k \
+      --both-meshes --sequence-parallel   # or --shard-cache-seq, --tree-attention
 
 Each record: ``status`` (``ok``; ``skipped`` with the reference's reason;
 ``error`` with its trace), ``kind``, ``tokens``, ``batch_axes``, ``rows``
@@ -111,6 +113,9 @@ def main(argv=None) -> list:
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default="results/dryrun_torch.json")
     ap.add_argument("--append", action="store_true")
+    ap.add_argument("--tree-attention", action="store_true")
+    ap.add_argument("--sequence-parallel", action="store_true")
+    ap.add_argument("--shard-cache-seq", action="store_true")
     ap.add_argument("--moe-impl", default=None, choices=(None, "einsum", "sort"))
     ap.add_argument("--compress-pod-grads", action="store_true")
     ap.add_argument("--dp-layout", action="store_true")
@@ -119,8 +124,11 @@ def main(argv=None) -> list:
     from ..models.lm import ModelOptions
     from ..train.step import TrainConfig
 
-    opts = CellOptions(model=ModelOptions(moe_impl=args.moe_impl),
+    opts = CellOptions(model=ModelOptions(tree_attention=args.tree_attention,
+                                          moe_impl=args.moe_impl),
                        train=TrainConfig(compress_pod_grads=args.compress_pod_grads),
+                       sequence_parallel=args.sequence_parallel,
+                       shard_cache_seq=args.shard_cache_seq,
                        dp_layout=args.dp_layout)
     records = []
     if args.append and os.path.exists(args.out):

@@ -13,16 +13,25 @@ with a window) and decode over a dense cache or a local layer's ring buffer
 to ``kernels.decode_attention`` (``causal_attention`` and
 ``cached_decode_attention`` below; ``impl="plain"`` picks their plain
 versions on any device).  The reference's ``blockwise_causal_attention``
-and ``tree_causal_attention`` are XLA formulations of the same function,
-chunked so that XLA never builds an S x S score matrix; they are not
-ported, because the kernel and its plain version take their place.
-``local_band_attention`` is the reference's band decomposition of local
+is an XLA formulation of the same function, chunked so that XLA never
+builds an S x S score matrix; it is not ported, because the kernel and its
+plain version take its place.  Its exact-causal option,
+``tree_causal_attention`` (``ModelOptions.tree_attention``), is the plain
+path's option here: the kernel already walks each query only up to the
+diagonal.  ``local_band_attention`` is the reference's band decomposition of local
 attention, the plain path of local layers.  ``decode_attention`` here is
 the plain decode layer, which the paged engine's gather path and
 ``impl="plain"`` run.  ``seq_split_decode_attention`` is decode over a
 cache whose positions a model group splits: each rank attends its slice,
 and the partial outputs are merged by their log-sum-exps in rank order
 (``kernels.merge_partials``).
+
+Under sequence parallelism (``sharding.ctx.stream_group``) the residual
+stream holds this rank's positions: ``block_in`` gives a block its whole
+sequence and ``block_out`` gives back the rank's positions of its output,
+and ``stream_leaf`` passes a replicated leaf that the rank reads on its
+positions only (a norm's scale), whose gradient is then a part of the
+whole one.
 """
 
 from __future__ import annotations
@@ -38,7 +47,17 @@ from ..kernels import decode_attention as decode_attention_kernel
 from ..kernels import flash_attention_train, merge_partials
 from ..kernels import rmsnorm as rmsnorm_kernel
 from ..kernels.ref import causal_attention_ref, decode_attention_ref, merge_partials_ref
-from ..sharding.collectives import all_to_all, copy_to_model, gather_stack, sum_over_model
+from ..sharding.collectives import (
+    all_to_all,
+    copy_to_model,
+    gather_over_model,
+    gather_stack,
+    gather_whole_over_model,
+    scatter_sum_over_model,
+    split_over_model,
+    sum_over_model,
+)
+from ..sharding.ctx import stream_group
 
 NEG_INF = -1e30
 ATTN_IMPLS = ("kernel", "plain")
@@ -94,6 +113,50 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if _card_path(a):
         return _MatmulF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
+
+
+# ------------------------------------------------------ sequence parallelism
+
+
+def block_in(x: torch.Tensor, group=None, n: int = 1) -> torch.Tensor:
+    """A block's input (B,S,...) from the residual stream, for a block
+    whose leaves a model ``group`` of n ranks splits (column-parallel in)
+    or, with ``group`` None, whole.  With the stream whole:
+    ``copy_to_model`` (the ranks' gradients summed, where split).  With the
+    stream split over the sequence (``stream_group``): the whole sequence,
+    gathered, whose gradient is this rank's block of the ranks' partial
+    gradients summed (``gather_over_model``) for a split block, or of the
+    whole gradient that every rank computes alike for a whole block
+    (``gather_whole_over_model``)."""
+    sg, sn, sidx = stream_group()
+    if sg is None:
+        return copy_to_model(x, group, n)
+    if group is None:
+        return gather_whole_over_model(x, sg, sn, sidx, 1)
+    return gather_over_model(x, group, n, 1)
+
+
+def block_out(y: torch.Tensor, group=None, n: int = 1) -> torch.Tensor:
+    """A block's output to the residual stream, as ``block_in`` took its
+    input: the ranks' partials (row-parallel) summed in rank order, over
+    the whole sequence (``sum_over_model``) or as this rank's positions of
+    the sum (``scatter_sum_over_model``); a whole block's output as it is,
+    or its rank's positions (``split_over_model``)."""
+    sg, sn, sidx = stream_group()
+    if sg is None:
+        return sum_over_model(y, group, n)
+    if group is None:
+        return split_over_model(y, sg, sn, sidx, 1)
+    return scatter_sum_over_model(y, group, n, 1)
+
+
+def stream_leaf(leaf: torch.Tensor) -> torch.Tensor:
+    """A replicated leaf read on the residual stream (a norm's scale):
+    where the stream holds this rank's positions, each rank computes only
+    their part of its gradient, so the parts are summed over the model
+    group in rank order (``copy_to_model``); otherwise the leaf itself."""
+    sg, sn, _ = stream_group()
+    return copy_to_model(leaf, sg, sn)
 
 
 # --------------------------------------------------------------------- norms
@@ -191,16 +254,78 @@ def local_band_attention(q, k, v, window: int) -> torch.Tensor:
     return out.permute(0, 1, 3, 2, 4).reshape(B, S, H, D).to(q.dtype)
 
 
-def causal_attention(q, k, v, impl: str = "kernel",
-                     window: int = 0) -> torch.Tensor:
+def _online_update(m, l, acc, scores, v_blk):
+    """One online-softmax step: scores (..., q, k) f32, already masked;
+    v_blk (..., k, D) broadcasting against the scores' leading dims; m, l
+    (..., q) and acc (..., q, D) f32."""
+    m_new = torch.maximum(m, scores.amax(dim=-1))
+    p = torch.exp(scores - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    acc_new = acc * corr[..., None] + p @ v_blk.float()
+    return m_new, l_new, acc_new
+
+
+def tree_causal_attention(q, k, v, chunk: int = 512) -> torch.Tensor:
+    """The reference's binary-tree causal decomposition, exact: masked
+    diagonal blocks of ``min(chunk, S)`` queries, then log2(S / chunk)
+    levels of unmasked cross attention (the top half of every span of
+    chunks attends its bottom half), merged by online softmax.  q
+    (B,S,H,D); compact k, v (B,S,KV,D).  Its scores number S chunk (the
+    diagonal blocks) + S^2 / 2 - S chunk / 2 (the levels), which the
+    reference's docstring rounds to S chunk + S^2 / 2; the chunk must
+    divide S into a power of two of chunks (the reference asserts the
+    first, and its halving levels need the second)."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    c = min(chunk, S)
+    nc = S // c
+    if S % c or nc & (nc - 1):
+        raise ValueError(f"tree attention: chunks of {c} do not split the sequence {S} "
+                         "into a power of two of chunks")
+    scale = 1.0 / math.sqrt(D)
+    qs, ks, vs = (x.reshape(B, nc, c, H, D).float() for x in (q, k, v))
+    s = torch.einsum("bnqhd,bnkhd->bnhqk", qs, ks) * scale
+    diag = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    s = torch.where(diag, s, torch.full((), NEG_INF, device=q.device))
+    m = torch.full((B, nc, H, c), NEG_INF, device=q.device)
+    l = torch.zeros((B, nc, H, c), device=q.device)
+    acc = torch.zeros((B, nc, H, c, D), device=q.device)
+    m, l, acc = _online_update(m, l, acc, s, vs.transpose(2, 3))
+    span = 2
+    while span <= nc:
+        ns, half = nc // span, span // 2
+        q_top = qs.reshape(B, ns, span, c, H, D)[:, :, half:]
+        k_bot, v_bot = (x.reshape(B, ns, span, c, H, D)[:, :, :half].reshape(
+            B, ns, half * c, H, D) for x in (ks, vs))
+        s = torch.einsum("bntqhd,bnkhd->bnthqk", q_top, k_bot) * scale
+        m_s, l_s = m.view(B, ns, span, H, c), l.view(B, ns, span, H, c)
+        a_s = acc.view(B, ns, span, H, c, D)
+        top = _online_update(m_s[:, :, half:], l_s[:, :, half:], a_s[:, :, half:], s,
+                             v_bot.transpose(2, 3)[:, :, None])
+        m, l, acc = (torch.cat([x[:, :, :half], t], dim=2).reshape(y.shape)
+                     for x, t, y in zip((m_s, l_s, a_s), top, (m, l, acc)))
+        span *= 2
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(2, 3).reshape(B, S, H, D).to(q.dtype)
+
+
+def causal_attention(q, k, v, impl: str = "kernel", window: int = 0,
+                     tree_chunk: int = 0) -> torch.Tensor:
     """Causal attention over a full sequence: q (B,S,H,D), compact k, v
     (B,S,KV,D) -> (B,S,H,D), through the flash kernels (``impl="kernel"``:
     the forward kernel, and the backward kernel when differentiated) or
     their plain version (``"plain"``).  ``window`` > 0 is local attention:
-    the windowed flash forward, or ``local_band_attention``."""
+    the windowed flash forward, or ``local_band_attention``.  ``tree_chunk``
+    > 0 makes the plain path of global attention the reference's
+    ``tree_causal_attention`` in chunks of it; the kernel, which already
+    does only the causal work, takes no option."""
     if impl == "plain":
         if window:
             return local_band_attention(q, k, v, window)
+        if tree_chunk:
+            return tree_causal_attention(q, k, v, tree_chunk)
         return causal_attention_ref(q, k, v)
     return flash_attention_train(q.contiguous(), k.contiguous(), v.contiguous(),
                                  window=window)
@@ -272,18 +397,28 @@ def mlp_apply(params: dict, x: torch.Tensor, act: str, gated: bool,
     """The MLP on x (..., d) in its dtype.  With a model ``group`` of n
     ranks, ``params`` hold this rank's columns of ``w_up``/``w_gate`` and
     rows of ``w_down`` (column- then row-parallel): the f32 partial
-    products are summed over the group in rank order and rounded once."""
+    products are summed over the group in rank order and rounded once.
+    Where the stream holds this rank's positions, x (B,S,d) is them, and so
+    is the output (``block_in``, ``block_out``)."""
     dt = x.dtype
-    x = copy_to_model(x, group, n)
+    y = mlp_partial(params, block_in(x, group, n), act, gated, group is not None)
+    return block_out(y, group, n).to(dt)
+
+
+def mlp_partial(params: dict, x: torch.Tensor, act: str, gated: bool,
+                partial: bool) -> torch.Tensor:
+    """The MLP's product on x in its dtype, or, where ``partial`` (the
+    leaves a rank's columns and rows), this rank's f32 partial of it."""
+    dt = x.dtype
     u = matmul_f32(x, params["w_up"].to(dt))
     if gated:
         g = matmul_f32(x, params["w_gate"].to(dt))
         h = (act_fn(act)(g) * u).to(dt)
     else:
         h = act_fn(act)(u).to(dt)
-    if group is None:
+    if not partial:
         return h @ params["w_down"].to(dt)
-    return sum_over_model(matmul_f32(h, params["w_down"].to(dt)), group, n).to(dt)
+    return matmul_f32(h, params["w_down"].to(dt))
 
 
 def init_mlp(gen: torch.Generator, d: int, d_ff: int, gated: bool,

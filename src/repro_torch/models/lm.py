@@ -42,12 +42,24 @@ from ..configs.base import ArchConfig
 from ..convert import cast_params, map_params
 from ..device import resolve_device
 from ..sharding.collectives import (
+    all_to_all,
     copy_to_model,
+    gather_stack,
     ordered_max,
     ordered_sum,
+    scatter_sum_over_model,
+    split_over_model,
     sum_over_model,
 )
-from ..sharding.ctx import loss_group, model_group, rebind
+from ..sharding.ctx import (
+    cache_seq_split,
+    loss_group,
+    model_group,
+    rebind,
+    sequence_parallel,
+    split_stream,
+    stream_group,
+)
 from ..sharding.specs import kv_cache_split
 from . import recurrent as rec
 from .moe import IMPLS as MOE_IMPLS
@@ -55,6 +67,8 @@ from .moe import init_moe, moe_apply
 from .layers import (
     ATTN_IMPLS,
     apply_rope,
+    block_in,
+    block_out,
     cached_decode_attention,
     causal_attention,
     dense_init,
@@ -65,6 +79,7 @@ from .layers import (
     rmsnorm,
     rope_table,
     seq_split_decode_attention,
+    stream_leaf,
 )
 
 
@@ -76,14 +91,19 @@ class ModelOptions:
     versions (``"plain"``, which tests and ``chip_smoke.py`` compare
     against).  ``mlstm_chunk`` is the mLSTM recurrence's chunk length, the
     reference's default.  ``moe_impl``, if given, overrides ``MoECfg.impl``
-    (the MoE dispatch path: ``"einsum"`` or ``"sort"``).  The reference's
-    other knobs (attention chunking, Pallas hooks) have no counterpart:
-    the kernels take their place."""
+    (the MoE dispatch path: ``"einsum"`` or ``"sort"``).  ``tree_attention``
+    makes the plain path of global attention the reference's
+    ``tree_causal_attention`` in chunks of ``q_chunk`` (its default); the
+    flash kernel, which already does only the causal work, runs as it is.
+    The reference's other knobs (its XLA attention's key chunk, Pallas
+    hooks) have no counterpart: the kernels take their place."""
 
     compute_dtype: str = "bfloat16"
     attn_impl: str = "kernel"
     mlstm_chunk: int = 128
     moe_impl: Optional[str] = None
+    tree_attention: bool = False
+    q_chunk: int = 512
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -292,13 +312,16 @@ def _layers(tree, plan: StackPlan):
 
 
 def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final norm, the (tied) head accumulated in f32, softcap, vocab mask."""
-    x = rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    """Final norm, the (tied) head accumulated in f32, softcap, vocab mask.
+    Under sequence parallelism the norm runs on this rank's positions, which
+    are then gathered: the vocab split wins at the head, as in the
+    reference."""
+    x = rmsnorm(x, stream_leaf(params["final_norm"]["scale"]), cfg.norm_eps)
     head = (params["embed"]["table"].T if cfg.tie_embeddings
             else params["head"]["w"])
     # vocab-parallel: this rank's columns of the head
     group, n, offset = _vocab_group(cfg, head.shape[1])
-    logits = matmul_f32(copy_to_model(x, group, n), head.to(x.dtype))
+    logits = matmul_f32(block_in(x, group, n), head.to(x.dtype))
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return _mask_padded_vocab(logits, cfg, offset)
@@ -307,11 +330,14 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------ forward
 
 
-def _embed_tokens(params, cfg: ArchConfig, tokens, dtype) -> torch.Tensor:
+def _embed_tokens(params, cfg: ArchConfig, tokens, dtype,
+                  scatter: bool = False) -> torch.Tensor:
     """The embedding rows of ``tokens`` (any shape) in ``dtype``, scaled
     where the config asks.  Vocab-parallel under a bound model group whose
     ranks hold vocab blocks of the table: each token's row comes from the
-    one rank that holds it, summed over the group (adding zeros: exact)."""
+    one rank that holds it, summed over the group (adding zeros: exact);
+    with ``scatter``, tokens (B,S) give this rank's block of the positions
+    of that sum (sequence parallelism)."""
     # F.embedding, not indexing: on the CPU the backward of indexing adds
     # rows in an order that depends on threads, so two equal train steps
     # could part in the last bits
@@ -323,7 +349,8 @@ def _embed_tokens(params, cfg: ArchConfig, tokens, dtype) -> torch.Tensor:
         local = tokens.long() - offset
         own = (local >= 0) & (local < table.shape[0])
         x = F.embedding(torch.where(own, local, 0), table) * own[..., None]
-        x = sum_over_model(x, group, n)
+        x = (scatter_sum_over_model(x, group, n, 1) if scatter
+             else sum_over_model(x, group, n))
     x = x.to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=x.device)
@@ -337,7 +364,16 @@ def embed_inputs(params, cfg: ArchConfig, tokens, frontend_embeds,
     A config with a frontend takes ``frontend_embeds`` (B,F,frontend_dim),
     projects them by ``frontend.w`` in ``dtype`` and puts them ahead of
     the (scaled) tokens: (B, F+S, d).  Other configs ignore them, as the
-    reference does."""
+    reference does.
+
+    Where the stream is split over the sequence (``stream_group``) the
+    result is this rank's block of the positions: the vocab-parallel sum
+    scattered over them where no frontend comes first, else the whole
+    stream, which every rank computes alike, cut."""
+    sg, sn, sidx = stream_group()
+    vocab_split = _vocab_group(cfg, params["embed"]["table"].shape[0])[0] is not None
+    if sg is not None and vocab_split and not cfg.frontend:
+        return _embed_tokens(params, cfg, tokens, dtype, scatter=True)
     x = _embed_tokens(params, cfg, tokens, dtype)
     if cfg.frontend:
         if frontend_embeds is None:
@@ -348,7 +384,7 @@ def embed_inputs(params, cfg: ArchConfig, tokens, frontend_embeds,
         fe = (frontend_embeds.to(device=x.device, dtype=dtype)
               @ params["frontend"]["w"].to(dtype))
         x = torch.cat([fe, x], dim=1)
-    return x
+    return split_over_model(x, sg, sn, sidx, 1)
 
 
 def _attention_block(aparams, cfg: ArchConfig, x, sin, cos,
@@ -365,17 +401,21 @@ def _attention_block(aparams, cfg: ArchConfig, x, sin, cos,
     once).  Where ``wk``/``wv`` hold every KV head, this rank reads the KV
     heads its query heads map to; the gradients of the leaves every rank
     reads whole (those K/V weights and biases, the qk-norm scales) are
-    summed over the group."""
+    summed over the group.
+
+    Under sequence parallelism x is this rank's positions: the block takes
+    the whole sequence (``block_in``) and gives back its rank's positions
+    of the output (``block_out``); the K/V returned cover every position."""
     dt = x.dtype
-    B, S, _ = x.shape
     H, KV, hd = aparams["wq"].shape[1], aparams["wk"].shape[1], cfg.head_dim
     group, n, idx = model_group()
     if H == cfg.num_heads:  # the heads are not split: the block runs whole
         group, n = None, 1
     ap = dict(aparams)
     sel = None  # the KV heads of this rank's queries, where wk holds every one
+    x = block_in(x, group, n)
+    B, S, _ = x.shape
     if group is not None:
-        x = copy_to_model(x, group, n)
         for name in ("q_norm", "k_norm"):
             if name in ap:
                 ap[name] = {"scale": copy_to_model(ap[name]["scale"], group, n)}
@@ -403,11 +443,12 @@ def _attention_block(aparams, cfg: ArchConfig, x, sin, cos,
     # the kernel reads the compact K/V through h // G: no GQA repeat
     window = cfg.window if kind == "local" else 0
     ka, va = (_pick(k, sel, 2), _pick(v, sel, 2)) if whole_kv and sel is not None else (k, v)
-    out = causal_attention(q, ka, va, opts.attn_impl, window).reshape(B, S, H * hd)
+    out = causal_attention(q, ka, va, opts.attn_impl, window,
+                           opts.q_chunk if opts.tree_attention else 0).reshape(B, S, H * hd)
     wo = ap["wo"].flatten(0, 1).to(dt)
     if group is None:
-        return out @ wo, (k, v)
-    return sum_over_model(matmul_f32(out, wo), group, n).to(dt), (k, v)
+        return block_out(out @ wo), (k, v)
+    return block_out(matmul_f32(out, wo), group, n).to(dt), (k, v)
 
 
 def _pick(x: torch.Tensor, sel, dim: int) -> torch.Tensor:
@@ -435,9 +476,12 @@ def _pack_kv_cache(k, v, kind: str, cfg: ArchConfig, max_len: int) -> dict:
     """Full-sequence K/V (B,S,KV,hd) as the decode cache.  Global attention:
     zero-padded to (B, max_len, KV, hd).  Local attention: a ring buffer of
     ``min(window, max_len)`` slots, position p in slot p % w.  Under a bound
-    model group whose cache splits over the sequence (every KV head here,
-    ``kv_cache_split`` "seq"), this rank's block of the positions or slots:
-    rank r holds [r P / n, (r + 1) P / n) of the P the whole cache has."""
+    model group whose cache splits over the sequence (``kv_cache_split``
+    "seq"), this rank's block of the positions or slots, every KV head:
+    rank r holds [r P / n, (r + 1) P / n) of the P the whole cache has.
+    Where ``wk`` split the KV heads (``shard_cache_seq``), the rank's heads
+    over every position become every head over its positions by one
+    all-to-all (``_heads_to_positions``)."""
     B, S = k.shape[:2]
     group, n, idx = model_group()
     if kind == "local":
@@ -448,7 +492,10 @@ def _pack_kv_cache(k, v, kind: str, cfg: ArchConfig, max_len: int) -> dict:
         buf_v = v.new_zeros((B, w, *v.shape[2:]))
         buf_k[:, slots] = k[:, S - m:]
         buf_v[:, slots] = v[:, S - m:]
-        if group is not None and _seq_split(cfg, k.shape[2], w, n):
+        if group is not None and _seq_split(cfg, w, n):
+            if k.shape[2] != cfg.num_kv_heads:
+                return {"k": _heads_to_positions(buf_k, group, n),
+                        "v": _heads_to_positions(buf_v, group, n)}
             size = w // n
             buf_k, buf_v = (b.narrow(1, idx * size, size).clone() for b in (buf_k, buf_v))
         return {"k": buf_k, "v": buf_v}
@@ -456,7 +503,10 @@ def _pack_kv_cache(k, v, kind: str, cfg: ArchConfig, max_len: int) -> dict:
     if pad < 0:
         raise ValueError(f"max_len {max_len} is shorter than the sequence "
                          f"{k.shape[1]}")
-    if group is not None and _seq_split(cfg, k.shape[2], max_len, n):
+    if group is not None and _seq_split(cfg, max_len, n):
+        if k.shape[2] != cfg.num_kv_heads:
+            return {name: _heads_to_positions(F.pad(t, (0, 0, 0, 0, 0, pad)), group, n)
+                    for name, t in (("k", k), ("v", v))}
         size = max_len // n
         lo = min(idx * size, S)
         hi = min(lo + size, S)
@@ -466,13 +516,22 @@ def _pack_kv_cache(k, v, kind: str, cfg: ArchConfig, max_len: int) -> dict:
             "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
 
 
-def _seq_split(cfg: ArchConfig, kv_heads: int, positions: int, n: int) -> bool:
+def _seq_split(cfg: ArchConfig, positions: int, n: int) -> bool:
     """Whether a model group of n ranks splits an attention cache of
-    ``positions`` whose K/V hold ``kv_heads`` heads over the sequence: they
-    hold every KV head, and the reference's placement splits the positions
-    (``sharding.specs.kv_cache_split``)."""
-    return (kv_heads == cfg.num_kv_heads
-            and kv_cache_split(positions, cfg.num_kv_heads, n) == "seq")
+    ``positions`` over the sequence, as the reference's placement does under
+    the bound rules (``sharding.specs.kv_cache_split``)."""
+    return kv_cache_split(positions, cfg.num_kv_heads, n, cache_seq_split()) == "seq"
+
+
+def _heads_to_positions(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """(B, P, KV / n, hd), this rank's KV heads over every position ->
+    (B, P / n, KV, hd), every KV head over this rank's block of the
+    positions: block j of the positions goes to rank j (one all-to-all),
+    and the ranks' heads are joined in rank order."""
+    B, P, kv, hd = t.shape
+    blocks = t.reshape(B, n, P // n, kv, hd).transpose(0, 1).contiguous()
+    got = all_to_all(blocks, group, n, "all_to_all")  # block j: rank j's heads
+    return got.permute(1, 2, 0, 3, 4).reshape(B, P // n, n * kv, hd)
 
 
 def _apply_layer_seq(lparams, cfg: ArchConfig, spec: LayerSpec, x, sin, cos,
@@ -482,7 +541,7 @@ def _apply_layer_seq(lparams, cfg: ArchConfig, spec: LayerSpec, x, sin, cos,
     check_supported(spec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     impl = opts.attn_impl
-    h = rmsnorm(x, lparams["norm1"]["scale"], cfg.norm_eps)
+    h = rmsnorm(x, stream_leaf(lparams["norm1"]["scale"]), cfg.norm_eps)
     if spec.kind in ("attn", "local"):
         mix, (k, v) = _attention_block(lparams["attn"], cfg, h, sin, cos, opts,
                                        spec.kind, whole_kv=want_state)
@@ -514,15 +573,16 @@ def ffn_block(lparams, cfg: ArchConfig, spec: LayerSpec, x, opts: ModelOptions):
     tokens, together.  Returns (x, the MoE's aux loss or None).  Under a
     bound model group the dense MLP, and the MoE's routed and shared experts
     (``moe_apply`` reads the group itself), run on the leaves' local blocks
-    where the partition splits them."""
+    where the partition splits them; under sequence parallelism x and the
+    result are this rank's positions, and both take the whole sequence."""
     if spec.use_moe:
-        h2 = rmsnorm(x, lparams["norm2"]["scale"], cfg.norm_eps)
+        h2 = rmsnorm(x, stream_leaf(lparams["norm2"]["scale"]), cfg.norm_eps)
         seq = x.dim() == 3
         m = cfg.moe if opts.moe_impl is None else replace(cfg.moe, impl=opts.moe_impl)
         out, aux = moe_apply(lparams["moe"], h2 if seq else h2[:, None], m, cfg.act)
         return x + (out if seq else out[:, 0]), aux
     if spec.d_ff > 0:
-        h2 = rmsnorm(x, lparams["norm2"]["scale"], cfg.norm_eps)
+        h2 = rmsnorm(x, stream_leaf(lparams["norm2"]["scale"]), cfg.norm_eps)
         group, n, _ = model_group()
         if lparams["mlp"]["w_up"].shape[-1] == spec.d_ff:  # ff not split: whole
             group, n = None, 1
@@ -548,31 +608,38 @@ def _run_seq(params, cfg: ArchConfig, tokens, frontend_embeds,
              opts: ModelOptions, want_state: bool, max_len: int,
              remat: bool = False):
     plan = stack_plan(cfg)
-    x = embed_inputs(params, cfg, tokens, frontend_embeds, opts.dtype)
-    S = x.shape[1]
-    positions = torch.arange(S, device=x.device)[None, :]
-    sin, cos = rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    states = {"prefix": [], "main": [[] for _ in plan.pattern], "tail": []}
+    S = tokens.shape[1]
+    if cfg.frontend and frontend_embeds is not None:
+        S += frontend_embeds.shape[1]
+    # sequence parallelism: between blocks the stream holds this rank's
+    # block of the positions (``sharding.ctx.split_stream``)
+    with split_stream(sequence_parallel(S)):
+        x = embed_inputs(params, cfg, tokens, frontend_embeds, opts.dtype)
+        positions = torch.arange(S, device=x.device)[None, :]
+        sin, cos = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        states = {"prefix": [], "main": [[] for _ in plan.pattern], "tail": []}
 
-    def run(layers, specs, seg, x, aux_total):
-        for i, (spec, lp) in enumerate(zip(specs, layers)):
-            out = _apply_layer_seq(lp, cfg, spec, x, sin, cos, opts,
-                                   want_state=want_state, max_len=max_len)
-            x, aux_total = out[0], aux_total + out[1]
-            if want_state:
-                (states[seg][i] if seg == "main" else states[seg]).append(out[2])
-        return x, aux_total
+        def run(layers, specs, seg, x, aux_total):
+            for i, (spec, lp) in enumerate(zip(specs, layers)):
+                out = _apply_layer_seq(lp, cfg, spec, x, sin, cos, opts,
+                                       want_state=want_state, max_len=max_len)
+                x, aux_total = out[0], aux_total + out[1]
+                if want_state:
+                    (states[seg][i] if seg == "main" else states[seg]).append(out[2])
+            return x, aux_total
 
-    x, aux_total = run(params["prefix"], plan.prefix, "prefix", x, aux_total)
-    for group in _unstack(params["main"], plan.num_groups):
-        if remat:  # the reference's jax.checkpoint around its scan body
-            x, aux_total = checkpoint(rebind(run), group, plan.pattern, "main", x,
-                                      aux_total, use_reentrant=False)
-        else:
-            x, aux_total = run(group, plan.pattern, "main", x, aux_total)
-    x, aux_total = run(params["tail"], plan.tail, "tail", x, aux_total)
-    return _logits(params, cfg, x), aux_total, states
+        x, aux_total = run(params["prefix"], plan.prefix, "prefix", x, aux_total)
+        for group in _unstack(params["main"], plan.num_groups):
+            if remat:  # the reference's jax.checkpoint around its scan body; the
+                # recompute runs under this binding (``rebind``), where a split
+                # stream's gathers must run again
+                x, aux_total = checkpoint(rebind(run), group, plan.pattern, "main", x,
+                                          aux_total, use_reentrant=False)
+            else:
+                x, aux_total = run(group, plan.pattern, "main", x, aux_total)
+        x, aux_total = run(params["tail"], plan.tail, "tail", x, aux_total)
+        return _logits(params, cfg, x), aux_total, states
 
 
 def forward(params, cfg: ArchConfig, tokens, frontend_embeds=None,
@@ -710,7 +777,9 @@ def _decode_attention(ap, cfg: ArchConfig, kind: str, state, h, sin, cos,
     split, only the rank that holds the new token's slot writes it, and the
     ranks' partial outputs are merged (``layers.seq_split_decode_attention``);
     a whole cache, each rank attends its heads over the KV heads they
-    read."""
+    read.  Where the cache holds every KV head over this rank's positions
+    while ``wk`` splits them (``shard_cache_seq``), the ranks' new K/V are
+    gathered first, so that the rank holding the slot writes every head."""
     dt = h.dtype
     B = h.shape[0]
     H, KV, hd = ap["wq"].shape[1], ap["wk"].shape[1], cfg.head_dim
@@ -718,16 +787,17 @@ def _decode_attention(ap, cfg: ArchConfig, kind: str, state, h, sin, cos,
     heads_split = group is not None and H != cfg.num_heads
     split = "whole"
     Smax = state["k"].shape[1]
+    cache_kv = state["k"].shape[2]
     if group is not None:
-        if state["k"].shape[2] != KV:
-            raise ValueError(f"the cache holds {state['k'].shape[2]} KV heads and wk {KV}")
+        if cache_kv != KV and (cache_kv != cfg.num_kv_heads or KV * n != cache_kv):
+            raise ValueError(f"the cache holds {cache_kv} KV heads and wk {KV}")
         S = Smax
         if positions is not None:
             S = min(cfg.window, positions) if kind == "local" else positions
         if S not in (Smax, Smax * n):
             raise ValueError(f"a cache of {S} positions, of which this rank holds {Smax} "
                              f"over {n} ranks")
-        split = "kv" if KV != cfg.num_kv_heads else "seq" if S != Smax else "whole"
+        split = "kv" if cache_kv != cfg.num_kv_heads else "seq" if S != Smax else "whole"
     # the reference's einsums name no accumulation type here: the
     # projections come out in the compute dtype
     q = (h @ ap["wq"].flatten(1).to(dt)).view(B, H, hd)
@@ -741,6 +811,9 @@ def _decode_attention(ap, cfg: ArchConfig, kind: str, state, h, sin, cos,
         k = rmsnorm(k, ap["k_norm"]["scale"], cfg.norm_eps)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
+    if cache_kv != KV:  # (n, B, KV / n, hd) -> (B, KV, hd): every rank's heads
+        k, v = (gather_stack(t, group, n).transpose(0, 1).reshape(B, cache_kv, hd)
+                for t in (k, v))
     # local: the ring buffer's slot; global: a row past the end writes the
     # last slot (the reference clamps too)
     S = Smax * n if split == "seq" else Smax

@@ -33,6 +33,14 @@ tokens and the router reach the routed part through ``copy_to_model``, so
 their gradients are the sums of every rank's terms.  The shared experts are
 column- then row-parallel where their width is split (``mlp_apply``);
 qwen2's gate reads the block input whole and scales the summed output.
+
+Under sequence parallelism the layer takes this rank's positions of the
+normed stream and gathers them over the sequence before routing
+(``layers.block_in``), so the routing groups and the capacity are the
+whole sequence's, as the reference's global semantics give; the routed and
+shared partials come back as this rank's positions of their rank-ordered
+sums (``layers.block_out``).  A part whose leaves are whole runs alike on
+every rank over the gathered sequence and keeps its rank's positions.
 """
 
 from __future__ import annotations
@@ -50,8 +58,18 @@ from ..sharding.collectives import (
     sum_over,
     sum_over_model,
 )
-from ..sharding.ctx import loss_group, loss_index, model_group, whole_batch
-from .layers import act_fn, bmm_f32, dense_init, matmul_f32, mlp_apply
+from ..sharding.ctx import loss_group, loss_index, model_group, stream_group, whole_batch
+from .layers import (
+    act_fn,
+    block_in,
+    block_out,
+    bmm_f32,
+    dense_init,
+    matmul_f32,
+    mlp_apply,
+    mlp_partial,
+    stream_leaf,
+)
 
 IMPLS = ("einsum", "sort")
 
@@ -260,9 +278,11 @@ def moe_apply(params: dict, x: torch.Tensor, m: MoECfg, act: str):
     where ``params`` hold this rank's E / n routed experts, the layer is
     expert-parallel, and where they hold its columns of the shared experts,
     those are column- then row-parallel; a part whose leaves are whole runs
-    whole."""
+    whole.  Where the stream holds this rank's positions
+    (``sharding.ctx.stream_group``), x and the output are them, and the
+    tokens are routed over the whole sequence."""
     B, S, d = x.shape
-    T = B * S
+    T = B * S * stream_group()[1]  # the whole sequence's tokens
     lgroup, n_loss = loss_group()
     g = min(m.group_size, T * n_loss)
     if T % g and not g % T and not (torch.is_grad_enabled() and x.requires_grad):
@@ -278,27 +298,32 @@ def moe_apply(params: dict, x: torch.Tensor, m: MoECfg, act: str):
                 f"over {n_loss} ranks)" if n_loss > 1 else ""))
     if m.impl not in IMPLS:
         raise ValueError(f"MoE impl must be one of {IMPLS}, got {m.impl!r}")
-    xg = x.reshape(T // g, g, d)
     dispatch = _moe_sort if m.impl == "sort" else _moe_einsum
     group, n, index = model_group()
     El = params["w_gate"].shape[0]
-    if El < m.num_experts:  # expert-parallel: this rank's block of experts
+    ep = El < m.num_experts  # expert-parallel: this rank's block of experts
+    routed = (group, n) if ep else (None, 1)
+    xr = block_in(x, *routed)  # the whole sequence under sequence parallelism
+    xg = xr.reshape(T // g, g, d)
+    if ep:
         if El * n != m.num_experts:
             raise ValueError(f"MoE: {El} of {m.num_experts} experts a rank over "
                              f"{n} ranks")
         rp = {**params, "router": copy_to_model(params["router"], group, n)}
-        out, aux = dispatch(rp, copy_to_model(xg, group, n), m, act, index * El)
-        out = sum_over_model(out, group, n).to(x.dtype)
+        out, aux = dispatch(rp, xg, m, act, index * El)
         aux = sum_over_model(aux, group, n)
     else:
         out, aux = dispatch(params, xg, m, act)
-    out = out.reshape(B, S, d)
+    out = block_out(out.reshape(xr.shape), *routed).to(x.dtype)
     if "shared" in params:
-        if params["shared"]["w_up"].shape[-1] == m.num_shared * m.d_expert:
-            group, n = None, 1  # the shared width not split: whole
-        y = mlp_apply(params["shared"], x, act, gated=True, group=group, n=n)
-        if "shared_gate" in params:
-            gate = torch.sigmoid(x.float() @ params["shared_gate"].float())
+        split = params["shared"]["w_up"].shape[-1] != m.num_shared * m.d_expert
+        shared = (group, n) if split else (None, 1)
+        if stream_group()[0] is not None and split == ep:  # one gather serves both
+            y = block_out(mlp_partial(params["shared"], xr, act, True, split), *shared).to(x.dtype)
+        else:
+            y = mlp_apply(params["shared"], x, act, gated=True, group=shared[0], n=shared[1])
+        if "shared_gate" in params:  # read on this rank's positions of the stream
+            gate = torch.sigmoid(x.float() @ stream_leaf(params["shared_gate"]).float())
             y = (y.float() * gate).to(x.dtype)
         out = out + y
     return out, aux

@@ -55,6 +55,15 @@ over the ranks adds in rank order and is rounded once:
   partition leaves them; its FFN column- then row-parallel.  Its decode
   state ``h``/``c``/``n``/``m`` rests split by channel: the step gathers
   it, runs the cell and keeps its block; the prefill returns its block.
+
+Under sequence parallelism (``sharding.ctx.stream_group``) each block
+takes this rank's positions of the normed stream and gives back its
+positions of the output: the split blocks gather the sequence in and
+scatter their row-parallel sums out (``layers.block_in`` /
+``block_out``), and a block whose leaves are whole runs alike on every
+rank over the gathered sequence and keeps its positions.  The sLSTM's cell
+is such a part: its output ``out`` is cut to the rank's positions, not
+summed, and added to the rank's positions of its FFN's sum.
 """
 
 from __future__ import annotations
@@ -75,7 +84,15 @@ from ..sharding.collectives import (
     sum_over_model,
 )
 from ..sharding.ctx import model_group
-from .layers import act_fn, dense_init, init_rmsnorm, matmul_f32, rmsnorm
+from .layers import (
+    act_fn,
+    block_in,
+    block_out,
+    dense_init,
+    init_rmsnorm,
+    matmul_f32,
+    rmsnorm,
+)
 
 RGLRU_C = 8.0  # Griffin's fixed gate sharpness constant
 SLSTM_GATES = ("z", "i", "f", "o")
@@ -171,21 +188,23 @@ def _rglru_gates(params: dict, xr: torch.Tensor, group=None, n: int = 1):
 
 def _rglru_out(params: dict, h: torch.Tensor, gate: torch.Tensor, dt, group,
                n: int) -> torch.Tensor:
-    """The gated state through ``w_o`` (row-parallel with a model group)."""
+    """The gated state through ``w_o`` (row-parallel with a model group),
+    to the stream (``block_out``)."""
     y = h.to(dt) * gate
     if group is None:
-        return (y @ params["w_o"].to(dt)).to(dt)
-    return sum_over_model(matmul_f32(y, params["w_o"].to(dt)), group, n).to(dt)
+        return block_out((y @ params["w_o"].to(dt)).to(dt))
+    return block_out(matmul_f32(y, params["w_o"].to(dt)), group, n).to(dt)
 
 
 def rglru_seq(params: dict, x: torch.Tensor, return_state: bool = False,
               impl: str = "kernel"):
     """The RG-LRU mix over a sequence.  x (B,S,d), already normed ->
     (B,S,d) [, state {h (B,d_rnn) f32, conv (B,W-1,d_rnn)}, this rank's
-    channels under a model group]."""
+    channels under a model group]; x and the output this rank's positions
+    under sequence parallelism."""
     dt = x.dtype
     group, n, _ = _split(params["w_a"].shape[1], params["w_a"].shape[0])
-    x = copy_to_model(x, group, n)
+    x = block_in(x, group, n)
     gate = act_fn("gelu")(x @ params["w_g"].to(dt))
     xr_pre = x @ params["w_x"].to(dt)
     xr = causal_conv_seq(xr_pre, params["conv_w"], params["conv_b"])
@@ -306,11 +325,12 @@ def _mlstm_qkvif(params: dict, xc: torch.Tensor, x_inner: torch.Tensor,
 
 def _mlstm_up(params: dict, x: torch.Tensor, tp: tuple = _WHOLE):
     """The up projection split into the inner stream and the z gate (the
-    rank's blocks of both under a model group)."""
+    rank's blocks of both under a model group), from the stream
+    (``block_in``)."""
     group, n, idx, _ = tp
     w = params["w_up"].to(x.dtype)
+    x = block_in(x, group, n)
     if group is not None:
-        x = copy_to_model(x, group, n)
         w = pair_columns(w, group, n, idx)
     up = x @ w
     c = w.shape[-1] // 2
@@ -322,20 +342,21 @@ def _mlstm_out(params: dict, h: torch.Tensor, z: torch.Tensor,
     """Group norm of the f32 recurrence output rounded to ``dt``, the z gate,
     the down projection.  Under a model group the norm reads the whole
     width (the ranks' heads joined, where they split them), and the rank
-    gates its block and takes its rows of ``w_down``."""
+    gates its block and takes its rows of ``w_down``; the result goes to
+    the stream (``block_out``)."""
     group, n, idx, heads_split = tp
     scale = params["gn"]["scale"]
     h = h.to(dt)
     if group is None:
         h = rmsnorm(h, scale) * F.silu(z)
-        return (h @ params["w_down"].to(dt)).to(dt)
+        return block_out((h @ params["w_down"].to(dt)).to(dt))
     if heads_split:
         h = rmsnorm(gather_over_model(h, group, n), copy_to_model(scale, group, n))
     else:
         h = copy_to_model(rmsnorm(h, scale), group, n)
     c = z.shape[-1]
     h = h[..., idx * c:(idx + 1) * c] * F.silu(z)
-    return sum_over_model(matmul_f32(h, params["w_down"].to(dt)), group, n).to(dt)
+    return block_out(matmul_f32(h, params["w_down"].to(dt)), group, n).to(dt)
 
 
 def mlstm_seq(params: dict, x: torch.Tensor, num_heads: int, *,
@@ -343,11 +364,12 @@ def mlstm_seq(params: dict, x: torch.Tensor, num_heads: int, *,
               impl: str = "kernel"):
     """The mLSTM mix over a sequence.  x (B,S,d), normed -> (B,S,d) [, state
     {C, n, m (f32), conv}, the rank's heads and channels under a model
-    group].  The prefill takes the final carry from the same kernel."""
+    group]; x and the output this rank's positions under sequence
+    parallelism.  The prefill takes the final carry from the same kernel."""
     dt = x.dtype
-    B, S, d = x.shape
     tp = _mlstm_split(params, num_heads)
     x_inner, z = _mlstm_up(params, x, tp)
+    B, S = x_inner.shape[:2]
     xc = F.silu(causal_conv_seq(x_inner, params["conv_w"], params["conv_b"]))
     q, k, v, i_pre, f_pre = _mlstm_qkvif(params, xc, x_inner, num_heads, tp)
     rec = kernels.mlstm_chunk if impl == "kernel" else mlstm_chunk_ref
@@ -466,7 +488,10 @@ def _slstm_out(params: dict, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Group norm, output projection and the gated FFN sub-layer (its
     residual inside; the caller adds the block-input residual).  The FFN
     is column- then row-parallel where the leaves hold a block of its
-    width under a bound model group."""
+    width under a bound model group.  Under sequence parallelism h and x
+    are the whole sequence, which every rank's cell ran alike: ``out`` is
+    cut to this rank's positions, the FFN's partials scattered over them
+    (``block_out``)."""
     dt = x.dtype
     h = rmsnorm(h.to(dt), params["gn"]["scale"])
     out = (h @ params["w_o_proj"].to(dt)).to(dt)
@@ -477,8 +502,9 @@ def _slstm_out(params: dict, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     u = (y @ ffn["w_up"].to(dt)).float()
     gu = (g * u).to(dt)
     if group is None:
-        return out + (gu @ ffn["w_down"].to(dt)).to(dt)
-    return out + sum_over_model(matmul_f32(gu, ffn["w_down"].to(dt)), group, n).to(dt)
+        return block_out(out + (gu @ ffn["w_down"].to(dt)).to(dt))
+    return block_out(out) + block_out(matmul_f32(gu, ffn["w_down"].to(dt)), group,
+                                      n).to(dt)
 
 
 def _state_group(d: int) -> tuple:
@@ -604,7 +630,10 @@ def slstm_seq(params: dict, x: torch.Tensor, num_heads: int,
     ``slstm_init_state`` (through ``_SlstmScan``, whose backward is the
     reference's hand-written VJP, unless the final state is asked for, as
     in the reference), then ``_slstm_out``.  x (B,S,d) normed -> (B,S,d)
-    [, the final state]."""
+    [, the final state]; under sequence parallelism x and the output are
+    this rank's positions, and the cell runs whole on every rank over the
+    gathered sequence (``block_in``)."""
+    x = block_in(x)
     B, S, d = x.shape
     pre = _slstm_pre(params, x)  # (4,B,S,d)
     R = _slstm_R(params)

@@ -20,6 +20,12 @@ for a block split along one dim: the ranks' blocks gathered in rank order
 (backward, the rank's block of the rank-ordered sum of the ranks'
 gradients), and the rank's block of the rank-ordered sum of the ranks'
 partials (backward, the ranks' gradient blocks gathered).
+``gather_whole_over_model`` and ``split_over_model`` bound a region that
+every rank computes alike on the whole (under sequence parallelism, a
+block whose leaves are whole): the ranks' blocks gathered (backward, this
+rank's block of the gradient, alike on every rank), and this rank's block
+of a tensor every rank holds alike (backward, the ranks' gradient blocks
+gathered).
 ``pair_columns`` moves blocks of columns between the ranks
 (``_move_blocks``, an all-to-all of uneven parts), the mLSTM's ``w_up``
 from the reference's partition to the blocks a rank computes on.
@@ -34,8 +40,10 @@ group's mesh axes: ``all_gather``, ``ordered_sum``,
 ``ordered_reduce_scatter``, ``ordered_max``, ``merge_partials`` for the
 exchange of a sequence-split decode's partial outputs (``gather_stack``
 or ``all_to_all`` under that kind), ``gather_activations`` for
-``gather_over_model`` and the backward of ``scatter_sum_over_model``, and
-``pair_columns``.
+``gather_over_model``, ``gather_whole_over_model`` and the backwards of
+``scatter_sum_over_model`` and ``split_over_model``, ``pair_columns``, and
+``all_to_all`` for a prefill's K/V moved from KV heads to positions
+(``models.lm._heads_to_positions``).
 """
 
 from __future__ import annotations
@@ -292,6 +300,58 @@ def scatter_sum_over_model(x: torch.Tensor, group, n: int, dim: int = -1) -> tor
     """This rank's block along ``dim`` of the model group's partials summed
     in rank order, whose gradient is the ranks' gradient blocks joined."""
     return x if group is None else _ScatterSumOverModel.apply(x, group, n, dim % x.dim())
+
+
+class _GatherWholeOverModel(torch.autograd.Function):
+    """The ranks' blocks joined along ``dim`` in rank order, for compute
+    that every rank repeats alike on the whole; backward, this rank's block
+    of the gradient (every rank's is the same)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, idx, dim):
+        ctx.n, ctx.idx, ctx.dim = n, idx, dim
+        return _gather_dim(x.detach(), group, n, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _own_block(grad, ctx.n, ctx.idx, ctx.dim), None, None, None, None
+
+
+class _SplitOverModel(torch.autograd.Function):
+    """This rank's block along ``dim`` of a tensor every rank holds alike;
+    backward, the ranks' gradient blocks joined in rank order."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, idx, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return _own_block(x.detach(), n, idx, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_dim(grad, ctx.group, ctx.n, ctx.dim), None, None, None, None
+
+
+def _own_block(x: torch.Tensor, n: int, idx: int, dim: int) -> torch.Tensor:
+    """Block ``idx`` of n equal blocks of ``x`` along ``dim``."""
+    size = x.shape[dim] // n
+    return x.narrow(dim, idx * size, size).contiguous()
+
+
+def gather_whole_over_model(x: torch.Tensor, group, n: int, idx: int,
+                            dim: int = -1) -> torch.Tensor:
+    """The model group's blocks of a tensor split along ``dim``, joined in
+    rank order, for a region every rank computes alike; its gradient is
+    this rank's (``idx``) block of the (alike) whole gradient."""
+    if group is None:
+        return x
+    return _GatherWholeOverModel.apply(x, group, n, idx, dim % x.dim())
+
+
+def split_over_model(x: torch.Tensor, group, n: int, idx: int, dim: int = -1) -> torch.Tensor:
+    """This rank's (``idx``) block along ``dim`` of a tensor every rank of
+    the model group holds alike, whose gradient is the ranks' gradient
+    blocks joined."""
+    return x if group is None else _SplitOverModel.apply(x, group, n, idx, dim % x.dim())
 
 
 def _all_to_all_v(send: torch.Tensor, in_splits: list, out_splits: list,

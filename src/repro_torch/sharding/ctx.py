@@ -26,7 +26,16 @@ names, the port's model code computes on what each rank holds, so
   ``cache_specs`` (``sharding.specs``): an attention layer's KV heads over
   ``model``, or else its positions, whose partial outputs the ranks merge
   (``models.layers.seq_split_decode_attention``), and the recurrent
-  states' heads or channels over ``model``.
+  states' heads or channels over ``model``.  ``cache_seq`` naming the
+  model axis (``shard_cache_seq``) puts every attention cache's positions
+  on it where it divides them (``cache_seq_split``);
+- ``stream_group``: under sequence parallelism (``seq`` naming the model
+  axis), the model group over whose ranks a full-sequence forward holds
+  the residual stream by blocks of positions (``split_stream``, which
+  ``models.lm`` enters where the group divides the stream's length):
+  norms and residual adds run on the rank's positions, each block's input
+  is gathered over the sequence and its row-parallel sum scattered back
+  (``models.layers.block_in`` / ``block_out``).
 
 Outside a binding (unit tests, one device) nothing changes.
 
@@ -38,7 +47,7 @@ from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 _state = threading.local()
@@ -53,6 +62,7 @@ class Binding:
     rules: dict
     batch_axes: tuple  # the mesh axes whose ranks' rows make up one loss
     model_axis: Optional[str]  # the tensor-parallel axis, or None
+    stream: bool = False  # the residual stream split over the sequence
 
 
 def current() -> Optional[Binding]:
@@ -141,7 +151,7 @@ def whole_batch():
     if b is None:
         yield
         return
-    _state.binding = Binding(b.mesh, b.rules, (), b.model_axis)
+    _state.binding = replace(b, batch_axes=())
     try:
         yield
     finally:
@@ -156,6 +166,52 @@ def model_group() -> tuple:
         return None, 1, 0
     axes = (b.model_axis,)
     return b.mesh.group(axes), b.mesh.size(axes), b.mesh.index(axes)
+
+
+def _model_rule(name: str) -> bool:
+    """Whether the bound rules map ``name`` to the bound tensor-parallel
+    axis."""
+    b = current()
+    return b is not None and b.model_axis is not None and b.rules.get(name) == b.model_axis
+
+
+def sequence_parallel(length: int) -> bool:
+    """Whether a full-sequence forward of ``length`` positions splits its
+    residual stream over the model group: the rules map ``seq`` to the
+    tensor-parallel axis, whose ranks divide the length (else the stream
+    stays whole, as ``fit_spec`` leaves a dim the axis does not divide)."""
+    return _model_rule("seq") and length % model_group()[1] == 0
+
+
+@contextmanager
+def split_stream(on: bool = True):
+    """Within (where ``on``): the residual stream holds this rank's block of
+    the positions (``stream_group``)."""
+    b = current()
+    if not on or b is None:
+        yield
+        return
+    _state.binding = replace(b, stream=True)
+    try:
+        yield
+    finally:
+        _state.binding = b
+
+
+def stream_group() -> tuple:
+    """(process group, rank count, this rank's index) of the model group
+    over which the residual stream is split by positions (rank r holds
+    [r S / n, (r + 1) S / n)); (None, 1, 0) where it is whole."""
+    b = current()
+    if b is None or not b.stream:
+        return None, 1, 0
+    return model_group()
+
+
+def cache_seq_split() -> bool:
+    """Whether the bound rules put an attention cache's positions on the
+    model axis before its KV heads (``cache_seq``, ``shard_cache_seq``)."""
+    return _model_rule("cache_seq")
 
 
 def data_axes_for(mesh, global_batch: int, include_model: bool = False) -> tuple:

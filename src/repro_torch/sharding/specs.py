@@ -240,13 +240,19 @@ def local_params(params, mesh, rules: dict = PARAM_RULES):
 # ------------------------------------------------------------- decode cache
 
 
-def kv_cache_split(positions: int, kv_heads: int, n: int) -> str:
+def kv_cache_split(positions: int, kv_heads: int, n: int, cache_seq: bool = False) -> str:
     """Where an attention layer's (B, S, KV, hd) decode cache of S =
     ``positions`` splits over a model axis of n ranks, as the reference's
     ``cache_specs`` places it: ``"kv"``, its KV heads, where n divides them;
     else ``"seq"``, its positions, where n divides them (flash-decode:
     split-K over the cache sequence, so the cache is never replicated
-    across the axis); else ``"whole"``."""
+    across the axis); else ``"whole"``.  With ``cache_seq`` (the rules map
+    ``cache_seq`` to the model axis: ``shard_cache_seq``) the positions come
+    first: the reference's spec then names the axis on both dims where n
+    divides the KV heads too, and the later repeat is dropped
+    (``fit_spec``)."""
+    if n > 1 and cache_seq and positions % n == 0:
+        return "seq"
     if n > 1 and kv_heads % n == 0:
         return "kv"
     if n > 1 and positions % n == 0:
@@ -268,9 +274,11 @@ def cache_specs(cache, cfg, mesh, batch_axes: tuple, rules: dict) -> dict:
     ``repro/launch/cells.py::cache_specs``: read off each leaf's shape, the
     rows over ``batch_axes``, an attention layer's cache as
     ``kv_cache_split`` says (``rules["kv_heads"]`` the model axis, and
-    ``rules["cache_seq"]`` the sequence's otherwise), recurrent states'
-    heads or channels over the model axis, dims the axes do not divide
-    whole (``fit_spec``).  A main-group leaf's leading group dim is known
+    ``rules["cache_seq"]`` the sequence's: where both name it, the
+    sequence's keeps it and the KV heads' later repeat is dropped, which
+    the reference's ``NamedSharding`` refuses), recurrent states' heads or
+    channels over the model axis, dims the axes do not divide whole
+    (``fit_spec``).  A main-group leaf's leading group dim is known
     by its path: the reference reads it off the shape, (groups, B, ...)
     against (B, ...), and so takes the groups for the rows where they
     number the rows alike."""

@@ -475,6 +475,69 @@ def test_every_applicable_cell_counts(arch, monkeypatch):
         assert rec["collectives"], rec["collectives"]
 
 
+def test_tree_attention_counts_the_reference_docstring_score_flops():
+    """Plain mode counts the tree's products: its scores number S chunk
+    (the diagonal blocks, masked) + S^2 / 2 - S chunk / 2 (the levels), its
+    P V products as many, 2 B H D FLOPs each; at most the reference
+    docstring's S chunk + S^2 / 2, at least the causal S^2 / 2, and under
+    the plain masked softmax's S^2."""
+    from repro_torch.models.layers import tree_causal_attention
+
+    B, S, H, KV, D, c = 2, 256, 4, 2, 32, 32
+    with FakeTensorMode():
+        q = torch.empty((B, S, H, D))
+        k, v = torch.empty((B, S, KV, D)), torch.empty((B, S, KV, D))
+        _, tree = count(tree_causal_attention, q, k, v, c, mode="plain")
+        _, full = count(_plain_attention, q, k, v, mode="plain")
+    scores = S * c + S * S / 2 - S * c / 2
+    assert tree.flops == 2 * (2 * B * H * D) * scores
+    assert 2 * B * H * D * S * S / 2 < tree.flops / 2 <= 2 * B * H * D * (S * c + S * S / 2)
+    assert tree.flops < full.flops == 2 * (2 * B * H * D) * S * S
+
+
+def _plain_attention(q, k, v):
+    from repro_torch.kernels.ref import causal_attention_ref
+
+    return causal_attention_ref(q, k, v)
+
+
+@pytest.mark.parametrize("arch,shape_name,flag", [
+    ("gemma-2b", "train_4k", "--sequence-parallel"),
+    ("deepseek-moe-16b", "decode_32k", "--shard-cache-seq"),
+    ("gemma-2b", "train_4k", "--tree-attention")])
+def test_dryrun_takes_the_reference_options(arch, shape_name, flag, tmp_path, monkeypatch):
+    """The reference's three flags, on a cell cut to one pattern group,
+    against the same cell without them: ``--sequence-parallel`` moves the
+    activation sums over ``model`` to gathers and reduce-scatters (the
+    stream over the sequence) and lowers the peak; ``--shard-cache-seq``
+    puts deepseek-moe-16b's cache, whose 16 KV heads 16 ranks divide, over
+    the sequence, merged by log-sum-exp; ``--tree-attention`` leaves the
+    kernel path's count as it is."""
+    cut = _one_group(arch)
+    monkeypatch.setattr(cells, "get_config", lambda _a: cut)
+    monkeypatch.setattr(dryrun, "get_config", lambda _a: cut)
+    base, opt = (dryrun.main(["--arch", arch, "--shape", shape_name, "--out",
+                              str(tmp_path / f"{i}.json"), *flags])[0]
+                 for i, flags in enumerate(((), (flag,))))
+    assert base["status"] == opt["status"] == "ok", opt.get("trace")
+    coll, was = opt["collectives"], base["collectives"]
+    if flag == "--sequence-parallel":
+        assert opt["model_axis"].endswith("residual stream over the sequence"), opt["model_axis"]
+        assert coll["ordered_sum/model/g16"] < 1e-3 * was["ordered_sum/model/g16"], coll
+        assert coll["ordered_reduce_scatter/model/g16"] > 0, coll
+        assert coll["gather_activations/model/g16"] > 0, coll
+        assert opt["memory"]["peak_bytes"] < base["memory"]["peak_bytes"]
+        assert opt["roofline"]["flops_per_device"] < base["roofline"]["flops_per_device"]
+    elif flag == "--shard-cache-seq":
+        assert base["model_axis"].endswith("cache: attention over KV heads"), base["model_axis"]
+        assert opt["model_axis"].endswith("cache: attention over sequence"), opt["model_axis"]
+        assert "merge_partials/model/g16" not in was and coll["merge_partials/model/g16"] > 0
+        assert opt["memory"]["peak_bytes"] == base["memory"]["peak_bytes"]
+    else:
+        assert coll == was and opt["by_kernel"] == base["by_kernel"]
+        assert opt["roofline"]["flops_per_device"] == base["roofline"]["flops_per_device"]
+
+
 def test_dryrun_module_writes_a_record(tmp_path):
     out = tmp_path / "dry.json"
     proc = subprocess.run(

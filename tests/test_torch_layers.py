@@ -108,6 +108,31 @@ def test_local_band_attention_matches_jax(S, H, KV, w):
             tl.local_band_attention(qt[:, :S - 1], kt[:, :S - 1], vt[:, :S - 1], w)
 
 
+@pytest.mark.parametrize("S,H,KV,chunk", [(64, 4, 2, 16), (128, 2, 1, 32)])
+def test_tree_causal_attention_matches_jax(S, H, KV, chunk):
+    """The plain path's tree attention (``ModelOptions.tree_attention``)
+    against the reference's ``tree_causal_attention`` at four chunks (the
+    reference takes K/V expanded to H heads, the port the compact ones), in
+    f32 within 2e-5 as the band above; the plain masked softmax gives the
+    same; a chunk that does not cut the sequence into a power of two of
+    chunks raises, where the reference asserts or cannot reshape."""
+    from repro_torch.kernels.ref import causal_attention_ref
+
+    rng = np.random.default_rng(S + chunk)
+    q = rng.standard_normal((2, S, H, 32)).astype(np.float32)
+    k, v = (rng.standard_normal((2, S, KV, 32)).astype(np.float32) for _ in range(2))
+    G = H // KV
+    want = jl.tree_causal_attention(jnp.asarray(q), jnp.asarray(np.repeat(k, G, 2)),
+                                    jnp.asarray(np.repeat(v, G, 2)), chunk=chunk)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    _close(tl.tree_causal_attention(qt, kt, vt, chunk), want, 2e-5)
+    _close(tl.causal_attention(qt, kt, vt, "plain", tree_chunk=chunk), want, 2e-5)
+    _close(causal_attention_ref(qt, kt, vt), want, 2e-5)
+    for cut in (S - chunk // 2, 3 * chunk):
+        with pytest.raises(ValueError):
+            tl.tree_causal_attention(qt[:, :cut], kt[:, :cut], vt[:, :cut], chunk)
+
+
 @pytest.mark.parametrize("impl", ["kernel", "plain"])
 def test_decode_attention_on_a_wrapped_ring_matches_jax(impl):
     """A local layer's ring buffer: rows not yet wrapped (length <= Smax)

@@ -104,6 +104,22 @@ def test_forward_matches_jax(arch, S):
     _close(got, want)
 
 
+def test_tree_attention_forward_matches_jax():
+    """Reduced qwen3-14b's ``forward`` on the plain path with
+    ``tree_attention`` (chunks of 16: four over 64 tokens) against the
+    reference's ``forward`` with its ``tree_attention``, within
+    LOGITS_TOL."""
+    jcfg, tcfg, jp, tp = _models("qwen3-14b")
+    toks = _tokens(tcfg, 2, 64)
+    want, _ = jax_forward(jp, jcfg, jnp.asarray(toks), None,
+                          JaxModelOptions(compute_dtype="float32", tree_attention=True,
+                                          q_chunk=16))
+    got, _ = forward(tp, tcfg, torch.from_numpy(toks),
+                     opts=ModelOptions(compute_dtype="float32", attn_impl="plain",
+                                       tree_attention=True, q_chunk=16))
+    _close(got, want)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_with_cache_matches_jax(arch):
     """Prefill logits AND the packed cache (compact K/V, zero-padded to

@@ -42,9 +42,21 @@ converted weights and batches:
   vocabulary against JAX's and the port's single-device steps, greedy
   tokens equal, the heads-whole merge equal bit for bit on every rank,
   each rank's cache shaped as the reference's shards;
+- sequence parallelism on the same (1, 1, 4) world (``SP_JOBS``): the
+  residual stream split over the sequence between blocks, in the remat
+  qwen3-14b job with the backward on another thread and the MoE,
+  RG-LRU and xLSTM jobs, each held to the single-device steps as its
+  tensor-parallel job is, its first-step gradients leaf by leaf, and its
+  norm scales' gradients (each rank computes a part of them) to the
+  tensor-parallel job's; the sequence-split qwen3-14b prefill with the
+  stream split, and the deepseek-moe-16b serving job with
+  ``shard_cache_seq``, its cache over the sequence with every KV head;
 - the port's ``cache_specs`` against the reference's leaf by leaf for
-  every arch's decode cells on both production meshes, and
-  ``local_cache``'s blocks shaped as the reference's shards.
+  every arch's decode cells on both production meshes, with and without
+  ``shard_cache_seq`` (where the reference's spec names ``model`` on the
+  positions and on the KV heads, which its own ``NamedSharding`` refuses,
+  the later repeat dropped), and ``local_cache``'s blocks shaped as the
+  reference's shards.
 """
 
 import contextlib
@@ -54,6 +66,7 @@ import subprocess
 import sys
 import textwrap
 from types import SimpleNamespace
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -438,7 +451,7 @@ WORKER = textwrap.dedent("""
             cfg = reduced_config(job["arch"]).with_(**job["mods"])
             opts = ModelOptions(compute_dtype="float32")
             batch_axes = data_axes_for(mesh, job["tokens"].shape[0])
-            rules = activation_rules(data_axes=batch_axes)
+            rules = activation_rules(data_axes=batch_axes, **job.get("rules", {}))
             params = local_params(spec["params"][name], mesh)
             prefill = make_prefill_step(cfg, opts, max_len=job["max_len"], mesh=mesh,
                                         act_rules=rules)
@@ -487,7 +500,7 @@ WORKER = textwrap.dedent("""
         state = init_train_state(cfg, tcfg, params=params, mesh=mesh)
         step = make_train_step(cfg, tcfg, ModelOptions(compute_dtype="float32",
                                                        moe_impl=job.get("moe_impl")),
-                               mesh=mesh, act_rules=activation_rules())
+                               mesh=mesh, act_rules=activation_rules(**job.get("rules", {})))
         res = {"shapes": map_params(lambda _k, p: tuple(p.shape), state["params"]),
                "m_shapes": map_params(lambda _k, p: tuple(p.shape), state["opt"]["m"])}
         specs = train_state_specs(abstract_train_state(cfg, tcfg), mesh, mesh_rules(mesh))
@@ -698,7 +711,8 @@ TP_JOBS = {"qwen": "qwen3-14b", "musicgen": "musicgen-large", "moe": "deepseek-m
 # router's and qwen2's shared gate's among them: a term summed over the
 # model group that every rank computes alike would count n times); so do the
 # recurrent jobs, xlstm with remat and the backward on another thread
-TP_JOB_OPTS = {"moe": {"grads": True},
+TP_JOB_OPTS = {"qwen": {"grads": True},
+               "moe": {"grads": True},
                "moe_sort": {"moe_impl": "sort", "remat": True, "backward_thread": True,
                             "grads": True},
                "qwen2moe": {"grads": True},
@@ -720,6 +734,13 @@ JAX_STEPS = {"qwen": 2, "musicgen": 1, "moe": 1, "moe_sort": 1, "qwen2moe": 1, "
 # single-device step (2 where not named): the recurrent families' second
 # step amplifies the tensor-parallel sums' rounding as it does JAX's (above)
 PORT_STEPS = {"rglru": 1, "xlstm": 1}
+# the sequence-parallel jobs on the same world: job -> the tensor-parallel
+# job it reruns with the stream split over the sequence (its options, and
+# its first-step gradient recorded); qwen3-14b as ``qwen_remat`` (remat, the
+# backward on another thread)
+SP_JOBS = {"qwen_remat_sp": "qwen", "moe_sp": "moe", "rglru_sp": "rglru",
+           "xlstm_sp": "xlstm"}
+SP_RULES = {"sequence_parallel": True}
 # the jobs whose first-step gradient is held to the port's f64 run: the
 # recurrent families' f32 gradients part from their exact ones by up to
 # 3e-4 of a leaf's largest entry, an sLSTM input-gate bias's by far more
@@ -740,14 +761,23 @@ COLLECTIVE_NUMELS = (7, 10_001)
 # RG-LRU states split by channel; xlstm-125m (no attention cache), its mLSTM
 # states split by head (one a rank) and its sLSTM states by channel.  On the
 # (2, 2, 1) world: deepseek-moe-16b with one row a rank, whose routing groups
-# span the 4 ranks (gathered whole)
+# span the 4 ranks (gathered whole).  Rerun with the reference's options
+# (``SERVE_RULES``): qwen3-14b's prefill with the stream split over the
+# sequence, and deepseek-moe-16b with ``shard_cache_seq``: its cache over
+# the 48 positions, every KV head a rank (``wk`` still splits them: the
+# prefill moves its K/V by an all-to-all, a decode step gathers its new
+# token's heads), the partials merged
 SERVE_JOBS = {"serve_kv": ("deepseek-moe-16b", {}, 48, (48, 1), (2, 32)),
+              "serve_kv_seq": ("deepseek-moe-16b", {}, 48, (12, 4), (2, 32)),
+              "serve_seq_split_sp": ("qwen3-14b", {}, 48, (12, 2), (2, 32)),
               "serve_seq_whole": ("gemma-2b", {"num_heads": 6}, 64, (16, 1), (2, 32)),
               "serve_seq_split": ("qwen3-14b", {}, 48, (12, 2), (2, 32)),
               "serve_ring": ("recurrentgemma-9b", {"window": 16}, 64, (4, 1), (2, 32)),
               "serve_xlstm": ("xlstm-125m", {}, 48, None, (2, 32)),
               "serve_dp": ("deepseek-moe-16b", {}, 24, (24, 4), (4, 16))}
 SERVE_WORLD = {"serve_dp": (2, 2, 1)}
+SERVE_RULES = {"serve_kv_seq": {"shard_cache_seq": True},
+               "serve_seq_split_sp": {"sequence_parallel": True}}
 # a prefill, then greedy decode steps, the masked one leaving row 1 where it
 # was (``advance``)
 SERVE_STEPS, SERVE_MASKED = 4, 2
@@ -768,9 +798,10 @@ def _cache_shards(job) -> dict:
     whole = jax.eval_shape(lambda: jax_init_cache(jcfg, B, max_len, dtype=jnp.float32))
     wide = jax.eval_shape(lambda: jax_init_cache(jcfg, B * (groups + 1), max_len,
                                                  dtype=jnp.float32))
-    placed = jax_cells.cache_specs(wide, jcfg, mesh, ba, jax_ctx.activation_rules(data_axes=ba))
+    placed = _jax_cache_specs(wide, jcfg, mesh, ba, jax_ctx.activation_rules(
+        data_axes=ba, **SERVE_RULES.get(job, {})))
     sizes = dict(zip(AXES, dims))
-    return {f"{seg}/{i}/{k}": _shard_shape(x.shape, _spec_norm(placed[seg][i][k].spec), sizes)
+    return {f"{seg}/{i}/{k}": _shard_shape(x.shape, placed[seg][i][k], sizes)
             for seg in ("prefix", "main", "tail") for i, e in enumerate(whole[seg])
             for k, x in e.items()}
 
@@ -788,14 +819,15 @@ def worlds(tmp_path_factory):
     step of 4 x 16 (16 tokens a rank of a 64-token group), after its
     serving job; (1, 1, 4), one
     tensor-parallel group, runs ``SERVE_JOBS``, then ``TP_JOBS`` for two
-    steps (qwen3-14b thrice) and the collectives' check."""
+    steps (qwen3-14b thrice), ``SP_JOBS`` and the collectives' check."""
     batches = {arch: _jax_batches(jax_reduced_config(arch), 2)
                for arch in ("qwen3-14b", "gemma-2b", *TP_JOBS.values())}
     params = {arch: params_from_numpy(_jax_params(arch), device="cpu") for arch in batches}
     tb = {arch: [_torch_batch(b) for b in bs] for arch, bs in batches.items()}
     serve = {job: {"serve": True, "arch": arch, "mods": mods, "max_len": max_len,
                    "tokens": torch.from_numpy(_serve_tokens(job)), "steps": SERVE_STEPS,
-                   "masked_step": SERVE_MASKED, "advance": _serve_advance(job)}
+                   "masked_step": SERVE_MASKED, "advance": _serve_advance(job),
+                   "rules": SERVE_RULES.get(job, {})}
              for job, (arch, mods, max_len, *_) in SERVE_JOBS.items()}
     serve_params = {job: params_from_numpy(_serve_params(job), device="cpu")
                     for job in SERVE_JOBS}
@@ -826,6 +858,12 @@ def worlds(tmp_path_factory):
                               for job, a in TP_JOBS.items()},
                            "qwen_again": {**qwen},
                            "qwen_remat": {**qwen, "remat": True, "backward_thread": True},
+                           **{job: {"arch": TP_JOBS[tp], "opt": STEP_OPT, "compress": False,
+                                    "batches": tb[TP_JOBS[tp]], **TP_JOB_OPTS.get(tp, {}),
+                                    **({"remat": True, "backward_thread": True}
+                                       if tp == "qwen" else {}),
+                                    "grads": True, "rules": SP_RULES}
+                              for job, tp in SP_JOBS.items()},
                            "collectives": {"numels": COLLECTIVE_NUMELS}}),
     }
     yield started, batches
@@ -997,6 +1035,24 @@ def _tp_local(path: str) -> bool:
         "['moe']" in path and not path.endswith(("['router']", "['shared_gate']")))
 
 
+@functools.lru_cache(maxsize=None)
+def _single_device(arch, moe_impl=None, jax_too=True) -> tuple:
+    """The single-device references of a mesh job on ``arch``'s two
+    batches: the port's steps and JAX's (where ``jax_too``), computed once
+    for the tensor-parallel and the sequence-parallel jobs alike."""
+    batches = _jax_batches(jax_reduced_config(arch), 2)
+    port = _port_steps(arch, _jax_params(arch), batches, STEP_OPT, moe_impl)
+    return port, _jax_steps(arch, batches, STEP_OPT) if jax_too else None
+
+
+@functools.lru_cache(maxsize=None)
+def _first_grads(arch, moe_impl=None, f64=False) -> dict:
+    """The port's single-device first-step gradient (``_port_grads``),
+    computed once."""
+    batch = _jax_batches(jax_reduced_config(arch), 1)[0]
+    return _np_flat(_port_grads(arch, _jax_params(arch), batch, moe_impl, f64))
+
+
 @pytest.mark.parametrize("job", list(TP_JOBS))
 def test_tensor_parallel_step_matches_single_device(worlds, job):
     """(1, 1, 4), two steps with model-local compute: each step's loss
@@ -1013,15 +1069,20 @@ def test_tensor_parallel_step_matches_single_device(worlds, job):
     splits them, the rest (the router and the sLSTM's recurrent weights
     among them) whole.  The sort job is held to the port's single-device
     sort step."""
-    started, batches = worlds
-    arch, n_jax = TP_JOBS[job], JAX_STEPS[job]
-    moe_impl = TP_JOB_OPTS.get(job, {}).get("moe_impl")
-    port_metrics, port_params = _port_steps(arch, _jax_params(arch), batches[arch], STEP_OPT,
-                                            moe_impl)
-    n_port = PORT_STEPS.get(job, 2)
+    _held_to_single_device(worlds, job, job)
+
+
+def _held_to_single_device(worlds, job: str, tp: str) -> None:
+    """``job`` on the (1, 1, 4) world held as the tensor-parallel job ``tp``
+    is: ``test_tensor_parallel_step_matches_single_device``'s checks."""
+    started, _ = worlds
+    arch, n_jax = TP_JOBS[tp], JAX_STEPS[tp]
+    moe_impl = TP_JOB_OPTS.get(tp, {}).get("moe_impl")
+    (port_metrics, port_params), jax_ref = _single_device(arch, moe_impl, tp not in PORT_ONLY)
+    n_port = PORT_STEPS.get(tp, 2)
     refs = [(port_metrics, port_params[n_port - 1], n_port)]
-    if job not in PORT_ONLY:
-        jax_metrics, jax_params = _jax_steps(arch, batches[arch], STEP_OPT)
+    if jax_ref is not None:
+        jax_metrics, jax_params = jax_ref
         refs.append((jax_metrics, jax_params[n_jax - 1], n_jax))
     ranks = started[1, 1, 4].ranks()
     got = ranks[0][job]
@@ -1038,12 +1099,12 @@ def test_tensor_parallel_step_matches_single_device(worlds, job):
         print(f"{arch}: worst parameter difference {worst:.3g}")
         assert worst < PARAM_TOL, worst
     if "grads_1" in got:
-        want = _np_flat(_port_grads(arch, _jax_params(arch), batches[arch][0], moe_impl))
+        want = _first_grads(arch, moe_impl)
         have = _np_flat(got["grads_1"])
         assert have.keys() == want.keys()
         bound = {k: GRAD_RTOL for k in want}
-        if job in GRAD_F64:  # held to the f64 run, beside the f32 one's own distance
-            exact = _np_flat(_port_grads(arch, _jax_params(arch), batches[arch][0], f64=True))
+        if tp in GRAD_F64:  # held to the f64 run, beside the f32 one's own distance
+            exact = _first_grads(arch, f64=True)
             bound = {k: max(GRAD_RTOL, 2 * np.abs(want[k] - exact[k]).max()
                             / np.abs(exact[k]).max()) for k in want}
             want = exact
@@ -1065,6 +1126,25 @@ def test_tensor_parallel_step_matches_single_device(worlds, job):
             assert compute[k] == want, (k, compute[k], want)
             split += compute[k] != tuple(leaf.shape)
     assert split > 0
+
+
+@pytest.mark.parametrize("job", list(SP_JOBS))
+def test_sequence_parallel_step_matches_single_device(worlds, job):
+    """(1, 1, 4), the residual stream split over the sequence between blocks
+    (``activation_rules(sequence_parallel=True)``: 8 x 32 tokens, 8
+    positions a rank): the tensor-parallel job's checks against the
+    single-device steps, its first-step gradients leaf by leaf among them;
+    and the norm scales' gradients, of which each rank computes its
+    positions' part (summed over ``model`` in rank order), within GRAD_RTOL
+    of the tensor-parallel job's, leaf by leaf."""
+    _held_to_single_device(worlds, job, SP_JOBS[job])
+    ranks = worlds[0][1, 1, 4].ranks()
+    sp, tp = (_np_flat(ranks[0][j]["grads_1"]) for j in (job, SP_JOBS[job]))
+    scales = [k for k in tp if k.endswith("['scale']")]
+    assert any("['final_norm']" in k for k in scales) and any("['norm1']" in k for k in scales)
+    for k in scales:
+        err = np.abs(sp[k] - tp[k]).max() / np.abs(tp[k]).max()
+        assert err < GRAD_RTOL, (k, err)
 
 
 @pytest.mark.parametrize("rerun", ["qwen_again", "qwen_remat"])
@@ -1128,7 +1208,8 @@ def test_tensor_parallel_serving_matches_single_device(worlds, job):
         assert got["leaf_shapes"] == shards, (got["leaf_shapes"], shards)
     attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
     n_merged = len(ranks[0][job]["merged"])
-    assert n_merged == (0 if job in ("serve_kv", "serve_dp") else SERVE_STEPS * attn), n_merged
+    over_seq = SERVE_JOBS[job][3] is not None and SERVE_JOBS[job][3][0] < SERVE_JOBS[job][2]
+    assert n_merged == (SERVE_STEPS * attn if over_seq else 0), n_merged
     if cfg.num_heads % 4:  # heads whole: the merged output is every rank's, bit for bit
         for r in ranks[1:]:
             assert all(torch.equal(a, b) for a, b in zip(r[job]["merged"],
@@ -1145,37 +1226,64 @@ def _spec_norm(spec) -> tuple:
     return tuple(entry(p) for p in spec)
 
 
+def _jax_cache_specs(cache_abs, jcfg, mesh, ba, rules):
+    """The reference's ``cache_specs`` of ``cache_abs``, each leaf's spec
+    (``_spec_norm``) with a mesh axis that it names on two dims kept on the
+    first only: with ``shard_cache_seq`` and a model axis that divides the
+    KV heads it names ``model`` on the positions and on the heads, which
+    its own ``NamedSharding`` refuses (checked: ``DuplicateSpecError``)."""
+    with mock.patch.object(jax_cells, "NamedSharding", lambda _m, spec: spec):
+        placed = jax_cells.cache_specs(cache_abs, jcfg, mesh, ba, rules)
+
+    def once(spec):
+        kept, used = [], set()
+        for p in _spec_norm(spec):
+            axes = set(specs.spec_axes(p))
+            kept.append(None if axes & used else p)
+            used |= axes
+        if tuple(kept) != _spec_norm(spec):
+            with pytest.raises(Exception) as refused:
+                jax.sharding.NamedSharding(mesh, spec)
+            assert type(refused.value).__name__ == "DuplicateSpecError", refused.value
+        return tuple(kept)
+
+    return jax.tree.map(once, placed, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+
+
 SERVE_MESHES = {"pod16x16": ((16, 16), ("data", "model")),
                 "pod2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 
 
+@pytest.mark.parametrize("cache_seq", [False, True])
 @pytest.mark.parametrize("mesh_name", list(SERVE_MESHES))
 @pytest.mark.parametrize("arch,shape", [
     (a, s) for a in ARCH_IDS for s in ("decode_32k", "long_500k")
     if jax_shape_applicable(jax_get_config(a), JAX_SHAPES[s])[0]])
-def test_cache_specs_match_reference(arch, shape, mesh_name):
+def test_cache_specs_match_reference(arch, shape, mesh_name, cache_seq):
     """The port's ``cache_specs`` against the reference's
     (``repro.launch.cells.cache_specs`` on an abstract mesh) leaf by leaf,
     for every arch's applicable decode shapes at full size on both
-    production meshes; and ``local_cache``'s rank-0 blocks (fake tensors)
-    shaped as the reference's shards, every leaf: the attention caches, the
-    recurrent states and the lengths."""
+    production meshes, without and with ``shard_cache_seq`` (the
+    reference's spec there minus its later repeat of ``model``:
+    ``_jax_cache_specs``); and ``local_cache``'s rank-0 blocks (fake
+    tensors) shaped as the reference's shards, every leaf: the attention
+    caches, the recurrent states and the lengths."""
     cfg, jcfg, sh = get_config_port(arch), jax_get_config(arch), JAX_SHAPES[shape]
     dims, axes = SERVE_MESHES[mesh_name]
     mesh = jax.sharding.AbstractMesh(dims, axes)
     ba = jax_cells.data_axes_for(mesh, sh.global_batch)
     assert ba == ctx.data_axes_for(abstract_mesh(dims, axes), sh.global_batch)
-    rules = jax_ctx.activation_rules(data_axes=ba)
+    rules = jax_ctx.activation_rules(data_axes=ba, shard_cache_seq=cache_seq)
     whole_j = jax.eval_shape(lambda: jax_init_cache(jcfg, sh.global_batch, sh.seq_len,
                                                     dtype=jnp.bfloat16))
-    want = {k: _spec_norm(v.spec) for k, v in
-            _flat(jax_cells.cache_specs(whole_j, jcfg, mesh, ba, rules)).items()}
+    want = _flat(_jax_cache_specs(whole_j, jcfg, mesh, ba, rules))
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     sizes = dict(zip(axes, dims))
     with FakeTensorMode():
         whole = init_cache(cfg, sh.global_batch, sh.seq_len, torch.bfloat16, "cpu")
-        got = specs.cache_specs(whole, cfg, sizes, ba, ctx.activation_rules(data_axes=ba))
+        got = specs.cache_specs(whole, cfg, sizes, ba,
+                                ctx.activation_rules(data_axes=ba, shard_cache_seq=cache_seq))
         assert {k: _spec_norm(v) for k, v in _flat(got).items()} == want
         local = specs.local_cache(whole, got, abstract_mesh(dims, axes))
     shapes = {k: tuple(v.shape) for k, v in _flat(local).items() if k != "['max_len']"}
